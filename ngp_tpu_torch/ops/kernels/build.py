@@ -1,0 +1,115 @@
+"""Build the kernel library from ``csrc/*.cu`` and load it with ctypes.
+
+The sources have a plain C interface and include no PyTorch header, so
+``nvcc`` builds them in seconds. The library goes into ``build/`` beside
+this file (ignored by git), named by a hash of the sources and flags, so
+an edited source is rebuilt and an unchanged one is loaded as it is.
+Nothing is built or loaded until the first kernel launch.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import threading
+from pathlib import Path
+from typing import Optional, Tuple
+
+CSRC_DIR = Path(__file__).parent / "csrc"
+BUILD_DIR = Path(__file__).parent / "build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    "ngp_cp_density_fwd": [
+        _P, _I, ctypes.POINTER(_P), ctypes.POINTER(_I), _I, _I, _I,
+        _P, _P, _I, _I, _I, _I, _P, _P,
+    ],
+    "ngp_cp_sigma_rgb": [
+        _P, _P, _I, ctypes.POINTER(_P), ctypes.POINTER(_I), _I, _I, _I,
+        _P, _P, _I, _I, _I, ctypes.POINTER(_P), ctypes.POINTER(_I), _I, _I,
+        _I, _P, _P,
+    ],
+    "ngp_coarse_lookup_bits": [_P, _I, _P, ctypes.c_longlong, _P, _P],
+}
+
+
+def _sources():
+    return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libngp_kernels_{h.hexdigest()[:16]}.so"
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME is None:
+        raise RuntimeError("no CUDA toolkit found: the kernels need nvcc")
+    return str(Path(CUDA_HOME) / "bin" / "nvcc")
+
+
+def build() -> Tuple[Path, str]:
+    """Compile the library if it is not built yet.
+
+    Returns (path, compiler report); the report holds ``ptxas -v``'s
+    registers, shared memory and spills of each kernel, and is empty
+    when the library was already built. Raises when nvcc fails.
+    """
+    path = library_path()
+    if path.exists():
+        return path, ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed with code {res.returncode}:\n{res.stdout}{res.stderr}"
+        )
+    os.replace(tmp, path)
+    return path, res.stdout + res.stderr
+
+
+def load_library() -> ctypes.CDLL:
+    """Build (first use) and load the kernel library."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            path, _ = build()
+            lib = ctypes.CDLL(str(path))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = lib
+    return _lib
+
+
+def pointer_array(tensors):
+    """ctypes array of the device pointers of ``tensors``."""
+    return (_P * len(tensors))(*[t.data_ptr() for t in tensors])
+
+
+def int_array(values):
+    return (_I * len(values))(*[int(v) for v in values])
+
+
+def check_launch(name: str, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with cudaError {err}")

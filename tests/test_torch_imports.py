@@ -1,0 +1,72 @@
+"""The PyTorch port imports on a CPU-only machine without JAX, the JAX
+package or Triton, and its config copy matches the JAX package's."""
+
+import dataclasses
+import os
+import subprocess
+import sys
+import textwrap
+
+import pytest
+
+import ngp_tpu.config as jax_config
+import ngp_tpu_torch.config as torch_config
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+MODULES = [
+    "ngp_tpu_torch",
+    "ngp_tpu_torch.config",
+    "ngp_tpu_torch.ops.rays",
+    "ngp_tpu_torch.ops.freq",
+    "ngp_tpu_torch.ops.sh",
+    "ngp_tpu_torch.ops.activation",
+    "ngp_tpu_torch.ops.cpgrid",
+    "ngp_tpu_torch.ops.kernels",
+    "ngp_tpu_torch.ops.kernels.build",
+    "ngp_tpu_torch.ops.kernels.cp",
+    "ngp_tpu_torch.ops.kernels.march",
+    "ngp_tpu_torch.models.mlp",
+    "ngp_tpu_torch.models.encoders",
+    "ngp_tpu_torch.models.nerf",
+    "ngp_tpu_torch.models.occupancy",
+    "ngp_tpu_torch.data.raysampler",
+    "ngp_tpu_torch.training.nerf",
+    "ngp_tpu_torch.training.nerf_grid",
+]
+
+
+def test_every_module_imports_without_jax_or_triton():
+    code = textwrap.dedent(f"""
+        import importlib, sys
+        for name in {MODULES!r}:
+            importlib.import_module(name)
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
+                                            "ngp_tpu", "triton"))
+        assert not bad, bad
+        from ngp_tpu_torch.ops.kernels import build
+        assert build._lib is None  # the kernel library loads at first launch
+        print("ok")
+    """)
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
+
+
+@pytest.mark.parametrize("name", ["RenderConfig", "NetworkConfig"])
+def test_config_matches_jax_package(name):
+    a, b = getattr(jax_config, name), getattr(torch_config, name)
+    fa = [(f.name, f.type, f.default) for f in dataclasses.fields(a)]
+    fb = [(f.name, f.type, f.default) for f in dataclasses.fields(b)]
+    assert fa == fb
+    assert a.__dataclass_params__.frozen and b.__dataclass_params__.frozen
+
+
+@pytest.mark.parametrize("bound", [0.5, 1.0, 2.0, 3.0])
+def test_config_properties_match(bound):
+    a = jax_config.RenderConfig(bound=bound)
+    b = torch_config.RenderConfig(bound=bound)
+    assert a.cascades == b.cascades
+    assert a.aabb == b.aabb

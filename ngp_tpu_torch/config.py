@@ -1,7 +1,7 @@
-"""Render and network configuration dataclasses.
+"""Render, network and training configuration dataclasses.
 
-A field-for-field copy of ``ngp_tpu.config.RenderConfig`` and
-``NetworkConfig``: the JAX package imports JAX when any of its modules
+A field-for-field copy of ``ngp_tpu.config.RenderConfig``,
+``NetworkConfig`` and ``TrainConfig``: the JAX package imports JAX when any of its modules
 is imported, so the port cannot share the module itself.
 ``tests/test_torch_imports.py`` pins this copy to the original.
 """
@@ -79,3 +79,27 @@ class NetworkConfig:
     cp_rank: int = 64
     cp_freq_degree: int = 5
     use_bf16: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Trainer and optimizer settings; see ``ngp_tpu.config.TrainConfig``."""
+
+    iters: int = 30000
+    lr: float = 1e-2
+    num_rays: int = 4096
+    eval_interval: int = 50  # epochs
+    update_extra_interval: int = 16
+    max_keep_ckpt: int = 2
+    ema_decay: float = 0.95
+    error_map: bool = False
+    error_map_uniform_frac: float = 0.5
+    error_map_size: int = 128
+    patch_size: int = 1
+    rand_pose: int = -1
+    seed: int = 0
+    workspace: str = "workspace"
+    ckpt: str = "latest"
+    tv_weight: float = 0.0
+    distortion_weight: float = 0.0
+    color_space: str = "srgb"

@@ -72,16 +72,20 @@ def _fused_parts(model: NeRFNetwork):
     cfg = CPGridConfig(resolutions=tuple(c.cp_resolutions), rank=c.cp_rank,
                        freq_degree=c.cp_freq_degree)
     dt = model.compute_dtype or torch.float32
-    # cast once here, not on every call: the fused heads read the
-    # weights in the MLP compute type
-    factors = tuple(f.detach().to(dt).contiguous() for f in model.encoder.factors)
-    w1, w2 = (w.detach().to(dt).contiguous() for w in model.sigma_net.weights)
+    # cast once per closure, not on every call: the fused heads read the
+    # weights in the MLP compute type. Built while autograd records, the
+    # casts are in the graph, so gradients reach the f32 parameters
+    # through them (JAX's astype); under no_grad they are plain copies.
+    factors = tuple(f.to(dt).contiguous() for f in model.encoder.factors)
+    w1, w2 = (w.to(dt).contiguous() for w in model.sigma_net.weights)
     return cfg, factors, w1, w2
 
 
 def make_fused_density(model: NeRFNetwork) -> Optional[Callable]:
     """``density_fn(x) -> (sigma, geo)`` on the fused CP density kernel
-    for the flagship config (cpgrid + 2-layer sigma MLP), else None."""
+    for the flagship config (cpgrid + 2-layer sigma MLP), else None.
+    Differentiable in the encoder and sigma-net weights when built with
+    grad mode on; build it anew after an optimizer step."""
     parts = _fused_parts(model)
     if parts is None:
         return None
@@ -101,8 +105,9 @@ def make_fused_density(model: NeRFNetwork) -> Optional[Callable]:
 def make_fused_sigma_rgb(model: NeRFNetwork) -> Optional[Callable]:
     """Eval-only ``vals_fn(pts [M, 3], dirs [M, 3]) -> [M, 4]`` on the
     fused radiance kernel for the flagship config, else None."""
-    parts = _fused_parts(model)
     c = model.cfg
+    with torch.no_grad():
+        parts = _fused_parts(model)
     if parts is None or c.encoding_dir != "sphere_harmonics":
         return None
     cfg, factors, w1, w2 = parts

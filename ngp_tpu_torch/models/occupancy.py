@@ -254,14 +254,18 @@ def mip_from_dt(dt: torch.Tensor, grid_size: int, cascades: int) -> torch.Tensor
     return torch.clamp(_frexp_exponent(dt * grid_size * 0.5), 0, cascades - 1)
 
 
-def t_lattice(nears: torch.Tensor, fars: torch.Tensor, cfg: RenderConfig):
-    """The (unperturbed) march lattice, [N, K] t values and step sizes."""
+def t_lattice(nears: torch.Tensor, fars: torch.Tensor, cfg: RenderConfig,
+              noise: Optional[torch.Tensor] = None):
+    """The march lattice, [N, K] t values and step sizes; ``noise`` [N]
+    in [0, 1) perturbs each ray's start by that fraction of a step."""
     dt_min, dt_max = dt_bounds(cfg)
 
     def dt_of(t):
         return torch.clamp(t * cfg.dt_gamma, dt_min, dt_max)
 
     t0 = nears
+    if noise is not None:
+        t0 = t0 + dt_of(t0) * noise
     K = lattice_probes(cfg)
     if cfg.dt_gamma == 0.0:
         ks = torch.arange(K, dtype=torch.float32, device=nears.device)
@@ -367,7 +371,9 @@ def ray_prepass(rays_o, rays_d, state: OccupancyState, cfg: RenderConfig,
 
 def march_rays_turbo(rays_o, rays_d, state: OccupancyState, cfg: RenderConfig,
                      max_samples: Optional[int] = None, aabb=None,
-                     t_range: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+                     t_range: Optional[torch.Tensor] = None, perturb: bool = False,
+                     generator: Optional[torch.Generator] = None,
+                     noise: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
     """Per-ray samples of the occupancy-grid march, [N, S] ascending in t.
 
     1. every lattice probe is tested against the pooled coarse grid;
@@ -377,8 +383,9 @@ def march_rays_turbo(rays_o, rays_d, state: OccupancyState, cfg: RenderConfig,
        are dropped (far-first);
     4. fine-occupied candidates are compacted to the per-ray budget S.
 
-    The eval march only: the training march's perturbed lattice start
-    is not ported yet.
+    ``perturb`` (training) shifts each ray's lattice start by a uniform
+    fraction of a step: ``noise`` [N] when given, else drawn from
+    ``generator``.
     """
     S = max_samples or cfg.max_samples_per_ray
     S = min(S, cfg.max_steps)
@@ -400,7 +407,9 @@ def march_rays_turbo(rays_o, rays_d, state: OccupancyState, cfg: RenderConfig,
         fars = torch.minimum(fars, t_range[:, 1])
     hit = fars > nears
     fars_c = torch.where(hit, fars, nears)
-    ts, dts = t_lattice(nears, fars_c, cfg)
+    if perturb and noise is None:
+        noise = torch.rand((N,), generator=generator, device=dev)
+    ts, dts = t_lattice(nears, fars_c, cfg, noise if perturb else None)
 
     def dt_at(t):
         if cfg.dt_gamma == 0.0:
@@ -503,20 +512,49 @@ def compact_valid_samples(mask: torch.Tensor, budget: int,
     return src, valid, offsets, extra.reshape(-1)[src]
 
 
+class _PlaceCompact(torch.autograd.Function):
+    """The JAX ``place_compact`` custom VJP: the backward gathers each
+    compact block's gradient from its own ray's slot and zeroes blocks
+    outside their ray's segment. Autograd of the forward gather would
+    instead scatter-add the gradient of every slot that read a block,
+    clamped and out-of-segment slots included."""
+
+    @staticmethod
+    def forward(ctx, vals, offsets, src, S):
+        M, Fd = vals.shape
+        N = offsets.shape[0]
+        v8 = vals.reshape(M // ALIGN, ALIGN * Fd)
+        rows = offsets[:, None] // ALIGN + torch.arange(S // ALIGN, device=vals.device)[None, :]
+        ctx.save_for_backward(offsets, src)
+        ctx.S, ctx.shape = S, (M, Fd)
+        return v8[rows.clamp(0, M // ALIGN - 1)].reshape(N, S, Fd)
+
+    @staticmethod
+    def backward(ctx, g):
+        offsets, src = ctx.saved_tensors
+        S, (M, Fd) = ctx.S, ctx.shape
+        N = offsets.shape[0]
+        nb, SA = M // ALIGN, S // ALIGN
+        g8 = g.reshape(N * SA, ALIGN * Fd)
+        ray_b = src[::ALIGN] // S  # ray of each compact block
+        j_b = torch.arange(nb, device=g.device) - offsets[ray_b] // ALIGN
+        row_b = ray_b * SA + j_b.clamp(0, SA - 1)
+        dv8 = g8[row_b.clamp(0, N * SA - 1)]
+        in_seg = (j_b >= 0) & (j_b < SA)
+        dvals = torch.where(in_seg[:, None], dv8, torch.zeros((), device=g.device))
+        return dvals.reshape(M, Fd), None, None, None
+
+
 def place_compact(vals: torch.Tensor, offsets: torch.Tensor, src: torch.Tensor,
                   S: int) -> torch.Tensor:
-    """Per-compact-sample values [M, F] -> [N, S, F] ray slots (forward
-    only). Needs ALIGN-aligned segments; slots past a ray's count hold
-    garbage that the caller masks."""
-    M, Fd = vals.shape
-    N = offsets.shape[0]
-    v8 = vals.reshape(M // ALIGN, ALIGN * Fd)
-    rows = offsets[:, None] // ALIGN + torch.arange(S // ALIGN, device=vals.device)[None, :]
-    return v8[rows.clamp(0, M // ALIGN - 1)].reshape(N, S, Fd)
+    """Per-compact-sample values [M, F] -> [N, S, F] ray slots. Needs
+    ALIGN-aligned segments; slots past a ray's count hold garbage that
+    the caller masks, and get no gradient back into ``vals``."""
+    return _PlaceCompact.apply(vals, offsets, src, S)
 
 
 def _turbo_compact_geometry(rays_o, rays_d, state, cfg, max_samples, aabb, budget,
-                            t_range=None):
+                            t_range=None, perturb=False, generator=None, noise=None):
     """March -> ALIGN-padded compaction -> per-compact-sample points.
 
     An explicit (eval) budget is water-filled: every ray gets the same
@@ -527,7 +565,7 @@ def _turbo_compact_geometry(rays_o, rays_d, state, cfg, max_samples, aabb, budge
     N = rays_o.shape[0]
     dev = rays_o.device
     m = march_rays_turbo(rays_o, rays_d, state, cfg, max_samples=max_samples, aabb=aabb,
-                         t_range=t_range)
+                         t_range=t_range, perturb=perturb, generator=generator, noise=noise)
     S = m["mask"].shape[1]
     water_fill = budget is not None
     if budget is None:
@@ -581,12 +619,16 @@ def render_rays_grid_turbo(density_fn: Optional[Callable], color_fn: Optional[Ca
                            bg_color=None, max_samples: Optional[int] = None, aabb=None,
                            budget: Optional[int] = None,
                            t_range: Optional[torch.Tensor] = None,
-                           vals_fn: Optional[Callable] = None) -> Dict[str, torch.Tensor]:
+                           vals_fn: Optional[Callable] = None, perturb: bool = False,
+                           generator: Optional[torch.Generator] = None,
+                           noise: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
     """Turbo march -> compaction -> network on the compact batch ->
     placement -> compositing. ``vals_fn(pts, dirs) -> [M, 4]`` (eval)
-    replaces the density_fn / color_fn pair."""
+    replaces the density_fn / color_fn pair. ``perturb`` (training)
+    jitters the lattice start (see :func:`march_rays_turbo`)."""
     m, S, budget, src, valid_m, offsets, t_c, pts, dirs, maskb = _turbo_compact_geometry(
         rays_o, rays_d, state, cfg, max_samples, aabb, budget, t_range=t_range,
+        perturb=perturb, generator=generator, noise=noise,
     )
     if vals_fn is not None:
         vals = vals_fn(pts, dirs)
@@ -692,4 +734,40 @@ def update_occupancy(state: OccupancyState, density_fn: Callable, cfg: RenderCon
         coarse_payload=coarse,
         fine_payload=fine,
         prepass_payload=pack_prepass_payload(occ),
+    )
+
+
+def mark_untrained_grid(state: OccupancyState, poses, intrinsics, H_img: int, W_img: int,
+                        cfg: RenderConfig) -> OccupancyState:
+    """Set the cells that no training camera sees to -1, so they never
+    become occupied: a cell is seen when its center lies in front of a
+    camera and inside its field of view widened by one cell. Host numpy,
+    then one transfer of the [CAS, H, H, H] mask."""
+    Hg, cas = cfg.grid_size, cfg.cascades
+    fx, fy, cx, cy = (float(v) for v in np.asarray(intrinsics, np.float32)[:4])
+    poses_np = np.asarray(poses, np.float32)
+    rot = poses_np[:, :3, :3]
+    trans = poses_np[:, :3, 3]
+    idx = np.arange(Hg, dtype=np.float32)
+    base = np.stack(np.meshgrid(idx, idx, idx, indexing="ij"), axis=-1).reshape(-1, 3)
+    base = 2.0 * base / (Hg - 1) - 1.0
+    vis_all = np.empty((cas, Hg, Hg, Hg), np.bool_)
+    for c in range(cas):
+        bound = min(2.0**c, cfg.bound)
+        half = bound / Hg
+        pts = base * (bound - half)
+        visible = np.zeros(pts.shape[0], np.bool_)
+        for p in range(poses_np.shape[0]):
+            cam = (pts - trans[p]) @ rot[p]
+            z = cam[:, 2]
+            visible |= (
+                (z > 0.01)
+                & (np.abs(cam[:, 0]) < cx / fx * z + 2 * half)
+                & (np.abs(cam[:, 1]) < cy / fy * z + 2 * half)
+            )
+        vis_all[c] = visible.reshape(Hg, Hg, Hg)
+    grid = state.density_grid
+    vis = torch.from_numpy(vis_all).to(grid.device)
+    return dataclasses.replace(
+        state, density_grid=torch.where(vis, grid, torch.full((), -1.0, device=grid.device))
     )

@@ -4,9 +4,12 @@ Inputs live in [0, 1]^3; rows outside get zero CP features and keep
 their frequency columns. ``cpgrid_density`` and ``cpgrid_sigma_rgb``
 reach the CUDA kernels for CUDA tensors (``ops/kernels/cp.py``) and
 their plain versions for CPU tensors, which follow the JAX package's
-CPU branches. ``cpgrid_encode`` alone (the unfused encoder) has no
-kernel yet: the Pallas ``cp_encode`` is still to be ported, so it runs
-on CPU tensors only.
+CPU branches. ``cpgrid_density`` is differentiable in the factors and
+weights: by autograd of the plain composition on CPU tensors (the JAX
+CPU branch), through ``CPDensity`` and its backward kernel on CUDA
+tensors (the Pallas branch, with zero d(pos)). ``cpgrid_encode`` alone
+(the unfused encoder) has no kernel yet: the Pallas ``cp_encode`` is
+still to be ported, so it runs on CPU tensors only.
 """
 
 from __future__ import annotations
@@ -17,7 +20,12 @@ from typing import Optional, Tuple
 import torch
 
 from ngp_tpu_torch.ops.freq import freq_encode, freq_encode_dim
-from ngp_tpu_torch.ops.kernels.cp import cp_density_fwd, cp_features_plain, cp_sigma_rgb
+from ngp_tpu_torch.ops.kernels.cp import (
+    cp_density,
+    cp_density_plain,
+    cp_features_plain,
+    cp_sigma_rgb,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,9 +83,10 @@ def cpgrid_density(x, factors, w1, w2, cfg: CPGridConfig,
     x in [0, 1]^3, any leading shape -> [..., OUT] f32."""
     batch_shape = x.shape[:-1]
     xf = x.reshape(-1, 3).float().contiguous()
-    factors = _cast(factors, compute_dtype)
-    w1, w2 = _cast((w1, w2), compute_dtype)
-    out = cp_density_fwd(xf, factors, w1, w2, cfg.resolutions, cfg.freq_degree)
+    factors = tuple(f.contiguous() for f in _cast(factors, compute_dtype))
+    w1, w2 = (w.contiguous() for w in _cast((w1, w2), compute_dtype))
+    head = cp_density_plain if xf.device.type == "cpu" else cp_density
+    out = head(xf, factors, w1, w2, cfg.resolutions, cfg.freq_degree)
     return out.reshape(*batch_shape, w2.shape[1])
 
 

@@ -1,13 +1,17 @@
 """Hand-written CUDA kernels for Hopper (sm_90a) and their wrappers.
 
-- ``cp.cp_density_fwd``      replaces ``ngp_tpu/ops/pallas/cp_kernels.py:cp_density`` (forward)
+- ``cp.cp_density_fwd``      replaces ``ngp_tpu/ops/pallas/cp_kernels.py:cp_density`` (forward;
+  ``residuals=True`` also writes the feats/h1 rows its backward reads)
+- ``cp.cp_bwd_banks``        replaces ``ngp_tpu/ops/pallas/cp_kernels.py:_cp_bwd_banks``
 - ``cp.cp_sigma_rgb``        replaces ``ngp_tpu/ops/pallas/cp_kernels.py:cp_sigma_rgb``
 - ``march.coarse_lookup_bits`` replaces ``ngp_tpu/ops/pallas/march_kernels.py:coarse_lookup_bits``
 
 Each wrapper takes its plain PyTorch version for a CPU tensor and
 launches its kernel for a CUDA tensor; there is no fallback between the
 two. ``LAUNCHES`` counts the kernel launches of each wrapper, so a run
-can show that its path went through the kernels.
+can show that its path went through the kernels;
+``cp_density_fwd_residuals`` counts the launches of ``cp_density_fwd``
+that wrote residuals (they count under ``cp_density_fwd`` too).
 """
 
 from typing import Dict
@@ -16,6 +20,8 @@ LAUNCHES: Dict[str, int] = {
     "cp_density_fwd": 0,
     "cp_sigma_rgb": 0,
     "coarse_lookup_bits": 0,
+    "cp_bwd_banks": 0,
+    "cp_density_fwd_residuals": 0,
 }
 
 

@@ -33,7 +33,11 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "ngp_cp_density_fwd": [
         _P, _I, ctypes.POINTER(_P), ctypes.POINTER(_I), _I, _I, _I,
-        _P, _P, _I, _I, _I, _I, _P, _P,
+        _P, _P, _I, _I, _I, _I, _P, _P, _P, _P,
+    ],
+    "ngp_cp_bwd_banks": [
+        _P, _I, _P, _I, ctypes.POINTER(_P), ctypes.POINTER(_I), _I, _I, _I,
+        ctypes.POINTER(_P), _P,
     ],
     "ngp_cp_sigma_rgb": [
         _P, _P, _I, ctypes.POINTER(_P), ctypes.POINTER(_I), _I, _I, _I,

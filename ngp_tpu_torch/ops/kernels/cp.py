@@ -1,9 +1,14 @@
 """CP factor-bank heads: the CUDA kernels' wrappers and plain versions.
 
 ``cp_density_fwd`` replaces the forward of
-``ngp_tpu/ops/pallas/cp_kernels.py:cp_density`` and ``cp_sigma_rgb``
-replaces ``cp_kernels.py:cp_sigma_rgb``; the kernels are in
+``ngp_tpu/ops/pallas/cp_kernels.py:cp_density``, ``cp_bwd_banks`` its
+factor backward ``_cp_bwd_banks``, and ``cp_sigma_rgb`` replaces
+``cp_kernels.py:cp_sigma_rgb``; the kernels are in
 ``csrc/cp_kernels.cu``, whose header says what bounds them on Hopper.
+``CPDensity`` is ``cp_density`` with its custom VJP: the forward kernel
+writes the feats/h1 residuals, and the backward runs the MLP products
+as f32 matmuls (XLA ran them outside any Pallas kernel) and the factor
+gradient through ``cp_bwd_banks``.
 
 Each wrapper takes its plain version for CPU tensors and launches its
 kernel for CUDA tensors; anything the kernel does not take raises.
@@ -39,6 +44,17 @@ _DTYPES = (torch.float32, torch.bfloat16)
 # ---------------------------------------------------------------------------
 
 
+def _lerp(p_ax: torch.Tensor, line: torch.Tensor, res: int):
+    """One axis of one bank at positions [M] in [0, 1]: the lower tap
+    i0 [M], the weight w [M, 1] of tap i0 + 1, and the f32 lerped line
+    values [M, R]."""
+    pa = p_ax * (res - 1)
+    i0 = torch.clamp(torch.floor(pa), max=res - 2).long()
+    w = (pa - i0)[:, None]
+    line = line.float()
+    return i0, w, line[i0] * (1 - w) + line[i0 + 1] * w
+
+
 def cp_features_plain(
     pos: torch.Tensor, factors: Sequence[torch.Tensor], resolutions: Sequence[int]
 ) -> torch.Tensor:
@@ -50,11 +66,7 @@ def cp_features_plain(
     for fb, res in zip(factors, resolutions):
         acc = None
         for ax in range(3):
-            pa = p[:, ax] * (res - 1)
-            i0 = torch.clamp(torch.floor(pa), max=res - 2).long()
-            w = (pa - i0)[:, None]
-            line = fb[ax].float()
-            v = line[i0] * (1 - w) + line[i0 + 1] * w
+            _, _, v = _lerp(p[:, ax], fb[ax], res)
             acc = v if acc is None else acc * v
         outs.append(acc)
     cp = torch.cat(outs, dim=-1)
@@ -62,14 +74,43 @@ def cp_features_plain(
     return torch.where(oob[:, None], torch.zeros((), device=cp.device), cp)
 
 
-def cp_density_plain(pos, factors, w1, w2, resolutions, freq_degree):
-    """[M, 3] -> [M, OUT] f32 = relu(feats @ w1) @ w2."""
+def cp_density_plain(pos, factors, w1, w2, resolutions, freq_degree,
+                     residuals: bool = False):
+    """[M, 3] -> [M, OUT] f32 = relu(feats @ w1) @ w2; with
+    ``residuals`` also feats [M, D] and h1 [M, H1] in the weight dtype.
+    Differentiable by autograd (the JAX CPU branch of cpgrid_density)."""
     dt = w1.dtype
     cp = cp_features_plain(pos, factors, resolutions)
     fr = freq_encode(2.0 * pos.float() - 1.0, freq_degree)
-    feats = torch.cat([cp, fr], dim=-1).to(dt).float()
-    h1 = torch.relu(feats @ w1.float()).to(dt).float()
-    return h1 @ w2.float()
+    feats = torch.cat([cp, fr], dim=-1).to(dt)
+    h1 = torch.relu(feats.float() @ w1.float()).to(dt)
+    out = h1.float() @ w2.float()
+    return (out, feats, h1) if residuals else out
+
+
+def cp_bwd_banks_plain(pos, factors, g_cp, resolutions):
+    """Factor gradients of the CP features: per bank [3, res, R] in the
+    factor dtype from g_cp [M, >= nb*R] (columns b*R.. of bank b). Each
+    row adds (1 - w) * others at i0 and w * others at i0 + 1 of each
+    axis, others = g * the other two axes' lerped values (f32); rows
+    outside [0, 1]^3 add nothing."""
+    pos = pos.float()
+    p = pos.clamp(0.0, 1.0)
+    oob = ((pos < 0.0) | (pos > 1.0)).any(dim=-1)
+    rank = factors[0].shape[-1]
+    out = []
+    for b, (fb, res) in enumerate(zip(factors, resolutions)):
+        g = g_cp[:, b * rank:(b + 1) * rank].float()
+        g = torch.where(oob[:, None], torch.zeros((), device=g.device), g)
+        taps = [_lerp(p[:, ax], fb[ax], res) for ax in range(3)]
+        acc = torch.zeros((3, res, rank), dtype=torch.float32, device=g.device)
+        for ax, (i0, w, _) in enumerate(taps):
+            a, c = [x for x in range(3) if x != ax]
+            others = g * taps[a][2] * taps[c][2]
+            acc[ax].index_add_(0, i0, (1 - w) * others)
+            acc[ax].index_add_(0, i0 + 1, w * others)
+        out.append(acc.to(fb.dtype))
+    return tuple(out)
 
 
 def cp_sigma_rgb_plain(pos, dirs, factors, w1, w2, color_ws, resolutions,
@@ -129,14 +170,18 @@ def _check_weights(name, pos, factors, w1, w2, resolutions, freq_degree,
     return M, rank, D, H1
 
 
-def cp_density_fwd(pos, factors, w1, w2, resolutions, freq_degree):
+def cp_density_fwd(pos, factors, w1, w2, resolutions, freq_degree,
+                   residuals: bool = False):
     """Fused density head forward: [M, 3] f32 in [0, 1] -> [M, OUT] f32.
 
     factors: [3, res_b, R] per bank; w1 [nb*R + freq_dim, H1], w2
     [H1, OUT]; all f32 or all bf16 (the MLP compute type). Rows outside
-    [0, 1]^3 get zero CP features but keep their freq columns."""
+    [0, 1]^3 get zero CP features but keep their freq columns. With
+    ``residuals`` returns (out, feats [M, D], h1 [M, H1]), the last two
+    in the weight dtype: the values the kernel multiplied."""
     if pos.device.type == "cpu":
-        return cp_density_plain(pos, factors, w1, w2, resolutions, freq_degree)
+        return cp_density_plain(pos, factors, w1, w2, resolutions, freq_degree,
+                                residuals)
     if pos.device.type != "cuda":
         raise ValueError(f"cp_density_fwd: no kernel for {pos.device}")
     M, rank, D, H1 = _check_weights(
@@ -144,18 +189,116 @@ def cp_density_fwd(pos, factors, w1, w2, resolutions, freq_degree):
     )
     OUT = w2.shape[1]
     out = torch.empty((M, OUT), dtype=torch.float32, device=pos.device)
-    if M == 0:
+    feats = h1 = None
+    if residuals:
+        feats = torch.empty((M, D), dtype=w1.dtype, device=pos.device)
+        h1 = torch.empty((M, H1), dtype=w1.dtype, device=pos.device)
+    if M > 0:
+        lib = load_library()
+        err = lib.ngp_cp_density_fwd(
+            pos.data_ptr(), M, pointer_array(factors), int_array(resolutions),
+            len(factors), rank, freq_degree, w1.data_ptr(), w2.data_ptr(),
+            D, H1, OUT, int(w1.dtype == torch.bfloat16), out.data_ptr(),
+            feats.data_ptr() if residuals else None,
+            h1.data_ptr() if residuals else None,
+            torch.cuda.current_stream(pos.device).cuda_stream,
+        )
+        check_launch("cp_density_fwd", err)
+        LAUNCHES["cp_density_fwd"] += 1
+        LAUNCHES["cp_density_fwd_residuals"] += int(residuals)
+    return (out, feats, h1) if residuals else out
+
+
+def cp_bwd_banks(pos, factors, g_cp, resolutions):
+    """Factor gradients from d(CP features): pos [M, 3] f32, g_cp
+    [M, >= nb*R] f32 (row stride free, columns contiguous) -> per bank
+    [3, res, R] in the factor dtype, accumulated in f32. Rows outside
+    [0, 1]^3 add nothing."""
+    if pos.device.type == "cpu":
+        return cp_bwd_banks_plain(pos, factors, g_cp, resolutions)
+    if pos.device.type != "cuda":
+        raise ValueError(f"cp_bwd_banks: no kernel for {pos.device}")
+    if pos.ndim != 2 or pos.shape[1] != 3:
+        raise ValueError(f"cp_bwd_banks: pos must be [M, 3], got {tuple(pos.shape)}")
+    M = pos.shape[0]
+    dev = pos.device
+    _check_rows("cp_bwd_banks pos", pos, M, dev)
+    if len(factors) != len(resolutions) or not 1 <= len(factors) <= 8:
+        raise ValueError("cp_bwd_banks: 1-8 factor banks, one per resolution")
+    dt = factors[0].dtype
+    rank = factors[0].shape[-1]
+    for f, res in zip(factors, resolutions):
+        if tuple(f.shape) != (3, res, rank) or res < 2:
+            raise ValueError(f"cp_bwd_banks: factor bank {tuple(f.shape)} is not [3, {res}, {rank}]")
+        if f.device != dev or f.dtype != dt or dt not in _DTYPES or not f.is_contiguous():
+            raise ValueError("cp_bwd_banks: factors must be contiguous f32 or bf16 "
+                             f"of one dtype on {dev}")
+    nbR = len(factors) * rank
+    if (g_cp.device != dev or g_cp.dtype != torch.float32 or g_cp.ndim != 2
+            or g_cp.shape[0] != M or g_cp.shape[1] < nbR
+            or (M > 1 and g_cp.stride(1) != 1) or g_cp.stride(0) < nbR):
+        raise ValueError(f"cp_bwd_banks: g_cp must be f32 [{M}, >= {nbR}] on {dev} "
+                         "with contiguous columns")
+    acc = [torch.zeros((3, r, rank), dtype=torch.float32, device=dev) for r in resolutions]
+    if M > 0:
+        lib = load_library()
+        err = lib.ngp_cp_bwd_banks(
+            pos.data_ptr(), M, g_cp.data_ptr(), g_cp.stride(0), pointer_array(factors),
+            int_array(resolutions), len(factors), rank, int(dt == torch.bfloat16),
+            pointer_array(acc), torch.cuda.current_stream(dev).cuda_stream,
+        )
+        check_launch("cp_bwd_banks", err)
+        LAUNCHES["cp_bwd_banks"] += 1
+    return tuple(a.to(dt) for a in acc)
+
+
+def cp_density_bwd(g, pos, factors, w1, w2, feats, h1, resolutions):
+    """``_cp_density_bwd``: (dfactors, dW1, dW2) from d(out) g [M, OUT].
+
+    The MLP products take f32 from the weight-dtype residuals, with dh1
+    rounded to the weight dtype before both products it feeds, as the
+    JAX backward does; dW1 and dW2 come back in the weight dtype. The
+    f32 products are exact f32 at PyTorch's default matmul precision
+    ("highest", no TF32)."""
+    nbR = len(resolutions) * factors[0].shape[-1]
+    g = g.float()
+    h1f = h1.float()
+    dW2 = h1f.t() @ g
+    dh1 = torch.where(h1 > 0, g @ w2.float().t(), torch.zeros((), device=g.device))
+    dh1 = dh1.to(w1.dtype).float()
+    dW1 = feats.float().t() @ dh1
+    dfeat = dh1 @ w1.float().t()
+    dfactors = cp_bwd_banks(pos, factors, dfeat[:, :nbR], resolutions)
+    return dfactors, dW1.to(w1.dtype), dW2.to(w2.dtype)
+
+
+class CPDensity(torch.autograd.Function):
+    """``cp_density`` with its custom VJP; d(pos) is zero, as in JAX
+    (march sample positions are not differentiated)."""
+
+    @staticmethod
+    def forward(ctx, pos, w1, w2, resolutions, freq_degree, *factors):
+        out, feats, h1 = cp_density_fwd(pos, factors, w1, w2, resolutions, freq_degree,
+                                        residuals=True)
+        ctx.save_for_backward(pos, w1, w2, feats, h1, *factors)
+        ctx.resolutions = tuple(resolutions)
         return out
-    lib = load_library()
-    err = lib.ngp_cp_density_fwd(
-        pos.data_ptr(), M, pointer_array(factors), int_array(resolutions),
-        len(factors), rank, freq_degree, w1.data_ptr(), w2.data_ptr(),
-        D, H1, OUT, int(w1.dtype == torch.bfloat16), out.data_ptr(),
-        torch.cuda.current_stream(pos.device).cuda_stream,
-    )
-    check_launch("cp_density_fwd", err)
-    LAUNCHES["cp_density_fwd"] += 1
-    return out
+
+    @staticmethod
+    def backward(ctx, g):
+        pos, w1, w2, feats, h1, *factors = ctx.saved_tensors
+        dfactors, dW1, dW2 = cp_density_bwd(g, pos, factors, w1, w2, feats, h1,
+                                            ctx.resolutions)
+        return (None, dW1, dW2, None, None, *dfactors)
+
+
+def cp_density(pos, factors, w1, w2, resolutions, freq_degree):
+    """Fused density head, differentiable in factors, w1 and w2: the
+    residual-writing launch and ``CPDensity`` while autograd records,
+    the residual-free launch otherwise (grid refresh, eval)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (w1, w2, *factors)):
+        return CPDensity.apply(pos, w1, w2, tuple(resolutions), freq_degree, *factors)
+    return cp_density_fwd(pos, factors, w1, w2, resolutions, freq_degree)
 
 
 def cp_sigma_rgb(pos, dirs, factors, w1, w2, color_ws, resolutions,

@@ -1,9 +1,10 @@
 // CP factor-bank density and radiance heads for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernels of ngp_tpu/ops/pallas/cp_kernels.py:
-//   ngp_cp_density_fwd  <- _density_kernel / _cp_density_fwd_impl (forward only,
-//                          no residuals)
+//   ngp_cp_density_fwd  <- _density_kernel / _cp_density_fwd_impl (forward, with
+//                          the feats/h1 residuals when asked for)
 //   ngp_cp_sigma_rgb    <- _sigma_rgb_kernel / cp_sigma_rgb
+//   ngp_cp_bwd_banks    <- _bwd_kernel / _cp_bwd_banks (factor gradients)
 //
 // What the TPU kernel did with a tent-matrix matmul on the MXU (one [TM, res]
 // row of lerp weights per axis) is here a two-row gather and lerp per axis:
@@ -15,7 +16,21 @@
 // factor and weight reads that L2 serves. The MLP products run on the CUDA
 // cores with a register tile of kRowsPerThread rows per weight load; the
 // bound on this card is those FMAs and the L2 gathers, not device memory.
-// Tensor-core (wgmma) products are later work.
+// Tensor-core (wgmma) products are later work. With residuals, each block also
+// writes its [kRows, D] feature rows and [kRows, H1] hidden rows in the weight
+// type (about 1.4 KB per bf16 row at the flagship config), the values the
+// backward's MLP products read.
+//
+// The factor backward replaces the TPU's transposed tent matmul with what the
+// tent encodes: each (row, bank, rank) item recomputes its three lerped line
+// values and adds (1 - w) * others at i0 and w * others at i0 + 1 of each
+// axis, with others = g * (product of the other two axes' values), by f32
+// atomics into per-bank accumulators. The accumulators (3 x 3968 x 128 f32,
+// about 6 MB at the flagship config) stay in L2, so the bound is the L2 atomic
+// rate (6 atomics per item, 377 M per step at 98,304 rows); neighbouring
+// threads take neighbouring rank columns, so each warp's atomics hit one or
+// two 128-byte lines. A blocked or sorted reduction is later work. Atomics sum
+// in no fixed order, so the result varies in the last f32 bits from run to run.
 //
 // Rounding follows the Pallas kernels: features are rounded to the weight
 // type before w1, h1 after its ReLU, geo features and the SH basis before the
@@ -35,6 +50,8 @@ constexpr int kRows = 32;           // sample rows per block
 constexpr int kThreads = 128;
 constexpr int kRowsPerThread = 8;   // register tile of the dense loops
 constexpr int kMaxSmemBytes = 232448;
+constexpr int kBwdThreads = 256;
+constexpr int kBwdMaxBlocks = 132 * 64;
 constexpr double kPi = 3.14159265358979323846;
 
 struct HeadParams {
@@ -51,11 +68,29 @@ struct HeadParams {
   int cdim[kMaxColorLayers + 1];
   int n_color, sh_degree, cmax;
   float* out;  // [M, OUT] (density) or [M, 4] (radiance)
+  void* feats_out;  // [M, D] in the weight type, or null (density only)
+  void* h1_out;     // [M, H1] in the weight type, or null (density only)
+};
+
+struct BwdParams {
+  const float* pos;  // [M, 3]
+  int M;
+  const float* g;  // [M, g_stride] f32; columns b*rank .. b*rank+rank-1 are bank b's
+  int g_stride;
+  const void* factors[kMaxBanks];  // [3, res_b, rank] each
+  float* dfactors[kMaxBanks];      // [3, res_b, rank] f32 accumulators, zeroed
+  int res[kMaxBanks];
+  int nb, rank;
 };
 
 __device__ __forceinline__ float ld(const float* p, int i) { return __ldg(p + i); }
 __device__ __forceinline__ float ld(const __nv_bfloat16* p, int i) {
   return __bfloat162float(p[i]);
+}
+
+__device__ __forceinline__ void st(float* p, size_t i, float v) { p[i] = v; }
+__device__ __forceinline__ void st(__nv_bfloat16* p, size_t i, float v) {
+  p[i] = __float2bfloat16(v);
 }
 
 template <typename T> __device__ __forceinline__ float round_to(float v);
@@ -222,6 +257,58 @@ __global__ void __launch_bounds__(kThreads) cp_density_kernel(HeadParams p) {
     const int row = row0 + m;
     if (row < p.M) p.out[(size_t)row * p.OUT + (i - m * p.OUT)] = h[i];
   }
+  if (p.feats_out == nullptr) return;
+  // the residuals: already rounded to T, so the stores are exact
+  T* fo = static_cast<T*>(p.feats_out);
+  T* ho = static_cast<T*>(p.h1_out);
+  for (int i = threadIdx.x; i < kRows * p.D; i += blockDim.x) {
+    const int m = i / p.D;
+    if (row0 + m < p.M) st(fo, (size_t)row0 * p.D + i, feats[i]);
+  }
+  for (int i = threadIdx.x; i < kRows * p.H1; i += blockDim.x) {
+    const int m = i / p.H1;
+    if (row0 + m < p.M) st(ho, (size_t)row0 * p.H1 + i, h1[i]);
+  }
+}
+
+// dF[b][ax] += tent_ax(m)^T (g_b[m] * prod_{ax' != ax} v_ax'[m]); one item per
+// (row, bank, rank column), rank fastest. Rows outside [0, 1]^3 add nothing.
+template <typename T>
+__global__ void __launch_bounds__(kBwdThreads) cp_bwd_banks_kernel(BwdParams p) {
+  const long long total = (long long)p.M * p.nb * p.rank;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long item = (long long)blockIdx.x * blockDim.x + threadIdx.x; item < total;
+       item += stride) {
+    const int r = (int)(item % p.rank);
+    const long long mb = item / p.rank;
+    const int b = (int)(mb % p.nb);
+    const int m = (int)(mb / p.nb);
+    const float* q = p.pos + 3 * (size_t)m;
+    if (q[0] < 0.f || q[0] > 1.f || q[1] < 0.f || q[1] > 1.f || q[2] < 0.f || q[2] > 1.f)
+      continue;
+    const T* f = static_cast<const T*>(p.factors[b]);
+    const int res = p.res[b];
+    int i0[3];
+    float w[3], v[3];
+#pragma unroll
+    for (int ax = 0; ax < 3; ++ax) {
+      const float pa = fminf(fmaxf(q[ax], 0.f), 1.f) * (float)(res - 1);
+      i0[ax] = min((int)floorf(pa), res - 2);
+      w[ax] = pa - (float)i0[ax];
+      const T* line = f + (size_t)ax * res * p.rank;
+      v[ax] = ld(line, i0[ax] * p.rank + r) * (1.f - w[ax]) +
+              ld(line, (i0[ax] + 1) * p.rank + r) * w[ax];
+    }
+    const float g = p.g[(size_t)m * p.g_stride + (size_t)b * p.rank + r];
+    float* acc = p.dfactors[b];
+#pragma unroll
+    for (int ax = 0; ax < 3; ++ax) {
+      const float o = ax == 0 ? g * v[1] * v[2] : ax == 1 ? g * v[0] * v[2] : g * v[0] * v[1];
+      float* a = acc + ((size_t)ax * res + i0[ax]) * p.rank + r;
+      atomicAdd(a, (1.f - w[ax]) * o);
+      atomicAdd(a + p.rank, w[ax] * o);
+    }
+  }
 }
 
 template <typename T>
@@ -313,7 +400,19 @@ bool fill_density(HeadParams& p, const float* pos, int M, const void* const* fac
   p.sh_degree = 0;
   p.cmax = 0;
   p.out = out;
+  p.feats_out = nullptr;
+  p.h1_out = nullptr;
   return true;
+}
+
+template <typename T>
+int launch_bwd(const BwdParams& p, cudaStream_t stream) {
+  const long long total = (long long)p.M * p.nb * p.rank;
+  if (total == 0) return cudaSuccess;
+  const long long want = (total + kBwdThreads - 1) / kBwdThreads;
+  const int blocks = (int)(want < kBwdMaxBlocks ? want : kBwdMaxBlocks);
+  cp_bwd_banks_kernel<T><<<blocks, kBwdThreads, 0, stream>>>(p);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -321,12 +420,38 @@ bool fill_density(HeadParams& p, const float* pos, int M, const void* const* fac
 extern "C" int ngp_cp_density_fwd(const float* pos, int M, const void* const* factors,
                                   const int* res, int nb, int rank, int freq_degree,
                                   const void* w1, const void* w2, int D, int H1, int OUT,
-                                  int bf16, float* out, void* stream) {
+                                  int bf16, float* out, void* feats_out, void* h1_out,
+                                  void* stream) {
   HeadParams p;
   if (!fill_density(p, pos, M, factors, res, nb, rank, freq_degree, w1, w2, D, H1, OUT, out))
     return cudaErrorInvalidValue;
+  if ((feats_out == nullptr) != (h1_out == nullptr)) return cudaErrorInvalidValue;
+  p.feats_out = feats_out;
+  p.h1_out = h1_out;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return bf16 ? launch<__nv_bfloat16>(p, s, false) : launch<float>(p, s, false);
+}
+
+extern "C" int ngp_cp_bwd_banks(const float* pos, int M, const float* g, int g_stride,
+                                const void* const* factors, const int* res, int nb, int rank,
+                                int bf16, float* const* dfactors, void* stream) {
+  if (nb < 1 || nb > kMaxBanks || rank < 1 || M < 0 || g_stride < nb * rank)
+    return cudaErrorInvalidValue;
+  BwdParams p;
+  p.pos = pos;
+  p.M = M;
+  p.g = g;
+  p.g_stride = g_stride;
+  p.nb = nb;
+  p.rank = rank;
+  for (int b = 0; b < nb; ++b) {
+    if (res[b] < 2) return cudaErrorInvalidValue;
+    p.factors[b] = factors[b];
+    p.dfactors[b] = dfactors[b];
+    p.res[b] = res[b];
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return bf16 ? launch_bwd<__nv_bfloat16>(p, s) : launch_bwd<float>(p, s);
 }
 
 extern "C" int ngp_cp_sigma_rgb(const float* pos, const float* dirs, int M,

@@ -1,7 +1,15 @@
-"""NeRF trainer, eval half (``ngp_tpu/training/nerf.py:NeRFTrainer``).
+"""NeRF trainer (``ngp_tpu/training/nerf.py:NeRFTrainer``).
 
-``render_frame`` renders a full frame in fixed-size ray chunks. Which
-rays share a chunk decides the pixels, because the occupancy-grid
+``train_step`` trains on one batch of sampled rays of one frame: the
+frame gather, pixel sampling (uniform, error map or patches), a random
+per-pixel background for RGBA frames, the render, per-ray MSE, the
+optimizer step and the error-map EMA. Its random draws come from the
+trainer's generator, or from ``draws`` (the sampler's draws, "bg" and
+"noise"), so that a test can feed it the numbers ``jax.random`` drew.
+
+``render_frame`` renders with the EMA weights when there are any, a
+full frame in fixed-size ray chunks. Which rays share a chunk decides
+the pixels, because the occupancy-grid
 renderer water-fills a per-chunk sample budget, so the chunking follows
 the JAX code exactly: the frame's rays are interleaved by a fixed
 permutation (``np.random.default_rng(1234)``), the eval prepass (when
@@ -14,20 +22,40 @@ whose chunks run on the device without a host sync.
 
 from __future__ import annotations
 
+import contextlib
+import time
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 
-from ngp_tpu_torch.config import RenderConfig
-from ngp_tpu_torch.data.raysampler import rays_from_frame_indices
+from ngp_tpu_torch.config import RenderConfig, TrainConfig
+from ngp_tpu_torch.data.nerf_dataset import NeRFDataset
+from ngp_tpu_torch.data.raysampler import (
+    rays_from_frame_indices,
+    rays_from_indices,
+    sample_ray_indices,
+)
 from ngp_tpu_torch.models.nerf import NeRFNetwork
+from ngp_tpu_torch.training.trainer import Trainer
 
 
-class NeRFTrainer:
-    def __init__(self, model: NeRFNetwork, render_cfg: RenderConfig, seed: int = 0):
+class NeRFTrainer(Trainer):
+    def __init__(self, model: NeRFNetwork, render_cfg: RenderConfig,
+                 train_cfg: Optional[TrainConfig] = None, name: str = "ngp",
+                 seed: int = 0, **kwargs):
+        train_cfg = train_cfg or TrainConfig()
+        kwargs.setdefault("lr", train_cfg.lr)
+        kwargs.setdefault("max_steps", train_cfg.iters)
+        kwargs.setdefault("workspace", train_cfg.workspace)
+        kwargs.setdefault("ema_decay", train_cfg.ema_decay)
+        kwargs.setdefault("max_keep_ckpt", train_cfg.max_keep_ckpt)
+        super().__init__(name=name, **kwargs)
+        if train_cfg.tv_weight > 0 or train_cfg.distortion_weight > 0:
+            raise NotImplementedError("the tv and distortion losses are not ported yet")
         self.model = model
         self.render_cfg = render_cfg
+        self.train_cfg = train_cfg
         self.device = next(model.parameters()).device
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         # rays per chunk of a staged frame render (the reference's
@@ -43,7 +71,14 @@ class NeRFTrainer:
         self.last_render_stats: Dict[str, float] = {}
 
     def init_aux(self):
-        return None
+        return {}
+
+    def _fns(self):
+        """(density_fn, color_fn) on the live weights, recording autograd
+        when grad mode is on."""
+        raise NotImplementedError(
+            "the non-grid renderer is not ported yet; use GridNeRFTrainer"
+        )
 
     def _eval_fns(self):
         """The network closures one frame render uses (built once per
@@ -53,11 +88,112 @@ class NeRFTrainer:
         )
 
     def _render_with(self, fns, rays_o, rays_d, bg_color=None, aabb=None,
-                     t_range=None):
-        """Render one chunk of rays with the closures of ``_eval_fns``."""
+                     t_range=None, perturb=False, noise=None):
+        """Render one batch of rays with the closures of ``_fns`` plus a
+        fused radiance closure or None (training: ``perturb``) or of
+        ``_eval_fns`` (eval)."""
         raise NotImplementedError(
             "the non-grid renderer is not ported yet; use GridNeRFTrainer"
         )
+
+    # ---- train -----------------------------------------------------------
+
+    def train_step(self, batch, draws=None) -> Dict[str, torch.Tensor]:
+        """batch: images [F, H, W, C], poses [F, 4, 4], intrinsics [4] on
+        the device, and the frame index ``idx``. Returns device scalars
+        "loss" and, from the grid renderer, "turbo_overflow"."""
+        self.ensure_initialized()
+        draws = draws or {}
+        images, poses, intrinsics = batch["images"], batch["poses"], batch["intrinsics"]
+        idx = int(batch["idx"])
+        F, H, W, C = images.shape
+        n_rays = self.train_cfg.num_rays
+        dev = images.device
+        image, pose = images[idx], poses[idx]
+        error_map = self.aux["error_map"][idx] if "error_map" in self.aux else None
+        sample = sample_ray_indices(
+            H, W, n_rays, error_map=error_map, patch_size=self.train_cfg.patch_size,
+            uniform_frac=self.train_cfg.error_map_uniform_frac,
+            generator=self.generator, draws=draws, device=dev,
+        )
+        inds = sample["inds"]
+        rays = rays_from_indices(pose, intrinsics, H, W, inds)
+        pixels = image.reshape(H * W, C)[inds].float()
+        if C == 4 and self.render_cfg.bg_radius <= 0:
+            bg = draws["bg"].to(dev) if "bg" in draws else torch.rand(
+                (n_rays, 3), generator=self.generator, device=dev)
+        else:
+            bg = 1.0
+        gt_rgb = pixels[:, :3] * pixels[:, 3:] + bg * (1.0 - pixels[:, 3:]) if C == 4 else pixels
+
+        self.optimizer.zero_grad(set_to_none=True)
+        out = self._render_with((*self._fns(), None), rays["rays_o"], rays["rays_d"],
+                                bg_color=bg, perturb=True, noise=draws.get("noise"))
+        per_ray = ((out["image"] - gt_rgb) ** 2).mean(dim=-1)
+        loss = per_ray.mean()
+        loss.backward()
+        self._apply_gradients()
+
+        metrics = {"loss": loss.detach()}
+        if "n_dropped" in out:
+            tot = (out["n_dropped"] + out["n_samples"]).float()
+            metrics["turbo_overflow"] = out["n_dropped"].float() / torch.clamp(tot, min=1.0)
+        if error_map is not None:
+            # in place: the map is trainer state that nothing else holds
+            em = self.aux["error_map"]
+            ic = sample["inds_coarse"]
+            em[idx, ic] = 0.1 * em[idx][ic] + 0.9 * per_ray.detach()
+        return metrics
+
+    def make_loader(self, dataset: NeRFDataset):
+        """Epoch iterator factory: the split's arrays go to the device
+        once, and each step's batch names them and a frame index."""
+        dev = self.device
+        images = torch.as_tensor(
+            dataset.images if dataset.images is not None
+            else np.zeros((len(dataset), dataset.H, dataset.W, 3), np.float32), device=dev)
+        poses = torch.as_tensor(np.asarray(dataset.poses, np.float32), device=dev)
+        intrinsics = torch.as_tensor(np.asarray(dataset.intrinsics, np.float32), device=dev)
+        np_rng = np.random.default_rng(self.train_cfg.seed)
+        n_frames = len(dataset)
+
+        def epoch_iter():
+            for idx in dataset.epoch_indices(np_rng, self.train_cfg.rand_pose):
+                if idx >= n_frames:
+                    continue  # random-pose guidance steps are not ported
+                yield {"images": images, "poses": poses, "intrinsics": intrinsics,
+                       "idx": int(idx)}
+
+        return epoch_iter
+
+    def enable_error_map(self, n_frames: int):
+        M = self.train_cfg.error_map_size
+        self.aux = dict(self.aux)
+        self.aux["error_map"] = torch.ones((n_frames, M * M), device=self.device)
+
+    def train_on_dataset(self, train_ds: NeRFDataset,
+                         valid_ds: Optional[NeRFDataset] = None, max_epochs: int = 1):
+        if valid_ds is not None:
+            raise NotImplementedError("evaluate is not ported yet; pass valid_ds=None")
+        self.ensure_initialized()
+        if self.train_cfg.error_map and train_ds.images is not None:
+            if "error_map" not in self.aux:
+                self.enable_error_map(len(train_ds))
+        epoch_iter = self.make_loader(train_ds)
+        for epoch in range(self.epoch + 1, max_epochs + 1):
+            self.epoch = epoch
+            self.train_one_epoch(epoch_iter())
+            if (epoch == max_epochs
+                    or time.time() - self._last_ckpt_time > self.ckpt_min_interval_s):
+                self.save_checkpoint()
+                self._last_ckpt_time = time.time()
+
+    # ---- eval ------------------------------------------------------------
+
+    def _eval_weights(self):
+        """The EMA weights in the model while rendering, when there are
+        any (the JAX trainer's ``eval_params``)."""
+        return self.ema.average_parameters() if self.ema is not None else contextlib.nullcontext()
 
     @torch.no_grad()
     def render_frame(self, pose, intrinsics, H: int, W: int, chunk: int = 0):
@@ -73,13 +209,14 @@ class NeRFTrainer:
         poses = np.asarray(poses, np.float32)
         imgs, deps = [], []
         n_samples = n_dropped = 0.0
-        for f in range(poses.shape[0]):
-            img, dep, stats = self._render_one(poses[f], intrinsics, H, W,
-                                               chunk or self.max_ray_batch)
-            imgs.append(img)
-            deps.append(dep)
-            n_samples += stats["n_samples"]
-            n_dropped += stats["n_dropped"]
+        with self._eval_weights():
+            for f in range(poses.shape[0]):
+                img, dep, stats = self._render_one(poses[f], intrinsics, H, W,
+                                                   chunk or self.max_ray_batch)
+                imgs.append(img)
+                deps.append(dep)
+                n_samples += stats["n_samples"]
+                n_dropped += stats["n_dropped"]
         self.last_render_stats = {"n_samples": n_samples, "n_dropped": n_dropped}
         return np.stack(imgs), np.stack(deps)
 

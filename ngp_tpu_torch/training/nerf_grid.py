@@ -1,11 +1,14 @@
-"""Occupancy-grid NeRF trainer, eval half (``-O`` path;
+"""Occupancy-grid NeRF trainer (``-O`` path;
 ``ngp_tpu/training/nerf_grid.py:GridNeRFTrainer``).
 
-Eval frames go through the turbo march with the JAX trainer's eval
-dials and defaults: a water-filled budget of ``eval_mean_samples``
-samples per ray, 64 coarse candidates, tight marching inside the
-occupied box, and the two-round prepass at pixel stride 2. The density
-grid is refreshed from the network by ``_update_occupancy``.
+Train steps march with a perturbed lattice start and the training
+budget (``compact_mean_samples`` per ray, ray-major tail drop), and the
+density grid is refreshed from the live weights every
+``update_extra_interval`` steps (``on_step_begin``). Eval frames go
+through the turbo march with the JAX trainer's eval dials and defaults:
+a water-filled budget of ``eval_mean_samples`` samples per ray, 64
+coarse candidates, tight marching inside the occupied box, and the
+two-round prepass at pixel stride 2.
 """
 
 from __future__ import annotations
@@ -22,7 +25,9 @@ from ngp_tpu_torch.data.raysampler import rays_from_frame_indices
 from ngp_tpu_torch.models.nerf import make_fused_density, make_fused_sigma_rgb
 from ngp_tpu_torch.models.occupancy import (
     SQRT3,
+    OccupancyState,
     init_occupancy,
+    mark_untrained_grid,
     occupied_aabb,
     prepass_spacing,
     ray_prepass,
@@ -66,10 +71,18 @@ class GridNeRFTrainer(NeRFTrainer):
                                  aabb=aabb, t_range=t_range)
 
     def _render_with(self, fns, rays_o, rays_d, bg_color=None, aabb=None,
-                     t_range=None):
+                     t_range=None, perturb=False, noise=None):
         cfg = self.render_cfg
         if not cfg.turbo:
             raise NotImplementedError("the v1 grid renderer is not ported yet")
+        density_fn, color_fn, vals_fn = fns
+        if perturb:
+            # training: the config's own budgets, no eval dials
+            return render_rays_grid_turbo(
+                density_fn, color_fn, rays_o, rays_d, self.aux["occ"], cfg,
+                bg_color=bg_color, aabb=aabb, t_range=t_range, perturb=True,
+                generator=self.generator, noise=noise,
+            )
         over = {}
         if self.eval_coarse_candidates is not None:
             over["coarse_candidates"] = int(self.eval_coarse_candidates)
@@ -79,7 +92,6 @@ class GridNeRFTrainer(NeRFTrainer):
         S = cfg.max_samples_per_ray
         ems = self.eval_mean_samples
         budget = rays_o.shape[0] * (S if ems is None else min(ems, S))
-        density_fn, color_fn, vals_fn = fns
         return render_rays_grid_turbo(
             density_fn, color_fn, rays_o, rays_d, self.aux["occ"], cfg,
             bg_color=bg_color, budget=budget, aabb=aabb, t_range=t_range,
@@ -191,10 +203,44 @@ class GridNeRFTrainer(NeRFTrainer):
 
     @torch.no_grad()
     def _update_occupancy(self):
-        """Refresh the density grid from the current network."""
+        """Refresh the density grid from the live (not the EMA) weights."""
         density_fn = self._fns()[0]
         self.aux = dict(self.aux)
         self.aux["occ"] = update_occupancy(
             self.aux["occ"], density_fn, self.render_cfg, generator=self.generator,
             density_scale=self.render_cfg.density_scale,
         )
+
+    def on_step_begin(self):
+        if self.global_step % self.train_cfg.update_extra_interval == 0:
+            self._update_occupancy()
+
+    def reset_extra_state(self):
+        """Back to the initial, fully occupied grid."""
+        self.aux = dict(self.aux)
+        self.aux["occ"] = init_occupancy(self.render_cfg, self.device)
+
+    def mark_untrained(self, poses, intrinsics, H_img: int, W_img: int):
+        """Cull the cells no training camera sees; call once before training."""
+        self.aux = dict(self.aux)
+        self.aux["occ"] = mark_untrained_grid(self.aux["occ"], poses, intrinsics,
+                                              H_img, W_img, self.render_cfg)
+
+    def train_on_dataset(self, train_ds, valid_ds=None, max_epochs: int = 1):
+        if self.epoch == 0:  # a fresh run culls never-seen cells
+            self.mark_untrained(train_ds.poses, train_ds.intrinsics, train_ds.H, train_ds.W)
+        super().train_on_dataset(train_ds, valid_ds, max_epochs)
+
+    def _aux_state(self):
+        occ = self.aux["occ"]
+        sd = {f.name: getattr(occ, f.name) for f in dataclasses.fields(occ)}
+        out = {"occ": sd}
+        if "error_map" in self.aux:
+            out["error_map"] = self.aux["error_map"]
+        return out
+
+    def _load_aux_state(self, sd):
+        occ = OccupancyState(**sd["occ"]).to(self.device)
+        self.aux = {"occ": occ}
+        if "error_map" in sd:
+            self.aux["error_map"] = sd["error_map"].to(self.device)

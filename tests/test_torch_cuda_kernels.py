@@ -1,10 +1,16 @@
 """The CUDA kernels against their plain versions, on the card.
 
 These tests need an NVIDIA GPU with the CUDA toolkit; elsewhere they
-skip. Run them there with ``python -m pytest tests/test_torch_cuda_kernels.py``.
+skip. Run them there with
+``python -m pytest --noconftest tests/test_torch_cuda_kernels.py``.
 Tolerances as in chip_smoke.py: |kernel - plain| <= tol * (1 + |plain|),
 tol 1e-4 in f32 (summation order) and 1e-2 in bf16 (a flipped bf16
-rounding of a hidden unit)."""
+rounding of a hidden unit). ``cp_bwd_banks`` sums by f32 atomics in no
+fixed order: |kernel - plain| <= 2^-13 * (the sum of the absolute
+contributions) + (bf16 output) 2^-7 * |plain|, a half step of each of
+the two roundings to bf16. One train step through the kernels matches
+the CPU plain step: loss to 1e-4 relative, each gradient to 1e-3 of
+its largest entry (f32, atomics and summation order)."""
 
 import numpy as np
 import pytest
@@ -69,6 +75,45 @@ def test_cp_density_kernel(dev, dtype, res, rank, fd, M):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("res,rank,fd,M", SHAPES)
+def test_cp_density_kernel_residuals(dev, dtype, res, rank, fd, M):
+    factors, w1, w2, _ = _weights(dev, dtype, res, rank, fd)
+    pos, _ = _inputs(dev, M)
+    before = LAUNCHES["cp_density_fwd_residuals"]
+    got = tk.cp_density_fwd(pos, factors, w1, w2, res, fd, residuals=True)
+    assert LAUNCHES["cp_density_fwd_residuals"] == before + 1
+    want = tk.cp_density_plain(pos, factors, w1, w2, res, fd, residuals=True)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        _check(a.float(), b.float(), dtype)
+
+
+def bwd_bound(pos, factors, g_cp, res, want):
+    """The summation-order bound of cp_bwd_banks against its plain version."""
+    s_abs = tk.cp_bwd_banks_plain(pos, [f.abs() for f in factors], g_cp.abs(), res)
+    ulp = 2.0**-7 if factors[0].dtype == torch.bfloat16 else 0.0
+    return [2.0**-13 * s.float() + ulp * w.float().abs() for s, w in zip(s_abs, want)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("res,rank,fd,M", SHAPES)
+def test_cp_bwd_banks_kernel(dev, dtype, res, rank, fd, M):
+    factors, _, _, _ = _weights(dev, dtype, res, rank, fd)
+    pos, _ = _inputs(dev, M)
+    g = torch.randn((M, len(res) * rank + 7), generator=torch.Generator().manual_seed(2))
+    g_cp = g.to(dev)[:, : len(res) * rank]  # a row stride wider than the columns
+    before = LAUNCHES["cp_bwd_banks"]
+    got = tk.cp_bwd_banks(pos, factors, g_cp, res)
+    torch.cuda.synchronize()
+    assert LAUNCHES["cp_bwd_banks"] == before + 1
+    want = tk.cp_bwd_banks_plain(pos, factors, g_cp, res)
+    for a, b, bound in zip(got, want, bwd_bound(pos, factors, g_cp, res, want)):
+        assert a.dtype == dtype and a.shape == b.shape
+        assert torch.isfinite(a).all()
+        assert ((a.float() - b.float()).abs() <= bound).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("res,rank,fd,M", SHAPES)
 def test_cp_sigma_rgb_kernel(dev, dtype, res, rank, fd, M):
     factors, w1, w2, color = _weights(dev, dtype, res, rank, fd)
     pos, dirs = _inputs(dev, M)
@@ -96,10 +141,15 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError):
         tm.coarse_lookup_bits(torch.zeros((4, 128), device=dev),
                               torch.zeros((8, 2), dtype=torch.int32, device=dev).t())
+    g = torch.zeros((64, 32), device=dev)
+    with pytest.raises(ValueError):
+        tk.cp_bwd_banks(pos, factors, g[:, :16], (32, 64))
+    with pytest.raises(ValueError):
+        tk.cp_bwd_banks(pos, factors, g.t().contiguous().t(), (32, 64))
 
 
 def test_kernels_on_the_render_path(dev):
-    """A tiny GPU frame goes through all three kernels and matches the
+    """A tiny GPU frame goes through the three eval kernels and matches the
     same frame rendered on the CPU through the plain versions."""
     from ngp_tpu_torch.config import NetworkConfig, RenderConfig
     from ngp_tpu_torch.models.nerf import NeRFNetwork
@@ -125,6 +175,52 @@ def test_kernels_on_the_render_path(dev):
     pose[2, 3] = -2.5
     intr = np.array([40.0, 40.0, 16.0, 16.0], np.float32)
     img_g, _ = gpu_tr.render_frame(pose, intr, 32, 32, chunk=256)
-    assert all(n > 0 for n in launch_counts().values()), launch_counts()
+    counts = launch_counts()
+    assert all(counts[k] > 0 for k in ("cp_density_fwd", "cp_sigma_rgb",
+                                       "coarse_lookup_bits")), counts
     img_c, _ = cpu_tr.render_frame(pose, intr, 32, 32, chunk=256)
     assert np.abs(img_g - img_c).mean() <= 1e-4
+
+
+def test_train_step_on_the_card_matches_cpu(dev, tmp_path):
+    """One f32 train step through the kernels (the residual forward, the
+    factor backward, the coarse lookup) against the same step on the CPU
+    through the plain versions: same weights, grid, frames and draws."""
+    import copy
+
+    from ngp_tpu_torch.config import NetworkConfig, RenderConfig, TrainConfig
+    from ngp_tpu_torch.data.synthetic import make_synthetic_frames
+    from ngp_tpu_torch.models.nerf import NeRFNetwork
+    from ngp_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from ngp_tpu_torch.training.nerf_grid import GridNeRFTrainer
+
+    rc = RenderConfig(bound=1.0, min_near=0.05, max_steps=64, max_samples_per_ray=16,
+                      grid_size=16, density_thresh=10.0, turbo=True, coarse_candidates=48,
+                      compact_mean_samples=6)
+    nc = NetworkConfig(encoding="cpgrid", use_bf16=False, cp_resolutions=(32, 64),
+                       cp_rank=16, cp_freq_degree=4, sh_degree=3)
+    tc = TrainConfig(num_rays=1024, workspace=str(tmp_path))
+    frames = make_synthetic_frames(n_train=2, n_val=0, n_test=0, H=32, W=32)["train"]
+    cpu_model = NeRFNetwork(nc, rc, torch.Generator().manual_seed(0))
+    gpu_tr = GridNeRFTrainer(copy.deepcopy(cpu_model).to(dev), rc, tc)
+    for _ in range(2):
+        gpu_tr._update_occupancy()
+    cpu_tr = GridNeRFTrainer(cpu_model, rc, tc)
+    cpu_tr.aux = {"occ": gpu_tr.aux["occ"].to("cpu")}
+    g = torch.Generator().manual_seed(1)
+    draws = {"inds": torch.randint(0, 32 * 32, (1024,), generator=g),
+             "bg": torch.rand((1024, 3), generator=g), "noise": torch.rand((1024,), generator=g)}
+    batch = {"images": torch.from_numpy(frames.images), "poses": torch.from_numpy(frames.poses),
+             "intrinsics": torch.from_numpy(frames.intrinsics), "idx": 1}
+    reset_launch_counts()
+    mg = gpu_tr.train_step({k: v.to(dev) if torch.is_tensor(v) else v for k, v in batch.items()},
+                           {k: v.to(dev) for k, v in draws.items()})
+    counts = launch_counts()
+    for name in ("cp_density_fwd_residuals", "cp_bwd_banks", "coarse_lookup_bits"):
+        assert counts[name] > 0, counts
+    mc = cpu_tr.train_step(batch, draws)
+    assert abs(float(mg["loss"]) - float(mc["loss"])) <= 1e-4 * float(mc["loss"])
+    cpu_grads = dict(cpu_tr.model.named_parameters())
+    for name, p in gpu_tr.model.named_parameters():
+        want = cpu_grads[name].grad
+        assert float((p.grad.cpu() - want).abs().max()) <= 1e-3 * float(want.abs().max()), name

@@ -31,6 +31,11 @@ MODULES = [
     "ngp_tpu_torch.models.nerf",
     "ngp_tpu_torch.models.occupancy",
     "ngp_tpu_torch.data.raysampler",
+    "ngp_tpu_torch.data.nerf_dataset",
+    "ngp_tpu_torch.data.synthetic",
+    "ngp_tpu_torch.training.state",
+    "ngp_tpu_torch.training.checkpoints",
+    "ngp_tpu_torch.training.trainer",
     "ngp_tpu_torch.training.nerf",
     "ngp_tpu_torch.training.nerf_grid",
 ]
@@ -55,7 +60,7 @@ def test_every_module_imports_without_jax_or_triton():
     assert res.stdout.strip() == "ok"
 
 
-@pytest.mark.parametrize("name", ["RenderConfig", "NetworkConfig"])
+@pytest.mark.parametrize("name", ["RenderConfig", "NetworkConfig", "TrainConfig"])
 def test_config_matches_jax_package(name):
     a, b = getattr(jax_config, name), getattr(torch_config, name)
     fa = [(f.name, f.type, f.default) for f in dataclasses.fields(a)]

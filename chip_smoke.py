@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's ``-O`` paths once on one NVIDIA GPU: the eval
-render, and training.
+render, training, and the end of a run (evaluate, test, mesh export).
 
 Run from the repository root, with no arguments:
 
@@ -13,9 +13,11 @@ It builds the CUDA kernels from ``ngp_tpu_torch/ops/kernels/csrc``, then
      full sweeps, then one partial refresh) and renders 800x800 frames
      through ``GridNeRFTrainer.render_frame`` (the eval path);
 4.   holds each kernel against its plain PyTorch version at the paths'
-     shapes: the refresh and the eval chunk, and the train step's 98,304
+     shapes: the refresh and the eval chunk, the train step's 98,304
      rows for the density forward with residuals and the factor
-     backward;
+     backward, the mesh export's 65,536-row chunk for the CP encoder
+     and its backward, and 524,288 x [32, 64, 64, 16] for the MLP chain
+     (which no path runs);
 5.   renders a small frame on the GPU and the same frame on the CPU
      through the plain versions;
 6.   renders the synthetic scene (16 train frames at 400x400 and one
@@ -24,6 +26,10 @@ It builds the CUDA kernels from ``ngp_tpu_torch/ops/kernels/csrc``, then
      the train path), times the last 128 of 256 steps, and requires a
      finite loss that falls;
 7.   renders the val pose with the EMA weights and checks its PSNR;
+     then, on the same trainer, ``evaluate`` (PSNR and SSIM, the PSNR
+     equal to the frame's), ``test`` (its PNG decodes to the frame) and
+     ``save_mesh`` at 256^3 (256 CP-encoder launches through
+     ``NeRFNetwork.density``, a non-empty mesh inside the box);
 8.   runs one small f32 train step on the GPU and the same step on the
      CPU through the plain versions, and compares loss and gradients.
 
@@ -67,6 +73,14 @@ TRAIN_ROWS = TRAIN_RAYS * 6  # compact_mean_samples x rays: the density head's r
 # (the first run, on NVIDIA H100 80GB HBM3, 700.00 W: 0.0072 and 31.87 dB)
 LOSS_FALL = 0.1
 MIN_PSNR = 25.0
+# evaluate scores the same u8 frame as phase 7: its PSNR to this many dB
+EVAL_PSNR_TOL = 0.01
+# save_mesh: 256^3 lattice points in chunks of 2^16, one encoder launch each
+MESH_RES = 256
+MESH_CHUNKS = MESH_RES**3 // 2**16
+ENCODE_ROWS = 2**16
+MLP_DIMS = [32, 64, 64, 16]
+MLP_ROWS = (524288, 300)
 # one small f32 train step, GPU kernels vs CPU plain versions: the
 # loss to 1e-4 relative and each gradient to 1e-3 of its largest entry
 # (f32 atomics and summation order)
@@ -228,7 +242,9 @@ def main():
     from ngp_tpu_torch.data.synthetic import make_synthetic_frames
     from ngp_tpu_torch.models.nerf import NeRFNetwork
     from ngp_tpu_torch.ops.kernels import build, cp, launch_counts, march, reset_launch_counts
+    from ngp_tpu_torch.ops.kernels import fused_mlp as mlp
     from ngp_tpu_torch.training.nerf_grid import GridNeRFTrainer
+    from ngp_tpu_torch.utils.png import read_png
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -339,6 +355,31 @@ def main():
             lambda: cp.cp_sigma_rgb(pos, dirs, fa, a1, a2, ca, res, fd, nc.sh_degree),
             lambda: cp.cp_sigma_rgb_plain(pos, dirs, fa, a1, a2, ca, res, fd, nc.sh_degree),
             dtype)
+        # the CP encoder at the mesh chunk, each bank type to each output type
+        pos_e = torch.rand((ENCODE_ROWS, 3), generator=gen, device=dev) * 1.1 - 0.05
+        for out_name in ("bfloat16", "float32"):
+            od = getattr(torch, out_name)
+            results[("cp_encode_fwd", f"{dtype}->{out_name}")] = compare(
+                "cp_encode_fwd",
+                lambda: cp.cp_encode_fwd(pos_e, fa, res, od),
+                lambda: cp.cp_encode_plain(pos_e, fa, res, od), out_name)
+        # its backward (CPEncode: cp_bwd_banks) against autograd of the plain
+        # version, forward and backward timed together
+        g_e = torch.randn((ENCODE_ROWS, nbR), generator=gen, device=dev)
+        fr = [f.clone().requires_grad_() for f in fa]
+        results[("CPEncode backward", dtype)] = compare(
+            "CPEncode backward",
+            lambda: torch.autograd.grad(cp.cp_encode(pos_e, fr, res), fr, g_e),
+            lambda: torch.autograd.grad(cp.cp_encode_plain(pos_e, fr, res), fr, g_e), dtype,
+            bound=lambda want: bwd_bound(cp, pos_e, fa, g_e, res, want))
+    # the MLP chain at the JAX docstring's shape and a ragged small batch
+    for rows_m in MLP_ROWS:
+        x_m = torch.randn((rows_m, MLP_DIMS[0]), generator=gen, device=dev)
+        w_m = [torch.randn((MLP_DIMS[i], MLP_DIMS[i + 1]), generator=gen, device=dev) * 0.2
+               for i in range(len(MLP_DIMS) - 1)]
+        results[("fused_mlp", str(rows_m))] = compare(
+            "fused_mlp", lambda: mlp.fused_mlp(x_m, w_m), lambda: mlp.fused_mlp_plain(x_m, w_m),
+            "bfloat16")
     payload = occ.coarse_payload
     fc = torch.randint(0, payload.numel() * 8, (4096, 64), generator=gen, device=dev,
                        dtype=torch.int32)
@@ -375,7 +416,8 @@ def main():
           f"cpu n_samples {cpu_tr.last_render_stats['n_samples']:.0f}")
     if not np.isfinite(img_g).all() or diff > FRAME_TOL:
         raise RuntimeError(f"small frame: GPU and CPU renders differ by {diff}")
-    del trainer, gpu_tr, cpu_tr, cpu_model, model
+    # the kernel checks' inputs too, so the train phase's peak memory is its own
+    del trainer, gpu_tr, cpu_tr, cpu_model, model, pos_e, g_e, fr, x_m, w_m
 
     # 6. the train path: bench.py's scene size and preset, random init
     t0 = time.perf_counter()
@@ -441,23 +483,80 @@ def main():
         print(f"trained frame: PSNR {psnr:.2f} dB against the ground truth after "
               f"{TRAIN_STEPS} steps, {dt * 1e3:.1f} / {dt2 * 1e3:.1f} ms  [{card}]", flush=True)
 
+        # 7b. evaluate the val split (writes workspace/validation)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        ev = trainer.evaluate(val_ds, with_ssim=True)
+        phase("evaluate (1 val frame, PSNR and SSIM)", t0)
+        evaluate_counts = launch_counts()
+        check_launched("evaluate", evaluate_counts, ("cp_sigma_rgb", "coarse_lookup_bits"))
+        if not (math.isfinite(ev["psnr"]) and ev["psnr"] >= MIN_PSNR and 0.0 < ev["ssim"] <= 1.0):
+            raise RuntimeError(f"evaluate: PSNR {ev['psnr']}, SSIM {ev['ssim']}")
+        if abs(ev["psnr"] - psnr) > EVAL_PSNR_TOL:
+            raise RuntimeError(f"evaluate: PSNR {ev['psnr']} differs from the frame's {psnr}")
+        print(f"evaluate: PSNR {ev['psnr']:.4f} dB, SSIM {ev['ssim']:.4f}  [{card}]", flush=True)
+
+        # 7c. test: the val frame as a PNG under workspace/results
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out_dir = trainer.test(val_ds)
+        phase("test (1 frame, PNG)", t0)
+        test_counts = launch_counts()
+        check_launched("test", test_counts, ("cp_sigma_rgb", "coarse_lookup_bits"))
+        png = read_png(os.path.join(out_dir, f"{trainer.name}_0000_rgb.png"))
+        if not np.array_equal(png, (np.clip(img, 0, 1) * 255).astype(np.uint8)):
+            raise RuntimeError("test: the PNG does not decode to the rendered frame")
+
+        # 7d. save_mesh: the density lattice through NeRFNetwork.density
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        mesh_path = trainer.save_mesh(resolution=MESH_RES, threshold=10.0)
+        dt = phase(f"save_mesh ({MESH_RES}^3 density, marching, OBJ)", t0)
+        mesh_counts = launch_counts()
+        check_launched("save_mesh", mesh_counts, ("cp_encode_fwd",))
+        others = {k: v for k, v in mesh_counts.items() if k != "cp_encode_fwd" and v}
+        if mesh_counts["cp_encode_fwd"] != MESH_CHUNKS or others:
+            raise RuntimeError(f"save_mesh: {mesh_counts['cp_encode_fwd']} encoder launches "
+                               f"(want {MESH_CHUNKS}), other kernels {others}")
+        with open(mesh_path) as f:
+            lines = f.read().splitlines()
+        verts = np.array([ln.split()[1:4] for ln in lines if ln.startswith("v ")], np.float64)
+        n_faces = sum(ln.startswith("f ") for ln in lines)
+        st = trainer.last_mesh_stats
+        if len(verts) == 0 or n_faces == 0 or np.abs(verts).max() > rc.bound:
+            raise RuntimeError(f"save_mesh: {len(verts)} vertices, {n_faces} faces, "
+                               f"largest |coordinate| {np.abs(verts).max(initial=0.0)}")
+        print(f"save_mesh: {len(verts)} vertices, {n_faces} faces in {dt:.3f} s: density "
+              f"{st['density_s']:.3f} s, marching {st['marching_s']:.3f} s, OBJ "
+              f"{st['write_s']:.3f} s  [{card}]", flush=True)
+
     # 8. one small train step: GPU kernels against the CPU plain versions
     train_step_gpu_vs_cpu(dev)
 
+    path_counts = (eval_counts, train_counts, frame_counts, evaluate_counts, test_counts,
+                   mesh_counts)
     sources = {
         "cp_density_fwd": ("ngp_tpu_torch/ops/kernels/csrc/cp_kernels.cu",
-                           "ngp_tpu/ops/pallas/cp_kernels.py:345", "cp_density_fwd+residuals"),
+                           "ngp_tpu/ops/pallas/cp_kernels.py:345",
+                           ("cp_density_fwd+residuals", "bfloat16")),
         "cp_sigma_rgb": ("ngp_tpu_torch/ops/kernels/csrc/cp_kernels.cu",
-                         "ngp_tpu/ops/pallas/cp_kernels.py:506", "cp_sigma_rgb"),
+                         "ngp_tpu/ops/pallas/cp_kernels.py:506", ("cp_sigma_rgb", "bfloat16")),
         "coarse_lookup_bits": ("ngp_tpu_torch/ops/kernels/csrc/march_kernels.cu",
-                               "ngp_tpu/ops/pallas/march_kernels.py:73", "coarse_lookup_bits"),
+                               "ngp_tpu/ops/pallas/march_kernels.py:73",
+                               ("coarse_lookup_bits", "bits")),
         "cp_bwd_banks": ("ngp_tpu_torch/ops/kernels/csrc/cp_kernels.cu",
-                         "ngp_tpu/ops/pallas/cp_kernels.py:206", "cp_bwd_banks"),
+                         "ngp_tpu/ops/pallas/cp_kernels.py:206", ("cp_bwd_banks", "bfloat16")),
+        "cp_encode_fwd": ("ngp_tpu_torch/ops/kernels/csrc/cp_kernels.cu",
+                          "ngp_tpu/ops/pallas/cp_kernels.py:159",
+                          ("cp_encode_fwd", "bfloat16->bfloat16")),
+        # on no path: launches stays 0
+        "fused_mlp": ("ngp_tpu_torch/ops/kernels/csrc/mlp_kernels.cu",
+                      "ngp_tpu/ops/pallas/fused_mlp.py:92", ("fused_mlp", str(MLP_ROWS[0]))),
     }
     kernels = []
     for name, (src, replaces, key) in sources.items():
-        err, k_ms, p_ms = results[(key, "bits" if name == "coarse_lookup_bits" else "bfloat16")]
-        launches = eval_counts[name] + train_counts[name] + frame_counts[name]
+        err, k_ms, p_ms = results[key]
+        launches = sum(c[name] for c in path_counts)
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
                         "launches": launches, "max_abs_err": err, "ms": k_ms,
                         "plain_ms": p_ms})

@@ -7,8 +7,10 @@ layout mirrors ``ngp_tpu``:
 
 - ``ngp_tpu_torch.ops``      — rays, encoders, activations, CP grid, kernels
 - ``ngp_tpu_torch.models``   — MLP, encoders, NeRF network, occupancy grid
-- ``ngp_tpu_torch.data``     — ray generation
-- ``ngp_tpu_torch.training`` — the eval half of the NeRF trainers
+- ``ngp_tpu_torch.data``     — ray generation, in-memory frames, the mesh writer
+- ``ngp_tpu_torch.training`` — the NeRF trainers and the image metrics
+- ``ngp_tpu_torch.native``   — marching tetrahedra (host C++ over ctypes)
+- ``ngp_tpu_torch.utils``    — color spaces, the PNG codec
 
 Importing the package needs only ``torch`` and ``numpy``: the kernel
 library is built and loaded at its first launch, and a CPU tensor takes

@@ -1,1 +1,1 @@
-"""Ray generation."""
+"""Ray generation, in-memory frames and the synthetic scene, the mesh writer."""

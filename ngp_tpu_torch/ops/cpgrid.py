@@ -1,15 +1,15 @@
 """Multiresolution CP factor-bank encoder (``ngp_tpu/ops/cpgrid.py``).
 
 Inputs live in [0, 1]^3; rows outside get zero CP features and keep
-their frequency columns. ``cpgrid_density`` and ``cpgrid_sigma_rgb``
-reach the CUDA kernels for CUDA tensors (``ops/kernels/cp.py``) and
-their plain versions for CPU tensors, which follow the JAX package's
-CPU branches. ``cpgrid_density`` is differentiable in the factors and
-weights: by autograd of the plain composition on CPU tensors (the JAX
-CPU branch), through ``CPDensity`` and its backward kernel on CUDA
-tensors (the Pallas branch, with zero d(pos)). ``cpgrid_encode`` alone
-(the unfused encoder) has no kernel yet: the Pallas ``cp_encode`` is
-still to be ported, so it runs on CPU tensors only.
+their frequency columns. ``cpgrid_encode`` (the unfused encoder, which
+``NeRFNetwork.density`` runs), ``cpgrid_density`` and
+``cpgrid_sigma_rgb`` reach the CUDA kernels for CUDA tensors
+(``ops/kernels/cp.py``) and their plain versions for CPU tensors,
+which follow the JAX package's CPU branches. ``cpgrid_encode`` and
+``cpgrid_density`` are differentiable in the factors (and weights): by
+autograd of the plain composition on CPU tensors (the JAX CPU branch),
+through ``CPEncode`` / ``CPDensity`` and the factor backward kernel on
+CUDA tensors (the Pallas branch, with zero d(pos)).
 """
 
 from __future__ import annotations
@@ -23,7 +23,8 @@ from ngp_tpu_torch.ops.freq import freq_encode, freq_encode_dim
 from ngp_tpu_torch.ops.kernels.cp import (
     cp_density,
     cp_density_plain,
-    cp_features_plain,
+    cp_encode,
+    cp_encode_plain,
     cp_sigma_rgb,
 )
 
@@ -59,18 +60,15 @@ def _cast(ts, dtype):
 
 def cpgrid_encode(x, factors, cfg: CPGridConfig,
                   compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """x in [0, 1]^3, any leading shape -> [..., output_dim]."""
-    if x.device.type != "cpu":
-        raise NotImplementedError(
-            "cpgrid_encode has no CUDA kernel yet (Pallas cp_encode is still "
-            "to be ported); the fused heads cpgrid_density / "
-            "cpgrid_sigma_rgb are"
-        )
+    """x in [0, 1]^3, any leading shape -> [..., output_dim] in
+    ``compute_dtype`` (f32 when None): the CP features, then the freq
+    columns of 2x - 1."""
     batch_shape = x.shape[:-1]
-    xf = x.reshape(-1, 3).float()
-    factors = _cast(factors, compute_dtype)
+    xf = x.reshape(-1, 3).float().contiguous()
+    factors = tuple(f.contiguous() for f in _cast(factors, compute_dtype))
     out_dtype = compute_dtype or torch.float32
-    feats = cp_features_plain(xf, factors, cfg.resolutions).to(out_dtype)
+    encode = cp_encode_plain if xf.device.type == "cpu" else cp_encode
+    feats = encode(xf, factors, cfg.resolutions, out_dtype)
     if cfg.freq_degree > 0:
         fr = freq_encode(2.0 * xf - 1.0, cfg.freq_degree).to(out_dtype)
         feats = torch.cat([feats, fr], dim=-1)

@@ -5,6 +5,9 @@
 - ``cp.cp_bwd_banks``        replaces ``ngp_tpu/ops/pallas/cp_kernels.py:_cp_bwd_banks``
 - ``cp.cp_sigma_rgb``        replaces ``ngp_tpu/ops/pallas/cp_kernels.py:cp_sigma_rgb``
 - ``march.coarse_lookup_bits`` replaces ``ngp_tpu/ops/pallas/march_kernels.py:coarse_lookup_bits``
+- ``cp.cp_encode_fwd``       replaces ``ngp_tpu/ops/pallas/cp_kernels.py:cp_encode`` (forward;
+  ``cp.CPEncode`` adds its backward through ``cp_bwd_banks``)
+- ``fused_mlp.fused_mlp``    replaces ``ngp_tpu/ops/pallas/fused_mlp.py:fused_mlp``
 
 Each wrapper takes its plain PyTorch version for a CPU tensor and
 launches its kernel for a CUDA tensor; there is no fallback between the
@@ -22,6 +25,8 @@ LAUNCHES: Dict[str, int] = {
     "coarse_lookup_bits": 0,
     "cp_bwd_banks": 0,
     "cp_density_fwd_residuals": 0,
+    "cp_encode_fwd": 0,
+    "fused_mlp": 0,
 }
 
 

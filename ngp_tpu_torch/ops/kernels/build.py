@@ -1,9 +1,10 @@
 """Build the kernel library from ``csrc/*.cu`` and load it with ctypes.
 
 The sources have a plain C interface and include no PyTorch header, so
-``nvcc`` builds them in seconds. The library goes into ``build/`` beside
-this file (ignored by git), named by a hash of the sources and flags, so
-an edited source is rebuilt and an unchanged one is loaded as it is.
+``nvcc`` builds them in seconds: one ``nvcc -c`` per source, all started
+together, then one link. The library goes into ``build/`` beside this
+file (ignored by git), named by a hash of the sources and flags, so an
+edited source is rebuilt and an unchanged one is loaded as it is.
 Nothing is built or loaded until the first kernel launch.
 """
 
@@ -21,7 +22,7 @@ CSRC_DIR = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 
@@ -45,6 +46,10 @@ _SIGNATURES = {
         _I, _P, _P,
     ],
     "ngp_coarse_lookup_bits": [_P, _I, _P, ctypes.c_longlong, _P, _P],
+    "ngp_cp_encode_fwd": [
+        _P, _I, ctypes.POINTER(_P), ctypes.POINTER(_I), _I, _I, _I, _I, _P, _P,
+    ],
+    "ngp_fused_mlp": [_P, _I, _I, ctypes.POINTER(_P), ctypes.POINTER(_I), _I, _P, _P],
 }
 
 
@@ -79,15 +84,30 @@ def build() -> Tuple[Path, str]:
     if path.exists():
         return path, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed with code {res.returncode}:\n{res.stdout}{res.stderr}"
-        )
-    os.replace(tmp, path)
-    return path, res.stdout + res.stderr
+    tag = f"{path.stem}.{os.getpid()}"
+    nvcc = _nvcc()
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in _sources()]
+    procs = [
+        subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for src, obj in zip(_sources(), objs)
+    ]
+    outs = [p.communicate()[0] for p in procs]
+    try:
+        for src, p, out in zip(_sources(), procs, outs):
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src.name} with code {p.returncode}:\n{out}")
+        tmp = BUILD_DIR / f"{tag}.so.tmp"
+        res = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                             capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed with code {res.returncode}:\n"
+                               f"{res.stdout}{res.stderr}")
+        os.replace(tmp, path)
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    return path, "".join(outs)
 
 
 def load_library() -> ctypes.CDLL:

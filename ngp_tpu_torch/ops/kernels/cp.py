@@ -1,13 +1,17 @@
-"""CP factor-bank heads: the CUDA kernels' wrappers and plain versions.
+"""CP factor-bank encoder and heads: the CUDA kernels' wrappers and
+plain versions.
 
-``cp_density_fwd`` replaces the forward of
-``ngp_tpu/ops/pallas/cp_kernels.py:cp_density``, ``cp_bwd_banks`` its
-factor backward ``_cp_bwd_banks``, and ``cp_sigma_rgb`` replaces
-``cp_kernels.py:cp_sigma_rgb``; the kernels are in
-``csrc/cp_kernels.cu``, whose header says what bounds them on Hopper.
-``CPDensity`` is ``cp_density`` with its custom VJP: the forward kernel
-writes the feats/h1 residuals, and the backward runs the MLP products
-as f32 matmuls (XLA ran them outside any Pallas kernel) and the factor
+``cp_encode_fwd`` replaces the forward of
+``ngp_tpu/ops/pallas/cp_kernels.py:cp_encode`` (the CP features alone),
+``cp_density_fwd`` the forward of ``cp_kernels.py:cp_density``,
+``cp_bwd_banks`` the factor backward ``_cp_bwd_banks`` that both share,
+and ``cp_sigma_rgb`` replaces ``cp_kernels.py:cp_sigma_rgb``; the
+kernels are in ``csrc/cp_kernels.cu``, whose header says what bounds
+them on Hopper. ``CPEncode`` is ``cp_encode`` with its custom VJP, the
+factor gradient through ``cp_bwd_banks``. ``CPDensity`` is
+``cp_density`` with its custom VJP: the forward kernel writes the
+feats/h1 residuals, and the backward runs the MLP products as f32
+matmuls (XLA ran them outside any Pallas kernel) and the factor
 gradient through ``cp_bwd_banks``.
 
 Each wrapper takes its plain version for CPU tensors and launches its
@@ -72,6 +76,13 @@ def cp_features_plain(
     cp = torch.cat(outs, dim=-1)
     oob = ((pos < 0.0) | (pos > 1.0)).any(dim=-1)
     return torch.where(oob[:, None], torch.zeros((), device=cp.device), cp)
+
+
+def cp_encode_plain(pos, factors, resolutions, out_dtype=torch.float32) -> torch.Tensor:
+    """[M, 3] -> [M, nb*R] CP features in ``out_dtype``, zero outside
+    [0, 1]^3: the f32 features rounded once. Differentiable by autograd
+    (the JAX CPU branch of cpgrid_encode)."""
+    return cp_features_plain(pos, factors, resolutions).to(out_dtype)
 
 
 def cp_density_plain(pos, factors, w1, w2, resolutions, freq_degree,
@@ -141,31 +152,39 @@ def _check_rows(name: str, t: torch.Tensor, M: int, device) -> None:
         raise ValueError(f"{name}: needs a contiguous [{M}, 3] tensor, got {tuple(t.shape)}")
 
 
-def _check_weights(name, pos, factors, w1, w2, resolutions, freq_degree,
-                   extra=()) -> Tuple[int, int, int, int]:
-    dev = pos.device
+def _check_banks(name, pos, factors, resolutions) -> Tuple[int, torch.dtype, int]:
+    """pos [M, 3] f32 and 1-8 contiguous factor banks [3, res, R] of one
+    dtype (f32 or bf16) on pos's device -> (M, factor dtype, R)."""
     if pos.ndim != 2 or pos.shape[1] != 3:
         raise ValueError(f"{name}: pos must be [M, 3], got {tuple(pos.shape)}")
     M = pos.shape[0]
+    dev = pos.device
     _check_rows(f"{name} pos", pos, M, dev)
     if len(factors) != len(resolutions) or not 1 <= len(factors) <= 8:
         raise ValueError(f"{name}: 1-8 factor banks, one per resolution")
-    dt = w1.dtype
-    if dt not in _DTYPES:
-        raise ValueError(f"{name}: weights must be f32 or bf16, got {dt}")
+    dt = factors[0].dtype
     rank = factors[0].shape[-1]
     for f, res in zip(factors, resolutions):
         if tuple(f.shape) != (3, res, rank) or res < 2:
             raise ValueError(f"{name}: factor bank {tuple(f.shape)} is not [3, {res}, {rank}]")
+        if f.device != dev or f.dtype != dt or dt not in _DTYPES or not f.is_contiguous():
+            raise ValueError(f"{name}: factors must be contiguous f32 or bf16 "
+                             f"of one dtype on {dev}")
+    return M, dt, rank
+
+
+def _check_weights(name, pos, factors, w1, w2, resolutions, freq_degree,
+                   extra=()) -> Tuple[int, int, int, int]:
+    M, dt, rank = _check_banks(name, pos, factors, resolutions)
     D, H1 = w1.shape
     if D != len(factors) * rank + 3 * (1 + 2 * freq_degree):
         raise ValueError(f"{name}: w1 has {D} rows, the features have a different width")
     if w2.ndim != 2 or w2.shape[0] != H1:
         raise ValueError(f"{name}: w2 {tuple(w2.shape)} does not follow w1 {tuple(w1.shape)}")
-    for t in (*factors, w1, w2, *extra):
-        if t.device != dev or t.dtype != dt or not t.is_contiguous():
+    for t in (w1, w2, *extra):
+        if t.device != pos.device or t.dtype != dt or not t.is_contiguous():
             raise ValueError(
-                f"{name}: factors and weights must be contiguous {dt} on {dev}"
+                f"{name}: factors and weights must be contiguous {dt} on {pos.device}"
             )
     return M, rank, D, H1
 
@@ -209,6 +228,30 @@ def cp_density_fwd(pos, factors, w1, w2, resolutions, freq_degree,
     return (out, feats, h1) if residuals else out
 
 
+def cp_encode_fwd(pos, factors, resolutions, out_dtype=torch.float32) -> torch.Tensor:
+    """CP features: [M, 3] f32 -> [M, nb*R] in ``out_dtype`` (f32 or
+    bf16), zero for rows outside [0, 1]^3; factors [3, res_b, R] per
+    bank, all f32 or all bf16, lerped in f32."""
+    if pos.device.type == "cpu":
+        return cp_encode_plain(pos, factors, resolutions, out_dtype)
+    if pos.device.type != "cuda":
+        raise ValueError(f"cp_encode_fwd: no kernel for {pos.device}")
+    M, dt, rank = _check_banks("cp_encode_fwd", pos, factors, resolutions)
+    if out_dtype not in _DTYPES:
+        raise ValueError(f"cp_encode_fwd: the output must be f32 or bf16, not {out_dtype}")
+    out = torch.empty((M, len(factors) * rank), dtype=out_dtype, device=pos.device)
+    if M > 0:
+        lib = load_library()
+        err = lib.ngp_cp_encode_fwd(
+            pos.data_ptr(), M, pointer_array(factors), int_array(resolutions), len(factors),
+            rank, int(dt == torch.bfloat16), int(out_dtype == torch.bfloat16),
+            out.data_ptr(), torch.cuda.current_stream(pos.device).cuda_stream,
+        )
+        check_launch("cp_encode_fwd", err)
+        LAUNCHES["cp_encode_fwd"] += 1
+    return out
+
+
 def cp_bwd_banks(pos, factors, g_cp, resolutions):
     """Factor gradients from d(CP features): pos [M, 3] f32, g_cp
     [M, >= nb*R] f32 (row stride free, columns contiguous) -> per bank
@@ -218,21 +261,8 @@ def cp_bwd_banks(pos, factors, g_cp, resolutions):
         return cp_bwd_banks_plain(pos, factors, g_cp, resolutions)
     if pos.device.type != "cuda":
         raise ValueError(f"cp_bwd_banks: no kernel for {pos.device}")
-    if pos.ndim != 2 or pos.shape[1] != 3:
-        raise ValueError(f"cp_bwd_banks: pos must be [M, 3], got {tuple(pos.shape)}")
-    M = pos.shape[0]
+    M, dt, rank = _check_banks("cp_bwd_banks", pos, factors, resolutions)
     dev = pos.device
-    _check_rows("cp_bwd_banks pos", pos, M, dev)
-    if len(factors) != len(resolutions) or not 1 <= len(factors) <= 8:
-        raise ValueError("cp_bwd_banks: 1-8 factor banks, one per resolution")
-    dt = factors[0].dtype
-    rank = factors[0].shape[-1]
-    for f, res in zip(factors, resolutions):
-        if tuple(f.shape) != (3, res, rank) or res < 2:
-            raise ValueError(f"cp_bwd_banks: factor bank {tuple(f.shape)} is not [3, {res}, {rank}]")
-        if f.device != dev or f.dtype != dt or dt not in _DTYPES or not f.is_contiguous():
-            raise ValueError("cp_bwd_banks: factors must be contiguous f32 or bf16 "
-                             f"of one dtype on {dev}")
     nbR = len(factors) * rank
     if (g_cp.device != dev or g_cp.dtype != torch.float32 or g_cp.ndim != 2
             or g_cp.shape[0] != M or g_cp.shape[1] < nbR
@@ -250,6 +280,32 @@ def cp_bwd_banks(pos, factors, g_cp, resolutions):
         check_launch("cp_bwd_banks", err)
         LAUNCHES["cp_bwd_banks"] += 1
     return tuple(a.to(dt) for a in acc)
+
+
+class CPEncode(torch.autograd.Function):
+    """``cp_encode`` with its custom VJP: the factor gradients through
+    ``cp_bwd_banks`` from the f32 cotangent, and zero d(pos)."""
+
+    @staticmethod
+    def forward(ctx, pos, resolutions, out_dtype, *factors):
+        ctx.save_for_backward(pos, *factors)
+        ctx.resolutions = tuple(resolutions)
+        return cp_encode_fwd(pos, factors, resolutions, out_dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        pos, *factors = ctx.saved_tensors
+        dfactors = cp_bwd_banks(pos, factors, g.float().contiguous(), ctx.resolutions)
+        dpos = torch.zeros_like(pos) if ctx.needs_input_grad[0] else None
+        return (dpos, None, None, *dfactors)
+
+
+def cp_encode(pos, factors, resolutions, out_dtype=torch.float32):
+    """CP features, differentiable in the factors: ``CPEncode`` while
+    autograd records, the forward launch alone otherwise."""
+    if torch.is_grad_enabled() and any(f.requires_grad for f in factors):
+        return CPEncode.apply(pos, tuple(resolutions), out_dtype, *factors)
+    return cp_encode_fwd(pos, factors, resolutions, out_dtype)
 
 
 def cp_density_bwd(g, pos, factors, w1, w2, feats, h1, resolutions):

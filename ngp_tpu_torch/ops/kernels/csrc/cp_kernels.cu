@@ -5,6 +5,7 @@
 //                          the feats/h1 residuals when asked for)
 //   ngp_cp_sigma_rgb    <- _sigma_rgb_kernel / cp_sigma_rgb
 //   ngp_cp_bwd_banks    <- _bwd_kernel / _cp_bwd_banks (factor gradients)
+//   ngp_cp_encode_fwd   <- _fwd_kernel / _cp_encode_fwd_impl (the CP features alone)
 //
 // What the TPU kernel did with a tent-matrix matmul on the MXU (one [TM, res]
 // row of lerp weights per axis) is here a two-row gather and lerp per axis:
@@ -32,6 +33,18 @@
 // two 128-byte lines. A blocked or sorted reduction is later work. Atomics sum
 // in no fixed order, so the result varies in the last f32 bits from run to run.
 //
+// The encoder forward writes the CP features alone, [M, nb * R] in the output
+// type, zero for rows outside [0, 1]^3, with the same lerp code as the density
+// head (cp_value). One thread per output element, rank columns fastest, so a
+// warp's gathers hit one or two 128-byte lines of a factor row and its stores
+// are contiguous. At the mesh-export chunk (65,536 rows, turbo-hq) it reads 30
+// factor lines per row from banks that stay in L2 (3.05 MB in bf16) and writes
+// 84 MB of bf16 features, 0.025 ms at the card's 3.35 TB/s; it takes about ten
+// times that on an H100 (PERF.md), so the per-element index arithmetic and the
+// six L2 gathers per element bound it, not the write. Writing the zero and the
+// output type here, as the Pallas kernel does, keeps a where/cast pass from
+// streaming the output through device memory again.
+//
 // Rounding follows the Pallas kernels: features are rounded to the weight
 // type before w1, h1 after its ReLU, geo features and the SH basis before the
 // color MLP, and each color hidden layer; every product accumulates in f32,
@@ -52,6 +65,8 @@ constexpr int kRowsPerThread = 8;   // register tile of the dense loops
 constexpr int kMaxSmemBytes = 232448;
 constexpr int kBwdThreads = 256;
 constexpr int kBwdMaxBlocks = 132 * 64;
+constexpr int kEncThreads = 256;
+constexpr int kEncMaxBlocks = 132 * 64;
 constexpr double kPi = 3.14159265358979323846;
 
 struct HeadParams {
@@ -83,6 +98,15 @@ struct BwdParams {
   int nb, rank;
 };
 
+struct EncodeParams {
+  const float* pos;  // [M, 3]
+  int M;
+  const void* factors[kMaxBanks];  // [3, res_b, rank] each
+  int res[kMaxBanks];
+  int nb, rank;
+  void* out;  // [M, nb * rank] in the output type
+};
+
 __device__ __forceinline__ float ld(const float* p, int i) { return __ldg(p + i); }
 __device__ __forceinline__ float ld(const __nv_bfloat16* p, int i) {
   return __bfloat162float(p[i]);
@@ -97,6 +121,44 @@ template <typename T> __device__ __forceinline__ float round_to(float v);
 template <> __device__ __forceinline__ float round_to<float>(float v) { return v; }
 template <> __device__ __forceinline__ float round_to<__nv_bfloat16>(float v) {
   return __bfloat162float(__float2bfloat16(v));  // round to nearest even
+}
+
+__device__ __forceinline__ bool in_box(const float* q) {
+  return !(q[0] < 0.f || q[0] > 1.f || q[1] < 0.f || q[1] > 1.f || q[2] < 0.f ||
+           q[2] > 1.f);
+}
+
+// One axis of one bank: the lower tap i0 of the position x (clamped to
+// [0, 1]) on a line of res points, and the weight w of tap i0 + 1.
+struct Tap {
+  int i0;
+  float w;
+};
+
+__device__ __forceinline__ Tap tap(float x, int res) {
+  const float pa = fminf(fmaxf(x, 0.f), 1.f) * (float)(res - 1);
+  const int i0 = min((int)floorf(pa), res - 2);
+  return {i0, pa - (float)i0};
+}
+
+// f32 lerp of rank column r of a [res, rank] factor line at tap t.
+template <typename T>
+__device__ __forceinline__ float lerp_line(const T* line, Tap t, int rank, int r) {
+  return ld(line, t.i0 * rank + r) * (1.f - t.w) + ld(line, (t.i0 + 1) * rank + r) * t.w;
+}
+
+// The CP feature of rank column r of bank f ([3, res, rank]) at q in [0, 1]^3:
+// the product of the three axes' lerped line values.
+template <typename T>
+__device__ __forceinline__ float cp_value(const float* q, const T* f, int res, int rank,
+                                          int r) {
+  float acc = 1.f;
+#pragma unroll
+  for (int ax = 0; ax < 3; ++ax) {
+    const float v = lerp_line(f + (size_t)ax * res * rank, tap(q[ax], res), rank, r);
+    acc = ax == 0 ? v : acc * v;
+  }
+  return acc;
 }
 
 // out[m][j] = sum_k in[m][k] * W[k][j] for the block's kRows rows, W [K, J]
@@ -140,23 +202,8 @@ __device__ void cp_features(const HeadParams& p, int row0, float* feats) {
     float val = 0.f;
     if (row < p.M) {
       const float* q = p.pos + 3 * row;
-      const bool oob = q[0] < 0.f || q[0] > 1.f || q[1] < 0.f || q[1] > 1.f ||
-                       q[2] < 0.f || q[2] > 1.f;
-      if (!oob) {
-        const T* f = static_cast<const T*>(p.factors[b]);
-        const int res = p.res[b];
-        float acc = 1.f;
-        for (int ax = 0; ax < 3; ++ax) {
-          const float pa = fminf(fmaxf(q[ax], 0.f), 1.f) * (float)(res - 1);
-          const int i0 = min((int)floorf(pa), res - 2);
-          const float w = pa - (float)i0;
-          const T* line = f + (size_t)ax * res * p.rank;
-          const float v = ld(line, i0 * p.rank + r) * (1.f - w) +
-                          ld(line, (i0 + 1) * p.rank + r) * w;
-          acc = ax == 0 ? v : acc * v;
-        }
-        val = acc;
-      }
+      if (in_box(q))
+        val = cp_value(q, static_cast<const T*>(p.factors[b]), p.res[b], p.rank, r);
     }
     feats[m * p.D + c] = round_to<T>(val);
   }
@@ -284,30 +331,47 @@ __global__ void __launch_bounds__(kBwdThreads) cp_bwd_banks_kernel(BwdParams p) 
     const int b = (int)(mb % p.nb);
     const int m = (int)(mb / p.nb);
     const float* q = p.pos + 3 * (size_t)m;
-    if (q[0] < 0.f || q[0] > 1.f || q[1] < 0.f || q[1] > 1.f || q[2] < 0.f || q[2] > 1.f)
-      continue;
+    if (!in_box(q)) continue;
     const T* f = static_cast<const T*>(p.factors[b]);
     const int res = p.res[b];
-    int i0[3];
-    float w[3], v[3];
+    Tap t[3];
+    float v[3];
 #pragma unroll
     for (int ax = 0; ax < 3; ++ax) {
-      const float pa = fminf(fmaxf(q[ax], 0.f), 1.f) * (float)(res - 1);
-      i0[ax] = min((int)floorf(pa), res - 2);
-      w[ax] = pa - (float)i0[ax];
-      const T* line = f + (size_t)ax * res * p.rank;
-      v[ax] = ld(line, i0[ax] * p.rank + r) * (1.f - w[ax]) +
-              ld(line, (i0[ax] + 1) * p.rank + r) * w[ax];
+      t[ax] = tap(q[ax], res);
+      v[ax] = lerp_line(f + (size_t)ax * res * p.rank, t[ax], p.rank, r);
     }
     const float g = p.g[(size_t)m * p.g_stride + (size_t)b * p.rank + r];
     float* acc = p.dfactors[b];
 #pragma unroll
     for (int ax = 0; ax < 3; ++ax) {
       const float o = ax == 0 ? g * v[1] * v[2] : ax == 1 ? g * v[0] * v[2] : g * v[0] * v[1];
-      float* a = acc + ((size_t)ax * res + i0[ax]) * p.rank + r;
-      atomicAdd(a, (1.f - w[ax]) * o);
-      atomicAdd(a + p.rank, w[ax] * o);
+      float* a = acc + ((size_t)ax * res + t[ax].i0) * p.rank + r;
+      atomicAdd(a, (1.f - t[ax].w) * o);
+      atomicAdd(a + p.rank, t[ax].w * o);
     }
+  }
+}
+
+// out[m][b * rank + r] = cp_value of bank b, rank column r at row m, zero
+// outside [0, 1]^3, rounded once to O; one item per output element.
+template <typename T, typename O>
+__global__ void __launch_bounds__(kEncThreads) cp_encode_kernel(EncodeParams p) {
+  const int nbR = p.nb * p.rank;
+  const long long total = (long long)p.M * nbR;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  O* out = static_cast<O*>(p.out);
+  for (long long item = (long long)blockIdx.x * blockDim.x + threadIdx.x; item < total;
+       item += stride) {
+    const int m = (int)(item / nbR);
+    const int c = (int)(item - (long long)m * nbR);
+    const int b = c / p.rank;
+    const float* q = p.pos + 3 * (size_t)m;
+    const float v =
+        in_box(q) ? cp_value(q, static_cast<const T*>(p.factors[b]), p.res[b], p.rank,
+                             c - b * p.rank)
+                  : 0.f;
+    st(out, (size_t)item, v);
   }
 }
 
@@ -415,6 +479,16 @@ int launch_bwd(const BwdParams& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+template <typename T, typename O>
+int launch_encode(const EncodeParams& p, cudaStream_t stream) {
+  const long long total = (long long)p.M * p.nb * p.rank;
+  if (total == 0) return cudaSuccess;
+  const long long want = (total + kEncThreads - 1) / kEncThreads;
+  const int blocks = (int)(want < kEncMaxBlocks ? want : kEncMaxBlocks);
+  cp_encode_kernel<T, O><<<blocks, kEncThreads, 0, stream>>>(p);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int ngp_cp_density_fwd(const float* pos, int M, const void* const* factors,
@@ -480,4 +554,26 @@ extern "C" int ngp_cp_sigma_rgb(const float* pos, const float* dirs, int M,
   p.cmax = cmax;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return bf16 ? launch<__nv_bfloat16>(p, s, true) : launch<float>(p, s, true);
+}
+
+extern "C" int ngp_cp_encode_fwd(const float* pos, int M, const void* const* factors,
+                                 const int* res, int nb, int rank, int bf16, int out_bf16,
+                                 void* out, void* stream) {
+  if (nb < 1 || nb > kMaxBanks || rank < 1 || M < 0) return cudaErrorInvalidValue;
+  EncodeParams p;
+  p.pos = pos;
+  p.M = M;
+  p.nb = nb;
+  p.rank = rank;
+  p.out = out;
+  for (int b = 0; b < nb; ++b) {
+    if (res[b] < 2) return cudaErrorInvalidValue;
+    p.factors[b] = factors[b];
+    p.res[b] = res[b];
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16)
+    return out_bf16 ? launch_encode<__nv_bfloat16, __nv_bfloat16>(p, s)
+                    : launch_encode<__nv_bfloat16, float>(p, s);
+  return out_bf16 ? launch_encode<float, __nv_bfloat16>(p, s) : launch_encode<float, float>(p, s);
 }

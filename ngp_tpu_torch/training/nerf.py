@@ -18,18 +18,28 @@ into buckets and only grows (sticky maximum), and the tail chunk is
 padded by repeating the last index. The JAX code loops over chunks with
 ``jax.lax.map`` inside one compiled call; here it is a Python loop
 whose chunks run on the device without a host sync.
+
+``evaluate`` scores a split (PSNR, SSIM) on the u8 frames
+``render_frames`` returns, ``test`` writes a split's frames as PNGs
+(and a video where a writer can be imported), ``save_mesh`` samples the
+density on a 256^3 lattice through ``NeRFNetwork.density`` (the unfused
+module path, as the JAX trainer does) and writes its marching-tetrahedra
+iso-surface. ``train_on_dataset(train_ds, valid_ds)`` keeps the best
+checkpoint on ``eval_metric`` every ``eval_interval`` epochs.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 import time
-from typing import Dict, Optional
+from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ngp_tpu_torch.config import RenderConfig, TrainConfig
+from ngp_tpu_torch.data.mesh import save_mesh as write_mesh
 from ngp_tpu_torch.data.nerf_dataset import NeRFDataset
 from ngp_tpu_torch.data.raysampler import (
     rays_from_frame_indices,
@@ -37,7 +47,10 @@ from ngp_tpu_torch.data.raysampler import (
     sample_ray_indices,
 )
 from ngp_tpu_torch.models.nerf import NeRFNetwork
+from ngp_tpu_torch.training.metrics import LPIPSMeter, PSNRMeter, SSIMMeter
 from ngp_tpu_torch.training.trainer import Trainer
+from ngp_tpu_torch.utils.color import linear_to_srgb_np
+from ngp_tpu_torch.utils.png import write_png
 
 
 class NeRFTrainer(Trainer):
@@ -50,6 +63,7 @@ class NeRFTrainer(Trainer):
         kwargs.setdefault("workspace", train_cfg.workspace)
         kwargs.setdefault("ema_decay", train_cfg.ema_decay)
         kwargs.setdefault("max_keep_ckpt", train_cfg.max_keep_ckpt)
+        kwargs.setdefault("eval_interval", train_cfg.eval_interval)
         super().__init__(name=name, **kwargs)
         if train_cfg.tv_weight > 0 or train_cfg.distortion_weight > 0:
             raise NotImplementedError("the tv and distortion losses are not ported yet")
@@ -69,6 +83,8 @@ class NeRFTrainer(Trainer):
         # totals of the last render_frames call: rendered samples and
         # the budget-overflow estimate (the march's n_dropped counters)
         self.last_render_stats: Dict[str, float] = {}
+        # the last save_mesh call: seconds per stage, vertex and face counts
+        self.last_mesh_stats: Dict[str, float] = {}
 
     def init_aux(self):
         return {}
@@ -171,10 +187,18 @@ class NeRFTrainer(Trainer):
         self.aux = dict(self.aux)
         self.aux["error_map"] = torch.ones((n_frames, M * M), device=self.device)
 
+    def eval_metric(self, valid) -> float:
+        """Best-checkpoint metric: -PSNR over the validation split (lower
+        is better)."""
+        if not isinstance(valid, NeRFDataset):
+            raise TypeError("NeRF trainers evaluate on a NeRFDataset split "
+                            f"(got {type(valid).__name__})")
+        return -self.evaluate(valid)["psnr"]
+
     def train_on_dataset(self, train_ds: NeRFDataset,
                          valid_ds: Optional[NeRFDataset] = None, max_epochs: int = 1):
-        if valid_ds is not None:
-            raise NotImplementedError("evaluate is not ported yet; pass valid_ds=None")
+        """Train to ``max_epochs``; with ``valid_ds``, every
+        ``eval_interval`` epochs evaluate it and keep the best checkpoint."""
         self.ensure_initialized()
         if self.train_cfg.error_map and train_ds.images is not None:
             if "error_map" not in self.aux:
@@ -187,6 +211,11 @@ class NeRFTrainer(Trainer):
                     or time.time() - self._last_ckpt_time > self.ckpt_min_interval_s):
                 self.save_checkpoint()
                 self._last_ckpt_time = time.time()
+            if valid_ds is not None and epoch % self.eval_interval == 0:
+                metric = self.eval_metric(valid_ds)
+                if self.stats["best_loss"] is None or metric < self.stats["best_loss"]:
+                    self.stats["best_loss"] = metric
+                    self.save_checkpoint(best=True)
 
     # ---- eval ------------------------------------------------------------
 
@@ -263,11 +292,13 @@ class NeRFTrainer(Trainer):
                 pad = C * chunk - sel.size
                 sel = np.concatenate([sel, np.full(pad, sel[-1])]) if pad else sel
                 inds = torch.as_tensor(sel.reshape(C, chunk).astype(np.int64), device=dev)
-        images = torch.ones((n, 3), device=dev)
-        depths = torch.zeros((n,), device=dev)
+        # one spare row takes the writes of the slots that do not win
+        images = torch.ones((n + 1, 3), device=dev)
+        depths = torch.zeros((n + 1,), device=dev)
         n_samples = torch.zeros((), device=dev)
         n_dropped = torch.zeros((), device=dev)
         if inds is not None:
+            dst = torch.where(self._last_slots(inds, n), inds, n)
             fns = self._eval_fns()
             aabb_t = torch.as_tensor(aabb_eff, device=dev)
             fids = torch.zeros((chunk,), dtype=torch.int64, device=dev)
@@ -284,14 +315,167 @@ class NeRFTrainer(Trainer):
                 if not self.eval_f32_frames:
                     img = torch.round(img * 255.0).to(torch.uint8).float() / 255.0
                     dep = dep.to(torch.bfloat16).float()
-                # clip-padded duplicates write identical values
-                images[ic] = img
-                depths[ic] = dep
+                images[dst[c]] = img
+                depths[dst[c]] = dep
                 n_samples += out["n_samples"]
                 n_dropped += out["n_dropped"]
         stats = {"n_samples": float(n_samples), "n_dropped": float(n_dropped)}
-        return (images.reshape(H, W, 3).cpu().numpy(),
-                depths.reshape(H, W).cpu().numpy(), stats)
+        return (images[:n].reshape(H, W, 3).cpu().numpy(),
+                depths[:n].reshape(H, W).cpu().numpy(), stats)
+
+    @staticmethod
+    def _last_slots(inds: torch.Tensor, n: int) -> torch.Tensor:
+        """[C, chunk] bool: True where a slot is the last one holding its
+        pixel. The tail padding repeats one pixel, whose copies may
+        water-fill differently; the JAX trainer's numpy scatter keeps the
+        last copy, where ``index_put_`` would keep an arbitrary one."""
+        flat = inds.reshape(-1)
+        pos = torch.arange(flat.shape[0], device=inds.device)
+        last = torch.full((n,), -1, dtype=pos.dtype, device=inds.device)
+        last.scatter_reduce_(0, flat, pos, reduce="amax")
+        return (last[flat] == pos).reshape(inds.shape)
+
+    # ---- evaluate, test, mesh export ---------------------------------------
+
+    def evaluate(self, dataset: NeRFDataset, max_frames: Optional[int] = None,
+                 with_ssim: bool = False, with_lpips: bool = False) -> Dict[str, float]:
+        """PSNR (and SSIM) over the first ``max_frames`` frames of a split
+        with the EMA weights, each frame saved as a PNG under
+        ``workspace/validation``. The meters score the u8-quantized
+        frames ``render_frames`` returns (unless ``eval_f32_frames``)
+        against the ground truth composited on white, as the JAX trainer
+        does; the quantization caps PSNR near 59 dB."""
+        meter = PSNRMeter()
+        ssim_meter = SSIMMeter() if with_ssim else None
+        if with_lpips:
+            LPIPSMeter()  # raises: not ported
+        n = len(dataset) if max_frames is None else min(max_frames, len(dataset))
+        out_dir = os.path.join(self.workspace, "validation")
+        os.makedirs(out_dir, exist_ok=True)
+        for i, img in self._render_split(dataset, n):
+            gt = dataset.images[i]
+            if gt.shape[-1] == 4:
+                gt = gt[..., :3] * gt[..., 3:] + 1.0 * (1 - gt[..., 3:])
+            meter.update(img, gt)
+            if ssim_meter is not None:
+                ssim_meter.update(img, gt)
+            self._save_image(os.path.join(out_dir, f"{self.name}_{self.epoch:04d}_{i:04d}.png"),
+                             self._export_color(img))
+        result = {"psnr": meter.measure()}
+        report = meter.report()
+        if ssim_meter is not None:
+            result["ssim"] = ssim_meter.measure()
+            report += ", " + ssim_meter.report()
+        self.log(f"evaluate: {report} over {n} frames")
+        return result
+
+    def _render_split(self, dataset: NeRFDataset, n: int) -> Iterator[Tuple[int, np.ndarray]]:
+        """Yield (index, image [H, W, 3]) over the first n frames of a
+        split, one frame per render. Synchronous: the JAX trainer
+        pipelines its frame groups one dispatch deep for a remote TPU."""
+        for i in range(n):
+            imgs, _ = self.render_frames(np.asarray(dataset.poses[i:i + 1], np.float32),
+                                         dataset.intrinsics, dataset.H, dataset.W)
+            yield i, imgs[0]
+
+    def test(self, dataset: NeRFDataset, write_video: bool = True) -> str:
+        """Render a split into ``workspace/results``: one PNG per frame
+        and, where imageio or cv2 can be imported, a video."""
+        out_dir = os.path.join(self.workspace, "results")
+        os.makedirs(out_dir, exist_ok=True)
+        frames = []
+        for i, img in self._render_split(dataset, len(dataset)):
+            img = self._export_color(img)
+            frames.append((np.clip(img, 0, 1) * 255).astype(np.uint8))
+            self._save_image(os.path.join(out_dir, f"{self.name}_{i:04d}_rgb.png"), img)
+        if write_video and frames:
+            self._write_video(out_dir, frames)
+        return out_dir
+
+    def _write_video(self, out_dir: str, frames) -> None:
+        """An mp4 through imageio, else an MJPG avi through cv2, else only
+        the PNG frames (the JAX trainer's fallback chain)."""
+        path = os.path.join(out_dir, f"{self.name}.mp4")
+        try:
+            import imageio
+
+            imageio.mimwrite(path, frames, fps=25, quality=8)
+            self.log(f"wrote video {path}")
+            return
+        except Exception as e:  # no imageio, or no ffmpeg backend for it
+            self.log(f"no mp4 ({type(e).__name__}: {e}); trying cv2")
+        try:
+            import cv2
+
+            avi = os.path.join(out_dir, f"{self.name}.avi")
+            h, w = frames[0].shape[:2]
+            vw = cv2.VideoWriter(avi, cv2.VideoWriter_fourcc(*"MJPG"), 25, (w, h))
+            for f in frames:
+                vw.write(cv2.cvtColor(f, cv2.COLOR_RGB2BGR))
+            vw.release()
+            self.log(f"wrote video {avi} (MJPG fallback)")
+        except Exception as e:
+            self.log(f"video export failed ({e}); frames saved as PNG")
+
+    def _export_color(self, img: np.ndarray) -> np.ndarray:
+        """A model trained on linear images predicts linear radiance:
+        convert it for PNG and video export. Metrics stay in the training
+        space."""
+        if self.train_cfg.color_space == "linear":
+            return linear_to_srgb_np(img)
+        return img
+
+    @staticmethod
+    def _save_image(path: str, img: np.ndarray):
+        write_png(path, (np.clip(img, 0, 1) * 255).astype(np.uint8))
+
+    @torch.no_grad()
+    def density_grid(self, resolution: int = 256) -> np.ndarray:
+        """sigma [R, R, R] (numpy f32) on the ``ij`` lattice of
+        ``linspace(-bound, bound, R)`` per axis, with the EMA weights,
+        through ``NeRFNetwork.density`` in chunks of 2^16 points (the
+        last one zero-padded), as the JAX trainer's ``save_mesh`` samples
+        it."""
+        b = self.render_cfg.bound
+        xs = torch.as_tensor(np.linspace(-b, b, resolution, dtype=np.float32),
+                             device=self.device)
+        pts = torch.stack(torch.meshgrid(xs, xs, xs, indexing="ij"), dim=-1).reshape(-1, 3)
+        chunk = 2**16
+        pad = (-pts.shape[0]) % chunk
+        if pad:
+            pts = torch.cat([pts, torch.zeros((pad, 3), device=self.device)])
+        sig = []
+        with self._eval_weights():
+            for i in range(0, pts.shape[0], chunk):
+                sigma, _ = self.model.density(pts[i:i + chunk])
+                sig.append(sigma)
+        sigma = torch.cat(sig)[: resolution**3].reshape(resolution, resolution, resolution)
+        return sigma.cpu().numpy()
+
+    def save_mesh(self, path: Optional[str] = None, resolution: int = 256,
+                  threshold: float = 10.0) -> str:
+        """The iso-surface sigma = ``threshold`` of ``density_grid`` by
+        marching tetrahedra, scaled to [-bound, bound]^3 and written to
+        ``path`` (default ``workspace/meshes/<name>_<epoch>.obj``)."""
+        from ngp_tpu_torch import native
+
+        self.ensure_initialized()
+        if path is None:
+            path = os.path.join(self.workspace, "meshes", f"{self.name}_{self.epoch}.obj")
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        t0 = time.perf_counter()
+        sigma = self.density_grid(resolution)
+        t1 = time.perf_counter()
+        verts, faces = native.marching_cubes(sigma, threshold)
+        b = self.render_cfg.bound
+        verts = verts / (resolution - 1) * 2 * b - b
+        t2 = time.perf_counter()
+        write_mesh(path, verts, faces)
+        self.last_mesh_stats = {"density_s": t1 - t0, "marching_s": t2 - t1,
+                                "write_s": time.perf_counter() - t2,
+                                "n_verts": len(verts), "n_faces": len(faces)}
+        self.log(f"saved mesh {path} ({len(verts)} verts)")
+        return path
 
     # hooks the occupancy-grid trainer fills in
     def _fetch_eval_tight_box(self):

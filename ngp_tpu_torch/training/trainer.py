@@ -23,7 +23,7 @@ class Trainer:
     def __init__(self, name: str, workspace: str = "workspace", lr: float = 1e-3,
                  lr_decay_target: float = 0.1, max_steps: int = 30000,
                  ema_decay: Optional[float] = 0.95, max_keep_ckpt: int = 2,
-                 log_every: int = 100):
+                 eval_interval: int = 1, log_every: int = 100):
         self.name = name
         self.workspace = workspace
         self.lr = lr
@@ -31,6 +31,7 @@ class Trainer:
         self.max_steps = max_steps
         self.ema_decay = ema_decay
         self.max_keep_ckpt = max_keep_ckpt
+        self.eval_interval = eval_interval  # epochs between validation runs
         self.log_every = log_every
         self.epoch = 0
         self.global_step = 0

@@ -10,7 +10,11 @@ fixed order: |kernel - plain| <= 2^-13 * (the sum of the absolute
 contributions) + (bf16 output) 2^-7 * |plain|, a half step of each of
 the two roundings to bf16. One train step through the kernels matches
 the CPU plain step: loss to 1e-4 relative, each gradient to 1e-3 of
-its largest entry (f32, atomics and summation order)."""
+its largest entry (f32, atomics and summation order). ``cp_encode_fwd``
+rounds each feature once from the same f32 lerps: the same bounds, by
+output type. ``fused_mlp``: 1e-2, a flipped bf16 rounding of a hidden
+unit. The module path of ``NeRFNetwork.density`` on the card against
+the CPU: 1e-4 in f32."""
 
 import numpy as np
 import pytest
@@ -18,6 +22,7 @@ import torch
 
 from ngp_tpu_torch.ops.kernels import LAUNCHES
 from ngp_tpu_torch.ops.kernels import cp as tk
+from ngp_tpu_torch.ops.kernels import fused_mlp as tmlp
 from ngp_tpu_torch.ops.kernels import march as tm
 
 pytestmark = pytest.mark.cuda
@@ -121,6 +126,79 @@ def test_cp_sigma_rgb_kernel(dev, dtype, res, rank, fd, M):
     _check(got, tk.cp_sigma_rgb_plain(pos, dirs, factors, w1, w2, color, res, fd, 4), dtype)
 
 
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("res,rank,fd,M", SHAPES)
+def test_cp_encode_kernel(dev, dtype, out_dtype, res, rank, fd, M):
+    factors, _, _, _ = _weights(dev, dtype, res, rank, fd)
+    pos, _ = _inputs(dev, M)
+    before = LAUNCHES["cp_encode_fwd"]
+    got = tk.cp_encode_fwd(pos, factors, res, out_dtype)
+    assert LAUNCHES["cp_encode_fwd"] == before + 1
+    want = tk.cp_encode_plain(pos, factors, res, out_dtype)
+    assert got.dtype == out_dtype and got.shape == want.shape
+    oob = ((pos < 0) | (pos > 1)).any(dim=-1)
+    assert not got[oob].float().any()
+    _check(got.float(), want.float(), out_dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("res,rank,fd,M", SHAPES)
+def test_cp_encode_backward_kernel(dev, dtype, res, rank, fd, M):
+    factors, _, _, _ = _weights(dev, dtype, res, rank, fd)
+    pos, _ = _inputs(dev, M)
+    g = torch.randn((M, len(res) * rank), generator=torch.Generator().manual_seed(3)).to(dev)
+    fk = [f.clone().requires_grad_() for f in factors]
+    fp = [f.clone().requires_grad_() for f in factors]
+    before = LAUNCHES["cp_bwd_banks"]
+    tk.cp_encode(pos, fk, res).backward(g)
+    torch.cuda.synchronize()
+    assert LAUNCHES["cp_bwd_banks"] == before + 1
+    tk.cp_encode_plain(pos, fp, res).backward(g)
+    want = [f.grad for f in fp]
+    for a, b, bound in zip(fk, want, bwd_bound(pos, factors, g, res, want)):
+        assert a.grad.dtype == dtype and torch.isfinite(a.grad).all()
+        assert ((a.grad.float() - b.float()).abs() <= bound).all()
+
+
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B", [300, 4099])
+def test_fused_mlp_kernel(dev, x_dtype, B):
+    g = torch.Generator().manual_seed(B)
+    dims = [32, 64, 64, 16]
+    x = torch.randn((B, dims[0]), generator=g).to(dev, x_dtype)
+    ws = [(torch.randn((dims[i], dims[i + 1]), generator=g) * 0.2).to(dev)
+          for i in range(3)]
+    before = LAUNCHES["fused_mlp"]
+    got = tmlp.fused_mlp(x, ws)
+    assert LAUNCHES["fused_mlp"] == before + 1
+    assert got.dtype == torch.float32 and got.shape == (B, 16)
+    _check(got, tmlp.fused_mlp_plain(x, ws), torch.bfloat16)
+
+
+def test_density_module_path_on_the_card(dev):
+    """NeRFNetwork.density (cpgrid_encode -> sigma MLP) runs on the card
+    through cp_encode_fwd and matches the CPU module path in f32."""
+    from ngp_tpu_torch.config import NetworkConfig, RenderConfig
+    from ngp_tpu_torch.models.nerf import NeRFNetwork
+
+    rc = RenderConfig(bound=1.0, turbo=True)
+    nc = NetworkConfig(encoding="cpgrid", use_bf16=False, cp_resolutions=(32, 64),
+                       cp_rank=16, cp_freq_degree=4, sh_degree=3)
+    cpu = NeRFNetwork(nc, rc, torch.Generator().manual_seed(0))
+    gpu = NeRFNetwork(nc, rc)
+    gpu.load_state_dict(cpu.state_dict())
+    gpu.to(dev)
+    x = torch.rand((5000, 3), generator=torch.Generator().manual_seed(4)) * 2.1 - 1.05
+    before = LAUNCHES["cp_encode_fwd"]
+    with torch.no_grad():
+        s_g, g_g = gpu.density(x.to(dev))
+        s_c, g_c = cpu.density(x)
+    assert LAUNCHES["cp_encode_fwd"] == before + 1
+    _check(s_g.cpu(), s_c, torch.float32)
+    _check(g_g.cpu(), g_c, torch.float32)
+
+
 @pytest.mark.parametrize("R", [32, 64])
 def test_coarse_lookup_kernel_bits(dev, R):
     g = torch.Generator().manual_seed(R)
@@ -146,6 +224,16 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         tk.cp_bwd_banks(pos, factors, g[:, :16], (32, 64))
     with pytest.raises(ValueError):
         tk.cp_bwd_banks(pos, factors, g.t().contiguous().t(), (32, 64))
+    with pytest.raises(ValueError):
+        tk.cp_encode_fwd(pos, factors, (32, 64), torch.float16)
+    with pytest.raises(ValueError):
+        tk.cp_encode_fwd(pos, (factors[0], factors[1].bfloat16()), (32, 64))
+    with pytest.raises(ValueError):
+        tk.cp_encode_fwd(pos[:, :2].contiguous(), factors, (32, 64))
+    with pytest.raises(ValueError, match="weight 0"):
+        tmlp.fused_mlp(pos, [torch.zeros((4, 8), device=dev)])
+    with pytest.raises(ValueError):
+        tmlp.fused_mlp(pos.double(), [torch.zeros((3, 8), device=dev)])
 
 
 def test_kernels_on_the_render_path(dev):

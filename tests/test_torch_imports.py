@@ -26,6 +26,7 @@ MODULES = [
     "ngp_tpu_torch.ops.kernels.build",
     "ngp_tpu_torch.ops.kernels.cp",
     "ngp_tpu_torch.ops.kernels.march",
+    "ngp_tpu_torch.ops.kernels.fused_mlp",
     "ngp_tpu_torch.models.mlp",
     "ngp_tpu_torch.models.encoders",
     "ngp_tpu_torch.models.nerf",
@@ -33,6 +34,11 @@ MODULES = [
     "ngp_tpu_torch.data.raysampler",
     "ngp_tpu_torch.data.nerf_dataset",
     "ngp_tpu_torch.data.synthetic",
+    "ngp_tpu_torch.data.mesh",
+    "ngp_tpu_torch.native",
+    "ngp_tpu_torch.utils.color",
+    "ngp_tpu_torch.utils.png",
+    "ngp_tpu_torch.training.metrics",
     "ngp_tpu_torch.training.state",
     "ngp_tpu_torch.training.checkpoints",
     "ngp_tpu_torch.training.trainer",
@@ -52,6 +58,8 @@ def test_every_module_imports_without_jax_or_triton():
         assert not bad, bad
         from ngp_tpu_torch.ops.kernels import build
         assert build._lib is None  # the kernel library loads at first launch
+        from ngp_tpu_torch import native
+        assert native._lib is None  # so does the marching library
         print("ok")
     """)
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

@@ -1,6 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's ``-O`` paths once on one NVIDIA GPU: the eval
-render, training, and the end of a run (evaluate, test, mesh export).
+render, training, and the end of a run (evaluate, test, mesh export), at
+the turbo-hq preset and in the hash-grid configuration
+(``-O --encoding hashgrid``).
 
 Run from the repository root, with no arguments:
 
@@ -17,7 +19,12 @@ It builds the CUDA kernels from ``ngp_tpu_torch/ops/kernels/csrc``, then
      rows for the density forward with residuals and the factor
      backward, the mesh export's 65,536-row chunk for the CP encoder
      and its backward, and 524,288 x [32, 64, 64, 16] for the MLP chain
-     (which no path runs);
+     (which no path runs); the hash-grid encoder at the refresh chunk
+     (131,072 points) and a hash-grid train step (4096 rays x 256
+     samples = 1,048,576 points) on the full-width table (16 levels x 2,
+     6,119,864 rows), forward, corner rows and its table gradient, and
+     the row scatter-add at the probe script's shape and one hash level's,
+     with ``Tensor.index_add_`` timed beside it;
 5.   renders a small frame on the GPU and the same frame on the CPU
      through the plain versions;
 6.   renders the synthetic scene (16 train frames at 400x400 and one
@@ -31,13 +38,28 @@ It builds the CUDA kernels from ``ngp_tpu_torch/ops/kernels/csrc``, then
      ``save_mesh`` at 256^3 (256 CP-encoder launches through
      ``NeRFNetwork.density``, a non-empty mesh inside the box);
 8.   runs one small f32 train step on the GPU and the same step on the
-     CPU through the plain versions, and compares loss and gradients.
+     CPU through the plain versions, and compares loss and gradients;
+9.   trains the hash-grid configuration at full width on the same scene
+     (v1 march, 1024 steps and 256 samples per ray, 4096 rays per step,
+     refresh every 16 steps) for 256 steps, times the last 128, profiles
+     16 more (device time by kernel, the device's idle share), requires
+     a loss that falls, and renders the val pose with the EMA weights to
+     a PSNR floor;
+10.  runs one small f32 hash-grid train step on the GPU and on the CPU,
+     and the card's encoder inputs and cotangents of that step through
+     the plain encoder on the CPU, against the card's table gradient.
 
 Each path is run with the launch counts set to 0 just before it and read
 just after; a kernel of the path that was not launched fails the run.
-Every time is printed beside the card's name and power limit. The last
-line is a JSON object ``{"ok": true, "device": {...}}``; any failure
-raises and exits non-zero.
+Every time is printed beside the card's name and power limit. The line
+before the last two is ``{"kernels": [...]}``: per kernel its launches on
+the paths, its largest difference from its plain version, its time, the
+plain version's, the library call's where one PyTorch call computes the
+same function (else null), and its bound, the least time the card could
+take for the same work: the larger of the bytes it must move over the
+memory rate and its operations over the peak rate of the units that
+could do them (``bound``). The last line is a JSON object
+``{"ok": true, "device": {...}}``; any failure raises and exits non-zero.
 """
 
 import copy
@@ -83,9 +105,56 @@ MLP_DIMS = [32, 64, 64, 16]
 MLP_ROWS = (524288, 300)
 # one small f32 train step, GPU kernels vs CPU plain versions: the
 # loss to 1e-4 relative and each gradient to 1e-3 of its largest entry
-# (f32 atomics and summation order)
+# (f32 atomics and summation order); in the hash-grid configuration the
+# table's and the first sigma layer's as directional derivatives, to 1e-3
+# of sum |g| |d| (train_step_gpu_vs_cpu says why), and the table's
+# elementwise against the CPU replay of the card's encoder inputs
 STEP_LOSS_TOL = 1e-4
 STEP_GRAD_TOL = 1e-3
+# the hash-grid configuration (main_nerf.py -O --encoding hashgrid): its
+# v1 defaults, 4096 rays per step; the encoder's rows at the refresh
+# chunk and at a train step's 4096 x 256 sample slots
+HASH_RAYS = 4096
+HASH_STEPS = 256
+HASH_TIMED = 128
+GRID_ROWS = (128 * 128 * 8, HASH_RAYS * 256)
+# the val frame after HASH_STEPS steps (the first run, on NVIDIA H100 80GB
+# HBM3, 700.00 W: 31.70 dB)
+MIN_PSNR_HASH = 28.0
+# scripts/perf_probe2_r2.py's scatter shape (M rows of W into R), and
+# level 0 of the full-width table: a train step's 8 corners of 1,048,576
+# points into 4,920 rows of 2
+SCATTER_SHAPES = ((2_097_152, 16_384, 128), (8 * HASH_RAYS * 256, 4_920, 2))
+# H100 SXM (NVIDIA's data sheet): HBM bytes/s, dense bf16 tensor-core and
+# f32 CUDA-core FLOP/s
+HBM_RATE = 3.35e12
+BF16_TENSOR_RATE = 989e12
+F32_CORE_RATE = 67e12
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(n_bytes, tensor_flops=0.0, core_flops=0.0):
+    """(ms, "bytes" or "operations"): the least time of a kernel that reads
+    and writes ``n_bytes`` once and does ``tensor_flops`` of matrix
+    products (bf16 tensor cores) and ``core_flops`` of other arithmetic
+    (f32 CUDA cores)."""
+    t_bytes = n_bytes / HBM_RATE
+    t_ops = max(tensor_flops / BF16_TENSOR_RATE, core_flops / F32_CORE_RATE)
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def scatter_bound(ks, idx, rows, num_rows):
+    """Two f32 sums of the same n terms in different orders differ by at
+    most 2 (n - 1) 2^-24 times the sum of the terms' magnitudes."""
+    import torch
+
+    zeros = torch.zeros((num_rows, rows.shape[1]), device=rows.device)
+    adds = ks.scatter_add_rows_plain(idx, torch.ones_like(rows), zeros.clone())
+    s_abs = ks.scatter_add_rows_plain(idx, rows.abs(), zeros)
+    return 2.0 * 2.0**-24 * adds * s_abs
 
 
 def card_line():
@@ -130,19 +199,20 @@ def cuda_ms(fn, reps=10):
     return start.elapsed_time(end) / reps
 
 
-def compare(name, kernel, plain, dtype, bound=None):
+def compare(name, kernel, plain, dtype, work, tol=None):
     """Run kernel and plain on the same inputs; raise past the tolerance,
-    by default TOL[dtype] * (1 + |plain|); ``bound(want)`` gives one
-    bound tensor per output instead. Outputs may be tuples. Returns
-    (max_abs_err, kernel ms, plain ms), timed plain, kernel, kernel,
-    plain."""
+    by default TOL[dtype] * (1 + |plain|); ``tol(want)`` gives one
+    bound tensor per output instead. Outputs may be tuples. ``work`` is
+    (bytes, tensor-core FLOPs, CUDA-core FLOPs) of the function. Returns
+    (max_abs_err, kernel ms, plain ms, (bound ms, what bounds it)), timed
+    plain, kernel, kernel, plain."""
     import torch
 
     got, want = kernel(), plain()
     torch.cuda.synchronize()
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
-    bounds = bound(want) if bound else [TOL[dtype] * (1.0 + w.float().abs()) for w in want]
+    bounds = tol(want) if tol else [TOL[dtype] * (1.0 + w.float().abs()) for w in want]
     err_max = 0.0
     for i, (g, w, b) in enumerate(zip(got, want, bounds)):
         if g.shape != w.shape or g.dtype != w.dtype or not torch.isfinite(g).all():
@@ -154,7 +224,7 @@ def compare(name, kernel, plain, dtype, bound=None):
                                f"{float(err.max())} exceeds its bound")
         err_max = max(err_max, float(err.max()))
     p1, k1, k2, p2 = cuda_ms(plain), cuda_ms(kernel), cuda_ms(kernel), cuda_ms(plain)
-    return err_max, (k1 + k2) / 2, (p1 + p2) / 2
+    return err_max, (k1 + k2) / 2, (p1 + p2) / 2, bound(*work)
 
 
 def bwd_bound(cp, pos, factors, g_cp, res, want):
@@ -166,6 +236,33 @@ def bwd_bound(cp, pos, factors, g_cp, res, want):
     return [2.0**-13 * s.float() + ulp * w.float().abs() for s, w in zip(s_abs, want)]
 
 
+def profile_steps(trainer, batches, n, card):
+    """Where the time of ``n`` train steps goes: ``torch.profiler`` over
+    them, the device time of each kernel (and copy) by name, the device's
+    busy share of the host wall time, and launches per step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            trainer.step(next(batches))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    rows.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    busy = sum(e.self_device_time_total for e in rows) / 1e3  # ms
+    launches = sum(e.count for e in rows)
+    print(f"profile of {n} steps: wall {wall * 1e3 / n:.2f} ms per step, device busy "
+          f"{busy / n:.2f} ms per step, idle share {1.0 - busy / (wall * 1e3):.3f}, "
+          f"{launches / n:.0f} device launches per step  [{card}]")
+    for e in rows[:14]:
+        print(f"  {e.self_device_time_total / 1e3 / n:8.3f} ms/step  {e.count / n:6.1f}x  "
+              f"{e.key[:110]}")
+
+
 def check_launched(path, counts, names):
     print(f"launches [{path}]: {json.dumps(counts)}", flush=True)
     for name in names:
@@ -173,9 +270,10 @@ def check_launched(path, counts, names):
             raise RuntimeError(f"kernel {name} was not launched on the {path} path")
 
 
-def train_step_gpu_vs_cpu(dev):
+def train_step_gpu_vs_cpu(dev, hash_grid=False):
     """One small f32 train step through the kernels and the same step on
-    the CPU through the plain versions; raise past the tolerances."""
+    the CPU through the plain versions, at the turbo-hq preset or in the
+    hash-grid configuration; raise past the tolerances."""
     import torch
 
     from ngp_tpu_torch.config import NetworkConfig, RenderConfig, TrainConfig
@@ -184,15 +282,25 @@ def train_step_gpu_vs_cpu(dev):
     from ngp_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
     from ngp_tpu_torch.training.nerf_grid import GridNeRFTrainer
 
-    rc = RenderConfig(bound=1.0, min_near=0.05, max_steps=64, max_samples_per_ray=16,
-                      grid_size=16, density_thresh=10.0, turbo=True, coarse_candidates=48,
-                      compact_mean_samples=6)
-    nc = NetworkConfig(encoding="cpgrid", use_bf16=False, cp_resolutions=(32, 64),
-                       cp_rank=16, cp_freq_degree=4, sh_degree=3)
+    if hash_grid:
+        rc = RenderConfig(bound=1.0, min_near=0.05, max_steps=64, max_samples_per_ray=16,
+                          grid_size=16, density_thresh=10.0, turbo=False)
+        nc = NetworkConfig(encoding="hashgrid", use_bf16=False, num_levels=8,
+                           log2_hashmap_size=14, sh_degree=3)
+        kernels = ("grid_encode_fwd", "grid_encode_bwd_rows", "scatter_add_rows")
+    else:
+        rc = RenderConfig(bound=1.0, min_near=0.05, max_steps=64, max_samples_per_ray=16,
+                          grid_size=16, density_thresh=10.0, turbo=True, coarse_candidates=48,
+                          compact_mean_samples=6)
+        nc = NetworkConfig(encoding="cpgrid", use_bf16=False, cp_resolutions=(32, 64),
+                           cp_rank=16, cp_freq_degree=4, sh_degree=3)
+        kernels = ("cp_density_fwd_residuals", "cp_bwd_banks", "coarse_lookup_bits")
+    path = "small hash-grid train step" if hash_grid else "small train step"
     with tempfile.TemporaryDirectory() as ws:
         tc = TrainConfig(num_rays=1024, workspace=ws)
-        frames = make_synthetic_frames(n_train=2, n_val=0, n_test=0, H=32, W=32)["train"]
-        cpu_model = NeRFNetwork(nc, rc, torch.Generator().manual_seed(SEED))
+        frames = make_synthetic_frames(n_train=2, n_val=0, n_test=0, H=32, W=32,
+                                       device=dev)["train"]
+        cpu_model = NeRFNetwork(nc, rc, torch.Generator().manual_seed(SEED), device="cpu")
         gpu_tr = GridNeRFTrainer(copy.deepcopy(cpu_model).to(dev), rc, tc)
         for _ in range(2):
             gpu_tr._update_occupancy()
@@ -205,27 +313,70 @@ def train_step_gpu_vs_cpu(dev):
         batch = {"images": torch.from_numpy(frames.images),
                  "poses": torch.from_numpy(frames.poses),
                  "intrinsics": torch.from_numpy(frames.intrinsics), "idx": 1}
+        # the encoder's inputs and output cotangents on the card, to replay
+        # its table gradient on the CPU from the same points
+        replay_enc = copy.deepcopy(cpu_model.encoder)
+        seen = []
+
+        def keep(module, args, out):
+            if out.requires_grad:
+                seen.append([args[0].detach(), None])
+                out.register_hook(lambda g, entry=seen[-1]: entry.__setitem__(1, g.detach()))
+
+        hook = gpu_tr.model.encoder.register_forward_hook(keep)
         reset_launch_counts()
         mg = gpu_tr.train_step(
             {k: v.to(dev) if torch.is_tensor(v) else v for k, v in batch.items()},
             {k: v.to(dev) for k, v in draws.items()})
         torch.cuda.synchronize()
-        check_launched("small train step", launch_counts(),
-                       ("cp_density_fwd_residuals", "cp_bwd_banks", "coarse_lookup_bits"))
+        hook.remove()
+        check_launched(path, launch_counts(), kernels)
         mc = cpu_tr.train_step(batch, draws)
+    if hash_grid:
+        # the card's table gradient against the plain version's on the
+        # card's own encoder inputs and cotangents: equal up to the order
+        # of the f32 sums (atomics)
+        for x, g in seen:
+            replay_enc(x.cpu()).backward(g.cpu())
+        want = replay_enc.embeddings.grad
+        got = gpu_tr.model.encoder.embeddings.grad.cpu()
+        rel = float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+        print(f"{path}: encoder.embeddings against the CPU replay of the card's encoder "
+              f"inputs, elementwise {rel:.3e} of its largest entry", flush=True)
+        if not rel <= STEP_GRAD_TOL:
+            raise RuntimeError(f"{path}: the table gradient differs from its CPU replay by "
+                               f"{rel} of its largest entry")
     loss_g, loss_c = float(mg["loss"]), float(mc["loss"])
     if not math.isfinite(loss_g) or abs(loss_g - loss_c) > STEP_LOSS_TOL * abs(loss_c):
-        raise RuntimeError(f"small train step: loss {loss_g} on the GPU, {loss_c} on the CPU")
+        raise RuntimeError(f"{path}: loss {loss_g} on the GPU, {loss_c} on the CPU")
+    # The GPU's and the CPU's ray products round differently. A fine hash
+    # level (scale ~2047) turns a ray one ulp away into a feature change
+    # that flips the ReLU of a few of the sigma MLP's near-zero hidden
+    # units, and a flip moves its sample's whole feature gradient, so the
+    # table's and the first sigma layer's gradients move by more than
+    # 1e-3 of their largest entries where the loss agrees to 7 digits.
+    # Against the CPU step those two are held as directional derivatives
+    # along random directions; the table's is held elementwise against
+    # its replay above.
+    directional = ("encoder.embeddings", "sigma_net.dense_0") if hash_grid else ()
+    gen = torch.Generator().manual_seed(SEED + 3)
     worst = 0.0
     cpu_params = dict(cpu_tr.model.named_parameters())
     for name, p in gpu_tr.model.named_parameters():
         want = cpu_params[name].grad
         rel = float((p.grad.cpu() - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+        if name in directional:
+            print(f"{path}: {name} elementwise {rel:.3e} of its largest entry", flush=True)
+            rel = 0.0
+            for _ in range(8):
+                d = torch.randn(want.shape, generator=gen)
+                rel = max(rel, abs(float(((p.grad.cpu() - want) * d).sum()))
+                          / max(float((want.abs() * d.abs()).sum()), 1e-30))
         if not rel <= STEP_GRAD_TOL:
-            raise RuntimeError(f"small train step: gradient of {name} differs by {rel} "
+            raise RuntimeError(f"{path}: gradient of {name} differs by {rel} "
                                "of its largest entry")
         worst = max(worst, rel)
-    print(f"small train step: loss gpu {loss_g:.7f} cpu {loss_c:.7f}, worst gradient "
+    print(f"{path}: loss gpu {loss_g:.7f} cpu {loss_c:.7f}, worst gradient "
           f"difference {worst:.3e} of its largest entry", flush=True)
     return worst
 
@@ -242,7 +393,10 @@ def main():
     from ngp_tpu_torch.data.synthetic import make_synthetic_frames
     from ngp_tpu_torch.models.nerf import NeRFNetwork
     from ngp_tpu_torch.ops.kernels import build, cp, launch_counts, march, reset_launch_counts
+    from ngp_tpu_torch.ops.hashgrid import GridConfig, grid_encode
     from ngp_tpu_torch.ops.kernels import fused_mlp as mlp
+    from ngp_tpu_torch.ops.kernels import hashgrid as hk
+    from ngp_tpu_torch.ops.kernels import scatter as sk
     from ngp_tpu_torch.training.nerf_grid import GridNeRFTrainer
     from ngp_tpu_torch.utils.png import read_png
 
@@ -324,54 +478,72 @@ def main():
     nbR = len(res) * nc.cp_rank
     rows = {"cp_density_fwd": 128 * 128 * 8, "cp_sigma_rgb": 4096 * 6}
     results = {}
+    # the work of each function for its bound: a CP lerp is about 14
+    # operations per (row, bank column), three taps of 4 and two products;
+    # the factor backward 2 taps of ~4 per (row, bank column, axis)
+    mlp_flops = 2 * (w1.shape[0] * w1.shape[1] + w2.shape[0] * w2.shape[1])
+    color_flops = 2 * sum(w.shape[0] * w.shape[1] for w in color)
+    D, H1, OUT = w1.shape[0], w1.shape[1], w2.shape[1]
     for dtype in ("bfloat16", "float32"):
         dt = getattr(torch, dtype)
+        esz = dt.itemsize
         fa = tuple(f.to(dt).contiguous() for f in factors)
         a1, a2 = w1.to(dt).contiguous(), w2.to(dt).contiguous()
         ca = tuple(w.to(dt).contiguous() for w in color)
-        pos = torch.rand((rows["cp_density_fwd"], 3), generator=gen, device=dev) * 1.1 - 0.05
+        M = rows["cp_density_fwd"]
+        pos = torch.rand((M, 3), generator=gen, device=dev) * 1.1 - 0.05
         results[("cp_density_fwd", dtype)] = compare(
             "cp_density_fwd",
             lambda: cp.cp_density_fwd(pos, fa, a1, a2, res, fd),
-            lambda: cp.cp_density_plain(pos, fa, a1, a2, res, fd), dtype)
-        pos_t = torch.rand((TRAIN_ROWS, 3), generator=gen, device=dev) * 1.1 - 0.05
+            lambda: cp.cp_density_plain(pos, fa, a1, a2, res, fd), dtype,
+            (nbytes(pos, *fa, a1, a2) + M * OUT * 4, M * mlp_flops, 14 * M * nbR))
+        M = TRAIN_ROWS
+        pos_t = torch.rand((M, 3), generator=gen, device=dev) * 1.1 - 0.05
         results[("cp_density_fwd+residuals", dtype)] = compare(
             "cp_density_fwd+residuals",
             lambda: cp.cp_density_fwd(pos_t, fa, a1, a2, res, fd, residuals=True),
-            lambda: cp.cp_density_plain(pos_t, fa, a1, a2, res, fd, residuals=True), dtype)
+            lambda: cp.cp_density_plain(pos_t, fa, a1, a2, res, fd, residuals=True), dtype,
+            (nbytes(pos_t, *fa, a1, a2) + M * (OUT * 4 + (D + H1) * esz), M * mlp_flops,
+             14 * M * nbR))
         # the factor gradient from a d(features) of the train shape, with a
         # row stride wider than its columns as the backward passes it
-        g_cp = torch.randn((TRAIN_ROWS, w1.shape[0]), generator=gen, device=dev)[:, :nbR]
+        g_cp = torch.randn((M, D), generator=gen, device=dev)[:, :nbR]
         results[("cp_bwd_banks", dtype)] = compare(
             "cp_bwd_banks",
             lambda: cp.cp_bwd_banks(pos_t, fa, g_cp, res),
             lambda: cp.cp_bwd_banks_plain(pos_t, fa, g_cp, res), dtype,
-            bound=lambda want: bwd_bound(cp, pos_t, fa, g_cp, res, want))
-        pos = torch.rand((rows["cp_sigma_rgb"], 3), generator=gen, device=dev)
+            (nbytes(pos_t, g_cp, *fa, *fa), 0, 24 * M * nbR),
+            tol=lambda want: bwd_bound(cp, pos_t, fa, g_cp, res, want))
+        M = rows["cp_sigma_rgb"]
+        pos = torch.rand((M, 3), generator=gen, device=dev)
         dirs = torch.nn.functional.normalize(
-            torch.randn((rows["cp_sigma_rgb"], 3), generator=gen, device=dev), dim=-1)
+            torch.randn((M, 3), generator=gen, device=dev), dim=-1)
         results[("cp_sigma_rgb", dtype)] = compare(
             "cp_sigma_rgb",
             lambda: cp.cp_sigma_rgb(pos, dirs, fa, a1, a2, ca, res, fd, nc.sh_degree),
             lambda: cp.cp_sigma_rgb_plain(pos, dirs, fa, a1, a2, ca, res, fd, nc.sh_degree),
-            dtype)
+            dtype, (nbytes(pos, dirs, *fa, a1, a2, *ca) + M * 4 * 4,
+                    M * (mlp_flops + color_flops), 14 * M * nbR))
         # the CP encoder at the mesh chunk, each bank type to each output type
-        pos_e = torch.rand((ENCODE_ROWS, 3), generator=gen, device=dev) * 1.1 - 0.05
+        M = ENCODE_ROWS
+        pos_e = torch.rand((M, 3), generator=gen, device=dev) * 1.1 - 0.05
         for out_name in ("bfloat16", "float32"):
             od = getattr(torch, out_name)
             results[("cp_encode_fwd", f"{dtype}->{out_name}")] = compare(
                 "cp_encode_fwd",
                 lambda: cp.cp_encode_fwd(pos_e, fa, res, od),
-                lambda: cp.cp_encode_plain(pos_e, fa, res, od), out_name)
+                lambda: cp.cp_encode_plain(pos_e, fa, res, od), out_name,
+                (nbytes(pos_e, *fa) + M * nbR * od.itemsize, 0, 14 * M * nbR))
         # its backward (CPEncode: cp_bwd_banks) against autograd of the plain
         # version, forward and backward timed together
-        g_e = torch.randn((ENCODE_ROWS, nbR), generator=gen, device=dev)
+        g_e = torch.randn((M, nbR), generator=gen, device=dev)
         fr = [f.clone().requires_grad_() for f in fa]
         results[("CPEncode backward", dtype)] = compare(
             "CPEncode backward",
             lambda: torch.autograd.grad(cp.cp_encode(pos_e, fr, res), fr, g_e),
             lambda: torch.autograd.grad(cp.cp_encode_plain(pos_e, fr, res), fr, g_e), dtype,
-            bound=lambda want: bwd_bound(cp, pos_e, fa, g_e, res, want))
+            (nbytes(pos_e, g_e, *fa, *fa) + M * nbR * 4, 0, 38 * M * nbR),
+            tol=lambda want: bwd_bound(cp, pos_e, fa, g_e, res, want))
     # the MLP chain at the JAX docstring's shape and a ragged small batch
     for rows_m in MLP_ROWS:
         x_m = torch.randn((rows_m, MLP_DIMS[0]), generator=gen, device=dev)
@@ -379,7 +551,8 @@ def main():
                for i in range(len(MLP_DIMS) - 1)]
         results[("fused_mlp", str(rows_m))] = compare(
             "fused_mlp", lambda: mlp.fused_mlp(x_m, w_m), lambda: mlp.fused_mlp_plain(x_m, w_m),
-            "bfloat16")
+            "bfloat16", (nbytes(x_m, *w_m) + rows_m * MLP_DIMS[-1] * 4,
+                         rows_m * 2 * sum(a * b for a, b in zip(MLP_DIMS, MLP_DIMS[1:])), 0))
     payload = occ.coarse_payload
     fc = torch.randint(0, payload.numel() * 8, (4096, 64), generator=gen, device=dev,
                        dtype=torch.int32)
@@ -391,10 +564,71 @@ def main():
     k1 = cuda_ms(lambda: march.coarse_lookup_bits(payload, fc))
     k2 = cuda_ms(lambda: march.coarse_lookup_bits(payload, fc))
     p2 = cuda_ms(lambda: march.coarse_lookup_plain(payload, fc))
-    results[("coarse_lookup_bits", "bits")] = (0.0, (k1 + k2) / 2, (p1 + p2) / 2)
-    for (name, dtype), (err, k_ms, p_ms) in results.items():
+    results[("coarse_lookup_bits", "bits")] = (0.0, (k1 + k2) / 2, (p1 + p2) / 2,
+                                               bound(nbytes(payload, fc, got)))
+
+    # the hash grid's kernels on the full-width table (f32, as the model
+    # keeps it), at the refresh chunk and a train step's sample slots; per
+    # (point, level) 9 operations of position, then per corner 2 of weight
+    # and 2 per feature (forward) or 1 (corner rows)
+    gcfg = GridConfig(desired_resolution=2048)
+    geom = gcfg.geometry
+    L, C = gcfg.num_levels, gcfg.level_dim
+    fwd_ops, rows_ops = L * (9 + 8 * (2 + 2 * C)), L * (9 + 8 * (2 + C))
+    table = torch.rand((gcfg.num_rows, C), generator=gen, device=dev) * 2.0 - 1.0
+    B = GRID_ROWS[-1]
+    for dtype in ("bfloat16", "float32"):
+        od = getattr(torch, dtype)
+        for rows_g in GRID_ROWS:
+            x_g = torch.rand((rows_g, 3), generator=gen, device=dev) * 1.1 - 0.05
+            results[("grid_encode_fwd", f"{dtype} {rows_g}")] = compare(
+                "grid_encode_fwd", lambda: hk.grid_encode_fwd(x_g, table, geom, od),
+                lambda: hk.grid_encode_plain(x_g, table, geom, od), dtype,
+                (nbytes(x_g, table) + rows_g * L * C * od.itemsize, 0, rows_g * fwd_ops))
+        g_g = torch.randn((B, L * C), generator=gen, device=dev).to(od)
+        exact = lambda want: [torch.zeros(w.shape, device=dev) for w in want]  # noqa: E731
+        results[("grid_encode_bwd_rows", dtype)] = compare(
+            "grid_encode_bwd_rows", lambda: hk.grid_encode_bwd_rows(x_g, g_g, geom),
+            lambda: hk.grid_encode_bwd_rows_plain(x_g, g_g, geom), dtype,
+            (nbytes(x_g, g_g) + B * L * 8 * (4 + 4 * C), 0, B * rows_ops), tol=exact)
+        # GridEncode: forward, corner rows and scatter-add, against autograd
+        # of the plain version, timed together
+        idx_p, rows_p = hk.grid_encode_bwd_rows_plain(x_g, g_g, geom)
+        s_bound = scatter_bound(sk, idx_p, rows_p, gcfg.num_rows)
+        del idx_p, rows_p
+        tr = table.clone().requires_grad_()
+        results[("GridEncode backward", dtype)] = compare(
+            "GridEncode backward",
+            lambda: torch.autograd.grad(grid_encode(x_g, tr, gcfg, od), tr, g_g),
+            lambda: torch.autograd.grad(hk.grid_encode_plain(x_g, tr, geom, od), tr, g_g),
+            dtype, (nbytes(x_g, table, g_g, table) + B * L * C * od.itemsize, 0,
+                    B * (fwd_ops + rows_ops + L * 8 * C)),
+            tol=lambda want: [s_bound])
+        del s_bound, tr, g_g
+    del x_g
+    # the row scatter-add, in place into a zero table, beside index_add_
+    library = {}
+    for M, R, W in SCATTER_SHAPES:
+        idx_s = torch.randint(0, R, (M,), generator=gen, device=dev, dtype=torch.int32)
+        rows_s = torch.randn((M, W), generator=gen, device=dev)
+        outs = [torch.zeros((R, W), device=dev) for _ in range(3)]
+        s_bound = scatter_bound(sk, idx_s, rows_s, R)
+        key = ("scatter_add_rows", f"{M}x{W} into {R}")
+        results[key] = compare(
+            "scatter_add_rows", lambda: sk.scatter_add_rows(idx_s, rows_s, outs[0]),
+            lambda: sk.scatter_add_rows_plain(idx_s, rows_s, outs[1]), "float32",
+            (nbytes(idx_s, rows_s, outs[0]), 0, M * W), tol=lambda want: [s_bound])
+        lib = outs[2].index_add_(0, idx_s, rows_s)
+        torch.cuda.synchronize()
+        if not ((lib - sk.scatter_rows(idx_s, rows_s, R)).abs() <= s_bound).all():
+            raise RuntimeError("index_add_ differs from scatter_add_rows past the f32 bound")
+        library[key] = cuda_ms(lambda: outs[2].index_add_(0, idx_s, rows_s))
+        del idx_s, rows_s, outs, s_bound, lib
+    for (name, dtype), (err, k_ms, p_ms, (b_ms, b_by)) in results.items():
+        lib = library.get((name, dtype))
+        lib = "" if lib is None else f", index_add_ {lib:.4f} ms"
         print(f"kernel {name} [{dtype}]: max_abs_err {err:.3e}, kernel {k_ms:.4f} ms, "
-              f"plain {p_ms:.4f} ms  [{card}]")
+              f"plain {p_ms:.4f} ms{lib}, bound {b_ms:.4f} ms ({b_by})  [{card}]")
 
     # 5. a small frame: GPU kernels against the CPU plain versions, same
     # weights and grid, fresh trainers (no sticky spans or chunk counts)
@@ -417,7 +651,7 @@ def main():
     if not np.isfinite(img_g).all() or diff > FRAME_TOL:
         raise RuntimeError(f"small frame: GPU and CPU renders differ by {diff}")
     # the kernel checks' inputs too, so the train phase's peak memory is its own
-    del trainer, gpu_tr, cpu_tr, cpu_model, model, pos_e, g_e, fr, x_m, w_m
+    del trainer, gpu_tr, cpu_tr, cpu_model, model, pos_e, g_e, fr, x_m, w_m, table
 
     # 6. the train path: bench.py's scene size and preset, random init
     t0 = time.perf_counter()
@@ -425,26 +659,33 @@ def main():
                                    device=dev)
     phase("synthetic scene (17 frames of 400x400, 512 samples per ray)", t0)
     train_ds, val_ds = splits["train"], splits["val"]
+
+    def train(trainer, label, steps, timed):
+        """``steps`` train steps over the train split, epoch after epoch,
+        the last ``timed`` of them timed. Returns (each step's metrics,
+        seconds of the timed window, the batch iterator)."""
+        epoch_iter = trainer.make_loader(train_ds)
+        batches = itertools.chain.from_iterable(epoch_iter() for _ in itertools.count())
+        out = []
+        t0 = time.perf_counter()
+        for i in range(steps):
+            if i == steps - timed:
+                phase(f"{label} steps 0-{i - 1} (first calls, grid warm-up)", t0)
+                t0 = time.perf_counter()
+            out.append(trainer.step(next(batches)))
+        return out, phase(f"{label} steps {steps - timed}-{steps - 1} (timed)", t0), batches
+
     model = NeRFNetwork(nc, rc, torch.Generator().manual_seed(SEED)).to(dev)
     with tempfile.TemporaryDirectory() as ws:
         tc = TrainConfig(iters=30000, lr=1e-2, num_rays=TRAIN_RAYS, update_extra_interval=16,
                          workspace=ws)
         trainer = GridNeRFTrainer(model, rc, tc, seed=SEED)
         trainer.mark_untrained(train_ds.poses, train_ds.intrinsics, train_ds.H, train_ds.W)
-        epoch_iter = trainer.make_loader(train_ds)
-        batches = itertools.chain.from_iterable(epoch_iter() for _ in itertools.count())
         torch.cuda.reset_peak_memory_stats()
         reset_launch_counts()
-        losses, overflow = [], []
-        t0 = time.perf_counter()
-        for i in range(TRAIN_STEPS):
-            if i == TRAIN_STEPS - TIMED_STEPS:
-                phase(f"train steps 0-{i - 1} (first calls, grid warm-up)", t0)
-                t0 = time.perf_counter()
-            metrics = trainer.step(next(batches))
-            losses.append(metrics["loss"])
-            overflow.append(metrics["turbo_overflow"])
-        dt = phase(f"train steps {TRAIN_STEPS - TIMED_STEPS}-{TRAIN_STEPS - 1} (timed)", t0)
+        metrics, dt, _ = train(trainer, "train", TRAIN_STEPS, TIMED_STEPS)
+        losses = [m["loss"] for m in metrics]
+        overflow = [m["turbo_overflow"] for m in metrics]
         train_counts = launch_counts()
         check_launched("train", train_counts, ("cp_density_fwd", "cp_density_fwd_residuals",
                                               "cp_bwd_banks", "coarse_lookup_bits"))
@@ -532,34 +773,107 @@ def main():
 
     # 8. one small train step: GPU kernels against the CPU plain versions
     train_step_gpu_vs_cpu(dev)
+    del trainer, model
+
+    # 9. the hash-grid configuration (main_nerf.py <scene> -O --encoding
+    # hashgrid) on the same scene: full width, v1 march, random init
+    hrc = RenderConfig(bound=1.0, min_near=0.05, dt_gamma=0.0, max_steps=1024,
+                       max_samples_per_ray=256, grid_size=128, density_thresh=10.0,
+                       turbo=False)
+    hnc = NetworkConfig(encoding="hashgrid", use_bf16=True)
+    torch.cuda.reset_peak_memory_stats()
+    model = NeRFNetwork(hnc, hrc, torch.Generator().manual_seed(SEED))  # on the card
+    print(f"hash grid: {model.encoder.cfg.num_rows} table rows x {hnc.level_dim}, "
+          f"{sum(p.numel() for p in model.parameters())} parameters", flush=True)
+    with tempfile.TemporaryDirectory() as ws:
+        tc = TrainConfig(iters=30000, lr=1e-2, num_rays=HASH_RAYS, update_extra_interval=16,
+                         workspace=ws)
+        trainer = GridNeRFTrainer(model, hrc, tc, seed=SEED)
+        trainer.mark_untrained(train_ds.poses, train_ds.intrinsics, train_ds.H, train_ds.W)
+        reset_launch_counts()
+        metrics, dt, batches = train(trainer, "hash-grid train", HASH_STEPS, HASH_TIMED)
+        losses = [m["loss"] for m in metrics]
+        hash_train_counts = launch_counts()
+        check_launched("hash-grid train", hash_train_counts,
+                       ("grid_encode_fwd", "grid_encode_bwd_rows", "scatter_add_rows"))
+        cp_launched = {k: v for k, v in hash_train_counts.items() if k.startswith("cp_") and v}
+        if cp_launched:
+            raise RuntimeError(f"hash-grid train: CP kernels launched {cp_launched}")
+        steps_s = HASH_TIMED / dt
+        print(f"hash-grid train: {steps_s:.2f} steps/s, {steps_s * HASH_RAYS:.0f} rays/s, "
+              f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB  [{card}]",
+              flush=True)
+        # 16 more steps under the profiler (one grid refresh among them)
+        profile_steps(trainer, batches, 16, card)
+        losses = torch.stack(losses).cpu().numpy()
+        occ = trainer.aux["occ"]
+        print(f"hash-grid train loss: first 16 mean {losses[:16].mean():.6f}, last 16 mean "
+              f"{losses[-16:].mean():.6f}; grid iter {occ.iter_density}, occupied "
+              f"{float(occ.occ_grid.float().mean()):.4f}")
+        if not np.isfinite(losses).all():
+            raise RuntimeError("hash-grid train: non-finite loss")
+        if not losses[-16:].mean() < LOSS_FALL * losses[:16].mean():
+            raise RuntimeError(f"hash-grid train: the loss did not fall below {LOSS_FALL} of "
+                               "its start")
+
+        # the val pose with the EMA weights, through the v1 march
+        reset_launch_counts()
+        pose, H, W = val_ds.poses[0], val_ds.H, val_ds.W
+        t0 = time.perf_counter()
+        img, _ = trainer.render_frame(pose, val_ds.intrinsics, H, W)
+        dt = phase(f"hash-grid frame ({H}x{W}, EMA weights)", t0)
+        t0 = time.perf_counter()
+        img, _ = trainer.render_frame(pose, val_ds.intrinsics, H, W)
+        dt2 = phase(f"hash-grid frame again ({H}x{W})", t0)
+        hash_frame_counts = launch_counts()
+        check_launched("hash-grid frame", hash_frame_counts, ("grid_encode_fwd",))
+        st = trainer.last_render_stats
+        psnr = -10.0 * math.log10(float(np.mean((img - gt) ** 2)))
+        if img.shape != (H, W, 3) or not np.isfinite(img).all() or not psnr >= MIN_PSNR_HASH:
+            raise RuntimeError(f"hash-grid frame: not a finite image of {MIN_PSNR_HASH} dB or "
+                               f"more (PSNR {psnr})")
+        print(f"hash-grid frame: PSNR {psnr:.2f} dB against the ground truth after "
+              f"{HASH_STEPS} steps, {dt * 1e3:.1f} / {dt2 * 1e3:.1f} ms, n_samples "
+              f"{st['n_samples']:.0f}, n_dropped {st['n_dropped']:.0f}  [{card}]", flush=True)
+    del trainer, model
+
+    # 10. one small f32 hash-grid train step: GPU kernels against the CPU
+    train_step_gpu_vs_cpu(dev, hash_grid=True)
 
     path_counts = (eval_counts, train_counts, frame_counts, evaluate_counts, test_counts,
-                   mesh_counts)
+                   mesh_counts, hash_train_counts, hash_frame_counts)
+    csrc = "ngp_tpu_torch/ops/kernels/csrc/"
     sources = {
-        "cp_density_fwd": ("ngp_tpu_torch/ops/kernels/csrc/cp_kernels.cu",
-                           "ngp_tpu/ops/pallas/cp_kernels.py:345",
+        "cp_density_fwd": (csrc + "cp_kernels.cu", "ngp_tpu/ops/pallas/cp_kernels.py:345",
                            ("cp_density_fwd+residuals", "bfloat16")),
-        "cp_sigma_rgb": ("ngp_tpu_torch/ops/kernels/csrc/cp_kernels.cu",
-                         "ngp_tpu/ops/pallas/cp_kernels.py:506", ("cp_sigma_rgb", "bfloat16")),
-        "coarse_lookup_bits": ("ngp_tpu_torch/ops/kernels/csrc/march_kernels.cu",
+        "cp_sigma_rgb": (csrc + "cp_kernels.cu", "ngp_tpu/ops/pallas/cp_kernels.py:506",
+                         ("cp_sigma_rgb", "bfloat16")),
+        "coarse_lookup_bits": (csrc + "march_kernels.cu",
                                "ngp_tpu/ops/pallas/march_kernels.py:73",
                                ("coarse_lookup_bits", "bits")),
-        "cp_bwd_banks": ("ngp_tpu_torch/ops/kernels/csrc/cp_kernels.cu",
-                         "ngp_tpu/ops/pallas/cp_kernels.py:206", ("cp_bwd_banks", "bfloat16")),
-        "cp_encode_fwd": ("ngp_tpu_torch/ops/kernels/csrc/cp_kernels.cu",
-                          "ngp_tpu/ops/pallas/cp_kernels.py:159",
+        "cp_bwd_banks": (csrc + "cp_kernels.cu", "ngp_tpu/ops/pallas/cp_kernels.py:206",
+                         ("cp_bwd_banks", "bfloat16")),
+        "cp_encode_fwd": (csrc + "cp_kernels.cu", "ngp_tpu/ops/pallas/cp_kernels.py:159",
                           ("cp_encode_fwd", "bfloat16->bfloat16")),
         # on no path: launches stays 0
-        "fused_mlp": ("ngp_tpu_torch/ops/kernels/csrc/mlp_kernels.cu",
-                      "ngp_tpu/ops/pallas/fused_mlp.py:92", ("fused_mlp", str(MLP_ROWS[0]))),
+        "fused_mlp": (csrc + "mlp_kernels.cu", "ngp_tpu/ops/pallas/fused_mlp.py:92",
+                      ("fused_mlp", str(MLP_ROWS[0]))),
+        "scatter_add_rows": (csrc + "scatter_kernels.cu", "scripts/perf_probe2_r2.py:128",
+                             ("scatter_add_rows", "{0}x{2} into {1}".format(*SCATTER_SHAPES[0]))),
+        # the JAX package leaves these to XLA: its take and einsum
+        "grid_encode_fwd": (csrc + "grid_kernels.cu", "ngp_tpu/ops/hashgrid.py:203",
+                            ("grid_encode_fwd", f"bfloat16 {GRID_ROWS[-1]}")),
+        "grid_encode_bwd_rows": (csrc + "grid_kernels.cu", "ngp_tpu/ops/hashgrid.py:204",
+                                 ("grid_encode_bwd_rows", "bfloat16")),
     }
     kernels = []
     for name, (src, replaces, key) in sources.items():
-        err, k_ms, p_ms = results[key]
+        err, k_ms, p_ms, (b_ms, b_by) = results[key]
         launches = sum(c[name] for c in path_counts)
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
                         "launches": launches, "max_abs_err": err, "ms": k_ms,
-                        "plain_ms": p_ms})
+                        "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+                        "library_ms": library.get(key)})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -21,7 +21,7 @@ def sample_ray_indices(H: int, W: int, n_rays: int,
                        uniform_frac: float = 0.0,
                        generator: Optional[torch.Generator] = None,
                        draws: Optional[Dict[str, torch.Tensor]] = None,
-                       device=None) -> Dict[str, torch.Tensor]:
+                       device="cuda") -> Dict[str, torch.Tensor]:
     """Choose ``n_rays`` flat pixel indices in [0, H*W).
 
     Returns {"inds": [N]} plus {"inds_coarse": [N]} in error-map mode.

@@ -137,7 +137,7 @@ def _composite(sigmas, rgbs, deltas):
 
 @torch.no_grad()
 def render_gt_frame(pose, intrinsics, H: int, W: int, num_steps: int = 512,
-                    variant: str = "default", device="cpu") -> np.ndarray:
+                    variant: str = "default", device="cuda") -> np.ndarray:
     """RGBA ground-truth frame [H, W, 4] f32 of the analytic scene, with
     straight (not premultiplied) colour, as the PNGs store it."""
     field = _FIELDS[variant]
@@ -171,7 +171,7 @@ def make_synthetic_frames(n_train: int = 40, n_val: int = 4, n_test: int = 8,
                           H: int = 400, W: int = 400, radius: float = 2.2,
                           fov_deg: float = 50.0, seed: int = 0, num_steps: int = 512,
                           variant: str = "default",
-                          device="cpu") -> Dict[str, NeRFDataset]:
+                          device="cuda") -> Dict[str, NeRFDataset]:
     """The "train", "val" and "test" splits of the synthetic scene.
 
     Train poses are seeded orbit draws (``np.random.default_rng(seed)``,

@@ -1,5 +1,7 @@
 """Encoder factory (``ngp_tpu/models/encoders.py``); the port has the
-``cpgrid`` and ``sphere_harmonics`` encoders so far."""
+``cpgrid``, ``hashgrid``, ``tiledgrid`` and ``sphere_harmonics``
+encoders so far. Weights are drawn from a CPU ``torch.Generator`` and
+placed on ``device``."""
 
 from __future__ import annotations
 
@@ -9,6 +11,7 @@ import torch
 from torch import nn
 
 from ngp_tpu_torch.ops.cpgrid import CPGridConfig, cpgrid_encode
+from ngp_tpu_torch.ops.hashgrid import GridConfig, grid_encode
 from ngp_tpu_torch.ops.sh import sh_basis_dim, sh_encode
 
 
@@ -28,13 +31,13 @@ class CPGridEncoder(nn.Module):
 
     def __init__(self, cfg: CPGridConfig,
                  compute_dtype: Optional[torch.dtype] = None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, device="cuda"):
         super().__init__()
         self.cfg = cfg
         self.compute_dtype = compute_dtype
         self.output_dim = cfg.output_dim
         g = generator or torch.Generator().manual_seed(0)
-        for r, f in zip(cfg.resolutions, cfg.init(g)):
+        for r, f in zip(cfg.resolutions, cfg.init(g, device=device)):
             self.register_parameter(f"factors_{r}", nn.Parameter(f))
 
     @property
@@ -45,14 +48,40 @@ class CPGridEncoder(nn.Module):
         return cpgrid_encode(x, self.factors, self.cfg, self.compute_dtype)
 
 
+class GridEncoder(nn.Module):
+    """Multiresolution hash or tiled grid with one learned table, the
+    ``embeddings`` parameter [num_rows, level_dim], as the flax module
+    names it."""
+
+    def __init__(self, cfg: GridConfig, compute_dtype: Optional[torch.dtype] = None,
+                 generator: Optional[torch.Generator] = None, device="cuda"):
+        super().__init__()
+        self.cfg = cfg
+        self.compute_dtype = compute_dtype
+        self.output_dim = cfg.output_dim
+        g = generator or torch.Generator().manual_seed(0)
+        self.embeddings = nn.Parameter(cfg.init(g, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return grid_encode(x, self.embeddings, self.cfg, self.compute_dtype)
+
+
 def get_encoder(
     encoding: str,
+    input_dim: int = 3,
     degree: int = 4,
+    num_levels: int = 16,
+    level_dim: int = 2,
+    base_resolution: int = 16,
+    log2_hashmap_size: int = 19,
+    desired_resolution: int = 2048,
+    align_corners: bool = False,
     compute_dtype: Optional[torch.dtype] = None,
     cp_resolutions: Tuple[int, ...] = (256, 512, 1024, 2048),
     cp_rank: int = 64,
     cp_freq_degree: int = 5,
     generator: Optional[torch.Generator] = None,
+    device="cuda",
 ) -> Tuple[nn.Module, int]:
     """String -> (encoder module, output_dim)."""
     if encoding == "sphere_harmonics":
@@ -63,6 +92,18 @@ def get_encoder(
             resolutions=tuple(cp_resolutions), rank=cp_rank,
             freq_degree=cp_freq_degree,
         )
-        enc = CPGridEncoder(cfg, compute_dtype=compute_dtype, generator=generator)
+        enc = CPGridEncoder(cfg, compute_dtype=compute_dtype, generator=generator,
+                            device=device)
+        return enc, cfg.output_dim
+    if encoding in ("hashgrid", "tiledgrid"):
+        cfg = GridConfig(
+            input_dim=input_dim, num_levels=num_levels, level_dim=level_dim,
+            base_resolution=base_resolution, log2_hashmap_size=log2_hashmap_size,
+            desired_resolution=desired_resolution,
+            gridtype="hash" if encoding == "hashgrid" else "tiled",
+            align_corners=align_corners,
+        )
+        enc = GridEncoder(cfg, compute_dtype=compute_dtype, generator=generator,
+                          device=device)
         return enc, cfg.output_dim
     raise NotImplementedError(f"encoding {encoding!r} is not ported yet")

@@ -26,12 +26,13 @@ def lecun_normal(fan_in: int, fan_out: int, generator: torch.Generator) -> torch
 class MLP(nn.Module):
     """``num_layers`` Linear layers without bias, ReLU between, no output
     activation. ``compute_dtype`` (e.g. bf16) rounds the input and each
-    layer's output to that type; products accumulate in f32."""
+    layer's output to that type; products accumulate in f32. Weights are
+    drawn from a CPU generator and placed on ``device``."""
 
     def __init__(self, dim_in: int, dim_out: int, dim_hidden: int = 64,
                  num_layers: int = 3,
                  compute_dtype: Optional[torch.dtype] = None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, device="cuda"):
         super().__init__()
         self.num_layers = num_layers
         self.compute_dtype = compute_dtype
@@ -40,7 +41,7 @@ class MLP(nn.Module):
             fan_in = dim_in if i == 0 else dim_hidden
             fan_out = dim_out if i == num_layers - 1 else dim_hidden
             self.register_parameter(
-                f"dense_{i}", nn.Parameter(lecun_normal(fan_in, fan_out, g))
+                f"dense_{i}", nn.Parameter(lecun_normal(fan_in, fan_out, g).to(device))
             )
 
     @property

@@ -1,5 +1,6 @@
-"""NeRF network head (``ngp_tpu/models/nerf.py``): cpgrid -> 2-layer
-sigma MLP (1 + geo outputs), SH(dir) + geo -> color MLP -> sigmoid.
+"""NeRF network head (``ngp_tpu/models/nerf.py``): cpgrid or hash grid
+-> 2-layer sigma MLP (1 + geo outputs), SH(dir) + geo -> color MLP ->
+sigmoid.
 
 ``make_fused_density`` and ``make_fused_sigma_rgb`` build the flagship
 config's fused heads on the CP kernels; ``params_from_jax`` converts a
@@ -22,11 +23,12 @@ from ngp_tpu_torch.ops.cpgrid import CPGridConfig, cpgrid_density, cpgrid_sigma_
 
 
 class NeRFNetwork(nn.Module):
-    """Weights come from a seeded ``torch.Generator`` or, through
-    ``load_state_dict(params_from_jax(tree))``, from the JAX model."""
+    """Weights come from a seeded CPU ``torch.Generator`` or, through
+    ``load_state_dict(params_from_jax(tree))``, from the JAX model; they
+    are built on ``device`` (the card unless the caller asks for another)."""
 
     def __init__(self, cfg: NetworkConfig, render: RenderConfig,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, device="cuda"):
         super().__init__()
         if render.bg_radius > 0:
             raise NotImplementedError("the background net is not ported yet")
@@ -36,14 +38,17 @@ class NeRFNetwork(nn.Module):
         dtype = torch.bfloat16 if cfg.use_bf16 else None
         self.compute_dtype = dtype
         self.encoder, in_dim = get_encoder(
-            cfg.encoding, compute_dtype=dtype, cp_resolutions=cfg.cp_resolutions,
-            cp_rank=cfg.cp_rank, cp_freq_degree=cfg.cp_freq_degree, generator=g,
+            cfg.encoding, num_levels=cfg.num_levels, level_dim=cfg.level_dim,
+            base_resolution=cfg.base_resolution, log2_hashmap_size=cfg.log2_hashmap_size,
+            desired_resolution=int(2048 * render.bound), compute_dtype=dtype,
+            cp_resolutions=cfg.cp_resolutions, cp_rank=cfg.cp_rank,
+            cp_freq_degree=cfg.cp_freq_degree, generator=g, device=device,
         )
         self.sigma_net = MLP(in_dim, 1 + cfg.geo_feat_dim, cfg.hidden_dim,
-                             cfg.num_layers, dtype, g)
+                             cfg.num_layers, dtype, g, device)
         self.encoder_dir, in_dim_dir = get_encoder(cfg.encoding_dir, degree=cfg.sh_degree)
         self.color_net = MLP(in_dim_dir + cfg.geo_feat_dim, 3, cfg.hidden_dim_color,
-                             cfg.num_layers_color, dtype, g)
+                             cfg.num_layers_color, dtype, g, device)
 
     def _scale_to_unit(self, x):
         b = self.render.bound
@@ -83,7 +88,8 @@ def _fused_parts(model: NeRFNetwork):
 
 def make_fused_density(model: NeRFNetwork) -> Optional[Callable]:
     """``density_fn(x) -> (sigma, geo)`` on the fused CP density kernel
-    for the flagship config (cpgrid + 2-layer sigma MLP), else None.
+    for the flagship config (cpgrid + 2-layer sigma MLP), else None (the
+    hash grid runs the module path, as in JAX).
     Differentiable in the encoder and sigma-net weights when built with
     grad mode on; build it anew after an optimizer step."""
     parts = _fused_parts(model)
@@ -126,7 +132,8 @@ def params_from_jax(tree) -> Dict[str, torch.Tensor]:
     """Flax ``NeRFNetwork`` params (nested dicts of arrays, with or
     without the top-level ``"params"`` key) -> this module's state dict.
 
-    Reads ``encoder/factors_<res>``, ``sigma_net/dense_<i>/kernel`` and
+    Reads ``encoder/factors_<res>`` (cpgrid) or ``encoder/embeddings``
+    (hash or tiled grid), ``sigma_net/dense_<i>/kernel`` and
     ``color_net/dense_<i>/kernel``; the kernels keep their [in, out]
     layout."""
     p = tree.get("params", tree)

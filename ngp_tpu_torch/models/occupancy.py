@@ -1,5 +1,5 @@
-"""Occupancy grid, turbo march and compositor
-(``ngp_tpu/models/occupancy.py``) — the part of it the eval render runs.
+"""Occupancy grid, turbo and v1 marches and compositor
+(``ngp_tpu/models/occupancy.py``) — the part of it the ``-O`` renders run.
 
 The functions keep the JAX names, array layouts and sample semantics:
 the same t-lattice, the same coarse (pooled, byte-packed) and fine
@@ -175,7 +175,7 @@ def pack_prepass_payload(occ_grid: torch.Tensor) -> torch.Tensor:
     return _pack_bits_payload(d.reshape(-1))
 
 
-def init_occupancy(cfg: RenderConfig, device="cpu") -> OccupancyState:
+def init_occupancy(cfg: RenderConfig, device="cuda") -> OccupancyState:
     H, cas = cfg.grid_size, cfg.cascades
     occ = torch.ones((cas, H, H, H), dtype=torch.bool, device=device)
     coarse, fine = pack_occupancy_payloads(occ)
@@ -190,7 +190,7 @@ def init_occupancy(cfg: RenderConfig, device="cpu") -> OccupancyState:
     )
 
 
-def occupancy_from_jax(arrays: Dict[str, np.ndarray], device="cpu") -> OccupancyState:
+def occupancy_from_jax(arrays: Dict[str, np.ndarray], device="cuda") -> OccupancyState:
     """A JAX ``OccupancyState`` given as numpy arrays (its field names)
     -> the port's state on ``device``."""
     def t(name, dtype):
@@ -362,6 +362,98 @@ def ray_prepass(rays_o, rays_d, state: OccupancyState, cfg: RenderConfig,
     t0 = torch.where(hit, torch.maximum(t0, nears), nears)
     t1 = torch.where(hit, torch.minimum(t1, fars), nears)
     return {"hit": hit, "t0": t0, "t1": t1, "nears": nears, "fars": fars}
+
+
+# ---------------------------------------------------------------------------
+# v1 march (the hash-grid configuration's renderer)
+# ---------------------------------------------------------------------------
+
+
+def occupancy_at(state: OccupancyState, x: torch.Tensor, dt: torch.Tensor,
+                 cfg: RenderConfig) -> torch.Tensor:
+    """Occupancy of world points x [..., 3] with step sizes dt [...]: the
+    nearest cell of the dense grid at the larger of the position's and
+    the step's mip level."""
+    cas = cfg.cascades
+    level = torch.maximum(mip_from_pos(x, cas), mip_from_dt(dt, cfg.grid_size, cas))
+    n, _ = _cells(x, dt, cfg, level)
+    H = cfg.grid_size
+    cell = (n[..., 0].long() * H + n[..., 1]) * H + n[..., 2]
+    return state.occ_grid.reshape(cas, -1)[level.long(), cell]
+
+
+def march_rays(rays_o, rays_d, state: OccupancyState, cfg: RenderConfig,
+               max_samples: Optional[int] = None, aabb=None,
+               t_range: Optional[torch.Tensor] = None, perturb: bool = False,
+               generator: Optional[torch.Generator] = None,
+               noise: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+    """Per-ray samples of the v1 march, [N, S] ascending in t: every
+    lattice probe reads the dense occupancy grid (``occupancy_at``), and
+    the first S occupied probes in march order are kept. The JAX code
+    selects them by top-k over the keys k (valid) and K + k (not); the S
+    smallest keys are the same here, and each key mod K is its probe.
+
+    ``aabb`` overrides the scene box of the ray interval, ``t_range``
+    [N, 2] clips each ray's [near, far]; ``perturb`` shifts each ray's
+    lattice start by ``noise`` [N] (uniform in [0, 1)) or by draws from
+    ``generator``."""
+    S = min(max_samples or cfg.max_samples_per_ray, cfg.max_steps)
+    N = rays_o.shape[0]
+    dev = rays_o.device
+    if aabb is None:
+        aabb = cfg.aabb
+    nears, fars = near_far_from_aabb(rays_o, rays_d, aabb, cfg.min_near)
+    if t_range is not None:
+        nears = torch.maximum(nears, t_range[:, 0])
+        fars = torch.minimum(fars, t_range[:, 1])
+    hit = fars > nears
+    fars_c = torch.where(hit, fars, nears)
+    if perturb and noise is None:
+        noise = torch.rand((N,), generator=generator, device=dev)
+    ts, dts = t_lattice(nears, fars_c, cfg, noise if perturb else None)
+    K = ts.shape[1]
+    occ = occupancy_at(state, _points(rays_o, rays_d, ts, cfg.bound), dts, cfg)
+    valid = occ & (ts < fars_c[:, None]) & hit[:, None]
+    ks = torch.arange(K, dtype=torch.int32, device=dev)
+    probe = (_ascending(torch.where(valid, ks, ks + K), S) % K).long()
+    mask = torch.arange(S, device=dev)[None, :] < valid.sum(dim=-1)[:, None]
+    zero = torch.zeros((), device=dev)
+    ts_c = torch.where(mask, torch.gather(ts, 1, probe), zero)
+    dts_c = torch.where(mask, torch.gather(dts, 1, probe), zero)
+    xyzs = _points(rays_o, rays_d, ts_c, cfg.bound)
+    return {
+        "xyzs": xyzs,
+        "dirs": rays_d[:, None, :].expand_as(xyzs),
+        "ts": ts_c,
+        "deltas": dts_c,
+        "mask": mask,
+        "nears": nears,
+        "fars": fars,
+    }
+
+
+def render_rays_grid(density_fn: Callable, color_fn: Callable, rays_o, rays_d,
+                     state: OccupancyState, cfg: RenderConfig, bg_color=None,
+                     max_samples: Optional[int] = None, aabb=None,
+                     t_range: Optional[torch.Tensor] = None, perturb: bool = False,
+                     generator: Optional[torch.Generator] = None,
+                     noise: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+    """v1 march -> network -> compositing. The network runs on all N * S
+    slots, the masked ones included, as the JAX renderer does: their
+    compositing weights are zero, so they add nothing to a pixel or a
+    gradient. There is no ``n_dropped``: the v1 march has no budget
+    below S per ray."""
+    m = march_rays(rays_o, rays_d, state, cfg, max_samples=max_samples, aabb=aabb,
+                   t_range=t_range, perturb=perturb, generator=generator, noise=noise)
+    sigmas, geo = density_fn(m["xyzs"])
+    rgbs = color_fn(m["dirs"], geo)
+    out = composite_rays(sigmas, rgbs, m["ts"], m["deltas"], m["mask"], m["nears"],
+                         m["fars"], density_scale=cfg.density_scale, t_thresh=cfg.t_thresh)
+    bg = 1.0 if bg_color is None else bg_color
+    out["image"] = out["image"] + (1.0 - out["weights_sum"])[..., None] * bg
+    out["n_samples"] = m["mask"].sum()
+    out["ts"], out["deltas"] = m["ts"], m["deltas"]
+    return out
 
 
 # ---------------------------------------------------------------------------

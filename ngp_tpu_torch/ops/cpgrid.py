@@ -45,8 +45,9 @@ class CPGridConfig:
         return d
 
     def init(self, generator: torch.Generator, dtype=torch.float32,
-             device="cpu") -> Tuple[torch.Tensor, ...]:
-        """One [3, res, rank] bank per resolution, normal x init_scale."""
+             device="cuda") -> Tuple[torch.Tensor, ...]:
+        """One [3, res, rank] bank per resolution, normal x init_scale,
+        drawn from a CPU generator and placed on ``device``."""
         return tuple(
             (torch.randn((3, r, self.rank), generator=generator)
              * self.init_scale).to(device=device, dtype=dtype)

@@ -8,6 +8,12 @@
 - ``cp.cp_encode_fwd``       replaces ``ngp_tpu/ops/pallas/cp_kernels.py:cp_encode`` (forward;
   ``cp.CPEncode`` adds its backward through ``cp_bwd_banks``)
 - ``fused_mlp.fused_mlp``    replaces ``ngp_tpu/ops/pallas/fused_mlp.py:fused_mlp``
+- ``scatter.scatter_add_rows`` replaces ``scripts/perf_probe2_r2.py:scatter_pallas`` (the
+  hash-grid table gradient's row scatter-add)
+- ``hashgrid.grid_encode_fwd`` and ``hashgrid.grid_encode_bwd_rows`` replace no Pallas
+  kernel: the JAX package leaves the hash-grid encoder and its VJP to XLA
+  (``ngp_tpu/ops/hashgrid.py:203-204``); ``hashgrid.GridEncode`` adds the backward
+  through ``grid_encode_bwd_rows`` and ``scatter_add_rows``
 
 Each wrapper takes its plain PyTorch version for a CPU tensor and
 launches its kernel for a CUDA tensor; there is no fallback between the
@@ -27,6 +33,9 @@ LAUNCHES: Dict[str, int] = {
     "cp_density_fwd_residuals": 0,
     "cp_encode_fwd": 0,
     "fused_mlp": 0,
+    "grid_encode_fwd": 0,
+    "grid_encode_bwd_rows": 0,
+    "scatter_add_rows": 0,
 }
 
 

@@ -31,6 +31,8 @@ _lib: Optional[ctypes.CDLL] = None
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_U = ctypes.c_uint
+_L = ctypes.c_longlong
 _SIGNATURES = {
     "ngp_cp_density_fwd": [
         _P, _I, ctypes.POINTER(_P), ctypes.POINTER(_I), _I, _I, _I,
@@ -50,6 +52,17 @@ _SIGNATURES = {
         _P, _I, ctypes.POINTER(_P), ctypes.POINTER(_I), _I, _I, _I, _I, _P, _P,
     ],
     "ngp_fused_mlp": [_P, _I, _I, ctypes.POINTER(_P), ctypes.POINTER(_I), _I, _P, _P],
+    "ngp_grid_encode_fwd": [
+        _P, _L, _P, _I, _I, _I, ctypes.POINTER(ctypes.c_float), ctypes.POINTER(_I),
+        ctypes.POINTER(_U), ctypes.POINTER(_U), ctypes.POINTER(_I), ctypes.c_float, _I,
+        _P, _I, _P,
+    ],
+    "ngp_grid_encode_bwd_rows": [
+        _P, _L, _P, _I, _I, _I, ctypes.POINTER(ctypes.c_float), ctypes.POINTER(_I),
+        ctypes.POINTER(_U), ctypes.POINTER(_U), ctypes.POINTER(_I), ctypes.c_float, _I,
+        _P, _P, _P,
+    ],
+    "ngp_scatter_add_rows": [_P, _P, _L, _I, _I, _P, _P],
 }
 
 

@@ -318,7 +318,8 @@ class NeRFTrainer(Trainer):
                 images[dst[c]] = img
                 depths[dst[c]] = dep
                 n_samples += out["n_samples"]
-                n_dropped += out["n_dropped"]
+                # the v1 march has no budget to overflow: 0 dropped
+                n_dropped += out.get("n_dropped", 0.0)
         stats = {"n_samples": float(n_samples), "n_dropped": float(n_dropped)}
         return (images[:n].reshape(H, W, 3).cpu().numpy(),
                 depths[:n].reshape(H, W).cpu().numpy(), stats)

@@ -1,14 +1,19 @@
 """Occupancy-grid NeRF trainer (``-O`` path;
 ``ngp_tpu/training/nerf_grid.py:GridNeRFTrainer``).
 
-Train steps march with a perturbed lattice start and the training
-budget (``compact_mean_samples`` per ray, ray-major tail drop), and the
-density grid is refreshed from the live weights every
-``update_extra_interval`` steps (``on_step_begin``). Eval frames go
-through the turbo march with the JAX trainer's eval dials and defaults:
-a water-filled budget of ``eval_mean_samples`` samples per ray, 64
-coarse candidates, tight marching inside the occupied box, and the
-two-round prepass at pixel stride 2.
+With ``RenderConfig.turbo`` (the ``-O`` presets), train steps march
+with a perturbed lattice start and the training budget
+(``compact_mean_samples`` per ray, ray-major tail drop), and eval frames
+go through the turbo march with the JAX trainer's eval dials and
+defaults: a water-filled budget of ``eval_mean_samples`` samples per
+ray, 64 coarse candidates, tight marching inside the occupied box, and
+the two-round prepass at pixel stride 2. Without it (the hash-grid
+configuration, ``-O --encoding hashgrid``) both go through the v1 march
+(``render_rays_grid``: the first ``max_samples_per_ray`` occupied probes
+per ray); the prepass and the tight box stay turbo-only, as in JAX.
+``eval_max_samples`` and ``eval_probe_stride`` are eval dials of both.
+The density grid is refreshed from the live weights every
+``update_extra_interval`` steps (``on_step_begin``).
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ from ngp_tpu_torch.models.occupancy import (
     occupied_aabb,
     prepass_spacing,
     ray_prepass,
+    render_rays_grid,
     render_rays_grid_turbo,
     update_occupancy,
 )
@@ -42,6 +48,8 @@ class GridNeRFTrainer(NeRFTrainer):
         super().__init__(*args, **kwargs)
         # eval dials (see the JAX trainer for what each one trades);
         # None = the render config's value
+        self.eval_max_samples: Optional[int] = None
+        self.eval_probe_stride: int = 1
         self.eval_mean_samples: Optional[int] = 6
         self.eval_coarse_candidates: Optional[int] = 64
         self.eval_tight_march: bool = True
@@ -73,29 +81,33 @@ class GridNeRFTrainer(NeRFTrainer):
     def _render_with(self, fns, rays_o, rays_d, bg_color=None, aabb=None,
                      t_range=None, perturb=False, noise=None):
         cfg = self.render_cfg
-        if not cfg.turbo:
-            raise NotImplementedError("the v1 grid renderer is not ported yet")
         density_fn, color_fn, vals_fn = fns
         if perturb:
             # training: the config's own budgets, no eval dials
-            return render_rays_grid_turbo(
-                density_fn, color_fn, rays_o, rays_d, self.aux["occ"], cfg,
-                bg_color=bg_color, aabb=aabb, t_range=t_range, perturb=True,
-                generator=self.generator, noise=noise,
-            )
+            render = render_rays_grid_turbo if cfg.turbo else render_rays_grid
+            return render(density_fn, color_fn, rays_o, rays_d, self.aux["occ"], cfg,
+                          bg_color=bg_color, aabb=aabb, t_range=t_range, perturb=True,
+                          generator=self.generator, noise=noise)
         over = {}
+        if self.eval_probe_stride > 1:
+            over["max_steps"] = max(cfg.max_steps // self.eval_probe_stride, 16)
         if self.eval_coarse_candidates is not None:
             over["coarse_candidates"] = int(self.eval_coarse_candidates)
-        if self._eval_lattice_span is not None:
+        if self._eval_lattice_span is not None and cfg.turbo:
             over["lattice_span"] = float(self._eval_lattice_span)
         cfg = dataclasses.replace(cfg, **over)
-        S = cfg.max_samples_per_ray
+        max_samples = self.eval_max_samples
+        if not cfg.turbo:
+            return render_rays_grid(density_fn, color_fn, rays_o, rays_d, self.aux["occ"], cfg,
+                                    bg_color=bg_color, max_samples=max_samples, aabb=aabb,
+                                    t_range=t_range)
+        S = max_samples or cfg.max_samples_per_ray
         ems = self.eval_mean_samples
         budget = rays_o.shape[0] * (S if ems is None else min(ems, S))
         return render_rays_grid_turbo(
             density_fn, color_fn, rays_o, rays_d, self.aux["occ"], cfg,
-            bg_color=bg_color, budget=budget, aabb=aabb, t_range=t_range,
-            vals_fn=vals_fn,
+            bg_color=bg_color, max_samples=max_samples, budget=budget, aabb=aabb,
+            t_range=t_range, vals_fn=vals_fn,
         )
 
     def _fetch_eval_tight_box(self):

@@ -117,7 +117,7 @@ def test_cpgrid_dispatch_on_cpu_matches_jax():
 
 def test_cpgrid_init_distribution():
     cfg = tcp.CPGridConfig(resolutions=(64, 128), rank=32)
-    banks = cfg.init(torch.Generator().manual_seed(0))
+    banks = cfg.init(torch.Generator().manual_seed(0), device="cpu")
     assert [tuple(b.shape) for b in banks] == [(3, 64, 32), (3, 128, 32)]
     allv = torch.cat([b.reshape(-1) for b in banks])
     assert abs(float(allv.mean())) < 0.01
@@ -174,7 +174,7 @@ def _port_network(params, nc, rc):
     from ngp_tpu_torch.models.nerf import NeRFNetwork, params_from_jax
 
     net = NeRFNetwork(NetworkConfig(**dataclasses.asdict(nc)),
-                      RenderConfig(**dataclasses.asdict(rc)))
+                      RenderConfig(**dataclasses.asdict(rc)), device="cpu")
     net.load_state_dict(params_from_jax(jax.tree.map(np.asarray, params)))
     return net
 

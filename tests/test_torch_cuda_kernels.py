@@ -14,7 +14,11 @@ its largest entry (f32, atomics and summation order). ``cp_encode_fwd``
 rounds each feature once from the same f32 lerps: the same bounds, by
 output type. ``fused_mlp``: 1e-2, a flipped bf16 rounding of a hidden
 unit. The module path of ``NeRFNetwork.density`` on the card against
-the CPU: 1e-4 in f32."""
+the CPU: 1e-4 in f32. The grid encoder forward: the same bounds, by
+output type; its corner rows: equal. The row scatter-add (alone and as
+``GridEncode``'s backward): f32 sums of n terms in two orders, at most
+2 (n - 1) 2^-24 times the sum of their magnitudes. The hash-grid train
+step: as the cpgrid step."""
 
 import numpy as np
 import pytest
@@ -185,7 +189,7 @@ def test_density_module_path_on_the_card(dev):
     rc = RenderConfig(bound=1.0, turbo=True)
     nc = NetworkConfig(encoding="cpgrid", use_bf16=False, cp_resolutions=(32, 64),
                        cp_rank=16, cp_freq_degree=4, sh_degree=3)
-    cpu = NeRFNetwork(nc, rc, torch.Generator().manual_seed(0))
+    cpu = NeRFNetwork(nc, rc, torch.Generator().manual_seed(0), device="cpu")
     gpu = NeRFNetwork(nc, rc)
     gpu.load_state_dict(cpu.state_dict())
     gpu.to(dev)
@@ -248,7 +252,7 @@ def test_kernels_on_the_render_path(dev):
                       grid_size=16, density_thresh=10.0, turbo=True, coarse_candidates=48)
     nc = NetworkConfig(encoding="cpgrid", use_bf16=False, cp_resolutions=(32, 64),
                        cp_rank=16, cp_freq_degree=4, sh_degree=3)
-    cpu_model = NeRFNetwork(nc, rc, torch.Generator().manual_seed(0))
+    cpu_model = NeRFNetwork(nc, rc, torch.Generator().manual_seed(0), device="cpu")
     gpu_model = NeRFNetwork(nc, rc)
     gpu_model.load_state_dict(cpu_model.state_dict())
     gpu_tr = GridNeRFTrainer(gpu_model.to(dev), rc)
@@ -289,7 +293,7 @@ def test_train_step_on_the_card_matches_cpu(dev, tmp_path):
                        cp_rank=16, cp_freq_degree=4, sh_degree=3)
     tc = TrainConfig(num_rays=1024, workspace=str(tmp_path))
     frames = make_synthetic_frames(n_train=2, n_val=0, n_test=0, H=32, W=32)["train"]
-    cpu_model = NeRFNetwork(nc, rc, torch.Generator().manual_seed(0))
+    cpu_model = NeRFNetwork(nc, rc, torch.Generator().manual_seed(0), device="cpu")
     gpu_tr = GridNeRFTrainer(copy.deepcopy(cpu_model).to(dev), rc, tc)
     for _ in range(2):
         gpu_tr._update_occupancy()
@@ -306,6 +310,207 @@ def test_train_step_on_the_card_matches_cpu(dev, tmp_path):
     counts = launch_counts()
     for name in ("cp_density_fwd_residuals", "cp_bwd_banks", "coarse_lookup_bits"):
         assert counts[name] > 0, counts
+    mc = cpu_tr.train_step(batch, draws)
+    assert abs(float(mg["loss"]) - float(mc["loss"])) <= 1e-4 * float(mc["loss"])
+    cpu_grads = dict(cpu_tr.model.named_parameters())
+    for name, p in gpu_tr.model.named_parameters():
+        want = cpu_grads[name].grad
+        assert float((p.grad.cpu() - want).abs().max()) <= 1e-3 * float(want.abs().max()), name
+
+
+# ---------------------------------------------------------------------------
+# the hash-grid encoder and the row scatter-add
+# ---------------------------------------------------------------------------
+
+GRIDS = {
+    "full": dict(desired_resolution=2048),  # 16 levels x 2, 2^19 rows per level
+    "tiled": dict(num_levels=4, base_resolution=4, log2_hashmap_size=10, desired_resolution=64,
+                  gridtype="tiled"),
+    "smooth4": dict(num_levels=3, level_dim=4, base_resolution=5, log2_hashmap_size=12,
+                    per_level_scale=1.7, interpolation="smoothstep", align_corners=True),
+}
+
+
+def _grid(name, dev, dtype=torch.float32, seed=0):
+    from ngp_tpu_torch.ops.hashgrid import GridConfig
+
+    cfg = GridConfig(**GRIDS[name])
+    g = torch.Generator().manual_seed(seed)
+    table = (torch.rand((cfg.num_rows, cfg.level_dim), generator=g) * 2 - 1).to(dev, dtype)
+    return cfg, table
+
+
+def scatter_bound(idx, rows, num_rows):
+    """f32 sums of n terms in any two orders differ by at most
+    2 (n - 1) 2^-24 times the sum of the terms' magnitudes."""
+    from ngp_tpu_torch.ops.kernels import scatter as ks
+
+    adds = ks.scatter_add_rows_plain(idx, torch.ones_like(rows),
+                                     torch.zeros((num_rows, rows.shape[1]), device=rows.device))
+    s_abs = ks.scatter_add_rows_plain(idx, rows.abs(),
+                                      torch.zeros((num_rows, rows.shape[1]), device=rows.device))
+    return 2.0 * 2.0**-24 * adds * s_abs + 1e-30
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("table_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", list(GRIDS))
+def test_grid_encode_fwd_kernel(dev, name, table_dtype, out_dtype):
+    from ngp_tpu_torch.ops.kernels import hashgrid as kh
+
+    cfg, table = _grid(name, dev, table_dtype)
+    pos, _ = _inputs(dev, 5001)
+    before = LAUNCHES["grid_encode_fwd"]
+    got = kh.grid_encode_fwd(pos, table, cfg.geometry, out_dtype)
+    assert LAUNCHES["grid_encode_fwd"] == before + 1
+    want = kh.grid_encode_plain(pos, table, cfg.geometry, out_dtype)
+    assert got.dtype == out_dtype and got.shape == (5001, cfg.output_dim)
+    oob = ((pos < 0) | (pos > 1)).any(dim=-1)
+    assert not got[oob].float().any()
+    _check(got.float(), want.float(), out_dtype)
+
+
+@pytest.mark.parametrize("g_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", list(GRIDS))
+def test_grid_encode_bwd_rows_kernel(dev, name, g_dtype):
+    """The corner rows and products equal the plain version's exactly
+    (the same f32 arithmetic, one product and one rounding each)."""
+    from ngp_tpu_torch.ops.kernels import hashgrid as kh
+
+    cfg, _ = _grid(name, dev)
+    pos, _ = _inputs(dev, 3001)
+    g = torch.randn((3001, cfg.output_dim), generator=torch.Generator().manual_seed(5))
+    g = g.to(dev, g_dtype)
+    before = LAUNCHES["grid_encode_bwd_rows"]
+    idx, rows = kh.grid_encode_bwd_rows(pos, g, cfg.geometry)
+    torch.cuda.synchronize()
+    assert LAUNCHES["grid_encode_bwd_rows"] == before + 1
+    idx_p, rows_p = kh.grid_encode_bwd_rows_plain(pos, g, cfg.geometry)
+    assert torch.equal(idx, idx_p)
+    assert torch.equal(rows, rows_p)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", ["full", "smooth4"])
+def test_grid_encode_backward_kernel(dev, name, dtype):
+    """``GridEncode``'s table gradient (row kernel + scatter-add) against
+    autograd of the plain version, within the f32 summation-order bound."""
+    from ngp_tpu_torch.ops.hashgrid import grid_encode
+    from ngp_tpu_torch.ops.kernels import hashgrid as kh
+
+    cfg, table = _grid(name, dev)
+    pos, _ = _inputs(dev, 20000)
+    g = torch.randn((20000, cfg.output_dim), generator=torch.Generator().manual_seed(6))
+    g = g.to(dev, dtype)
+    tk_ = table.clone().requires_grad_()
+    tp = table.clone().requires_grad_()
+    before = dict(LAUNCHES)
+    grid_encode(pos, tk_, cfg, dtype).backward(g)
+    torch.cuda.synchronize()
+    for name_k in ("grid_encode_fwd", "grid_encode_bwd_rows", "scatter_add_rows"):
+        assert LAUNCHES[name_k] == before[name_k] + 1, name_k
+    kh.grid_encode_plain(pos, tp, cfg.geometry, dtype).backward(g)
+    idx, rows = kh.grid_encode_bwd_rows_plain(pos, g, cfg.geometry)
+    bound = scatter_bound(idx, rows, cfg.num_rows)
+    assert tk_.grad.dtype == torch.float32 and torch.isfinite(tk_.grad).all()
+    assert ((tk_.grad - tp.grad).abs() <= bound).all()
+    with pytest.raises(NotImplementedError):
+        grid_encode(pos.clone().requires_grad_(), tk_, cfg)
+
+
+@pytest.mark.parametrize("W", [1, 2, 3, 4, 8, 128, 130])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_scatter_add_rows_kernel(dev, W, aligned):
+    """Repeated and out-of-range indices, every row width branch, and
+    rows that are not 16-byte aligned (the scalar-atomic fallback)."""
+    from ngp_tpu_torch.ops.kernels import scatter as ks
+
+    g = torch.Generator().manual_seed(W)
+    M, R = 50000, 777
+    idx = torch.randint(-5, R + 5, (M,), generator=g, dtype=torch.int32)
+    idx[:5000] = 3  # a hot row
+    # a view one float into its buffer is 4-byte aligned only
+    rows = torch.empty((M * W + 1,), device=dev)[int(not aligned):][:M * W].view(M, W)
+    rows.copy_(torch.randn((M, W), generator=g))
+    idx = idx.to(dev)
+    out0 = torch.randn((R, W), generator=g).to(dev)
+    before = LAUNCHES["scatter_add_rows"]
+    got = ks.scatter_add_rows(idx, rows, out0.clone())
+    torch.cuda.synchronize()
+    assert LAUNCHES["scatter_add_rows"] == before + 1
+    want = ks.scatter_add_rows_plain(idx, rows, out0.clone())
+    keep = (idx >= 0) & (idx < R)
+    bound = scatter_bound(torch.where(keep, idx, -1), rows, R) + 2.0**-23 * out0.abs()
+    assert ((got - want).abs() <= bound).all()
+
+
+def test_grid_and_scatter_wrappers_raise_on_what_the_kernels_do_not_take(dev):
+    from ngp_tpu_torch.ops.kernels import hashgrid as kh
+    from ngp_tpu_torch.ops.kernels import scatter as ks
+
+    cfg, table = _grid("tiled", dev)
+    pos, _ = _inputs(dev, 64)
+    geom = cfg.geometry
+    with pytest.raises(ValueError):
+        kh.grid_encode_fwd(pos.double(), table, geom)
+    with pytest.raises(ValueError):
+        kh.grid_encode_fwd(pos, table[:-1], geom)
+    with pytest.raises(ValueError):
+        kh.grid_encode_fwd(pos, table, geom, torch.float16)
+    with pytest.raises(ValueError):
+        kh.grid_encode_fwd(pos.t().contiguous().t(), table, geom)
+    with pytest.raises(ValueError):
+        kh.grid_encode_bwd_rows(pos, torch.zeros((64, cfg.output_dim + 1), device=dev), geom)
+    idx = torch.zeros((8,), dtype=torch.int32, device=dev)
+    out = torch.zeros((4, 2), device=dev)
+    with pytest.raises(ValueError):
+        ks.scatter_add_rows(idx.long(), torch.zeros((8, 2), device=dev), out)
+    with pytest.raises(ValueError):
+        ks.scatter_add_rows(idx, torch.zeros((2, 8), device=dev).t(), out)
+    with pytest.raises(ValueError):
+        ks.scatter_add_rows(idx, torch.zeros((8, 3), device=dev), out)
+    with pytest.raises(ValueError):
+        ks.scatter_add_rows(idx, torch.zeros((8, 2), device=dev), out.double())
+
+
+def test_hashgrid_train_step_on_the_card_matches_cpu(dev, tmp_path):
+    """One f32 step of the hash-grid configuration through the grid
+    kernels and the scatter-add against the same step on the CPU: loss
+    to 1e-4 relative, each gradient (the table's included) to 1e-3 of
+    its largest entry (f32 atomics and summation order)."""
+    import copy
+
+    from ngp_tpu_torch.config import NetworkConfig, RenderConfig, TrainConfig
+    from ngp_tpu_torch.data.synthetic import make_synthetic_frames
+    from ngp_tpu_torch.models.nerf import NeRFNetwork
+    from ngp_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from ngp_tpu_torch.training.nerf_grid import GridNeRFTrainer
+
+    rc = RenderConfig(bound=1.0, min_near=0.05, max_steps=64, max_samples_per_ray=16,
+                      grid_size=16, density_thresh=10.0, turbo=False)
+    nc = NetworkConfig(encoding="hashgrid", use_bf16=False, num_levels=4, level_dim=2,
+                       base_resolution=4, log2_hashmap_size=10, sh_degree=3)
+    tc = TrainConfig(num_rays=1024, workspace=str(tmp_path))
+    frames = make_synthetic_frames(n_train=2, n_val=0, n_test=0, H=32, W=32,
+                                   device=dev)["train"]
+    cpu_model = NeRFNetwork(nc, rc, torch.Generator().manual_seed(0), device="cpu")
+    gpu_tr = GridNeRFTrainer(copy.deepcopy(cpu_model).to(dev), rc, tc)
+    for _ in range(2):
+        gpu_tr._update_occupancy()
+    cpu_tr = GridNeRFTrainer(cpu_model, rc, tc)
+    cpu_tr.aux = {"occ": gpu_tr.aux["occ"].to("cpu")}
+    g = torch.Generator().manual_seed(1)
+    draws = {"inds": torch.randint(0, 32 * 32, (1024,), generator=g),
+             "bg": torch.rand((1024, 3), generator=g), "noise": torch.rand((1024,), generator=g)}
+    batch = {"images": torch.from_numpy(frames.images), "poses": torch.from_numpy(frames.poses),
+             "intrinsics": torch.from_numpy(frames.intrinsics), "idx": 1}
+    reset_launch_counts()
+    mg = gpu_tr.train_step({k: v.to(dev) if torch.is_tensor(v) else v for k, v in batch.items()},
+                           {k: v.to(dev) for k, v in draws.items()})
+    counts = launch_counts()
+    for name in ("grid_encode_fwd", "grid_encode_bwd_rows", "scatter_add_rows"):
+        assert counts[name] > 0, counts
+    assert not any(v for k, v in counts.items() if k.startswith("cp_")), counts
     mc = cpu_tr.train_step(batch, draws)
     assert abs(float(mg["loss"]) - float(mc["loss"])) <= 1e-4 * float(mc["loss"])
     cpu_grads = dict(cpu_tr.model.named_parameters())

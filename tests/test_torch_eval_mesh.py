@@ -166,9 +166,10 @@ def trained(tmp_path_factory):
     and a JAX trainer holding its EMA weights and its grid."""
     ws = tmp_path_factory.mktemp("trained")
     rc, nc = tconfig.RenderConfig(**RC), tconfig.NetworkConfig(**NC)
-    splits = tsyn.make_synthetic_frames(n_train=4, n_val=2, n_test=1, H=24, W=24, seed=1)
+    splits = tsyn.make_synthetic_frames(n_train=4, n_val=2, n_test=1, H=24, W=24, seed=1,
+                                     device="cpu")
     tc = dict(iters=50, num_rays=512, update_extra_interval=4, workspace=str(ws / "t"))
-    ttr = TGridNeRFTrainer(TNeRFNetwork(nc, rc, torch.Generator().manual_seed(0)), rc,
+    ttr = TGridNeRFTrainer(TNeRFNetwork(nc, rc, torch.Generator().manual_seed(0), device="cpu"), rc,
                            tconfig.TrainConfig(**tc), log_every=10**9)
     ttr.train_on_dataset(splits["train"], max_epochs=2)
     jrc = jconfig.RenderConfig(**RC)
@@ -272,10 +273,10 @@ def test_save_mesh_matches_jax(trained, tmp_path, monkeypatch):
 
 def test_train_on_dataset_keeps_the_best_checkpoint(tmp_path):
     rc, nc = tconfig.RenderConfig(**RC), tconfig.NetworkConfig(**NC)
-    splits = tsyn.make_synthetic_frames(n_train=2, n_val=1, n_test=0, H=16, W=16)
+    splits = tsyn.make_synthetic_frames(n_train=2, n_val=1, n_test=0, H=16, W=16, device="cpu")
     tc = tconfig.TrainConfig(iters=50, num_rays=256, eval_interval=2, workspace=str(tmp_path))
-    tr = TGridNeRFTrainer(TNeRFNetwork(nc, rc, torch.Generator().manual_seed(0)), rc, tc,
-                          log_every=10**9)
+    net = TNeRFNetwork(nc, rc, torch.Generator().manual_seed(0), device="cpu")
+    tr = TGridNeRFTrainer(net, rc, tc, log_every=10**9)
     assert tr.eval_interval == 2
     tr.train_on_dataset(splits["train"], splits["val"], max_epochs=1)
     assert tr.stats["best_loss"] is None  # epoch 1: no validation
@@ -285,7 +286,7 @@ def test_train_on_dataset_keeps_the_best_checkpoint(tmp_path):
     ckpts = sorted(p.name for p in (tmp_path / "checkpoints").iterdir())
     assert "ngp_best.pth" in ckpts
     assert sorted(os.listdir(tmp_path / "validation")) == ["ngp_0002_0000.png"]
-    back = TGridNeRFTrainer(TNeRFNetwork(nc, rc), rc, tc)
+    back = TGridNeRFTrainer(TNeRFNetwork(nc, rc, device="cpu"), rc, tc)
     assert back.load_checkpoint(str(tmp_path / "checkpoints" / "ngp_best.pth"))
     assert back.stats["best_loss"] == pytest.approx(best)
 

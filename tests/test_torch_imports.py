@@ -22,11 +22,14 @@ MODULES = [
     "ngp_tpu_torch.ops.sh",
     "ngp_tpu_torch.ops.activation",
     "ngp_tpu_torch.ops.cpgrid",
+    "ngp_tpu_torch.ops.hashgrid",
     "ngp_tpu_torch.ops.kernels",
     "ngp_tpu_torch.ops.kernels.build",
     "ngp_tpu_torch.ops.kernels.cp",
     "ngp_tpu_torch.ops.kernels.march",
     "ngp_tpu_torch.ops.kernels.fused_mlp",
+    "ngp_tpu_torch.ops.kernels.hashgrid",
+    "ngp_tpu_torch.ops.kernels.scatter",
     "ngp_tpu_torch.models.mlp",
     "ngp_tpu_torch.models.encoders",
     "ngp_tpu_torch.models.nerf",

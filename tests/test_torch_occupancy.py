@@ -61,7 +61,7 @@ def _jax_state(jcfg, occ, dens):
 def _to_port(jstate):
     arrays = {f.name: np.asarray(getattr(jstate, f.name))
               for f in dataclasses.fields(jstate)}
-    return to.occupancy_from_jax(arrays)
+    return to.occupancy_from_jax(arrays, device="cpu")
 
 
 def _eq(got, want):
@@ -86,7 +86,7 @@ def test_payload_packing_bit_for_bit(bound, H):
     cp_j0, fp_j0 = jo.pack_occupancy_payloads(jnp.asarray(occ))
     cp_t0, fp_t0 = to.pack_occupancy_payloads(torch.from_numpy(occ))
     _eq(fp_t0, np.asarray(fp_j0).astype(np.int64))
-    js, ts = jo.init_occupancy(jcfg), to.init_occupancy(cfg)
+    js, ts = jo.init_occupancy(jcfg), to.init_occupancy(cfg, device="cpu")
     for name in ("coarse_payload", "prepass_payload", "density_grid", "occ_grid"):
         _eq(getattr(ts, name), getattr(js, name))
     _eq(to.occupied_aabb(_to_port(_jax_state(jcfg, occ, dens)), cfg),

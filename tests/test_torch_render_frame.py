@@ -41,10 +41,10 @@ def _pair(tmp_path, bound=1.0):
     occ = jtr.aux["occ"]
     arrays = {f.name: np.asarray(getattr(occ, f.name)) for f in dataclasses.fields(occ)}
     net = TNeRFNetwork(tconfig.NetworkConfig(**dataclasses.asdict(nc)),
-                       tconfig.RenderConfig(**dataclasses.asdict(rc)))
+                       tconfig.RenderConfig(**dataclasses.asdict(rc)), device="cpu")
     net.load_state_dict(params_from_jax(jax.tree.map(np.asarray, jtr.eval_params())))
     ttr = TGridNeRFTrainer(net, net.render)
-    ttr.aux = {"occ": occupancy_from_jax(arrays)}
+    ttr.aux = {"occ": occupancy_from_jax(arrays, device="cpu")}
     return jtr, ttr
 
 

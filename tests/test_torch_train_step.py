@@ -120,10 +120,11 @@ def test_sample_ray_indices_uniform_and_full_frame():
     key = jax.random.PRNGKey(1)
     H, W, n = 24, 40, 500
     want = jrs.sample_ray_indices(key, H, W, n)
-    got = trs.sample_ray_indices(H, W, n, draws={
+    got = trs.sample_ray_indices(H, W, n, device="cpu", draws={
         "inds": _np(jax.random.randint(key, (n,), 0, H * W))})
     _eq(got["inds"], want["inds"])
-    drawn = trs.sample_ray_indices(H, W, n, generator=torch.Generator().manual_seed(0))
+    drawn = trs.sample_ray_indices(H, W, n, generator=torch.Generator().manual_seed(0),
+                                   device="cpu")
     assert drawn["inds"].shape == (n,) and 0 <= int(drawn["inds"].min())
     assert int(drawn["inds"].max()) < H * W
     pose = np.eye(4, dtype=np.float32)
@@ -167,7 +168,7 @@ def test_sample_ray_indices_patch():
     want = jrs.sample_ray_indices(key, H, W, n, patch_size=p)
     kx, ky = jax.random.split(key)
     num = n // p**2
-    got = trs.sample_ray_indices(H, W, n, patch_size=p, draws={
+    got = trs.sample_ray_indices(H, W, n, patch_size=p, device="cpu", draws={
         "x0": _np(jax.random.randint(kx, (num,), 0, H - p)),
         "y0": _np(jax.random.randint(ky, (num,), 0, W - p)),
     })
@@ -197,7 +198,7 @@ def test_mark_untrained_grid(bound):
 def test_make_synthetic_frames_matches_render_gt_frame(variant):
     H = W = 32
     splits = tsyn.make_synthetic_frames(n_train=2, n_val=1, n_test=1, H=H, W=W, seed=3,
-                                        variant=variant)
+                                        variant=variant, device="cpu")
     train = splits["train"]
     focal = 0.5 * W / np.tan(0.5 * np.deg2rad(50.0))
     np.testing.assert_array_equal(train.intrinsics,
@@ -212,7 +213,8 @@ def test_make_synthetic_frames_matches_render_gt_frame(variant):
                                   jsyn._orbit_pose(np.pi / 2.2, np.pi, 2.2))
     assert train.training and not splits["val"].training
     want = jsyn.render_gt_frame(train.poses[0], train.intrinsics, H, W, variant=variant)
-    got = tsyn.render_gt_frame(train.poses[0], train.intrinsics, H, W, variant=variant)
+    got = tsyn.render_gt_frame(train.poses[0], train.intrinsics, H, W, variant=variant,
+                               device="cpu")
     _close(got, want, 2e-5)
     # u8 truncation, as the PNG writer does; a 1-ulp difference at an
     # exact level (opaque alpha 1.0) may move a value by one level
@@ -253,7 +255,8 @@ def test_train_step_matches_jax(tmp_path, error_map):
     jtr.ensure_initialized()
     for _ in range(3):
         jtr._update_occupancy()
-    frames = tsyn.make_synthetic_frames(n_train=2, n_val=0, n_test=0, H=H, W=W)["train"]
+    frames = tsyn.make_synthetic_frames(n_train=2, n_val=0, n_test=0, H=H, W=W,
+                                     device="cpu")["train"]
     em = np.random.default_rng(6).exponential(size=(2, 32 * 32)).astype(np.float32)
     aux = dict(jtr.aux)
     if error_map:
@@ -278,12 +281,13 @@ def test_train_step_matches_jax(tmp_path, error_map):
     else:
         draws["inds"] = _np(jax.random.randint(k_pix, (n,), 0, H * W))
 
-    net = TNeRFNetwork(tconfig.NetworkConfig(**nc), tconfig.RenderConfig(**rc))
+    net = TNeRFNetwork(tconfig.NetworkConfig(**nc), tconfig.RenderConfig(**rc), device="cpu")
     net.load_state_dict(params_from_jax(jax.tree.map(np.asarray, jtr.state.params)))
     ttr = TGridNeRFTrainer(net, net.render, tconfig.TrainConfig(**tc))
     occ = jtr.aux["occ"]
     ttr.aux = {"occ": to.occupancy_from_jax(
-        {f.name: np.asarray(getattr(occ, f.name)) for f in dataclasses.fields(occ)})}
+        {f.name: np.asarray(getattr(occ, f.name)) for f in dataclasses.fields(occ)},
+        device="cpu")}
     if error_map:
         ttr.aux["error_map"] = torch.from_numpy(em.copy())
     tbatch = {"images": torch.from_numpy(frames.images), "poses": torch.from_numpy(frames.poses),
@@ -349,11 +353,12 @@ def test_train_on_dataset_refresh_cadence_and_checkpoints(tmp_path):
                                cp_rank=16, cp_freq_degree=4, sh_degree=3)
     tc = tconfig.TrainConfig(iters=50, num_rays=256, update_extra_interval=4, error_map=True,
                              error_map_size=16, workspace=str(tmp_path))
-    frames = tsyn.make_synthetic_frames(n_train=3, n_val=0, n_test=0, H=16, W=16)["train"]
+    frames = tsyn.make_synthetic_frames(n_train=3, n_val=0, n_test=0, H=16, W=16,
+                                     device="cpu")["train"]
 
     def trainer():
-        return TGridNeRFTrainer(TNeRFNetwork(nc, rc, torch.Generator().manual_seed(0)), rc, tc,
-                                log_every=5)
+        net = TNeRFNetwork(nc, rc, torch.Generator().manual_seed(0), device="cpu")
+        return TGridNeRFTrainer(net, rc, tc, log_every=5)
 
     tr = trainer()
     tr.train_on_dataset(frames, max_epochs=3)

@@ -8,7 +8,10 @@ Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
 
-It builds the CUDA kernels from ``ngp_tpu_torch/ops/kernels/csrc``, then
+(``--probe-scatter`` adds ``scatter_probe`` to phase 9.) It builds the
+CUDA kernels from ``ngp_tpu_torch/ops/kernels/csrc`` (and counts the
+tensor-core instructions, HMMA, of the bf16 density head in the
+library's SASS), then
 
 2-3. builds the turbo-hq NeRF network at full width from a seeded
      generator (random weights), refreshes the 128^3 occupancy grid (16
@@ -17,14 +20,16 @@ It builds the CUDA kernels from ``ngp_tpu_torch/ops/kernels/csrc``, then
 4.   holds each kernel against its plain PyTorch version at the paths'
      shapes: the refresh and the eval chunk, the train step's 98,304
      rows for the density forward with residuals and the factor
-     backward, the mesh export's 65,536-row chunk for the CP encoder
-     and its backward, and 524,288 x [32, 64, 64, 16] for the MLP chain
-     (which no path runs); the hash-grid encoder at the refresh chunk
-     (131,072 points) and a hash-grid train step (4096 rays x 256
-     samples = 1,048,576 points) on the full-width table (16 levels x 2,
-     6,119,864 rows), forward, corner rows and its table gradient, and
-     the row scatter-add at the probe script's shape and one hash level's,
-     with ``Tensor.index_add_`` timed beside it;
+     backward (and the density forward at the edges of
+     ``DENSITY_EDGES``), the mesh export's 65,536-row
+     chunk for the CP encoder and its backward, and 524,288 x
+     [32, 64, 64, 16] for the MLP chain (which no path runs); the
+     hash-grid encoder at the refresh chunk (131,072 points) and a
+     hash-grid train step (4096 rays x 256 samples = 1,048,576 points)
+     on the full-width table (16 levels x 2, 6,119,864 rows), forward
+     and table gradient, and the row scatter-add (which no path runs
+     any more) at the probe script's shape and one hash level's, with
+     ``Tensor.index_add_`` timed beside it;
 5.   renders a small frame on the GPU and the same frame on the CPU
      through the plain versions;
 6.   renders the synthetic scene (16 train frames at 400x400 and one
@@ -36,15 +41,19 @@ It builds the CUDA kernels from ``ngp_tpu_torch/ops/kernels/csrc``, then
      then, on the same trainer, ``evaluate`` (PSNR and SSIM, the PSNR
      equal to the frame's), ``test`` (its PNG decodes to the frame) and
      ``save_mesh`` at 256^3 (256 CP-encoder launches through
-     ``NeRFNetwork.density``, a non-empty mesh inside the box);
+     ``NeRFNetwork.density``, a non-empty mesh inside the box); then
+     profiles 16 more train steps (device time by kernel, the device's
+     idle share);
 8.   runs one small f32 train step on the GPU and the same step on the
      CPU through the plain versions, and compares loss and gradients;
 9.   trains the hash-grid configuration at full width on the same scene
      (v1 march, 1024 steps and 256 samples per ray, 4096 rays per step,
-     refresh every 16 steps) for 256 steps, times the last 128, profiles
-     16 more (device time by kernel, the device's idle share), requires
-     a loss that falls, and renders the val pose with the EMA weights to
-     a PSNR floor;
+     refresh every 16 steps) for 256 steps, times the last 128,
+     requires a loss that falls, renders the val pose with the EMA
+     weights to a PSNR floor, and profiles 16 more steps; on the first
+     and last steps' own encoder inputs (points and bf16 cotangent) it
+     counts the zero cotangent rows and holds the table gradient against
+     its plain version;
 10.  runs one small f32 hash-grid train step on the GPU and on the CPU,
      and the card's encoder inputs and cotangents of that step through
      the plain encoder on the CPU, against the card's table gradient.
@@ -62,6 +71,7 @@ could do them (``bound``). The last line is a JSON object
 ``{"ok": true, "device": {...}}``; any failure raises and exits non-zero.
 """
 
+import argparse
 import copy
 import itertools
 import json
@@ -103,6 +113,19 @@ MESH_CHUNKS = MESH_RES**3 // 2**16
 ENCODE_ROWS = 2**16
 MLP_DIMS = [32, 64, 64, 16]
 MLP_ROWS = (524288, 300)
+# the density head's edges on the card, (rows, None for the model's banks
+# or (resolutions, rank, freq degree) of random ones, factor scale): one
+# row, a ragged row count (not a multiple of the 128-row tile), rank 12
+# (no multiple of 8: the scalar tail of the gathers) with frequency degree
+# 2 on two small banks, rank 256 (K 1328: w1 no longer fits in shared
+# memory beside the tiles and streams in a chunk at a time), and the
+# model's banks scaled by CP_SCALE, so the CP features (then of std ~2
+# against ~4e-3) dominate h1 and a wrong bank, axis or tap moves the
+# output past its bound
+CP_SCALE = 7.5
+DENSITY_EDGES = ((1, None, 1.0), (131_071, None, 1.0), (4099, ((32, 64), 12, 2), 1.0),
+                 (4099, ((128, 256, 512, 1024, 2048), 256, 6), 1.0),
+                 (TRAIN_ROWS, None, CP_SCALE))
 # one small f32 train step, GPU kernels vs CPU plain versions: the
 # loss to 1e-4 relative and each gradient to 1e-3 of its largest entry
 # (f32 atomics and summation order); in the hash-grid configuration the
@@ -144,6 +167,17 @@ def bound(n_bytes, tensor_flops=0.0, core_flops=0.0):
     t_bytes = n_bytes / HBM_RATE
     t_ops = max(tensor_flops / BF16_TENSOR_RATE, core_flops / F32_CORE_RATE)
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def grid_bwd_work(x, g, geom):
+    """(bytes, 0, operations) of the table gradient on these inputs: x and
+    g read once, the f32 table written once; per (point, level) inside
+    [0, 1]^3 with a non-zero cotangent, 9 operations of position and per
+    corner 2 of weight and 1 per feature."""
+    L, C = geom.num_levels, geom.level_dim
+    inside = ((x >= 0.0) & (x <= 1.0)).all(dim=1)
+    live = int(((g.view(-1, L, C) != 0).any(dim=2) & inside[:, None]).sum())
+    return nbytes(x, g) + geom.num_rows * C * 4, 0, live * (9 + 8 * (2 + C))
 
 
 def scatter_bound(ks, idx, rows, num_rows):
@@ -227,6 +261,24 @@ def compare(name, kernel, plain, dtype, work, tol=None):
     return err_max, (k1 + k2) / 2, (p1 + p2) / 2, bound(*work)
 
 
+def density_bound(cp, pos, factors, res, want):
+    """cp_density_fwd with residuals, bf16: out and h1 to TOL, as
+    ``compare``; the feats are rounded once from f32 values that both
+    compute alike up to the order of f32 operations, so each is held to
+    one bf16 step (2^-7 |plain|) plus, for a CP column, 2^-20 of the sum
+    of its terms' magnitudes (three f32 lerps and two products) and, for
+    a frequency column, 2^-14 (the double-angle ladder doubles a few f32
+    ulps of sin and cos per octave)."""
+    import torch
+
+    out, feats, h1 = want
+    mag = cp.cp_features_plain(pos, [f.abs() for f in factors], res)
+    slack = torch.full(feats.shape, 2.0**-14, device=feats.device)
+    slack[:, :mag.shape[1]] = 2.0**-20 * mag
+    return [TOL["bfloat16"] * (1.0 + out.abs()), 2.0**-7 * feats.float().abs() + slack,
+            TOL["bfloat16"] * (1.0 + h1.float().abs())]
+
+
 def bwd_bound(cp, pos, factors, g_cp, res, want):
     """cp_bwd_banks sums by f32 atomics in no fixed order: per entry,
     2^-13 of the sum of its absolute contributions, plus (bf16 output)
@@ -263,6 +315,100 @@ def profile_steps(trainer, batches, n, card):
               f"{e.key[:110]}")
 
 
+def hmma_count(lib_path, kernel):
+    """The tensor-core (HMMA) instructions in ``kernel``'s SASS in the
+    built library, from ``cuobjdump --dump-sass``."""
+    from ngp_tpu_torch.ops.kernels import build
+
+    tool = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "--dump-sass", str(lib_path)], check=True,
+                          capture_output=True, text=True, timeout=300).stdout
+    count, inside = 0, False
+    for line in sass.splitlines():
+        if "Function :" in line:
+            inside = kernel in line
+        elif inside:
+            count += "HMMA" in line
+    return count
+
+
+def scatter_probe(x, g, geom, idx, rows, nz, s_bound, label, card, results, library):
+    """The two-kernel design the table gradient replaced, on one step's
+    own corner rows (``--probe-scatter``): the corner rows (their plain
+    version, on the card), then ``scatter_add_rows``, beside
+    ``index_add_`` on the same rows, and the scatter on variants of the
+    rows that tell its costs apart (zero products skipped, only the
+    non-zero rows in step order, the same rows shuffled)."""
+    import torch
+
+    from ngp_tpu_torch.ops.kernels import hashgrid as hk
+    from ngp_tpu_torch.ops.kernels import scatter as sk
+
+    R, C = geom.num_rows, geom.level_dim
+    outs = [torch.zeros((R, C), device=x.device) for _ in range(3)]
+    key = ("scatter_add_rows", f"{label}: {idx.numel()}x{C} into {R}")
+    results[key] = compare(
+        "scatter_add_rows", lambda: sk.scatter_add_rows(idx, rows, outs[0]),
+        lambda: sk.scatter_add_rows_plain(idx, rows, outs[1]), "float32",
+        (nbytes(idx, rows, outs[0]), 0, idx.numel() * C), tol=lambda want: [s_bound])
+    keep = idx >= 0
+    idx_l = torch.where(keep, idx, 0).long()
+    rows_l = torch.where(keep[:, None], rows, torch.zeros((), device=x.device))
+    library[key] = cuda_ms(lambda: outs[2].index_add_(0, idx_l, rows_l))
+    del idx_l, rows_l
+    t_rows = cuda_ms(lambda: hk.grid_encode_bwd_rows_plain(x, g, geom), reps=3)
+    idx_skip = torch.where(nz, idx, -1)
+    t_skip = cuda_ms(lambda: sk.scatter_add_rows(idx_skip, rows, outs[2]))
+    idx_nz, rows_nz = idx[nz].contiguous(), rows[nz].contiguous()
+    t_nz = cuda_ms(lambda: sk.scatter_add_rows(idx_nz, rows_nz, outs[2]))
+    perm = torch.randperm(idx_nz.numel(), device=x.device)
+    idx_sh, rows_sh = idx_nz[perm].contiguous(), rows_nz[perm].contiguous()
+    t_sh = cuda_ms(lambda: sk.scatter_add_rows(idx_sh, rows_sh, outs[2]))
+    print(f"hash step {label}: corner rows (plain, on the card) {t_rows:.4f} ms, then "
+          f"scatter_add_rows {results[key][1]:.4f} ms (index_add_ {library[key]:.4f} ms); the "
+          f"scatter with zero products skipped {t_skip:.4f} ms, on the {idx_nz.numel()} "
+          f"non-zero rows alone {t_nz:.4f} ms, the same shuffled {t_sh:.4f} ms  [{card}]",
+          flush=True)
+
+
+def step_table_gradient(x, g, geom, label, card, results, library, probe):
+    """The hash step's table gradient on one step's own encoder inputs
+    (points x [B, 3] f32, cotangent g [B, L*C] bf16): the zero rows of g
+    and the non-zero corner products, then ``grid_encode_bwd`` against
+    its plain version (and, with ``probe``, ``scatter_probe``)."""
+    from ngp_tpu_torch.ops.kernels import hashgrid as hk
+    from ngp_tpu_torch.ops.kernels import scatter as sk
+
+    zero_rows = float((g == 0).all(dim=1).float().mean())
+    idx, rows = hk.grid_encode_bwd_rows_plain(x, g, geom)
+    nz = (rows != 0).any(dim=1) & (idx >= 0)
+    n_nz = int(nz.sum())
+    print(f"hash step {label}: {x.shape[0]} points, {zero_rows:.4f} of the cotangent rows exactly "
+          f"zero, {n_nz} of {idx.numel()} corner rows with a non-zero product "
+          f"({n_nz / idx.numel():.4f})", flush=True)
+    s_bound = scatter_bound(sk, idx, rows, geom.num_rows)
+    if probe:
+        scatter_probe(x, g, geom, idx, rows, nz, s_bound, label, card, results, library)
+    del idx, rows, nz
+    results[("grid_encode_bwd", label)] = compare(
+        "grid_encode_bwd", lambda: hk.grid_encode_bwd(x, g, geom),
+        lambda: hk.grid_encode_bwd_plain(x, g, geom), "bfloat16",
+        grid_bwd_work(x, g, geom), tol=lambda want: [s_bound])
+
+
+def print_results(results, library, card, printed):
+    """Print the kernel comparisons not in ``printed``; returns the keys
+    printed so far."""
+    for key, (err, k_ms, p_ms, (b_ms, b_by)) in results.items():
+        if key in printed:
+            continue
+        lib = library.get(key)
+        lib = "" if lib is None else f", index_add_ {lib:.4f} ms"
+        print(f"kernel {key[0]} [{key[1]}]: max_abs_err {err:.3e}, kernel {k_ms:.4f} ms, "
+              f"plain {p_ms:.4f} ms{lib}, bound {b_ms:.4f} ms ({b_by})  [{card}]")
+    return printed | set(results)
+
+
 def check_launched(path, counts, names):
     print(f"launches [{path}]: {json.dumps(counts)}", flush=True)
     for name in names:
@@ -287,7 +433,7 @@ def train_step_gpu_vs_cpu(dev, hash_grid=False):
                           grid_size=16, density_thresh=10.0, turbo=False)
         nc = NetworkConfig(encoding="hashgrid", use_bf16=False, num_levels=8,
                            log2_hashmap_size=14, sh_degree=3)
-        kernels = ("grid_encode_fwd", "grid_encode_bwd_rows", "scatter_add_rows")
+        kernels = ("grid_encode_fwd", "grid_encode_bwd")
     else:
         rc = RenderConfig(bound=1.0, min_near=0.05, max_steps=64, max_samples_per_ray=16,
                           grid_size=16, density_thresh=10.0, turbo=True, coarse_candidates=48,
@@ -382,6 +528,11 @@ def train_step_gpu_vs_cpu(dev, hash_grid=False):
 
 
 def main():
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--probe-scatter", action="store_true",
+                        help="also time the replaced corner rows + scatter_add_rows pair and "
+                             "index_add_ on the hash steps' own rows (scatter_probe)")
+    probe_scatter = parser.parse_args().probe_scatter
     import torch
 
     if not torch.cuda.is_available():
@@ -420,6 +571,11 @@ def main():
     for line in report.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"ptxas: {line.strip()}")
+    hmma = hmma_count(build.library_path(), "cp_density_tc_kernel")
+    print(f"SASS: cp_density_tc_kernel (the bf16 density head) has {hmma} HMMA instructions",
+          flush=True)
+    if hmma == 0:
+        raise RuntimeError("the bf16 density head runs no tensor-core instruction")
 
     # 2. the turbo-hq network at full width, random weights from a seed
     rc = RenderConfig(
@@ -499,12 +655,38 @@ def main():
             (nbytes(pos, *fa, a1, a2) + M * OUT * 4, M * mlp_flops, 14 * M * nbR))
         M = TRAIN_ROWS
         pos_t = torch.rand((M, 3), generator=gen, device=dev) * 1.1 - 0.05
+        resid_tol = None
+        if dtype == "bfloat16":
+            resid_tol = lambda want: density_bound(cp, pos_t, fa, res, want)  # noqa: E731
         results[("cp_density_fwd+residuals", dtype)] = compare(
             "cp_density_fwd+residuals",
             lambda: cp.cp_density_fwd(pos_t, fa, a1, a2, res, fd, residuals=True),
             lambda: cp.cp_density_plain(pos_t, fa, a1, a2, res, fd, residuals=True), dtype,
             (nbytes(pos_t, *fa, a1, a2) + M * (OUT * 4 + (D + H1) * esz), M * mlp_flops,
-             14 * M * nbR))
+             14 * M * nbR), tol=resid_tol)
+        # the density head's edge shapes, with and without residuals
+        for M_e, small, scale in DENSITY_EDGES:
+            fe, e1, e2, res_e, fd_e = tuple(f * scale for f in fa), a1, a2, res, fd
+            if small is not None:
+                res_e, rank_e, fd_e = small
+                fe = tuple((torch.randn((3, r, rank_e), generator=gen, device=dev) * 0.2).to(dt)
+                           for r in res_e)
+                D_e = len(res_e) * rank_e + 3 * (1 + 2 * fd_e)
+                e1 = (torch.randn((D_e, H1), generator=gen, device=dev) / D_e**0.5).to(dt)
+                e2 = (torch.randn((H1, OUT), generator=gen, device=dev) / H1**0.5).to(dt)
+            pos_x = torch.rand((M_e, 3), generator=gen, device=dev) * 1.1 - 0.05
+            shape = (f"{dtype} {M_e} rows, rank {fe[0].shape[-1]}, freq degree {fd_e}, "
+                     f"factors x{scale}")
+            for resid in (False, True):
+                tol = None
+                if resid and dtype == "bfloat16":
+                    tol = lambda want: density_bound(cp, pos_x, fe, res_e, want)  # noqa: E731
+                results[("cp_density_fwd" + "+residuals" * resid, shape)] = compare(
+                    "cp_density_fwd",
+                    lambda: cp.cp_density_fwd(pos_x, fe, e1, e2, res_e, fd_e, residuals=resid),
+                    lambda: cp.cp_density_plain(pos_x, fe, e1, e2, res_e, fd_e, residuals=resid),
+                    dtype, (nbytes(pos_x, *fe, e1, e2) + M_e * OUT * 4, M_e * mlp_flops, 0),
+                    tol=tol)
         # the factor gradient from a d(features) of the train shape, with a
         # row stride wider than its columns as the backward passes it
         g_cp = torch.randn((M, D), generator=gen, device=dev)[:, :nbR]
@@ -570,11 +752,11 @@ def main():
     # the hash grid's kernels on the full-width table (f32, as the model
     # keeps it), at the refresh chunk and a train step's sample slots; per
     # (point, level) 9 operations of position, then per corner 2 of weight
-    # and 2 per feature (forward) or 1 (corner rows)
+    # and 2 per feature (forward) or 1 (backward)
     gcfg = GridConfig(desired_resolution=2048)
     geom = gcfg.geometry
     L, C = gcfg.num_levels, gcfg.level_dim
-    fwd_ops, rows_ops = L * (9 + 8 * (2 + 2 * C)), L * (9 + 8 * (2 + C))
+    fwd_ops = L * (9 + 8 * (2 + 2 * C))
     table = torch.rand((gcfg.num_rows, C), generator=gen, device=dev) * 2.0 - 1.0
     B = GRID_ROWS[-1]
     for dtype in ("bfloat16", "float32"):
@@ -586,23 +768,26 @@ def main():
                 lambda: hk.grid_encode_plain(x_g, table, geom, od), dtype,
                 (nbytes(x_g, table) + rows_g * L * C * od.itemsize, 0, rows_g * fwd_ops))
         g_g = torch.randn((B, L * C), generator=gen, device=dev).to(od)
-        exact = lambda want: [torch.zeros(w.shape, device=dev) for w in want]  # noqa: E731
-        results[("grid_encode_bwd_rows", dtype)] = compare(
-            "grid_encode_bwd_rows", lambda: hk.grid_encode_bwd_rows(x_g, g_g, geom),
-            lambda: hk.grid_encode_bwd_rows_plain(x_g, g_g, geom), dtype,
-            (nbytes(x_g, g_g) + B * L * 8 * (4 + 4 * C), 0, B * rows_ops), tol=exact)
-        # GridEncode: forward, corner rows and scatter-add, against autograd
-        # of the plain version, timed together
+        # the table gradient sums the same f32 (bf16-rounded with a bf16 g)
+        # corner products as its plain version, by atomics in another
+        # order: per entry within 2 (n - 1) 2^-24 of the sum of its n
+        # terms' magnitudes (scatter_bound)
         idx_p, rows_p = hk.grid_encode_bwd_rows_plain(x_g, g_g, geom)
         s_bound = scatter_bound(sk, idx_p, rows_p, gcfg.num_rows)
         del idx_p, rows_p
+        results[("grid_encode_bwd", f"{dtype} random")] = compare(
+            "grid_encode_bwd", lambda: hk.grid_encode_bwd(x_g, g_g, geom),
+            lambda: hk.grid_encode_bwd_plain(x_g, g_g, geom), dtype,
+            grid_bwd_work(x_g, g_g, geom), tol=lambda want: [s_bound])
+        # GridEncode: forward and table gradient, against autograd of the
+        # plain version, timed together
         tr = table.clone().requires_grad_()
+        fwd_work = (nbytes(x_g, table) + B * L * C * od.itemsize, 0, B * fwd_ops)
         results[("GridEncode backward", dtype)] = compare(
             "GridEncode backward",
             lambda: torch.autograd.grad(grid_encode(x_g, tr, gcfg, od), tr, g_g),
             lambda: torch.autograd.grad(hk.grid_encode_plain(x_g, tr, geom, od), tr, g_g),
-            dtype, (nbytes(x_g, table, g_g, table) + B * L * C * od.itemsize, 0,
-                    B * (fwd_ops + rows_ops + L * 8 * C)),
+            dtype, tuple(a + b for a, b in zip(fwd_work, grid_bwd_work(x_g, g_g, geom))),
             tol=lambda want: [s_bound])
         del s_bound, tr, g_g
     del x_g
@@ -624,11 +809,7 @@ def main():
             raise RuntimeError("index_add_ differs from scatter_add_rows past the f32 bound")
         library[key] = cuda_ms(lambda: outs[2].index_add_(0, idx_s, rows_s))
         del idx_s, rows_s, outs, s_bound, lib
-    for (name, dtype), (err, k_ms, p_ms, (b_ms, b_by)) in results.items():
-        lib = library.get((name, dtype))
-        lib = "" if lib is None else f", index_add_ {lib:.4f} ms"
-        print(f"kernel {name} [{dtype}]: max_abs_err {err:.3e}, kernel {k_ms:.4f} ms, "
-              f"plain {p_ms:.4f} ms{lib}, bound {b_ms:.4f} ms ({b_by})  [{card}]")
+    printed = print_results(results, library, card, set())
 
     # 5. a small frame: GPU kernels against the CPU plain versions, same
     # weights and grid, fresh trainers (no sticky spans or chunk counts)
@@ -683,7 +864,7 @@ def main():
         trainer.mark_untrained(train_ds.poses, train_ds.intrinsics, train_ds.H, train_ds.W)
         torch.cuda.reset_peak_memory_stats()
         reset_launch_counts()
-        metrics, dt, _ = train(trainer, "train", TRAIN_STEPS, TIMED_STEPS)
+        metrics, dt, batches = train(trainer, "train", TRAIN_STEPS, TIMED_STEPS)
         losses = [m["loss"] for m in metrics]
         overflow = [m["turbo_overflow"] for m in metrics]
         train_counts = launch_counts()
@@ -771,6 +952,10 @@ def main():
               f"{st['density_s']:.3f} s, marching {st['marching_s']:.3f} s, OBJ "
               f"{st['write_s']:.3f} s  [{card}]", flush=True)
 
+        # 7e. 16 more train steps under the profiler (one grid refresh among
+        # them), after the phases that score the 256-step model
+        profile_steps(trainer, batches, 16, card)
+
     # 8. one small train step: GPU kernels against the CPU plain versions
     train_step_gpu_vs_cpu(dev)
     del trainer, model
@@ -790,12 +975,30 @@ def main():
                          workspace=ws)
         trainer = GridNeRFTrainer(model, hrc, tc, seed=SEED)
         trainer.mark_untrained(train_ds.poses, train_ds.intrinsics, train_ds.H, train_ds.W)
+        # the encoder's own inputs (points, output cotangent) of the first
+        # and the last step
+        steps_seen, caught = [0], {}
+
+        def keep(module, args, out):
+            if not out.requires_grad:
+                return
+            n = steps_seen[0]
+            steps_seen[0] += 1
+            if n not in (0, HASH_STEPS - 1):
+                return
+            x = args[0].detach().reshape(-1, 3).float().clone()
+            entry = caught[f"step {n}"] = {"x": x}
+            out.register_hook(lambda g, e=entry: e.__setitem__(
+                "g", g.detach().reshape(x.shape[0], -1).contiguous().clone()))
+
+        hook = model.encoder.register_forward_hook(keep)
         reset_launch_counts()
         metrics, dt, batches = train(trainer, "hash-grid train", HASH_STEPS, HASH_TIMED)
+        hook.remove()
         losses = [m["loss"] for m in metrics]
         hash_train_counts = launch_counts()
         check_launched("hash-grid train", hash_train_counts,
-                       ("grid_encode_fwd", "grid_encode_bwd_rows", "scatter_add_rows"))
+                       ("grid_encode_fwd", "grid_encode_bwd"))
         cp_launched = {k: v for k, v in hash_train_counts.items() if k.startswith("cp_") and v}
         if cp_launched:
             raise RuntimeError(f"hash-grid train: CP kernels launched {cp_launched}")
@@ -803,8 +1006,10 @@ def main():
         print(f"hash-grid train: {steps_s:.2f} steps/s, {steps_s * HASH_RAYS:.0f} rays/s, "
               f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB  [{card}]",
               flush=True)
-        # 16 more steps under the profiler (one grid refresh among them)
-        profile_steps(trainer, batches, 16, card)
+        for label, entry in caught.items():
+            step_table_gradient(entry["x"], entry["g"], model.encoder.cfg.geometry, label, card,
+                                results, library, probe_scatter)
+        del caught
         losses = torch.stack(losses).cpu().numpy()
         occ = trainer.aux["occ"]
         print(f"hash-grid train loss: first 16 mean {losses[:16].mean():.6f}, last 16 mean "
@@ -835,11 +1040,14 @@ def main():
         print(f"hash-grid frame: PSNR {psnr:.2f} dB against the ground truth after "
               f"{HASH_STEPS} steps, {dt * 1e3:.1f} / {dt2 * 1e3:.1f} ms, n_samples "
               f"{st['n_samples']:.0f}, n_dropped {st['n_dropped']:.0f}  [{card}]", flush=True)
+        # 16 more steps under the profiler (one grid refresh among them)
+        profile_steps(trainer, batches, 16, card)
     del trainer, model
 
     # 10. one small f32 hash-grid train step: GPU kernels against the CPU
     train_step_gpu_vs_cpu(dev, hash_grid=True)
 
+    print_results(results, library, card, printed)
     path_counts = (eval_counts, train_counts, frame_counts, evaluate_counts, test_counts,
                    mesh_counts, hash_train_counts, hash_frame_counts)
     csrc = "ngp_tpu_torch/ops/kernels/csrc/"
@@ -855,7 +1063,8 @@ def main():
                          ("cp_bwd_banks", "bfloat16")),
         "cp_encode_fwd": (csrc + "cp_kernels.cu", "ngp_tpu/ops/pallas/cp_kernels.py:159",
                           ("cp_encode_fwd", "bfloat16->bfloat16")),
-        # on no path: launches stays 0
+        # on no path: launches stays 0 (scatter_add_rows too since the table
+        # gradient adds by itself)
         "fused_mlp": (csrc + "mlp_kernels.cu", "ngp_tpu/ops/pallas/fused_mlp.py:92",
                       ("fused_mlp", str(MLP_ROWS[0]))),
         "scatter_add_rows": (csrc + "scatter_kernels.cu", "scripts/perf_probe2_r2.py:128",
@@ -863,8 +1072,8 @@ def main():
         # the JAX package leaves these to XLA: its take and einsum
         "grid_encode_fwd": (csrc + "grid_kernels.cu", "ngp_tpu/ops/hashgrid.py:203",
                             ("grid_encode_fwd", f"bfloat16 {GRID_ROWS[-1]}")),
-        "grid_encode_bwd_rows": (csrc + "grid_kernels.cu", "ngp_tpu/ops/hashgrid.py:204",
-                                 ("grid_encode_bwd_rows", "bfloat16")),
+        "grid_encode_bwd": (csrc + "grid_kernels.cu", "ngp_tpu/ops/hashgrid.py:204",
+                            ("grid_encode_bwd", f"step {HASH_STEPS - 1}")),
     }
     kernels = []
     for name, (src, replaces, key) in sources.items():

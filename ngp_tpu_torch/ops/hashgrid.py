@@ -147,7 +147,7 @@ def grid_encode(x: torch.Tensor, embeddings: torch.Tensor, cfg: GridConfig,
     ``compute_dtype`` (the table's dtype when None); zero outside.
 
     CPU tensors: the plain version, differentiable in x and the table.
-    CUDA tensors: ``GridEncode`` (table gradient through the row kernels)
+    CUDA tensors: ``GridEncode`` (table gradient through ``grid_encode_bwd``)
     while autograd records the table, the forward kernel otherwise."""
     if x.shape[-1] != cfg.input_dim:
         raise ValueError(f"expected [..., {cfg.input_dim}] input, got {tuple(x.shape)}")

@@ -10,10 +10,11 @@
 - ``fused_mlp.fused_mlp``    replaces ``ngp_tpu/ops/pallas/fused_mlp.py:fused_mlp``
 - ``scatter.scatter_add_rows`` replaces ``scripts/perf_probe2_r2.py:scatter_pallas`` (the
   hash-grid table gradient's row scatter-add)
-- ``hashgrid.grid_encode_fwd`` and ``hashgrid.grid_encode_bwd_rows`` replace no Pallas
+- ``hashgrid.grid_encode_fwd`` and ``hashgrid.grid_encode_bwd`` replace no Pallas
   kernel: the JAX package leaves the hash-grid encoder and its VJP to XLA
   (``ngp_tpu/ops/hashgrid.py:203-204``); ``hashgrid.GridEncode`` adds the backward
-  through ``grid_encode_bwd_rows`` and ``scatter_add_rows``
+  through ``grid_encode_bwd``, which adds into the table gradient by atomics
+  itself, so no path runs ``scatter_add_rows`` any more
 
 Each wrapper takes its plain PyTorch version for a CPU tensor and
 launches its kernel for a CUDA tensor; there is no fallback between the
@@ -34,7 +35,7 @@ LAUNCHES: Dict[str, int] = {
     "cp_encode_fwd": 0,
     "fused_mlp": 0,
     "grid_encode_fwd": 0,
-    "grid_encode_bwd_rows": 0,
+    "grid_encode_bwd": 0,
     "scatter_add_rows": 0,
 }
 

@@ -38,6 +38,7 @@ _SIGNATURES = {
         _P, _I, ctypes.POINTER(_P), ctypes.POINTER(_I), _I, _I, _I,
         _P, _P, _I, _I, _I, _I, _P, _P, _P, _P,
     ],
+    "ngp_cp_density_tc_max_h1": [],
     "ngp_cp_bwd_banks": [
         _P, _I, _P, _I, ctypes.POINTER(_P), ctypes.POINTER(_I), _I, _I, _I,
         ctypes.POINTER(_P), _P,
@@ -57,10 +58,10 @@ _SIGNATURES = {
         ctypes.POINTER(_U), ctypes.POINTER(_U), ctypes.POINTER(_I), ctypes.c_float, _I,
         _P, _I, _P,
     ],
-    "ngp_grid_encode_bwd_rows": [
+    "ngp_grid_encode_bwd": [
         _P, _L, _P, _I, _I, _I, ctypes.POINTER(ctypes.c_float), ctypes.POINTER(_I),
         ctypes.POINTER(_U), ctypes.POINTER(_U), ctypes.POINTER(_I), ctypes.c_float, _I,
-        _P, _P, _P,
+        _P, _P,
     ],
     "ngp_scatter_add_rows": [_P, _P, _L, _I, _I, _P, _P],
 }
@@ -147,6 +148,16 @@ def int_array(values):
     return (_I * len(values))(*[int(v) for v in values])
 
 
+# what a launcher returns for a shape its kernel does not take (cudaError
+# codes are >= 0)
+UNSUPPORTED_SHAPE = -1
+
+
 def check_launch(name: str, err: int) -> None:
+    """Raise ValueError for a shape the kernel does not take, and
+    RuntimeError for any other failed launch."""
+    if err == UNSUPPORTED_SHAPE:
+        raise ValueError(f"{name}: the kernel does not take this shape (it would need more "
+                         "shared memory than a block has)")
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed with cudaError {err}")

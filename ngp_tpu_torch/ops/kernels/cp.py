@@ -197,7 +197,9 @@ def cp_density_fwd(pos, factors, w1, w2, resolutions, freq_degree,
     [H1, OUT]; all f32 or all bf16 (the MLP compute type). Rows outside
     [0, 1]^3 get zero CP features but keep their freq columns. With
     ``residuals`` returns (out, feats [M, D], h1 [M, H1]), the last two
-    in the weight dtype: the values the kernel multiplied."""
+    in the weight dtype: the values the kernel multiplied. bf16 runs
+    both products on the tensor cores and takes H1 up to the kernel's
+    limit (64); f32 runs them on the CUDA cores in full f32."""
     if pos.device.type == "cpu":
         return cp_density_plain(pos, factors, w1, w2, resolutions, freq_degree,
                                 residuals)
@@ -206,23 +208,28 @@ def cp_density_fwd(pos, factors, w1, w2, resolutions, freq_degree,
     M, rank, D, H1 = _check_weights(
         "cp_density_fwd", pos, factors, w1, w2, resolutions, freq_degree
     )
+    lib = load_library()
+    bf16 = w1.dtype == torch.bfloat16
+    if bf16 and H1 > lib.ngp_cp_density_tc_max_h1():
+        raise ValueError(f"cp_density_fwd: the bf16 kernel takes at most "
+                         f"{lib.ngp_cp_density_tc_max_h1()} hidden units, w1 has {H1}")
     OUT = w2.shape[1]
     out = torch.empty((M, OUT), dtype=torch.float32, device=pos.device)
     feats = h1 = None
     if residuals:
         feats = torch.empty((M, D), dtype=w1.dtype, device=pos.device)
         h1 = torch.empty((M, H1), dtype=w1.dtype, device=pos.device)
+    # called for M = 0 too, so a shape the kernel does not take raises alike
+    err = lib.ngp_cp_density_fwd(
+        pos.data_ptr(), M, pointer_array(factors), int_array(resolutions),
+        len(factors), rank, freq_degree, w1.data_ptr(), w2.data_ptr(),
+        D, H1, OUT, int(bf16), out.data_ptr(),
+        feats.data_ptr() if residuals else None,
+        h1.data_ptr() if residuals else None,
+        torch.cuda.current_stream(pos.device).cuda_stream,
+    )
+    check_launch("cp_density_fwd", err)
     if M > 0:
-        lib = load_library()
-        err = lib.ngp_cp_density_fwd(
-            pos.data_ptr(), M, pointer_array(factors), int_array(resolutions),
-            len(factors), rank, freq_degree, w1.data_ptr(), w2.data_ptr(),
-            D, H1, OUT, int(w1.dtype == torch.bfloat16), out.data_ptr(),
-            feats.data_ptr() if residuals else None,
-            h1.data_ptr() if residuals else None,
-            torch.cuda.current_stream(pos.device).cuda_stream,
-        )
-        check_launch("cp_density_fwd", err)
         LAUNCHES["cp_density_fwd"] += 1
         LAUNCHES["cp_density_fwd_residuals"] += int(residuals)
     return (out, feats, h1) if residuals else out

@@ -10,17 +10,27 @@
 // What the TPU kernel did with a tent-matrix matmul on the MXU (one [TM, res]
 // row of lerp weights per axis) is here a two-row gather and lerp per axis:
 // Hopper gathers cheaply, and all five factor banks of the flagship config
-// (3 x 3968 x 128 bf16, about 3 MB) stay resident in the 50 MB L2. One block
-// owns kRows sample rows. Its feature rows ([kRows, D] float, D = 679 at the
-// flagship config) and every later activation stay in shared memory, so the
-// only device-memory traffic is pos/dirs in, the output rows out, and the
-// factor and weight reads that L2 serves. The MLP products run on the CUDA
-// cores with a register tile of kRowsPerThread rows per weight load; the
-// bound on this card is those FMAs and the L2 gathers, not device memory.
-// Tensor-core (wgmma) products are later work. With residuals, each block also
-// writes its [kRows, D] feature rows and [kRows, H1] hidden rows in the weight
-// type (about 1.4 KB per bf16 row at the flagship config), the values the
-// backward's MLP products read.
+// (3 x 3968 x 128 bf16, about 3 MB) stay resident in the 50 MB L2.
+//
+// The bf16 density head (cp_density_tc_kernel, the main path's type) runs
+// both MLP products on the tensor cores (mma.sync m16n8k16, bf16 -> f32). A
+// persistent block of 16 warps per SM keeps w1 and w2 in shared memory in
+// fragment order for its whole life (88 KB at the flagship config, K padded
+// from 679 to 688; a w1 too long for that comes in a K chunk at a time beside
+// the chunk's features) and walks 128-row tiles; each tile's features are made
+// one bank at a time into a double-buffered shared A tile, by 16-byte
+// gathers of 8 rank columns per thread (two items' twelve loads in flight),
+// f32 lerps and product, rounded to bf16. What bounds it is the L2 traffic of
+// the gathers, 7.7 KB of factor lines per row (1.0 GB for a 131,072-row
+// refresh chunk), not the 11.7 GFLOP of products; with residuals, the feats
+// rows (1358 bytes apart at the flagship config) go out by 2-byte stores. The
+// f32 head and the radiance head keep the first design: one block owns kRows
+// sample rows, its feature rows and activations in shared memory as f32, the
+// products on the CUDA cores with a register tile of kRowsPerThread rows per
+// weight load (full f32, where TF32 would break the f32 tolerance). With
+// residuals, each block also writes its [rows, D] feature rows and
+// [rows, H1] hidden rows in the weight type, the values the backward's MLP
+// products read.
 //
 // The factor backward replaces the TPU's transposed tent matmul with what the
 // tent encodes: each (row, bank, rank) item recomputes its three lerped line
@@ -54,6 +64,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
@@ -188,6 +199,27 @@ __device__ void dense(const float* in, int in_stride, int K, const T* W, int J,
   }
 }
 
+// The frequency ladder of one axis of x = 2 pos - 1, in the order of
+// ngp_tpu_torch/ops/freq.py: put(j, v) for the ladder's column j of this axis,
+// x at 0, sin x at 3 and cos x at 6, then sin and cos of each higher octave
+// by the double-angle recurrence, three columns apart (one per axis).
+template <typename Put>
+__device__ __forceinline__ void freq_ladder(float x, int degree, Put put) {
+  put(0, x);
+  if (degree == 0) return;
+  float s = sinf(x), c = cosf(x);
+  put(3, s);
+  put(6, c);
+  for (int d = 1; d < degree; ++d) {
+    const float s2 = 2.f * s * c;
+    const float c2 = 1.f - 2.f * s * s;
+    s = s2;
+    c = c2;
+    put(3 * (2 * d + 1), s);
+    put(3 * (2 * d + 2), c);
+  }
+}
+
 // feats[m] = [cp features (zero outside [0,1]^3) | freq ladder of 2*pos - 1],
 // rounded to T.
 template <typename T>
@@ -213,20 +245,7 @@ __device__ void cp_features(const HeadParams& p, int row0, float* feats) {
     const int row = row0 + m;
     const float x = row < p.M ? 2.f * p.pos[3 * row + ax] - 1.f : -1.f;
     float* o = feats + m * p.D + nbR + ax;
-    o[0] = round_to<T>(x);
-    if (p.freq_degree > 0) {
-      float s = sinf(x), c = cosf(x);
-      o[3] = round_to<T>(s);
-      o[6] = round_to<T>(c);
-      for (int d = 1; d < p.freq_degree; ++d) {
-        const float s2 = 2.f * s * c;
-        const float c2 = 1.f - 2.f * s * s;
-        s = s2;
-        c = c2;
-        o[3 * (2 * d + 1)] = round_to<T>(s);
-        o[3 * (2 * d + 2)] = round_to<T>(c);
-      }
-    }
+    freq_ladder(x, p.freq_degree, [&](int j, float v) { o[j] = round_to<T>(v); });
   }
 }
 
@@ -419,18 +438,427 @@ __global__ void __launch_bounds__(kThreads) cp_sigma_rgb_kernel(HeadParams p) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// The bf16 density head on the tensor cores (mma.sync m16n8k16, bf16 -> f32).
+//
+// A persistent block of 16 warps owns one SM and walks 128-row tiles. The
+// weights sit in shared memory in mma fragment order (w1 [Kp, H1p], K padded
+// per bank to a multiple of 16 and H1 to 16, zeros in the padding), so each
+// B fragment is one conflict-free 8-byte load: w1 for the block's life where
+// it fits (Kp <= 1112 at H1 = 64; 688 at turbo-hq), else each K chunk's rows
+// beside that chunk's features. A tile's features are made one K chunk at a
+// time (one bank's rank columns, at most kTcChunk of them, then the frequency
+// ladder) into a double-buffered [128, kTcChunk] bf16 A tile whose rows are
+// padded by 16 bytes, so the fragment loads of 8 rows x 4 column pairs hit 32
+// distinct banks; warp w multiplies rows 16 (w % 8) .. +15 of the chunk into
+// f32 accumulators of H1 / 2 columns. The second product reads ReLU(h1),
+// rounded to bf16, from a padded shared tile.
+// ---------------------------------------------------------------------------
+
+constexpr int kTcRows = 128;
+constexpr int kTcThreads = 512;
+constexpr int kTcChunk = 128;
+constexpr int kTcLda = kTcChunk + 8;
+constexpr int kTcMaxH1 = 64;  // 4 n-tiles of 8 per warp and column half
+// what a launcher returns for a shape its kernel does not take (cudaError
+// codes are >= 0); the wrappers raise ValueError for it
+constexpr int kUnsupportedShape = -1;
+
+__device__ __forceinline__ void mma_bf16(float* d, uint32_t a0, uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// Element (k, n) of a [K, N] B operand in fragment order: per (k-step of 16,
+// n-tile of 8) 32 lanes x {b0, b1}, b0 = rows 2t, 2t+1 and b1 = rows 2t+8,
+// 2t+9 of column g, for lane = 4 g + t.
+__device__ __forceinline__ int frag_slot(int k, int n, int n_tiles) {
+  const int kk = k & 15;
+  const int lane = (n & 7) * 4 + ((kk & 7) >> 1);
+  return ((((k >> 4) * n_tiles + (n >> 3)) * 32 + lane) << 2) + ((kk >> 3) << 1) + (kk & 1);
+}
+
+struct TcShape {
+  int rankp, freq, freqp, Kp, H1p, OUTp;
+};
+
+__host__ __device__ inline TcShape tc_shape(const HeadParams& p) {
+  TcShape t;
+  t.rankp = (p.rank + 15) & ~15;
+  t.freq = p.D - p.nb * p.rank;
+  t.freqp = (t.freq + 15) & ~15;
+  t.Kp = p.nb * t.rankp + t.freqp;
+  t.H1p = (p.H1 + 15) & ~15;
+  t.OUTp = (p.OUT + 7) & ~7;
+  return t;
+}
+
+// rows of w1 in shared memory: all Kp (resident), or two chunks' (streamed)
+__host__ __device__ inline int tc_w1_rows(const TcShape& t, bool resident) {
+  return resident ? t.Kp : 2 * kTcChunk;
+}
+
+__host__ __device__ inline size_t tc_smem_bytes(const TcShape& t, bool resident) {
+  return 2 * ((size_t)tc_w1_rows(t, resident) * t.H1p + (size_t)t.H1p * t.OUTp +
+              2 * kTcRows * kTcLda + (size_t)kTcRows * (t.H1p + 8));
+}
+
+// w1's row of padded K index kp, or -1 for a padding row
+__device__ __forceinline__ int w1_row(const HeadParams& p, const TcShape& t, int kp) {
+  const int nbp = p.nb * t.rankp;
+  if (kp < nbp) {
+    const int b = kp / t.rankp;
+    const int c = kp - b * t.rankp;
+    return c < p.rank ? b * p.rank + c : -1;
+  }
+  return kp - nbp < t.freq ? p.nb * p.rank + kp - nbp : -1;
+}
+
+// w1's padded K rows kp0 .. kp0 + nk - 1 (kp0 a multiple of 16) into dst in
+// fragment order, zeros in the padding; vec: w1's rows are whole 16-byte
+// vectors, so one load brings 8 columns
+__device__ void load_w1(const HeadParams& p, const TcShape& t, int kp0, int nk, bool vec,
+                        __nv_bfloat16* dst) {
+  const __nv_bfloat16* w1 = static_cast<const __nv_bfloat16*>(p.w1);
+  const int nt1 = t.H1p >> 3;
+  if (vec) {
+    const int vpr = t.H1p >> 3;
+    for (int i = threadIdx.x; i < nk * vpr; i += kTcThreads) {
+      const int k = i / vpr, n0 = 8 * (i - k * vpr);
+      const int r = w1_row(p, t, kp0 + k);
+      union {
+        uint4 u;
+        __nv_bfloat16 h[8];
+      } v;
+      v.u = (r >= 0 && n0 < p.H1)
+                ? __ldg(reinterpret_cast<const uint4*>(w1 + (size_t)r * p.H1 + n0))
+                : make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) dst[frag_slot(k, n0 + j, nt1)] = v.h[j];
+    }
+  } else {
+    for (int i = threadIdx.x; i < nk * t.H1p; i += kTcThreads) {
+      const int k = i / t.H1p, n = i - k * t.H1p;
+      const int r = w1_row(p, t, kp0 + k);
+      dst[frag_slot(k, n, nt1)] =
+          (r >= 0 && n < p.H1) ? w1[(size_t)r * p.H1 + n] : __float2bfloat16(0.f);
+    }
+  }
+}
+
+// up to 8 bf16 of a factor line: one 16-byte load, or n scalar loads (the
+// rank tail, or lines that are not 16-byte aligned); zeros past n
+__device__ __forceinline__ uint4 ld_cols(const __nv_bfloat16* src, int n, bool vec) {
+  if (vec) return __ldg(reinterpret_cast<const uint4*>(src));
+  union {
+    uint4 u;
+    unsigned short s[8];
+  } r;
+  r.u = make_uint4(0u, 0u, 0u, 0u);
+  const unsigned short* s16 = reinterpret_cast<const unsigned short*>(src);
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+    if (j < n) r.s[j] = __ldg(s16 + j);
+  return r.u;
+}
+
+// The taps of 8 rank columns of one bank at one row: loaded first, so that a
+// thread has two items' twelve loads in flight before it does arithmetic.
+struct Gather8 {
+  uint4 lo[3], hi[3];
+  float w[3];
+  bool live;
+};
+
+__device__ __forceinline__ void gather_load(const HeadParams& p, int b, int row, int c, bool vec,
+                                            Gather8& G) {
+  const int n = min(8, p.rank - c);
+  G.live = false;
+  if (row >= p.M || n <= 0) return;
+  const float q[3] = {__ldg(p.pos + 3 * row), __ldg(p.pos + 3 * row + 1),
+                      __ldg(p.pos + 3 * row + 2)};
+  if (!in_box(q)) return;
+  G.live = true;
+  const int res = p.res[b];
+  const __nv_bfloat16* f = static_cast<const __nv_bfloat16*>(p.factors[b]);
+  const bool v8 = vec && n == 8;
+#pragma unroll
+  for (int ax = 0; ax < 3; ++ax) {
+    const Tap t = tap(q[ax], res);
+    G.w[ax] = t.w;
+    const __nv_bfloat16* line = f + ((size_t)ax * res + t.i0) * p.rank + c;
+    G.lo[ax] = ld_cols(line, n, v8);
+    G.hi[ax] = ld_cols(line + p.rank, n, v8);
+  }
+}
+
+// the 8 CP features (f32 lerps, product over the axes), rounded to bf16
+__device__ __forceinline__ uint4 gather_finish(const Gather8& G) {
+  union {
+    uint4 u;
+    __nv_bfloat162 h[4];
+  } lo, hi, out;
+  out.u = make_uint4(0u, 0u, 0u, 0u);
+  if (!G.live) return out.u;
+  float acc[8];
+#pragma unroll
+  for (int ax = 0; ax < 3; ++ax) {
+    lo.u = G.lo[ax];
+    hi.u = G.hi[ax];
+    const float w = G.w[ax];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 l = __bfloat1622float2(lo.h[j]);
+      const float2 h = __bfloat1622float2(hi.h[j]);
+      const float v0 = l.x * (1.f - w) + h.x * w;
+      const float v1 = l.y * (1.f - w) + h.y * w;
+      acc[2 * j] = ax == 0 ? v0 : acc[2 * j] * v0;
+      acc[2 * j + 1] = ax == 0 ? v1 : acc[2 * j + 1] * v1;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) out.h[j] = __floats2bfloat162_rn(acc[2 * j], acc[2 * j + 1]);
+  return out.u;
+}
+
+// A tile columns 0 .. kc-1 = bank b's rank columns c0 .. c0+kc-1 (zero past
+// the rank and for rows outside [0, 1]^3 or past M)
+__device__ void fill_bank_chunk(const HeadParams& p, int row0, int b, int c0, int kc, bool vec,
+                                __nv_bfloat16* A) {
+  const int groups = kc >> 3;
+  const int items = kTcRows * groups;
+  for (int i = threadIdx.x; i < items; i += 2 * kTcThreads) {
+    const int i1 = i + kTcThreads;
+    const int m0 = i / groups, g0 = i - m0 * groups;
+    const int m1 = i1 / groups, g1 = i1 - m1 * groups;
+    Gather8 G0, G1;
+    gather_load(p, b, row0 + m0, c0 + 8 * g0, vec, G0);
+    if (i1 < items) gather_load(p, b, row0 + m1, c0 + 8 * g1, vec, G1);
+    *reinterpret_cast<uint4*>(A + m0 * kTcLda + 8 * g0) = gather_finish(G0);
+    if (i1 < items) *reinterpret_cast<uint4*>(A + m1 * kTcLda + 8 * g1) = gather_finish(G1);
+  }
+}
+
+// chunk column j of an A tile row, if the chunk has it
+__device__ __forceinline__ void put_freq(__nv_bfloat16* row, int j, int kc, float v) {
+  if (j >= 0 && j < kc) row[j] = __float2bfloat16(v);
+}
+
+// A tile columns 0 .. kc-1 = frequency columns c0 .. c0+kc-1 of 2 pos - 1,
+// zero past the ladder
+__device__ void fill_freq_chunk(const HeadParams& p, const TcShape& t, int row0, int c0, int kc,
+                                __nv_bfloat16* A) {
+  const int pad0 = max(t.freq - c0, 0);
+  for (int i = threadIdx.x; i < kTcRows * (kc - pad0); i += kTcThreads) {
+    const int m = i / (kc - pad0);
+    A[m * kTcLda + pad0 + (i - m * (kc - pad0))] = __float2bfloat16(0.f);
+  }
+  for (int i = threadIdx.x; i < kTcRows * 3; i += kTcThreads) {
+    const int m = i / 3;
+    const int ax = i - 3 * m;
+    const int row = row0 + m;
+    const float x = row < p.M ? 2.f * __ldg(p.pos + 3 * row + ax) - 1.f : -1.f;
+    // ladder column 3 k + ax lands at chunk column 3 k + ax - c0
+    __nv_bfloat16* arow = A + m * kTcLda;
+    const int j0 = ax - c0;
+    freq_ladder(x, p.freq_degree, [&](int j, float v) { put_freq(arow, j0 + j, kc, v); });
+  }
+}
+
+// the residual feats columns of this chunk, from the A tile (coalesced 2-byte
+// stores: the [M, D] rows are D * 2 bytes apart, 1358 at turbo-hq)
+__device__ void store_feats(const HeadParams& p, const TcShape& t, int row0, int seg, int c0,
+                            int kc, const __nv_bfloat16* A) {
+  const bool freq = seg == p.nb;
+  const int ncols = min(kc, (freq ? t.freq : p.rank) - c0);
+  const int gcol = (freq ? p.nb * p.rank : seg * p.rank) + c0;
+  __nv_bfloat16* fo = static_cast<__nv_bfloat16*>(p.feats_out);
+  for (int m = threadIdx.x >> 5; m < kTcRows && row0 + m < p.M; m += kTcThreads >> 5) {
+    __nv_bfloat16* dst = fo + (size_t)(row0 + m) * p.D + gcol;
+    for (int j = threadIdx.x & 31; j < ncols; j += 32) dst[j] = A[m * kTcLda + j];
+  }
+}
+
+// acc[i] += A rows (16 of this warp) x w1 columns of n-tile nt0 + i, over kc
+// columns of the chunk whose first padded K row is 16 ks0
+__device__ __forceinline__ void mma_chunk(const __nv_bfloat16* A, int kc, const uint2* w1s,
+                                          int ks0, int n_tiles, int nt0, int ntw,
+                                          float (&acc)[4][4]) {
+  const int lane = threadIdx.x & 31;
+  const __nv_bfloat16* a_lo = A + (lane >> 2) * kTcLda + 2 * (lane & 3);
+  const __nv_bfloat16* a_hi = a_lo + 8 * kTcLda;
+  for (int k0 = 0; k0 < kc; k0 += 16) {
+    const uint32_t a0 = lds32(a_lo + k0), a1 = lds32(a_hi + k0);
+    const uint32_t a2 = lds32(a_lo + k0 + 8), a3 = lds32(a_hi + k0 + 8);
+    const uint2* bk = w1s + ((ks0 + (k0 >> 4)) * n_tiles + nt0) * 32 + lane;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (i < ntw) {
+        const uint2 bb = bk[32 * i];
+        mma_bf16(acc[i], a0, a1, a2, a3, bb.x, bb.y);
+      }
+    }
+  }
+}
+
+// flags: bit 0, 16-byte factor gathers; bit 1, 16-byte w1 row loads; bit 2,
+// w1 resident in shared memory (else streamed a chunk at a time)
+__global__ void __launch_bounds__(kTcThreads, 1) cp_density_tc_kernel(HeadParams p, int flags) {
+  extern __shared__ __align__(16) unsigned char smem_tc[];
+  const TcShape t = tc_shape(p);
+  const bool resident = flags & 4;
+  const int nt1 = t.H1p >> 3, nt2 = t.OUTp >> 3;
+  uint2* w1s = reinterpret_cast<uint2*>(smem_tc);
+  uint2* w2s = w1s + (size_t)tc_w1_rows(t, resident) * t.H1p / 4;
+  __nv_bfloat16* abuf = reinterpret_cast<__nv_bfloat16*>(w2s + t.H1p * t.OUTp / 4);
+  __nv_bfloat16* sh1 = abuf + 2 * kTcRows * kTcLda;
+  const int ldh = t.H1p + 8;
+
+  // the weights in fragment order: w2 (and a resident w1) once per block
+  const __nv_bfloat16* w2 = static_cast<const __nv_bfloat16*>(p.w2);
+  __nv_bfloat16* w1h = reinterpret_cast<__nv_bfloat16*>(w1s);
+  __nv_bfloat16* w2h = reinterpret_cast<__nv_bfloat16*>(w2s);
+  if (resident) load_w1(p, t, 0, t.Kp, flags & 2, w1h);
+  for (int i = threadIdx.x; i < t.H1p * t.OUTp; i += kTcThreads) {
+    const int k = i / t.OUTp, n = i - k * t.OUTp;
+    w2h[frag_slot(k, n, nt2)] =
+        (k < p.H1 && n < p.OUT) ? w2[(size_t)k * p.OUT + n] : __float2bfloat16(0.f);
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int rg = warp & 7;           // rows 16 rg .. 16 rg + 15 of the tile
+  const int ntw = t.H1p >> 4;        // n-tiles per warp: half of H1p / 8
+  const int nt0 = (warp >> 3) * ntw;
+  const int n_tiles = (p.M + kTcRows - 1) / kTcRows;
+  int parity = 0;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int row0 = tile * kTcRows;
+    float acc[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    for (int seg = 0; seg <= p.nb; ++seg) {
+      const int segp = seg == p.nb ? t.freqp : t.rankp;
+      for (int c0 = 0; c0 < segp; c0 += kTcChunk) {
+        const int kc = min(kTcChunk, segp - c0);
+        const int kp0 = seg * t.rankp + c0;  // the chunk's first padded K row
+        const int buf = parity;
+        parity ^= 1;
+        __nv_bfloat16* A = abuf + buf * kTcRows * kTcLda;
+        if (!resident) load_w1(p, t, kp0, kc, flags & 2, w1h + buf * kTcChunk * t.H1p);
+        if (seg == p.nb)
+          fill_freq_chunk(p, t, row0, c0, kc, A);
+        else
+          fill_bank_chunk(p, row0, seg, c0, kc, flags & 1, A);
+        // the buffers filled two chunks ago were last read before this barrier
+        __syncthreads();
+        if (p.feats_out != nullptr) store_feats(p, t, row0, seg, c0, kc, A);
+        if (resident)
+          mma_chunk(A + rg * 16 * kTcLda, kc, w1s, kp0 >> 4, nt1, nt0, ntw, acc);
+        else
+          mma_chunk(A + rg * 16 * kTcLda, kc, w1s + buf * kTcChunk * t.H1p / 4, 0, nt1, nt0,
+                    ntw, acc);
+      }
+    }
+    // h1 = round(relu(feats @ w1)) into the shared tile (the next tile's
+    // writes come after at least two chunk barriers)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (i < ntw) {
+        __nv_bfloat16* o = sh1 + (rg * 16 + g) * ldh + (nt0 + i) * 8 + 2 * tq;
+        *reinterpret_cast<__nv_bfloat162*>(o) =
+            __floats2bfloat162_rn(fmaxf(acc[i][0], 0.f), fmaxf(acc[i][1], 0.f));
+        *reinterpret_cast<__nv_bfloat162*>(o + 8 * ldh) =
+            __floats2bfloat162_rn(fmaxf(acc[i][2], 0.f), fmaxf(acc[i][3], 0.f));
+      }
+    }
+    __syncthreads();
+    // out = h1 @ w2 in f32: one (16-row group, n-tile) item per warp
+    for (int item = warp; item < 8 * nt2; item += kTcThreads >> 5) {
+      const int r16 = item & 7, nt = item >> 3;
+      float d[4] = {0.f, 0.f, 0.f, 0.f};
+      const __nv_bfloat16* a_lo = sh1 + (r16 * 16 + g) * ldh + 2 * tq;
+      const __nv_bfloat16* a_hi = a_lo + 8 * ldh;
+      for (int k0 = 0; k0 < t.H1p; k0 += 16) {
+        const uint2 bb = w2s[((k0 >> 4) * nt2 + nt) * 32 + lane];
+        mma_bf16(d, lds32(a_lo + k0), lds32(a_hi + k0), lds32(a_lo + k0 + 8),
+                 lds32(a_hi + k0 + 8), bb.x, bb.y);
+      }
+      const int col = nt * 8 + 2 * tq;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = row0 + r16 * 16 + g + 8 * h;
+        if (row >= p.M) continue;
+        float* o = p.out + (size_t)row * p.OUT;
+        if (col < p.OUT) o[col] = d[2 * h];
+        if (col + 1 < p.OUT) o[col + 1] = d[2 * h + 1];
+      }
+    }
+    if (p.h1_out != nullptr) {
+      __nv_bfloat16* ho = static_cast<__nv_bfloat16*>(p.h1_out);
+      if ((p.H1 & 7) == 0) {
+        const int vpr = p.H1 >> 3;
+        for (int i = threadIdx.x; i < kTcRows * vpr; i += kTcThreads) {
+          const int m = i / vpr, v = i - m * vpr;
+          if (row0 + m < p.M)
+            *reinterpret_cast<uint4*>(ho + (size_t)(row0 + m) * p.H1 + 8 * v) =
+                *reinterpret_cast<const uint4*>(sh1 + m * ldh + 8 * v);
+        }
+      } else {
+        for (int i = threadIdx.x; i < kTcRows * p.H1; i += kTcThreads) {
+          const int m = i / p.H1, j = i - m * p.H1;
+          if (row0 + m < p.M) ho[(size_t)(row0 + m) * p.H1 + j] = sh1[m * ldh + j];
+        }
+      }
+    }
+  }
+}
+
+int launch_density_tc(const HeadParams& p, cudaStream_t stream) {
+  if (p.H1 > kTcMaxH1) return kUnsupportedShape;
+  const TcShape t = tc_shape(p);
+  const bool resident = tc_smem_bytes(t, true) <= (size_t)kMaxSmemBytes;
+  const size_t bytes = tc_smem_bytes(t, resident);
+  if (bytes > (size_t)kMaxSmemBytes) return kUnsupportedShape;  // w2 alone too wide
+  if (p.M == 0) return cudaSuccess;
+  cudaError_t e = cudaFuncSetAttribute(cp_density_tc_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e != cudaSuccess) return e;
+  int dev = 0, sms = 0;
+  e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  const int tiles = (p.M + kTcRows - 1) / kTcRows;
+  int flags = p.rank % 8 == 0;
+  for (int b = 0; b < p.nb; ++b) flags &= (uintptr_t)p.factors[b] % 16 == 0;
+  flags |= (p.H1 % 8 == 0 && (uintptr_t)p.w1 % 16 == 0) << 1;
+  flags |= resident << 2;
+  cp_density_tc_kernel<<<tiles < sms ? tiles : sms, kTcThreads, bytes, stream>>>(p, flags);
+  return cudaGetLastError();
+}
+
 size_t smem_bytes(const HeadParams& p, bool radiance) {
   size_t floats = (size_t)kRows * (p.D + p.H1 + p.OUT);
   if (radiance) floats += 2 * (size_t)kRows * p.cmax;
   return floats * sizeof(float);
 }
 
-template <typename T>
-int launch(const HeadParams& p, cudaStream_t stream, bool radiance) {
-  if (p.M == 0) return cudaSuccess;
+// the row-block heads: the f32 density head and the radiance head
+int launch(void (*kern)(HeadParams), const HeadParams& p, cudaStream_t stream, bool radiance) {
   const size_t bytes = smem_bytes(p, radiance);
-  if (bytes > (size_t)kMaxSmemBytes) return cudaErrorInvalidValue;
-  void (*kern)(HeadParams) = radiance ? &cp_sigma_rgb_kernel<T> : &cp_density_kernel<T>;
+  if (bytes > (size_t)kMaxSmemBytes) return kUnsupportedShape;
+  if (p.M == 0) return cudaSuccess;
   cudaError_t e =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (e != cudaSuccess) return e;
@@ -503,8 +931,11 @@ extern "C" int ngp_cp_density_fwd(const float* pos, int M, const void* const* fa
   p.feats_out = feats_out;
   p.h1_out = h1_out;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch<__nv_bfloat16>(p, s, false) : launch<float>(p, s, false);
+  return bf16 ? launch_density_tc(p, s) : launch(&cp_density_kernel<float>, p, s, false);
 }
+
+// the widest hidden layer (H1) the bf16 density head takes
+extern "C" int ngp_cp_density_tc_max_h1() { return kTcMaxH1; }
 
 extern "C" int ngp_cp_bwd_banks(const float* pos, int M, const float* g, int g_stride,
                                 const void* const* factors, const int* res, int nb, int rank,
@@ -553,7 +984,8 @@ extern "C" int ngp_cp_sigma_rgb(const float* pos, const float* dirs, int M,
   for (int l = 0; l < n_color; ++l) p.wc[l] = color_ws[l];
   p.cmax = cmax;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch<__nv_bfloat16>(p, s, true) : launch<float>(p, s, true);
+  return bf16 ? launch(&cp_sigma_rgb_kernel<__nv_bfloat16>, p, s, true)
+              : launch(&cp_sigma_rgb_kernel<float>, p, s, true);
 }
 
 extern "C" int ngp_cp_encode_fwd(const float* pos, int M, const void* const* factors,

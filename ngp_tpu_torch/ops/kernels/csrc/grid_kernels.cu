@@ -4,42 +4,55 @@
 // grid_encode: a take of the table and an einsum with the d-linear weights per
 // level, hashgrid.py:203-204); these kernels do that work by hand.
 //
-//   ngp_grid_encode_fwd       features [B, L*C] from points [B, 3] and the table
-//   ngp_grid_encode_bwd_rows  the VJP of the take + einsum: for every (point,
-//                             level, corner) the corner's flat table row and its
-//                             cotangent row w * g; ngp_scatter_add_rows
-//                             (scatter_kernels.cu) then adds the rows into the
-//                             f32 table gradient
+//   ngp_grid_encode_fwd  features [B, L*C] from points [B, 3] and the table
+//   ngp_grid_encode_bwd  the VJP of the take + einsum in one pass: every
+//                        (point, level, corner) adds its cotangent row
+//                        w * g by f32 atomics into the table gradient
 //
-// One thread per (point, level), level fastest, so the threads of a warp
-// write a point's output row (and, backward, its 8 * L corner rows) together.
 // Per-level scale, row offset, row count, dense strides and the hashed flag
 // sit in the kernel's parameter block. corner_row is the one device copy of
 // the index arithmetic (gridencoder.cu:66-84 through hashgrid.py:125-158):
 // row-major dense index over the dims whose stride fits the level, XOR of
 // per-dim primes in wrapping uint32 when a hashed level overflows, then
-// % rows; both kernels call it, so the backward adds into the rows the
-// forward read. Positions use separate f32 multiply and add (no FMA
-// contraction), as the JAX and PyTorch versions do, so the same points fall
-// into the same cells.
+// % rows; both kernels call it with the same level_pos and corner_weight, so
+// the backward adds into the rows the forward read. Positions use separate
+// f32 multiply and add (no FMA contraction), as the JAX and PyTorch versions
+// do, so the same points fall into the same cells.
 //
-// Forward at the train step (1,048,576 points x 16 levels, C = 2): 134 M
-// corner gathers of 8 bytes from a 49 MB f32 table that mostly stays in the
-// 50 MB L2; 12.6 MB in and 64 MB (bf16) out. The gathers, not the output,
-// bound it. Backward writes 134 M int32 indices and f32 rows of C (1.6 GB at
-// that shape), all levels in one launch; fusing it with the scatter into one
-// atomic pass is later work.
+// Forward at the train step (1,048,576 points x 16 levels, C = 2): one
+// thread per (point, level), level fastest, so a warp writes its points'
+// output rows together; 134 M corner gathers of 8 bytes from a 49 MB f32
+// table that mostly stays in the 50 MB L2; 12.6 MB in and 64 MB (bf16) out.
+// The gathers, not the output, bound it.
+//
+// Backward: one warp per (32 points, level), level outside, so the warps of a
+// block share their points' x and g rows in L1, and at a coarse level a
+// warp's 32 consecutive samples of one ray mostly share a cell. A (point,
+// level) whose cotangent row is zero, and a corner whose product row is
+// zero, adds nothing: the masked slots of a train step (about 90% late in
+// training) cost a load and no atomic. Lanes whose corner row is equal sum
+// their products by shuffles (match_any, then a peer reduction) and one lane
+// issues the float2 / float4 atomic. The table the wrapper zeroes (49 MB)
+// stays mostly in L2; the bound is reading x and g and writing the table
+// once (126 MB, 0.04 ms at the train shape), and what it meets first is the
+// L2 atomic rate on the non-zero rows. Atomics sum in no fixed order, so the
+// result varies in the last f32 bits from run to run; adding +-0 to a sum
+// that starts at +0 leaves it unchanged, so skipping zero rows is exact.
 //
 // Rounding: with a bf16 output (the bf16 compute type) each table value and
 // each corner weight is rounded to bf16, the products summed in f32 and the
 // feature rounded once, as JAX's bf16 einsum on the CPU does; backward, the
-// product w * g is rounded to bf16 (the einsum's VJP), and the gradient then
-// sums in f32 where JAX sums in bf16. Points outside [0, 1]^3 get zero
-// features and corner index -1 (no adds).
+// weight and the product w * g are rounded to bf16 (the einsum's VJP), and
+// the gradient then sums in f32 where JAX sums in bf16. Points outside
+// [0, 1]^3 get zero features and add nothing.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#if defined(__CUDA_ARCH__) && (__CUDA_ARCH__ >= 900) && (CUDART_VERSION >= 12010)
+#define NGP_VECTOR_ATOMICS 1
+#endif
 
 namespace {
 
@@ -145,43 +158,100 @@ __global__ void grid_fwd_kernel(GridParams p, const TT* __restrict__ table, TO* 
   }
 }
 
+// Sum of x over the lanes of `peers` (a set of lanes of this warp holding the
+// same key), left at the lowest lane of the set; the other lanes' results are
+// partial. Every lane of `active` calls it together (E. Westphal's peer
+// reduction: log2(set size) rounds of a shuffle from the next peer up).
+__device__ __forceinline__ float sum_peers(unsigned active, unsigned peers, float x) {
+  const int lane = threadIdx.x & 31;
+  int rank = __popc(peers & ((1u << lane) - 1u));  // peers below this lane
+  unsigned above = peers & (0xfffffffeu << lane);
+  while (__any_sync(active, above != 0u)) {
+    const int next = __ffs(above);
+    const float t = __shfl_sync(active, x, next > 0 ? next - 1 : 0);
+    if (next > 0 && !(rank & 1)) x += t;
+    above &= ~__ballot_sync(active, rank & 1);
+    rank >>= 1;
+  }
+  return x;
+}
+
+// dst[0 .. C-1] += v by atomics: one float2 / float4 atomic per 2 / 4 columns
+// (sm_90 and CUDA 12.1 on), else one per column
+template <int C> __device__ __forceinline__ void add_row(float* dst, const float* v) {
+#pragma unroll
+  for (int c = 0; c < C; ++c) atomicAdd(dst + c, v[c]);
+}
+#ifdef NGP_VECTOR_ATOMICS
+template <> __device__ __forceinline__ void add_row<2>(float* dst, const float* v) {
+  atomicAdd(reinterpret_cast<float2*>(dst), make_float2(v[0], v[1]));
+}
+template <> __device__ __forceinline__ void add_row<4>(float* dst, const float* v) {
+  atomicAdd(reinterpret_cast<float4*>(dst), make_float4(v[0], v[1], v[2], v[3]));
+}
+template <> __device__ __forceinline__ void add_row<8>(float* dst, const float* v) {
+  add_row<4>(dst, v);
+  add_row<4>(dst + 4, v + 4);
+}
+#endif
+
+// dtable[corner_row(l, k)] += round(round(w_k) * g[b, l]) for every (point b,
+// level l, corner k) whose product row is not zero. One warp per (32 points,
+// level), lane = point, so the warps of a block walk the levels of the same
+// 32 points (their x and g rows meet in L1) and a warp's corner rows at a
+// coarse level are mostly equal (consecutive samples of one ray share a
+// cell): lanes whose row is equal sum their products by shuffles and one
+// lane adds the sum.
 template <typename TG, int C>
-__global__ void grid_bwd_rows_kernel(GridParams p, const TG* __restrict__ g,
-                                     int* __restrict__ idx_out, float* __restrict__ rows_out) {
+__global__ void grid_bwd_kernel(GridParams p, const TG* __restrict__ g,
+                                float* __restrict__ dtable) {
   constexpr bool kRound = sizeof(TG) == 2;
-  const long long n = p.B * p.L;
-  const long long step = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += step) {
-    const long long b = i / p.L;
-    const int l = (int)(i - b * p.L);
-    const float q[3] = {__ldg(p.x + 3 * b), __ldg(p.x + 3 * b + 1), __ldg(p.x + 3 * b + 2)};
-    const size_t base = (size_t)i * 8;
-    if (!in_box(q)) {
-#pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        idx_out[base + k] = -1;
-#pragma unroll
-        for (int c = 0; c < C; ++c) rows_out[(base + k) * C + c] = 0.f;
-      }
-      continue;
+  const int lane = threadIdx.x & 31;
+  const long long units = (p.B + 31) / 32 * p.L;
+  const long long step = ((long long)gridDim.x * blockDim.x) >> 5;
+  for (long long u = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5; u < units;
+       u += step) {
+    const int l = (int)(u % p.L);
+    const long long b = (u / p.L) * 32 + lane;
+    float gv[C];
+    bool live = b < p.B;
+    float q[3] = {0.f, 0.f, 0.f};
+    if (live) {
+      q[0] = __ldg(p.x + 3 * b);
+      q[1] = __ldg(p.x + 3 * b + 1);
+      q[2] = __ldg(p.x + 3 * b + 2);
+      live = in_box(q);
     }
+    bool any = false;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      gv[c] = live ? ld(g, ((size_t)b * p.L + l) * C + c) : 0.f;
+      any |= gv[c] != 0.f;
+    }
+    // a zero cotangent row adds +-0 to sums that start at +0: skipping it is exact
+    const unsigned active = __ballot_sync(0xffffffffu, any);
+    if (!any) continue;
     uint32_t i0[3];
     float frac[3];
     level_pos(p, l, q, i0, frac);
-    float gv[C];
-#pragma unroll
-    for (int c = 0; c < C; ++c) gv[c] = ld(g, (size_t)i * C + c);
 #pragma unroll
     for (int k = 0; k < 8; ++k) {
       float w = corner_weight(frac, k);
       if (kRound) w = round_bf16(w);
-      idx_out[base + k] = (int)corner_row(p, l, i0, k);
+      float v[C];
+      bool nz = false;
 #pragma unroll
       for (int c = 0; c < C; ++c) {
-        float r = w * gv[c];
-        if (kRound) r = round_bf16(r);
-        rows_out[(base + k) * C + c] = r;
+        v[c] = w * gv[c];
+        if (kRound) v[c] = round_bf16(v[c]);
+        nz |= v[c] != 0.f;
       }
+      const uint32_t row = corner_row(p, l, i0, k);
+      // zero rows take part under a key no row has, so the set stays whole
+      const unsigned peers = __match_any_sync(active, nz ? row : 0xffffffffu);
+#pragma unroll
+      for (int c = 0; c < C; ++c) v[c] = sum_peers(active, peers, v[c]);
+      if (nz && lane == __ffs(peers) - 1) add_row<C>(dtable + (size_t)row * C, v);
     }
   }
 }
@@ -225,19 +295,22 @@ int launch_fwd(const GridParams& p, int C, const void* table, void* out, cudaStr
   return (int)cudaGetLastError();
 }
 
+template <typename TG, int C>
+int launch_bwd_c(const GridParams& p, const void* g, float* dtable, cudaStream_t s) {
+  const int blocks = blocks_for((p.B + 31) / 32 * p.L * 32);
+  grid_bwd_kernel<TG, C><<<blocks, kThreads, 0, s>>>(p, static_cast<const TG*>(g), dtable);
+  return (int)cudaGetLastError();
+}
+
 template <typename TG>
-int launch_bwd(const GridParams& p, int C, const void* g, int* idx, float* rows,
-               cudaStream_t s) {
-  const int blocks = blocks_for(p.B * p.L);
-  const TG* gg = static_cast<const TG*>(g);
+int launch_bwd(const GridParams& p, int C, const void* g, float* dtable, cudaStream_t s) {
   switch (C) {
-    case 1: grid_bwd_rows_kernel<TG, 1><<<blocks, kThreads, 0, s>>>(p, gg, idx, rows); break;
-    case 2: grid_bwd_rows_kernel<TG, 2><<<blocks, kThreads, 0, s>>>(p, gg, idx, rows); break;
-    case 4: grid_bwd_rows_kernel<TG, 4><<<blocks, kThreads, 0, s>>>(p, gg, idx, rows); break;
-    case 8: grid_bwd_rows_kernel<TG, 8><<<blocks, kThreads, 0, s>>>(p, gg, idx, rows); break;
+    case 1: return launch_bwd_c<TG, 1>(p, g, dtable, s);
+    case 2: return launch_bwd_c<TG, 2>(p, g, dtable, s);
+    case 4: return launch_bwd_c<TG, 4>(p, g, dtable, s);
+    case 8: return launch_bwd_c<TG, 8>(p, g, dtable, s);
     default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -260,16 +333,16 @@ extern "C" int ngp_grid_encode_fwd(const float* x, long long B, const void* tabl
                   : launch_fwd<float, float>(p, C, table, out, s);
 }
 
-extern "C" int ngp_grid_encode_bwd_rows(const float* x, long long B, const void* g, int g_bf16,
-                                        int C, int L, const float* scales, const int* offsets,
-                                        const unsigned* sizes, const unsigned* strides,
-                                        const int* hashed, float shift, int smoothstep,
-                                        int* idx, float* rows, void* stream) {
+extern "C" int ngp_grid_encode_bwd(const float* x, long long B, const void* g, int g_bf16,
+                                   int C, int L, const float* scales, const int* offsets,
+                                   const unsigned* sizes, const unsigned* strides,
+                                   const int* hashed, float shift, int smoothstep,
+                                   float* dtable, void* stream) {
   GridParams p;
   const int err = fill_params(&p, x, B, L, scales, offsets, sizes, strides, hashed, shift,
                               smoothstep);
   if (err != (int)cudaSuccess || B <= 0) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return g_bf16 ? launch_bwd<__nv_bfloat16>(p, C, g, idx, rows, s)
-                : launch_bwd<float>(p, C, g, idx, rows, s);
+  return g_bf16 ? launch_bwd<__nv_bfloat16>(p, C, g, dtable, s)
+                : launch_bwd<float>(p, C, g, dtable, s);
 }

@@ -3,12 +3,13 @@ and their plain versions.
 
 The JAX package leaves this encoder to XLA (``ngp_tpu/ops/hashgrid.py:
 grid_encode``, the take and einsum at ``hashgrid.py:203-204``);
-``grid_encode_fwd`` and ``grid_encode_bwd_rows`` do that work by hand,
-in ``csrc/grid_kernels.cu``, whose header says what bounds them.
-``GridEncode`` is the encoder with its table gradient: the backward
-writes every corner's flat row and cotangent row (``grid_encode_bwd_rows``)
-and ``scatter.scatter_add_rows`` adds them into the f32 gradient, the
-VJP of the take and the einsum.
+``grid_encode_fwd`` and ``grid_encode_bwd`` do that work by hand, in
+``csrc/grid_kernels.cu``, whose header says what bounds them.
+``GridEncode`` is the encoder with its table gradient: the backward adds
+every corner's cotangent row w * g into the f32 gradient in one atomic
+pass (``grid_encode_bwd``), skipping zero rows, the VJP of the take and
+the einsum. Its plain version makes the corner rows
+(``grid_encode_bwd_rows_plain``) and adds them with ``index_add_``.
 
 ``GridGeometry`` is what the kernels read of a ``GridConfig``
 (``ops/hashgrid.py``): per level the interpolation scale, row offset and
@@ -32,7 +33,7 @@ import torch
 
 from ngp_tpu_torch.ops.kernels import LAUNCHES
 from ngp_tpu_torch.ops.kernels.build import check_launch, int_array, load_library
-from ngp_tpu_torch.ops.kernels.scatter import scatter_rows
+from ngp_tpu_torch.ops.kernels.scatter import scatter_add_rows_plain
 
 PRIMES = (1, 2654435761, 805459861, 3674653429, 2097192037, 1434869437, 2165219737)
 _M32 = 0xFFFFFFFF
@@ -162,6 +163,15 @@ def grid_encode_bwd_rows_plain(x: torch.Tensor, g: torch.Tensor,
     return idx.reshape(-1), rows.reshape(B * geom.num_levels * 2**geom.input_dim, C)
 
 
+def grid_encode_bwd_plain(x: torch.Tensor, g: torch.Tensor, geom: GridGeometry) -> torch.Tensor:
+    """The table gradient [num_rows, C] f32: the corner rows of
+    ``grid_encode_bwd_rows_plain`` added into an f32 zero table with
+    ``index_add_``, the -1 rows (points outside [0, 1]^D) dropped."""
+    idx, rows = grid_encode_bwd_rows_plain(x, g, geom)
+    out = torch.zeros((geom.num_rows, geom.level_dim), dtype=torch.float32, device=x.device)
+    return scatter_add_rows_plain(idx, rows, out)
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -228,39 +238,38 @@ def grid_encode_fwd(x: torch.Tensor, table: torch.Tensor, geom: GridGeometry,
     return out
 
 
-def grid_encode_bwd_rows(x: torch.Tensor, g: torch.Tensor,
-                         geom: GridGeometry) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The corner rows of the table gradient, all levels in one launch:
-    x [B, 3] f32, g [B, L*C] f32 or bf16 (the output's cotangent) ->
-    idx [B*L*8] int32 (-1 outside [0, 1]^3), rows [B*L*8, C] f32."""
+def grid_encode_bwd(x: torch.Tensor, g: torch.Tensor, geom: GridGeometry) -> torch.Tensor:
+    """The table gradient [num_rows, C] f32 in one launch: x [B, 3] f32,
+    g [B, L*C] f32 or bf16 (the output's cotangent); every (point, level,
+    corner) whose product row w * g is not zero is added by f32 atomics
+    into a table the wrapper zeroes (the lanes of a warp that add to one
+    row sum first). Points outside [0, 1]^3 add nothing."""
     if x.device.type == "cpu":
-        return grid_encode_bwd_rows_plain(x, g, geom)
+        return grid_encode_bwd_plain(x, g, geom)
     if x.device.type != "cuda":
-        raise ValueError(f"grid_encode_bwd_rows: no kernel for {x.device}")
-    B = _check_points("grid_encode_bwd_rows", x, geom)
+        raise ValueError(f"grid_encode_bwd: no kernel for {x.device}")
+    B = _check_points("grid_encode_bwd", x, geom)
     if (g.device != x.device or g.dtype not in _DTYPES
             or tuple(g.shape) != (B, geom.output_dim) or not g.is_contiguous()):
-        raise ValueError(f"grid_encode_bwd_rows: g must be contiguous f32 or bf16 "
+        raise ValueError(f"grid_encode_bwd: g must be contiguous f32 or bf16 "
                          f"[{B}, {geom.output_dim}] on {x.device}")
-    n = B * geom.num_levels * 8
-    idx = torch.empty((n,), dtype=torch.int32, device=x.device)
-    rows = torch.empty((n, geom.level_dim), dtype=torch.float32, device=x.device)
+    dtable = torch.zeros((geom.num_rows, geom.level_dim), dtype=torch.float32, device=x.device)
     if B > 0:
         lib = load_library()
-        err = lib.ngp_grid_encode_bwd_rows(
+        err = lib.ngp_grid_encode_bwd(
             x.data_ptr(), B, g.data_ptr(), int(g.dtype == torch.bfloat16), geom.level_dim,
-            geom.num_levels, *_geometry_args(geom), idx.data_ptr(), rows.data_ptr(),
+            geom.num_levels, *_geometry_args(geom), dtable.data_ptr(),
             torch.cuda.current_stream(x.device).cuda_stream,
         )
-        check_launch("grid_encode_bwd_rows", err)
-        LAUNCHES["grid_encode_bwd_rows"] += 1
-    return idx, rows
+        check_launch("grid_encode_bwd", err)
+        LAUNCHES["grid_encode_bwd"] += 1
+    return dtable
 
 
 class GridEncode(torch.autograd.Function):
-    """The grid encoder with its table gradient: ``grid_encode_bwd_rows``
-    then ``scatter_add_rows`` into an f32 zero table. It gives no
-    x-gradient (the NeRF path needs none) and raises if one is asked for."""
+    """The grid encoder with its table gradient, ``grid_encode_bwd``. It
+    gives no x-gradient (the NeRF path needs none) and raises if one is
+    asked for."""
 
     @staticmethod
     def forward(ctx, x, table, geom, out_dtype):
@@ -275,6 +284,5 @@ class GridEncode(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (x,) = ctx.saved_tensors
-        idx, rows = grid_encode_bwd_rows(x, g.contiguous(), ctx.geom)
-        dtable = scatter_rows(idx, rows, ctx.geom.num_rows)
+        dtable = grid_encode_bwd(x, g.contiguous(), ctx.geom)
         return None, dtable.to(ctx.table_dtype), None, None

@@ -2,9 +2,10 @@
 
 ``scatter_add_rows`` replaces ``scripts/perf_probe2_r2.py:scatter_pallas``
 (``zeros[R, W].at[idx].add(rows)``, the VJP of a row gather); the kernel
-is in ``csrc/scatter_kernels.cu``, whose header says what bounds it. It
-is the second half of the hash-grid table gradient
-(``ops/kernels/hashgrid.py:GridEncode``). Indices outside [0, R) add
+is in ``csrc/scatter_kernels.cu``, whose header says what bounds it. No
+path runs it: the hash-grid table gradient adds its corner rows itself
+(``ops/kernels/hashgrid.py:grid_encode_bwd``); its plain version uses
+``scatter_add_rows_plain``. Indices outside [0, R) add
 nothing, as XLA's scatter drops them (``jnp``'s ``.at`` wraps indices in
 [-R, 0) before it scatters; nothing here passes such an index on
 purpose: -1 marks a row that adds nothing).

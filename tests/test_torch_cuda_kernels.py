@@ -15,9 +15,10 @@ rounds each feature once from the same f32 lerps: the same bounds, by
 output type. ``fused_mlp``: 1e-2, a flipped bf16 rounding of a hidden
 unit. The module path of ``NeRFNetwork.density`` on the card against
 the CPU: 1e-4 in f32. The grid encoder forward: the same bounds, by
-output type; its corner rows: equal. The row scatter-add (alone and as
-``GridEncode``'s backward): f32 sums of n terms in two orders, at most
-2 (n - 1) 2^-24 times the sum of their magnitudes. The hash-grid train
+output type. The row scatter-add and the grid encoder's table gradient
+(``grid_encode_bwd``, alone and as ``GridEncode``'s backward): f32 sums
+of n terms in two orders, at most 2 (n - 1) 2^-24 times the sum of
+their magnitudes. The hash-grid train
 step: as the cpgrid step."""
 
 import numpy as np
@@ -42,9 +43,9 @@ def dev():
     return torch.device("cuda", 0)
 
 
-def _weights(dev, dtype, res, rank, fd, h1=64, out=16, sh=4, seed=0):
+def _weights(dev, dtype, res, rank, fd, h1=64, out=16, sh=4, seed=0, scale=0.2):
     g = torch.Generator().manual_seed(seed)
-    factors = tuple((torch.randn((3, r, rank), generator=g) * 0.2).to(dev, dtype) for r in res)
+    factors = tuple((torch.randn((3, r, rank), generator=g) * scale).to(dev, dtype) for r in res)
     D = len(res) * rank + 3 * (1 + 2 * fd)
     w1 = (torch.randn((D, h1), generator=g) / D**0.5).to(dev, dtype)
     w2 = (torch.randn((h1, out), generator=g) / h1**0.5).to(dev, dtype)
@@ -69,12 +70,39 @@ def _check(got, want, dtype):
 
 
 SHAPES = [((32, 64), 16, 4, 1000), ((128, 256, 512, 1024, 2048), 128, 6, 4099)]
+# the density head's edges besides, with the factors' scale: one row,
+# fewer 128-row tiles than SMs, a rank that is no multiple of 8 (scalar
+# tail), eight banks with no frequency ladder (3 frequency columns), rank
+# 256 on five banks (w1 streams through shared memory a K chunk at a
+# time), and factors of std 1.5, whose CP features (std ~2 against ~4e-3)
+# dominate h1, so a wrong bank, axis or tap moves the output past its bound
+DENSITY_SHAPES = [s + (0.2,) for s in SHAPES] + [
+    ((32, 64), 16, 4, 1, 0.2), ((128, 256, 512, 1024, 2048), 128, 6, 300, 0.2),
+    ((32, 64), 12, 2, 1000, 0.2), ((16, 24, 32, 48, 64, 96, 128, 256), 8, 0, 777, 0.2),
+    ((128, 256, 512, 1024, 2048), 256, 6, 1000, 0.2),
+    ((128, 256, 512, 1024, 2048), 128, 6, 4099, 1.5),
+]
+
+
+def _density_bound(pos, factors, res, want):
+    """With residuals, bf16: out and h1 as ``_check``; the feats are
+    rounded once from f32 values both compute alike up to the order of
+    f32 operations: one bf16 step (2^-7 |plain|) plus, for a CP column,
+    2^-20 of the sum of its terms' magnitudes (three f32 lerps and two
+    products) and, for a frequency column, 2^-14 (the double-angle ladder
+    doubles a few f32 ulps of sin and cos per octave)."""
+    out, feats, h1 = (w.float() for w in want)
+    mag = tk.cp_features_plain(pos, [f.abs() for f in factors], res)
+    slack = torch.full(feats.shape, 2.0**-14, device=feats.device)
+    slack[:, :mag.shape[1]] = 2.0**-20 * mag
+    tol = TOL[torch.bfloat16]
+    return [tol * (1 + out.abs()), 2.0**-7 * feats.abs() + slack, tol * (1 + h1.abs())]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("res,rank,fd,M", SHAPES)
-def test_cp_density_kernel(dev, dtype, res, rank, fd, M):
-    factors, w1, w2, _ = _weights(dev, dtype, res, rank, fd)
+@pytest.mark.parametrize("res,rank,fd,M,scale", DENSITY_SHAPES)
+def test_cp_density_kernel(dev, dtype, res, rank, fd, M, scale):
+    factors, w1, w2, _ = _weights(dev, dtype, res, rank, fd, scale=scale)
     pos, _ = _inputs(dev, M)
     before = LAUNCHES["cp_density_fwd"]
     got = tk.cp_density_fwd(pos, factors, w1, w2, res, fd)
@@ -83,9 +111,14 @@ def test_cp_density_kernel(dev, dtype, res, rank, fd, M):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("res,rank,fd,M", SHAPES)
-def test_cp_density_kernel_residuals(dev, dtype, res, rank, fd, M):
-    factors, w1, w2, _ = _weights(dev, dtype, res, rank, fd)
+@pytest.mark.parametrize("res,rank,fd,M,scale,h1,out", [s + (64, 16) for s in DENSITY_SHAPES]
+                         + [((32, 64), 12, 1, 333, 0.2, 20, 5),
+                            ((32, 64), 16, 2, 200, 0.2, 8, 3)])
+def test_cp_density_kernel_residuals(dev, dtype, res, rank, fd, M, scale, h1, out):
+    """With residuals, and hidden / output widths that are no multiple of
+    16 / 8 (zero-padded in the tensor-core kernel); bf16 feats to a bf16
+    step (``_density_bound``)."""
+    factors, w1, w2, _ = _weights(dev, dtype, res, rank, fd, h1=h1, out=out, scale=scale)
     pos, _ = _inputs(dev, M)
     before = LAUNCHES["cp_density_fwd_residuals"]
     got = tk.cp_density_fwd(pos, factors, w1, w2, res, fd, residuals=True)
@@ -93,7 +126,14 @@ def test_cp_density_kernel_residuals(dev, dtype, res, rank, fd, M):
     want = tk.cp_density_plain(pos, factors, w1, w2, res, fd, residuals=True)
     for a, b in zip(got, want):
         assert a.dtype == b.dtype and a.shape == b.shape
-        _check(a.float(), b.float(), dtype)
+    if dtype == torch.float32:
+        for a, b in zip(got, want):
+            _check(a, b, dtype)
+        return
+    torch.cuda.synchronize()
+    for i, (a, b, bound) in enumerate(zip(got, want, _density_bound(pos, factors, res, want))):
+        err = (a.float() - b.float()).abs()
+        assert torch.isfinite(a).all() and (err <= bound).all(), (i, float(err.max()))
 
 
 def bwd_bound(pos, factors, g_cp, res, want):
@@ -220,6 +260,18 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         tk.cp_density_fwd(pos, factors, w1.bfloat16(), w2, (32, 64), 4)
     with pytest.raises(ValueError):
         tk.cp_density_fwd(pos, factors, w1, w2, (32, 64), 3)
+    fb, w1b, w2b, _ = _weights(dev, torch.bfloat16, (32, 64), 16, 4, h1=72)
+    with pytest.raises(ValueError, match="hidden units"):
+        tk.cp_density_fwd(pos, fb, w1b, w2b, (32, 64), 4)
+    # shared memory past a block's: a bf16 w2 of 2000 columns, an f32
+    # feature row of 2075 columns
+    fb, w1b, _, _ = _weights(dev, torch.bfloat16, (32, 64), 16, 4)
+    w2b = torch.zeros((64, 2000), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        tk.cp_density_fwd(pos, fb, w1b, w2b, (32, 64), 4)
+    fw, w1w, w2w, _ = _weights(dev, torch.float32, (32, 64), 1024, 4)
+    with pytest.raises(ValueError, match="shared memory"):
+        tk.cp_density_fwd(pos, fw, w1w, w2w, (32, 64), 4)
     with pytest.raises(ValueError):
         tm.coarse_lookup_bits(torch.zeros((4, 128), device=dev),
                               torch.zeros((8, 2), dtype=torch.int32, device=dev).t())
@@ -372,28 +424,35 @@ def test_grid_encode_fwd_kernel(dev, name, table_dtype, out_dtype):
 
 @pytest.mark.parametrize("g_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("name", list(GRIDS))
-def test_grid_encode_bwd_rows_kernel(dev, name, g_dtype):
-    """The corner rows and products equal the plain version's exactly
-    (the same f32 arithmetic, one product and one rounding each)."""
+def test_grid_encode_bwd_kernel(dev, name, g_dtype):
+    """The one-pass table gradient against its plain version (corner rows,
+    then ``index_add_``), within the f32 summation-order bound, on a
+    cotangent whose rows are 85% zero, points partly outside [0, 1]^3,
+    and runs of neighbouring points (shared corners within a warp)."""
     from ngp_tpu_torch.ops.kernels import hashgrid as kh
 
     cfg, _ = _grid(name, dev)
+    gen = torch.Generator().manual_seed(5)
     pos, _ = _inputs(dev, 3001)
-    g = torch.randn((3001, cfg.output_dim), generator=torch.Generator().manual_seed(5))
+    pos[:640] = (0.3 + 0.01 * torch.rand((640, 3), generator=gen)).to(dev)
+    g = torch.randn((3001, cfg.output_dim), generator=gen)
+    g[torch.rand(3001, generator=gen) < 0.85] = 0.0
     g = g.to(dev, g_dtype)
-    before = LAUNCHES["grid_encode_bwd_rows"]
-    idx, rows = kh.grid_encode_bwd_rows(pos, g, cfg.geometry)
+    before = LAUNCHES["grid_encode_bwd"]
+    got = kh.grid_encode_bwd(pos, g, cfg.geometry)
     torch.cuda.synchronize()
-    assert LAUNCHES["grid_encode_bwd_rows"] == before + 1
-    idx_p, rows_p = kh.grid_encode_bwd_rows_plain(pos, g, cfg.geometry)
-    assert torch.equal(idx, idx_p)
-    assert torch.equal(rows, rows_p)
+    assert LAUNCHES["grid_encode_bwd"] == before + 1
+    want = kh.grid_encode_bwd_plain(pos, g, cfg.geometry)
+    idx, rows = kh.grid_encode_bwd_rows_plain(pos, g, cfg.geometry)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert ((got - want).abs() <= scatter_bound(idx, rows, cfg.num_rows)).all()
+    assert want.abs().max() > 0
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("name", ["full", "smooth4"])
 def test_grid_encode_backward_kernel(dev, name, dtype):
-    """``GridEncode``'s table gradient (row kernel + scatter-add) against
+    """``GridEncode``'s table gradient (``grid_encode_bwd``) against
     autograd of the plain version, within the f32 summation-order bound."""
     from ngp_tpu_torch.ops.hashgrid import grid_encode
     from ngp_tpu_torch.ops.kernels import hashgrid as kh
@@ -407,7 +466,7 @@ def test_grid_encode_backward_kernel(dev, name, dtype):
     before = dict(LAUNCHES)
     grid_encode(pos, tk_, cfg, dtype).backward(g)
     torch.cuda.synchronize()
-    for name_k in ("grid_encode_fwd", "grid_encode_bwd_rows", "scatter_add_rows"):
+    for name_k in ("grid_encode_fwd", "grid_encode_bwd"):
         assert LAUNCHES[name_k] == before[name_k] + 1, name_k
     kh.grid_encode_plain(pos, tp, cfg.geometry, dtype).backward(g)
     idx, rows = kh.grid_encode_bwd_rows_plain(pos, g, cfg.geometry)
@@ -460,7 +519,12 @@ def test_grid_and_scatter_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError):
         kh.grid_encode_fwd(pos.t().contiguous().t(), table, geom)
     with pytest.raises(ValueError):
-        kh.grid_encode_bwd_rows(pos, torch.zeros((64, cfg.output_dim + 1), device=dev), geom)
+        kh.grid_encode_bwd(pos, torch.zeros((64, cfg.output_dim + 1), device=dev), geom)
+    with pytest.raises(ValueError):
+        kh.grid_encode_bwd(pos, torch.zeros((64, cfg.output_dim), device=dev).half(), geom)
+    with pytest.raises(ValueError):
+        kh.grid_encode_bwd(pos.t().contiguous().t(), torch.zeros((64, cfg.output_dim),
+                                                                 device=dev), geom)
     idx = torch.zeros((8,), dtype=torch.int32, device=dev)
     out = torch.zeros((4, 2), device=dev)
     with pytest.raises(ValueError):
@@ -475,7 +539,7 @@ def test_grid_and_scatter_wrappers_raise_on_what_the_kernels_do_not_take(dev):
 
 def test_hashgrid_train_step_on_the_card_matches_cpu(dev, tmp_path):
     """One f32 step of the hash-grid configuration through the grid
-    kernels and the scatter-add against the same step on the CPU: loss
+    kernels against the same step on the CPU: loss
     to 1e-4 relative, each gradient (the table's included) to 1e-3 of
     its largest entry (f32 atomics and summation order)."""
     import copy
@@ -508,7 +572,7 @@ def test_hashgrid_train_step_on_the_card_matches_cpu(dev, tmp_path):
     mg = gpu_tr.train_step({k: v.to(dev) if torch.is_tensor(v) else v for k, v in batch.items()},
                            {k: v.to(dev) for k, v in draws.items()})
     counts = launch_counts()
-    for name in ("grid_encode_fwd", "grid_encode_bwd_rows", "scatter_add_rows"):
+    for name in ("grid_encode_fwd", "grid_encode_bwd"):
         assert counts[name] > 0, counts
     assert not any(v for k, v in counts.items() if k.startswith("cp_")), counts
     mc = cpu_tr.train_step(batch, draws)

@@ -1,7 +1,8 @@
 """The port's hash / tiled grid encoder (``ngp_tpu_torch/ops/hashgrid.py``
 and the plain versions of its kernels) against ``ngp_tpu/ops/hashgrid.py``
-on the same points and tables, and the row scatter-add against JAX's
-``.at[idx].add``.
+on the same points and tables, the table gradient
+(``grid_encode_bwd_plain``) against ``jax.vjp``, and the row scatter-add
+against JAX's ``.at[idx].add``.
 
 Tolerances. Geometry: equal. Forward: f32 to 1e-6 absolute on tables of
 O(1) values (eight-term sums in another order: measured 1.8e-7), bf16
@@ -137,12 +138,13 @@ def _jax_table_grad(jc, x, tab, g, dtype):
 
 @pytest.mark.parametrize("name", ["hash", "tiled", "smoothstep"])
 def test_bwd_rows_and_scatter_give_jax_table_gradient_f32(name):
-    """``grid_encode_bwd_rows_plain`` + ``scatter_add_rows_plain`` (what
-    ``GridEncode`` launches on the card) equal JAX's table gradient."""
+    """``grid_encode_bwd_rows_plain`` + ``scatter_add_rows_plain`` (the
+    plain version of ``grid_encode_bwd``) equal JAX's table gradient."""
     jc, tc = jh.GridConfig(**CONFIGS[name]), th.GridConfig(**CONFIGS[name])
     x, tab = _points((500,), seed=5), _table(jc)
     g = np.random.default_rng(6).normal(size=(500, jc.output_dim)).astype(np.float32)
-    idx, rows = kh.grid_encode_bwd_rows(torch.from_numpy(x), torch.from_numpy(g), tc.geometry)
+    idx, rows = kh.grid_encode_bwd_rows_plain(torch.from_numpy(x), torch.from_numpy(g),
+                                              tc.geometry)
     assert idx.dtype == torch.int32 and idx.shape == (500 * jc.num_levels * 8,)
     assert rows.dtype == torch.float32 and rows.shape == (idx.shape[0], jc.level_dim)
     oob = torch.from_numpy(((x < 0) | (x > 1)).any(-1))
@@ -161,7 +163,7 @@ def test_bf16_table_gradient_rounding_points(n_points):
     g = np.random.default_rng(8).normal(size=(n_points, jc.output_dim)).astype(np.float32)
     want = _jax_table_grad(jc, x, tab, g, jnp.bfloat16)
     gb = torch.from_numpy(g).bfloat16()
-    idx, rows = kh.grid_encode_bwd_rows(torch.from_numpy(x), gb, tc.geometry)
+    idx, rows = kh.grid_encode_bwd_rows_plain(torch.from_numpy(x), gb, tc.geometry)
     got = ks.scatter_rows(idx, rows, tc.num_rows).numpy()
     tt = torch.from_numpy(tab).requires_grad_()
     (th.grid_encode(torch.from_numpy(x), tt, tc, torch.bfloat16).float()
@@ -174,6 +176,46 @@ def test_bf16_table_gradient_rounding_points(n_points):
     s_abs = ks.scatter_rows(idx, rows.abs(), tc.num_rows).numpy()
     assert (np.abs(got - want) <= 2.0**-8 * adds * s_abs + 1e-7).all()
     assert adds.max() > 1 and not np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", ["hash", "tiled"])
+def test_grid_encode_bwd_plain_matches_jax_vjp(name, dtype):
+    """``grid_encode_bwd_plain`` (the plain version of the one-pass kernel
+    ``grid_encode_bwd``) against ``jax.vjp`` of ``grid_encode`` in the
+    table, on a cotangent whose rows are 85% zero (the masked slots of a
+    train step) and points of which some lie outside [0, 1]^3. f32: to
+    1e-6 of the largest entry (sums in another order). bf16: the same
+    bf16 corner products, summed in f32 here and in bf16 by JAX (the
+    module docstring's bound). ``GridEncode`` on CPU tensors gives the
+    same table gradient, bit for bit."""
+    jc, tc = jh.GridConfig(**CONFIGS[name]), th.GridConfig(**CONFIGS[name])
+    n = 600
+    x, tab = _points((n,), seed=11), _table(jc, seed=12)
+    rng = np.random.default_rng(13)
+    g = rng.normal(size=(n, jc.output_dim)).astype(np.float32)
+    zero = rng.random(n) < 0.85
+    g[zero] = 0.0
+    bf = dtype == "bfloat16"
+    jd, td = (jnp.bfloat16, torch.bfloat16) if bf else (None, torch.float32)
+    _, vjp = jax.vjp(lambda t: jh.grid_encode(jnp.asarray(x), t, jc, jd), jnp.asarray(tab))
+    want = np.asarray(vjp(jnp.asarray(g).astype(jd or jnp.float32))[0], np.float32)
+    gt = torch.from_numpy(g).to(td)
+    got = kh.grid_encode_bwd_plain(torch.from_numpy(x), gt, tc.geometry)
+    assert got.dtype == torch.float32 and got.shape == (tc.num_rows, tc.level_dim)
+    inside = ~((x < 0) | (x > 1)).any(-1)
+    assert (~inside).any() and 0.8 <= zero.mean() <= 0.9 and (inside & ~zero).any()
+    tt = torch.from_numpy(tab).requires_grad_()
+    kh.GridEncode.apply(torch.from_numpy(x), tt, tc.geometry, td).backward(gt)
+    np.testing.assert_array_equal(tt.grad.numpy(), got.numpy())
+    if not bf:
+        _scaled(got, want, 1e-6)
+        return
+    idx, rows = kh.grid_encode_bwd_rows_plain(torch.from_numpy(x), gt, tc.geometry)
+    adds = ks.scatter_rows(idx, (rows != 0).float(), tc.num_rows).numpy()
+    s_abs = ks.scatter_rows(idx, rows.abs(), tc.num_rows).numpy()
+    assert (np.abs(got.numpy() - want) <= 2.0**-8 * adds * s_abs + 1e-7).all()
+    assert float(np.abs(want).max()) > 0
 
 
 def test_scatter_add_rows_plain_matches_jax_at_add():

@@ -8,20 +8,24 @@ Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
 
-(``--probe-scatter`` adds ``scatter_probe`` to phase 9.) It builds the
-CUDA kernels from ``ngp_tpu_torch/ops/kernels/csrc`` (and counts the
-tensor-core instructions, HMMA, of the bf16 density head in the
-library's SASS), then
+(``--probe-scatter`` adds ``scatter_probe`` to phase 9; ``--times-only``
+runs phases 1-3 and ``main_shape_times`` alone.) It builds the CUDA
+kernels from ``ngp_tpu_torch/ops/kernels/csrc`` (and counts the
+tensor-core instructions, HMMA, of the two bf16 heads in the library's
+SASS, and their spills in the compiler's report), then
 
 2-3. builds the turbo-hq NeRF network at full width from a seeded
      generator (random weights), refreshes the 128^3 occupancy grid (16
-     full sweeps, then one partial refresh) and renders 800x800 frames
-     through ``GridNeRFTrainer.render_frame`` (the eval path);
+     full sweeps, then one partial refresh), renders 800x800 frames
+     through ``GridNeRFTrainer.render_frame`` (the eval path) and one
+     more under the profiler;
 4.   holds each kernel against its plain PyTorch version at the paths'
      shapes: the refresh and the eval chunk, the train step's 98,304
      rows for the density forward with residuals and the factor
      backward (and the density forward at the edges of
-     ``DENSITY_EDGES``), the mesh export's 65,536-row
+     ``DENSITY_EDGES`` and at the sigma widths ``WIDE_H1``, the
+     radiance head at ``SIGMA_RGB_EDGES`` and at each of its tile row
+     counts), the mesh export's 65,536-row
      chunk for the CP encoder and its backward, and 524,288 x
      [32, 64, 64, 16] for the MLP chain (which no path runs); the
      hash-grid encoder at the refresh chunk (131,072 points) and a
@@ -46,14 +50,17 @@ library's SASS), then
      idle share);
 8.   runs one small f32 train step on the GPU and the same step on the
      CPU through the plain versions, and compares loss and gradients;
+     then a bf16 network with ``hidden_dim=128`` refreshes, takes a
+     train step and renders a frame;
 9.   trains the hash-grid configuration at full width on the same scene
      (v1 march, 1024 steps and 256 samples per ray, 4096 rays per step,
      refresh every 16 steps) for 256 steps, times the last 128,
      requires a loss that falls, renders the val pose with the EMA
      weights to a PSNR floor, and profiles 16 more steps; on the first
      and last steps' own encoder inputs (points and bf16 cotangent) it
-     counts the zero cotangent rows and holds the table gradient against
-     its plain version;
+     holds the encoder's forward against its plain version, counts the
+     zero cotangent rows and holds the table gradient against its plain
+     version;
 10.  runs one small f32 hash-grid train step on the GPU and on the CPU,
      and the card's encoder inputs and cotangents of that step through
      the plain encoder on the CPU, against the card's table gradient.
@@ -126,6 +133,23 @@ CP_SCALE = 7.5
 DENSITY_EDGES = ((1, None, 1.0), (131_071, None, 1.0), (4099, ((32, 64), 12, 2), 1.0),
                  (4099, ((128, 256, 512, 1024, 2048), 256, 6), 1.0),
                  (TRAIN_ROWS, None, CP_SCALE))
+# bf16 sigma MLPs wider than the 128-row tensor-core tiles take (64-row tiles
+# for 72 and 128 hidden units, 32-row tiles for 256), on the model's banks
+WIDE_H1 = (72, 128, 256)
+WIDE_ROWS = 4099
+# the radiance head's edges on the card, as DENSITY_EDGES, each with its
+# sigma width H1, SH degree and colour hidden widths: one row, a ragged row
+# count, rank 12 with frequency degree 2, rank 256 (w1 streamed), the model's
+# banks scaled by CP_SCALE, and H1 = 128 (64-row tiles) with SH degree 3 and a
+# 2-layer colour MLP
+EVAL_ROWS = 4096 * 6
+SIGMA_RGB_EDGES = ((1, None, 1.0, 64, 4, (64, 64)), (EVAL_ROWS - 1, None, 1.0, 64, 4, (64, 64)),
+                   (4099, ((32, 64), 12, 2), 1.0, 64, 4, (64, 64)),
+                   (4099, ((128, 256, 512, 1024, 2048), 256, 6), 1.0, 64, 4, (64, 64)),
+                   (EVAL_ROWS, None, CP_SCALE, 64, 4, (64, 64)),
+                   (EVAL_ROWS, None, 1.0, 128, 3, (64,)))
+# the radiance kernel's tile rows timed against each other at EVAL_ROWS
+TILE_ROWS = (128, 64, 32)
 # one small f32 train step, GPU kernels vs CPU plain versions: the
 # loss to 1e-4 relative and each gradient to 1e-3 of its largest entry
 # (f32 atomics and summation order); in the hash-grid configuration the
@@ -288,31 +312,73 @@ def bwd_bound(cp, pos, factors, g_cp, res, want):
     return [2.0**-13 * s.float() + ulp * w.float().abs() for s, w in zip(s_abs, want)]
 
 
-def profile_steps(trainer, batches, n, card):
-    """Where the time of ``n`` train steps goes: ``torch.profiler`` over
-    them, the device time of each kernel (and copy) by name, the device's
-    busy share of the host wall time, and launches per step."""
+def profile(fn, n, what, card, focus=()):
+    """Where the time of ``n`` calls of ``fn`` goes (``what``: "step" or
+    "frame"): ``torch.profiler`` over them, the device time of each kernel
+    (and copy) by name, the device's busy share of the host wall time,
+    launches per call, and the device time and share of busy time of the
+    kernels whose names hold a string of ``focus``."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
-            trainer.step(next(batches))
+            fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    rows = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
-    rows.sort(key=lambda e: e.self_device_time_total, reverse=True)
-    busy = sum(e.self_device_time_total for e in rows) / 1e3  # ms
-    launches = sum(e.count for e in rows)
-    print(f"profile of {n} steps: wall {wall * 1e3 / n:.2f} ms per step, device busy "
-          f"{busy / n:.2f} ms per step, idle share {1.0 - busy / (wall * 1e3):.3f}, "
-          f"{launches / n:.0f} device launches per step  [{card}]")
-    for e in rows[:14]:
-        print(f"  {e.self_device_time_total / 1e3 / n:8.3f} ms/step  {e.count / n:6.1f}x  "
-              f"{e.key[:110]}")
+    # (device ns, count) by name from the profiler's raw events: a frame's
+    # 51,000 launches make key_averages() take about a minute of host time
+    by_name = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            ns, count = by_name.get(e.name(), (0, 0))
+            by_name[e.name()] = (ns + e.duration_ns(), count + 1)
+    rows = sorted(by_name.items(), key=lambda kv: kv[1][0], reverse=True)
+    busy = sum(ns for ns, _ in by_name.values()) / 1e6  # ms
+    launches = sum(count for _, count in by_name.values())
+    print(f"profile of {n} {what}s: wall {wall * 1e3 / n:.2f} ms per {what}, device busy "
+          f"{busy / n:.2f} ms per {what}, idle share {1.0 - busy / (wall * 1e3):.3f}, "
+          f"{launches / n:.0f} device launches per {what}  [{card}]")
+    for key, (ns, count) in rows[:14]:
+        print(f"  {ns / 1e6 / n:8.3f} ms/{what}  {count / n:8.1f}x  {key[:110]}")
+    for name in focus:
+        ms = sum(ns for key, (ns, _) in rows if name in key) / 1e6 / n
+        count = sum(c for key, (_, c) in rows if name in key) / n
+        print(f"  {name}: {ms:.3f} ms per {what} in {count:.0f} launches, "
+              f"{ms * n / max(busy, 1e-9):.3f} of the device busy time  [{card}]")
+
+
+def ptxas_spills(report, kernel):
+    """Bytes of spill stores ``ptxas -v`` reports for ``kernel``; raises if
+    the report does not name it."""
+    spills, inside, seen = 0, False, False
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            inside = kernel in line
+            seen |= inside
+        elif inside and "spill stores" in line:
+            spills += int(line.split("bytes spill stores")[0].split(",")[-1])
+    if not seen:
+        raise RuntimeError(f"the compiler report does not name {kernel}")
+    return spills
+
+
+def head_weights(gen, dev, dt, D, H1, OUT, sh, hidden):
+    """Random bias-free weights of a radiance head: w1 [D, H1], w2
+    [H1, OUT] and the colour layers [sh^2 + OUT - 1, *hidden, 3], each
+    scaled by 1/sqrt(its fan-in)."""
+    import torch
+
+    cdims = [sh * sh + OUT - 1, *hidden, 3]
+
+    def layer(a, b):
+        return (torch.randn((a, b), generator=gen, device=dev) / a**0.5).to(dt)
+
+    return (layer(D, H1), layer(H1, OUT),
+            tuple(layer(cdims[i], cdims[i + 1]) for i in range(len(cdims) - 1)))
 
 
 def hmma_count(lib_path, kernel):
@@ -414,6 +480,47 @@ def check_launched(path, counts, names):
     for name in names:
         if counts[name] <= 0:
             raise RuntimeError(f"kernel {name} was not launched on the {path} path")
+
+
+def main_shape_times(model, nc, dev, card):
+    """CUDA-event times of ``cp_sigma_rgb`` and ``grid_encode_fwd`` alone at
+    their main shapes: the radiance head on the eval chunk (EVAL_ROWS random
+    rows in [0, 1]^3, ``model``'s weights, bf16 and f32), the hash encoder on
+    the full-width table (random f32 values) at GRID_ROWS random points and
+    at as many points along rays (256 consecutive samples of each chord
+    between two random points of the box, as the v1 march lays them), to
+    bf16 and f32. The inputs come from one seed, so trees timed in one call
+    see the same."""
+    import torch
+
+    from ngp_tpu_torch.ops.hashgrid import GridConfig
+    from ngp_tpu_torch.ops.kernels import cp
+    from ngp_tpu_torch.ops.kernels import hashgrid as hk
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    weights = [w.detach() for w in (*model.sigma_net.weights, *model.color_net.weights)]
+    pos = torch.rand((EVAL_ROWS, 3), generator=gen, device=dev)
+    dirs = torch.nn.functional.normalize(
+        torch.randn((EVAL_ROWS, 3), generator=gen, device=dev), dim=-1)
+    for dt in (torch.bfloat16, torch.float32):
+        fa = tuple(f.detach().to(dt).contiguous() for f in model.encoder.factors)
+        w = [x.to(dt).contiguous() for x in weights]
+        ms = cuda_ms(lambda: cp.cp_sigma_rgb(pos, dirs, fa, w[0], w[1], tuple(w[2:]),
+                                             nc.cp_resolutions, nc.cp_freq_degree,
+                                             nc.sh_degree), reps=50)
+        print(f"time cp_sigma_rgb {dt} {EVAL_ROWS} rows: {ms:.4f} ms  [{card}]", flush=True)
+    gcfg = GridConfig(desired_resolution=2048)
+    table = torch.rand((gcfg.num_rows, gcfg.level_dim), generator=gen, device=dev) * 2 - 1
+    B = GRID_ROWS[-1]
+    a, b = (torch.rand((B // 256, 1, 3), generator=gen, device=dev) for _ in range(2))
+    t = torch.linspace(0.0, 1.0, 256, device=dev)[None, :, None]
+    points = {f"{n} random points": torch.rand((n, 3), generator=gen, device=dev)
+              for n in GRID_ROWS}
+    points[f"{B} points along rays"] = (a + t * (b - a)).reshape(-1, 3).contiguous()
+    for od in (torch.bfloat16, torch.float32):
+        for label, x in points.items():
+            ms = cuda_ms(lambda: hk.grid_encode_fwd(x, table, gcfg.geometry, od), reps=20)
+            print(f"time grid_encode_fwd {od} {label}: {ms:.4f} ms  [{card}]", flush=True)
 
 
 def train_step_gpu_vs_cpu(dev, hash_grid=False):
@@ -532,7 +639,13 @@ def main():
     parser.add_argument("--probe-scatter", action="store_true",
                         help="also time the replaced corner rows + scatter_add_rows pair and "
                              "index_add_ on the hash steps' own rows (scatter_probe)")
-    probe_scatter = parser.parse_args().probe_scatter
+    parser.add_argument("--times-only", action="store_true",
+                        help="only phases 1-3 (build, refresh, three 800x800 turbo-hq frames, "
+                             "one more profiled) and main_shape_times; it calls no argument "
+                             "added with the tensor-core radiance head, so a copy of this "
+                             "script in an earlier checkout times that tree")
+    args = parser.parse_args()
+    probe_scatter = args.probe_scatter
     import torch
 
     if not torch.cuda.is_available():
@@ -571,11 +684,15 @@ def main():
     for line in report.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"ptxas: {line.strip()}")
-    hmma = hmma_count(build.library_path(), "cp_density_tc_kernel")
-    print(f"SASS: cp_density_tc_kernel (the bf16 density head) has {hmma} HMMA instructions",
-          flush=True)
-    if hmma == 0:
-        raise RuntimeError("the bf16 density head runs no tensor-core instruction")
+    # the bf16 heads' tensor-core kernels: HMMA in their SASS, no spills
+    for kernel in () if args.times_only else ("cp_density_tc_kernel", "cp_sigma_rgb_tc_kernel"):
+        hmma = hmma_count(build.library_path(), kernel)
+        spills = ptxas_spills(report, kernel)
+        print(f"SASS: {kernel} has {hmma} HMMA instructions; ptxas: {spills} bytes of spill "
+              "stores", flush=True)
+        if hmma == 0 or spills > 0:
+            raise RuntimeError(f"{kernel}: {hmma} tensor-core instructions, {spills} bytes of "
+                               "spill stores")
 
     # 2. the turbo-hq network at full width, random weights from a seed
     rc = RenderConfig(
@@ -615,8 +732,15 @@ def main():
               f"n_dropped {st['n_dropped']:.1f}, lattice span {trainer._eval_lattice_span}  "
               f"[{card}]", flush=True)
         images.append(img)
+    # one more frame under the profiler: device time by kernel, idle share
+    profile(lambda: trainer.render_frame(orbit_pose(0.7), intr, FRAME, FRAME), 1, "frame",
+            card, focus=("cp_sigma_rgb", "cp_density", "coarse_lookup"))
+    if args.times_only:
+        main_shape_times(model, nc, dev, card)
+        return
     eval_counts = launch_counts()
-    check_launched("eval", eval_counts, ("cp_density_fwd", "cp_sigma_rgb", "coarse_lookup_bits"))
+    check_launched("eval", eval_counts, ("cp_density_fwd", "cp_density_fwd_tc", "cp_sigma_rgb",
+                                         "cp_sigma_rgb_tc", "coarse_lookup_bits"))
     for img in images:
         if img.shape != (FRAME, FRAME, 3) or not np.isfinite(img).all():
             raise RuntimeError("frame is not a finite 800x800x3 image")
@@ -632,7 +756,7 @@ def main():
     color = tuple(w.detach() for w in model.color_net.weights)
     res, fd = nc.cp_resolutions, nc.cp_freq_degree
     nbR = len(res) * nc.cp_rank
-    rows = {"cp_density_fwd": 128 * 128 * 8, "cp_sigma_rgb": 4096 * 6}
+    rows = {"cp_density_fwd": 128 * 128 * 8, "cp_sigma_rgb": EVAL_ROWS}
     results = {}
     # the work of each function for its bound: a CP lerp is about 14
     # operations per (row, bank column), three taps of 4 and two products;
@@ -687,6 +811,26 @@ def main():
                     lambda: cp.cp_density_plain(pos_x, fe, e1, e2, res_e, fd_e, residuals=resid),
                     dtype, (nbytes(pos_x, *fe, e1, e2) + M_e * OUT * 4, M_e * mlp_flops, 0),
                     tol=tol)
+        # sigma MLPs wider than the 128-row tiles take, on the model's banks;
+        # bf16 must take the tensor-core kernel (its launch count says so)
+        pos_x = torch.rand((WIDE_ROWS, 3), generator=gen, device=dev) * 1.1 - 0.05
+        for h1_w in WIDE_H1:
+            e1, e2, _ = head_weights(gen, dev, dt, D, h1_w, OUT, nc.sh_degree, ())
+            before = launch_counts()["cp_density_fwd_tc"]
+            cp.cp_density_fwd(pos_x, fa, e1, e2, res, fd)
+            if launch_counts()["cp_density_fwd_tc"] - before != int(dtype == "bfloat16"):
+                raise RuntimeError(f"cp_density_fwd: H1 {h1_w} {dtype} took the wrong route")
+            flops = 2 * WIDE_ROWS * (D * h1_w + h1_w * OUT)
+            for resid in (False, True):
+                tol = None
+                if resid and dtype == "bfloat16":
+                    tol = lambda want: density_bound(cp, pos_x, fa, res, want)  # noqa: E731
+                results[("cp_density_fwd" + "+residuals" * resid,
+                         f"{dtype} {WIDE_ROWS} rows, H1 {h1_w}")] = compare(
+                    "cp_density_fwd",
+                    lambda: cp.cp_density_fwd(pos_x, fa, e1, e2, res, fd, residuals=resid),
+                    lambda: cp.cp_density_plain(pos_x, fa, e1, e2, res, fd, residuals=resid),
+                    dtype, (nbytes(pos_x, *fa, e1, e2) + WIDE_ROWS * OUT * 4, flops, 0), tol=tol)
         # the factor gradient from a d(features) of the train shape, with a
         # row stride wider than its columns as the backward passes it
         g_cp = torch.randn((M, D), generator=gen, device=dev)[:, :nbR]
@@ -706,6 +850,42 @@ def main():
             lambda: cp.cp_sigma_rgb_plain(pos, dirs, fa, a1, a2, ca, res, fd, nc.sh_degree),
             dtype, (nbytes(pos, dirs, *fa, a1, a2, *ca) + M * 4 * 4,
                     M * (mlp_flops + color_flops), 14 * M * nbR))
+        if dtype == "bfloat16":
+            # the tensor-core kernel's tile rows against each other (the
+            # route's are 128 at H1 = 64), in turns: 128, 64, 32, 32, 64, 128
+            tile_ms = {r: [] for r in TILE_ROWS}
+            for r in TILE_ROWS + TILE_ROWS[::-1]:
+                tile_ms[r].append(cuda_ms(lambda r=r: cp.cp_sigma_rgb(
+                    pos, dirs, fa, a1, a2, ca, res, fd, nc.sh_degree, tile_rows=r)))
+            print(f"cp_sigma_rgb bf16 at {M} rows by tile rows: " + ", ".join(
+                f"{r} rows {sum(t) / 2:.4f} ms ({t[0]:.4f}, {t[1]:.4f})"
+                for r, t in tile_ms.items()) + f"  [{card}]", flush=True)
+        # the radiance head's edge shapes
+        for M_e, small, scale, h1_e, sh_e, hidden in SIGMA_RGB_EDGES:
+            fe, res_e, fd_e, e1, e2, ce = tuple(f * scale for f in fa), res, fd, a1, a2, ca
+            if small is not None:
+                res_e, rank_e, fd_e = small
+                fe = tuple((torch.randn((3, r, rank_e), generator=gen, device=dev) * 0.2).to(dt)
+                           for r in res_e)
+            D_e = len(res_e) * fe[0].shape[-1] + 3 * (1 + 2 * fd_e)
+            if (D_e, h1_e, sh_e, hidden) != (D, H1, nc.sh_degree, (64, 64)):
+                e1, e2, ce = head_weights(gen, dev, dt, D_e, h1_e, OUT, sh_e, hidden)
+            pos_x = torch.rand((M_e, 3), generator=gen, device=dev)
+            dirs_x = torch.nn.functional.normalize(
+                torch.randn((M_e, 3), generator=gen, device=dev), dim=-1)
+            if dtype == "bfloat16":
+                before = launch_counts()["cp_sigma_rgb_tc"]
+                cp.cp_sigma_rgb(pos_x, dirs_x, fe, e1, e2, ce, res_e, fd_e, sh_e)
+                if launch_counts()["cp_sigma_rgb_tc"] == before:
+                    raise RuntimeError("cp_sigma_rgb: a bf16 edge shape missed the tensor cores")
+            flops = 2 * M_e * (e1.numel() + e2.numel() + sum(w.numel() for w in ce))
+            shape = (f"{dtype} {M_e} rows, rank {fe[0].shape[-1]}, freq degree {fd_e}, "
+                     f"factors x{scale}, H1 {h1_e}, SH {sh_e}, colour {len(ce)} layers")
+            results[("cp_sigma_rgb", shape)] = compare(
+                "cp_sigma_rgb",
+                lambda: cp.cp_sigma_rgb(pos_x, dirs_x, fe, e1, e2, ce, res_e, fd_e, sh_e),
+                lambda: cp.cp_sigma_rgb_plain(pos_x, dirs_x, fe, e1, e2, ce, res_e, fd_e, sh_e),
+                dtype, (nbytes(pos_x, dirs_x, *fe, e1, e2, *ce) + M_e * 16, flops, 0))
         # the CP encoder at the mesh chunk, each bank type to each output type
         M = ENCODE_ROWS
         pos_e = torch.rand((M, 3), generator=gen, device=dev) * 1.1 - 0.05
@@ -868,7 +1048,8 @@ def main():
         losses = [m["loss"] for m in metrics]
         overflow = [m["turbo_overflow"] for m in metrics]
         train_counts = launch_counts()
-        check_launched("train", train_counts, ("cp_density_fwd", "cp_density_fwd_residuals",
+        check_launched("train", train_counts, ("cp_density_fwd", "cp_density_fwd_tc",
+                                              "cp_density_fwd_residuals",
                                               "cp_bwd_banks", "coarse_lookup_bits"))
         steps_s = TIMED_STEPS / dt
         print(f"train: {steps_s:.2f} steps/s, {steps_s * TRAIN_RAYS:.0f} rays/s, "
@@ -895,7 +1076,8 @@ def main():
         img, _ = trainer.render_frame(pose, val_ds.intrinsics, H, W)
         dt2 = phase(f"trained frame again ({H}x{W})", t0)
         frame_counts = launch_counts()
-        check_launched("trained frame", frame_counts, ("cp_sigma_rgb", "coarse_lookup_bits"))
+        check_launched("trained frame", frame_counts, ("cp_sigma_rgb", "cp_sigma_rgb_tc",
+                                            "coarse_lookup_bits"))
         gt = val_ds.images[0]
         gt = gt[..., :3] * gt[..., 3:] + (1.0 - gt[..., 3:])
         psnr = -10.0 * math.log10(float(np.mean((img - gt) ** 2)))
@@ -911,7 +1093,8 @@ def main():
         ev = trainer.evaluate(val_ds, with_ssim=True)
         phase("evaluate (1 val frame, PSNR and SSIM)", t0)
         evaluate_counts = launch_counts()
-        check_launched("evaluate", evaluate_counts, ("cp_sigma_rgb", "coarse_lookup_bits"))
+        check_launched("evaluate", evaluate_counts, ("cp_sigma_rgb", "cp_sigma_rgb_tc",
+                                            "coarse_lookup_bits"))
         if not (math.isfinite(ev["psnr"]) and ev["psnr"] >= MIN_PSNR and 0.0 < ev["ssim"] <= 1.0):
             raise RuntimeError(f"evaluate: PSNR {ev['psnr']}, SSIM {ev['ssim']}")
         if abs(ev["psnr"] - psnr) > EVAL_PSNR_TOL:
@@ -924,7 +1107,8 @@ def main():
         out_dir = trainer.test(val_ds)
         phase("test (1 frame, PNG)", t0)
         test_counts = launch_counts()
-        check_launched("test", test_counts, ("cp_sigma_rgb", "coarse_lookup_bits"))
+        check_launched("test", test_counts, ("cp_sigma_rgb", "cp_sigma_rgb_tc",
+                                            "coarse_lookup_bits"))
         png = read_png(os.path.join(out_dir, f"{trainer.name}_0000_rgb.png"))
         if not np.array_equal(png, (np.clip(img, 0, 1) * 255).astype(np.uint8)):
             raise RuntimeError("test: the PNG does not decode to the rendered frame")
@@ -954,10 +1138,36 @@ def main():
 
         # 7e. 16 more train steps under the profiler (one grid refresh among
         # them), after the phases that score the 256-step model
-        profile_steps(trainer, batches, 16, card)
+        profile(lambda: trainer.step(next(batches)), 16, "step", card)
 
     # 8. one small train step: GPU kernels against the CPU plain versions
     train_step_gpu_vs_cpu(dev)
+    del trainer, model
+
+    # 8b. a bf16 turbo network whose sigma MLP has 128 hidden units (the
+    # heads' 64-row tensor-core tiles) on small banks: a refresh, a train
+    # step and the val frame
+    wnc = NetworkConfig(encoding="cpgrid", use_bf16=True, cp_resolutions=(64, 128, 256),
+                        cp_rank=32, cp_freq_degree=4, hidden_dim=128)
+    model = NeRFNetwork(wnc, rc, torch.Generator().manual_seed(SEED))  # on the card
+    with tempfile.TemporaryDirectory() as ws:
+        trainer = GridNeRFTrainer(model, rc, TrainConfig(lr=1e-2, num_rays=TRAIN_RAYS,
+                                                         workspace=ws), seed=SEED)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        trainer._update_occupancy()
+        loss = float(trainer.step(next(iter(trainer.make_loader(train_ds)())))["loss"])
+        img, _ = trainer.render_frame(val_ds.poses[0], val_ds.intrinsics, val_ds.H, val_ds.W)
+        phase("hidden_dim=128: refresh, train step, frame", t0)
+        wide_counts = launch_counts()
+        check_launched("hidden_dim=128", wide_counts,
+                       ("cp_density_fwd_tc", "cp_density_fwd_residuals", "cp_bwd_banks",
+                        "cp_sigma_rgb_tc", "coarse_lookup_bits"))
+        if not math.isfinite(loss) or not np.isfinite(img).all() or img.min() < 0 or img.max() > 1:
+            raise RuntimeError(f"hidden_dim=128: loss {loss}, frame values "
+                               f"{img.min()}..{img.max()}")
+        print(f"hidden_dim=128: loss {loss:.6f}, frame {img.shape}, mean "
+              f"{float(img.mean()):.4f}", flush=True)
     del trainer, model
 
     # 9. the hash-grid configuration (main_nerf.py <scene> -O --encoding
@@ -1006,9 +1216,19 @@ def main():
         print(f"hash-grid train: {steps_s:.2f} steps/s, {steps_s * HASH_RAYS:.0f} rays/s, "
               f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB  [{card}]",
               flush=True)
+        table_h, geom_h = model.encoder.embeddings.detach(), model.encoder.cfg.geometry
         for label, entry in caught.items():
-            step_table_gradient(entry["x"], entry["g"], model.encoder.cfg.geometry, label, card,
-                                results, library, probe_scatter)
+            # the forward on the step's own points (consecutive samples of a
+            # ray share their coarse cells), then the table gradient
+            x = entry["x"]
+            results[("grid_encode_fwd", label)] = compare(
+                "grid_encode_fwd", lambda: hk.grid_encode_fwd(x, table_h, geom_h, torch.bfloat16),
+                lambda: hk.grid_encode_plain(x, table_h, geom_h, torch.bfloat16), "bfloat16",
+                (nbytes(x, table_h) + x.shape[0] * geom_h.output_dim * 2, 0,
+                 x.shape[0] * geom_h.num_levels * (9 + 8 * (2 + 2 * geom_h.level_dim))))
+            step_table_gradient(x, entry["g"], geom_h, label, card, results, library,
+                                probe_scatter)
+        del table_h
         del caught
         losses = torch.stack(losses).cpu().numpy()
         occ = trainer.aux["occ"]
@@ -1041,7 +1261,7 @@ def main():
               f"{HASH_STEPS} steps, {dt * 1e3:.1f} / {dt2 * 1e3:.1f} ms, n_samples "
               f"{st['n_samples']:.0f}, n_dropped {st['n_dropped']:.0f}  [{card}]", flush=True)
         # 16 more steps under the profiler (one grid refresh among them)
-        profile_steps(trainer, batches, 16, card)
+        profile(lambda: trainer.step(next(batches)), 16, "step", card)
     del trainer, model
 
     # 10. one small f32 hash-grid train step: GPU kernels against the CPU
@@ -1049,7 +1269,7 @@ def main():
 
     print_results(results, library, card, printed)
     path_counts = (eval_counts, train_counts, frame_counts, evaluate_counts, test_counts,
-                   mesh_counts, hash_train_counts, hash_frame_counts)
+                   mesh_counts, wide_counts, hash_train_counts, hash_frame_counts)
     csrc = "ngp_tpu_torch/ops/kernels/csrc/"
     sources = {
         "cp_density_fwd": (csrc + "cp_kernels.cu", "ngp_tpu/ops/pallas/cp_kernels.py:345",

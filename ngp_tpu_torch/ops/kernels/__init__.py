@@ -21,7 +21,10 @@ launches its kernel for a CUDA tensor; there is no fallback between the
 two. ``LAUNCHES`` counts the kernel launches of each wrapper, so a run
 can show that its path went through the kernels;
 ``cp_density_fwd_residuals`` counts the launches of ``cp_density_fwd``
-that wrote residuals (they count under ``cp_density_fwd`` too).
+that wrote residuals, and ``cp_density_fwd_tc`` and ``cp_sigma_rgb_tc``
+the launches of the two heads that took the tensor-core kernels (bf16
+heads the tensor-core tiles take; they count under ``cp_density_fwd``
+and ``cp_sigma_rgb`` too).
 """
 
 from typing import Dict
@@ -32,6 +35,8 @@ LAUNCHES: Dict[str, int] = {
     "coarse_lookup_bits": 0,
     "cp_bwd_banks": 0,
     "cp_density_fwd_residuals": 0,
+    "cp_density_fwd_tc": 0,
+    "cp_sigma_rgb_tc": 0,
     "cp_encode_fwd": 0,
     "fused_mlp": 0,
     "grid_encode_fwd": 0,

@@ -36,9 +36,8 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     "ngp_cp_density_fwd": [
         _P, _I, ctypes.POINTER(_P), ctypes.POINTER(_I), _I, _I, _I,
-        _P, _P, _I, _I, _I, _I, _P, _P, _P, _P,
+        _P, _P, _I, _I, _I, _I, _P, _P, _P, ctypes.POINTER(_I), _P,
     ],
-    "ngp_cp_density_tc_max_h1": [],
     "ngp_cp_bwd_banks": [
         _P, _I, _P, _I, ctypes.POINTER(_P), ctypes.POINTER(_I), _I, _I, _I,
         ctypes.POINTER(_P), _P,
@@ -46,7 +45,7 @@ _SIGNATURES = {
     "ngp_cp_sigma_rgb": [
         _P, _P, _I, ctypes.POINTER(_P), ctypes.POINTER(_I), _I, _I, _I,
         _P, _P, _I, _I, _I, ctypes.POINTER(_P), ctypes.POINTER(_I), _I, _I,
-        _I, _P, _P,
+        _I, _P, _I, ctypes.POINTER(_I), _P,
     ],
     "ngp_coarse_lookup_bits": [_P, _I, _P, ctypes.c_longlong, _P, _P],
     "ngp_cp_encode_fwd": [
@@ -91,12 +90,13 @@ def build() -> Tuple[Path, str]:
     """Compile the library if it is not built yet.
 
     Returns (path, compiler report); the report holds ``ptxas -v``'s
-    registers, shared memory and spills of each kernel, and is empty
-    when the library was already built. Raises when nvcc fails.
+    registers, shared memory and spills of each kernel, and is kept
+    beside the library for later calls. Raises when nvcc fails.
     """
     path = library_path()
+    report = path.with_suffix(".ptxas.txt")
     if path.exists():
-        return path, ""
+        return path, report.read_text() if report.exists() else ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tag = f"{path.stem}.{os.getpid()}"
     nvcc = _nvcc()
@@ -117,6 +117,7 @@ def build() -> Tuple[Path, str]:
         if res.returncode != 0:
             raise RuntimeError(f"nvcc link failed with code {res.returncode}:\n"
                                f"{res.stdout}{res.stderr}")
+        report.write_text("".join(outs))
         os.replace(tmp, path)
     finally:
         for obj in objs:
@@ -158,6 +159,6 @@ def check_launch(name: str, err: int) -> None:
     RuntimeError for any other failed launch."""
     if err == UNSUPPORTED_SHAPE:
         raise ValueError(f"{name}: the kernel does not take this shape (it would need more "
-                         "shared memory than a block has)")
+                         "shared memory than a block has, or a tile its route does not allow)")
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed with cudaError {err}")

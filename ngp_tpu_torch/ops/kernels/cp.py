@@ -26,6 +26,7 @@ JAX CPU reference does (the Pallas kernels build bf16 lerp weights).
 
 from __future__ import annotations
 
+import ctypes
 from typing import Sequence, Tuple
 
 import torch
@@ -198,8 +199,9 @@ def cp_density_fwd(pos, factors, w1, w2, resolutions, freq_degree,
     [0, 1]^3 get zero CP features but keep their freq columns. With
     ``residuals`` returns (out, feats [M, D], h1 [M, H1]), the last two
     in the weight dtype: the values the kernel multiplied. bf16 runs
-    both products on the tensor cores and takes H1 up to the kernel's
-    limit (64); f32 runs them on the CUDA cores in full f32."""
+    both products on the tensor cores for H1 up to 256 (tiles of 128, 64
+    or 32 rows) and on the CUDA cores above; f32 runs them on the CUDA
+    cores in full f32. The kernel picks its route from the shape."""
     if pos.device.type == "cpu":
         return cp_density_plain(pos, factors, w1, w2, resolutions, freq_degree,
                                 residuals)
@@ -210,28 +212,27 @@ def cp_density_fwd(pos, factors, w1, w2, resolutions, freq_degree,
     )
     lib = load_library()
     bf16 = w1.dtype == torch.bfloat16
-    if bf16 and H1 > lib.ngp_cp_density_tc_max_h1():
-        raise ValueError(f"cp_density_fwd: the bf16 kernel takes at most "
-                         f"{lib.ngp_cp_density_tc_max_h1()} hidden units, w1 has {H1}")
     OUT = w2.shape[1]
     out = torch.empty((M, OUT), dtype=torch.float32, device=pos.device)
     feats = h1 = None
     if residuals:
         feats = torch.empty((M, D), dtype=w1.dtype, device=pos.device)
         h1 = torch.empty((M, H1), dtype=w1.dtype, device=pos.device)
+    route = ctypes.c_int(0)
     # called for M = 0 too, so a shape the kernel does not take raises alike
     err = lib.ngp_cp_density_fwd(
         pos.data_ptr(), M, pointer_array(factors), int_array(resolutions),
         len(factors), rank, freq_degree, w1.data_ptr(), w2.data_ptr(),
         D, H1, OUT, int(bf16), out.data_ptr(),
         feats.data_ptr() if residuals else None,
-        h1.data_ptr() if residuals else None,
+        h1.data_ptr() if residuals else None, ctypes.byref(route),
         torch.cuda.current_stream(pos.device).cuda_stream,
     )
     check_launch("cp_density_fwd", err)
     if M > 0:
         LAUNCHES["cp_density_fwd"] += 1
         LAUNCHES["cp_density_fwd_residuals"] += int(residuals)
+        LAUNCHES["cp_density_fwd_tc"] += int(route.value > 0)
     return (out, feats, h1) if residuals else out
 
 
@@ -365,10 +366,16 @@ def cp_density(pos, factors, w1, w2, resolutions, freq_degree):
 
 
 def cp_sigma_rgb(pos, dirs, factors, w1, w2, color_ws, resolutions,
-                 freq_degree, sh_degree):
+                 freq_degree, sh_degree, tile_rows: int = 0):
     """Fused eval radiance: [M, 3] pos in [0, 1] + [M, 3] unit dirs ->
     [M, 4] f32 rows (exp(sigma_raw), sigmoid(rgb)). color_ws: the
-    bias-free color MLP kernels, [sh_degree**2 + OUT - 1, H] ... [H, 3]."""
+    bias-free color MLP kernels, [sh_degree**2 + OUT - 1, H] ... [H, 3].
+
+    bf16 runs every product on the tensor cores where the widths allow
+    (H1 <= 256, color hidden layers <= 64) and on the CUDA cores
+    otherwise; f32 on the CUDA cores. ``tile_rows`` (32, 64 or 128, no
+    more than the route's own) sets the tensor-core kernel's tile rows,
+    for measurement; 0 leaves them to the route."""
     if pos.device.type == "cpu":
         return cp_sigma_rgb_plain(pos, dirs, factors, w1, w2, color_ws,
                                   resolutions, freq_degree, sh_degree)
@@ -393,14 +400,16 @@ def cp_sigma_rgb(pos, dirs, factors, w1, w2, color_ws, resolutions,
     if M == 0:
         return out
     lib = load_library()
+    route = ctypes.c_int(0)
     err = lib.ngp_cp_sigma_rgb(
         pos.data_ptr(), dirs.data_ptr(), M, pointer_array(factors),
         int_array(resolutions), len(factors), rank, freq_degree,
         w1.data_ptr(), w2.data_ptr(), D, H1, OUT, pointer_array(color_ws),
         int_array(dims), len(color_ws), sh_degree,
-        int(w1.dtype == torch.bfloat16), out.data_ptr(),
+        int(w1.dtype == torch.bfloat16), out.data_ptr(), tile_rows, ctypes.byref(route),
         torch.cuda.current_stream(pos.device).cuda_stream,
     )
     check_launch("cp_sigma_rgb", err)
     LAUNCHES["cp_sigma_rgb"] += 1
+    LAUNCHES["cp_sigma_rgb_tc"] += int(route.value > 0)
     return out

@@ -12,25 +12,29 @@
 // Hopper gathers cheaply, and all five factor banks of the flagship config
 // (3 x 3968 x 128 bf16, about 3 MB) stay resident in the 50 MB L2.
 //
-// The bf16 density head (cp_density_tc_kernel, the main path's type) runs
-// both MLP products on the tensor cores (mma.sync m16n8k16, bf16 -> f32). A
-// persistent block of 16 warps per SM keeps w1 and w2 in shared memory in
-// fragment order for its whole life (88 KB at the flagship config, K padded
-// from 679 to 688; a w1 too long for that comes in a K chunk at a time beside
-// the chunk's features) and walks 128-row tiles; each tile's features are made
-// one bank at a time into a double-buffered shared A tile, by 16-byte
+// The bf16 heads (the main path's type) run every MLP product on the tensor
+// cores (mma.sync m16n8k16, bf16 -> f32): cp_density_tc_kernel and
+// cp_sigma_rgb_tc_kernel share one tile code. A persistent block of 16 warps
+// per SM keeps w1 and w2 in shared memory in fragment order for its whole life
+// (88 KB at the flagship config, K padded from 679 to 688; a w1 too long for
+// that comes in a K chunk at a time beside the chunk's features) and walks
+// tiles of 128 rows (64 for H1 <= 128, 32 for H1 <= 256); each tile's features
+// are made one bank at a time into a double-buffered shared A tile, by 16-byte
 // gathers of 8 rank columns per thread (two items' twelve loads in flight),
-// f32 lerps and product, rounded to bf16. What bounds it is the L2 traffic of
-// the gathers, 7.7 KB of factor lines per row (1.0 GB for a 131,072-row
-// refresh chunk), not the 11.7 GFLOP of products; with residuals, the feats
-// rows (1358 bytes apart at the flagship config) go out by 2-byte stores. The
-// f32 head and the radiance head keep the first design: one block owns kRows
-// sample rows, its feature rows and activations in shared memory as f32, the
-// products on the CUDA cores with a register tile of kRowsPerThread rows per
-// weight load (full f32, where TF32 would break the f32 tolerance). With
-// residuals, each block also writes its [rows, D] feature rows and
-// [rows, H1] hidden rows in the weight type, the values the backward's MLP
-// products read.
+// f32 lerps and product, rounded to bf16. What bounds them is the L2 traffic
+// of the gathers, 7.7 KB of factor lines per row (1.0 GB for a 131,072-row
+// refresh chunk, 189 MB for a 24,576-row eval chunk), not the 11.7 GFLOP of
+// products; with residuals, the feats rows (1358 bytes apart at the flagship
+// config) go out by 2-byte stores. The radiance kernel then runs the colour
+// half on chip: the SH basis and the geo columns into one shared bf16 tile,
+// the colour MLP chained through registers, one 16-byte store per row. The
+// f32 heads, and bf16 heads wider than the tensor-core tiles take (tc_route),
+// keep the first design: one block owns kRows sample rows, its feature rows
+// and activations in shared memory as f32, the products on the CUDA cores with
+// a register tile of kRowsPerThread rows per weight load (full f32, where TF32
+// would break the f32 tolerance). With residuals, each block also writes its
+// [rows, D] feature rows and [rows, H1] hidden rows in the weight type, the
+// values the backward's MLP products read.
 //
 // The factor backward replaces the TPU's transposed tent matmul with what the
 // tent encodes: each (row, bank, rank) item recomputes its three lerped line
@@ -274,9 +278,10 @@ __device__ double double_factorial(int n) {
 }
 
 // Real SH basis, degrees 1-8, in the order and with the operations of
-// ngp_tpu_torch/ops/sh.py (Sloan recurrence, Condon-Shortley phase).
-template <typename T>
-__device__ void sh_row(float x, float y, float z, int degree, float* o) {
+// ngp_tpu_torch/ops/sh.py (Sloan recurrence, Condon-Shortley phase):
+// put(j, v) for basis column j.
+template <typename Put>
+__device__ void sh_row(float x, float y, float z, int degree, Put put) {
   float A = 1.f, B = 0.f;
   for (int m = 0; m < degree; ++m) {
     float p_prev = (float)double_factorial(2 * m - 1);
@@ -296,11 +301,11 @@ __device__ void sh_row(float x, float y, float z, int degree, float* o) {
       const double k =
           sqrt((2 * l + 1) / (4.0 * kPi) * factorial(l - m) / factorial(l + m));
       if (m == 0) {
-        o[l * l + l] = round_to<T>((float)k * p);
+        put(l * l + l, (float)k * p);
       } else {
         const float c = (float)(((m & 1) ? -1.0 : 1.0) * sqrt(2.0) * k);
-        o[l * l + l + m] = round_to<T>((c * p) * A);
-        o[l * l + l - m] = round_to<T>((c * p) * B);
+        put(l * l + l + m, (c * p) * A);
+        put(l * l + l - m, (c * p) * B);
       }
     }
     const float An = x * A - y * B;
@@ -410,7 +415,8 @@ __global__ void __launch_bounds__(kThreads) cp_sigma_rgb_kernel(HeadParams p) {
   for (int m = threadIdx.x; m < kRows; m += blockDim.x) {
     const int row = row0 + m;
     const float* d = p.dirs + 3 * (row < p.M ? row : 0);
-    sh_row<T>(d[0], d[1], d[2], p.sh_degree, ca + m * p.cmax);
+    float* o = ca + m * p.cmax;
+    sh_row(d[0], d[1], d[2], p.sh_degree, [&](int j, float v) { o[j] = round_to<T>(v); });
   }
   for (int i = threadIdx.x; i < kRows * geo; i += blockDim.x) {
     const int m = i / geo;
@@ -439,30 +445,42 @@ __global__ void __launch_bounds__(kThreads) cp_sigma_rgb_kernel(HeadParams p) {
 }
 
 // ---------------------------------------------------------------------------
-// The bf16 density head on the tensor cores (mma.sync m16n8k16, bf16 -> f32).
+// The bf16 heads on the tensor cores (mma.sync m16n8k16, bf16 -> f32).
 //
-// A persistent block of 16 warps owns one SM and walks 128-row tiles. The
-// weights sit in shared memory in mma fragment order (w1 [Kp, H1p], K padded
-// per bank to a multiple of 16 and H1 to 16, zeros in the padding), so each
-// B fragment is one conflict-free 8-byte load: w1 for the block's life where
-// it fits (Kp <= 1112 at H1 = 64; 688 at turbo-hq), else each K chunk's rows
-// beside that chunk's features. A tile's features are made one K chunk at a
-// time (one bank's rank columns, at most kTcChunk of them, then the frequency
-// ladder) into a double-buffered [128, kTcChunk] bf16 A tile whose rows are
-// padded by 16 bytes, so the fragment loads of 8 rows x 4 column pairs hit 32
-// distinct banks; warp w multiplies rows 16 (w % 8) .. +15 of the chunk into
-// f32 accumulators of H1 / 2 columns. The second product reads ReLU(h1),
-// rounded to bf16, from a padded shared tile.
+// A persistent block of 16 warps owns one SM and walks tiles of t.rows sample
+// rows. The weights sit in shared memory in mma fragment order (w1 [Kp, H1p],
+// K padded per bank to a multiple of 16 and H1 to 16, zeros in the padding),
+// so each B fragment is one conflict-free 8-byte load: w1 for the block's life
+// where it fits (688 rows at turbo-hq), else each K chunk's rows beside that
+// chunk's features. A tile's features are made one K chunk at a time (one
+// bank's rank columns, at most kTcChunk of them, then the frequency ladder)
+// into a double-buffered [rows, kTcChunk] bf16 A tile whose rows are padded by
+// 16 bytes, so the fragment loads of 8 rows x 4 column pairs hit 32 distinct
+// banks. The 16 warps split a tile into rows / 16 row groups of 16 rows and
+// 256 / rows column groups of at most kTcMaxNtw n-tiles (16 f32 accumulators a
+// thread, which keeps the K loop at 128 registers): 128-row tiles take
+// H1 <= 64, 64-row tiles H1 <= 128 and 32-row tiles H1 <= 256 (tc_rows). The
+// second product reads ReLU(h1), rounded to bf16, from a padded shared tile.
 // ---------------------------------------------------------------------------
 
-constexpr int kTcRows = 128;
 constexpr int kTcThreads = 512;
+constexpr int kTcWarps = kTcThreads / 32;
 constexpr int kTcChunk = 128;
 constexpr int kTcLda = kTcChunk + 8;
-constexpr int kTcMaxH1 = 64;  // 4 n-tiles of 8 per warp and column half
+constexpr int kTcMaxNtw = 4;        // n-tiles of 8 columns per warp, first product
+constexpr int kTcMaxColor = 64;     // widest colour hidden layer (kept in registers)
+constexpr int kTcMaxColorIn = 256;  // widest colour input, padded (one shared tile)
 // what a launcher returns for a shape its kernel does not take (cudaError
 // codes are >= 0); the wrappers raise ValueError for it
 constexpr int kUnsupportedShape = -1;
+
+// rows of a tensor-core tile for H1 hidden units, so that each of the 16
+// warps holds at most kTcMaxNtw n-tiles of h1; 0 past 256 (the row-block
+// kernel takes those)
+__host__ __device__ inline int tc_rows(int H1) {
+  const int h1p = (H1 + 15) & ~15;
+  return h1p <= 64 ? 128 : h1p <= 128 ? 64 : h1p <= 256 ? 32 : 0;
+}
 
 __device__ __forceinline__ void mma_bf16(float* d, uint32_t a0, uint32_t a1, uint32_t a2,
                                          uint32_t a3, uint32_t b0, uint32_t b1) {
@@ -486,11 +504,18 @@ __device__ __forceinline__ int frag_slot(int k, int n, int n_tiles) {
   return ((((k >> 4) * n_tiles + (n >> 3)) * 32 + lane) << 2) + ((kk >> 3) << 1) + (kk & 1);
 }
 
+// The padded widths, tile rows and shared-memory layout of a tensor-core
+// head, made on the host (tc_layout) and passed as a kernel parameter, so
+// that the kernel reads them from the constant bank and spends no register
+// on them.
 struct TcShape {
-  int rankp, freq, freqp, Kp, H1p, OUTp;
+  int rankp, freq, freqp, Kp, H1p, OUTp, rows;
+  int resident;                   // w1 held whole in shared memory (else streamed)
+  int w2_at, a_at, h1_at, c_at;   // byte offsets of w2, the A tiles, h1, colour layers
+  int ldc;                        // row stride of the colour tile (radiance)
 };
 
-__host__ __device__ inline TcShape tc_shape(const HeadParams& p) {
+__host__ __device__ inline TcShape tc_shape(const HeadParams& p, int rows) {
   TcShape t;
   t.rankp = (p.rank + 15) & ~15;
   t.freq = p.D - p.nb * p.rank;
@@ -498,7 +523,19 @@ __host__ __device__ inline TcShape tc_shape(const HeadParams& p) {
   t.Kp = p.nb * t.rankp + t.freqp;
   t.H1p = (p.H1 + 15) & ~15;
   t.OUTp = (p.OUT + 7) & ~7;
+  t.rows = rows;
+  t.resident = 0;
+  t.w2_at = t.a_at = t.h1_at = t.c_at = t.ldc = 0;
   return t;
+}
+
+// colour layer l's K and N in fragment order: widths padded to 16 (a hidden
+// layer's N is the next layer's K), the 3 colours to one n-tile of 8
+__host__ __device__ inline int color_kp(const HeadParams& p, int l) {
+  return (p.cdim[l] + 15) & ~15;
+}
+__host__ __device__ inline int color_np(const HeadParams& p, int l) {
+  return l == p.n_color - 1 ? 8 : (p.cdim[l + 1] + 15) & ~15;
 }
 
 // rows of w1 in shared memory: all Kp (resident), or two chunks' (streamed)
@@ -506,9 +543,60 @@ __host__ __device__ inline int tc_w1_rows(const TcShape& t, bool resident) {
   return resident ? t.Kp : 2 * kTcChunk;
 }
 
-__host__ __device__ inline size_t tc_smem_bytes(const TcShape& t, bool resident) {
+// w1, w2, the two A tiles, the h1 tile and (radiance) the colour layers
+__host__ __device__ inline size_t tc_smem_bytes(const HeadParams& p, const TcShape& t,
+                                                bool resident) {
+  size_t color = 0;
+  for (int l = 0; l < p.n_color; ++l) color += (size_t)color_kp(p, l) * color_np(p, l);
   return 2 * ((size_t)tc_w1_rows(t, resident) * t.H1p + (size_t)t.H1p * t.OUTp +
-              2 * kTcRows * kTcLda + (size_t)kTcRows * (t.H1p + 8));
+              2 * (size_t)t.rows * kTcLda + (size_t)t.rows * (t.H1p + 8) + color);
+}
+
+// the shape of a head at these tile rows, with its shared-memory layout in
+// the order of tc_smem_bytes (every offset a multiple of 16 bytes)
+inline TcShape tc_layout(const HeadParams& p, int rows, bool resident) {
+  TcShape t = tc_shape(p, rows);
+  t.resident = resident;
+  t.w2_at = 2 * tc_w1_rows(t, resident) * t.H1p;
+  t.a_at = t.w2_at + 2 * t.H1p * t.OUTp;
+  t.h1_at = t.a_at + 2 * 2 * rows * kTcLda;
+  t.c_at = t.h1_at + 2 * rows * (t.H1p + 8);
+  // the colour tile: the input, then each hidden layer, 16 bytes of padding
+  if (p.n_color > 0) t.ldc = (color_kp(p, 0) > kTcMaxColor ? color_kp(p, 0) : kTcMaxColor) + 8;
+  return t;
+}
+
+// The one source of the route of a bf16 head (density: n_color 0): the rows of
+// the tensor-core kernel's tiles, or 0 for the row-block kernel, which takes
+// an H1 past 256, a colour hidden layer wider than kTcMaxColor, a colour input
+// wider than kTcMaxColorIn, and shapes whose tensor-core layout does not fit
+// in shared memory even with w1 streamed.
+int tc_route(const HeadParams& p) {
+  const int rows = tc_rows(p.H1);
+  if (rows == 0) return 0;
+  for (int l = 0; l < p.n_color; ++l)
+    if (color_kp(p, l) > (l == 0 ? kTcMaxColorIn : kTcMaxColor)) return 0;
+  return tc_smem_bytes(p, tc_shape(p, rows), false) <= (size_t)kMaxSmemBytes ? rows : 0;
+}
+
+// the block's shared memory: w1 and w2 (and the colour layers) in fragment
+// order, the double-buffered A tile, the h1 tile
+struct TcSmem {
+  uint2* w1s;
+  uint2* w2s;
+  uint2* cws;
+  __nv_bfloat16* abuf;
+  __nv_bfloat16* sh1;
+};
+
+__device__ inline TcSmem tc_smem(const TcShape& t, unsigned char* base) {
+  TcSmem s;
+  s.w1s = reinterpret_cast<uint2*>(base);
+  s.w2s = reinterpret_cast<uint2*>(base + t.w2_at);
+  s.abuf = reinterpret_cast<__nv_bfloat16*>(base + t.a_at);
+  s.sh1 = reinterpret_cast<__nv_bfloat16*>(base + t.h1_at);
+  s.cws = reinterpret_cast<uint2*>(base + t.c_at);
+  return s;
 }
 
 // w1's row of padded K index kp, or -1 for a padding row
@@ -631,10 +719,10 @@ __device__ __forceinline__ uint4 gather_finish(const Gather8& G) {
 
 // A tile columns 0 .. kc-1 = bank b's rank columns c0 .. c0+kc-1 (zero past
 // the rank and for rows outside [0, 1]^3 or past M)
-__device__ void fill_bank_chunk(const HeadParams& p, int row0, int b, int c0, int kc, bool vec,
-                                __nv_bfloat16* A) {
+__device__ void fill_bank_chunk(const HeadParams& p, const TcShape& t, int row0, int b, int c0,
+                                int kc, bool vec, __nv_bfloat16* A) {
   const int groups = kc >> 3;
-  const int items = kTcRows * groups;
+  const int items = t.rows * groups;
   for (int i = threadIdx.x; i < items; i += 2 * kTcThreads) {
     const int i1 = i + kTcThreads;
     const int m0 = i / groups, g0 = i - m0 * groups;
@@ -657,11 +745,11 @@ __device__ __forceinline__ void put_freq(__nv_bfloat16* row, int j, int kc, floa
 __device__ void fill_freq_chunk(const HeadParams& p, const TcShape& t, int row0, int c0, int kc,
                                 __nv_bfloat16* A) {
   const int pad0 = max(t.freq - c0, 0);
-  for (int i = threadIdx.x; i < kTcRows * (kc - pad0); i += kTcThreads) {
+  for (int i = threadIdx.x; i < t.rows * (kc - pad0); i += kTcThreads) {
     const int m = i / (kc - pad0);
     A[m * kTcLda + pad0 + (i - m * (kc - pad0))] = __float2bfloat16(0.f);
   }
-  for (int i = threadIdx.x; i < kTcRows * 3; i += kTcThreads) {
+  for (int i = threadIdx.x; i < t.rows * 3; i += kTcThreads) {
     const int m = i / 3;
     const int ax = i - 3 * m;
     const int row = row0 + m;
@@ -681,7 +769,7 @@ __device__ void store_feats(const HeadParams& p, const TcShape& t, int row0, int
   const int ncols = min(kc, (freq ? t.freq : p.rank) - c0);
   const int gcol = (freq ? p.nb * p.rank : seg * p.rank) + c0;
   __nv_bfloat16* fo = static_cast<__nv_bfloat16*>(p.feats_out);
-  for (int m = threadIdx.x >> 5; m < kTcRows && row0 + m < p.M; m += kTcThreads >> 5) {
+  for (int m = threadIdx.x >> 5; m < t.rows && row0 + m < p.M; m += kTcWarps) {
     __nv_bfloat16* dst = fo + (size_t)(row0 + m) * p.D + gcol;
     for (int j = threadIdx.x & 31; j < ncols; j += 32) dst[j] = A[m * kTcLda + j];
   }
@@ -691,7 +779,7 @@ __device__ void store_feats(const HeadParams& p, const TcShape& t, int row0, int
 // columns of the chunk whose first padded K row is 16 ks0
 __device__ __forceinline__ void mma_chunk(const __nv_bfloat16* A, int kc, const uint2* w1s,
                                           int ks0, int n_tiles, int nt0, int ntw,
-                                          float (&acc)[4][4]) {
+                                          float (&acc)[kTcMaxNtw][4]) {
   const int lane = threadIdx.x & 31;
   const __nv_bfloat16* a_lo = A + (lane >> 2) * kTcLda + 2 * (lane & 3);
   const __nv_bfloat16* a_hi = a_lo + 8 * kTcLda;
@@ -700,7 +788,7 @@ __device__ __forceinline__ void mma_chunk(const __nv_bfloat16* A, int kc, const 
     const uint32_t a2 = lds32(a_lo + k0 + 8), a3 = lds32(a_hi + k0 + 8);
     const uint2* bk = w1s + ((ks0 + (k0 >> 4)) * n_tiles + nt0) * 32 + lane;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < kTcMaxNtw; ++i) {
       if (i < ntw) {
         const uint2 bb = bk[32 * i];
         mma_bf16(acc[i], a0, a1, a2, a3, bb.x, bb.y);
@@ -709,142 +797,318 @@ __device__ __forceinline__ void mma_chunk(const __nv_bfloat16* A, int kc, const 
   }
 }
 
-// flags: bit 0, 16-byte factor gathers; bit 1, 16-byte w1 row loads; bit 2,
-// w1 resident in shared memory (else streamed a chunk at a time)
-__global__ void __launch_bounds__(kTcThreads, 1) cp_density_tc_kernel(HeadParams p, int flags) {
-  extern __shared__ __align__(16) unsigned char smem_tc[];
-  const TcShape t = tc_shape(p);
-  const bool resident = flags & 4;
-  const int nt1 = t.H1p >> 3, nt2 = t.OUTp >> 3;
-  uint2* w1s = reinterpret_cast<uint2*>(smem_tc);
-  uint2* w2s = w1s + (size_t)tc_w1_rows(t, resident) * t.H1p / 4;
-  __nv_bfloat16* abuf = reinterpret_cast<__nv_bfloat16*>(w2s + t.H1p * t.OUTp / 4);
-  __nv_bfloat16* sh1 = abuf + 2 * kTcRows * kTcLda;
-  const int ldh = t.H1p + 8;
-
-  // the weights in fragment order: w2 (and a resident w1) once per block
+// The prologue of both kernels: w2 (and a resident w1) into shared memory in
+// fragment order, once per block.
+__device__ void tc_load_weights(const HeadParams& p, const TcShape& t, const TcSmem& s,
+                                int flags) {
+  const int nt2 = t.OUTp >> 3;
   const __nv_bfloat16* w2 = static_cast<const __nv_bfloat16*>(p.w2);
-  __nv_bfloat16* w1h = reinterpret_cast<__nv_bfloat16*>(w1s);
-  __nv_bfloat16* w2h = reinterpret_cast<__nv_bfloat16*>(w2s);
-  if (resident) load_w1(p, t, 0, t.Kp, flags & 2, w1h);
+  __nv_bfloat16* w2h = reinterpret_cast<__nv_bfloat16*>(s.w2s);
+  if (t.resident) load_w1(p, t, 0, t.Kp, flags & 2, reinterpret_cast<__nv_bfloat16*>(s.w1s));
   for (int i = threadIdx.x; i < t.H1p * t.OUTp; i += kTcThreads) {
     const int k = i / t.OUTp, n = i - k * t.OUTp;
     w2h[frag_slot(k, n, nt2)] =
         (k < p.H1 && n < p.OUT) ? w2[(size_t)k * p.OUT + n] : __float2bfloat16(0.f);
   }
-  __syncthreads();
+}
 
+// h1 = round(relu(feats @ w1)) of the tile at row0 into the shared h1 tile.
+// The features are made a K chunk at a time into the A buffer `parity` names
+// (with residuals, stored as they are made); warp w multiplies the 16 rows of
+// row group w % (rows / 16) into its column group's n-tiles. Ends with a
+// barrier, after which every warp may read the h1 tile.
+__device__ void tc_tile_h1(const HeadParams& p, const TcShape& t, const TcSmem& s, int row0,
+                           int flags, int& parity) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, tq = lane & 3;
-  const int rg = warp & 7;           // rows 16 rg .. 16 rg + 15 of the tile
-  const int ntw = t.H1p >> 4;        // n-tiles per warp: half of H1p / 8
-  const int nt0 = (warp >> 3) * ntw;
-  const int n_tiles = (p.M + kTcRows - 1) / kTcRows;
-  int parity = 0;
-  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const int row0 = tile * kTcRows;
-    float acc[4][4];
+  const int rgs = t.rows >> 4;      // row groups of 16 rows
+  const int cgs = kTcWarps / rgs;   // column groups
+  const int rg = warp % rgs;
+  const int nt1 = t.H1p >> 3;
+  const int ntw = (nt1 + cgs - 1) / cgs;  // <= kTcMaxNtw (tc_rows)
+  const int nt0 = warp / rgs * ntw;
+  const int nth = min(ntw, nt1 - nt0);    // this warp's n-tiles: none past H1p
+  const int ldh = t.H1p + 8;
+  __nv_bfloat16* w1h = reinterpret_cast<__nv_bfloat16*>(s.w1s);
+  float acc[kTcMaxNtw][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < kTcMaxNtw; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-    for (int seg = 0; seg <= p.nb; ++seg) {
-      const int segp = seg == p.nb ? t.freqp : t.rankp;
-      for (int c0 = 0; c0 < segp; c0 += kTcChunk) {
-        const int kc = min(kTcChunk, segp - c0);
-        const int kp0 = seg * t.rankp + c0;  // the chunk's first padded K row
-        const int buf = parity;
-        parity ^= 1;
-        __nv_bfloat16* A = abuf + buf * kTcRows * kTcLda;
-        if (!resident) load_w1(p, t, kp0, kc, flags & 2, w1h + buf * kTcChunk * t.H1p);
-        if (seg == p.nb)
-          fill_freq_chunk(p, t, row0, c0, kc, A);
-        else
-          fill_bank_chunk(p, row0, seg, c0, kc, flags & 1, A);
-        // the buffers filled two chunks ago were last read before this barrier
-        __syncthreads();
-        if (p.feats_out != nullptr) store_feats(p, t, row0, seg, c0, kc, A);
-        if (resident)
-          mma_chunk(A + rg * 16 * kTcLda, kc, w1s, kp0 >> 4, nt1, nt0, ntw, acc);
-        else
-          mma_chunk(A + rg * 16 * kTcLda, kc, w1s + buf * kTcChunk * t.H1p / 4, 0, nt1, nt0,
-                    ntw, acc);
-      }
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  for (int seg = 0; seg <= p.nb; ++seg) {
+    const int segp = seg == p.nb ? t.freqp : t.rankp;
+    for (int c0 = 0; c0 < segp; c0 += kTcChunk) {
+      const int kc = min(kTcChunk, segp - c0);
+      const int kp0 = seg * t.rankp + c0;  // the chunk's first padded K row
+      const int buf = parity;
+      parity ^= 1;
+      __nv_bfloat16* A = s.abuf + buf * t.rows * kTcLda;
+      if (!t.resident) load_w1(p, t, kp0, kc, flags & 2, w1h + buf * kTcChunk * t.H1p);
+      if (seg == p.nb)
+        fill_freq_chunk(p, t, row0, c0, kc, A);
+      else
+        fill_bank_chunk(p, t, row0, seg, c0, kc, flags & 1, A);
+      // the buffers filled two chunks ago were last read before this barrier
+      __syncthreads();
+      if (p.feats_out != nullptr) store_feats(p, t, row0, seg, c0, kc, A);
+      if (nth <= 0) continue;
+      if (t.resident)
+        mma_chunk(A + rg * 16 * kTcLda, kc, s.w1s, kp0 >> 4, nt1, nt0, nth, acc);
+      else
+        mma_chunk(A + rg * 16 * kTcLda, kc, s.w1s + buf * kTcChunk * t.H1p / 4, 0, nt1, nt0,
+                  nth, acc);
     }
-    // h1 = round(relu(feats @ w1)) into the shared tile (the next tile's
-    // writes come after at least two chunk barriers)
+  }
+  // the previous tile's reads of the h1 tile came before this tile's chunk barriers
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      if (i < ntw) {
-        __nv_bfloat16* o = sh1 + (rg * 16 + g) * ldh + (nt0 + i) * 8 + 2 * tq;
-        *reinterpret_cast<__nv_bfloat162*>(o) =
-            __floats2bfloat162_rn(fmaxf(acc[i][0], 0.f), fmaxf(acc[i][1], 0.f));
-        *reinterpret_cast<__nv_bfloat162*>(o + 8 * ldh) =
-            __floats2bfloat162_rn(fmaxf(acc[i][2], 0.f), fmaxf(acc[i][3], 0.f));
-      }
+  for (int i = 0; i < kTcMaxNtw; ++i) {
+    if (i < nth) {
+      __nv_bfloat16* o = s.sh1 + (rg * 16 + g) * ldh + (nt0 + i) * 8 + 2 * tq;
+      *reinterpret_cast<__nv_bfloat162*>(o) =
+          __floats2bfloat162_rn(fmaxf(acc[i][0], 0.f), fmaxf(acc[i][1], 0.f));
+      *reinterpret_cast<__nv_bfloat162*>(o + 8 * ldh) =
+          __floats2bfloat162_rn(fmaxf(acc[i][2], 0.f), fmaxf(acc[i][3], 0.f));
     }
-    __syncthreads();
-    // out = h1 @ w2 in f32: one (16-row group, n-tile) item per warp
-    for (int item = warp; item < 8 * nt2; item += kTcThreads >> 5) {
-      const int r16 = item & 7, nt = item >> 3;
-      float d[4] = {0.f, 0.f, 0.f, 0.f};
-      const __nv_bfloat16* a_lo = sh1 + (r16 * 16 + g) * ldh + 2 * tq;
-      const __nv_bfloat16* a_hi = a_lo + 8 * ldh;
-      for (int k0 = 0; k0 < t.H1p; k0 += 16) {
-        const uint2 bb = w2s[((k0 >> 4) * nt2 + nt) * 32 + lane];
-        mma_bf16(d, lds32(a_lo + k0), lds32(a_hi + k0), lds32(a_lo + k0 + 8),
-                 lds32(a_hi + k0 + 8), bb.x, bb.y);
-      }
-      const int col = nt * 8 + 2 * tq;
+  }
+  __syncthreads();
+}
+
+// d += rows 16 r16 .. 16 r16 + 15 of the h1 tile times n-tile nt of w2
+__device__ __forceinline__ void h1_w2_ntile(const TcShape& t, const TcSmem& s, int r16, int nt,
+                                            float (&d)[4]) {
+  const int lane = threadIdx.x & 31, nt2 = t.OUTp >> 3, ldh = t.H1p + 8;
+  const __nv_bfloat16* a_lo = s.sh1 + (r16 * 16 + (lane >> 2)) * ldh + 2 * (lane & 3);
+  const __nv_bfloat16* a_hi = a_lo + 8 * ldh;
+  for (int k0 = 0; k0 < t.H1p; k0 += 16) {
+    const uint2 bb = s.w2s[((k0 >> 4) * nt2 + nt) * 32 + lane];
+    mma_bf16(d, lds32(a_lo + k0), lds32(a_hi + k0), lds32(a_lo + k0 + 8), lds32(a_hi + k0 + 8),
+             bb.x, bb.y);
+  }
+}
+
+// The density epilogue of the tile at row0: out = h1 @ w2 in f32, one
+// (16-row group, n-tile) item per warp, and the h1 residual rows.
+__device__ void tc_density_out(const HeadParams& p, const TcShape& t, const TcSmem& s,
+                               int row0) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int rgs = t.rows >> 4, ldh = t.H1p + 8;
+  for (int item = warp; item < rgs * (t.OUTp >> 3); item += kTcWarps) {
+    const int r16 = item % rgs, nt = item / rgs;
+    float d[4] = {0.f, 0.f, 0.f, 0.f};
+    h1_w2_ntile(t, s, r16, nt, d);
+    const int col = nt * 8 + 2 * (lane & 3);
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = row0 + r16 * 16 + g + 8 * h;
-        if (row >= p.M) continue;
-        float* o = p.out + (size_t)row * p.OUT;
-        if (col < p.OUT) o[col] = d[2 * h];
-        if (col + 1 < p.OUT) o[col + 1] = d[2 * h + 1];
-      }
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + r16 * 16 + (lane >> 2) + 8 * h;
+      if (row >= p.M) continue;
+      float* o = p.out + (size_t)row * p.OUT;
+      if (col < p.OUT) o[col] = d[2 * h];
+      if (col + 1 < p.OUT) o[col + 1] = d[2 * h + 1];
     }
-    if (p.h1_out != nullptr) {
-      __nv_bfloat16* ho = static_cast<__nv_bfloat16*>(p.h1_out);
-      if ((p.H1 & 7) == 0) {
-        const int vpr = p.H1 >> 3;
-        for (int i = threadIdx.x; i < kTcRows * vpr; i += kTcThreads) {
-          const int m = i / vpr, v = i - m * vpr;
-          if (row0 + m < p.M)
-            *reinterpret_cast<uint4*>(ho + (size_t)(row0 + m) * p.H1 + 8 * v) =
-                *reinterpret_cast<const uint4*>(sh1 + m * ldh + 8 * v);
-        }
-      } else {
-        for (int i = threadIdx.x; i < kTcRows * p.H1; i += kTcThreads) {
-          const int m = i / p.H1, j = i - m * p.H1;
-          if (row0 + m < p.M) ho[(size_t)(row0 + m) * p.H1 + j] = sh1[m * ldh + j];
-        }
-      }
+  }
+  if (p.h1_out == nullptr) return;
+  __nv_bfloat16* ho = static_cast<__nv_bfloat16*>(p.h1_out);
+  if ((p.H1 & 7) == 0) {
+    const int vpr = p.H1 >> 3;
+    for (int i = threadIdx.x; i < t.rows * vpr; i += kTcThreads) {
+      const int m = i / vpr, v = i - m * vpr;
+      if (row0 + m < p.M)
+        *reinterpret_cast<uint4*>(ho + (size_t)(row0 + m) * p.H1 + 8 * v) =
+            *reinterpret_cast<const uint4*>(s.sh1 + m * ldh + 8 * v);
+    }
+  } else {
+    for (int i = threadIdx.x; i < t.rows * p.H1; i += kTcThreads) {
+      const int m = i / p.H1, j = i - m * p.H1;
+      if (row0 + m < p.M) ho[(size_t)(row0 + m) * p.H1 + j] = s.sh1[m * ldh + j];
     }
   }
 }
 
-int launch_density_tc(const HeadParams& p, cudaStream_t stream) {
-  if (p.H1 > kTcMaxH1) return kUnsupportedShape;
-  const TcShape t = tc_shape(p);
-  const bool resident = tc_smem_bytes(t, true) <= (size_t)kMaxSmemBytes;
-  const size_t bytes = tc_smem_bytes(t, resident);
-  if (bytes > (size_t)kMaxSmemBytes) return kUnsupportedShape;  // w2 alone too wide
+// the colour layers into shared memory in fragment order, once per block
+__device__ void tc_load_color(const HeadParams& p, const TcSmem& s) {
+  __nv_bfloat16* dst = reinterpret_cast<__nv_bfloat16*>(s.cws);
+  for (int l = 0; l < p.n_color; ++l) {
+    const int kp = color_kp(p, l), np = color_np(p, l);
+    const int K = p.cdim[l], N = p.cdim[l + 1];
+    const __nv_bfloat16* w = static_cast<const __nv_bfloat16*>(p.wc[l]);
+    for (int i = threadIdx.x; i < kp * np; i += kTcThreads) {
+      const int k = i / np, n = i - k * np;
+      dst[frag_slot(k, n, np >> 3)] =
+          (k < K && n < N) ? w[(size_t)k * N + n] : __float2bfloat16(0.f);
+    }
+    dst += kp * np;
+  }
+}
+
+// acc[j] += the A fragment (a0 .. a3) times n-tile j < nt of a B operand in
+// fragment order (b: this lane's slot in the k-step's first n-tile)
+__device__ __forceinline__ void mma_ntiles(float (&acc)[8][4], const uint2* b, int nt,
+                                           uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    if (j < nt) {
+      const uint2 bb = b[32 * j];
+      mma_bf16(acc[j], a0, a1, a2, a3, bb.x, bb.y);
+    }
+  }
+}
+
+__device__ __forceinline__ float sigmoid(float x) { return 1.f / (1.f + expf(-x)); }
+
+// The radiance epilogue of the tile at row0, all on chip. Warps w < rows / 16
+// take the second product of row group w: sigma = exp(column 0) stays in
+// registers, and the geo columns 1 .. OUT-1, rounded to bf16, go into the
+// colour tile (in the A buffers, free once the K loop is done) after the SH
+// columns, which the other warps make meanwhile, one row per thread; sigma
+// waits in the row's 16 bytes of padding, which no product reads. Then each of
+// those warps runs its 16 rows through the colour MLP, each layer's A
+// fragments from its rows of the tile and its output (ReLU, bf16) back into
+// them, and stores (sigma, r, g, b) as one 16-byte row. Ends with a barrier:
+// the next tile refills the A buffers.
+__device__ void tc_radiance_out(const HeadParams& p, const TcShape& t, const TcSmem& s,
+                                int row0) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int rgs = t.rows >> 4;
+  const int nsh = p.sh_degree * p.sh_degree;
+  const int cin = p.cdim[0], kc0 = color_kp(p, 0);
+  const int ldc = t.ldc;
+  __nv_bfloat16* ctile = s.abuf;              // [rows, ldc]
+  // sigma of tile row m, in the row's padding (4-byte aligned: ldc is even)
+  auto sigma = [&](int m) -> float& {
+    return *reinterpret_cast<float*>(ctile + m * ldc + ldc - 8);
+  };
+  if (warp < rgs) {
+    __nv_bfloat16* geo = ctile + (warp * 16 + g) * ldc + nsh - 1;  // geo column c at geo[c]
+    for (int nt = 0; nt < (t.OUTp >> 3); ++nt) {
+      float d[4] = {0.f, 0.f, 0.f, 0.f};
+      h1_w2_ntile(t, s, warp, nt, d);
+      if (nt == 0 && tq == 0) {
+        sigma(warp * 16 + g) = expf(d[0]);
+        sigma(warp * 16 + g + 8) = expf(d[2]);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = nt * 8 + 2 * tq + (e & 1);
+        if (c >= 1 && c < p.OUT) geo[(e >> 1) * 8 * ldc + c] = __float2bfloat16(d[e]);
+      }
+    }
+    for (int i = lane; i < 16 * (kc0 - cin); i += 32) {
+      const int m = i / (kc0 - cin);
+      ctile[(warp * 16 + m) * ldc + cin + i - m * (kc0 - cin)] = __float2bfloat16(0.f);
+    }
+  } else {
+    for (int m = threadIdx.x - 32 * rgs; m < t.rows; m += kTcThreads - 32 * rgs) {
+      const int row = row0 + m;
+      const bool in = row < p.M;
+      const float dx = in ? __ldg(p.dirs + 3 * row) : 0.f;
+      const float dy = in ? __ldg(p.dirs + 3 * row + 1) : 0.f;
+      const float dz = in ? __ldg(p.dirs + 3 * row + 2) : 0.f;
+      __nv_bfloat16* crow = ctile + m * ldc;
+      sh_row(dx, dy, dz, p.sh_degree, [crow](int j, float v) { crow[j] = __float2bfloat16(v); });
+    }
+  }
+  __syncthreads();
+  if (warp < rgs) {
+    __nv_bfloat16* c_lo = ctile + (warp * 16 + g) * ldc + 2 * tq;
+    __nv_bfloat16* c_hi = c_lo + 8 * ldc;
+    const uint2* wl = s.cws + lane;
+    float acc[8][4];
+    for (int l = 0; l < p.n_color; ++l) {
+      const int ks = color_kp(p, l) >> 4, nt = color_np(p, l) >> 3;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+#pragma unroll 1
+      for (int kk = 0; kk < ks; ++kk) {
+        const int k0 = 16 * kk;
+        mma_ntiles(acc, wl + kk * nt * 32, nt, lds32(c_lo + k0), lds32(c_hi + k0),
+                   lds32(c_lo + k0 + 8), lds32(c_hi + k0 + 8));
+      }
+      wl += ks * nt * 32;
+      if (l == p.n_color - 1) break;
+      // ReLU(out), rounded to bf16, over this warp's rows: the next layer's input
+      __syncwarp();
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        if (j < nt) {
+          *reinterpret_cast<__nv_bfloat162*>(c_lo + 8 * j) =
+              __floats2bfloat162_rn(fmaxf(acc[j][0], 0.f), fmaxf(acc[j][1], 0.f));
+          *reinterpret_cast<__nv_bfloat162*>(c_hi + 8 * j) =
+              __floats2bfloat162_rn(fmaxf(acc[j][2], 0.f), fmaxf(acc[j][3], 0.f));
+        }
+      }
+      __syncwarp();
+    }
+    // the colours sit in n-tile 0: columns 0, 1 in lanes tq == 0, column 2 in tq == 1
+    const float b_lo = __shfl_down_sync(0xffffffffu, acc[0][0], 1);
+    const float b_hi = __shfl_down_sync(0xffffffffu, acc[0][2], 1);
+    if (tq == 0) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = row0 + warp * 16 + g + 8 * h;
+        if (row < p.M)
+          reinterpret_cast<float4*>(p.out)[row] =
+              make_float4(sigma(warp * 16 + g + 8 * h), sigmoid(acc[0][2 * h]),
+                          sigmoid(acc[0][2 * h + 1]), sigmoid(h ? b_hi : b_lo));
+      }
+    }
+  }
+  __syncthreads();
+}
+
+// flags: bit 0, 16-byte factor gathers; bit 1, 16-byte w1 row loads
+__global__ void __launch_bounds__(kTcThreads, 1)
+    cp_density_tc_kernel(HeadParams p, TcShape t, int flags) {
+  extern __shared__ __align__(16) unsigned char smem_tc[];
+  const TcSmem s = tc_smem(t, smem_tc);
+  tc_load_weights(p, t, s, flags);
+  __syncthreads();
+  const int n_tiles = (p.M + t.rows - 1) / t.rows;
+  int parity = 0;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    tc_tile_h1(p, t, s, tile * t.rows, flags, parity);
+    tc_density_out(p, t, s, tile * t.rows);
+  }
+}
+
+// the radiance head: the density head's tile code, then tc_radiance_out
+__global__ void __launch_bounds__(kTcThreads, 1)
+    cp_sigma_rgb_tc_kernel(HeadParams p, TcShape t, int flags) {
+  extern __shared__ __align__(16) unsigned char smem_tc[];
+  const TcSmem s = tc_smem(t, smem_tc);
+  tc_load_weights(p, t, s, flags);
+  tc_load_color(p, s);
+  __syncthreads();
+  const int n_tiles = (p.M + t.rows - 1) / t.rows;
+  int parity = 0;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    tc_tile_h1(p, t, s, tile * t.rows, flags, parity);
+    tc_radiance_out(p, t, s, tile * t.rows);
+  }
+}
+
+// a tensor-core head at the route's tile rows: one persistent block per SM,
+// at most one per tile
+int launch_tc(void (*kern)(HeadParams, TcShape, int), const HeadParams& p, int rows,
+              cudaStream_t stream) {
+  const bool resident = tc_smem_bytes(p, tc_shape(p, rows), true) <= (size_t)kMaxSmemBytes;
+  const TcShape t = tc_layout(p, rows, resident);
+  const size_t bytes = tc_smem_bytes(p, t, resident);
   if (p.M == 0) return cudaSuccess;
-  cudaError_t e = cudaFuncSetAttribute(cp_density_tc_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  cudaError_t e =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (e != cudaSuccess) return e;
   int dev = 0, sms = 0;
   e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return e;
-  const int tiles = (p.M + kTcRows - 1) / kTcRows;
+  const int tiles = (p.M + rows - 1) / rows;
   int flags = p.rank % 8 == 0;
   for (int b = 0; b < p.nb; ++b) flags &= (uintptr_t)p.factors[b] % 16 == 0;
   flags |= (p.H1 % 8 == 0 && (uintptr_t)p.w1 % 16 == 0) << 1;
-  flags |= resident << 2;
-  cp_density_tc_kernel<<<tiles < sms ? tiles : sms, kTcThreads, bytes, stream>>>(p, flags);
+  kern<<<tiles < sms ? tiles : sms, kTcThreads, bytes, stream>>>(p, t, flags);
   return cudaGetLastError();
 }
 
@@ -854,7 +1118,7 @@ size_t smem_bytes(const HeadParams& p, bool radiance) {
   return floats * sizeof(float);
 }
 
-// the row-block heads: the f32 density head and the radiance head
+// the row-block heads: the f32 heads, and the bf16 heads tc_route gives them
 int launch(void (*kern)(HeadParams), const HeadParams& p, cudaStream_t stream, bool radiance) {
   const size_t bytes = smem_bytes(p, radiance);
   if (bytes > (size_t)kMaxSmemBytes) return kUnsupportedShape;
@@ -923,7 +1187,7 @@ extern "C" int ngp_cp_density_fwd(const float* pos, int M, const void* const* fa
                                   const int* res, int nb, int rank, int freq_degree,
                                   const void* w1, const void* w2, int D, int H1, int OUT,
                                   int bf16, float* out, void* feats_out, void* h1_out,
-                                  void* stream) {
+                                  int* route, void* stream) {
   HeadParams p;
   if (!fill_density(p, pos, M, factors, res, nb, rank, freq_degree, w1, w2, D, H1, OUT, out))
     return cudaErrorInvalidValue;
@@ -931,11 +1195,13 @@ extern "C" int ngp_cp_density_fwd(const float* pos, int M, const void* const* fa
   p.feats_out = feats_out;
   p.h1_out = h1_out;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch_density_tc(p, s) : launch(&cp_density_kernel<float>, p, s, false);
+  // route: the tensor-core kernel's tile rows, or 0 for the row-block kernel
+  const int rows = bf16 ? tc_route(p) : 0;
+  *route = rows;
+  if (rows > 0) return launch_tc(cp_density_tc_kernel, p, rows, s);
+  return bf16 ? launch(&cp_density_kernel<__nv_bfloat16>, p, s, false)
+              : launch(&cp_density_kernel<float>, p, s, false);
 }
-
-// the widest hidden layer (H1) the bf16 density head takes
-extern "C" int ngp_cp_density_tc_max_h1() { return kTcMaxH1; }
 
 extern "C" int ngp_cp_bwd_banks(const float* pos, int M, const float* g, int g_stride,
                                 const void* const* factors, const int* res, int nb, int rank,
@@ -964,7 +1230,7 @@ extern "C" int ngp_cp_sigma_rgb(const float* pos, const float* dirs, int M,
                                 int freq_degree, const void* w1, const void* w2, int D, int H1,
                                 int OUT, const void* const* color_ws, const int* cdims,
                                 int n_color, int sh_degree, int bf16, float* out,
-                                void* stream) {
+                                int tile_rows, int* route, void* stream) {
   HeadParams p;
   if (!fill_density(p, pos, M, factors, res, nb, rank, freq_degree, w1, w2, D, H1, OUT, out))
     return cudaErrorInvalidValue;
@@ -984,6 +1250,17 @@ extern "C" int ngp_cp_sigma_rgb(const float* pos, const float* dirs, int M,
   for (int l = 0; l < n_color; ++l) p.wc[l] = color_ws[l];
   p.cmax = cmax;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // route: the tensor-core kernel's tile rows, or 0 for the row-block kernel;
+  // tile_rows > 0 asks for smaller tensor-core tiles than the route's (a
+  // measurement of the tile size), 0 for the route's own
+  int rows = bf16 ? tc_route(p) : 0;
+  if (tile_rows != 0) {
+    if (rows == 0 || tile_rows > rows || (tile_rows != 32 && tile_rows != 64 && tile_rows != 128))
+      return kUnsupportedShape;
+    rows = tile_rows;
+  }
+  *route = rows;
+  if (rows > 0) return launch_tc(cp_sigma_rgb_tc_kernel, p, rows, s);
   return bf16 ? launch(&cp_sigma_rgb_kernel<__nv_bfloat16>, p, s, true)
               : launch(&cp_sigma_rgb_kernel<float>, p, s, true);
 }

@@ -61,11 +61,20 @@ def _close(got, want, tol):
                                atol=tol, rtol=tol)
 
 
-@pytest.mark.parametrize("dtype,tol_cpu,tol_pallas", [
+def _widths(cases):
+    """The cases at H1 = 32 (their ids as before) and again at H1 = 128,
+    a sigma MLP wider than the 128-row tensor-core tiles take (the card's
+    64- and 32-row tiles; H1 = 128 is the bf16 turbo network at
+    ``hidden_dim=128``)."""
+    return ([pytest.param(*c, 32, id="-".join(map(str, c))) for c in cases]
+            + [pytest.param(*c, 128, id="-".join(map(str, c)) + "-h1_128") for c in cases])
+
+
+@pytest.mark.parametrize("dtype,tol_cpu,tol_pallas,h1", _widths([
     ("float32", 1e-4, 1e-4), ("bfloat16", 1e-2, 5e-2),
-])
-def test_cp_density_plain(dtype, tol_cpu, tol_pallas):
-    pos, _, factors, w1, w2, _ = _setup()
+]))
+def test_cp_density_plain(dtype, tol_cpu, tol_pallas, h1):
+    pos, _, factors, w1, w2, _ = _setup(h1=h1)
     jd, td = getattr(jnp, dtype), getattr(torch, dtype)
     got = tk.cp_density_plain(torch.from_numpy(pos), _t(factors, td), *_t((w1, w2), td),
                               RES, FD)
@@ -78,9 +87,9 @@ def test_cp_density_plain(dtype, tol_cpu, tol_pallas):
     _close(got, pallas, tol_pallas)
 
 
-@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 5e-2)])
-def test_cp_sigma_rgb_plain(dtype, tol):
-    pos, dirs, factors, w1, w2, color = _setup(seed=5)
+@pytest.mark.parametrize("dtype,tol,h1", _widths([("float32", 1e-4), ("bfloat16", 5e-2)]))
+def test_cp_sigma_rgb_plain(dtype, tol, h1):
+    pos, dirs, factors, w1, w2, color = _setup(seed=5, h1=h1)
     jd, td = getattr(jnp, dtype), getattr(torch, dtype)
     got = tk.cp_sigma_rgb_plain(torch.from_numpy(pos), torch.from_numpy(dirs),
                                 _t(factors, td), *_t((w1, w2), td), _t(color, td),

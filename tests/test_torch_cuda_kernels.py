@@ -43,15 +43,16 @@ def dev():
     return torch.device("cuda", 0)
 
 
-def _weights(dev, dtype, res, rank, fd, h1=64, out=16, sh=4, seed=0, scale=0.2):
+def _weights(dev, dtype, res, rank, fd, h1=64, out=16, sh=4, seed=0, scale=0.2,
+             hidden=(64, 64)):
     g = torch.Generator().manual_seed(seed)
     factors = tuple((torch.randn((3, r, rank), generator=g) * scale).to(dev, dtype) for r in res)
     D = len(res) * rank + 3 * (1 + 2 * fd)
     w1 = (torch.randn((D, h1), generator=g) / D**0.5).to(dev, dtype)
     w2 = (torch.randn((h1, out), generator=g) / h1**0.5).to(dev, dtype)
-    dims = [sh * sh + out - 1, 64, 64, 3]
+    dims = [sh * sh + out - 1, *hidden, 3]
     color = tuple((torch.randn((dims[i], dims[i + 1]), generator=g) / dims[i] ** 0.5)
-                  .to(dev, dtype) for i in range(3))
+                  .to(dev, dtype) for i in range(len(dims) - 1))
     return factors, w1, w2, color
 
 
@@ -110,10 +111,37 @@ def test_cp_density_kernel(dev, dtype, res, rank, fd, M, scale):
     _check(got, tk.cp_density_plain(pos, factors, w1, w2, res, fd), dtype)
 
 
+TURBO = ((128, 256, 512, 1024, 2048), 128, 6)
+# sigma MLPs wider than the 128-row tensor-core tiles take: 64-row tiles
+# (H1 72 and 128), 32-row tiles (256) and the row-block kernel (300)
+WIDE_H1 = [TURBO + (4099, 0.2, h1, 16) for h1 in (72, 128, 256, 300)] + [
+    TURBO + (4099, 1.5, 128, 16), ((32, 64), 12, 2, 1000, 0.2, 200, 7)]
+
+
+def _tc_route(dtype, h1, hidden=()):
+    """Whether a head of these widths takes the tensor-core kernel."""
+    return dtype == torch.bfloat16 and h1 <= 256 and all(w <= 64 for w in hidden)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("res,rank,fd,M,scale,h1,out", WIDE_H1)
+def test_cp_density_kernel_wide(dev, dtype, res, rank, fd, M, scale, h1, out):
+    """Without residuals at the wide H1s; bf16 takes the tensor-core
+    kernel up to H1 = 256 and the row-block kernel above."""
+    factors, w1, w2, _ = _weights(dev, dtype, res, rank, fd, h1=h1, out=out, scale=scale)
+    pos, _ = _inputs(dev, M)
+    before = dict(LAUNCHES)
+    got = tk.cp_density_fwd(pos, factors, w1, w2, res, fd)
+    assert LAUNCHES["cp_density_fwd"] == before["cp_density_fwd"] + 1
+    tc = LAUNCHES["cp_density_fwd_tc"] - before["cp_density_fwd_tc"]
+    assert tc == int(_tc_route(dtype, h1))
+    _check(got, tk.cp_density_plain(pos, factors, w1, w2, res, fd), dtype)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("res,rank,fd,M,scale,h1,out", [s + (64, 16) for s in DENSITY_SHAPES]
                          + [((32, 64), 12, 1, 333, 0.2, 20, 5),
-                            ((32, 64), 16, 2, 200, 0.2, 8, 3)])
+                            ((32, 64), 16, 2, 200, 0.2, 8, 3)] + WIDE_H1)
 def test_cp_density_kernel_residuals(dev, dtype, res, rank, fd, M, scale, h1, out):
     """With residuals, and hidden / output widths that are no multiple of
     16 / 8 (zero-padded in the tensor-core kernel); bf16 feats to a bf16
@@ -161,13 +189,54 @@ def test_cp_bwd_banks_kernel(dev, dtype, res, rank, fd, M):
         assert ((a.float() - b.float()).abs() <= bound).all()
 
 
+# the radiance head's shapes: (res, rank, fd, M, scale, h1, out, sh degree,
+# colour hidden widths). The density edges (one row, a ragged row count,
+# rank 12, rank 256 with w1 streamed, factors of std 1.5), H1 = 128, 256 and
+# 300 (the row-block kernel), SH degrees 1 and 8, 1-4 colour layers, widths
+# that are no multiple of 16 (H1 20, 5 outputs, hidden 20 / 40 / 24), and a
+# colour layer of 80 (past the tensor-core kernel's 64: the row-block kernel)
+SIGMA_RGB_SHAPES = [s + (0.2, 64, 16, 4, (64, 64)) for s in SHAPES] + [
+    TURBO + (1, 0.2, 64, 16, 4, (64, 64)),
+    TURBO + (24575, 0.2, 64, 16, 4, (64, 64)),
+    ((32, 64), 12, 2, 1000, 0.2, 64, 16, 4, (64, 64)),
+    TURBO[:1] + (256, 6, 1000, 0.2, 64, 16, 4, (64, 64)),
+    TURBO + (4099, 1.5, 64, 16, 4, (64, 64)),
+    TURBO + (4099, 0.2, 128, 16, 3, (64,)),
+    TURBO + (2000, 0.2, 256, 16, 4, (64, 64)),
+    TURBO + (2000, 0.2, 300, 16, 4, (64, 64)),
+    ((32, 64), 16, 4, 1000, 0.2, 64, 16, 1, (64, 64)),
+    ((32, 64), 16, 4, 1000, 0.2, 64, 16, 8, (64, 64)),
+    ((32, 64), 16, 4, 1000, 0.2, 64, 16, 4, ()),
+    ((32, 64), 16, 4, 1000, 0.2, 64, 16, 4, (40, 24, 64)),
+    ((32, 64), 12, 1, 777, 0.2, 20, 5, 2, (20,)),
+    ((32, 64), 16, 4, 1000, 0.2, 64, 16, 4, (80, 64)),
+]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("res,rank,fd,M", SHAPES)
-def test_cp_sigma_rgb_kernel(dev, dtype, res, rank, fd, M):
-    factors, w1, w2, color = _weights(dev, dtype, res, rank, fd)
+@pytest.mark.parametrize("res,rank,fd,M,scale,h1,out,sh,hidden", SIGMA_RGB_SHAPES)
+def test_cp_sigma_rgb_kernel(dev, dtype, res, rank, fd, M, scale, h1, out, sh, hidden):
+    factors, w1, w2, color = _weights(dev, dtype, res, rank, fd, h1=h1, out=out, sh=sh,
+                                      scale=scale, hidden=hidden)
     pos, dirs = _inputs(dev, M)
-    got = tk.cp_sigma_rgb(pos, dirs, factors, w1, w2, color, res, fd, 4)
-    _check(got, tk.cp_sigma_rgb_plain(pos, dirs, factors, w1, w2, color, res, fd, 4), dtype)
+    before = dict(LAUNCHES)
+    got = tk.cp_sigma_rgb(pos, dirs, factors, w1, w2, color, res, fd, sh)
+    assert LAUNCHES["cp_sigma_rgb"] == before["cp_sigma_rgb"] + 1
+    tc = LAUNCHES["cp_sigma_rgb_tc"] - before["cp_sigma_rgb_tc"]
+    assert tc == int(_tc_route(dtype, h1, hidden))
+    _check(got, tk.cp_sigma_rgb_plain(pos, dirs, factors, w1, w2, color, res, fd, sh), dtype)
+
+
+@pytest.mark.parametrize("tile_rows", [32, 64, 128])
+def test_cp_sigma_rgb_kernel_tile_rows(dev, tile_rows):
+    """The tensor-core radiance kernel at tiles smaller than its route's
+    (the tile-size measurement of chip_smoke.py)."""
+    res, rank, fd = TURBO
+    factors, w1, w2, color = _weights(dev, torch.bfloat16, res, rank, fd)
+    pos, dirs = _inputs(dev, 4099)
+    got = tk.cp_sigma_rgb(pos, dirs, factors, w1, w2, color, res, fd, 4, tile_rows=tile_rows)
+    _check(got, tk.cp_sigma_rgb_plain(pos, dirs, factors, w1, w2, color, res, fd, 4),
+           torch.bfloat16)
 
 
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
@@ -260,11 +329,15 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         tk.cp_density_fwd(pos, factors, w1.bfloat16(), w2, (32, 64), 4)
     with pytest.raises(ValueError):
         tk.cp_density_fwd(pos, factors, w1, w2, (32, 64), 3)
-    fb, w1b, w2b, _ = _weights(dev, torch.bfloat16, (32, 64), 16, 4, h1=72)
-    with pytest.raises(ValueError, match="hidden units"):
+    # shared memory past a block's in both kernels: a bf16 H1 of 2048 (the
+    # row-block kernel's route), a bf16 w2 of 2000 columns, an f32 feature
+    # row of 2075 columns; and radiance tiles larger than the route's
+    fb, w1b, w2b, cb = _weights(dev, torch.bfloat16, (32, 64), 16, 4, h1=2048)
+    with pytest.raises(ValueError, match="shared memory"):
         tk.cp_density_fwd(pos, fb, w1b, w2b, (32, 64), 4)
-    # shared memory past a block's: a bf16 w2 of 2000 columns, an f32
-    # feature row of 2075 columns
+    fb, w1b, w2b, cb = _weights(dev, torch.bfloat16, (32, 64), 16, 4, h1=128)
+    with pytest.raises(ValueError, match="shared memory"):
+        tk.cp_sigma_rgb(pos, pos, fb, w1b, w2b, cb, (32, 64), 4, 4, tile_rows=128)
     fb, w1b, _, _ = _weights(dev, torch.bfloat16, (32, 64), 16, 4)
     w2b = torch.zeros((64, 2000), dtype=torch.bfloat16, device=dev)
     with pytest.raises(ValueError, match="shared memory"):
@@ -404,22 +477,49 @@ def scatter_bound(idx, rows, num_rows):
     return 2.0 * 2.0**-24 * adds * s_abs + 1e-30
 
 
+def _ray_points(dev, n_rays=40, samples=128, seed=7):
+    """Points as the v1 march gives them: consecutive samples of one ray
+    (neighbouring lanes share their coarse cells), some outside [0, 1]^3."""
+    g = torch.Generator().manual_seed(seed)
+    o = torch.rand((n_rays, 1, 3), generator=g) * 0.4 - 0.2
+    d = torch.nn.functional.normalize(torch.rand((n_rays, 1, 3), generator=g) + 0.2, dim=-1)
+    t = torch.linspace(0.0, 1.9, samples)[None, :, None]
+    return (o + t * d).reshape(-1, 3).contiguous().to(dev)
+
+
+@pytest.mark.parametrize("points", ["random", "rays"])
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("table_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("name", list(GRIDS))
-def test_grid_encode_fwd_kernel(dev, name, table_dtype, out_dtype):
+def test_grid_encode_fwd_kernel(dev, name, table_dtype, out_dtype, points):
     from ngp_tpu_torch.ops.kernels import hashgrid as kh
 
     cfg, table = _grid(name, dev, table_dtype)
-    pos, _ = _inputs(dev, 5001)
+    pos = _inputs(dev, 5001)[0] if points == "random" else _ray_points(dev)
     before = LAUNCHES["grid_encode_fwd"]
     got = kh.grid_encode_fwd(pos, table, cfg.geometry, out_dtype)
     assert LAUNCHES["grid_encode_fwd"] == before + 1
     want = kh.grid_encode_plain(pos, table, cfg.geometry, out_dtype)
-    assert got.dtype == out_dtype and got.shape == (5001, cfg.output_dim)
+    assert got.dtype == out_dtype and got.shape == (pos.shape[0], cfg.output_dim)
     oob = ((pos < 0) | (pos > 1)).any(dim=-1)
     assert not got[oob].float().any()
     _check(got.float(), want.float(), out_dtype)
+
+
+@pytest.mark.parametrize("table_dtype", [torch.float32, torch.bfloat16])
+def test_grid_encode_fwd_kernel_unaligned_table(dev, table_dtype):
+    """A contiguous table one element past an aligned address (a view into
+    a larger buffer): no vector load may assume the rows' alignment."""
+    from ngp_tpu_torch.ops.kernels import hashgrid as kh
+
+    cfg, table = _grid("full", dev, table_dtype)
+    shifted = torch.empty(table.numel() + 1, dtype=table_dtype, device=dev)[1:].view(table.shape)
+    shifted.copy_(table)
+    assert shifted.data_ptr() % 16 != 0
+    pos, _ = _inputs(dev, 5001)
+    got = kh.grid_encode_fwd(pos, shifted, cfg.geometry, torch.bfloat16)
+    want = kh.grid_encode_plain(pos, table, cfg.geometry, torch.bfloat16)
+    _check(got.float(), want.float(), torch.bfloat16)
 
 
 @pytest.mark.parametrize("g_dtype", [torch.float32, torch.bfloat16])

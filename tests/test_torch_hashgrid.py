@@ -86,6 +86,40 @@ def test_grid_config_geometry_matches_jax(kw):
                                       want)
 
 
+@pytest.mark.parametrize("kw", [dict(desired_resolution=2048),
+                                dict(gridtype="tiled", desired_resolution=2048)],
+                         ids=["full", "tiled"])
+def test_corner_pairs_of_the_forward_kernel(kw):
+    """What ``grid_encode_fwd``'s paired loads rely on, at full width on
+    seeded points: every hashed level has a power-of-two row count and
+    every level offset is a multiple of 8 rows, so in a cell with even x
+    the x-corners k and k | 1 are rows r and r ^ 1 (one aligned pair) on a
+    hashed level and r and r + 1 (mod the level's rows) on a dense one;
+    and the port's corner rows (``level_rows``) are the JAX package's
+    (``_level_indices``) for the same points."""
+    jc, tc = jh.GridConfig(**kw), th.GridConfig(**kw)
+    geom = tc.geometry
+    assert all(o % 8 == 0 for o in geom.offsets)
+    x = torch.from_numpy(_points((4000,), seed=14, lo=0.0, hi=1.0))
+    corners = kh.corner_offsets(3)
+    for lv in range(geom.num_levels):
+        size = geom.offsets[lv + 1] - geom.offsets[lv]
+        cell = torch.floor(x * geom.scales[lv] + geom.shift).long()
+        corner_pos = cell[:, None, :] + corners[None]  # [B, 8, 3]
+        rows = kh.level_rows(geom, lv, corner_pos)  # [B, 8] within the level
+        want = jh._level_indices(jc, lv, jnp.asarray(corner_pos.numpy(), jnp.int32))
+        np.testing.assert_array_equal(rows.numpy(), np.asarray(want))
+        even = cell[:, 0] % 2 == 0
+        assert 0.3 < float(even.float().mean()) < 0.7
+        r0, r1 = rows[even][:, 0::2], rows[even][:, 1::2]
+        if geom.hashed[lv]:
+            assert size & (size - 1) == 0
+            assert torch.equal(r1, r0 ^ 1)
+        else:
+            assert torch.equal(r1, (r0 + 1) % size)
+    assert any(geom.hashed) == (kw.get("gridtype", "hash") == "hash")
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("name", list(CONFIGS))
 def test_forward_matches_jax(name, dtype):

@@ -8,8 +8,7 @@ Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
 
-(``--probe-scatter`` adds ``scatter_probe`` to phase 9; ``--times-only``
-runs phases 1-3 and ``main_shape_times`` alone.) It builds the CUDA
+(``--probe-scatter`` adds ``scatter_probe`` to phase 9.) It builds the CUDA
 kernels from ``ngp_tpu_torch/ops/kernels/csrc`` (and counts the
 tensor-core instructions, HMMA, of the two bf16 heads in the library's
 SASS, and their spills in the compiler's report), then
@@ -17,15 +16,13 @@ SASS, and their spills in the compiler's report), then
 2-3. builds the turbo-hq NeRF network at full width from a seeded
      generator (random weights), refreshes the 128^3 occupancy grid (16
      full sweeps, then one partial refresh), renders 800x800 frames
-     through ``GridNeRFTrainer.render_frame`` (the eval path) and one
-     more under the profiler;
+     through ``GridNeRFTrainer.render_frame`` (the eval path);
 4.   holds each kernel against its plain PyTorch version at the paths'
      shapes: the refresh and the eval chunk, the train step's 98,304
      rows for the density forward with residuals and the factor
      backward (and the density forward at the edges of
      ``DENSITY_EDGES`` and at the sigma widths ``WIDE_H1``, the
-     radiance head at ``SIGMA_RGB_EDGES`` and at each of its tile row
-     counts), the mesh export's 65,536-row
+     radiance head at ``SIGMA_RGB_EDGES``), the mesh export's 65,536-row
      chunk for the CP encoder and its backward, and 524,288 x
      [32, 64, 64, 16] for the MLP chain (which no path runs); the
      hash-grid encoder at the refresh chunk (131,072 points) and a
@@ -46,8 +43,8 @@ SASS, and their spills in the compiler's report), then
      equal to the frame's), ``test`` (its PNG decodes to the frame) and
      ``save_mesh`` at 256^3 (256 CP-encoder launches through
      ``NeRFNetwork.density``, a non-empty mesh inside the box); then
-     profiles 16 more train steps (device time by kernel, the device's
-     idle share);
+     profiles an 800x800 frame of the trained model and 16 more train
+     steps (device time by kernel, the device's idle share);
 8.   runs one small f32 train step on the GPU and the same step on the
      CPU through the plain versions, and compares loss and gradients;
      then a bf16 network with ``hidden_dim=128`` refreshes, takes a
@@ -148,8 +145,6 @@ SIGMA_RGB_EDGES = ((1, None, 1.0, 64, 4, (64, 64)), (EVAL_ROWS - 1, None, 1.0, 6
                    (4099, ((128, 256, 512, 1024, 2048), 256, 6), 1.0, 64, 4, (64, 64)),
                    (EVAL_ROWS, None, CP_SCALE, 64, 4, (64, 64)),
                    (EVAL_ROWS, None, 1.0, 128, 3, (64,)))
-# the radiance kernel's tile rows timed against each other at EVAL_ROWS
-TILE_ROWS = (128, 64, 32)
 # one small f32 train step, GPU kernels vs CPU plain versions: the
 # loss to 1e-4 relative and each gradient to 1e-3 of its largest entry
 # (f32 atomics and summation order); in the hash-grid configuration the
@@ -177,6 +172,8 @@ SCATTER_SHAPES = ((2_097_152, 16_384, 128), (8 * HASH_RAYS * 256, 4_920, 2))
 HBM_RATE = 3.35e12
 BF16_TENSOR_RATE = 989e12
 F32_CORE_RATE = 67e12
+# the profiler trace's event categories that are device work
+DEVICE_ACTIVITIES = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
 def nbytes(*tensors):
@@ -329,23 +326,33 @@ def profile(fn, n, what, card, focus=()):
             fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    # (device ns, count) by name from the profiler's raw events: a frame's
-    # 51,000 launches make key_averages() take about a minute of host time
+    # (device ms, count) by name from the profiler's trace (a frame's
+    # 51,000 launches make key_averages() take about a minute of host
+    # time): kernels, copies and fills only, not the device ranges of
+    # annotations (the optimizer's), which overlap the kernels inside them
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
     by_name = {}
-    for e in prof.profiler.kineto_results.events():
-        if e.device_type() == torch.autograd.DeviceType.CUDA:
-            ns, count = by_name.get(e.name(), (0, 0))
-            by_name[e.name()] = (ns + e.duration_ns(), count + 1)
+    for e in events:
+        if e.get("cat") in DEVICE_ACTIVITIES:
+            ms, count = by_name.get(e["name"], (0.0, 0))
+            by_name[e["name"]] = (ms + e["dur"] / 1e3, count + 1)
+    del events
     rows = sorted(by_name.items(), key=lambda kv: kv[1][0], reverse=True)
-    busy = sum(ns for ns, _ in by_name.values()) / 1e6  # ms
+    busy = sum(ms for ms, _ in by_name.values())
     launches = sum(count for _, count in by_name.values())
+    if launches == 0:
+        raise RuntimeError(f"the profile of {n} {what}s holds no device activity")
     print(f"profile of {n} {what}s: wall {wall * 1e3 / n:.2f} ms per {what}, device busy "
           f"{busy / n:.2f} ms per {what}, idle share {1.0 - busy / (wall * 1e3):.3f}, "
           f"{launches / n:.0f} device launches per {what}  [{card}]")
-    for key, (ns, count) in rows[:14]:
-        print(f"  {ns / 1e6 / n:8.3f} ms/{what}  {count / n:8.1f}x  {key[:110]}")
+    for key, (ms, count) in rows[:14]:
+        print(f"  {ms / n:8.3f} ms/{what}  {count / n:8.1f}x  {key[:110]}")
     for name in focus:
-        ms = sum(ns for key, (ns, _) in rows if name in key) / 1e6 / n
+        ms = sum(t for key, (t, _) in rows if name in key) / n
         count = sum(c for key, (_, c) in rows if name in key) / n
         print(f"  {name}: {ms:.3f} ms per {what} in {count:.0f} launches, "
               f"{ms * n / max(busy, 1e-9):.3f} of the device busy time  [{card}]")
@@ -482,47 +489,6 @@ def check_launched(path, counts, names):
             raise RuntimeError(f"kernel {name} was not launched on the {path} path")
 
 
-def main_shape_times(model, nc, dev, card):
-    """CUDA-event times of ``cp_sigma_rgb`` and ``grid_encode_fwd`` alone at
-    their main shapes: the radiance head on the eval chunk (EVAL_ROWS random
-    rows in [0, 1]^3, ``model``'s weights, bf16 and f32), the hash encoder on
-    the full-width table (random f32 values) at GRID_ROWS random points and
-    at as many points along rays (256 consecutive samples of each chord
-    between two random points of the box, as the v1 march lays them), to
-    bf16 and f32. The inputs come from one seed, so trees timed in one call
-    see the same."""
-    import torch
-
-    from ngp_tpu_torch.ops.hashgrid import GridConfig
-    from ngp_tpu_torch.ops.kernels import cp
-    from ngp_tpu_torch.ops.kernels import hashgrid as hk
-
-    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
-    weights = [w.detach() for w in (*model.sigma_net.weights, *model.color_net.weights)]
-    pos = torch.rand((EVAL_ROWS, 3), generator=gen, device=dev)
-    dirs = torch.nn.functional.normalize(
-        torch.randn((EVAL_ROWS, 3), generator=gen, device=dev), dim=-1)
-    for dt in (torch.bfloat16, torch.float32):
-        fa = tuple(f.detach().to(dt).contiguous() for f in model.encoder.factors)
-        w = [x.to(dt).contiguous() for x in weights]
-        ms = cuda_ms(lambda: cp.cp_sigma_rgb(pos, dirs, fa, w[0], w[1], tuple(w[2:]),
-                                             nc.cp_resolutions, nc.cp_freq_degree,
-                                             nc.sh_degree), reps=50)
-        print(f"time cp_sigma_rgb {dt} {EVAL_ROWS} rows: {ms:.4f} ms  [{card}]", flush=True)
-    gcfg = GridConfig(desired_resolution=2048)
-    table = torch.rand((gcfg.num_rows, gcfg.level_dim), generator=gen, device=dev) * 2 - 1
-    B = GRID_ROWS[-1]
-    a, b = (torch.rand((B // 256, 1, 3), generator=gen, device=dev) for _ in range(2))
-    t = torch.linspace(0.0, 1.0, 256, device=dev)[None, :, None]
-    points = {f"{n} random points": torch.rand((n, 3), generator=gen, device=dev)
-              for n in GRID_ROWS}
-    points[f"{B} points along rays"] = (a + t * (b - a)).reshape(-1, 3).contiguous()
-    for od in (torch.bfloat16, torch.float32):
-        for label, x in points.items():
-            ms = cuda_ms(lambda: hk.grid_encode_fwd(x, table, gcfg.geometry, od), reps=20)
-            print(f"time grid_encode_fwd {od} {label}: {ms:.4f} ms  [{card}]", flush=True)
-
-
 def train_step_gpu_vs_cpu(dev, hash_grid=False):
     """One small f32 train step through the kernels and the same step on
     the CPU through the plain versions, at the turbo-hq preset or in the
@@ -639,11 +605,6 @@ def main():
     parser.add_argument("--probe-scatter", action="store_true",
                         help="also time the replaced corner rows + scatter_add_rows pair and "
                              "index_add_ on the hash steps' own rows (scatter_probe)")
-    parser.add_argument("--times-only", action="store_true",
-                        help="only phases 1-3 (build, refresh, three 800x800 turbo-hq frames, "
-                             "one more profiled) and main_shape_times; it calls no argument "
-                             "added with the tensor-core radiance head, so a copy of this "
-                             "script in an earlier checkout times that tree")
     args = parser.parse_args()
     probe_scatter = args.probe_scatter
     import torch
@@ -685,7 +646,7 @@ def main():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"ptxas: {line.strip()}")
     # the bf16 heads' tensor-core kernels: HMMA in their SASS, no spills
-    for kernel in () if args.times_only else ("cp_density_tc_kernel", "cp_sigma_rgb_tc_kernel"):
+    for kernel in ("cp_density_tc_kernel", "cp_sigma_rgb_tc_kernel"):
         hmma = hmma_count(build.library_path(), kernel)
         spills = ptxas_spills(report, kernel)
         print(f"SASS: {kernel} has {hmma} HMMA instructions; ptxas: {spills} bytes of spill "
@@ -732,12 +693,6 @@ def main():
               f"n_dropped {st['n_dropped']:.1f}, lattice span {trainer._eval_lattice_span}  "
               f"[{card}]", flush=True)
         images.append(img)
-    # one more frame under the profiler: device time by kernel, idle share
-    profile(lambda: trainer.render_frame(orbit_pose(0.7), intr, FRAME, FRAME), 1, "frame",
-            card, focus=("cp_sigma_rgb", "cp_density", "coarse_lookup"))
-    if args.times_only:
-        main_shape_times(model, nc, dev, card)
-        return
     eval_counts = launch_counts()
     check_launched("eval", eval_counts, ("cp_density_fwd", "cp_density_fwd_tc", "cp_sigma_rgb",
                                          "cp_sigma_rgb_tc", "coarse_lookup_bits"))
@@ -850,16 +805,6 @@ def main():
             lambda: cp.cp_sigma_rgb_plain(pos, dirs, fa, a1, a2, ca, res, fd, nc.sh_degree),
             dtype, (nbytes(pos, dirs, *fa, a1, a2, *ca) + M * 4 * 4,
                     M * (mlp_flops + color_flops), 14 * M * nbR))
-        if dtype == "bfloat16":
-            # the tensor-core kernel's tile rows against each other (the
-            # route's are 128 at H1 = 64), in turns: 128, 64, 32, 32, 64, 128
-            tile_ms = {r: [] for r in TILE_ROWS}
-            for r in TILE_ROWS + TILE_ROWS[::-1]:
-                tile_ms[r].append(cuda_ms(lambda r=r: cp.cp_sigma_rgb(
-                    pos, dirs, fa, a1, a2, ca, res, fd, nc.sh_degree, tile_rows=r)))
-            print(f"cp_sigma_rgb bf16 at {M} rows by tile rows: " + ", ".join(
-                f"{r} rows {sum(t) / 2:.4f} ms ({t[0]:.4f}, {t[1]:.4f})"
-                for r, t in tile_ms.items()) + f"  [{card}]", flush=True)
         # the radiance head's edge shapes
         for M_e, small, scale, h1_e, sh_e, hidden in SIGMA_RGB_EDGES:
             fe, res_e, fd_e, e1, e2, ce = tuple(f * scale for f in fa), res, fd, a1, a2, ca
@@ -1136,8 +1081,16 @@ def main():
               f"{st['density_s']:.3f} s, marching {st['marching_s']:.3f} s, OBJ "
               f"{st['write_s']:.3f} s  [{card}]", flush=True)
 
-        # 7e. 16 more train steps under the profiler (one grid refresh among
-        # them), after the phases that score the 256-step model
+        # 7e. under the profiler, after the phases that score the 256-step
+        # model and after every timed window of the turbo-hq paths, so no
+        # timed window follows a profiler session: an 800x800 frame of
+        # the trained model (after one unprofiled, so the frame's chunk
+        # counts are settled), then 16 more train steps (one grid refresh
+        # among them)
+        pose, intr = orbit_pose(0.7), intrinsics(FRAME)
+        trainer.render_frame(pose, intr, FRAME, FRAME)
+        profile(lambda: trainer.render_frame(pose, intr, FRAME, FRAME), 1, "frame", card,
+                focus=("cp_sigma_rgb", "cp_density", "coarse_lookup"))
         profile(lambda: trainer.step(next(batches)), 16, "step", card)
 
     # 8. one small train step: GPU kernels against the CPU plain versions
@@ -1216,7 +1169,12 @@ def main():
         print(f"hash-grid train: {steps_s:.2f} steps/s, {steps_s * HASH_RAYS:.0f} rays/s, "
               f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB  [{card}]",
               flush=True)
-        table_h, geom_h = model.encoder.embeddings.detach(), model.encoder.cfg.geometry
+        # the trained table scaled to a largest |value| of 1: its values
+        # (~0.03 at most) are below the default bound, TOL * (1 + |plain|),
+        # which a kernel that read the wrong rows would then meet
+        table_h = model.encoder.embeddings.detach()
+        table_h = (table_h / table_h.abs().max()).contiguous()
+        geom_h = model.encoder.cfg.geometry
         for label, entry in caught.items():
             # the forward on the step's own points (consecutive samples of a
             # ray share their coarse cells), then the table gradient

@@ -45,7 +45,7 @@ _SIGNATURES = {
     "ngp_cp_sigma_rgb": [
         _P, _P, _I, ctypes.POINTER(_P), ctypes.POINTER(_I), _I, _I, _I,
         _P, _P, _I, _I, _I, ctypes.POINTER(_P), ctypes.POINTER(_I), _I, _I,
-        _I, _P, _I, ctypes.POINTER(_I), _P,
+        _I, _P, ctypes.POINTER(_I), _P,
     ],
     "ngp_coarse_lookup_bits": [_P, _I, _P, ctypes.c_longlong, _P, _P],
     "ngp_cp_encode_fwd": [
@@ -159,6 +159,6 @@ def check_launch(name: str, err: int) -> None:
     RuntimeError for any other failed launch."""
     if err == UNSUPPORTED_SHAPE:
         raise ValueError(f"{name}: the kernel does not take this shape (it would need more "
-                         "shared memory than a block has, or a tile its route does not allow)")
+                         "shared memory than a block has)")
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed with cudaError {err}")

@@ -366,16 +366,14 @@ def cp_density(pos, factors, w1, w2, resolutions, freq_degree):
 
 
 def cp_sigma_rgb(pos, dirs, factors, w1, w2, color_ws, resolutions,
-                 freq_degree, sh_degree, tile_rows: int = 0):
+                 freq_degree, sh_degree):
     """Fused eval radiance: [M, 3] pos in [0, 1] + [M, 3] unit dirs ->
     [M, 4] f32 rows (exp(sigma_raw), sigmoid(rgb)). color_ws: the
     bias-free color MLP kernels, [sh_degree**2 + OUT - 1, H] ... [H, 3].
 
     bf16 runs every product on the tensor cores where the widths allow
     (H1 <= 256, color hidden layers <= 64) and on the CUDA cores
-    otherwise; f32 on the CUDA cores. ``tile_rows`` (32, 64 or 128, no
-    more than the route's own) sets the tensor-core kernel's tile rows,
-    for measurement; 0 leaves them to the route."""
+    otherwise; f32 on the CUDA cores."""
     if pos.device.type == "cpu":
         return cp_sigma_rgb_plain(pos, dirs, factors, w1, w2, color_ws,
                                   resolutions, freq_degree, sh_degree)
@@ -406,7 +404,7 @@ def cp_sigma_rgb(pos, dirs, factors, w1, w2, color_ws, resolutions,
         int_array(resolutions), len(factors), rank, freq_degree,
         w1.data_ptr(), w2.data_ptr(), D, H1, OUT, pointer_array(color_ws),
         int_array(dims), len(color_ws), sh_degree,
-        int(w1.dtype == torch.bfloat16), out.data_ptr(), tile_rows, ctypes.byref(route),
+        int(w1.dtype == torch.bfloat16), out.data_ptr(), ctypes.byref(route),
         torch.cuda.current_stream(pos.device).cuda_stream,
     )
     check_launch("cp_sigma_rgb", err)

@@ -1230,7 +1230,7 @@ extern "C" int ngp_cp_sigma_rgb(const float* pos, const float* dirs, int M,
                                 int freq_degree, const void* w1, const void* w2, int D, int H1,
                                 int OUT, const void* const* color_ws, const int* cdims,
                                 int n_color, int sh_degree, int bf16, float* out,
-                                int tile_rows, int* route, void* stream) {
+                                int* route, void* stream) {
   HeadParams p;
   if (!fill_density(p, pos, M, factors, res, nb, rank, freq_degree, w1, w2, D, H1, OUT, out))
     return cudaErrorInvalidValue;
@@ -1250,15 +1250,8 @@ extern "C" int ngp_cp_sigma_rgb(const float* pos, const float* dirs, int M,
   for (int l = 0; l < n_color; ++l) p.wc[l] = color_ws[l];
   p.cmax = cmax;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // route: the tensor-core kernel's tile rows, or 0 for the row-block kernel;
-  // tile_rows > 0 asks for smaller tensor-core tiles than the route's (a
-  // measurement of the tile size), 0 for the route's own
-  int rows = bf16 ? tc_route(p) : 0;
-  if (tile_rows != 0) {
-    if (rows == 0 || tile_rows > rows || (tile_rows != 32 && tile_rows != 64 && tile_rows != 128))
-      return kUnsupportedShape;
-    rows = tile_rows;
-  }
+  // route: the tensor-core kernel's tile rows, or 0 for the row-block kernel
+  const int rows = bf16 ? tc_route(p) : 0;
   *route = rows;
   if (rows > 0) return launch_tc(cp_sigma_rgb_tc_kernel, p, rows, s);
   return bf16 ? launch(&cp_sigma_rgb_kernel<__nv_bfloat16>, p, s, true)

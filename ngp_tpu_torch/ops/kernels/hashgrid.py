@@ -212,7 +212,8 @@ def grid_encode_fwd(x: torch.Tensor, table: torch.Tensor, geom: GridGeometry,
                     out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Grid features: x [B, 3] f32 -> [B, L*C] in ``out_dtype`` (f32 or
     bf16; the table's dtype when None), zero outside [0, 1]^3. table
-    [num_rows, C] f32 or bf16, contiguous."""
+    [num_rows, C] f32 or bf16, contiguous, starting on a pair of rows (the
+    kernel loads rows and row pairs as vectors)."""
     if x.device.type == "cpu":
         return grid_encode_plain(x, table, geom, out_dtype)
     if x.device.type != "cuda":
@@ -225,6 +226,10 @@ def grid_encode_fwd(x: torch.Tensor, table: torch.Tensor, geom: GridGeometry,
         raise ValueError(f"grid_encode_fwd: table must be contiguous f32 or bf16 "
                          f"[{geom.num_rows}, {geom.level_dim}] on {x.device}, output f32 "
                          f"or bf16; got {table.dtype} {tuple(table.shape)} -> {od}")
+    pair = 2 * geom.level_dim * table.element_size()
+    if table.data_ptr() % pair != 0:
+        raise ValueError(f"grid_encode_fwd: the table must start on a pair of rows "
+                         f"({pair} bytes); it starts at {table.data_ptr() % pair} past one")
     out = torch.empty((B, geom.output_dim), dtype=od, device=x.device)
     if B > 0:
         lib = load_library()

@@ -227,18 +227,6 @@ def test_cp_sigma_rgb_kernel(dev, dtype, res, rank, fd, M, scale, h1, out, sh, h
     _check(got, tk.cp_sigma_rgb_plain(pos, dirs, factors, w1, w2, color, res, fd, sh), dtype)
 
 
-@pytest.mark.parametrize("tile_rows", [32, 64, 128])
-def test_cp_sigma_rgb_kernel_tile_rows(dev, tile_rows):
-    """The tensor-core radiance kernel at tiles smaller than its route's
-    (the tile-size measurement of chip_smoke.py)."""
-    res, rank, fd = TURBO
-    factors, w1, w2, color = _weights(dev, torch.bfloat16, res, rank, fd)
-    pos, dirs = _inputs(dev, 4099)
-    got = tk.cp_sigma_rgb(pos, dirs, factors, w1, w2, color, res, fd, 4, tile_rows=tile_rows)
-    _check(got, tk.cp_sigma_rgb_plain(pos, dirs, factors, w1, w2, color, res, fd, 4),
-           torch.bfloat16)
-
-
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("res,rank,fd,M", SHAPES)
@@ -331,13 +319,10 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         tk.cp_density_fwd(pos, factors, w1, w2, (32, 64), 3)
     # shared memory past a block's in both kernels: a bf16 H1 of 2048 (the
     # row-block kernel's route), a bf16 w2 of 2000 columns, an f32 feature
-    # row of 2075 columns; and radiance tiles larger than the route's
-    fb, w1b, w2b, cb = _weights(dev, torch.bfloat16, (32, 64), 16, 4, h1=2048)
+    # row of 2075 columns
+    fb, w1b, w2b, _ = _weights(dev, torch.bfloat16, (32, 64), 16, 4, h1=2048)
     with pytest.raises(ValueError, match="shared memory"):
         tk.cp_density_fwd(pos, fb, w1b, w2b, (32, 64), 4)
-    fb, w1b, w2b, cb = _weights(dev, torch.bfloat16, (32, 64), 16, 4, h1=128)
-    with pytest.raises(ValueError, match="shared memory"):
-        tk.cp_sigma_rgb(pos, pos, fb, w1b, w2b, cb, (32, 64), 4, 4, tile_rows=128)
     fb, w1b, _, _ = _weights(dev, torch.bfloat16, (32, 64), 16, 4)
     w2b = torch.zeros((64, 2000), dtype=torch.bfloat16, device=dev)
     with pytest.raises(ValueError, match="shared memory"):
@@ -509,7 +494,8 @@ def test_grid_encode_fwd_kernel(dev, name, table_dtype, out_dtype, points):
 @pytest.mark.parametrize("table_dtype", [torch.float32, torch.bfloat16])
 def test_grid_encode_fwd_kernel_unaligned_table(dev, table_dtype):
     """A contiguous table one element past an aligned address (a view into
-    a larger buffer): no vector load may assume the rows' alignment."""
+    a larger buffer) is refused: the kernel loads rows and row pairs as
+    vectors. The same values from an aligned copy are taken."""
     from ngp_tpu_torch.ops.kernels import hashgrid as kh
 
     cfg, table = _grid("full", dev, table_dtype)
@@ -517,7 +503,11 @@ def test_grid_encode_fwd_kernel_unaligned_table(dev, table_dtype):
     shifted.copy_(table)
     assert shifted.data_ptr() % 16 != 0
     pos, _ = _inputs(dev, 5001)
-    got = kh.grid_encode_fwd(pos, shifted, cfg.geometry, torch.bfloat16)
+    before = LAUNCHES["grid_encode_fwd"]
+    with pytest.raises(ValueError, match="pair of rows"):
+        kh.grid_encode_fwd(pos, shifted, cfg.geometry, torch.bfloat16)
+    assert LAUNCHES["grid_encode_fwd"] == before
+    got = kh.grid_encode_fwd(pos, shifted.clone(), cfg.geometry, torch.bfloat16)
     want = kh.grid_encode_plain(pos, table, cfg.geometry, torch.bfloat16)
     _check(got.float(), want.float(), torch.bfloat16)
 

@@ -11,7 +11,9 @@ Run from the repository root, with no arguments:
 (``--probe-scatter`` adds ``scatter_probe`` to phase 9.) It builds the CUDA
 kernels from ``ngp_tpu_torch/ops/kernels/csrc`` (and counts the
 tensor-core instructions, HMMA, of the two bf16 heads in the library's
-SASS, and their spills in the compiler's report), then
+SASS, and their spills in the compiler's report; and prints the
+registers and spills of the CP factor backward's and encoder's run
+kernels, whose SASS must call no 64-bit division routine), then
 
 2-3. builds the turbo-hq NeRF network at full width from a seeded
      generator (random weights), refreshes the 128^3 occupancy grid (16
@@ -23,7 +25,8 @@ SASS, and their spills in the compiler's report), then
      backward (and the density forward at the edges of
      ``DENSITY_EDGES`` and at the sigma widths ``WIDE_H1``, the
      radiance head at ``SIGMA_RGB_EDGES``), the mesh export's 65,536-row
-     chunk for the CP encoder and its backward, and 524,288 x
+     chunk for the CP encoder (on random rows and on one x-slice of the
+     256^3 mesh lattice, a save_mesh chunk) and its backward, and 524,288 x
      [32, 64, 64, 16] for the MLP chain (which no path runs); the
      hash-grid encoder at the refresh chunk (131,072 points) and a
      hash-grid train step (4096 rays x 256 samples = 1,048,576 points)
@@ -37,7 +40,11 @@ SASS, and their spills in the compiler's report), then
      val frame) and trains turbo-hq at 16384 rays per step through
      ``GridNeRFTrainer.step`` (grid refresh every 16 steps, Adam, EMA;
      the train path), times the last 128 of 256 steps, and requires a
-     finite loss that falls;
+     finite loss that falls; on the first and last steps' own factor
+     backward inputs (positions and d(CP features)) it counts the rows
+     that add nothing, prints what the backward's merge finds there
+     (``merge_runs``) and holds ``cp_bwd_banks`` against its plain
+     version;
 7.   renders the val pose with the EMA weights and checks its PSNR;
      then, on the same trainer, ``evaluate`` (PSNR and SSIM, the PSNR
      equal to the frame's), ``test`` (its PNG decodes to the frame) and
@@ -190,14 +197,17 @@ def bound(n_bytes, tensor_flops=0.0, core_flops=0.0):
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
+def inside_rows(pos):
+    return ((pos >= 0.0) & (pos <= 1.0)).all(dim=1)
+
+
 def grid_bwd_work(x, g, geom):
     """(bytes, 0, operations) of the table gradient on these inputs: x and
     g read once, the f32 table written once; per (point, level) inside
     [0, 1]^3 with a non-zero cotangent, 9 operations of position and per
     corner 2 of weight and 1 per feature."""
     L, C = geom.num_levels, geom.level_dim
-    inside = ((x >= 0.0) & (x <= 1.0)).all(dim=1)
-    live = int(((g.view(-1, L, C) != 0).any(dim=2) & inside[:, None]).sum())
+    live = int(((g.view(-1, L, C) != 0).any(dim=2) & inside_rows(x)[:, None]).sum())
     return nbytes(x, g) + geom.num_rows * C * 4, 0, live * (9 + 8 * (2 + C))
 
 
@@ -358,19 +368,23 @@ def profile(fn, n, what, card, focus=()):
               f"{ms * n / max(busy, 1e-9):.3f} of the device busy time  [{card}]")
 
 
-def ptxas_spills(report, kernel):
-    """Bytes of spill stores ``ptxas -v`` reports for ``kernel``; raises if
-    the report does not name it."""
-    spills, inside, seen = 0, False, False
+def ptxas_usage(report, kernel):
+    """[(entry function, registers, bytes of spill stores)] that ``ptxas
+    -v`` reports for each instance of ``kernel``; raises if the report
+    does not name it."""
+    found, name = [], None
     for line in report.splitlines():
         if "Compiling entry function" in line:
-            inside = kernel in line
-            seen |= inside
-        elif inside and "spill stores" in line:
-            spills += int(line.split("bytes spill stores")[0].split(",")[-1])
-    if not seen:
+            name = line.split("'")[1] if kernel in line else None
+            if name:
+                found.append([name, 0, 0])
+        elif name and "spill stores" in line:
+            found[-1][2] += int(line.split("bytes spill stores")[0].split(",")[-1])
+        elif name and "Used" in line and "registers" in line:
+            found[-1][1] = int(line.split("Used")[1].split("registers")[0])
+    if not found:
         raise RuntimeError(f"the compiler report does not name {kernel}")
-    return spills
+    return [tuple(f) for f in found]
 
 
 def head_weights(gen, dev, dt, D, H1, OUT, sh, hidden):
@@ -388,21 +402,51 @@ def head_weights(gen, dev, dt, D, H1, OUT, sh, hidden):
             tuple(layer(cdims[i], cdims[i + 1]) for i in range(len(cdims) - 1)))
 
 
-def hmma_count(lib_path, kernel):
-    """The tensor-core (HMMA) instructions in ``kernel``'s SASS in the
-    built library, from ``cuobjdump --dump-sass``."""
+def sass_lines(lib_path, kernel):
+    """The SASS instruction lines of every function of the built library
+    whose name holds ``kernel``, from ``cuobjdump --dump-sass``."""
     from ngp_tpu_torch.ops.kernels import build
 
     tool = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
     sass = subprocess.run([tool, "--dump-sass", str(lib_path)], check=True,
                           capture_output=True, text=True, timeout=300).stdout
-    count, inside = 0, False
+    lines, inside = [], False
     for line in sass.splitlines():
         if "Function :" in line:
             inside = kernel in line
         elif inside:
-            count += "HMMA" in line
-    return count
+            lines.append(line)
+    return lines
+
+
+def merge_runs(pos, g_cp, res, rank):
+    """What the factor backward's merge finds on these rows, computed here
+    from the taps as the kernel makes them: per bank, its live rows
+    (inside the box, g not all zero in the bank's columns), the mean
+    number of live rows one running sum covers per axis (within a warp's
+    run of 32 rows, while the axis's tap i0 repeats), and the 16-byte
+    atomics the merge issues per column group (2 per sum, one fewer after
+    a move by one) beside 6 per live row without it."""
+    import torch
+
+    inside = inside_rows(pos)
+    out = []
+    for b, r in enumerate(res):
+        live = (inside & (g_cp[:, b * rank:(b + 1) * rank] != 0).any(dim=1)).nonzero()[:, 0]
+        i0 = torch.clamp(torch.floor(pos[live].clamp(0.0, 1.0) * (r - 1)), max=r - 2).long()
+        run = live // 32
+        same_run = torch.zeros_like(run, dtype=torch.bool)
+        same_run[1:] = run[1:] == run[:-1]
+        lengths, atomics = [], 0
+        for ax in range(3):
+            step = torch.zeros_like(i0[:, ax])
+            step[1:] = i0[1:, ax] - i0[:-1, ax]
+            sums = int((~same_run | (step != 0)).sum())
+            shifts = int((same_run & (step.abs() == 1)).sum())
+            lengths.append(live.numel() / max(sums, 1))
+            atomics += 2 * sums - shifts
+        out.append((r, live.numel(), lengths, atomics))
+    return out
 
 
 def scatter_probe(x, g, geom, idx, rows, nz, s_bound, label, card, results, library):
@@ -467,6 +511,36 @@ def step_table_gradient(x, g, geom, label, card, results, library, probe):
         "grid_encode_bwd", lambda: hk.grid_encode_bwd(x, g, geom),
         lambda: hk.grid_encode_bwd_plain(x, g, geom), "bfloat16",
         grid_bwd_work(x, g, geom), tol=lambda want: [s_bound])
+
+
+def step_factor_gradient(pos, factors, g_cp, res, label, card, results):
+    """``cp_bwd_banks`` on one turbo-hq train step's own inputs
+    (positions, the step's bf16 factors, d(CP features)): the rows that
+    add nothing, what the backward's merge finds (``merge_runs``), then
+    the kernel against its plain version with the factors in bf16 and in
+    f32."""
+    import torch
+
+    from ngp_tpu_torch.ops.kernels import cp
+
+    rank = factors[0].shape[-1]
+    outside = 1.0 - float(inside_rows(pos).float().mean())
+    zero = float((g_cp == 0).all(dim=1).float().mean())
+    print(f"train step {label}: {pos.shape[0]} rows, {outside:.4f} outside the box, {zero:.4f} "
+          "with d(CP features) all zero", flush=True)
+    live_rows = 0
+    for r, live, lengths, atomics in merge_runs(pos, g_cp, res, rank):
+        live_rows += live
+        print(f"  bank {r}: {live} live rows, mean run length x {lengths[0]:.3f} y "
+              f"{lengths[1]:.3f} z {lengths[2]:.3f}; {atomics} 16-byte atomics per column "
+              f"group, {6 * live} unmerged", flush=True)
+    for dtype in ("bfloat16", "float32"):
+        fa = tuple(f.to(getattr(torch, dtype)) for f in factors)
+        results[("cp_bwd_banks", label + ("" if dtype == "bfloat16" else " f32"))] = compare(
+            "cp_bwd_banks", lambda: cp.cp_bwd_banks(pos, fa, g_cp, res),
+            lambda: cp.cp_bwd_banks_plain(pos, fa, g_cp, res), dtype,
+            (nbytes(pos, g_cp, *fa, *fa), 0, 24 * live_rows * rank),
+            tol=lambda want: bwd_bound(cp, pos, fa, g_cp, res, want))
 
 
 def print_results(results, library, card, printed):
@@ -647,13 +721,24 @@ def main():
             print(f"ptxas: {line.strip()}")
     # the bf16 heads' tensor-core kernels: HMMA in their SASS, no spills
     for kernel in ("cp_density_tc_kernel", "cp_sigma_rgb_tc_kernel"):
-        hmma = hmma_count(build.library_path(), kernel)
-        spills = ptxas_spills(report, kernel)
+        hmma = sum("HMMA" in line for line in sass_lines(build.library_path(), kernel))
+        spills = sum(n for _, _, n in ptxas_usage(report, kernel))
         print(f"SASS: {kernel} has {hmma} HMMA instructions; ptxas: {spills} bytes of spill "
               "stores", flush=True)
         if hmma == 0 or spills > 0:
             raise RuntimeError(f"{kernel}: {hmma} tensor-core instructions, {spills} bytes of "
                                "spill stores")
+    # the CP run kernels: registers and spills of each instance; no call to
+    # a 64-bit division routine in their SASS
+    for kernel in ("cp_bwd_runs_kernel", "cp_encode_runs_kernel"):
+        for name, regs, spills in ptxas_usage(report, kernel):
+            print(f"ptxas: {name}: {regs} registers, {spills} bytes of spill stores")
+        calls = [ln.strip() for ln in sass_lines(build.library_path(), kernel) if "CALL" in ln]
+        divs = [c for c in calls if "div" in c.lower() or "rem" in c.lower()]
+        print(f"SASS: {kernel}: {len(calls)} calls, {len(divs)} to a division routine",
+              flush=True)
+        if divs:
+            raise RuntimeError(f"{kernel} calls a division routine: {divs[:2]}")
 
     # 2. the turbo-hq network at full width, random weights from a seed
     rc = RenderConfig(
@@ -719,6 +804,13 @@ def main():
     mlp_flops = 2 * (w1.shape[0] * w1.shape[1] + w2.shape[0] * w2.shape[1])
     color_flops = 2 * sum(w.shape[0] * w.shape[1] for w in color)
     D, H1, OUT = w1.shape[0], w1.shape[1], w2.shape[1]
+    # one save_mesh chunk: x-slice MESH_RES / 2 of density_grid's lattice,
+    # scaled to [0, 1] as NeRFNetwork.density scales it
+    xs = torch.as_tensor(np.linspace(-rc.bound, rc.bound, MESH_RES, dtype=np.float32),
+                         device=dev)
+    mesh_chunk = torch.stack(torch.meshgrid(xs[MESH_RES // 2:MESH_RES // 2 + 1], xs, xs,
+                                            indexing="ij"), dim=-1).reshape(-1, 3)
+    mesh_chunk = ((mesh_chunk + rc.bound) / (2 * rc.bound)).contiguous()
     for dtype in ("bfloat16", "float32"):
         dt = getattr(torch, dtype)
         esz = dt.itemsize
@@ -786,15 +878,25 @@ def main():
                     lambda: cp.cp_density_fwd(pos_x, fa, e1, e2, res, fd, residuals=resid),
                     lambda: cp.cp_density_plain(pos_x, fa, e1, e2, res, fd, residuals=resid),
                     dtype, (nbytes(pos_x, *fa, e1, e2) + WIDE_ROWS * OUT * 4, flops, 0), tol=tol)
-        # the factor gradient from a d(features) of the train shape, with a
-        # row stride wider than its columns as the backward passes it
-        g_cp = torch.randn((M, D), generator=gen, device=dev)[:, :nbR]
+        # the factor gradient from a d(CP features) of the train shape,
+        # contiguous as the density backward passes it
+        g_cp = torch.randn((M, nbR), generator=gen, device=dev)
         results[("cp_bwd_banks", dtype)] = compare(
             "cp_bwd_banks",
             lambda: cp.cp_bwd_banks(pos_t, fa, g_cp, res),
             lambda: cp.cp_bwd_banks_plain(pos_t, fa, g_cp, res), dtype,
             (nbytes(pos_t, g_cp, *fa, *fa), 0, 24 * M * nbR),
             tol=lambda want: bwd_bound(cp, pos_t, fa, g_cp, res, want))
+        # and from g rows D floats apart, which no 16-byte access reads:
+        # the scalar-column instance
+        g_wide = torch.randn((M, D), generator=gen, device=dev)[:, :nbR]
+        results[("cp_bwd_banks", f"{dtype} g rows {D} floats apart")] = compare(
+            "cp_bwd_banks",
+            lambda: cp.cp_bwd_banks(pos_t, fa, g_wide, res),
+            lambda: cp.cp_bwd_banks_plain(pos_t, fa, g_wide, res), dtype,
+            (nbytes(pos_t, g_wide, *fa, *fa), 0, 24 * M * nbR),
+            tol=lambda want: bwd_bound(cp, pos_t, fa, g_wide, res, want))
+        del g_wide
         M = rows["cp_sigma_rgb"]
         pos = torch.rand((M, 3), generator=gen, device=dev)
         dirs = torch.nn.functional.normalize(
@@ -831,16 +933,21 @@ def main():
                 lambda: cp.cp_sigma_rgb(pos_x, dirs_x, fe, e1, e2, ce, res_e, fd_e, sh_e),
                 lambda: cp.cp_sigma_rgb_plain(pos_x, dirs_x, fe, e1, e2, ce, res_e, fd_e, sh_e),
                 dtype, (nbytes(pos_x, dirs_x, *fe, e1, e2, *ce) + M_e * 16, flops, 0))
-        # the CP encoder at the mesh chunk, each bank type to each output type
+        # the CP encoder at the mesh chunk's size, each bank type to each
+        # output type: random rows, then save_mesh's own chunk (an x-slice
+        # of the 256^3 lattice)
         M = ENCODE_ROWS
         pos_e = torch.rand((M, 3), generator=gen, device=dev) * 1.1 - 0.05
-        for out_name in ("bfloat16", "float32"):
+        for out_name, (label, pos_m) in itertools.product(
+                ("bfloat16", "float32"), (("", pos_e), (" mesh chunk", mesh_chunk))):
             od = getattr(torch, out_name)
-            results[("cp_encode_fwd", f"{dtype}->{out_name}")] = compare(
+            results[("cp_encode_fwd", f"{dtype}->{out_name}{label}")] = compare(
                 "cp_encode_fwd",
-                lambda: cp.cp_encode_fwd(pos_e, fa, res, od),
-                lambda: cp.cp_encode_plain(pos_e, fa, res, od), out_name,
-                (nbytes(pos_e, *fa) + M * nbR * od.itemsize, 0, 14 * M * nbR))
+                lambda: cp.cp_encode_fwd(pos_m, fa, res, od),
+                lambda: cp.cp_encode_plain(pos_m, fa, res, od), out_name,
+                (nbytes(pos_m, *fa) + M * nbR * od.itemsize, 0, 14 * M * nbR))
+            if not (cp.cp_encode_fwd(pos_m, fa, res, od)[~inside_rows(pos_m)] == 0).all():
+                raise RuntimeError("cp_encode_fwd: a row outside the box has a feature")
         # its backward (CPEncode: cp_bwd_banks) against autograd of the plain
         # version, forward and backward timed together
         g_e = torch.randn((M, nbR), generator=gen, device=dev)
@@ -987,9 +1094,26 @@ def main():
                          workspace=ws)
         trainer = GridNeRFTrainer(model, rc, tc, seed=SEED)
         trainer.mark_untrained(train_ds.poses, train_ds.intrinsics, train_ds.H, train_ds.W)
+        # the factor backward's own inputs of the first and the last step:
+        # cp_density_bwd calls cp_bwd_banks through its module, once a step
+        bwd_seen, bwd_calls, launch_bwd = {}, [0], cp.cp_bwd_banks
+
+        def record_bwd(pos, factors, g_cp, resolutions):
+            n = bwd_calls[0]
+            bwd_calls[0] += 1
+            if n in (0, TRAIN_STEPS - 1):
+                bwd_seen[f"step {n}"] = (pos.clone(), tuple(f.clone() for f in factors),
+                                         g_cp.clone(), tuple(resolutions))
+            return launch_bwd(pos, factors, g_cp, resolutions)
+
+        cp.cp_bwd_banks = record_bwd
         torch.cuda.reset_peak_memory_stats()
         reset_launch_counts()
         metrics, dt, batches = train(trainer, "train", TRAIN_STEPS, TIMED_STEPS)
+        cp.cp_bwd_banks = launch_bwd
+        if bwd_calls[0] != TRAIN_STEPS:
+            raise RuntimeError(f"train: {bwd_calls[0]} factor backward calls in {TRAIN_STEPS} "
+                               "steps")
         losses = [m["loss"] for m in metrics]
         overflow = [m["turbo_overflow"] for m in metrics]
         train_counts = launch_counts()
@@ -997,8 +1121,10 @@ def main():
                                               "cp_density_fwd_residuals",
                                               "cp_bwd_banks", "coarse_lookup_bits"))
         steps_s = TIMED_STEPS / dt
+        held = sum(nbytes(pos, *fac, g) for pos, fac, g, _ in bwd_seen.values())
         print(f"train: {steps_s:.2f} steps/s, {steps_s * TRAIN_RAYS:.0f} rays/s, "
-              f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB  [{card}]",
+              f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (with "
+              f"{held / 2**30:.2f} GiB of captured factor backward inputs held)  [{card}]",
               flush=True)
         losses = torch.stack(losses).cpu().numpy()
         overflow = torch.stack(overflow).cpu().numpy()
@@ -1010,6 +1136,9 @@ def main():
             raise RuntimeError("train: non-finite loss")
         if not losses[-16:].mean() < LOSS_FALL * losses[:16].mean():
             raise RuntimeError(f"train: the loss did not fall below {LOSS_FALL} of its start")
+        for label, (pos_s, fac_s, g_s, res_s) in bwd_seen.items():
+            step_factor_gradient(pos_s, fac_s, g_s, res_s, label, card, results)
+        del bwd_seen
 
         # 7. the trained frame: the val pose with the EMA weights
         reset_launch_counts()
@@ -1091,7 +1220,8 @@ def main():
         trainer.render_frame(pose, intr, FRAME, FRAME)
         profile(lambda: trainer.render_frame(pose, intr, FRAME, FRAME), 1, "frame", card,
                 focus=("cp_sigma_rgb", "cp_density", "coarse_lookup"))
-        profile(lambda: trainer.step(next(batches)), 16, "step", card)
+        profile(lambda: trainer.step(next(batches)), 16, "step", card,
+                focus=("cp_bwd", "cp_density"))
 
     # 8. one small train step: GPU kernels against the CPU plain versions
     train_step_gpu_vs_cpu(dev)
@@ -1237,10 +1367,11 @@ def main():
         "coarse_lookup_bits": (csrc + "march_kernels.cu",
                                "ngp_tpu/ops/pallas/march_kernels.py:73",
                                ("coarse_lookup_bits", "bits")),
+        # on the main path's own inputs: the last train step's, a mesh chunk
         "cp_bwd_banks": (csrc + "cp_kernels.cu", "ngp_tpu/ops/pallas/cp_kernels.py:206",
-                         ("cp_bwd_banks", "bfloat16")),
+                         ("cp_bwd_banks", f"step {TRAIN_STEPS - 1}")),
         "cp_encode_fwd": (csrc + "cp_kernels.cu", "ngp_tpu/ops/pallas/cp_kernels.py:159",
-                          ("cp_encode_fwd", "bfloat16->bfloat16")),
+                          ("cp_encode_fwd", "bfloat16->bfloat16 mesh chunk")),
         # on no path: launches stays 0 (scatter_add_rows too since the table
         # gradient adds by itself)
         "fused_mlp": (csrc + "mlp_kernels.cu", "ngp_tpu/ops/pallas/fused_mlp.py:92",

@@ -39,8 +39,7 @@ _SIGNATURES = {
         _P, _P, _I, _I, _I, _I, _P, _P, _P, ctypes.POINTER(_I), _P,
     ],
     "ngp_cp_bwd_banks": [
-        _P, _I, _P, _I, ctypes.POINTER(_P), ctypes.POINTER(_I), _I, _I, _I,
-        ctypes.POINTER(_P), _P,
+        _P, _I, _P, _I, ctypes.POINTER(_P), ctypes.POINTER(_I), _I, _I, _I, _P, _P,
     ],
     "ngp_cp_sigma_rgb": [
         _P, _P, _I, ctypes.POINTER(_P), ctypes.POINTER(_I), _I, _I, _I,

@@ -264,7 +264,11 @@ def cp_bwd_banks(pos, factors, g_cp, resolutions):
     """Factor gradients from d(CP features): pos [M, 3] f32, g_cp
     [M, >= nb*R] f32 (row stride free, columns contiguous) -> per bank
     [3, res, R] in the factor dtype, accumulated in f32. Rows outside
-    [0, 1]^3 add nothing."""
+    [0, 1]^3 add nothing. The kernel reads 4 columns of g and of each
+    factor line by one vector access where the rank, g's row stride and
+    the banks allow it (the backward passes a contiguous [M, nb*R] g),
+    else column by column. The banks' gradients are views of one
+    allocation."""
     if pos.device.type == "cpu":
         return cp_bwd_banks_plain(pos, factors, g_cp, resolutions)
     if pos.device.type != "cuda":
@@ -277,17 +281,18 @@ def cp_bwd_banks(pos, factors, g_cp, resolutions):
             or (M > 1 and g_cp.stride(1) != 1) or g_cp.stride(0) < nbR):
         raise ValueError(f"cp_bwd_banks: g_cp must be f32 [{M}, >= {nbR}] on {dev} "
                          "with contiguous columns")
-    acc = [torch.zeros((3, r, rank), dtype=torch.float32, device=dev) for r in resolutions]
+    sizes = [3 * r * rank for r in resolutions]
+    acc = torch.zeros(sum(sizes), dtype=torch.float32, device=dev)
     if M > 0:
         lib = load_library()
         err = lib.ngp_cp_bwd_banks(
             pos.data_ptr(), M, g_cp.data_ptr(), g_cp.stride(0), pointer_array(factors),
             int_array(resolutions), len(factors), rank, int(dt == torch.bfloat16),
-            pointer_array(acc), torch.cuda.current_stream(dev).cuda_stream,
+            acc.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
         )
         check_launch("cp_bwd_banks", err)
         LAUNCHES["cp_bwd_banks"] += 1
-    return tuple(a.to(dt) for a in acc)
+    return tuple(a.view(3, r, rank) for a, r in zip(acc.to(dt).split(sizes), resolutions))
 
 
 class CPEncode(torch.autograd.Function):
@@ -331,8 +336,10 @@ def cp_density_bwd(g, pos, factors, w1, w2, feats, h1, resolutions):
     dh1 = torch.where(h1 > 0, g @ w2.float().t(), torch.zeros((), device=g.device))
     dh1 = dh1.to(w1.dtype).float()
     dW1 = feats.float().t() @ dh1
-    dfeat = dh1 @ w1.float().t()
-    dfactors = cp_bwd_banks(pos, factors, dfeat[:, :nbR], resolutions)
+    # d(CP features) alone: d(pos) is zero, so the freq columns are not
+    # needed, and g_cp is a contiguous [M, nb*R] (16-byte rows at R % 4 == 0)
+    g_cp = dh1 @ w1[:nbR].float().t()
+    dfactors = cp_bwd_banks(pos, factors, g_cp, resolutions)
     return dfactors, dW1.to(w1.dtype), dW2.to(w2.dtype)
 
 

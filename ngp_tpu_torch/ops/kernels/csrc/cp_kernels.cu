@@ -36,28 +36,50 @@
 // [rows, D] feature rows and [rows, H1] hidden rows in the weight type, the
 // values the backward's MLP products read.
 //
-// The factor backward replaces the TPU's transposed tent matmul with what the
-// tent encodes: each (row, bank, rank) item recomputes its three lerped line
-// values and adds (1 - w) * others at i0 and w * others at i0 + 1 of each
-// axis, with others = g * (product of the other two axes' values), by f32
-// atomics into per-bank accumulators. The accumulators (3 x 3968 x 128 f32,
-// about 6 MB at the flagship config) stay in L2, so the bound is the L2 atomic
-// rate (6 atomics per item, 377 M per step at 98,304 rows); neighbouring
-// threads take neighbouring rank columns, so each warp's atomics hit one or
-// two 128-byte lines. A blocked or sorted reduction is later work. Atomics sum
-// in no fixed order, so the result varies in the last f32 bits from run to run.
+// The factor backward (cp_bwd_runs_kernel) replaces the TPU's transposed
+// tent matmul (_bwd_kernel / _cp_bwd_banks) with what the tent encodes: each
+// row adds (1 - w) * others at i0 and w * others at i0 + 1 of each axis,
+// others = g * (the other two axes' lerped values), into f32 accumulators
+// that stay in L2 (one allocation for all banks, 3 x 3968 x 128 f32, about
+// 6 MB at the flagship config). A warp owns one bank, one group of 128 rank
+// columns (4 per lane) and a run of 32 consecutive rows: lane k makes the
+// taps of row k once, in 32-bit arithmetic, and the warp reads them by
+// shuffles, so the taps are warp-uniform and no index is divided in the row
+// loop. Each lane loads its 4 columns of g in one 16-byte load; rows outside
+// [0, 1]^3, and rows whose g is zero in all of the warp's columns (most rows
+// late in training), add nothing and are skipped before their factor lines
+// are read, which is exact. The other rows' lines come in one 8-byte (bf16)
+// or 16-byte (f32) load each. Per axis the lane keeps the running sums of
+// taps i0 and i0 + 1 of its columns in registers and adds them to the
+// accumulators, one 16-byte atomic per tap, only when that axis's tap moves
+// from one row to the next (a move by one keeps the sum that lands on the
+// new pair) and at the end of the run: along a ray's samples the coarse
+// banks' taps repeat, so they flush a few times per ray, and neighbouring
+// rows' atomics stay off the same addresses. What bounds it is the L2
+// traffic of the gathers and the atomics: at 98,304 rows, 755 MB of factor
+// lines and the 252 MB read of g, and 16-byte atomics of 512 bytes a warp,
+// 6 per (live row, bank) without merging (1.5 GB on random rows; the fine
+// banks' taps rarely repeat). Atomics sum in no fixed order, so the result
+// varies in the last f32 bits from run to run.
 //
-// The encoder forward writes the CP features alone, [M, nb * R] in the output
-// type, zero for rows outside [0, 1]^3, with the same lerp code as the density
-// head (cp_value). One thread per output element, rank columns fastest, so a
-// warp's gathers hit one or two 128-byte lines of a factor row and its stores
-// are contiguous. At the mesh-export chunk (65,536 rows, turbo-hq) it reads 30
-// factor lines per row from banks that stay in L2 (3.05 MB in bf16) and writes
-// 84 MB of bf16 features, 0.025 ms at the card's 3.35 TB/s; it takes about ten
-// times that on an H100 (PERF.md), so the per-element index arithmetic and the
-// six L2 gathers per element bound it, not the write. Writing the zero and the
+// The encoder forward (cp_encode_runs_kernel, for _fwd_kernel /
+// _cp_encode_fwd_impl) writes the CP features alone, [M, nb * R] in the
+// output type, zero for rows outside [0, 1]^3, with the same work unit and
+// taps, its items ordered so that the card works through the banks one at a
+// time: each lane lerps and multiplies 4 columns of a row in f32 and stores
+// them in one 8-byte (bf16) or 16-byte (f32) store, four rows' loads in
+// flight. Its floor is the L2 traffic of the gathers on random points (30
+// lines of 256 bytes a row, 503 MB at the 65,536-row mesh chunk) and the
+// write (84 MB of bf16); on the mesh lattice, whose x and y are constant over
+// a run, only the z lines change from row to row. Writing the zero and the
 // output type here, as the Pallas kernel does, keeps a where/cast pass from
-// streaming the output through device memory again.
+// streaming the output again.
+//
+// Shapes whose columns cannot be read 4 at a time by one vector access (a
+// rank that is no multiple of 4, a g row stride or a bank that does not start
+// on one) take the scalar-column instance of the same kernels, chosen from
+// the shape before the launch (vec_route); its lanes take columns 32 apart,
+// so each of a warp's scalar loads and atomics covers 32 adjacent columns.
 //
 // Rounding follows the Pallas kernels: features are rounded to the weight
 // type before w1, h1 after its ReLU, geo features and the SH basis before the
@@ -78,10 +100,13 @@ constexpr int kRows = 32;           // sample rows per block
 constexpr int kThreads = 128;
 constexpr int kRowsPerThread = 8;   // register tile of the dense loops
 constexpr int kMaxSmemBytes = 232448;
-constexpr int kBwdThreads = 256;
-constexpr int kBwdMaxBlocks = 132 * 64;
-constexpr int kEncThreads = 256;
-constexpr int kEncMaxBlocks = 132 * 64;
+constexpr int kRunRows = 32;      // rows of a warp's run: lane k makes row k's taps
+constexpr int kGroupCols = 128;   // rank columns of a warp: 4 per lane
+constexpr int kRunThreads = 128;
+constexpr int kRunMaxBlocks = 132 * 64;
+constexpr int kBwdBatch = 2;      // rows of the factor backward whose loads are in flight
+constexpr int kEncBatch = 4;      // the same for the encoder forward
+constexpr unsigned kFull = 0xffffffffu;
 constexpr double kPi = 3.14159265358979323846;
 
 struct HeadParams {
@@ -108,9 +133,10 @@ struct BwdParams {
   const float* g;  // [M, g_stride] f32; columns b*rank .. b*rank+rank-1 are bank b's
   int g_stride;
   const void* factors[kMaxBanks];  // [3, res_b, rank] each
-  float* dfactors[kMaxBanks];      // [3, res_b, rank] f32 accumulators, zeroed
+  float* dfactors;                 // all banks' [3, res_b, rank] f32 accumulators, zeroed
+  int df_at[kMaxBanks];            // bank b's first accumulator in dfactors
   int res[kMaxBanks];
-  int nb, rank;
+  int nb, rank, groups;            // groups: column groups of kGroupCols
 };
 
 struct EncodeParams {
@@ -118,7 +144,7 @@ struct EncodeParams {
   int M;
   const void* factors[kMaxBanks];  // [3, res_b, rank] each
   int res[kMaxBanks];
-  int nb, rank;
+  int nb, rank, groups;
   void* out;  // [M, nb * rank] in the output type
 };
 
@@ -156,10 +182,15 @@ __device__ __forceinline__ Tap tap(float x, int res) {
   return {i0, pa - (float)i0};
 }
 
+// the f32 lerp of a factor line pair's values lo (tap i0) and hi (i0 + 1)
+__device__ __forceinline__ float lerp(float lo, float hi, float w) {
+  return lo * (1.f - w) + hi * w;
+}
+
 // f32 lerp of rank column r of a [res, rank] factor line at tap t.
 template <typename T>
 __device__ __forceinline__ float lerp_line(const T* line, Tap t, int rank, int r) {
-  return ld(line, t.i0 * rank + r) * (1.f - t.w) + ld(line, (t.i0 + 1) * rank + r) * t.w;
+  return lerp(ld(line, t.i0 * rank + r), ld(line, (t.i0 + 1) * rank + r), t.w);
 }
 
 // The CP feature of rank column r of bank f ([3, res, rank]) at q in [0, 1]^3:
@@ -342,60 +373,305 @@ __global__ void __launch_bounds__(kThreads) cp_density_kernel(HeadParams p) {
   }
 }
 
-// dF[b][ax] += tent_ax(m)^T (g_b[m] * prod_{ax' != ax} v_ax'[m]); one item per
-// (row, bank, rank column), rank fastest. Rows outside [0, 1]^3 add nothing.
-template <typename T>
-__global__ void __launch_bounds__(kBwdThreads) cp_bwd_banks_kernel(BwdParams p) {
-  const long long total = (long long)p.M * p.nb * p.rank;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long item = (long long)blockIdx.x * blockDim.x + threadIdx.x; item < total;
-       item += stride) {
-    const int r = (int)(item % p.rank);
-    const long long mb = item / p.rank;
-    const int b = (int)(mb % p.nb);
-    const int m = (int)(mb / p.nb);
-    const float* q = p.pos + 3 * (size_t)m;
-    if (!in_box(q)) continue;
-    const T* f = static_cast<const T*>(p.factors[b]);
-    const int res = p.res[b];
-    Tap t[3];
-    float v[3];
+// ---------------------------------------------------------------------------
+// The factor backward and the encoder forward: a warp per (run of kRunRows
+// rows, bank, column group of kGroupCols), 4 rank columns a lane.
+// ---------------------------------------------------------------------------
+
+// The taps of one row in one bank. A row that is past M or outside [0, 1]^3
+// is not live; its taps still name lines of the bank, so loads through them
+// stay inside it.
+struct RowTaps {
+  int i0[3];
+  float w[3];
+  int live;
+};
+
+__device__ __forceinline__ RowTaps lane_taps(const float* pos, int M, int row, int res) {
+  float q[3] = {0.f, 0.f, 0.f};
+  bool live = row < M;
+  if (live) {
 #pragma unroll
-    for (int ax = 0; ax < 3; ++ax) {
-      t[ax] = tap(q[ax], res);
-      v[ax] = lerp_line(f + (size_t)ax * res * p.rank, t[ax], p.rank, r);
-    }
-    const float g = p.g[(size_t)m * p.g_stride + (size_t)b * p.rank + r];
-    float* acc = p.dfactors[b];
+    for (int ax = 0; ax < 3; ++ax) q[ax] = __ldg(pos + 3 * (size_t)row + ax);
+    live = in_box(q);
+  }
+  RowTaps t;
 #pragma unroll
-    for (int ax = 0; ax < 3; ++ax) {
-      const float o = ax == 0 ? g * v[1] * v[2] : ax == 1 ? g * v[0] * v[2] : g * v[0] * v[1];
-      float* a = acc + ((size_t)ax * res + t[ax].i0) * p.rank + r;
-      atomicAdd(a, (1.f - t[ax].w) * o);
-      atomicAdd(a + p.rank, t[ax].w * o);
+  for (int ax = 0; ax < 3; ++ax) {
+    const Tap a = tap(q[ax], res);
+    t.i0[ax] = a.i0;
+    t.w[ax] = a.w;
+  }
+  t.live = live;
+  return t;
+}
+
+// row j of the warp's run: lane j's taps, the same in every lane
+__device__ __forceinline__ RowTaps run_taps(const RowTaps& mine, int j) {
+  RowTaps t;
+#pragma unroll
+  for (int ax = 0; ax < 3; ++ax) {
+    t.i0[ax] = __shfl_sync(kFull, mine.i0[ax], j);
+    t.w[ax] = __shfl_sync(kFull, mine.w[ax], j);
+  }
+  t.live = __shfl_sync(kFull, mine.live, j);
+  return t;
+}
+
+// 4 rank columns by one 16-byte (f32) or 8-byte (bf16) access
+__device__ __forceinline__ void ldv4(const float* p, float (&v)[4]) {
+  const float4 u = __ldg(reinterpret_cast<const float4*>(p));
+  v[0] = u.x;
+  v[1] = u.y;
+  v[2] = u.z;
+  v[3] = u.w;
+}
+
+__device__ __forceinline__ void ldv4(const __nv_bfloat16* p, float (&v)[4]) {
+  union {
+    uint2 u;
+    __nv_bfloat162 h[2];
+  } r;
+  r.u = __ldg(reinterpret_cast<const uint2*>(p));
+  const float2 a = __bfloat1622float2(r.h[0]), b = __bfloat1622float2(r.h[1]);
+  v[0] = a.x;
+  v[1] = a.y;
+  v[2] = b.x;
+  v[3] = b.y;
+}
+
+__device__ __forceinline__ void stv4(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+
+__device__ __forceinline__ void stv4(__nv_bfloat16* p, const float (&v)[4]) {
+  union {
+    uint2 u;
+    __nv_bfloat162 h[2];
+  } r;
+  r.h[0] = __floats2bfloat162_rn(v[0], v[1]);
+  r.h[1] = __floats2bfloat162_rn(v[2], v[3]);
+  *reinterpret_cast<uint2*>(p) = r.u;
+}
+
+// A lane's 4 rank columns: adjacent ones, read by one vector access
+// (kVec), or columns 32 apart, so that each scalar access of a warp reads 32
+// adjacent columns. p points at the first, n columns of the rank lie from it
+// on (none when n <= 0).
+template <bool kVec>
+constexpr int kColStep = kVec ? 1 : 32;
+
+template <bool kVec, typename T>
+__device__ __forceinline__ void ld4(const T* p, int n, float (&v)[4]) {
+  if (kVec && n > 0) {
+    ldv4(p, v);
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) v[j] = j * kColStep<kVec> < n ? ld(p, j * kColStep<kVec>) : 0.f;
+}
+
+template <bool kVec, typename T>
+__device__ __forceinline__ void st4(T* p, int n, const float (&v)[4]) {
+  if (kVec && n > 0) {
+    stv4(p, v);
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    if (j * kColStep<kVec> < n) st(p, j * kColStep<kVec>, v[j]);
+}
+
+// the columns at p += v by f32 atomics: one 16-byte atomic when kVec
+template <bool kVec>
+__device__ __forceinline__ void add4(float* p, int n, const float (&v)[4]) {
+  if (kVec && n > 0) {
+    atomicAdd(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    if (j * kColStep<kVec> < n) atomicAdd(p + j * kColStep<kVec>, v[j]);
+}
+
+// the f32 lerps of rank columns c .. c+3 of axis ax of a [3, res, rank] bank
+// at tap (i0, w)
+template <bool kVec, typename T>
+__device__ __forceinline__ void lerp4(const T* f, int res, int rank, int ax, int i0, float w,
+                                      int c, int n, float (&v)[4]) {
+  const T* line = f + (ax * res + i0) * rank + c;
+  float lo[4], hi[4];
+  ld4<kVec>(line, n, lo);
+  ld4<kVec>(line + rank, n, hi);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) v[j] = lerp(lo[j], hi[j], w);
+}
+
+// The item (run, bank, column group) a warp owns, column group fastest, then
+// bank (kBankFast: neighbouring warps add to different banks) or run (the
+// card gathers from one bank at a time); the lane's first column c (of its
+// 4, as ld4 lays them out) and the rank's columns from c on, n.
+struct RunItem {
+  int row0, b, c, n;
+};
+
+template <bool kBankFast, bool kVec>
+__device__ __forceinline__ RunItem run_item(int item, int M, int nb, int groups, int rank) {
+  const int rb = item / groups;
+  const int runs = (M + kRunRows - 1) / kRunRows;
+  RunItem it;
+  it.b = kBankFast ? rb % nb : rb / runs;
+  it.row0 = (kBankFast ? rb / nb : rb - it.b * runs) * kRunRows;
+  it.c = (item - rb * groups) * kGroupCols + (kVec ? 4 : 1) * (threadIdx.x & 31);
+  it.n = rank - it.c;
+  return it;
+}
+
+// out[m][b * rank + c] = the product over the axes of the f32 lerps of bank
+// b's rank column c at row m, zero outside [0, 1]^3, rounded once to O.
+template <typename T, typename O, bool kVec>
+__global__ void __launch_bounds__(kRunThreads) cp_encode_runs_kernel(EncodeParams p) {
+  const int items = (p.M + kRunRows - 1) / kRunRows * p.nb * p.groups;
+  const int warps = gridDim.x * (kRunThreads / 32);
+  const int nbR = p.nb * p.rank;
+  for (int item = blockIdx.x * (kRunThreads / 32) + (threadIdx.x >> 5); item < items;
+       item += warps) {
+    const RunItem it = run_item<false, kVec>(item, p.M, p.nb, p.groups, p.rank);
+    const int res = p.res[it.b];
+    const T* f = static_cast<const T*>(p.factors[it.b]);
+    const RowTaps mine = lane_taps(p.pos, p.M, it.row0 + (threadIdx.x & 31), res);
+    const int rows = min(kRunRows, p.M - it.row0);
+    O* o = static_cast<O*>(p.out) + (size_t)it.row0 * nbR + it.b * p.rank + it.c;
+    for (int j0 = 0; j0 < rows; j0 += kEncBatch) {
+      RowTaps t[kEncBatch];
+      float v[kEncBatch][4];
+#pragma unroll
+      for (int k = 0; k < kEncBatch; ++k) {
+        t[k] = run_taps(mine, j0 + k);
+        lerp4<kVec>(f, res, p.rank, 0, t[k].i0[0], t[k].w[0], it.c, it.n, v[k]);
+#pragma unroll
+        for (int ax = 1; ax < 3; ++ax) {
+          float a[4];
+          lerp4<kVec>(f, res, p.rank, ax, t[k].i0[ax], t[k].w[ax], it.c, it.n, a);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) v[k][j] *= a[j];
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kEncBatch; ++k) {
+        if (j0 + k >= rows) break;
+        if (!t[k].live) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) v[k][j] = 0.f;
+        }
+        st4<kVec>(o + (size_t)(j0 + k) * nbR, it.n, v[k]);
+      }
     }
   }
 }
 
-// out[m][b * rank + r] = cp_value of bank b, rank column r at row m, zero
-// outside [0, 1]^3, rounded once to O; one item per output element.
-template <typename T, typename O>
-__global__ void __launch_bounds__(kEncThreads) cp_encode_kernel(EncodeParams p) {
-  const int nbR = p.nb * p.rank;
-  const long long total = (long long)p.M * nbR;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  O* out = static_cast<O*>(p.out);
-  for (long long item = (long long)blockIdx.x * blockDim.x + threadIdx.x; item < total;
-       item += stride) {
-    const int m = (int)(item / nbR);
-    const int c = (int)(item - (long long)m * nbR);
-    const int b = c / p.rank;
-    const float* q = p.pos + 3 * (size_t)m;
-    const float v =
-        in_box(q) ? cp_value(q, static_cast<const T*>(p.factors[b]), p.res[b], p.rank,
-                             c - b * p.rank)
-                  : 0.f;
-    st(out, (size_t)item, v);
+// One axis of the factor backward's merge: lo and hi are the lane's running
+// sums for taps cur and cur + 1 of its columns (line: the axis's first
+// accumulator line). When the row's tap i0 differs from cur, the sums are
+// added to the accumulators (one atomic each); after a move by one, the sum
+// that lands on the new pair stays in registers.
+template <bool kVec>
+__device__ __forceinline__ void merge_tap(float* line, int rank, int n, int i0, int& cur,
+                                          float (&lo)[4], float (&hi)[4]) {
+  if (i0 == cur) return;
+  if (cur >= 0) {
+    if (i0 == cur + 1) {
+      add4<kVec>(line + cur * rank, n, lo);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        lo[j] = hi[j];
+        hi[j] = 0.f;
+      }
+    } else if (i0 == cur - 1) {
+      add4<kVec>(line + (cur + 1) * rank, n, hi);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        hi[j] = lo[j];
+        lo[j] = 0.f;
+      }
+    } else {
+      add4<kVec>(line + cur * rank, n, lo);
+      add4<kVec>(line + (cur + 1) * rank, n, hi);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) lo[j] = hi[j] = 0.f;
+    }
+  }
+  cur = i0;
+}
+
+// dF[b][ax] += tent_ax(m)^T (g_b[m] * prod_{ax' != ax} v_ax'[m]) over the
+// warp's run, summed in registers while a tap repeats. Rows outside
+// [0, 1]^3 add nothing.
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(kRunThreads) cp_bwd_runs_kernel(BwdParams p) {
+  const int items = (p.M + kRunRows - 1) / kRunRows * p.nb * p.groups;
+  const int warps = gridDim.x * (kRunThreads / 32);
+  for (int item = blockIdx.x * (kRunThreads / 32) + (threadIdx.x >> 5); item < items;
+       item += warps) {
+    const RunItem it = run_item<true, kVec>(item, p.M, p.nb, p.groups, p.rank);
+    const int res = p.res[it.b];
+    const T* f = static_cast<const T*>(p.factors[it.b]);
+    const RowTaps mine = lane_taps(p.pos, p.M, it.row0 + (threadIdx.x & 31), res);
+    const int rows = min(kRunRows, p.M - it.row0);
+    const float* g = p.g + it.b * p.rank + it.c;
+    float* acc = p.dfactors + p.df_at[it.b] + it.c;
+    int cur[3] = {-1, -1, -1};
+    float lo[3][4], hi[3][4];
+#pragma unroll
+    for (int ax = 0; ax < 3; ++ax)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) lo[ax][j] = hi[ax][j] = 0.f;
+    for (int j0 = 0; j0 < rows; j0 += kBwdBatch) {
+      // g first: rows past M or outside the box, and rows whose g is zero
+      // in all of the warp's columns, add nothing, and their factor lines
+      // are not read (live[k] is the same in every lane)
+      RowTaps t[kBwdBatch];
+      float gv[kBwdBatch][4], v[kBwdBatch][3][4];
+      bool live[kBwdBatch];
+#pragma unroll
+      for (int k = 0; k < kBwdBatch; ++k) {
+        t[k] = run_taps(mine, j0 + k);
+        ld4<kVec>(g + (size_t)min(it.row0 + j0 + k, p.M - 1) * p.g_stride, it.n, gv[k]);
+      }
+#pragma unroll
+      for (int k = 0; k < kBwdBatch; ++k) {
+        const bool nz = gv[k][0] != 0.f || gv[k][1] != 0.f || gv[k][2] != 0.f || gv[k][3] != 0.f;
+        live[k] = __any_sync(kFull, nz) && t[k].live;
+        if (!live[k]) continue;
+#pragma unroll
+        for (int ax = 0; ax < 3; ++ax)
+          lerp4<kVec>(f, res, p.rank, ax, t[k].i0[ax], t[k].w[ax], it.c, it.n, v[k][ax]);
+      }
+#pragma unroll
+      for (int k = 0; k < kBwdBatch; ++k) {
+        if (!live[k]) continue;
+#pragma unroll
+        for (int ax = 0; ax < 3; ++ax) {
+          const int a = ax == 0 ? 1 : 0, c = ax == 2 ? 1 : 2;
+          merge_tap<kVec>(acc + ax * res * p.rank, p.rank, it.n, t[k].i0[ax], cur[ax], lo[ax],
+                          hi[ax]);
+          const float w = t[k].w[ax];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const float o = gv[k][j] * v[k][a][j] * v[k][c][j];
+            lo[ax][j] += (1.f - w) * o;
+            hi[ax][j] += w * o;
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int ax = 0; ax < 3; ++ax) {
+      if (cur[ax] < 0) continue;
+      float* line = acc + (ax * res + cur[ax]) * p.rank;
+      add4<kVec>(line, it.n, lo[ax]);
+      add4<kVec>(line + p.rank, it.n, hi[ax]);
+    }
   }
 }
 
@@ -706,8 +982,8 @@ __device__ __forceinline__ uint4 gather_finish(const Gather8& G) {
     for (int j = 0; j < 4; ++j) {
       const float2 l = __bfloat1622float2(lo.h[j]);
       const float2 h = __bfloat1622float2(hi.h[j]);
-      const float v0 = l.x * (1.f - w) + h.x * w;
-      const float v1 = l.y * (1.f - w) + h.y * w;
+      const float v0 = lerp(l.x, h.x, w);
+      const float v1 = lerp(l.y, h.y, w);
       acc[2 * j] = ax == 0 ? v0 : acc[2 * j] * v0;
       acc[2 * j + 1] = ax == 0 ? v1 : acc[2 * j + 1] * v1;
     }
@@ -1161,24 +1437,41 @@ bool fill_density(HeadParams& p, const float* pos, int M, const void* const* fac
   return true;
 }
 
-template <typename T>
-int launch_bwd(const BwdParams& p, cudaStream_t stream) {
-  const long long total = (long long)p.M * p.nb * p.rank;
-  if (total == 0) return cudaSuccess;
-  const long long want = (total + kBwdThreads - 1) / kBwdThreads;
-  const int blocks = (int)(want < kBwdMaxBlocks ? want : kBwdMaxBlocks);
-  cp_bwd_banks_kernel<T><<<blocks, kBwdThreads, 0, stream>>>(p);
+// The one source of the backward's and the encoder's route: the vector
+// instance when every row and column group of the banks starts on a 4-column
+// access (8 bytes in bf16, 16 in f32), else the scalar-column one.
+bool vec_route(const void* const* factors, int nb, int rank, int itemsize) {
+  if (rank % 4 != 0) return false;
+  for (int b = 0; b < nb; ++b)
+    if ((uintptr_t)factors[b] % (4 * itemsize) != 0) return false;
+  return true;
+}
+
+// the run kernels: one warp per item, at most kRunMaxBlocks blocks
+template <typename P>
+int launch_runs(void (*kern)(P), const P& p, cudaStream_t stream) {
+  const long long items =
+      (long long)((p.M + kRunRows - 1) / kRunRows) * p.nb * p.groups;
+  if (items == 0) return cudaSuccess;
+  if (items > 0x7fffffffLL) return kUnsupportedShape;
+  constexpr int kWarps = kRunThreads / 32;
+  const long long want = (items + kWarps - 1) / kWarps;
+  kern<<<(int)(want < kRunMaxBlocks ? want : kRunMaxBlocks), kRunThreads, 0, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <typename T, typename O>
-int launch_encode(const EncodeParams& p, cudaStream_t stream) {
-  const long long total = (long long)p.M * p.nb * p.rank;
-  if (total == 0) return cudaSuccess;
-  const long long want = (total + kEncThreads - 1) / kEncThreads;
-  const int blocks = (int)(want < kEncMaxBlocks ? want : kEncMaxBlocks);
-  cp_encode_kernel<T, O><<<blocks, kEncThreads, 0, stream>>>(p);
-  return cudaGetLastError();
+// bank sizes the run kernels index in 32-bit arithmetic
+bool fill_banks(const void* const* factors, const int* res, int nb, int rank,
+                const void** p_factors, int* p_res) {
+  if (nb < 1 || nb > kMaxBanks || rank < 1) return false;
+  long long total = 0;
+  for (int b = 0; b < nb; ++b) {
+    if (res[b] < 2) return false;
+    total += 3LL * res[b] * rank;
+    p_factors[b] = factors[b];
+    p_res[b] = res[b];
+  }
+  return total <= 0x7fffffffLL;
 }
 
 }  // namespace
@@ -1205,24 +1498,27 @@ extern "C" int ngp_cp_density_fwd(const float* pos, int M, const void* const* fa
 
 extern "C" int ngp_cp_bwd_banks(const float* pos, int M, const float* g, int g_stride,
                                 const void* const* factors, const int* res, int nb, int rank,
-                                int bf16, float* const* dfactors, void* stream) {
-  if (nb < 1 || nb > kMaxBanks || rank < 1 || M < 0 || g_stride < nb * rank)
-    return cudaErrorInvalidValue;
+                                int bf16, float* dfactors, void* stream) {
   BwdParams p;
+  if (!fill_banks(factors, res, nb, rank, p.factors, p.res) || M < 0 || g_stride < nb * rank)
+    return cudaErrorInvalidValue;
   p.pos = pos;
   p.M = M;
   p.g = g;
   p.g_stride = g_stride;
+  p.dfactors = dfactors;
   p.nb = nb;
   p.rank = rank;
-  for (int b = 0; b < nb; ++b) {
-    if (res[b] < 2) return cudaErrorInvalidValue;
-    p.factors[b] = factors[b];
-    p.dfactors[b] = dfactors[b];
-    p.res[b] = res[b];
-  }
+  p.groups = (rank + kGroupCols - 1) / kGroupCols;
+  for (int b = 0, at = 0; b < nb; at += 3 * res[b] * rank, ++b) p.df_at[b] = at;
+  const bool vec = vec_route(factors, nb, rank, bf16 ? 2 : 4) && g_stride % 4 == 0 &&
+                   (uintptr_t)g % 16 == 0 && (uintptr_t)dfactors % 16 == 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch_bwd<__nv_bfloat16>(p, s) : launch_bwd<float>(p, s);
+  if (bf16)
+    return vec ? launch_runs(&cp_bwd_runs_kernel<__nv_bfloat16, true>, p, s)
+               : launch_runs(&cp_bwd_runs_kernel<__nv_bfloat16, false>, p, s);
+  return vec ? launch_runs(&cp_bwd_runs_kernel<float, true>, p, s)
+             : launch_runs(&cp_bwd_runs_kernel<float, false>, p, s);
 }
 
 extern "C" int ngp_cp_sigma_rgb(const float* pos, const float* dirs, int M,
@@ -1261,21 +1557,29 @@ extern "C" int ngp_cp_sigma_rgb(const float* pos, const float* dirs, int M,
 extern "C" int ngp_cp_encode_fwd(const float* pos, int M, const void* const* factors,
                                  const int* res, int nb, int rank, int bf16, int out_bf16,
                                  void* out, void* stream) {
-  if (nb < 1 || nb > kMaxBanks || rank < 1 || M < 0) return cudaErrorInvalidValue;
   EncodeParams p;
+  if (!fill_banks(factors, res, nb, rank, p.factors, p.res) || M < 0)
+    return cudaErrorInvalidValue;
   p.pos = pos;
   p.M = M;
   p.nb = nb;
   p.rank = rank;
+  p.groups = (rank + kGroupCols - 1) / kGroupCols;
   p.out = out;
-  for (int b = 0; b < nb; ++b) {
-    if (res[b] < 2) return cudaErrorInvalidValue;
-    p.factors[b] = factors[b];
-    p.res[b] = res[b];
-  }
+  const bool vec = vec_route(factors, nb, rank, bf16 ? 2 : 4) &&
+                   (uintptr_t)out % (out_bf16 ? 8 : 16) == 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    return out_bf16 ? launch_encode<__nv_bfloat16, __nv_bfloat16>(p, s)
-                    : launch_encode<__nv_bfloat16, float>(p, s);
-  return out_bf16 ? launch_encode<float, __nv_bfloat16>(p, s) : launch_encode<float, float>(p, s);
+  using B = __nv_bfloat16;
+  if (bf16) {
+    if (out_bf16)
+      return vec ? launch_runs(&cp_encode_runs_kernel<B, B, true>, p, s)
+                 : launch_runs(&cp_encode_runs_kernel<B, B, false>, p, s);
+    return vec ? launch_runs(&cp_encode_runs_kernel<B, float, true>, p, s)
+               : launch_runs(&cp_encode_runs_kernel<B, float, false>, p, s);
+  }
+  if (out_bf16)
+    return vec ? launch_runs(&cp_encode_runs_kernel<float, B, true>, p, s)
+               : launch_runs(&cp_encode_runs_kernel<float, B, false>, p, s);
+  return vec ? launch_runs(&cp_encode_runs_kernel<float, float, true>, p, s)
+             : launch_runs(&cp_encode_runs_kernel<float, float, false>, p, s);
 }

@@ -189,6 +189,108 @@ def test_cp_bwd_banks_kernel(dev, dtype, res, rank, fd, M):
         assert ((a.float() - b.float()).abs() <= bound).all()
 
 
+def ray_rows(m, seed):
+    """[m, 3] f32 positions in runs along rays, as a train step's
+    compacted samples: each ray 1-12 consecutive rows, 0.002-0.02 apart
+    along a random direction from a random start in the box, so the
+    coarse banks' taps repeat and change inside a run of 32 rows. Rays
+    that leave the box put rows outside it inside runs, and about one
+    row in 30 has a coordinate of exactly 0 or 1."""
+    rng = np.random.default_rng(seed)
+    rays, n = [], 0
+    while n < m:
+        k = int(rng.integers(1, 13))
+        d = rng.normal(size=3)
+        d /= np.linalg.norm(d)
+        start = rng.uniform(0.0, 1.0, 3)
+        rays.append(start + rng.uniform(0.002, 0.02) * np.arange(k)[:, None] * d)
+        n += k
+    pos = np.concatenate(rays)[:m].astype(np.float32)
+    edge = rng.choice(m, size=max(1, m // 30), replace=False)
+    pos[edge, rng.integers(0, 3, edge.size)] = rng.choice([0.0, 1.0], edge.size)
+    return pos
+
+
+def ray_cotangent(m, nb, rank, seed):
+    """[m, nb * rank] f32 normal cotangent with zero rows: about one in
+    five, a run of 40, and one bank's columns alone in about one in
+    ten."""
+    rng = np.random.default_rng(seed)
+    g = rng.normal(size=(m, nb * rank)).astype(np.float32)
+    g[rng.random(m) < 0.2] = 0.0
+    g[m // 3:m // 3 + 40] = 0.0
+    for i in np.flatnonzero(rng.random(m) < 0.1):
+        b = int(rng.integers(0, nb))
+        g[i, b * rank:(b + 1) * rank] = 0.0
+    return g
+
+
+def lattice_chunk(res_l, i):
+    """x-slice i of the ``ij`` lattice of linspace(-1, 1, res_l) per axis,
+    scaled to [0, 1] as ``NeRFNetwork.density`` scales it: the rows of one
+    ``save_mesh`` chunk at res_l = 256 (x constant, y changing every
+    res_l rows, z fastest)."""
+    xs = np.linspace(-1.0, 1.0, res_l, dtype=np.float32)
+    pts = np.stack(np.meshgrid(xs[i:i + 1], xs, xs, indexing="ij"), axis=-1).reshape(-1, 3)
+    return (pts + np.float32(1.0)) / np.float32(2.0)
+
+
+# rows along rays at the run kernels' edges: rank 6 (no multiple of 4: the
+# scalar-column instance), rank 12, one row, a ragged row count, rank 256
+# (two column groups of 128), and the turbo-hq banks
+RUN_SHAPES = [((32, 64), 6, 777), ((32, 64), 12, 1000), ((32, 64), 16, 1), ((32, 64), 16, 33),
+              ((128, 256), 256, 2000), ((128, 256, 512, 1024, 2048), 128, 4099)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("res,rank,M", RUN_SHAPES)
+def test_cp_bwd_banks_kernel_on_ray_rows(dev, dtype, res, rank, M):
+    """Rows along rays (``ray_rows``) with zero cotangent rows
+    (``ray_cotangent``), g contiguous as the density backward passes it."""
+    factors, _, _, _ = _weights(dev, dtype, res, rank, 0)
+    pos = torch.from_numpy(ray_rows(M, seed=M)).to(dev)
+    g_cp = torch.from_numpy(ray_cotangent(M, len(res), rank, seed=M + 1)).to(dev)
+    before = LAUNCHES["cp_bwd_banks"]
+    got = tk.cp_bwd_banks(pos, factors, g_cp, res)
+    torch.cuda.synchronize()
+    assert LAUNCHES["cp_bwd_banks"] == before + 1
+    want = tk.cp_bwd_banks_plain(pos, factors, g_cp, res)
+    for a, b, bound in zip(got, want, bwd_bound(pos, factors, g_cp, res, want)):
+        assert a.dtype == dtype and a.shape == b.shape
+        assert torch.isfinite(a).all()
+        assert ((a.float() - b.float()).abs() <= bound).all()
+
+
+def _check_encode(pos, factors, res, out_dtype):
+    before = LAUNCHES["cp_encode_fwd"]
+    got = tk.cp_encode_fwd(pos, factors, res, out_dtype)
+    assert LAUNCHES["cp_encode_fwd"] == before + 1
+    want = tk.cp_encode_plain(pos, factors, res, out_dtype)
+    assert got.dtype == out_dtype and got.shape == want.shape
+    oob = ((pos < 0) | (pos > 1)).any(dim=-1)
+    assert not got[oob].float().any()
+    _check(got.float(), want.float(), out_dtype)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("res,rank,M", RUN_SHAPES)
+def test_cp_encode_kernel_on_ray_rows(dev, dtype, out_dtype, res, rank, M):
+    factors, _, _, _ = _weights(dev, dtype, res, rank, 0)
+    _check_encode(torch.from_numpy(ray_rows(M, seed=M)).to(dev), factors, res, out_dtype)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("res,rank,res_l,i", [((32, 64), 12, 64, 17),
+                                              ((128, 256, 512, 1024, 2048), 128, 256, 128)])
+def test_cp_encode_kernel_on_mesh_lattice(dev, dtype, out_dtype, res, rank, res_l, i):
+    """One x-slice of the mesh lattice (``lattice_chunk``): a save_mesh
+    chunk of 65,536 rows on the turbo-hq banks, and a small one."""
+    factors, _, _, _ = _weights(dev, dtype, res, rank, 0)
+    _check_encode(torch.from_numpy(lattice_chunk(res_l, i)).to(dev), factors, res, out_dtype)
+
+
 # the radiance head's shapes: (res, rank, fd, M, scale, h1, out, sh degree,
 # colour hidden widths). The density edges (one row, a ragged row count,
 # rank 12, rank 256 with w1 streamed, factors of std 1.5), H1 = 128, 256 and
@@ -233,14 +335,7 @@ def test_cp_sigma_rgb_kernel(dev, dtype, res, rank, fd, M, scale, h1, out, sh, h
 def test_cp_encode_kernel(dev, dtype, out_dtype, res, rank, fd, M):
     factors, _, _, _ = _weights(dev, dtype, res, rank, fd)
     pos, _ = _inputs(dev, M)
-    before = LAUNCHES["cp_encode_fwd"]
-    got = tk.cp_encode_fwd(pos, factors, res, out_dtype)
-    assert LAUNCHES["cp_encode_fwd"] == before + 1
-    want = tk.cp_encode_plain(pos, factors, res, out_dtype)
-    assert got.dtype == out_dtype and got.shape == want.shape
-    oob = ((pos < 0) | (pos > 1)).any(dim=-1)
-    assert not got[oob].float().any()
-    _check(got.float(), want.float(), out_dtype)
+    _check_encode(pos, factors, res, out_dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -8,12 +8,13 @@ Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
 
-(``--probe-scatter`` adds ``scatter_probe`` to phase 9.) It builds the CUDA
-kernels from ``ngp_tpu_torch/ops/kernels/csrc`` (and counts the
-tensor-core instructions, HMMA, of the two bf16 heads in the library's
-SASS, and their spills in the compiler's report; and prints the
-registers and spills of the CP factor backward's and encoder's run
-kernels, whose SASS must call no 64-bit division routine), then
+(``--probe-scatter`` adds ``scatter_probe`` to phase 9.)
+It builds the CUDA kernels from ``ngp_tpu_torch/ops/kernels/csrc`` (and
+counts the tensor-core instructions, HMMA, of the two bf16 heads and of
+the MLP chain's tensor-core kernel in the library's SASS, and their
+spills in the compiler's report; and prints the registers and spills of
+the CP factor backward's and encoder's run kernels, whose SASS must call
+no 64-bit division routine, and of the turbo march), then
 
 2-3. builds the turbo-hq NeRF network at full width from a seeded
      generator (random weights), refreshes the 128^3 occupancy grid (16
@@ -27,13 +28,14 @@ kernels, whose SASS must call no 64-bit division routine), then
      radiance head at ``SIGMA_RGB_EDGES``), the mesh export's 65,536-row
      chunk for the CP encoder (on random rows and on one x-slice of the
      256^3 mesh lattice, a save_mesh chunk) and its backward, and 524,288 x
-     [32, 64, 64, 16] for the MLP chain (which no path runs); the
-     hash-grid encoder at the refresh chunk (131,072 points) and a
+     [32, 64, 64, 16] and [32, 64, 16] for the MLP chain (which no path
+     runs); the hash-grid encoder at the refresh chunk (131,072 points) and a
      hash-grid train step (4096 rays x 256 samples = 1,048,576 points)
      on the full-width table (16 levels x 2, 6,119,864 rows), forward
      and table gradient, and the row scatter-add (which no path runs
      any more) at the probe script's shape and one hash level's, with
-     ``Tensor.index_add_`` timed beside it;
+     ``Tensor.index_add_`` timed beside it; the coarse lookup (which
+     only the eval prepass runs) on random cells;
 5.   renders a small frame on the GPU and the same frame on the CPU
      through the plain versions;
 6.   renders the synthetic scene (16 train frames at 400x400 and one
@@ -44,8 +46,13 @@ kernels, whose SASS must call no 64-bit division routine), then
      backward inputs (positions and d(CP features)) it counts the rows
      that add nothing, prints what the backward's merge finds there
      (``merge_runs``) and holds ``cp_bwd_banks`` against its plain
-     version;
-7.   renders the val pose with the EMA weights and checks its PSNR;
+     version; on every 32nd step's and the last step's own march
+     inputs (rays, noise, the grid of that step) it holds
+     ``march_turbo`` against its plain version, every ray's samples bit
+     for bit;
+7.   renders the val pose with the EMA weights and checks its PSNR,
+     and holds ``march_turbo`` against its plain version on the frame's
+     first 4096-ray chunk;
      then, on the same trainer, ``evaluate`` (PSNR and SSIM, the PSNR
      equal to the frame's), ``test`` (its PNG decodes to the frame) and
      ``save_mesh`` at 256^3 (256 CP-encoder launches through
@@ -55,7 +62,12 @@ kernels, whose SASS must call no 64-bit division routine), then
 8.   runs one small f32 train step on the GPU and the same step on the
      CPU through the plain versions, and compares loss and gradients;
      then a bf16 network with ``hidden_dim=128`` refreshes, takes a
-     train step and renders a frame;
+     train step and renders a frame; then (8c) turbo-hq at the CLI's
+     default lattice, ``dt_gamma = 1/128``: 192 warm-up and 64 timed
+     train steps, 16 profiled steps and one profiled 800x800 frame,
+     beside phase 7's ``dt_gamma = 0`` figures, with ``march_turbo``
+     held against its plain version on the last timed step's own
+     inputs and on the first 4096-ray chunk of an 800x800 frame;
 9.   trains the hash-grid configuration at full width on the same scene
      (v1 march, 1024 steps and 256 samples per ray, 4096 rays per step,
      refresh every 16 steps) for 256 steps, times the last 128,
@@ -124,6 +136,15 @@ MESH_CHUNKS = MESH_RES**3 // 2**16
 ENCODE_ROWS = 2**16
 MLP_DIMS = [32, 64, 64, 16]
 MLP_ROWS = (524288, 300)
+# and the package's narrowest chain (the hash grid's sigma MLP) at the first
+MLP_NARROW = [32, 64, 16]
+# phase 8c: the CLI's default adaptive step (main_nerf.py's --dt_gamma); 192
+# untimed and 64 timed steps, so that its profiled steps, like phase 7e's,
+# follow 16 full grid refreshes and meet a partial one (a full refresh
+# makes 16 density chunks, a partial one 4)
+CLI_DT_GAMMA = 1 / 128
+GAMMA_STEPS = 192
+GAMMA_TIMED = 64
 # the density head's edges on the card, (rows, None for the model's banks
 # or (resolutions, rank, freq degree) of random ones, factor scale): one
 # row, a ragged row count (not a multiple of the 128-row tile), rank 12
@@ -324,7 +345,8 @@ def profile(fn, n, what, card, focus=()):
     "frame"): ``torch.profiler`` over them, the device time of each kernel
     (and copy) by name, the device's busy share of the host wall time,
     launches per call, and the device time and share of busy time of the
-    kernels whose names hold a string of ``focus``."""
+    kernels whose names hold a string of ``focus``. Returns (device ms
+    per call, launches per call, idle share)."""
     import torch
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
@@ -366,6 +388,7 @@ def profile(fn, n, what, card, focus=()):
         count = sum(c for key, (_, c) in rows if name in key) / n
         print(f"  {name}: {ms:.3f} ms per {what} in {count:.0f} launches, "
               f"{ms * n / max(busy, 1e-9):.3f} of the device busy time  [{card}]")
+    return busy / n, launches / n, 1.0 - busy / (wall * 1e3)
 
 
 def ptxas_usage(report, kernel):
@@ -556,11 +579,154 @@ def print_results(results, library, card, printed):
     return printed | set(results)
 
 
-def check_launched(path, counts, names):
+def check_launched(path, counts, names, absent=()):
+    """Raise unless each kernel of ``names`` and none of ``absent`` was
+    launched on the path."""
     print(f"launches [{path}]: {json.dumps(counts)}", flush=True)
     for name in names:
         if counts[name] <= 0:
             raise RuntimeError(f"kernel {name} was not launched on the {path} path")
+    for name in absent:
+        if counts[name] != 0:
+            raise RuntimeError(f"kernel {name} was launched {counts[name]} times on the {path} "
+                               "path")
+
+
+def record_marches(occupancy, keep):
+    """Wrap the march kernel that ``march_rays_turbo`` calls: call n's
+    inputs (cloned) go into the returned dict under ``keep(n, rays)``'s
+    label, unless it returns None. Returns (the dict, a function that
+    restores the kernel)."""
+    seen, calls, launch = {}, [0], occupancy.march_turbo
+
+    def record(rays_o, rays_d, coarse, fine, cfg, S, K2, U, aabb=None, t_range=None,
+               noise=None):
+        label = keep(calls[0], rays_o.shape[0])
+        calls[0] += 1
+        if label is not None and label not in seen:
+            def c(t):
+                return t.clone() if hasattr(t, "clone") else t
+            seen[label] = ((rays_o.clone(), rays_d.clone(), coarse.clone(), fine.clone(), cfg, S,
+                            K2, U), dict(aabb=c(aabb), t_range=c(t_range), noise=c(noise)))
+        return launch(rays_o, rays_d, coarse, fine, cfg, S, K2, U, aabb=aabb, t_range=t_range,
+                      noise=noise)
+
+    occupancy.march_turbo = record
+
+    def restore():
+        occupancy.march_turbo = launch
+        return calls[0]
+
+    return seen, restore
+
+
+def compare_march(label, args, kw, card, results):
+    """``march_turbo`` against its plain version on one march's own
+    inputs: every ray's near, far, samples, steps, mask and count bit for
+    bit, the drop estimate to 1e-6 relative; then the times (plain, kernel,
+    kernel, plain). Bound: the rays (and noise, t_range) read once, the
+    coarse payload, one 8-byte fine word per sample, the outputs written
+    once."""
+    import torch
+
+    from ngp_tpu_torch.ops.kernels import march
+
+    got = march.march_turbo(*args, **kw)
+    want = march.march_turbo_plain(*args, **kw)
+    torch.cuda.synchronize()
+    differ = (((got["ts"] != want["ts"]) | (got["mask"] != want["mask"])
+               | (got["deltas"] != want["deltas"])).any(dim=1) | (got["n_total"] != want["n_total"])
+              | (got["nears"] != want["nears"]) | (got["fars"] != want["fars"]))
+    n_diff = int(differ.sum())
+    nd_err = (got["n_dropped"] - want["n_dropped"]).abs()
+    err = max(float((got[k].float() - want[k].float()).abs().max())
+              for k in ("ts", "deltas", "n_dropped", "n_total"))
+    N, S = got["ts"].shape
+    n_samples = int(got["mask"].sum())
+    print(f"march_turbo [{label}]: {N} rays x {S} slots, {n_samples} samples, {n_diff} rays "
+          f"differ from the plain version, n_dropped {float(got['n_dropped'].sum()):.1f} "
+          f"(max |kernel - plain| {float(nd_err.max()):.3e})", flush=True)
+    if n_diff or not (nd_err <= 1e-6 * want["n_dropped"].abs()).all():
+        raise RuntimeError(f"march_turbo [{label}]: {n_diff} rays differ from the plain version")
+    ins = [t for t in (*args[:2], kw.get("t_range"), kw.get("noise")) if torch.is_tensor(t)]
+    n_bytes = nbytes(*ins, args[2], *got.values()) + 8 * n_samples
+    p1 = cuda_ms(lambda: march.march_turbo_plain(*args, **kw))
+    k1 = cuda_ms(lambda: march.march_turbo(*args, **kw))
+    k2 = cuda_ms(lambda: march.march_turbo(*args, **kw))
+    p2 = cuda_ms(lambda: march.march_turbo_plain(*args, **kw))
+    results[("march_turbo", label)] = (err, (k1 + k2) / 2, (p1 + p2) / 2, bound(n_bytes))
+
+
+def gamma_window(dev, card, rc, nc, train_ds, results):
+    """turbo-hq at the CLI's default lattice (``dt_gamma = 1/128``, about
+    218 probes a ray): a fresh network trained GAMMA_STEPS steps, then
+    GAMMA_TIMED timed, 16 steps and one 800x800 frame of the trained
+    model under the profiler; ``march_turbo`` held against its plain
+    version on the last timed step's own inputs and on the first
+    4096-ray chunk of the unprofiled frame (its recurrence branch).
+    Returns (rays/s, the timed steps' launch counts, the frame's launch
+    counts, the step profile, the frame profile)."""
+    import dataclasses
+
+    import torch
+
+    from ngp_tpu_torch.config import TrainConfig
+    from ngp_tpu_torch.models import occupancy
+    from ngp_tpu_torch.models.nerf import NeRFNetwork
+    from ngp_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from ngp_tpu_torch.training.nerf_grid import GridNeRFTrainer
+
+    grc = dataclasses.replace(rc, dt_gamma=CLI_DT_GAMMA)
+    model = NeRFNetwork(nc, grc, torch.Generator().manual_seed(SEED), device=dev)
+    with tempfile.TemporaryDirectory() as ws:
+        tc = TrainConfig(iters=30000, lr=1e-2, num_rays=TRAIN_RAYS, update_extra_interval=16,
+                         workspace=ws)
+        trainer = GridNeRFTrainer(model, grc, tc, seed=SEED)
+        trainer.mark_untrained(train_ds.poses, train_ds.intrinsics, train_ds.H, train_ds.W)
+        epoch_iter = trainer.make_loader(train_ds)
+        batches = itertools.chain.from_iterable(epoch_iter() for _ in itertools.count())
+        last = GAMMA_STEPS + GAMMA_TIMED - 1
+        march_seen, restore_march = record_marches(
+            occupancy, lambda n, _: f"dt_gamma {CLI_DT_GAMMA} step {n}" if n == last else None)
+        for _ in range(GAMMA_STEPS):
+            trainer.step(next(batches))
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        losses = [trainer.step(next(batches))["loss"] for _ in range(GAMMA_TIMED)]
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        step_counts = launch_counts()
+        if restore_march() != last + 1:
+            raise RuntimeError(f"dt_gamma {CLI_DT_GAMMA}: not one march a step")
+        loss = float(torch.stack(losses).mean())
+        rays_s = GAMMA_TIMED * TRAIN_RAYS / dt
+        print(f"dt_gamma {CLI_DT_GAMMA}: {GAMMA_TIMED / dt:.2f} steps/s, {rays_s:.0f} rays/s over "
+              f"steps {GAMMA_STEPS}-{GAMMA_STEPS + GAMMA_TIMED - 1}, mean loss {loss:.6f}  "
+              f"[{card}]", flush=True)
+        if not math.isfinite(loss):
+            raise RuntimeError(f"dt_gamma {CLI_DT_GAMMA}: non-finite loss")
+        pose, intr = orbit_pose(0.7), intrinsics(FRAME)
+        chunk = f"dt_gamma {CLI_DT_GAMMA} eval chunk"
+        frame_seen, restore_march = record_marches(
+            occupancy, lambda n, rays: chunk if rays == 4096 else None)
+        reset_launch_counts()
+        img, _ = trainer.render_frame(pose, intr, FRAME, FRAME)
+        frame_counts = launch_counts()
+        restore_march()
+        if not (img.shape == (FRAME, FRAME, 3) and (img >= 0).all() and (img <= 1).all()):
+            raise RuntimeError(f"dt_gamma {CLI_DT_GAMMA}: the frame is not an image in [0, 1]")
+        march_seen.update(frame_seen)
+        if len(march_seen) != 2:
+            raise RuntimeError(f"dt_gamma {CLI_DT_GAMMA}: marches caught {sorted(march_seen)}")
+        for label, (m_args, m_kw) in march_seen.items():
+            compare_march(label, m_args, m_kw, card, results)
+        del march_seen, frame_seen
+        frame_prof = profile(lambda: trainer.render_frame(pose, intr, FRAME, FRAME), 1, "frame",
+                             card, focus=("march", "coarse_lookup"))
+        step_prof = profile(lambda: trainer.step(next(batches)), 16, "step", card,
+                            focus=("march", "topk"))
+    return rays_s, step_counts, frame_counts, step_prof, frame_prof
 
 
 def train_step_gpu_vs_cpu(dev, hash_grid=False):
@@ -587,7 +753,7 @@ def train_step_gpu_vs_cpu(dev, hash_grid=False):
                           compact_mean_samples=6)
         nc = NetworkConfig(encoding="cpgrid", use_bf16=False, cp_resolutions=(32, 64),
                            cp_rank=16, cp_freq_degree=4, sh_degree=3)
-        kernels = ("cp_density_fwd_residuals", "cp_bwd_banks", "coarse_lookup_bits")
+        kernels = ("cp_density_fwd_residuals", "cp_bwd_banks", "march_turbo")
     path = "small hash-grid train step" if hash_grid else "small train step"
     with tempfile.TemporaryDirectory() as ws:
         tc = TrainConfig(num_rays=1024, workspace=ws)
@@ -623,7 +789,7 @@ def train_step_gpu_vs_cpu(dev, hash_grid=False):
             {k: v.to(dev) for k, v in draws.items()})
         torch.cuda.synchronize()
         hook.remove()
-        check_launched(path, launch_counts(), kernels)
+        check_launched(path, launch_counts(), kernels, absent=("coarse_lookup_bits",))
         mc = cpu_tr.train_step(batch, draws)
     if hash_grid:
         # the card's table gradient against the plain version's on the
@@ -690,6 +856,7 @@ def main():
 
     from ngp_tpu_torch.config import NetworkConfig, RenderConfig, TrainConfig
     from ngp_tpu_torch.data.synthetic import make_synthetic_frames
+    from ngp_tpu_torch.models import occupancy
     from ngp_tpu_torch.models.nerf import NeRFNetwork
     from ngp_tpu_torch.ops.kernels import build, cp, launch_counts, march, reset_launch_counts
     from ngp_tpu_torch.ops.hashgrid import GridConfig, grid_encode
@@ -719,8 +886,9 @@ def main():
     for line in report.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"ptxas: {line.strip()}")
-    # the bf16 heads' tensor-core kernels: HMMA in their SASS, no spills
-    for kernel in ("cp_density_tc_kernel", "cp_sigma_rgb_tc_kernel"):
+    # the tensor-core kernels of the bf16 heads and the MLP chain: HMMA in
+    # their SASS, no spills
+    for kernel in ("cp_density_tc_kernel", "cp_sigma_rgb_tc_kernel", "fused_mlp_tc_kernel"):
         hmma = sum("HMMA" in line for line in sass_lines(build.library_path(), kernel))
         spills = sum(n for _, _, n in ptxas_usage(report, kernel))
         print(f"SASS: {kernel} has {hmma} HMMA instructions; ptxas: {spills} bytes of spill "
@@ -739,6 +907,8 @@ def main():
               flush=True)
         if divs:
             raise RuntimeError(f"{kernel} calls a division routine: {divs[:2]}")
+    for name, regs, spills in ptxas_usage(report, "march_turbo_kernel"):
+        print(f"ptxas: {name}: {regs} registers, {spills} bytes of spill stores", flush=True)
 
     # 2. the turbo-hq network at full width, random weights from a seed
     rc = RenderConfig(
@@ -780,7 +950,7 @@ def main():
         images.append(img)
     eval_counts = launch_counts()
     check_launched("eval", eval_counts, ("cp_density_fwd", "cp_density_fwd_tc", "cp_sigma_rgb",
-                                         "cp_sigma_rgb_tc", "coarse_lookup_bits"))
+                                         "cp_sigma_rgb_tc", "march_turbo", "coarse_lookup_bits"))
     for img in images:
         if img.shape != (FRAME, FRAME, 3) or not np.isfinite(img).all():
             raise RuntimeError("frame is not a finite 800x800x3 image")
@@ -958,15 +1128,21 @@ def main():
             lambda: torch.autograd.grad(cp.cp_encode_plain(pos_e, fr, res), fr, g_e), dtype,
             (nbytes(pos_e, g_e, *fa, *fa) + M * nbR * 4, 0, 38 * M * nbR),
             tol=lambda want: bwd_bound(cp, pos_e, fa, g_e, res, want))
-    # the MLP chain at the JAX docstring's shape and a ragged small batch
-    for rows_m in MLP_ROWS:
-        x_m = torch.randn((rows_m, MLP_DIMS[0]), generator=gen, device=dev)
-        w_m = [torch.randn((MLP_DIMS[i], MLP_DIMS[i + 1]), generator=gen, device=dev) * 0.2
-               for i in range(len(MLP_DIMS) - 1)]
-        results[("fused_mlp", str(rows_m))] = compare(
+    # the MLP chain at the JAX docstring's shape and a ragged small batch,
+    # and the narrowest chain
+    for dims, rows_m, label in [(MLP_DIMS, r, str(r)) for r in MLP_ROWS] + [
+            (MLP_NARROW, MLP_ROWS[0], f"{MLP_ROWS[0]} x {'-'.join(map(str, MLP_NARROW))}")]:
+        x_m = torch.randn((rows_m, dims[0]), generator=gen, device=dev)
+        w_m = [torch.randn((dims[i], dims[i + 1]), generator=gen, device=dev) * 0.2
+               for i in range(len(dims) - 1)]
+        before = launch_counts()["fused_mlp_tc"]
+        mlp.fused_mlp(x_m, w_m)
+        if launch_counts()["fused_mlp_tc"] != before + 1:
+            raise RuntimeError(f"fused_mlp: {dims} missed the tensor cores")
+        results[("fused_mlp", label)] = compare(
             "fused_mlp", lambda: mlp.fused_mlp(x_m, w_m), lambda: mlp.fused_mlp_plain(x_m, w_m),
-            "bfloat16", (nbytes(x_m, *w_m) + rows_m * MLP_DIMS[-1] * 4,
-                         rows_m * 2 * sum(a * b for a, b in zip(MLP_DIMS, MLP_DIMS[1:])), 0))
+            "bfloat16", (nbytes(x_m, *w_m) + rows_m * dims[-1] * 4,
+                         rows_m * 2 * sum(a * b for a, b in zip(dims, dims[1:])), 0))
     payload = occ.coarse_payload
     fc = torch.randint(0, payload.numel() * 8, (4096, 64), generator=gen, device=dev,
                        dtype=torch.int32)
@@ -1107,19 +1283,27 @@ def main():
             return launch_bwd(pos, factors, g_cp, resolutions)
 
         cp.cp_bwd_banks = record_bwd
+        # and the march's own inputs of every 32nd step and the last, one
+        # march a step
+        march_seen, restore_march = record_marches(
+            occupancy,
+            lambda n, _: f"step {n}" if n % 32 == 0 or n == TRAIN_STEPS - 1 else None)
         torch.cuda.reset_peak_memory_stats()
         reset_launch_counts()
         metrics, dt, batches = train(trainer, "train", TRAIN_STEPS, TIMED_STEPS)
         cp.cp_bwd_banks = launch_bwd
-        if bwd_calls[0] != TRAIN_STEPS:
-            raise RuntimeError(f"train: {bwd_calls[0]} factor backward calls in {TRAIN_STEPS} "
-                               "steps")
+        march_calls = restore_march()
+        if bwd_calls[0] != TRAIN_STEPS or march_calls != TRAIN_STEPS:
+            raise RuntimeError(f"train: {bwd_calls[0]} factor backward calls and {march_calls} "
+                               f"marches in {TRAIN_STEPS} steps")
+        train_dt = dt
         losses = [m["loss"] for m in metrics]
         overflow = [m["turbo_overflow"] for m in metrics]
         train_counts = launch_counts()
         check_launched("train", train_counts, ("cp_density_fwd", "cp_density_fwd_tc",
                                               "cp_density_fwd_residuals",
-                                              "cp_bwd_banks", "coarse_lookup_bits"))
+                                              "cp_bwd_banks", "march_turbo"),
+                       absent=("coarse_lookup_bits",))
         steps_s = TIMED_STEPS / dt
         held = sum(nbytes(pos, *fac, g) for pos, fac, g, _ in bwd_seen.values())
         print(f"train: {steps_s:.2f} steps/s, {steps_s * TRAIN_RAYS:.0f} rays/s, "
@@ -1139,19 +1323,31 @@ def main():
         for label, (pos_s, fac_s, g_s, res_s) in bwd_seen.items():
             step_factor_gradient(pos_s, fac_s, g_s, res_s, label, card, results)
         del bwd_seen
+        for label, (m_args, m_kw) in march_seen.items():
+            compare_march(label, m_args, m_kw, card, results)
+        del march_seen
 
         # 7. the trained frame: the val pose with the EMA weights
         reset_launch_counts()
         pose, H, W = val_ds.poses[0], val_ds.H, val_ds.W
+        # the frame's first 4096-ray chunk's march inputs
+        march_seen, restore_march = record_marches(
+            occupancy, lambda n, rays: "eval chunk" if rays == 4096 else None)
         t0 = time.perf_counter()
         img, _ = trainer.render_frame(pose, val_ds.intrinsics, H, W)
         dt = phase(f"trained frame ({H}x{W}, EMA weights)", t0)
+        restore_march()
         t0 = time.perf_counter()
         img, _ = trainer.render_frame(pose, val_ds.intrinsics, H, W)
         dt2 = phase(f"trained frame again ({H}x{W})", t0)
         frame_counts = launch_counts()
         check_launched("trained frame", frame_counts, ("cp_sigma_rgb", "cp_sigma_rgb_tc",
-                                            "coarse_lookup_bits"))
+                                                       "march_turbo", "coarse_lookup_bits"))
+        for label, (m_args, m_kw) in march_seen.items():
+            compare_march(label, m_args, m_kw, card, results)
+        if "eval chunk" not in march_seen:
+            raise RuntimeError("trained frame: no 4096-ray march chunk")
+        del march_seen
         gt = val_ds.images[0]
         gt = gt[..., :3] * gt[..., 3:] + (1.0 - gt[..., 3:])
         psnr = -10.0 * math.log10(float(np.mean((img - gt) ** 2)))
@@ -1168,7 +1364,7 @@ def main():
         phase("evaluate (1 val frame, PSNR and SSIM)", t0)
         evaluate_counts = launch_counts()
         check_launched("evaluate", evaluate_counts, ("cp_sigma_rgb", "cp_sigma_rgb_tc",
-                                            "coarse_lookup_bits"))
+                                                     "march_turbo", "coarse_lookup_bits"))
         if not (math.isfinite(ev["psnr"]) and ev["psnr"] >= MIN_PSNR and 0.0 < ev["ssim"] <= 1.0):
             raise RuntimeError(f"evaluate: PSNR {ev['psnr']}, SSIM {ev['ssim']}")
         if abs(ev["psnr"] - psnr) > EVAL_PSNR_TOL:
@@ -1182,7 +1378,7 @@ def main():
         phase("test (1 frame, PNG)", t0)
         test_counts = launch_counts()
         check_launched("test", test_counts, ("cp_sigma_rgb", "cp_sigma_rgb_tc",
-                                            "coarse_lookup_bits"))
+                                             "march_turbo", "coarse_lookup_bits"))
         png = read_png(os.path.join(out_dir, f"{trainer.name}_0000_rgb.png"))
         if not np.array_equal(png, (np.clip(img, 0, 1) * 255).astype(np.uint8)):
             raise RuntimeError("test: the PNG does not decode to the rendered frame")
@@ -1218,10 +1414,10 @@ def main():
         # among them)
         pose, intr = orbit_pose(0.7), intrinsics(FRAME)
         trainer.render_frame(pose, intr, FRAME, FRAME)
-        profile(lambda: trainer.render_frame(pose, intr, FRAME, FRAME), 1, "frame", card,
-                focus=("cp_sigma_rgb", "cp_density", "coarse_lookup"))
-        profile(lambda: trainer.step(next(batches)), 16, "step", card,
-                focus=("cp_bwd", "cp_density"))
+        frame_prof = profile(lambda: trainer.render_frame(pose, intr, FRAME, FRAME), 1, "frame",
+                             card, focus=("cp_sigma_rgb", "cp_density", "march", "coarse_lookup"))
+        step_prof = profile(lambda: trainer.step(next(batches)), 16, "step", card,
+                            focus=("cp_bwd", "cp_density", "march", "topk"))
 
     # 8. one small train step: GPU kernels against the CPU plain versions
     train_step_gpu_vs_cpu(dev)
@@ -1245,13 +1441,31 @@ def main():
         wide_counts = launch_counts()
         check_launched("hidden_dim=128", wide_counts,
                        ("cp_density_fwd_tc", "cp_density_fwd_residuals", "cp_bwd_banks",
-                        "cp_sigma_rgb_tc", "coarse_lookup_bits"))
+                        "cp_sigma_rgb_tc", "march_turbo", "coarse_lookup_bits"))
         if not math.isfinite(loss) or not np.isfinite(img).all() or img.min() < 0 or img.max() > 1:
             raise RuntimeError(f"hidden_dim=128: loss {loss}, frame values "
                                f"{img.min()}..{img.max()}")
         print(f"hidden_dim=128: loss {loss:.6f}, frame {img.shape}, mean "
               f"{float(img.mean()):.4f}", flush=True)
     del trainer, model
+
+    # 8c. turbo-hq at the CLI's default lattice, beside phase 7's dt_gamma = 0
+    t0 = time.perf_counter()
+    g_rays_s, gamma_counts, gamma_frame_counts, g_step, g_frame = gamma_window(
+        dev, card, rc, nc, train_ds, results)
+    phase(f"dt_gamma {CLI_DT_GAMMA} window", t0)
+    check_launched(f"dt_gamma {CLI_DT_GAMMA} train", gamma_counts, ("march_turbo",),
+                   absent=("coarse_lookup_bits",))
+    check_launched(f"dt_gamma {CLI_DT_GAMMA} frame", gamma_frame_counts,
+                   ("march_turbo", "coarse_lookup_bits", "cp_sigma_rgb_tc"))
+    for what, (zero, gamma) in (("step", (step_prof, g_step)), ("frame", (frame_prof, g_frame))):
+        print(f"{what}: dt_gamma 0 {zero[0]:.2f} ms device time in {zero[1]:.0f} launches "
+              f"(idle {zero[2]:.3f}); dt_gamma {CLI_DT_GAMMA} {gamma[0]:.2f} ms in "
+              f"{gamma[1]:.0f} launches (idle {gamma[2]:.3f})  [{card}]", flush=True)
+    print(f"train: dt_gamma 0 {TIMED_STEPS * TRAIN_RAYS / train_dt:.0f} rays/s (steps "
+          f"{TRAIN_STEPS - TIMED_STEPS}-{TRAIN_STEPS - 1}), dt_gamma {CLI_DT_GAMMA} "
+          f"{g_rays_s:.0f} rays/s (steps {GAMMA_STEPS}-{GAMMA_STEPS + GAMMA_TIMED - 1})  "
+          f"[{card}]", flush=True)
 
     # 9. the hash-grid configuration (main_nerf.py <scene> -O --encoding
     # hashgrid) on the same scene: full width, v1 march, random init
@@ -1357,13 +1571,18 @@ def main():
 
     print_results(results, library, card, printed)
     path_counts = (eval_counts, train_counts, frame_counts, evaluate_counts, test_counts,
-                   mesh_counts, wide_counts, hash_train_counts, hash_frame_counts)
+                   mesh_counts, wide_counts, gamma_counts, gamma_frame_counts, hash_train_counts,
+                   hash_frame_counts)
     csrc = "ngp_tpu_torch/ops/kernels/csrc/"
     sources = {
         "cp_density_fwd": (csrc + "cp_kernels.cu", "ngp_tpu/ops/pallas/cp_kernels.py:345",
                            ("cp_density_fwd+residuals", "bfloat16")),
         "cp_sigma_rgb": (csrc + "cp_kernels.cu", "ngp_tpu/ops/pallas/cp_kernels.py:506",
                          ("cp_sigma_rgb", "bfloat16")),
+        # the march around the lookup on the train and eval paths, on the last
+        # train step's own inputs; the lookup alone in the eval prepass
+        "march_turbo": (csrc + "march_kernels.cu", "ngp_tpu/ops/pallas/march_kernels.py:73",
+                        ("march_turbo", f"step {TRAIN_STEPS - 1}")),
         "coarse_lookup_bits": (csrc + "march_kernels.cu",
                                "ngp_tpu/ops/pallas/march_kernels.py:73",
                                ("coarse_lookup_bits", "bits")),

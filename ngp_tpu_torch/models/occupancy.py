@@ -5,13 +5,13 @@ The functions keep the JAX names, array layouts and sample semantics:
 the same t-lattice, the same coarse (pooled, byte-packed) and fine
 (64-bit per coarse cell) occupancy tests, the same per-ray candidate,
 crossing and sample budgets with far-first drops, the same water-filled
-compaction and the same masked compositing. What the JAX code shaped
-for the TPU is written here as plain gathers and scatters: the fine
-payload bits are read by a gather per candidate instead of a one-hot
-einsum, and compaction is one stable sort of the ray-major mask.
-Selection by t-bits keys (``torch.topk`` over the int32 bit patterns of
-t) stays, since it both orders and carries t. The coarse occupancy
-test is the hand-written kernel ``ops/kernels/march.coarse_lookup_bits``.
+compaction and the same masked compositing. The turbo march is one
+hand-written kernel, ``ops/kernels/march.march_turbo``, which walks each
+ray's lattice in march order and compacts with warp ballots where the
+JAX code selects by top-k over t-bits keys and routes the fine payload
+by one-hot einsums; its plain version keeps the JAX composition. The
+prepass's coarse test is the kernel ``coarse_lookup_bits``. Compaction
+is one stable sort of the ray-major mask.
 
 The fine payload's uint32 words are held in int64 tensors.
 """
@@ -19,7 +19,6 @@ The fine payload's uint32 words are held in int64 tensors.
 from __future__ import annotations
 
 import dataclasses
-import functools
 import math
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
@@ -27,50 +26,26 @@ import numpy as np
 import torch
 
 from ngp_tpu_torch.config import RenderConfig
-from ngp_tpu_torch.ops.kernels.march import coarse_lookup_bits
+from ngp_tpu_torch.ops.kernels.march import coarse_lookup_bits, march_turbo
+from ngp_tpu_torch.ops.lattice import (  # noqa: F401  (re-exported)
+    _TKEY_INVALID,
+    _TKEY_THRESH,
+    COARSE_FACTOR,
+    SQRT3,
+    _ascending,
+    _cells,
+    _frexp_exponent,
+    _points,
+    _tbits,
+    dt_bounds,
+    lattice_probes,
+    mip_from_dt,
+    mip_from_pos,
+    t_lattice,
+)
 from ngp_tpu_torch.ops.rays import near_far_from_aabb
 
-SQRT3 = math.sqrt(3.0)
-COARSE_FACTOR = 4  # fine cells per coarse cell per axis
 ALIGN = 4  # compact segment alignment (samples per placement row)
-# t-bits keys: positive-f32 bit patterns are monotone in t; real t's
-# bits stay below _TKEY_THRESH (bits of 2^33), invalid probes add
-# _TKEY_INVALID without int32 overflow
-_TKEY_INVALID = 0x20000000
-_TKEY_THRESH = 0x50000000
-
-
-def dt_bounds(cfg: RenderConfig) -> Tuple[float, float]:
-    """(dt_min, dt_max) of the adaptive step clamp."""
-    dt_min = 2.0 * SQRT3 / cfg.max_steps
-    dt_max = 2.0 * SQRT3 * (2 ** (cfg.cascades - 1)) / cfg.grid_size
-    return dt_min, dt_max
-
-
-@functools.lru_cache(maxsize=None)
-def _adaptive_probe_count(dt_gamma: float, dt_min: float, dt_max: float,
-                          t0: float, span: float) -> int:
-    cap = int(math.ceil(span / dt_min)) + 2
-    t, k = t0, 0
-    end = t0 + span
-    while t < end and k < cap:
-        t += min(max(t * dt_gamma, dt_min), dt_max)
-        k += 1
-    return max(k + 2, 2)
-
-
-def lattice_probes(cfg: RenderConfig) -> int:
-    """Probe count K of the march lattice (a function of the config)."""
-    span = cfg.lattice_span
-    dt_min, dt_max = dt_bounds(cfg)
-    if cfg.dt_gamma == 0.0:
-        if span is None:
-            return int(math.ceil(cfg.max_steps * max(1.0, cfg.bound)))
-        return max(int(math.ceil(span / dt_min)) + 2, 2)
-    return _adaptive_probe_count(
-        cfg.dt_gamma, dt_min, dt_max, cfg.min_near,
-        2.0 * SQRT3 * cfg.bound if span is None else span,
-    )
 
 
 @dataclasses.dataclass
@@ -237,79 +212,6 @@ def occupied_aabb(state: OccupancyState, cfg: RenderConfig) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# mip levels and the lattice
-# ---------------------------------------------------------------------------
-
-
-def _frexp_exponent(x: torch.Tensor) -> torch.Tensor:
-    return (torch.floor(torch.log2(torch.clamp(x, min=1e-30))) + 1).to(torch.int32)
-
-
-def mip_from_pos(x: torch.Tensor, cascades: int) -> torch.Tensor:
-    mx = x.abs().amax(dim=-1)
-    return torch.clamp(_frexp_exponent(mx), 0, cascades - 1)
-
-
-def mip_from_dt(dt: torch.Tensor, grid_size: int, cascades: int) -> torch.Tensor:
-    return torch.clamp(_frexp_exponent(dt * grid_size * 0.5), 0, cascades - 1)
-
-
-def t_lattice(nears: torch.Tensor, fars: torch.Tensor, cfg: RenderConfig,
-              noise: Optional[torch.Tensor] = None):
-    """The march lattice, [N, K] t values and step sizes; ``noise`` [N]
-    in [0, 1) perturbs each ray's start by that fraction of a step."""
-    dt_min, dt_max = dt_bounds(cfg)
-
-    def dt_of(t):
-        return torch.clamp(t * cfg.dt_gamma, dt_min, dt_max)
-
-    t0 = nears
-    if noise is not None:
-        t0 = t0 + dt_of(t0) * noise
-    K = lattice_probes(cfg)
-    if cfg.dt_gamma == 0.0:
-        ks = torch.arange(K, dtype=torch.float32, device=nears.device)
-        ts = t0[:, None] + ks[None, :] * dt_min
-        return ts, torch.full_like(ts, dt_min)
-    ts, dts = [], []
-    t = t0
-    for _ in range(K):
-        d = dt_of(t)
-        ts.append(t)
-        dts.append(d)
-        t = t + d
-    return torch.stack(ts, dim=1), torch.stack(dts, dim=1)
-
-
-def _cells(x: torch.Tensor, dts: torch.Tensor, cfg: RenderConfig, level=None):
-    """Fine cell coords [..., 3] and flat coarse id of clipped world
-    points at their mip level (given, or from position and step)."""
-    H, cas = cfg.grid_size, cfg.cascades
-    Hc = H // COARSE_FACTOR
-    if level is None:
-        level = torch.maximum(mip_from_pos(x, cas), mip_from_dt(dts, H, cas))
-    mip_bound = torch.clamp(2.0 ** level.float(), max=cfg.bound)
-    n = torch.clamp((0.5 * (x / mip_bound[..., None] + 1.0) * H).to(torch.int32), 0, H - 1)
-    c = n // COARSE_FACTOR
-    flat = ((level * Hc + c[..., 0]) * Hc + c[..., 1]) * Hc + c[..., 2]
-    return n, flat.to(torch.int32)
-
-
-def _points(rays_o, rays_d, ts, bound):
-    x = rays_o[:, None, :] + rays_d[:, None, :] * ts[..., None]
-    return torch.clamp(x, -bound, bound)
-
-
-def _tbits(ts: torch.Tensor) -> torch.Tensor:
-    return ts.contiguous().view(torch.int32)
-
-
-def _ascending(keys: torch.Tensor, k: int) -> torch.Tensor:
-    """The k smallest int32 keys of each row, ascending."""
-    return -torch.topk(-keys, k, dim=1).values
-
-
-# ---------------------------------------------------------------------------
 # eval prepass
 # ---------------------------------------------------------------------------
 
@@ -461,6 +363,19 @@ def render_rays_grid(density_fn: Callable, color_fn: Callable, rays_o, rays_d,
 # ---------------------------------------------------------------------------
 
 
+def turbo_budgets(cfg: RenderConfig, max_samples: Optional[int] = None) -> Tuple[int, int, int]:
+    """(S, K2, U) of the turbo march: samples per ray (at most the
+    candidates, in ALIGN steps), coarse candidates and crossing slots."""
+    S = max_samples or cfg.max_samples_per_ray
+    S = min(S, cfg.max_steps)
+    K = lattice_probes(cfg)
+    if K < ALIGN:
+        raise ValueError(f"lattice too short ({K} probes)")
+    K2 = max(min(cfg.coarse_candidates, K), ALIGN)
+    S = max(ALIGN, min(-(-S // ALIGN) * ALIGN, K2 // ALIGN * ALIGN))
+    return S, K2, cfg.crossing_slots
+
+
 def march_rays_turbo(rays_o, rays_d, state: OccupancyState, cfg: RenderConfig,
                      max_samples: Optional[int] = None, aabb=None,
                      t_range: Optional[torch.Tensor] = None, perturb: bool = False,
@@ -475,109 +390,19 @@ def march_rays_turbo(rays_o, rays_d, state: OccupancyState, cfg: RenderConfig,
        are dropped (far-first);
     4. fine-occupied candidates are compacted to the per-ray budget S.
 
-    ``perturb`` (training) shifts each ray's lattice start by a uniform
-    fraction of a step: ``noise`` [N] when given, else drawn from
-    ``generator``.
+    All four are ``march_turbo``, one kernel on the card. ``perturb``
+    (training) shifts each ray's lattice start by a uniform fraction of
+    a step: ``noise`` [N] when given, else drawn from ``generator``.
     """
-    S = max_samples or cfg.max_samples_per_ray
-    S = min(S, cfg.max_steps)
-    K = lattice_probes(cfg)
-    if K < ALIGN:
-        raise ValueError(f"lattice too short ({K} probes)")
-    K2 = max(min(cfg.coarse_candidates, K), ALIGN)
-    S = max(ALIGN, min(-(-S // ALIGN) * ALIGN, K2 // ALIGN * ALIGN))
-    U = cfg.crossing_slots
-    N = rays_o.shape[0]
-    dev = rays_o.device
-    F = COARSE_FACTOR
-    dt_min, dt_max = dt_bounds(cfg)
-    if aabb is None:
-        aabb = cfg.aabb
-    nears, fars = near_far_from_aabb(rays_o, rays_d, aabb, cfg.min_near)
-    if t_range is not None:
-        nears = torch.maximum(nears, t_range[:, 0])
-        fars = torch.minimum(fars, t_range[:, 1])
-    hit = fars > nears
-    fars_c = torch.where(hit, fars, nears)
+    S, K2, U = turbo_budgets(cfg, max_samples)
     if perturb and noise is None:
-        noise = torch.rand((N,), generator=generator, device=dev)
-    ts, dts = t_lattice(nears, fars_c, cfg, noise if perturb else None)
-
-    def dt_at(t):
-        if cfg.dt_gamma == 0.0:
-            return torch.full_like(t, dt_min)
-        return torch.clamp(t * cfg.dt_gamma, dt_min, dt_max)
-
-    _, flat_c = _cells(_points(rays_o, rays_d, ts, cfg.bound), dts, cfg)
-    coarse_ok = coarse_lookup_bits(state.coarse_payload, flat_c)
-    valid_c = coarse_ok & (ts < fars_c[:, None]) & hit[:, None]
-
-    tbits = _tbits(ts)
-    cand = _ascending(torch.where(valid_c, tbits, tbits + _TKEY_INVALID), K2)
-    cmask = cand < _TKEY_THRESH
-    tbits2 = torch.where(cmask, cand, cand - _TKEY_INVALID)
-    ts2 = tbits2.view(torch.float32)
-    dts2 = dt_at(ts2)
-    n2, flat2 = _cells(_points(rays_o, rays_d, ts2, cfg.bound), dts2, cfg)
-
-    # crossings: runs of consecutive candidates in one coarse cell
-    change = torch.cat(
-        [torch.ones((N, 1), dtype=torch.bool, device=dev), flat2[:, 1:] != flat2[:, :-1]],
-        dim=1,
-    ) & cmask
-    slot = torch.cumsum(change.int(), dim=1) - 1
-    in_budget = slot < U
-    first = change & in_budget
-    slot_cell = torch.full((N, U + 1), -1, dtype=torch.int64, device=dev)
-    slot_cell.scatter_(1, torch.where(first, slot, U).long(),
-                       torch.where(first, flat2.long(), -1))
-    pay = state.fine_payload[slot_cell[:, :U].clamp(min=0)]  # [N, U, 18]
-    slot_cl = slot.clamp(0, U - 1).long()
-    off = n2 % F
-    bit6 = ((off[..., 0] * F + off[..., 1]) * F + off[..., 2]).long()  # [N, K2]
-    word = torch.gather(pay[..., 0:2], 1, slot_cl[..., None].expand(N, K2, 2))
-    word = torch.gather(word, 2, (bit6 >> 5)[..., None])[..., 0]
-    fine_ok = ((word >> (bit6 & 31)) & 1) > 0
-    valid_f = fine_ok & cmask & in_budget
-    n_tested = (cmask & in_budget).sum(dim=-1)
-    fine_rate = valid_f.sum(dim=-1) / torch.clamp(n_tested, min=1)
-
-    if cfg.t_proxy_thresh is not None and state.fine_payload.shape[1] >= 18:
-        # transmittance-proxy early-out: estimated optical depth of the
-        # candidates' own fine cells, accumulated front to back
-        cw = torch.gather(pay[..., 2:18], 1, slot_cl[..., None].expand(N, K2, 16))
-        cw = torch.gather(cw, 2, (bit6 >> 2)[..., None])[..., 0]
-        code = ((cw >> ((bit6 & 3) * 8)) & 0xFF).float()
-        dens = torch.where(code > 0.0, torch.exp2(code / 8.0 - 16.0),
-                           torch.zeros((), device=dev))
-        contrib = torch.where(valid_f, dens * cfg.density_scale * dts2,
-                              torch.zeros((), device=dev))
-        cum = torch.cumsum(contrib, dim=1) - contrib
-        valid_f = valid_f & (cum < -math.log(cfg.t_proxy_thresh))
-
-    sel = _ascending(torch.where(valid_f, tbits2, tbits2 + _TKEY_INVALID), S)
-    n_total = valid_f.sum(dim=-1)
-    mask = torch.arange(S, device=dev)[None, :] < n_total[:, None]
-    ts_c = torch.where(mask, sel, 0).view(torch.float32)
-    dts_c = torch.where(mask, dt_at(ts_c), torch.zeros((), device=dev))
-
-    n_coarse = valid_c.sum(dim=-1)
-    n_kept_c = cmask.sum(dim=-1)
-    untested = (n_coarse - n_kept_c) + (cmask & ~in_budget).sum(dim=-1)
-    dropped = untested.float() * fine_rate + torch.clamp(n_total - S, min=0)
-
-    xyzs = _points(rays_o, rays_d, ts_c, cfg.bound)
-    return {
-        "xyzs": xyzs,
-        "dirs": rays_d[:, None, :].expand_as(xyzs),
-        "ts": ts_c,
-        "deltas": dts_c,
-        "mask": mask,
-        "nears": nears,
-        "fars": fars,
-        "n_total": n_total,
-        "n_dropped": dropped,
-    }
+        noise = torch.rand((rays_o.shape[0],), generator=generator, device=rays_o.device)
+    m = march_turbo(rays_o, rays_d, state.coarse_payload, state.fine_payload, cfg, S, K2, U,
+                    aabb=aabb, t_range=t_range, noise=noise if perturb else None)
+    xyzs = _points(rays_o, rays_d, m["ts"], cfg.bound)
+    m["xyzs"] = xyzs
+    m["dirs"] = rays_d[:, None, :].expand_as(xyzs)
+    return m
 
 
 # ---------------------------------------------------------------------------

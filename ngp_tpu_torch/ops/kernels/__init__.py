@@ -4,7 +4,11 @@
   ``residuals=True`` also writes the feats/h1 rows its backward reads)
 - ``cp.cp_bwd_banks``        replaces ``ngp_tpu/ops/pallas/cp_kernels.py:_cp_bwd_banks``
 - ``cp.cp_sigma_rgb``        replaces ``ngp_tpu/ops/pallas/cp_kernels.py:cp_sigma_rgb``
+- ``march.march_turbo``      replaces the turbo march around
+  ``ngp_tpu/ops/pallas/march_kernels.py:coarse_lookup_bits`` (``models/occupancy.py:
+  march_rays_turbo``, one launch a march)
 - ``march.coarse_lookup_bits`` replaces ``ngp_tpu/ops/pallas/march_kernels.py:coarse_lookup_bits``
+  alone (the eval prepass)
 - ``cp.cp_encode_fwd``       replaces ``ngp_tpu/ops/pallas/cp_kernels.py:cp_encode`` (forward;
   ``cp.CPEncode`` adds its backward through ``cp_bwd_banks``)
 - ``fused_mlp.fused_mlp``    replaces ``ngp_tpu/ops/pallas/fused_mlp.py:fused_mlp``
@@ -21,10 +25,11 @@ launches its kernel for a CUDA tensor; there is no fallback between the
 two. ``LAUNCHES`` counts the kernel launches of each wrapper, so a run
 can show that its path went through the kernels;
 ``cp_density_fwd_residuals`` counts the launches of ``cp_density_fwd``
-that wrote residuals, and ``cp_density_fwd_tc`` and ``cp_sigma_rgb_tc``
+that wrote residuals, ``cp_density_fwd_tc`` and ``cp_sigma_rgb_tc``
 the launches of the two heads that took the tensor-core kernels (bf16
 heads the tensor-core tiles take; they count under ``cp_density_fwd``
-and ``cp_sigma_rgb`` too).
+and ``cp_sigma_rgb`` too), and ``fused_mlp_tc`` those of ``fused_mlp``
+that took its tensor-core kernel.
 """
 
 from typing import Dict
@@ -33,12 +38,14 @@ LAUNCHES: Dict[str, int] = {
     "cp_density_fwd": 0,
     "cp_sigma_rgb": 0,
     "coarse_lookup_bits": 0,
+    "march_turbo": 0,
     "cp_bwd_banks": 0,
     "cp_density_fwd_residuals": 0,
     "cp_density_fwd_tc": 0,
     "cp_sigma_rgb_tc": 0,
     "cp_encode_fwd": 0,
     "fused_mlp": 0,
+    "fused_mlp_tc": 0,
     "grid_encode_fwd": 0,
     "grid_encode_bwd": 0,
     "scatter_add_rows": 0,

@@ -1,9 +1,10 @@
 """Build the kernel library from ``csrc/*.cu`` and load it with ctypes.
 
 The sources have a plain C interface and include no PyTorch header, so
-``nvcc`` builds them in seconds: one ``nvcc -c`` per source, all started
-together, then one link. The library goes into ``build/`` beside this
-file (ignored by git), named by a hash of the sources and flags, so an
+``nvcc`` builds them in seconds: one ``nvcc -c`` per ``.cu`` source, all
+started together, then one link. The library goes into ``build/`` beside
+this file (ignored by git), named by a hash of the sources, the headers
+they share (``.cuh``) and the flags, so an
 edited source is rebuilt and an unchanged one is loaded as it is.
 Nothing is built or loaded until the first kernel launch.
 """
@@ -33,6 +34,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U = ctypes.c_uint
 _L = ctypes.c_longlong
+_F = ctypes.c_float
 _SIGNATURES = {
     "ngp_cp_density_fwd": [
         _P, _I, ctypes.POINTER(_P), ctypes.POINTER(_I), _I, _I, _I,
@@ -50,7 +52,13 @@ _SIGNATURES = {
     "ngp_cp_encode_fwd": [
         _P, _I, ctypes.POINTER(_P), ctypes.POINTER(_I), _I, _I, _I, _I, _P, _P,
     ],
-    "ngp_fused_mlp": [_P, _I, _I, ctypes.POINTER(_P), ctypes.POINTER(_I), _I, _P, _P],
+    "ngp_fused_mlp": [_P, _I, _I, ctypes.POINTER(_P), ctypes.POINTER(_I), _I, _P,
+                      ctypes.POINTER(_I), _P],
+    "ngp_march_turbo": [
+        _P, _P, ctypes.POINTER(_L), _I, ctypes.POINTER(_F), _P, _P, _P, _P, _I, _P, _I, _I,
+        _F, _F, _F, _F, _F, _I, _I, _I, _I, _I, _I, _I, _F, _F,
+        _P, _P, _P, _P, _P, _P, _P, _P,
+    ],
     "ngp_grid_encode_fwd": [
         _P, _L, _P, _I, _I, _I, ctypes.POINTER(ctypes.c_float), ctypes.POINTER(_I),
         ctypes.POINTER(_U), ctypes.POINTER(_U), ctypes.POINTER(_I), ctypes.c_float, _I,
@@ -71,7 +79,7 @@ def _sources():
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted(CSRC_DIR.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libngp_kernels_{h.hexdigest()[:16]}.so"

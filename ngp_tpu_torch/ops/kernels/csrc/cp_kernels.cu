@@ -92,6 +92,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "mma_bf16.cuh"
+
 namespace {
 
 constexpr int kMaxBanks = 8;
@@ -756,28 +758,6 @@ constexpr int kUnsupportedShape = -1;
 __host__ __device__ inline int tc_rows(int H1) {
   const int h1p = (H1 + 15) & ~15;
   return h1p <= 64 ? 128 : h1p <= 128 ? 64 : h1p <= 256 ? 32 : 0;
-}
-
-__device__ __forceinline__ void mma_bf16(float* d, uint32_t a0, uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Element (k, n) of a [K, N] B operand in fragment order: per (k-step of 16,
-// n-tile of 8) 32 lanes x {b0, b1}, b0 = rows 2t, 2t+1 and b1 = rows 2t+8,
-// 2t+9 of column g, for lane = 4 g + t.
-__device__ __forceinline__ int frag_slot(int k, int n, int n_tiles) {
-  const int kk = k & 15;
-  const int lane = (n & 7) * 4 + ((kk & 7) >> 1);
-  return ((((k >> 4) * n_tiles + (n >> 3)) * 32 + lane) << 2) + ((kk >> 3) << 1) + (kk & 1);
 }
 
 // The padded widths, tile rows and shared-memory layout of a tensor-core

@@ -5,11 +5,14 @@
 header says what bounds it on Hopper. y = W_n . relu(... relu(W_0 . x)):
 x and the weights are rounded to bf16, each hidden layer is ReLU'd and
 rounded to bf16, products accumulate in f32, and y is f32 [B, D_out].
-No path of the package calls it, as in the JAX package.
+Chains of widths up to 128 run on the tensor cores, wider ones on the
+CUDA cores; the launcher picks the route from the shape. No path of the
+package calls it, as in the JAX package.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Sequence
 
 import torch
@@ -59,11 +62,13 @@ def fused_mlp(x: torch.Tensor, weights: Sequence[torch.Tensor]) -> torch.Tensor:
     if x.shape[0] == 0:
         return out
     lib = load_library()
+    route = ctypes.c_int(0)
     err = lib.ngp_fused_mlp(
         x.data_ptr(), int(x.dtype == torch.bfloat16), x.shape[0], pointer_array(ws),
-        int_array(dims), len(ws), out.data_ptr(),
+        int_array(dims), len(ws), out.data_ptr(), ctypes.byref(route),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     check_launch("fused_mlp", err)
     LAUNCHES["fused_mlp"] += 1
+    LAUNCHES["fused_mlp_tc"] += int(route.value > 0)
     return out

@@ -30,6 +30,8 @@ from ngp_tpu_torch.ops.kernels import cp as tk
 from ngp_tpu_torch.ops.kernels import fused_mlp as tmlp
 from ngp_tpu_torch.ops.kernels import march as tm
 
+import march_model
+
 pytestmark = pytest.mark.cuda
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
@@ -357,18 +359,27 @@ def test_cp_encode_backward_kernel(dev, dtype, res, rank, fd, M):
         assert ((a.grad.float() - b.float()).abs() <= bound).all()
 
 
+# the package's MLPs (density 32-64-64-16, colour 31-64-64-3, hash sigma
+# 32-64-16), one layer, eight layers, widths of 128 (the tensor cores' widest)
+# and 200 (the CUDA-core route)
+MLP_WIDTHS = [[32, 64, 64, 16], [31, 64, 64, 3], [32, 64, 16], [32, 16],
+              [32, 64, 64, 64, 64, 64, 64, 64, 16], [128, 128, 128, 128], [32, 200, 16]]
+
+
 @pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B", [300, 4099])
-def test_fused_mlp_kernel(dev, x_dtype, B):
+@pytest.mark.parametrize("B", [0, 1, 300, 4099])
+@pytest.mark.parametrize("dims", MLP_WIDTHS, ids=lambda d: "-".join(map(str, d)))
+def test_fused_mlp_kernel(dev, x_dtype, B, dims):
     g = torch.Generator().manual_seed(B)
-    dims = [32, 64, 64, 16]
     x = torch.randn((B, dims[0]), generator=g).to(dev, x_dtype)
-    ws = [(torch.randn((dims[i], dims[i + 1]), generator=g) * 0.2).to(dev)
-          for i in range(3)]
-    before = LAUNCHES["fused_mlp"]
+    ws = [(torch.randn((dims[i], dims[i + 1]), generator=g) * (2.0 / dims[i]) ** 0.5).to(dev)
+          for i in range(len(dims) - 1)]
+    before = dict(LAUNCHES)
     got = tmlp.fused_mlp(x, ws)
-    assert LAUNCHES["fused_mlp"] == before + 1
-    assert got.dtype == torch.float32 and got.shape == (B, 16)
+    assert LAUNCHES["fused_mlp"] == before["fused_mlp"] + int(B > 0)
+    tc = B > 0 and max(dims) <= 128
+    assert LAUNCHES["fused_mlp_tc"] == before["fused_mlp_tc"] + int(tc)
+    assert got.dtype == torch.float32 and got.shape == (B, dims[-1])
     _check(got, tmlp.fused_mlp_plain(x, ws), torch.bfloat16)
 
 
@@ -401,6 +412,87 @@ def test_coarse_lookup_kernel_bits(dev, R):
     payload = torch.randint(0, 256, (R, 128), generator=g).float().to(dev)
     fc = torch.randint(-5, R * 1024 + 5, (333, 77), generator=g, dtype=torch.int32).to(dev)
     assert torch.equal(tm.coarse_lookup_bits(payload, fc), tm.coarse_lookup_plain(payload, fc))
+
+
+# the CPU tests' cases (march_model.CASES), and a turbo-hq march: grid 128,
+# 256 probes, 96 candidates, 16 crossings, 32 samples, 4096 rays
+MARCH_CASES = list(march_model.CASES) + ["turbo-hq"]
+
+
+def _march_case(name, dev):
+    """(config, state on the card, rays, noise, t_range) of a march case,
+    all made from seeds with numpy."""
+    from ngp_tpu_torch.config import RenderConfig
+    from ngp_tpu_torch.models import occupancy as to
+
+    if name == "turbo-hq":
+        kw, frac, kind, noisy, clipped = (dict(max_steps=256, max_samples_per_ray=32,
+                                               grid_size=128, coarse_candidates=96,
+                                               crossing_slots=16), 0.05, "box", True, False)
+        n = 4096
+    else:
+        kw, frac, kind, noisy, clipped = march_model.CASES[name]
+        n = 96
+    cfg = RenderConfig(**march_model.config(kw))
+    occ, dens = march_model.grids(cfg, frac=frac)
+    coarse, fine = to.pack_occupancy_payloads(torch.from_numpy(occ).to(dev),
+                                              torch.from_numpy(dens).to(dev))
+    ro, rd = march_model.rays(kind, n=n, bound=cfg.bound)
+    noise = np.random.default_rng(5).random(n).astype(np.float32) if noisy else None
+    tr = march_model.t_ranges(n) if clipped else None
+    return cfg, coarse, fine, ro, rd, noise, tr
+
+
+def _on(a, dev):
+    return None if a is None else torch.from_numpy(a).to(dev)
+
+
+@pytest.mark.parametrize("box", ["config", "tensor"])
+@pytest.mark.parametrize("name", MARCH_CASES)
+def test_march_turbo_kernel(dev, name, box):
+    """The kernel gives the plain version's samples bit for bit; with the
+    transmittance proxy a ray may differ only where the proxy's sum lies
+    within 1e-5 of its threshold (the two add in other orders)."""
+    from ngp_tpu_torch.models import occupancy as to
+
+    cfg, coarse, fine, ro, rd, noise, tr = _march_case(name, dev)
+    S, K2, U = to.turbo_budgets(cfg)
+    aabb = None if box == "config" else torch.tensor(cfg.aabb, device=dev) * 0.9
+    args = (_on(ro, dev), _on(rd, dev), coarse, fine, cfg, S, K2, U)
+    kw = dict(aabb=aabb, t_range=_on(tr, dev), noise=_on(noise, dev))
+    before = LAUNCHES["march_turbo"]
+    got = tm.march_turbo(*args, **kw)
+    assert LAUNCHES["march_turbo"] == before + 1
+    want = tm.march_turbo_plain(*args, **kw)
+    torch.cuda.synchronize()
+    for k in ("nears", "fars", "ts", "deltas", "mask", "n_total", "n_dropped"):
+        assert got[k].dtype == want[k].dtype and got[k].shape == want[k].shape, k
+    differ = ((got["ts"] != want["ts"]) | (got["mask"] != want["mask"])
+              | (got["deltas"] != want["deltas"])).any(dim=1) | (got["n_total"] != want["n_total"])
+    if cfg.t_proxy_thresh is not None:
+        model = march_model.march_model(
+            ro, rd, coarse.cpu().numpy(), fine.cpu().numpy(), cfg, S, K2, U,
+            aabb=None if aabb is None else aabb.cpu().numpy(), t_range=tr, noise=noise)
+        assert (torch.from_numpy(model["approach"]) <= 1e-5)[differ.cpu()].all()
+    else:
+        assert not differ.any(), int(differ.sum())
+    keep = ~differ
+    assert torch.equal(got["nears"], want["nears"]) and torch.equal(got["fars"], want["fars"])
+    assert torch.allclose(got["n_dropped"][keep], want["n_dropped"][keep], rtol=1e-6, atol=0)
+    assert int(got["mask"].sum()) > 0
+
+
+def test_march_turbo_kernel_no_rays_and_wide_payload(dev):
+    from ngp_tpu_torch.config import RenderConfig
+
+    cfg = RenderConfig(**march_model.config({}))
+    empty = torch.zeros((0, 3), device=dev)
+    fine = torch.zeros((64, 18), dtype=torch.int64, device=dev)
+    out = tm.march_turbo(empty, empty, torch.zeros((1, 128), device=dev), fine, cfg, 16, 32, 8)
+    assert out["ts"].shape == (0, 16) and out["n_total"].shape == (0,)
+    # a coarse payload past a block's shared memory (grid 512, 4 cascades)
+    with pytest.raises(ValueError, match="shared memory"):
+        tm.march_turbo(empty, empty, torch.zeros((2048, 128), device=dev), fine, cfg, 16, 32, 8)
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
@@ -443,6 +535,10 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         tmlp.fused_mlp(pos, [torch.zeros((4, 8), device=dev)])
     with pytest.raises(ValueError):
         tmlp.fused_mlp(pos.double(), [torch.zeros((3, 8), device=dev)])
+    # a chain neither route's shared memory holds
+    with pytest.raises(ValueError, match="shared memory"):
+        tmlp.fused_mlp(pos, [torch.zeros((3, 1024), device=dev),
+                             torch.zeros((1024, 1024), device=dev)])
 
 
 def test_kernels_on_the_render_path(dev):
@@ -473,7 +569,8 @@ def test_kernels_on_the_render_path(dev):
     intr = np.array([40.0, 40.0, 16.0, 16.0], np.float32)
     img_g, _ = gpu_tr.render_frame(pose, intr, 32, 32, chunk=256)
     counts = launch_counts()
-    assert all(counts[k] > 0 for k in ("cp_density_fwd", "cp_sigma_rgb",
+    # the march is one kernel; the prepass keeps the coarse lookup
+    assert all(counts[k] > 0 for k in ("cp_density_fwd", "cp_sigma_rgb", "march_turbo",
                                        "coarse_lookup_bits")), counts
     img_c, _ = cpu_tr.render_frame(pose, intr, 32, 32, chunk=256)
     assert np.abs(img_g - img_c).mean() <= 1e-4
@@ -481,7 +578,7 @@ def test_kernels_on_the_render_path(dev):
 
 def test_train_step_on_the_card_matches_cpu(dev, tmp_path):
     """One f32 train step through the kernels (the residual forward, the
-    factor backward, the coarse lookup) against the same step on the CPU
+    factor backward, the march) against the same step on the CPU
     through the plain versions: same weights, grid, frames and draws."""
     import copy
 
@@ -513,8 +610,9 @@ def test_train_step_on_the_card_matches_cpu(dev, tmp_path):
     mg = gpu_tr.train_step({k: v.to(dev) if torch.is_tensor(v) else v for k, v in batch.items()},
                            {k: v.to(dev) for k, v in draws.items()})
     counts = launch_counts()
-    for name in ("cp_density_fwd_residuals", "cp_bwd_banks", "coarse_lookup_bits"):
+    for name in ("cp_density_fwd_residuals", "cp_bwd_banks", "march_turbo"):
         assert counts[name] > 0, counts
+    assert counts["coarse_lookup_bits"] == 0, counts
     mc = cpu_tr.train_step(batch, draws)
     assert abs(float(mg["loss"]) - float(mc["loss"])) <= 1e-4 * float(mc["loss"])
     cpu_grads = dict(cpu_tr.model.named_parameters())

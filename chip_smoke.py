@@ -79,7 +79,19 @@ no 64-bit division routine, and of the turbo march), then
      version;
 10.  runs one small f32 hash-grid train step on the GPU and on the CPU,
      and the card's encoder inputs and cotangents of that step through
-     the plain encoder on the CPU, against the card's table gradient.
+     the plain encoder on the CPU, against the card's table gradient;
+11.  runs the port's command line (``ngp_tpu_torch.main_nerf``) on the
+     scene ``make_synthetic_dataset`` writes to a temporary directory: (a)
+     ``<scene> -O --iters 2048 --save_mesh`` in this process (51 epochs,
+     one validation and best checkpoint, evaluate and test on the test
+     split, the mesh; the loss falls, the test PNGs decode, the mesh is
+     not empty, the test PSNR reaches a floor; rays/s over the middle
+     epochs beside phase 8c's), (b) the same one epoch longer, which
+     must resume at the saved step, (c) ``--test`` as a subprocess, whose
+     PSNR must equal (b)'s, (d) ``-O --encoding hashgrid`` with
+     ``--tv_weight`` and ``--distortion_weight`` (a finite TV loss, a
+     loss that falls) and (e) ``--rand_pose 4`` (its guidance steps run,
+     with finite losses).
 
 Each path is run with the launch counts set to 0 just before it and read
 just after; a kernel of the path that was not launched fails the run.
@@ -195,6 +207,26 @@ MIN_PSNR_HASH = 28.0
 # level 0 of the full-width table: a train step's 8 corners of 1,048,576
 # points into 4,920 rows of 2
 SCATTER_SHAPES = ((2_097_152, 16_384, 128), (8 * HASH_RAYS * 256, 4_920, 2))
+# phase 11: the port's CLI (python -m ngp_tpu_torch.main_nerf) on the scene
+# that make_synthetic_dataset writes at its defaults (40 train, 4 val and 8
+# test frames of 400x400), with the CLI's own 4096 rays a step and dt_gamma:
+# 2048 iterations are 51 epochs, so the eval_interval of 50 epochs validates
+# once and keeps one best checkpoint; the resume adds one epoch; the
+# hash-grid run takes CLI_HASH_ITERS iterations with both losses, the
+# guidance run CLI_GUIDE_ITERS with --rand_pose 4 (one epoch: 40 frames and
+# 10 guidance steps)
+CLI_ITERS = 2048
+CLI_FRAMES = (40, 4, 8)
+# (a)'s test-split PSNR must reach this, and its loss, the mean of the last 5
+# epochs' last steps, fall below LOSS_FALL of the first 5 epochs'. The first
+# three runs (NVIDIA H100 80GB HBM3, 700.00 W) read 38.20, 38.23 and 38.31 dB
+# (0.11 dB apart), loss ratios 0.003; the floor is the lowest less the wider
+# 0.9 dB over which 12 runs of one tree spread at 256 steps
+# (scripts/torch_march_psnr_spread.py), rounded down
+MIN_PSNR_CLI = 37.0
+CLI_HASH_ITERS = 256
+CLI_GUIDE_ITERS = 64
+CLI_RAND_POSE = 4
 # H100 SXM (NVIDIA's data sheet): HBM bytes/s, dense bf16 tensor-core and
 # f32 CUDA-core FLOP/s
 HBM_RATE = 3.35e12
@@ -727,6 +759,209 @@ def gamma_window(dev, card, rc, nc, train_ds, results):
         step_prof = profile(lambda: trainer.step(next(batches)), 16, "step", card,
                             focus=("march", "topk"))
     return rays_s, step_counts, frame_counts, step_prof, frame_prof
+
+
+def cli_runs(dev, card, api_rays_s):
+    """Phase 11: ``ngp_tpu_torch.main_nerf`` on a scene on disk, as a user
+    runs it. (a) turbo-hq through ``main`` in this process, (b) the same
+    command one epoch longer, resuming from ``--ckpt latest``, (c) ``--test``
+    as a subprocess on the checkpoint (b) wrote, whose PSNR must equal
+    (b)'s ``evaluate`` (both start from a fresh trainer: the eval's sticky
+    chunk counts and spans, which (a)'s validation frames raised, are then
+    the same), (d) the hash grid with the TV and distortion losses, (e)
+    the random-pose guidance steps. Returns the launch counts of (a), (b),
+    (d) and (e)."""
+    import numpy as np
+    import torch
+
+    from ngp_tpu_torch import main_nerf
+    from ngp_tpu_torch.data.synthetic import make_synthetic_dataset
+    from ngp_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from ngp_tpu_torch.training.nerf import NeRFTrainer
+    from ngp_tpu_torch.utils.png import read_png
+
+    # what the runs do inside main: each epoch's wall time (its last step's
+    # loss read to the host ends it), evaluate's PSNRs and wall times, test's
+    # wall time, the guidance steps' losses and the step a checkpoint load
+    # resumes at
+    seen = {"epochs": [], "evaluate": [], "evaluate_s": [], "test_s": [], "guidance": [],
+            "loaded": []}
+    names = ("train_one_epoch", "evaluate", "test", "guidance_step", "load_checkpoint")
+    original = {k: getattr(NeRFTrainer, k) for k in names}
+
+    def train_one_epoch(self, loader):
+        t0 = time.perf_counter()
+        original["train_one_epoch"](self, loader)
+        seen["epochs"].append(time.perf_counter() - t0)
+
+    def evaluate(self, *a, **kw):
+        t0 = time.perf_counter()
+        out = original["evaluate"](self, *a, **kw)
+        seen["evaluate_s"].append(time.perf_counter() - t0)
+        seen["evaluate"].append(out["psnr"])
+        return out
+
+    def test(self, *a, **kw):
+        t0 = time.perf_counter()
+        out = original["test"](self, *a, **kw)
+        seen["test_s"].append(time.perf_counter() - t0)
+        return out
+
+    def guidance_step(self, *a, **kw):
+        out = original["guidance_step"](self, *a, **kw)
+        seen["guidance"].append(out["loss"])
+        return out
+
+    def load_checkpoint(self, *a, **kw):
+        loaded = original["load_checkpoint"](self, *a, **kw)
+        seen["loaded"].append(self.global_step if loaded else None)
+        return loaded
+
+    def run(argv, label):
+        for v in seen.values():
+            v.clear()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        trainer = main_nerf.main(argv, device=dev)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = launch_counts()
+        losses = np.array(trainer.stats["loss"], np.float64)
+        print(f"CLI {label}: {dt:.3f} s, global step {trainer.global_step}, {len(losses)} loss "
+              f"readings, first {losses[:1]}, last {losses[-1:]}  [{card}]", flush=True)
+        if not np.isfinite(losses).all():
+            raise RuntimeError(f"CLI {label}: non-finite loss")
+        return trainer, counts, dt, losses
+
+    patched = {"train_one_epoch": train_one_epoch, "evaluate": evaluate, "test": test,
+               "guidance_step": guidance_step, "load_checkpoint": load_checkpoint}
+    for k, fn in patched.items():
+        setattr(NeRFTrainer, k, fn)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            scene = os.path.join(tmp, "scene")
+            n_train, n_val, n_test = CLI_FRAMES
+            t0 = time.perf_counter()
+            make_synthetic_dataset(scene, n_train=n_train, n_val=n_val, n_test=n_test,
+                                   device=dev)
+            print(f"phase CLI scene ({sum(CLI_FRAMES)} frames of 400x400 written): "
+                  f"{time.perf_counter() - t0:.3f} s  [{card}]", flush=True)
+
+            # (a) turbo-hq, 51 epochs, one validation, evaluate, test, mesh
+            ws = os.path.join(tmp, "ws")
+            argv = [scene, "-O", "--workspace", ws, "--iters", str(CLI_ITERS), "--save_mesh"]
+            trainer, a_counts, a_dt, losses = run(argv, "(a) -O")
+            check_launched("CLI (a) -O", a_counts,
+                           ("cp_density_fwd", "cp_bwd_banks", "march_turbo", "cp_sigma_rgb",
+                            "coarse_lookup_bits", "cp_encode_fwd"))
+            epochs = CLI_ITERS // n_train
+            if trainer.epoch != epochs or len(seen["epochs"]) != epochs:
+                raise RuntimeError(f"CLI (a): epoch {trainer.epoch}, {len(seen['epochs'])} "
+                                   f"epochs run, want {epochs}")
+            # the timed middle: epochs 2 to the last but one (the first has
+            # the first calls; the last is followed by evaluate, test, mesh)
+            mid = seen["epochs"][1:-1]
+            rays_s = len(mid) * n_train * trainer.train_cfg.num_rays / sum(mid)
+            if not losses[-5:].mean() < LOSS_FALL * losses[:5].mean():
+                raise RuntimeError(f"CLI (a): the loss did not fall below {LOSS_FALL} of "
+                                   "its start (the first and last 5 epochs' last steps)")
+            ckpts = sorted(os.listdir(os.path.join(ws, "checkpoints")))
+            if f"{trainer.name}_best.pth" not in ckpts:
+                raise RuntimeError(f"CLI (a): no best checkpoint in {ckpts}")
+            a_eval = seen["evaluate"]
+            if len(a_eval) != 2:  # the validation at epoch 50, the test split
+                raise RuntimeError(f"CLI (a): {len(a_eval)} evaluate calls, want 2")
+            psnr_a = a_eval[-1]
+            results_dir = os.path.join(ws, "results")
+            for i in range(n_test):
+                png = read_png(os.path.join(results_dir, f"{trainer.name}_{i:04d}_rgb.png"))
+                if png.shape != (400, 400, 3):
+                    raise RuntimeError(f"CLI (a): test PNG {i} has shape {png.shape}")
+            mesh = trainer.last_mesh_stats
+            if mesh.get("n_verts", 0) == 0 or mesh.get("n_faces", 0) == 0:
+                raise RuntimeError(f"CLI (a): empty mesh {mesh}")
+            if not psnr_a >= MIN_PSNR_CLI:
+                raise RuntimeError(f"CLI (a): test-split PSNR {psnr_a} under {MIN_PSNR_CLI}")
+            print(f"CLI (a): {a_dt:.3f} s wall for {CLI_ITERS} iterations ({epochs} epochs) with "
+                  f"one validation, evaluate, test and save_mesh; {rays_s:.0f} rays/s over "
+                  f"epochs 2-{epochs - 1} at {trainer.train_cfg.num_rays} rays a step (phase 8c, "
+                  f"the API at {TRAIN_RAYS} rays a step and the same dt_gamma: "
+                  f"{api_rays_s:.0f}); loss {losses[:5].mean():.6f} -> {losses[-5:].mean():.6f}; "
+                  f"test split PSNR {psnr_a:.4f} dB over {n_test} frames; mesh {mesh['n_verts']} "
+                  f"vertices, {mesh['n_faces']} faces  [{card}]", flush=True)
+            ev_s, test_s = seen["evaluate_s"], seen["test_s"][0]
+            mesh_s = mesh["density_s"] + mesh["marching_s"] + mesh["write_s"]
+            rest = a_dt - sum(seen["epochs"]) - sum(ev_s) - test_s - mesh_s
+            print(f"CLI (a) host loop: epochs {min(mid):.3f}-{max(mid):.3f} s (first "
+                  f"{seen['epochs'][0]:.3f}, last {seen['epochs'][-1]:.3f}); validation "
+                  f"({n_val} frames) {ev_s[0]:.3f} s, evaluate ({n_test} frames) {ev_s[1]:.3f} "
+                  f"s, test {test_s:.3f} s, save_mesh {mesh_s:.3f} s (OBJ {mesh['write_s']:.3f}); "
+                  f"the rest (loading the splits, checkpoints) {rest:.3f} s  [{card}]",
+                  flush=True)
+            saved_step = trainer.global_step
+            del trainer
+
+            # (b) resume: one epoch more from the latest checkpoint
+            argv[argv.index("--iters") + 1] = str(CLI_ITERS + n_train)
+            trainer, b_counts, _, _ = run(argv, "(b) --ckpt latest")
+            if seen["loaded"] != [saved_step] or trainer.global_step != saved_step + n_train:
+                raise RuntimeError(f"CLI (b): resumed at {seen['loaded']}, ended at "
+                                   f"{trainer.global_step}; saved at {saved_step}")
+            check_launched("CLI (b) resume", b_counts, ("cp_bwd_banks", "march_turbo"))
+            psnr_b = seen["evaluate"][-1]
+            del trainer
+
+            # (c) --test as a subprocess, from the repository root
+            t0 = time.perf_counter()
+            res = subprocess.run([sys.executable, "-m", "ngp_tpu_torch.main_nerf", scene, "-O",
+                                  "--workspace", ws, "--test"],
+                                 cwd=os.path.dirname(os.path.abspath(__file__)),
+                                 capture_output=True, text=True, timeout=600)
+            dt = time.perf_counter() - t0
+            if res.returncode != 0:
+                raise RuntimeError(f"CLI (c) --test: exit {res.returncode}\n{res.stderr[-3000:]}")
+            found = [ln for ln in res.stdout.splitlines() if "evaluate: PSNR = " in ln]
+            if len(found) != 1:
+                raise RuntimeError(f"CLI (c) --test: no evaluate line\n{res.stdout[-3000:]}")
+            psnr_c = float(found[0].split("PSNR = ")[1].split()[0])
+            print(f"CLI (c) --test subprocess: {dt:.3f} s, evaluate PSNR {psnr_c:.6f} dB; the "
+                  f"resumed run's {psnr_b:.6f}, (a)'s {psnr_a:.6f}  [{card}]", flush=True)
+            if f"{psnr_c:.6f}" != f"{psnr_b:.6f}":
+                raise RuntimeError(f"CLI (c): --test PSNR {psnr_c} differs from the resumed "
+                                   f"run's {psnr_b} on the same checkpoint")
+
+            # (d) the hash grid with the TV and distortion losses
+            ws_d = os.path.join(tmp, "ws_hash")
+            trainer, d_counts, _, losses = run(
+                [scene, "-O", "--encoding", "hashgrid", "--workspace", ws_d, "--iters",
+                 str(CLI_HASH_ITERS), "--tv_weight", "1e-6", "--distortion_weight", "1e-3"],
+                "(d) hashgrid + tv + distortion")
+            check_launched("CLI (d) hashgrid", d_counts, ("grid_encode_fwd", "grid_encode_bwd"))
+            with torch.no_grad():
+                tv = float(trainer.model.tv_loss())
+            print(f"CLI (d): tv_loss {tv:.6e}, loss {losses[0]:.6f} -> {losses[-1]:.6f}, test "
+                  f"split PSNR {seen['evaluate'][-1]:.4f} dB  [{card}]", flush=True)
+            if not (math.isfinite(tv) and tv > 0 and losses[-1] < losses[0]):
+                raise RuntimeError(f"CLI (d): tv_loss {tv}, losses {losses}")
+            del trainer
+
+            # (e) the random-pose guidance steps
+            ws_e = os.path.join(tmp, "ws_guide")
+            trainer, e_counts, _, _ = run(
+                [scene, "-O", "--rand_pose", str(CLI_RAND_POSE), "--workspace", ws_e,
+                 "--iters", str(CLI_GUIDE_ITERS)], "(e) --rand_pose")
+            g = [float(x) for x in seen["guidance"]]
+            want = n_train // CLI_RAND_POSE
+            print(f"CLI (e): {len(g)} guidance steps, losses {np.round(g, 6).tolist()}, global "
+                  f"step {trainer.global_step}  [{card}]", flush=True)
+            if len(g) != want or not np.isfinite(g).all() or trainer.global_step != n_train + want:
+                raise RuntimeError(f"CLI (e): {len(g)} guidance steps (want {want}), losses {g}, "
+                                   f"global step {trainer.global_step}")
+            del trainer
+    finally:
+        for k in names:
+            setattr(NeRFTrainer, k, original[k])
+    return a_counts, b_counts, d_counts, e_counts, rays_s
 
 
 def train_step_gpu_vs_cpu(dev, hash_grid=False):
@@ -1569,10 +1804,15 @@ def main():
     # 10. one small f32 hash-grid train step: GPU kernels against the CPU
     train_step_gpu_vs_cpu(dev, hash_grid=True)
 
+    # 11. the port's command line on a scene on disk
+    t0 = time.perf_counter()
+    *cli_counts, _ = cli_runs(dev, card, g_rays_s)
+    phase("CLI (scene, -O, resume, --test, hashgrid with losses, --rand_pose)", t0)
+
     print_results(results, library, card, printed)
     path_counts = (eval_counts, train_counts, frame_counts, evaluate_counts, test_counts,
                    mesh_counts, wide_counts, gamma_counts, gamma_frame_counts, hash_train_counts,
-                   hash_frame_counts)
+                   hash_frame_counts, *cli_counts)
     csrc = "ngp_tpu_torch/ops/kernels/csrc/"
     sources = {
         "cp_density_fwd": (csrc + "cp_kernels.cu", "ngp_tpu/ops/pallas/cp_kernels.py:345",

@@ -1,7 +1,8 @@
 """Encoder factory (``ngp_tpu/models/encoders.py``); the port has the
-``cpgrid``, ``hashgrid``, ``tiledgrid`` and ``sphere_harmonics``
-encoders so far. Weights are drawn from a CPU ``torch.Generator`` and
-placed on ``device``."""
+identity (``None``), ``frequency``, ``sphere_harmonics``, ``cpgrid``,
+``hashgrid`` and ``tiledgrid`` encoders (``brickgrid`` is not ported).
+Weights are drawn from a CPU ``torch.Generator`` and placed on
+``device``."""
 
 from __future__ import annotations
 
@@ -11,8 +12,28 @@ import torch
 from torch import nn
 
 from ngp_tpu_torch.ops.cpgrid import CPGridConfig, cpgrid_encode
-from ngp_tpu_torch.ops.hashgrid import GridConfig, grid_encode
+from ngp_tpu_torch.ops.freq import freq_encode, freq_encode_dim
+from ngp_tpu_torch.ops.hashgrid import GridConfig, grid_encode, grid_tv_loss
 from ngp_tpu_torch.ops.sh import sh_basis_dim, sh_encode
+
+
+class Identity(nn.Module):
+    def __init__(self, input_dim: int = 3):
+        super().__init__()
+        self.output_dim = input_dim
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+
+class FreqEncoder(nn.Module):
+    def __init__(self, input_dim: int = 3, degree: int = 12):
+        super().__init__()
+        self.degree = degree
+        self.output_dim = freq_encode_dim(input_dim, degree)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return freq_encode(x, self.degree)
 
 
 class SHEncoder(nn.Module):
@@ -65,10 +86,15 @@ class GridEncoder(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return grid_encode(x, self.embeddings, self.cfg, self.compute_dtype)
 
+    def tv_loss(self) -> torch.Tensor:
+        """TV regulariser over the table's dense levels (``grid_tv_loss``)."""
+        return grid_tv_loss(self.embeddings, self.cfg)
+
 
 def get_encoder(
-    encoding: str,
+    encoding: Optional[str],
     input_dim: int = 3,
+    multires: int = 6,
     degree: int = 4,
     num_levels: int = 16,
     level_dim: int = 2,
@@ -84,6 +110,11 @@ def get_encoder(
     device="cuda",
 ) -> Tuple[nn.Module, int]:
     """String -> (encoder module, output_dim)."""
+    if encoding is None or encoding == "None":
+        return Identity(input_dim), input_dim
+    if encoding == "frequency":
+        enc = FreqEncoder(input_dim, multires)
+        return enc, enc.output_dim
     if encoding == "sphere_harmonics":
         enc = SHEncoder(degree=degree)
         return enc, enc.output_dim

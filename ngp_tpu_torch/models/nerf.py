@@ -69,6 +69,13 @@ class NeRFNetwork(nn.Module):
         sigma, geo = self.density(x)
         return sigma, self.color(d, geo)
 
+    def tv_loss(self) -> torch.Tensor:
+        """TV regulariser of the spatial encoder's table; 0 for encoders
+        without one (cpgrid, frequency, identity)."""
+        if hasattr(self.encoder, "tv_loss"):
+            return self.encoder.tv_loss()
+        return torch.zeros((), device=next(self.parameters()).device)
+
 
 def _fused_parts(model: NeRFNetwork):
     c = model.cfg

@@ -10,6 +10,8 @@ d-linear or smoothstep interpolation, zero outside [0, 1]^D.
 and the CUDA kernels for a CUDA tensor (``ops/kernels/hashgrid.py``:
 ``GridEncode`` while autograd records the table, the forward launch
 alone otherwise), where it gives the table gradient but no x-gradient.
+``grid_tv_loss`` is the TV regulariser over the table's dense levels,
+plain tensor ops on either device.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -163,3 +165,26 @@ def grid_encode(x: torch.Tensor, embeddings: torch.Tensor, cfg: GridConfig,
     else:
         out = grid_encode_fwd(xf.contiguous(), embeddings.contiguous(), geom, out_dtype)
     return out.reshape(*batch_shape, cfg.output_dim)
+
+
+def grid_tv_loss(embeddings: torch.Tensor, cfg: GridConfig,
+                 levels: Optional[Sequence[int]] = None) -> torch.Tensor:
+    """Total variation over the dense (non-hashed) levels of the table: per
+    level and axis the mean squared difference of neighbouring rows, the
+    mean over those terms; 0 when no level is dense. A dense level's rows
+    are laid out with dim 0 fastest, so its reshape reverses the axes.
+    Autograd gives the table gradient."""
+    total = torch.zeros((), device=embeddings.device)
+    offs = cfg.offsets
+    n_terms = 0
+    for level in range(cfg.num_levels) if levels is None else levels:
+        res = cfg.level_resolution(level)
+        side = res if cfg.align_corners else res + 1
+        if side**cfg.input_dim > offs[level + 1] - offs[level]:
+            continue  # hashed: neighbours are not adjacent rows
+        dense = embeddings[offs[level]:offs[level] + side**cfg.input_dim]
+        dense = dense.reshape((side,) * cfg.input_dim + (cfg.level_dim,))
+        for axis in range(cfg.input_dim):
+            total = total + (torch.diff(dense, dim=axis).float() ** 2).mean()
+            n_terms += 1
+    return total / n_terms if n_terms else total

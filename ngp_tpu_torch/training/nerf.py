@@ -2,10 +2,16 @@
 
 ``train_step`` trains on one batch of sampled rays of one frame: the
 frame gather, pixel sampling (uniform, error map or patches), a random
-per-pixel background for RGBA frames, the render, per-ray MSE, the
-optimizer step and the error-map EMA. Its random draws come from the
-trainer's generator, or from ``draws`` (the sampler's draws, "bg" and
-"noise"), so that a test can feed it the numbers ``jax.random`` drew.
+per-pixel background for RGBA frames, the render, per-ray MSE plus the
+TV term (``tv_weight``, the encoder table's dense levels) and the
+distortion term (``distortion_weight``, ``eff_distloss`` on the render's
+per-slot weights, ts and deltas), the optimizer step and the error-map
+EMA. Its random draws come from the trainer's generator, or from
+``draws`` (the sampler's draws, "bg" and "noise"), so that a test can
+feed it the numbers ``jax.random`` drew. With ``rand_pose`` >= 0 and a
+``guidance_loss``, the loader also yields random-pose batches, which
+``guidance_step`` trains on: a low-resolution full frame from a random
+orbit pose on a white background, scored by the image loss.
 
 ``render_frame`` renders with the EMA weights when there are any, a
 full frame in fixed-size ray chunks. Which rays share a chunk decides
@@ -40,13 +46,14 @@ import torch
 
 from ngp_tpu_torch.config import RenderConfig, TrainConfig
 from ngp_tpu_torch.data.mesh import save_mesh as write_mesh
-from ngp_tpu_torch.data.nerf_dataset import NeRFDataset
+from ngp_tpu_torch.data.nerf_dataset import NeRFDataset, rand_poses
 from ngp_tpu_torch.data.raysampler import (
     rays_from_frame_indices,
     rays_from_indices,
     sample_ray_indices,
 )
 from ngp_tpu_torch.models.nerf import NeRFNetwork
+from ngp_tpu_torch.ops.losses import eff_distloss
 from ngp_tpu_torch.training.metrics import LPIPSMeter, PSNRMeter, SSIMMeter
 from ngp_tpu_torch.training.trainer import Trainer
 from ngp_tpu_torch.utils.color import linear_to_srgb_np
@@ -65,8 +72,6 @@ class NeRFTrainer(Trainer):
         kwargs.setdefault("max_keep_ckpt", train_cfg.max_keep_ckpt)
         kwargs.setdefault("eval_interval", train_cfg.eval_interval)
         super().__init__(name=name, **kwargs)
-        if train_cfg.tv_weight > 0 or train_cfg.distortion_weight > 0:
-            raise NotImplementedError("the tv and distortion losses are not ported yet")
         self.model = model
         self.render_cfg = render_cfg
         self.train_cfg = train_cfg
@@ -85,6 +90,9 @@ class NeRFTrainer(Trainer):
         self.last_render_stats: Dict[str, float] = {}
         # the last save_mesh call: seconds per stage, vertex and face counts
         self.last_mesh_stats: Dict[str, float] = {}
+        # image loss of the random-pose guidance steps (clip_guidance), or
+        # None: the loader then skips the virtual indices
+        self.guidance_loss = None
 
     def init_aux(self):
         return {}
@@ -146,7 +154,11 @@ class NeRFTrainer(Trainer):
         out = self._render_with((*self._fns(), None), rays["rays_o"], rays["rays_d"],
                                 bg_color=bg, perturb=True, noise=draws.get("noise"))
         per_ray = ((out["image"] - gt_rgb) ** 2).mean(dim=-1)
-        loss = per_ray.mean()
+        loss = per_ray.mean() + self._loss_extra()
+        wd = self.train_cfg.distortion_weight
+        if wd > 0:
+            # per ray slot; padded slots have weight 0 and add nothing
+            loss = loss + wd * eff_distloss(out["weights"], out["ts"], out["deltas"])
         loss.backward()
         self._apply_gradients()
 
@@ -161,9 +173,53 @@ class NeRFTrainer(Trainer):
             em[idx, ic] = 0.1 * em[idx][ic] + 0.9 * per_ray.detach()
         return metrics
 
+    def _loss_extra(self):
+        """``tv_weight`` times the model's TV loss."""
+        wt = self.train_cfg.tv_weight
+        return wt * self.model.tv_loss() if wt > 0 else 0.0
+
+    # ---- random-pose guidance steps -----------------------------------------
+
+    def guidance_step(self, batch, draws=None) -> Dict[str, torch.Tensor]:
+        """Train on a random pose with ``guidance_loss`` instead of ground
+        truth (the reference's utils.py:473-488): batch "pose" [4, 4],
+        "intrinsics" [4] and the frame size "rH", "rW"; every pixel of
+        the frame, white background. ``draws["noise"]`` [rH * rW] replaces
+        the march's perturbation draw."""
+        self.ensure_initialized()
+        draws = draws or {}
+        rH, rW = int(batch["rH"]), int(batch["rW"])
+        dev = self.device
+        inds = torch.arange(rH * rW, device=dev)
+        rays = rays_from_indices(batch["pose"], batch["intrinsics"], rH, rW, inds)
+        self.optimizer.zero_grad(set_to_none=True)
+        out = self._render_with((*self._fns(), None), rays["rays_o"], rays["rays_d"],
+                                bg_color=1.0, perturb=True, noise=draws.get("noise"))
+        loss = self.guidance_loss(out["image"].reshape(1, rH, rW, 3))
+        loss.backward()
+        self._apply_gradients()
+        return {"loss": loss.detach()}
+
+    def train_one_epoch(self, loader):
+        """Guidance batches go to ``guidance_step`` (counted as steps, with
+        the refresh cadence), the others through the base loop."""
+        def wrapped():
+            for batch in loader:
+                if "guidance" in batch:
+                    self.on_step_begin()
+                    self.guidance_step(batch)
+                    self.global_step += 1
+                else:
+                    yield batch
+
+        super().train_one_epoch(wrapped())
+
     def make_loader(self, dataset: NeRFDataset):
         """Epoch iterator factory: the split's arrays go to the device
-        once, and each step's batch names them and a frame index."""
+        once, and each step's batch names them and a frame index. A
+        virtual index (``rand_pose``) becomes a guidance batch: a random
+        orbit pose at the split's radius, the frame scaled by
+        s = sqrt(H * W / num_rays) (at least 8 x 8 pixels)."""
         dev = self.device
         images = torch.as_tensor(
             dataset.images if dataset.images is not None
@@ -176,7 +232,14 @@ class NeRFTrainer(Trainer):
         def epoch_iter():
             for idx in dataset.epoch_indices(np_rng, self.train_cfg.rand_pose):
                 if idx >= n_frames:
-                    continue  # random-pose guidance steps are not ported
+                    if self.guidance_loss is None:
+                        continue
+                    pose = rand_poses(np_rng, 1, radius=dataset.radius)[0]
+                    s = float(np.sqrt(dataset.H * dataset.W / self.train_cfg.num_rays))
+                    yield {"guidance": True, "pose": torch.as_tensor(pose, device=dev),
+                           "intrinsics": intrinsics / s,
+                           "rH": max(int(dataset.H / s), 8), "rW": max(int(dataset.W / s), 8)}
+                    continue
                 yield {"images": images, "poses": poses, "intrinsics": intrinsics,
                        "idx": int(idx)}
 

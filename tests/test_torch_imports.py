@@ -1,5 +1,7 @@
 """The PyTorch port imports on a CPU-only machine without JAX, the JAX
-package or Triton, and its config copy matches the JAX package's."""
+package, the JAX package's ``main_nerf.py`` or Triton, and its config
+copy matches the JAX package's; its command line and ``chip_smoke.py``
+exit non-zero without a CUDA device."""
 
 import dataclasses
 import os
@@ -23,6 +25,8 @@ MODULES = [
     "ngp_tpu_torch.ops.activation",
     "ngp_tpu_torch.ops.cpgrid",
     "ngp_tpu_torch.ops.hashgrid",
+    "ngp_tpu_torch.ops.losses",
+    "ngp_tpu_torch.ops.morton",
     "ngp_tpu_torch.ops.kernels",
     "ngp_tpu_torch.ops.kernels.build",
     "ngp_tpu_torch.ops.kernels.cp",
@@ -47,6 +51,9 @@ MODULES = [
     "ngp_tpu_torch.training.trainer",
     "ngp_tpu_torch.training.nerf",
     "ngp_tpu_torch.training.nerf_grid",
+    "ngp_tpu_torch.training.clip_guidance",
+    "ngp_tpu_torch.main_nerf",
+    "chip_smoke",
 ]
 
 
@@ -57,7 +64,7 @@ def test_every_module_imports_without_jax_or_triton():
             importlib.import_module(name)
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
-                                            "ngp_tpu", "triton"))
+                                            "ngp_tpu", "triton", "main_nerf"))
         assert not bad, bad
         from ngp_tpu_torch.ops.kernels import build
         assert build._lib is None  # the kernel library loads at first launch
@@ -86,3 +93,15 @@ def test_config_properties_match(bound):
     b = torch_config.RenderConfig(bound=bound)
     assert a.cascades == b.cascades
     assert a.aabb == b.aabb
+
+
+@pytest.mark.parametrize("argv", [["chip_smoke.py"], ["-m", "ngp_tpu_torch.main_nerf", "scene", "-O"]])
+def test_card_entry_points_fail_without_cuda(tmp_path, argv):
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("the machine has a CUDA device")
+    res = subprocess.run([sys.executable] + argv, cwd=REPO, capture_output=True, text=True,
+                         timeout=120, env=dict(os.environ, HOME=str(tmp_path)))
+    assert res.returncode != 0
+    assert '"ok"' not in res.stdout and "CUDA" in res.stdout + res.stderr

@@ -392,3 +392,207 @@ def test_train_on_dataset_refresh_cadence_and_checkpoints(tmp_path):
         for k, p in tr.model.named_parameters():
             _eq(p.detach(), tr.ema.shadow[k])
     _eq(tr.model.encoder.factors_32.detach(), back.model.encoder.factors_32.detach())
+
+
+# ---------------------------------------------------------------------------
+# the TV and distortion terms, the guidance step and its loader
+# ---------------------------------------------------------------------------
+
+
+def _trainer_pair(tmp_path, rc, nc, tc, table_std=None):
+    """A JAX trainer that records its gradients and the port's trainer on
+    the same weights and occupancy grid (three JAX refreshes). With
+    ``table_std``, the grid table is redrawn N(0, table_std), so that the
+    TV term is not negligible beside the MSE."""
+    jrc = jconfig.RenderConfig(**rc)
+    jtr = JGridNeRFTrainer(JNeRFNetwork(cfg=jconfig.NetworkConfig(**nc), render=jrc), jrc,
+                           jconfig.TrainConfig(**tc), log_every=10**9, use_tensorboard=False)
+    jtr.tx = _grad_recorder()
+    jtr.ensure_initialized()
+    if table_std is not None:
+        params = jax.tree.map(lambda a: a, jtr.state.params)
+        emb = params["params"]["encoder"]["embeddings"]
+        params["params"]["encoder"]["embeddings"] = jnp.asarray(
+            np.random.default_rng(8).normal(scale=table_std, size=emb.shape).astype(np.float32))
+        jtr.state = jtr.state.replace(params=params)
+    for _ in range(3):
+        jtr._update_occupancy()
+
+    def port():
+        net = TNeRFNetwork(tconfig.NetworkConfig(**nc), tconfig.RenderConfig(**rc), device="cpu")
+        net.load_state_dict(params_from_jax(jax.tree.map(np.asarray, jtr.state.params)))
+        ttr = TGridNeRFTrainer(net, net.render, tconfig.TrainConfig(**tc))
+        occ = jtr.aux["occ"]
+        ttr.aux = {"occ": to.occupancy_from_jax(
+            {f.name: np.asarray(getattr(occ, f.name)) for f in dataclasses.fields(occ)},
+            device="cpu")}
+        return ttr
+
+    return jtr, port
+
+
+def _check_step(jstate, jmet, tmet, net):
+    """The loss to 1e-5 relative, every gradient to 1e-4 of its largest
+    entry, as ``test_train_step_matches_jax`` holds them."""
+    loss = float(jmet["loss"])
+    assert abs(float(tmet["loss"]) - loss) <= 1e-5 * abs(loss) and loss != 0
+    jgrads = params_from_jax(jax.tree.map(np.asarray, jstate.opt_state["g"]))
+    assert set(jgrads) == {n for n, _ in net.named_parameters()}
+    for name, p in net.named_parameters():
+        assert p.grad is not None and float(p.grad.abs().max()) > 0, name
+        _scaled(p.grad, jgrads[name], 1e-4)
+
+
+_TURBO_RC = dict(bound=1.0, min_near=0.05, dt_gamma=0.0, max_steps=64, max_samples_per_ray=16,
+                 grid_size=16, density_thresh=10.0, turbo=True, coarse_candidates=48,
+                 crossing_slots=16, compact_mean_samples=6)
+_CP_NC = dict(encoding="cpgrid", use_bf16=False, cp_resolutions=(32, 64), cp_rank=16,
+              cp_freq_degree=4, sh_degree=3)
+# one dense level of 17^3 rows, which the TV term reaches in full; a finer
+# level (the network's finest is 2048 * bound) would need the sample points
+# rounded as JAX rounds them (test_torch_v1_march.py:_one_rounding)
+_TILED_NC = dict(encoding="tiledgrid", use_bf16=False, num_levels=1, level_dim=2,
+                 base_resolution=16, log2_hashmap_size=14, sh_degree=3)
+
+
+@pytest.mark.parametrize("config", ["turbo-cpgrid", "turbo-tiledgrid", "v1-hashgrid"])
+def test_train_step_with_tv_and_distortion_matches_jax(tmp_path, monkeypatch, config):
+    """One f32 step with ``tv_weight`` and ``distortion_weight`` > 0 on the
+    turbo march (per placed slot: padded slots weigh 0) and on the v1
+    march (the hash grid, whose level 0 is dense; the sample points
+    rounded as JAX rounds them, ``_one_rounding``), with JAX's draws.
+    The CP grid has no table: its TV term is 0."""
+    from test_torch_v1_march import NC as V1_NC
+    from test_torch_v1_march import RC as V1_RC
+    from test_torch_v1_march import _one_rounding
+
+    march, enc = config.split("-")
+    rc, nc = (_TURBO_RC, _CP_NC) if march == "turbo" else (V1_RC, V1_NC)
+    if enc == "tiledgrid":
+        nc = _TILED_NC
+    if march == "v1":
+        _one_rounding(monkeypatch)
+    H = W = 32
+    n = 512
+    tc = dict(iters=50, num_rays=n, workspace=str(tmp_path), tv_weight=0.5,
+              distortion_weight=0.1)
+    jtr, port = _trainer_pair(tmp_path, rc, nc, tc,
+                              table_std=None if enc == "cpgrid" else 0.1)
+    frames = tsyn.make_synthetic_frames(n_train=2, n_val=0, n_test=0, H=H, W=W,
+                                        device="cpu")["train"]
+    batch = {"images": jnp.asarray(frames.images), "poses": jnp.asarray(frames.poses),
+             "intrinsics": jnp.asarray(frames.intrinsics), "idx": jnp.int32(1)}
+    rng = jax.random.PRNGKey(9)
+    jstate, _, jmet = jax.jit(jtr.train_step)(jtr.state, jtr.aux, batch, rng)
+    k_pix, k_bg, k_render = jax.random.split(rng, 3)
+    draws = {"inds": _np(jax.random.randint(k_pix, (n,), 0, H * W)),
+             "bg": _np(jax.random.uniform(k_bg, (n, 3))),
+             "noise": _np(jax.random.uniform(k_render, (n,)))}
+    tbatch = {"images": torch.from_numpy(frames.images), "poses": torch.from_numpy(frames.poses),
+              "intrinsics": torch.from_numpy(frames.intrinsics), "idx": 1}
+    ttr = port()
+    tmet = ttr.train_step(tbatch, draws)
+    _check_step(jstate, jmet, tmet, ttr.model)
+    # each term moves the loss: the same step without it
+    for off in ("tv_weight", "distortion_weight"):
+        if off == "tv_weight" and enc == "cpgrid":
+            continue
+        bare = port()
+        bare.train_cfg = dataclasses.replace(bare.train_cfg, **{off: 0.0})
+        assert float(bare.train_step(tbatch, draws)["loss"]) < 0.99 * float(tmet["loss"]), off
+
+
+def _guidance_pose():
+    from ngp_tpu_torch.data.nerf_dataset import rand_poses
+
+    return rand_poses(np.random.default_rng(3), 1, radius=2.2)[0]
+
+
+def test_guidance_step_matches_jax(tmp_path):
+    """One random-pose guidance step (``GradientImageLoss`` on a 16 x 12
+    full frame, white background, every ray perturbed by JAX's noise) on
+    a fixed pose: the loss and every gradient."""
+    from ngp_tpu.training.clip_guidance import GradientImageLoss as JGradientImageLoss
+    from ngp_tpu_torch.training.clip_guidance import GradientImageLoss
+
+    tc = dict(iters=50, num_rays=1024, workspace=str(tmp_path), rand_pose=2)
+    jtr, port = _trainer_pair(tmp_path, _TURBO_RC, _CP_NC, tc)
+    jtr.guidance_loss = JGradientImageLoss("x")
+    pose = _guidance_pose()
+    intr = np.array([16.0, 16.0, 6.0, 8.0], np.float32)
+    rH, rW = 16, 12
+    rng = jax.random.PRNGKey(4)
+    batch = {"pose": jnp.asarray(pose), "intrinsics": jnp.asarray(intr),
+             "image_h": jnp.zeros((rH,)), "image_w": jnp.zeros((rW,))}
+    jstate, _, jmet = jax.jit(jtr.guidance_step)(jtr.state, jtr.aux, batch, rng)
+    ttr = port()
+    ttr.guidance_loss = GradientImageLoss("x")
+    tmet = ttr.guidance_step({"pose": torch.from_numpy(pose), "intrinsics": torch.from_numpy(intr),
+                              "rH": rH, "rW": rW},
+                             {"noise": _np(jax.random.uniform(rng, (rH * rW,)))})
+    _check_step(jstate, jmet, tmet, ttr.model)
+
+
+def test_loader_guidance_batches_match_jax(tmp_path):
+    """With ``rand_pose`` = 2 and a guidance loss, both loaders draw the
+    same epoch order and the same random poses from one generator; a
+    guidance batch scales the intrinsics by s = sqrt(H * W / num_rays)
+    and the frame to at least 8 x 8. ``train_one_epoch`` counts its
+    guidance steps as steps; without a guidance loss they are skipped."""
+    from ngp_tpu.training.clip_guidance import GradientImageLoss as JGradientImageLoss
+    from ngp_tpu_torch.training.clip_guidance import GradientImageLoss
+
+    tc = dict(iters=50, num_rays=64, workspace=str(tmp_path), rand_pose=2, seed=5)
+    jtr, port = _trainer_pair(tmp_path, _TURBO_RC, _CP_NC, tc)
+    ds = tsyn.make_synthetic_frames(n_train=4, n_val=0, n_test=0, H=24, W=20,
+                                    device="cpu")["train"]
+    jtr.guidance_loss = JGradientImageLoss()
+    ttr = port()
+    want = list(jtr.make_loader(ds)())
+    assert not [b for b in port().make_loader(ds)() if "guidance" in b]  # no loss: skipped
+    ttr.guidance_loss = GradientImageLoss()
+    got = list(ttr.make_loader(ds)())
+    assert len(got) == len(want) == 6
+    assert sum("guidance" in b for b in got) == 2
+    for g, w in zip(got, want):
+        assert ("guidance" in g) == ("guidance" in w)
+        if "guidance" in g:
+            np.testing.assert_array_equal(g["pose"].numpy(), np.asarray(w["pose"]))
+            np.testing.assert_array_equal(g["intrinsics"].numpy(), np.asarray(w["intrinsics"]))
+            assert (g["rH"], g["rW"]) == (w["image_h"].shape[0], w["image_w"].shape[0]) == (8, 8)
+        else:
+            assert g["idx"] == int(w["idx"])
+    losses = []
+    guidance_step = ttr.guidance_step
+    ttr.guidance_step = lambda b, d=None: losses.append(guidance_step(b, d)["loss"])
+    ttr.train_one_epoch(ttr.make_loader(ds)())
+    assert ttr.global_step == 6 and len(losses) == 2 and np.isfinite(losses).all()
+
+
+def test_turbo_render_weights_share_the_slot_layout():
+    """What the distortion term reads from a turbo train render:
+    ``weights``, ``ts`` and ``deltas`` per placed slot [N, S], ts
+    ascending along the valid slots, and weight 0 on every slot the march
+    did not fill or the budget dropped."""
+    from ngp_tpu_torch.models.nerf import make_fused_density
+
+    rc = tconfig.RenderConfig(**dict(_TURBO_RC, compact_mean_samples=2))
+    net = TNeRFNetwork(tconfig.NetworkConfig(**_CP_NC), rc, torch.Generator().manual_seed(1),
+                       device="cpu")
+    occ = to.init_occupancy(rc, device="cpu")
+    rng = np.random.default_rng(12)
+    ro = np.tile(np.array([[0.1, -0.2, -2.5]], np.float32), (64, 1))
+    rd = rng.normal(size=(64, 3)).astype(np.float32) * 0.2 + np.array([0, 0, 1], np.float32)
+    rd /= np.linalg.norm(rd, axis=-1, keepdims=True)
+    noise = torch.from_numpy(rng.uniform(size=64).astype(np.float32))
+    ro_t, rd_t = torch.from_numpy(ro), torch.from_numpy(rd)
+    out = to.render_rays_grid_turbo(make_fused_density(net), net.color, ro_t, rd_t, occ, rc,
+                                    perturb=True, noise=noise)
+    m = to.march_rays_turbo(ro_t, rd_t, occ, rc, perturb=True, noise=noise)
+    assert out["weights"].shape == out["ts"].shape == out["deltas"].shape == m["mask"].shape
+    _eq(out["ts"], m["ts"])
+    assert not bool(out["weights"][~m["mask"]].any())
+    kept = out["weights"] > 0
+    assert 0 < int(kept.sum()) <= int(out["n_samples"]) < int(m["mask"].sum())  # a binding budget
+    ts = torch.where(m["mask"], m["ts"], torch.tensor(float("inf")))
+    assert bool((ts[:, 1:] >= ts[:, :-1]).all())

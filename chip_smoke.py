@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's ``-O`` paths once on one NVIDIA GPU: the eval
-render, training, and the end of a run (evaluate, test, mesh export), at
-the turbo-hq preset and in the hash-grid configuration
-(``-O --encoding hashgrid``).
+"""Drive the PyTorch port's paths once on one NVIDIA GPU: the eval render,
+training, and the end of a run (evaluate, test, mesh export), at the
+turbo-hq preset and in the hash-grid configuration (``-O --encoding
+hashgrid``), then the port's command line: ``-O`` and the rest of
+``main_nerf`` (the background net, the renderer without the occupancy
+grid, LPIPS).
 
 Run from the repository root, with no arguments:
 
@@ -35,7 +37,10 @@ no 64-bit division routine, and of the turbo march), then
      and table gradient, and the row scatter-add (which no path runs
      any more) at the probe script's shape and one hash level's, with
      ``Tensor.index_add_`` timed beside it; the coarse lookup (which
-     only the eval prepass runs) on random cells;
+     only the eval prepass runs) on random cells; the grid kernels' 2-D
+     instances on the background net's encoder (4 levels x 2, the
+     finest hashed into 2^19 rows) at a background-frame chunk (65,536
+     points) and a CLI step's rays (4096), bf16 and f32;
 5.   renders a small frame on the GPU and the same frame on the CPU
      through the plain versions;
 6.   renders the synthetic scene (16 train frames at 400x400 and one
@@ -91,7 +96,22 @@ no 64-bit division routine, and of the turbo march), then
      PSNR must equal (b)'s, (d) ``-O --encoding hashgrid`` with
      ``--tv_weight`` and ``--distortion_weight`` (a finite TV loss, a
      loss that falls) and (e) ``--rand_pose 4`` (its guidance steps run,
-     with finite losses).
+     with finite losses);
+12.  runs the rest of ``main_nerf`` on the same scene
+     (``cli_rest_runs``): (a) ``-O --bg_radius 32 --downscale 4
+     --lpips_weights`` (a random-weight checkpoint; 25 epochs; the PSNR
+     of the first train views at least ``CLI_BG_MIN_PSNR``, the test
+     PSNR beside a white frame's and 11 (a)'s, LPIPS finite, the
+     background pass run, the 2-D grid kernels launched and held against
+     their plain versions on the first and last steps' own points), (b) no
+     ``-O`` at the CLI's defaults (the uniform renderer, hash grid, f32,
+     512 samples a ray: 2,097,152 a step; the loss falls, the test PSNR
+     beats a white frame's; rays/s, ms a step, one profiled step; the
+     3-D grid kernels on the last step's own points), (c) no ``-O`` with
+     ``--encoding cpgrid --fp16`` at the turbo-hq widths (the loss
+     falls; the CP kernels launched, and held against their plain
+     versions at its 2,097,152 rows) and (d) ``-O --encoding hashgrid
+     --bg_radius 32`` (the v1 march with the background net).
 
 Each path is run with the launch counts set to 0 just before it and read
 just after; a kernel of the path that was not launched fails the run.
@@ -107,6 +127,7 @@ could do them (``bound``). The last line is a JSON object
 """
 
 import argparse
+import contextlib
 import copy
 import itertools
 import json
@@ -227,11 +248,44 @@ MIN_PSNR_CLI = 37.0
 CLI_HASH_ITERS = 256
 CLI_GUIDE_ITERS = 64
 CLI_RAND_POSE = 4
+# phase 12: the rest of main_nerf on the same scene. (a) turbo-hq with the
+# background net on a sphere of radius CLI_BG_RADIUS and LPIPS from a
+# random-weight checkpoint, CLI_BG_ITERS iterations (25 epochs: cut from 51
+# to hold the smoke's time) on frames of 100x100 (--downscale
+# CLI_BG_DOWNSCALE); (b) no -O at the CLI's defaults (hash grid, f32, 512
+# samples a ray, 4096 rays: 2,097,152 samples a step), CLI_UNIFORM_ITERS;
+# (c) no -O with the CP grid at the turbo-hq widths in bf16, CLI_CP_ITERS;
+# (d) the hash grid's v1 march with the background net, CLI_HASH_ITERS.
+# On this white-background scene, whose cameras sit inside the box, the
+# background net learns the train views on its own and the density field
+# stays empty: the test split reads a white frame's PSNR, with the net's
+# output or with white in its place (PERF.md). So (a) is held on the first
+# CLI_BG_VIEWS train views through evaluate: at least CLI_BG_MIN_PSNR, set
+# from its own first runs on NVIDIA H100 80GB HBM3, 700.00 W (20.15 and
+# 20.16 dB; a white frame 11.36) and at least 3 dB above a white frame's.
+# At 400x400 the net had not learned the views in 1024 iterations
+# (epoch-mean loss 0.104 -> 0.045, test PSNR 11.46 dB).
+CLI_BG_RADIUS = 32
+CLI_BG_ITERS = 1024
+CLI_BG_DOWNSCALE = 4
+CLI_BG_VIEWS = 8
+CLI_BG_MIN_PSNR = 16.0
+CLI_UNIFORM_ITERS = 256
+CLI_CP_ITERS = 128
+CLI_TURBO_HQ = ["--cp_rank", "128", "--cp_freq_degree", "6", "--cp_resolutions", "128", "256",
+                "512", "1024", "2048"]
+# the background net's encoder (NeRFNetwork.encoder_bg: 4 levels x 2 of 2-D
+# points, the finest hashed into 2^19 rows) at a background-frame chunk and a
+# CLI train step's rays
+BG_GRID = dict(input_dim=2, num_levels=4, log2_hashmap_size=19, desired_resolution=2048)
+BG_ROWS = (65536, 4096)
 # H100 SXM (NVIDIA's data sheet): HBM bytes/s, dense bf16 tensor-core and
 # f32 CUDA-core FLOP/s
 HBM_RATE = 3.35e12
 BF16_TENSOR_RATE = 989e12
 F32_CORE_RATE = 67e12
+# the least HBM moves at once: a table row read or written costs its sector
+SECTOR = 32
 # the profiler trace's event categories that are device work
 DEVICE_ACTIVITIES = ("kernel", "gpu_memcpy", "gpu_memset")
 
@@ -254,14 +308,51 @@ def inside_rows(pos):
     return ((pos >= 0.0) & (pos <= 1.0)).all(dim=1)
 
 
-def grid_bwd_work(x, g, geom):
-    """(bytes, 0, operations) of the table gradient on these inputs: x and
-    g read once, the f32 table written once; per (point, level) inside
-    [0, 1]^3 with a non-zero cotangent, 9 operations of position and per
-    corner 2 of weight and 1 per feature."""
-    L, C = geom.num_levels, geom.level_dim
+def table_bytes(idx, geom):
+    """The bytes of the f32 table rows that idx names (entries < 0 name
+    none): each distinct row once, counted in the whole 32-byte sectors
+    that HBM moves, and at most the whole table."""
+    import torch
+
+    row = geom.level_dim * 4
+    idx = idx[idx >= 0].long()
+    if row >= SECTOR:
+        n = torch.unique(idx).numel() * row
+    else:
+        n = torch.unique(idx * row // SECTOR).numel() * SECTOR
+    return min(n, geom.num_rows * row)
+
+
+def grid_fwd_work(x, geom, od):
+    """(bytes, 0, operations) of the grid forward on points x [B, D]: x
+    read, the table rows of every corner of the points inside [0, 1]^D
+    read (``table_bytes``), the output of type od written; per (point,
+    level) 3 D operations of position, then per corner D - 1 of weight
+    and 2 per feature."""
+    import torch
+
+    from ngp_tpu_torch.ops.kernels import hashgrid as hk
+
+    D, L, C = geom.input_dim, geom.num_levels, geom.level_dim
+    B = x.shape[0]
+    idx, _ = hk.grid_encode_bwd_rows_plain(x, torch.ones((B, L * C), device=x.device), geom)
+    return (nbytes(x) + table_bytes(idx, geom) + B * L * C * od.itemsize, 0,
+            B * L * (3 * D + 2**D * (D - 1 + 2 * C)))
+
+
+def grid_bwd_work(x, g, geom, idx, rows):
+    """(bytes, 0, operations) of the table gradient on points x and
+    cotangent g, whose corner rows idx and products rows
+    ``grid_encode_bwd_rows_plain`` gives: x and g read, and the table rows
+    that receive a non-zero product written (``table_bytes``; the kernel
+    adds into no other row, and the zero fill is the wrapper's own
+    launch); per (point, level) inside [0, 1]^D with a non-zero
+    cotangent, 3 D operations of position, then per corner D - 1 of
+    weight and 1 per feature."""
+    D, L, C = geom.input_dim, geom.num_levels, geom.level_dim
     live = int(((g.view(-1, L, C) != 0).any(dim=2) & inside_rows(x)[:, None]).sum())
-    return nbytes(x, g) + geom.num_rows * C * 4, 0, live * (9 + 8 * (2 + C))
+    return (nbytes(x, g) + table_bytes(idx[(rows != 0).any(dim=1)], geom), 0,
+            live * (3 * D + 2**D * (D - 1 + C)))
 
 
 def scatter_bound(ks, idx, rows, num_rows):
@@ -561,11 +652,32 @@ def step_table_gradient(x, g, geom, label, card, results, library, probe):
     s_bound = scatter_bound(sk, idx, rows, geom.num_rows)
     if probe:
         scatter_probe(x, g, geom, idx, rows, nz, s_bound, label, card, results, library)
+    work = grid_bwd_work(x, g, geom, idx, rows)
     del idx, rows, nz
     results[("grid_encode_bwd", label)] = compare(
         "grid_encode_bwd", lambda: hk.grid_encode_bwd(x, g, geom),
-        lambda: hk.grid_encode_bwd_plain(x, g, geom), "bfloat16",
-        grid_bwd_work(x, g, geom), tol=lambda want: [s_bound])
+        lambda: hk.grid_encode_bwd_plain(x, g, geom), "bfloat16", work,
+        tol=lambda want: [s_bound])
+
+
+def grid_checks(hk, sk, x, table, geom, od, g, label, results):
+    """``grid_encode_fwd`` and ``grid_encode_bwd`` on points x [B, D] against
+    their plain versions: the forward to TOL of the output type, the table
+    gradient (cotangent g) within the f32 summation-order bound
+    (``scatter_bound``); work as ``grid_fwd_work`` and ``grid_bwd_work``
+    count it."""
+    idx, rows = hk.grid_encode_bwd_rows_plain(x, g, geom)
+    s_bound = scatter_bound(sk, idx, rows, geom.num_rows)
+    bwd_work = grid_bwd_work(x, g, geom, idx, rows)
+    del idx, rows
+    results[("grid_encode_fwd", label)] = compare(
+        "grid_encode_fwd", lambda: hk.grid_encode_fwd(x, table, geom, od),
+        lambda: hk.grid_encode_plain(x, table, geom, od), str(od).split(".")[-1],
+        grid_fwd_work(x, geom, od))
+    results[("grid_encode_bwd", label)] = compare(
+        "grid_encode_bwd", lambda: hk.grid_encode_bwd(x, g, geom),
+        lambda: hk.grid_encode_bwd_plain(x, g, geom), str(g.dtype).split(".")[-1], bwd_work,
+        tol=lambda want: [s_bound])
 
 
 def step_factor_gradient(pos, factors, g_cp, res, label, card, results):
@@ -761,32 +873,29 @@ def gamma_window(dev, card, rc, nc, train_ds, results):
     return rays_s, step_counts, frame_counts, step_prof, frame_prof
 
 
-def cli_runs(dev, card, api_rays_s):
-    """Phase 11: ``ngp_tpu_torch.main_nerf`` on a scene on disk, as a user
-    runs it. (a) turbo-hq through ``main`` in this process, (b) the same
-    command one epoch longer, resuming from ``--ckpt latest``, (c) ``--test``
-    as a subprocess on the checkpoint (b) wrote, whose PSNR must equal
-    (b)'s ``evaluate`` (both start from a fresh trainer: the eval's sticky
-    chunk counts and spans, which (a)'s validation frames raised, are then
-    the same), (d) the hash grid with the TV and distortion losses, (e)
-    the random-pose guidance steps. Returns the launch counts of (a), (b),
-    (d) and (e)."""
+@contextlib.contextmanager
+def cli_recorder(dev, card):
+    """Run ``ngp_tpu_torch.main_nerf`` in this process and see what it does:
+    yields (seen, run). ``run(argv, label)`` clears ``seen``, resets the
+    launch counts, runs ``main(argv)`` on the card and returns (trainer,
+    launch counts, seconds, the loss readings). ``seen`` then holds each
+    epoch's wall time (its last step's loss read to the host ends it),
+    evaluate's results and wall times, test's wall time, the guidance
+    steps' losses, the step a checkpoint load resumed at, the calls of
+    the background-frame pass and every train step's loss (a device
+    scalar); ``NeRFTrainer``'s methods are wrapped at
+    class level for it and restored after."""
     import numpy as np
     import torch
 
     from ngp_tpu_torch import main_nerf
-    from ngp_tpu_torch.data.synthetic import make_synthetic_dataset
     from ngp_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
     from ngp_tpu_torch.training.nerf import NeRFTrainer
-    from ngp_tpu_torch.utils.png import read_png
 
-    # what the runs do inside main: each epoch's wall time (its last step's
-    # loss read to the host ends it), evaluate's PSNRs and wall times, test's
-    # wall time, the guidance steps' losses and the step a checkpoint load
-    # resumes at
-    seen = {"epochs": [], "evaluate": [], "evaluate_s": [], "test_s": [], "guidance": [],
-            "loaded": []}
-    names = ("train_one_epoch", "evaluate", "test", "guidance_step", "load_checkpoint")
+    seen = {"epochs": [], "evaluate": [], "results": [], "evaluate_s": [], "test_s": [],
+            "guidance": [], "loaded": [], "bg_frames": [], "step_losses": []}
+    names = ("train_one_epoch", "evaluate", "test", "guidance_step", "load_checkpoint",
+             "_render_bg_frames", "train_step")
     original = {k: getattr(NeRFTrainer, k) for k in names}
 
     def train_one_epoch(self, loader):
@@ -799,6 +908,7 @@ def cli_runs(dev, card, api_rays_s):
         out = original["evaluate"](self, *a, **kw)
         seen["evaluate_s"].append(time.perf_counter() - t0)
         seen["evaluate"].append(out["psnr"])
+        seen["results"].append(out)
         return out
 
     def test(self, *a, **kw):
@@ -817,6 +927,16 @@ def cli_runs(dev, card, api_rays_s):
         seen["loaded"].append(self.global_step if loaded else None)
         return loaded
 
+    def render_bg_frames(self, *a, **kw):
+        out = original["_render_bg_frames"](self, *a, **kw)
+        seen["bg_frames"].append(out.shape[0])
+        return out
+
+    def train_step(self, *a, **kw):
+        out = original["train_step"](self, *a, **kw)
+        seen["step_losses"].append(out["loss"])  # on the device: no sync
+        return out
+
     def run(argv, label):
         for v in seen.values():
             v.clear()
@@ -834,134 +954,416 @@ def cli_runs(dev, card, api_rays_s):
         return trainer, counts, dt, losses
 
     patched = {"train_one_epoch": train_one_epoch, "evaluate": evaluate, "test": test,
-               "guidance_step": guidance_step, "load_checkpoint": load_checkpoint}
+               "guidance_step": guidance_step, "load_checkpoint": load_checkpoint,
+               "_render_bg_frames": render_bg_frames, "train_step": train_step}
     for k, fn in patched.items():
         setattr(NeRFTrainer, k, fn)
     try:
-        with tempfile.TemporaryDirectory() as tmp:
-            scene = os.path.join(tmp, "scene")
-            n_train, n_val, n_test = CLI_FRAMES
-            t0 = time.perf_counter()
-            make_synthetic_dataset(scene, n_train=n_train, n_val=n_val, n_test=n_test,
-                                   device=dev)
-            print(f"phase CLI scene ({sum(CLI_FRAMES)} frames of 400x400 written): "
-                  f"{time.perf_counter() - t0:.3f} s  [{card}]", flush=True)
-
-            # (a) turbo-hq, 51 epochs, one validation, evaluate, test, mesh
-            ws = os.path.join(tmp, "ws")
-            argv = [scene, "-O", "--workspace", ws, "--iters", str(CLI_ITERS), "--save_mesh"]
-            trainer, a_counts, a_dt, losses = run(argv, "(a) -O")
-            check_launched("CLI (a) -O", a_counts,
-                           ("cp_density_fwd", "cp_bwd_banks", "march_turbo", "cp_sigma_rgb",
-                            "coarse_lookup_bits", "cp_encode_fwd"))
-            epochs = CLI_ITERS // n_train
-            if trainer.epoch != epochs or len(seen["epochs"]) != epochs:
-                raise RuntimeError(f"CLI (a): epoch {trainer.epoch}, {len(seen['epochs'])} "
-                                   f"epochs run, want {epochs}")
-            # the timed middle: epochs 2 to the last but one (the first has
-            # the first calls; the last is followed by evaluate, test, mesh)
-            mid = seen["epochs"][1:-1]
-            rays_s = len(mid) * n_train * trainer.train_cfg.num_rays / sum(mid)
-            if not losses[-5:].mean() < LOSS_FALL * losses[:5].mean():
-                raise RuntimeError(f"CLI (a): the loss did not fall below {LOSS_FALL} of "
-                                   "its start (the first and last 5 epochs' last steps)")
-            ckpts = sorted(os.listdir(os.path.join(ws, "checkpoints")))
-            if f"{trainer.name}_best.pth" not in ckpts:
-                raise RuntimeError(f"CLI (a): no best checkpoint in {ckpts}")
-            a_eval = seen["evaluate"]
-            if len(a_eval) != 2:  # the validation at epoch 50, the test split
-                raise RuntimeError(f"CLI (a): {len(a_eval)} evaluate calls, want 2")
-            psnr_a = a_eval[-1]
-            results_dir = os.path.join(ws, "results")
-            for i in range(n_test):
-                png = read_png(os.path.join(results_dir, f"{trainer.name}_{i:04d}_rgb.png"))
-                if png.shape != (400, 400, 3):
-                    raise RuntimeError(f"CLI (a): test PNG {i} has shape {png.shape}")
-            mesh = trainer.last_mesh_stats
-            if mesh.get("n_verts", 0) == 0 or mesh.get("n_faces", 0) == 0:
-                raise RuntimeError(f"CLI (a): empty mesh {mesh}")
-            if not psnr_a >= MIN_PSNR_CLI:
-                raise RuntimeError(f"CLI (a): test-split PSNR {psnr_a} under {MIN_PSNR_CLI}")
-            print(f"CLI (a): {a_dt:.3f} s wall for {CLI_ITERS} iterations ({epochs} epochs) with "
-                  f"one validation, evaluate, test and save_mesh; {rays_s:.0f} rays/s over "
-                  f"epochs 2-{epochs - 1} at {trainer.train_cfg.num_rays} rays a step (phase 8c, "
-                  f"the API at {TRAIN_RAYS} rays a step and the same dt_gamma: "
-                  f"{api_rays_s:.0f}); loss {losses[:5].mean():.6f} -> {losses[-5:].mean():.6f}; "
-                  f"test split PSNR {psnr_a:.4f} dB over {n_test} frames; mesh {mesh['n_verts']} "
-                  f"vertices, {mesh['n_faces']} faces  [{card}]", flush=True)
-            ev_s, test_s = seen["evaluate_s"], seen["test_s"][0]
-            mesh_s = mesh["density_s"] + mesh["marching_s"] + mesh["write_s"]
-            rest = a_dt - sum(seen["epochs"]) - sum(ev_s) - test_s - mesh_s
-            print(f"CLI (a) host loop: epochs {min(mid):.3f}-{max(mid):.3f} s (first "
-                  f"{seen['epochs'][0]:.3f}, last {seen['epochs'][-1]:.3f}); validation "
-                  f"({n_val} frames) {ev_s[0]:.3f} s, evaluate ({n_test} frames) {ev_s[1]:.3f} "
-                  f"s, test {test_s:.3f} s, save_mesh {mesh_s:.3f} s (OBJ {mesh['write_s']:.3f}); "
-                  f"the rest (loading the splits, checkpoints) {rest:.3f} s  [{card}]",
-                  flush=True)
-            saved_step = trainer.global_step
-            del trainer
-
-            # (b) resume: one epoch more from the latest checkpoint
-            argv[argv.index("--iters") + 1] = str(CLI_ITERS + n_train)
-            trainer, b_counts, _, _ = run(argv, "(b) --ckpt latest")
-            if seen["loaded"] != [saved_step] or trainer.global_step != saved_step + n_train:
-                raise RuntimeError(f"CLI (b): resumed at {seen['loaded']}, ended at "
-                                   f"{trainer.global_step}; saved at {saved_step}")
-            check_launched("CLI (b) resume", b_counts, ("cp_bwd_banks", "march_turbo"))
-            psnr_b = seen["evaluate"][-1]
-            del trainer
-
-            # (c) --test as a subprocess, from the repository root
-            t0 = time.perf_counter()
-            res = subprocess.run([sys.executable, "-m", "ngp_tpu_torch.main_nerf", scene, "-O",
-                                  "--workspace", ws, "--test"],
-                                 cwd=os.path.dirname(os.path.abspath(__file__)),
-                                 capture_output=True, text=True, timeout=600)
-            dt = time.perf_counter() - t0
-            if res.returncode != 0:
-                raise RuntimeError(f"CLI (c) --test: exit {res.returncode}\n{res.stderr[-3000:]}")
-            found = [ln for ln in res.stdout.splitlines() if "evaluate: PSNR = " in ln]
-            if len(found) != 1:
-                raise RuntimeError(f"CLI (c) --test: no evaluate line\n{res.stdout[-3000:]}")
-            psnr_c = float(found[0].split("PSNR = ")[1].split()[0])
-            print(f"CLI (c) --test subprocess: {dt:.3f} s, evaluate PSNR {psnr_c:.6f} dB; the "
-                  f"resumed run's {psnr_b:.6f}, (a)'s {psnr_a:.6f}  [{card}]", flush=True)
-            if f"{psnr_c:.6f}" != f"{psnr_b:.6f}":
-                raise RuntimeError(f"CLI (c): --test PSNR {psnr_c} differs from the resumed "
-                                   f"run's {psnr_b} on the same checkpoint")
-
-            # (d) the hash grid with the TV and distortion losses
-            ws_d = os.path.join(tmp, "ws_hash")
-            trainer, d_counts, _, losses = run(
-                [scene, "-O", "--encoding", "hashgrid", "--workspace", ws_d, "--iters",
-                 str(CLI_HASH_ITERS), "--tv_weight", "1e-6", "--distortion_weight", "1e-3"],
-                "(d) hashgrid + tv + distortion")
-            check_launched("CLI (d) hashgrid", d_counts, ("grid_encode_fwd", "grid_encode_bwd"))
-            with torch.no_grad():
-                tv = float(trainer.model.tv_loss())
-            print(f"CLI (d): tv_loss {tv:.6e}, loss {losses[0]:.6f} -> {losses[-1]:.6f}, test "
-                  f"split PSNR {seen['evaluate'][-1]:.4f} dB  [{card}]", flush=True)
-            if not (math.isfinite(tv) and tv > 0 and losses[-1] < losses[0]):
-                raise RuntimeError(f"CLI (d): tv_loss {tv}, losses {losses}")
-            del trainer
-
-            # (e) the random-pose guidance steps
-            ws_e = os.path.join(tmp, "ws_guide")
-            trainer, e_counts, _, _ = run(
-                [scene, "-O", "--rand_pose", str(CLI_RAND_POSE), "--workspace", ws_e,
-                 "--iters", str(CLI_GUIDE_ITERS)], "(e) --rand_pose")
-            g = [float(x) for x in seen["guidance"]]
-            want = n_train // CLI_RAND_POSE
-            print(f"CLI (e): {len(g)} guidance steps, losses {np.round(g, 6).tolist()}, global "
-                  f"step {trainer.global_step}  [{card}]", flush=True)
-            if len(g) != want or not np.isfinite(g).all() or trainer.global_step != n_train + want:
-                raise RuntimeError(f"CLI (e): {len(g)} guidance steps (want {want}), losses {g}, "
-                                   f"global step {trainer.global_step}")
-            del trainer
+        yield seen, run
     finally:
         for k in names:
             setattr(NeRFTrainer, k, original[k])
-    return a_counts, b_counts, d_counts, e_counts, rays_s
+
+
+def cli_runs(dev, card, scene, api_rays_s):
+    """Phase 11: ``ngp_tpu_torch.main_nerf`` on the scene on disk, as a user
+    runs it. (a) turbo-hq through ``main`` in this process, (b) the same
+    command one epoch longer, resuming from ``--ckpt latest``, (c) ``--test``
+    as a subprocess on the checkpoint (b) wrote, whose PSNR must equal
+    (b)'s ``evaluate`` (both start from a fresh trainer: the eval's sticky
+    chunk counts and spans, which (a)'s validation frames raised, are then
+    the same), (d) the hash grid with the TV and distortion losses, (e)
+    the random-pose guidance steps. Returns the launch counts of (a), (b),
+    (d) and (e), (a)'s rays/s over its middle epochs and its test PSNR."""
+    import numpy as np
+    import torch
+
+    from ngp_tpu_torch.utils.png import read_png
+
+    n_train, n_val, n_test = CLI_FRAMES
+    with tempfile.TemporaryDirectory() as tmp, cli_recorder(dev, card) as (seen, run):
+        # (a) turbo-hq, 51 epochs, one validation, evaluate, test, mesh
+        ws = os.path.join(tmp, "ws")
+        argv = [scene, "-O", "--workspace", ws, "--iters", str(CLI_ITERS), "--save_mesh"]
+        trainer, a_counts, a_dt, losses = run(argv, "(a) -O")
+        check_launched("CLI (a) -O", a_counts,
+                       ("cp_density_fwd", "cp_bwd_banks", "march_turbo", "cp_sigma_rgb",
+                        "coarse_lookup_bits", "cp_encode_fwd"))
+        epochs = CLI_ITERS // n_train
+        if trainer.epoch != epochs or len(seen["epochs"]) != epochs:
+            raise RuntimeError(f"CLI (a): epoch {trainer.epoch}, {len(seen['epochs'])} "
+                               f"epochs run, want {epochs}")
+        # the timed middle: epochs 2 to the last but one (the first has
+        # the first calls; the last is followed by evaluate, test, mesh)
+        mid = seen["epochs"][1:-1]
+        rays_s = len(mid) * n_train * trainer.train_cfg.num_rays / sum(mid)
+        if not losses[-5:].mean() < LOSS_FALL * losses[:5].mean():
+            raise RuntimeError(f"CLI (a): the loss did not fall below {LOSS_FALL} of "
+                               "its start (the first and last 5 epochs' last steps)")
+        ckpts = sorted(os.listdir(os.path.join(ws, "checkpoints")))
+        if f"{trainer.name}_best.pth" not in ckpts:
+            raise RuntimeError(f"CLI (a): no best checkpoint in {ckpts}")
+        a_eval = seen["evaluate"]
+        if len(a_eval) != 2:  # the validation at epoch 50, the test split
+            raise RuntimeError(f"CLI (a): {len(a_eval)} evaluate calls, want 2")
+        psnr_a = a_eval[-1]
+        results_dir = os.path.join(ws, "results")
+        for i in range(n_test):
+            png = read_png(os.path.join(results_dir, f"{trainer.name}_{i:04d}_rgb.png"))
+            if png.shape != (400, 400, 3):
+                raise RuntimeError(f"CLI (a): test PNG {i} has shape {png.shape}")
+        mesh = trainer.last_mesh_stats
+        if mesh.get("n_verts", 0) == 0 or mesh.get("n_faces", 0) == 0:
+            raise RuntimeError(f"CLI (a): empty mesh {mesh}")
+        if not psnr_a >= MIN_PSNR_CLI:
+            raise RuntimeError(f"CLI (a): test-split PSNR {psnr_a} under {MIN_PSNR_CLI}")
+        print(f"CLI (a): {a_dt:.3f} s wall for {CLI_ITERS} iterations ({epochs} epochs) with "
+              f"one validation, evaluate, test and save_mesh; {rays_s:.0f} rays/s over "
+              f"epochs 2-{epochs - 1} at {trainer.train_cfg.num_rays} rays a step (phase 8c, "
+              f"the API at {TRAIN_RAYS} rays a step and the same dt_gamma: "
+              f"{api_rays_s:.0f}); loss {losses[:5].mean():.6f} -> {losses[-5:].mean():.6f}; "
+              f"test split PSNR {psnr_a:.4f} dB over {n_test} frames; mesh {mesh['n_verts']} "
+              f"vertices, {mesh['n_faces']} faces  [{card}]", flush=True)
+        ev_s, test_s = seen["evaluate_s"], seen["test_s"][0]
+        mesh_s = mesh["density_s"] + mesh["marching_s"] + mesh["write_s"]
+        rest = a_dt - sum(seen["epochs"]) - sum(ev_s) - test_s - mesh_s
+        print(f"CLI (a) host loop: epochs {min(mid):.3f}-{max(mid):.3f} s (first "
+              f"{seen['epochs'][0]:.3f}, last {seen['epochs'][-1]:.3f}); validation "
+              f"({n_val} frames) {ev_s[0]:.3f} s, evaluate ({n_test} frames) {ev_s[1]:.3f} "
+              f"s, test {test_s:.3f} s, save_mesh {mesh_s:.3f} s (OBJ {mesh['write_s']:.3f}); "
+              f"the rest (loading the splits, checkpoints) {rest:.3f} s  [{card}]",
+              flush=True)
+        saved_step = trainer.global_step
+        del trainer
+
+        # (b) resume: one epoch more from the latest checkpoint
+        argv[argv.index("--iters") + 1] = str(CLI_ITERS + n_train)
+        trainer, b_counts, _, _ = run(argv, "(b) --ckpt latest")
+        if seen["loaded"] != [saved_step] or trainer.global_step != saved_step + n_train:
+            raise RuntimeError(f"CLI (b): resumed at {seen['loaded']}, ended at "
+                               f"{trainer.global_step}; saved at {saved_step}")
+        check_launched("CLI (b) resume", b_counts, ("cp_bwd_banks", "march_turbo"))
+        psnr_b = seen["evaluate"][-1]
+        del trainer
+
+        # (c) --test as a subprocess, from the repository root
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-m", "ngp_tpu_torch.main_nerf", scene, "-O",
+                              "--workspace", ws, "--test"],
+                             cwd=os.path.dirname(os.path.abspath(__file__)),
+                             capture_output=True, text=True, timeout=600)
+        dt = time.perf_counter() - t0
+        if res.returncode != 0:
+            raise RuntimeError(f"CLI (c) --test: exit {res.returncode}\n{res.stderr[-3000:]}")
+        found = [ln for ln in res.stdout.splitlines() if "evaluate: PSNR = " in ln]
+        if len(found) != 1:
+            raise RuntimeError(f"CLI (c) --test: no evaluate line\n{res.stdout[-3000:]}")
+        psnr_c = float(found[0].split("PSNR = ")[1].split()[0])
+        print(f"CLI (c) --test subprocess: {dt:.3f} s, evaluate PSNR {psnr_c:.6f} dB; the "
+              f"resumed run's {psnr_b:.6f}, (a)'s {psnr_a:.6f}  [{card}]", flush=True)
+        if f"{psnr_c:.6f}" != f"{psnr_b:.6f}":
+            raise RuntimeError(f"CLI (c): --test PSNR {psnr_c} differs from the resumed "
+                               f"run's {psnr_b} on the same checkpoint")
+
+        # (d) the hash grid with the TV and distortion losses
+        ws_d = os.path.join(tmp, "ws_hash")
+        trainer, d_counts, _, losses = run(
+            [scene, "-O", "--encoding", "hashgrid", "--workspace", ws_d, "--iters",
+             str(CLI_HASH_ITERS), "--tv_weight", "1e-6", "--distortion_weight", "1e-3"],
+            "(d) hashgrid + tv + distortion")
+        check_launched("CLI (d) hashgrid", d_counts, ("grid_encode_fwd", "grid_encode_bwd"))
+        with torch.no_grad():
+            tv = float(trainer.model.tv_loss())
+        print(f"CLI (d): tv_loss {tv:.6e}, loss {losses[0]:.6f} -> {losses[-1]:.6f}, test "
+              f"split PSNR {seen['evaluate'][-1]:.4f} dB  [{card}]", flush=True)
+        if not (math.isfinite(tv) and tv > 0 and losses[-1] < losses[0]):
+            raise RuntimeError(f"CLI (d): tv_loss {tv}, losses {losses}")
+        del trainer
+
+        # (e) the random-pose guidance steps
+        ws_e = os.path.join(tmp, "ws_guide")
+        trainer, e_counts, _, _ = run(
+            [scene, "-O", "--rand_pose", str(CLI_RAND_POSE), "--workspace", ws_e,
+             "--iters", str(CLI_GUIDE_ITERS)], "(e) --rand_pose")
+        g = [float(x) for x in seen["guidance"]]
+        want = n_train // CLI_RAND_POSE
+        print(f"CLI (e): {len(g)} guidance steps, losses {np.round(g, 6).tolist()}, global "
+              f"step {trainer.global_step}  [{card}]", flush=True)
+        if len(g) != want or not np.isfinite(g).all() or trainer.global_step != n_train + want:
+            raise RuntimeError(f"CLI (e): {len(g)} guidance steps (want {want}), losses {g}, "
+                               f"global step {trainer.global_step}")
+        del trainer
+    return (a_counts, b_counts, d_counts, e_counts), rays_s, psnr_a
+
+
+def cli_steps(iters):
+    """The train steps of a CLI run of ``iters`` iterations: whole epochs of
+    the scene's train split (``main_nerf``: max(1, iters // frames))."""
+    return max(1, iters // CLI_FRAMES[0]) * CLI_FRAMES[0]
+
+
+def write_lpips_checkpoint(path):
+    """Random AlexNet-LPIPS weights from the seed, saved as torchvision's
+    ``features.*`` and the heads' ``lins.<i>.weight`` (nothing downloads the
+    real ones)."""
+    import torch
+
+    from ngp_tpu_torch.training.lpips import random_params
+
+    params = random_params(torch.Generator().manual_seed(SEED))
+    sd = {}
+    for i, idx in enumerate((0, 3, 6, 8, 10)):
+        sd[f"features.{idx}.weight"] = torch.tensor(params[f"conv{i}_w"].transpose(3, 2, 0, 1))
+        sd[f"features.{idx}.bias"] = torch.tensor(params[f"conv{i}_b"])
+        sd[f"lins.{i}.weight"] = torch.tensor(params[f"lin{i}_w"]).reshape(1, -1, 1, 1)
+    torch.save(sd, path)
+
+
+@contextlib.contextmanager
+def grid_inputs(keep):
+    """Catch the grid encoder's own inputs in train steps: call n (of those
+    that record autograd) of a D-dimensional encoder whose ``keep(n, D)``
+    gives a label stores its points and, once the backward has run, its
+    output's cotangent under that label. Yields the dict."""
+    from ngp_tpu_torch.models.encoders import GridEncoder
+
+    caught, calls, forward = {}, {}, GridEncoder.forward
+
+    def catching(self, x):
+        out = forward(self, x)
+        D = self.cfg.input_dim
+        if out.requires_grad:
+            n = calls.get(D, 0)
+            calls[D] = n + 1
+            label = keep(n, D)
+            if label is not None:
+                entry = caught[label] = {"x": x.detach().reshape(-1, D).float().contiguous()
+                                         .clone(), "table": self.embeddings}
+                out.register_hook(lambda g, e=entry: e.__setitem__(
+                    "g", g.detach().reshape(e["x"].shape[0], -1).contiguous().clone()))
+        return out
+
+    GridEncoder.forward = catching
+    try:
+        yield caught
+    finally:
+        GridEncoder.forward = forward
+
+
+def cli_rest_runs(dev, card, scene, psnr_11a, rays_s_11a, results):
+    """Phase 12: the rest of ``main_nerf`` on phase 11's scene. (a) ``-O
+    --bg_radius --downscale`` with ``--lpips_weights`` (a random-weight
+    checkpoint): turbo-hq with the background net, whose frames the eval
+    prepass culls and the background pass fills; the train views' PSNR to
+    its floor, the test PSNR beside phase 11 (a)'s and a white frame's
+    (also with the net's output replaced by white), LPIPS finite, the 2-D grid
+    kernels launched and held against their plain versions on the first
+    and last steps' own background points; (b) no ``-O`` at the CLI's defaults (the uniform
+    renderer, hash grid, f32, 512 samples a ray): the loss falls, the test
+    PSNR beats a white frame's, one profiled step, and the 3-D grid kernels
+    on the last step's own 2,097,152 points; (c) no ``-O``, the CP grid at
+    the turbo-hq widths in bf16 (the fused density head on 2,097,152 rows
+    a step): the loss falls, the CP kernels launched, and both at that row
+    count against their plain versions; (d) ``-O --encoding hashgrid
+    --bg_radius``, the v1 march with the background net. Returns the
+    launch counts of (a)-(d)."""
+    import numpy as np
+    import torch
+
+    from ngp_tpu_torch import main_nerf
+    from ngp_tpu_torch.data.nerf_dataset import NeRFDataset
+    from ngp_tpu_torch.ops.kernels import cp
+    from ngp_tpu_torch.ops.kernels import hashgrid as hk
+    from ngp_tpu_torch.ops.kernels import scatter as sk
+
+    n_train, n_val, n_test = CLI_FRAMES
+
+    def white_psnr(split, downscale, frames=None):
+        """The mean PSNR of a constant white frame on a split's first frames."""
+        ds = NeRFDataset(scene, split=split, downscale=downscale)
+        gt = ds.images[:frames, ..., :3] * ds.images[:frames, ..., 3:] + (
+            1.0 - ds.images[:frames, ..., 3:])
+        return float(np.mean([-10.0 * math.log10(float(np.mean((1.0 - f) ** 2))) for f in gt]))
+
+    white = white_psnr("test", 1)
+    counts = []
+
+    def losses_fall(label):
+        """The mean loss of the run's last epoch below that of its first
+        (a step's loss alone moves with its frame and rays). Returns the
+        epoch means."""
+        steps = torch.stack(seen["step_losses"]).cpu().numpy()
+        means = steps.reshape(-1, n_train).mean(axis=1)
+        if not means[-1] < means[0]:
+            raise RuntimeError(f"CLI 12{label}: the loss did not fall: epoch means {means}")
+        return means
+
+    def timed_epochs(seen, trainer):
+        mid = seen["epochs"][1:-1] or seen["epochs"][-1:]
+        rays_s = len(mid) * n_train * trainer.train_cfg.num_rays / sum(mid)
+        return rays_s, 1e3 * sum(mid) / (len(mid) * n_train)
+
+    with tempfile.TemporaryDirectory() as tmp, cli_recorder(dev, card) as (seen, run):
+        lpips_path = os.path.join(tmp, "alex_random.pth")
+        write_lpips_checkpoint(lpips_path)
+
+        # (a) turbo-hq with the background net and LPIPS
+        bg = ["--bg_radius", str(CLI_BG_RADIUS)]
+        last = cli_steps(CLI_BG_ITERS) - 1
+        with grid_inputs(lambda n, D: {0: "D=2 step 0", last: f"D=2 step {last}"}.get(n)
+                         if D == 2 else None) as caught:
+            trainer, a_counts, a_dt, _ = run(
+                [scene, "-O", "--workspace", os.path.join(tmp, "ws_bg"), "--iters",
+                 str(CLI_BG_ITERS), "--downscale", str(CLI_BG_DOWNSCALE), "--lpips_weights",
+                 lpips_path] + bg, "12(a) -O --bg_radius")
+        counts.append(a_counts)
+        check_launched("CLI 12(a) -O --bg_radius", a_counts,
+                       ("grid_encode_fwd_2d", "grid_encode_bwd_2d", "cp_density_fwd",
+                        "cp_bwd_banks", "march_turbo", "cp_sigma_rgb", "coarse_lookup_bits"))
+        res = seen["results"][-1]
+        psnr, lp = res["psnr"], res.get("lpips", float("nan"))
+        rays_s, ms = timed_epochs(seen, trainer)
+        means = losses_fall("(a)")
+        # the train views the background net has learned, through evaluate
+        # (prepass, background-frame pass, turbo chunks); then the test
+        # split with the background net's output replaced by white, which
+        # leaves what the density field alone adds to a white frame
+        opt = main_nerf.build_parser().parse_args([scene])
+        views = NeRFDataset(scene, split="train", scale=opt.scale, offset=opt.offset,
+                            downscale=CLI_BG_DOWNSCALE)
+        train_psnr = trainer.evaluate(views, max_frames=CLI_BG_VIEWS)["psnr"]
+        trainer.model.background = lambda sph, d: torch.ones_like(d)
+        test_ds = NeRFDataset(scene, split="test", scale=opt.scale, offset=opt.offset,
+                              downscale=CLI_BG_DOWNSCALE)
+        fg_psnr = trainer.evaluate(test_ds)["psnr"]
+        del trainer.model.background
+        white_a = white_psnr("test", CLI_BG_DOWNSCALE)
+        white_v = white_psnr("train", CLI_BG_DOWNSCALE, CLI_BG_VIEWS)
+        print(f"CLI 12(a): {a_dt:.3f} s wall for {CLI_BG_ITERS} iterations at --downscale "
+              f"{CLI_BG_DOWNSCALE}; {rays_s:.0f} rays/s over the middle epochs (phase 11 (a): "
+              f"{rays_s_11a:.0f}); PSNR on the first {CLI_BG_VIEWS} train views {train_psnr:.4f} "
+              f"dB (a white frame: {white_v:.4f}); test split {psnr:.4f} dB (a white frame: "
+              f"{white_a:.4f}; phase 11 (a) at full scale: {psnr_11a:.4f}), with the background "
+              f"white {fg_psnr:.4f}; LPIPS {lp:.6f} (random weights); {len(seen['bg_frames'])} "
+              f"background-frame passes; epoch-mean loss {means[0]:.6f} -> {means[-1]:.6f}  "
+              f"[{card}]", flush=True)
+        if not (train_psnr >= CLI_BG_MIN_PSNR > white_v + 3.0 and math.isfinite(psnr)
+                and math.isfinite(lp)):
+            raise RuntimeError(f"CLI 12(a): train-view PSNR {train_psnr} (floor {CLI_BG_MIN_PSNR}, "
+                               f"a white frame {white_v}), test PSNR {psnr}, LPIPS {lp}")
+        if not seen["bg_frames"] or sorted(caught) != ["D=2 step 0", f"D=2 step {last}"]:
+            raise RuntimeError(f"CLI 12(a): {len(seen['bg_frames'])} background-frame passes, "
+                               f"caught {sorted(caught)}")
+        # both 2-D kernels on the steps' own points, on the trained table
+        # scaled to a largest |value| of 1, and bf16 cotangents (-O)
+        bgeom = trainer.model.encoder_bg.cfg.geometry
+        for label, e in caught.items():
+            table = e["table"].detach()
+            table = (table / table.abs().max()).contiguous()
+            grid_checks(hk, sk, e["x"], table, bgeom, torch.bfloat16, e["g"], label, results)
+        del trainer, caught
+
+        # (b) no -O: the uniform renderer at the CLI's defaults
+        last = cli_steps(CLI_UNIFORM_ITERS) - 1
+        with grid_inputs(lambda n, D: f"D=3 step {last}" if D == 3 and n == last
+                         else None) as caught:
+            trainer, b_counts, b_dt, _ = run(
+                [scene, "--workspace", os.path.join(tmp, "ws_uniform"), "--iters",
+                 str(CLI_UNIFORM_ITERS)], "12(b) no -O")
+        counts.append(b_counts)
+        check_launched("CLI 12(b) no -O", b_counts, ("grid_encode_fwd", "grid_encode_bwd"),
+                       absent=("march_turbo", "coarse_lookup_bits", "cp_density_fwd"))
+        means = losses_fall("(b)")
+        psnr = seen["results"][-1]["psnr"]
+        rays_s, ms = timed_epochs(seen, trainer)
+        print(f"CLI 12(b): {b_dt:.3f} s wall for {CLI_UNIFORM_ITERS} iterations; {rays_s:.0f} "
+              f"rays/s, {ms:.2f} ms a step of {trainer.train_cfg.num_rays} rays x "
+              f"{trainer.render_cfg.num_steps} samples; test split PSNR {psnr:.4f} dB (a white "
+              f"frame: {white:.4f}); epoch-mean loss {np.round(means, 6).tolist()}  [{card}]",
+              flush=True)
+        if not psnr > white:
+            raise RuntimeError(f"CLI 12(b): test PSNR {psnr} not above a white frame's {white}")
+        train_ds = NeRFDataset(scene, split="train")
+        batches = itertools.chain.from_iterable(
+            trainer.make_loader(train_ds)() for _ in itertools.count())
+        trainer.step(next(batches))
+        profile(lambda: trainer.step(next(batches)), 1, "step", card,
+                focus=("grid_fwd", "grid_bwd", "gemm", "elementwise"))
+        e = caught[f"D=3 step {last}"]
+        geom = trainer.model.encoder.cfg.geometry
+        table = e["table"].detach()
+        table = (table / table.abs().max()).contiguous()
+        grid_checks(hk, sk, e["x"], table, geom, torch.float32, e["g"],
+                    f"D=3 float32 step {last} of 12(b)", results)
+        del trainer, caught, e, table
+
+        # (c) no -O, the CP grid at the turbo-hq widths in bf16
+        seen_rows = []
+        bwd = cp.cp_bwd_banks
+
+        def counting_bwd(pos, factors, g_cp, resolutions):
+            seen_rows.append(pos.shape[0])
+            return bwd(pos, factors, g_cp, resolutions)
+
+        cp.cp_bwd_banks = counting_bwd
+        try:
+            trainer, c_counts, c_dt, _ = run(
+                [scene, "--encoding", "cpgrid", "--fp16", "--workspace",
+                 os.path.join(tmp, "ws_cp"), "--iters", str(CLI_CP_ITERS)] + CLI_TURBO_HQ,
+                "12(c) no -O --encoding cpgrid --fp16")
+        finally:
+            cp.cp_bwd_banks = bwd
+        counts.append(c_counts)
+        check_launched("CLI 12(c) cpgrid", c_counts,
+                       ("cp_density_fwd", "cp_density_fwd_residuals", "cp_density_fwd_tc",
+                        "cp_bwd_banks"), absent=("march_turbo", "grid_encode_fwd"))
+        means = losses_fall("(c)")
+        rays_s, ms = timed_epochs(seen, trainer)
+        rows = max(seen_rows)
+        print(f"CLI 12(c): {c_dt:.3f} s wall for {CLI_CP_ITERS} iterations; {rays_s:.0f} rays/s, "
+              f"{ms:.2f} ms a step; the density head's rows a step {rows}; test split PSNR "
+              f"{seen['results'][-1]['psnr']:.4f} dB; epoch-mean loss {means[0]:.6f} -> "
+              f"{means[-1]:.6f}  [{card}]", flush=True)
+        # both CP kernels at that row count, on the trained weights
+        gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+        m = trainer.model
+        res = tuple(m.cfg.cp_resolutions)
+        fa = tuple(f.detach().to(torch.bfloat16).contiguous() for f in m.encoder.factors)
+        a1, a2 = (w.detach().to(torch.bfloat16).contiguous() for w in m.sigma_net.weights)
+        fd = m.cfg.cp_freq_degree
+        pos = torch.rand((rows, 3), generator=gen, device=dev) * 1.1 - 0.05
+        D, H1, OUT = a1.shape[0], a1.shape[1], a2.shape[1]
+        nbR = len(res) * m.cfg.cp_rank
+        del trainer, m
+        results[("cp_density_fwd+residuals", f"bfloat16 {rows} rows of 12(c)")] = compare(
+            "cp_density_fwd+residuals",
+            lambda: cp.cp_density_fwd(pos, fa, a1, a2, res, fd, residuals=True),
+            lambda: cp.cp_density_plain(pos, fa, a1, a2, res, fd, residuals=True), "bfloat16",
+            (nbytes(pos, *fa, a1, a2) + rows * (OUT * 4 + (D + H1) * 2),
+             rows * 2 * (D * H1 + H1 * OUT), 14 * rows * nbR),
+            tol=lambda want: density_bound(cp, pos, fa, res, want))
+        g_cp = torch.randn((rows, nbR), generator=gen, device=dev)
+        results[("cp_bwd_banks", f"bfloat16 {rows} rows of 12(c)")] = compare(
+            "cp_bwd_banks", lambda: cp.cp_bwd_banks(pos, fa, g_cp, res),
+            lambda: cp.cp_bwd_banks_plain(pos, fa, g_cp, res), "bfloat16",
+            (nbytes(pos, g_cp, *fa, *fa), 0, 24 * rows * nbR),
+            tol=lambda want: bwd_bound(cp, pos, fa, g_cp, res, want))
+        del pos, g_cp, fa
+
+        # (d) the v1 march with the background net
+        trainer, d_counts, _, _ = run(
+            [scene, "-O", "--encoding", "hashgrid", "--workspace", os.path.join(tmp, "ws_v1bg"),
+             "--iters", str(CLI_HASH_ITERS)] + bg, "12(d) -O --encoding hashgrid --bg_radius")
+        counts.append(d_counts)
+        check_launched("CLI 12(d) hashgrid --bg_radius", d_counts,
+                       ("grid_encode_fwd", "grid_encode_bwd", "grid_encode_fwd_2d",
+                        "grid_encode_bwd_2d"), absent=("march_turbo",))
+        means = losses_fall("(d)")
+        print(f"CLI 12(d): test split PSNR {seen['results'][-1]['psnr']:.4f} dB, loss "
+              f"{means[0]:.6f} -> {means[-1]:.6f}, {len(seen['bg_frames'])} background-frame "
+              f"passes (no prepass on the v1 march)  [{card}]", flush=True)
+        del trainer
+    return counts
 
 
 def train_step_gpu_vs_cpu(dev, hash_grid=False):
@@ -1393,13 +1795,11 @@ def main():
                                                bound(nbytes(payload, fc, got)))
 
     # the hash grid's kernels on the full-width table (f32, as the model
-    # keeps it), at the refresh chunk and a train step's sample slots; per
-    # (point, level) 9 operations of position, then per corner 2 of weight
-    # and 2 per feature (forward) or 1 (backward)
+    # keeps it), at the refresh chunk and a train step's sample slots; work
+    # as grid_fwd_work and grid_bwd_work count it
     gcfg = GridConfig(desired_resolution=2048)
     geom = gcfg.geometry
     L, C = gcfg.num_levels, gcfg.level_dim
-    fwd_ops = L * (9 + 8 * (2 + 2 * C))
     table = torch.rand((gcfg.num_rows, C), generator=gen, device=dev) * 2.0 - 1.0
     B = GRID_ROWS[-1]
     for dtype in ("bfloat16", "float32"):
@@ -1409,7 +1809,7 @@ def main():
             results[("grid_encode_fwd", f"{dtype} {rows_g}")] = compare(
                 "grid_encode_fwd", lambda: hk.grid_encode_fwd(x_g, table, geom, od),
                 lambda: hk.grid_encode_plain(x_g, table, geom, od), dtype,
-                (nbytes(x_g, table) + rows_g * L * C * od.itemsize, 0, rows_g * fwd_ops))
+                grid_fwd_work(x_g, geom, od))
         g_g = torch.randn((B, L * C), generator=gen, device=dev).to(od)
         # the table gradient sums the same f32 (bf16-rounded with a bf16 g)
         # corner products as its plain version, by atomics in another
@@ -1417,23 +1817,43 @@ def main():
         # terms' magnitudes (scatter_bound)
         idx_p, rows_p = hk.grid_encode_bwd_rows_plain(x_g, g_g, geom)
         s_bound = scatter_bound(sk, idx_p, rows_p, gcfg.num_rows)
+        bwd_work = grid_bwd_work(x_g, g_g, geom, idx_p, rows_p)
         del idx_p, rows_p
         results[("grid_encode_bwd", f"{dtype} random")] = compare(
             "grid_encode_bwd", lambda: hk.grid_encode_bwd(x_g, g_g, geom),
-            lambda: hk.grid_encode_bwd_plain(x_g, g_g, geom), dtype,
-            grid_bwd_work(x_g, g_g, geom), tol=lambda want: [s_bound])
+            lambda: hk.grid_encode_bwd_plain(x_g, g_g, geom), dtype, bwd_work,
+            tol=lambda want: [s_bound])
         # GridEncode: forward and table gradient, against autograd of the
         # plain version, timed together
         tr = table.clone().requires_grad_()
-        fwd_work = (nbytes(x_g, table) + B * L * C * od.itemsize, 0, B * fwd_ops)
+        fwd_work = grid_fwd_work(x_g, geom, od)
         results[("GridEncode backward", dtype)] = compare(
             "GridEncode backward",
             lambda: torch.autograd.grad(grid_encode(x_g, tr, gcfg, od), tr, g_g),
             lambda: torch.autograd.grad(hk.grid_encode_plain(x_g, tr, geom, od), tr, g_g),
-            dtype, tuple(a + b for a, b in zip(fwd_work, grid_bwd_work(x_g, g_g, geom))),
+            dtype, tuple(a + b for a, b in zip(fwd_work, bwd_work)),
             tol=lambda want: [s_bound])
         del s_bound, tr, g_g
     del x_g
+    # the 2-D instances on the background net's encoder geometry, f32 table,
+    # points (sph + 1) / 2 of rays from inside the box to the sphere: a
+    # background-frame chunk and a CLI step's rays
+    from ngp_tpu_torch.ops.rays import sph_from_ray
+
+    bcfg = GridConfig(**BG_GRID)
+    bgeom = bcfg.geometry
+    b_table = torch.rand((bcfg.num_rows, bcfg.level_dim), generator=gen, device=dev) * 2 - 1
+    for rows_b in BG_ROWS:
+        o = torch.rand((rows_b, 3), generator=gen, device=dev) * 2 - 1
+        d = torch.nn.functional.normalize(torch.randn((rows_b, 3), generator=gen, device=dev),
+                                          dim=-1)
+        x_b = ((sph_from_ray(o, d, CLI_BG_RADIUS) + 1.0) / 2.0).contiguous()
+        for dtype in ("bfloat16", "float32"):
+            od = getattr(torch, dtype)
+            grid_checks(hk, sk, x_b, b_table, bgeom, od,
+                        torch.randn((rows_b, bcfg.output_dim), generator=gen,
+                                    device=dev).to(od), f"D=2 {dtype} {rows_b}", results)
+    del b_table, x_b
     # the row scatter-add, in place into a zero table, beside index_add_
     library = {}
     for M, R, W in SCATTER_SHAPES:
@@ -1761,8 +2181,7 @@ def main():
             results[("grid_encode_fwd", label)] = compare(
                 "grid_encode_fwd", lambda: hk.grid_encode_fwd(x, table_h, geom_h, torch.bfloat16),
                 lambda: hk.grid_encode_plain(x, table_h, geom_h, torch.bfloat16), "bfloat16",
-                (nbytes(x, table_h) + x.shape[0] * geom_h.output_dim * 2, 0,
-                 x.shape[0] * geom_h.num_levels * (9 + 8 * (2 + 2 * geom_h.level_dim))))
+                grid_fwd_work(x, geom_h, torch.bfloat16))
             step_table_gradient(x, entry["g"], geom_h, label, card, results, library,
                                 probe_scatter)
         del table_h
@@ -1804,15 +2223,28 @@ def main():
     # 10. one small f32 hash-grid train step: GPU kernels against the CPU
     train_step_gpu_vs_cpu(dev, hash_grid=True)
 
-    # 11. the port's command line on a scene on disk
-    t0 = time.perf_counter()
-    *cli_counts, _ = cli_runs(dev, card, g_rays_s)
-    phase("CLI (scene, -O, resume, --test, hashgrid with losses, --rand_pose)", t0)
+    with tempfile.TemporaryDirectory() as tmp:
+        # 11. the port's command line on a scene on disk
+        from ngp_tpu_torch.data.synthetic import make_synthetic_dataset
+
+        scene = os.path.join(tmp, "scene")
+        n_train, n_val, n_test = CLI_FRAMES
+        t0 = time.perf_counter()
+        make_synthetic_dataset(scene, n_train=n_train, n_val=n_val, n_test=n_test, device=dev)
+        phase(f"CLI scene ({sum(CLI_FRAMES)} frames of 400x400 written)", t0)
+        t0 = time.perf_counter()
+        cli_counts, rays_11a, psnr_11a = cli_runs(dev, card, scene, g_rays_s)
+        phase("CLI (-O, resume, --test, hashgrid with losses, --rand_pose)", t0)
+
+        # 12. the rest of main_nerf: the background net, no -O, LPIPS
+        t0 = time.perf_counter()
+        rest_counts = cli_rest_runs(dev, card, scene, psnr_11a, rays_11a, results)
+        phase("CLI rest (-O --bg_radius + LPIPS, no -O hash grid and cpgrid, v1 + bg)", t0)
 
     print_results(results, library, card, printed)
     path_counts = (eval_counts, train_counts, frame_counts, evaluate_counts, test_counts,
                    mesh_counts, wide_counts, gamma_counts, gamma_frame_counts, hash_train_counts,
-                   hash_frame_counts, *cli_counts)
+                   hash_frame_counts, *cli_counts, *rest_counts)
     csrc = "ngp_tpu_torch/ops/kernels/csrc/"
     sources = {
         "cp_density_fwd": (csrc + "cp_kernels.cu", "ngp_tpu/ops/pallas/cp_kernels.py:345",
@@ -1842,6 +2274,12 @@ def main():
                             ("grid_encode_fwd", f"bfloat16 {GRID_ROWS[-1]}")),
         "grid_encode_bwd": (csrc + "grid_kernels.cu", "ngp_tpu/ops/hashgrid.py:204",
                             ("grid_encode_bwd", f"step {HASH_STEPS - 1}")),
+        # their 2-D instances (the background net), on phase 12 (a)'s last
+        # step's own points
+        "grid_encode_fwd_2d": (csrc + "grid_kernels.cu", "ngp_tpu/ops/hashgrid.py:203",
+                               ("grid_encode_fwd", f"D=2 step {cli_steps(CLI_BG_ITERS) - 1}")),
+        "grid_encode_bwd_2d": (csrc + "grid_kernels.cu", "ngp_tpu/ops/hashgrid.py:204",
+                               ("grid_encode_bwd", f"D=2 step {cli_steps(CLI_BG_ITERS) - 1}")),
     }
     kernels = []
     for name, (src, replaces, key) in sources.items():

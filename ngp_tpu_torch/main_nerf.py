@@ -4,16 +4,21 @@ The same flags, defaults, choices and presets as the JAX package's
 ``main_nerf.py`` (``-O`` = bf16 + grid marching + the turbo-hq preset;
 ``-O --encoding hashgrid`` = the hash grid through the v1 march), and
 the same run: ``--synthetic`` writes the procedural scene, the
-transforms.json splits load from ``<path>``, ``GridNeRFTrainer`` trains
-with validation every ``eval_interval`` epochs and keeps the best
-checkpoint, ``--ckpt latest`` resumes, then ``evaluate`` and ``test`` on
-the test split and, with ``--save_mesh``, the mesh; ``--test`` does only
-the last part from a checkpoint. It runs on the CUDA device; ``main``
-takes ``device="cpu"`` from a caller (the tests), no flag does.
+transforms.json splits load from ``<path>``, ``GridNeRFTrainer`` (with
+``-O`` / ``--cuda_ray``) or ``NeRFTrainer`` (the uniform + PDF renderer,
+``--num_steps`` and ``--upsample_steps`` per ray) trains with validation
+every ``eval_interval`` epochs and keeps the best checkpoint, ``--ckpt
+latest`` resumes, then ``evaluate`` (with LPIPS when ``--lpips_weights``
+names a local checkpoint) and ``test`` on the test split and, with
+``--save_mesh``, the mesh; ``--test`` does only the last part from a
+checkpoint. ``--bg_radius > 0`` adds the background net. It runs on the
+CUDA device; ``main`` takes ``device="cpu"`` from a caller (the tests),
+no flag does.
 
-Flags whose path is not ported raise ``NotImplementedError`` naming the
-ROADMAP item that ports it; ``--ff``, ``--tcnn`` and ``--preload`` are
-accepted and change nothing, as in JAX. The parser and ``resolve_opts``
+Flags whose path is not ported (``--gui``, ``--clip_model_path``, the
+brick grid) raise ``NotImplementedError`` naming the ROADMAP item that
+ports it; ``--ff``, ``--tcnn`` and ``--preload`` are accepted and change
+nothing, as in JAX. The parser and ``resolve_opts``
 are copies of ``main_nerf.py``'s (the port imports nothing of the JAX
 side); ``tests/test_torch_dataset_cli.py`` pins them to it.
 """
@@ -27,6 +32,7 @@ import torch
 from ngp_tpu_torch.config import NetworkConfig, RenderConfig, TrainConfig
 from ngp_tpu_torch.data.nerf_dataset import NeRFDataset
 from ngp_tpu_torch.models.nerf import NeRFNetwork
+from ngp_tpu_torch.training.nerf import NeRFTrainer
 from ngp_tpu_torch.training.nerf_grid import GridNeRFTrainer
 
 
@@ -194,19 +200,12 @@ def unported(opt) -> Optional[str]:
     if opt.encoding == "brickgrid":
         return ("--encoding brickgrid / --preset tpu: the brick grid is not ported yet "
                 "(ROADMAP §1 item 7)")
-    if not opt.cuda_ray:
-        return ("without --cuda_ray / -O: the non-grid renderer is not ported yet "
-                "(ROADMAP §1 item 5)")
-    if opt.bg_radius > 0:
-        return "--bg_radius > 0: the background net is not ported yet (ROADMAP §1 item 5)"
-    if opt.lpips_weights:
-        return "--lpips_weights: LPIPS is not ported yet (ROADMAP §1 item 5)"
     if opt.clip_model_path:
         return "--clip_model_path: CLIP guidance is not ported yet (ROADMAP §1 item 9)"
     return None
 
 
-def main(argv: Optional[Sequence[str]] = None, device="cuda") -> GridNeRFTrainer:
+def main(argv: Optional[Sequence[str]] = None, device="cuda") -> NeRFTrainer:
     """Parse ``argv`` (the command line when None), run, and return the
     trainer."""
     opt = resolve_opts(build_parser().parse_args(argv))
@@ -244,8 +243,11 @@ def main(argv: Optional[Sequence[str]] = None, device="cuda") -> GridNeRFTrainer
     )
     model = NeRFNetwork(net_cfg, render_cfg, torch.Generator().manual_seed(opt.seed),
                         device=device)
-    trainer = GridNeRFTrainer(model, render_cfg, train_cfg, seed=opt.seed)
+    trainer_cls = GridNeRFTrainer if opt.cuda_ray else NeRFTrainer
+    trainer = trainer_cls(model, render_cfg, train_cfg, seed=opt.seed)
     trainer.max_ray_batch = opt.max_ray_batch
+    if opt.lpips_weights:
+        trainer.lpips_weights = opt.lpips_weights
     ckpt = None if opt.ckpt == "latest" else opt.ckpt
     dataset = functools.partial(NeRFDataset, opt.path, scale=opt.scale, offset=opt.offset,
                                 downscale=opt.downscale, color_space=opt.color_space)

@@ -1,6 +1,8 @@
 """NeRF network head (``ngp_tpu/models/nerf.py``): cpgrid or hash grid
 -> 2-layer sigma MLP (1 + geo outputs), SH(dir) + geo -> color MLP ->
-sigmoid.
+sigmoid; with ``bg_radius > 0`` also the background net, a 2-D hash grid
+over the sphere coordinates of a ray's exit point + SH(dir) -> 2-layer
+MLP -> sigmoid.
 
 ``make_fused_density`` and ``make_fused_sigma_rgb`` build the flagship
 config's fused heads on the CP kernels; ``params_from_jax`` converts a
@@ -30,8 +32,6 @@ class NeRFNetwork(nn.Module):
     def __init__(self, cfg: NetworkConfig, render: RenderConfig,
                  generator: Optional[torch.Generator] = None, device="cuda"):
         super().__init__()
-        if render.bg_radius > 0:
-            raise NotImplementedError("the background net is not ported yet")
         self.cfg = cfg
         self.render = render
         g = generator or torch.Generator().manual_seed(0)
@@ -49,6 +49,16 @@ class NeRFNetwork(nn.Module):
         self.encoder_dir, in_dim_dir = get_encoder(cfg.encoding_dir, degree=cfg.sh_degree)
         self.color_net = MLP(in_dim_dir + cfg.geo_feat_dim, 3, cfg.hidden_dim_color,
                              cfg.num_layers_color, dtype, g, device)
+        if render.bg_radius > 0:
+            # drawn after every other network, whose initialisation is then
+            # the same with and without it; the encoder's other arguments
+            # are get_encoder's defaults, as in JAX
+            self.encoder_bg, in_dim_bg = get_encoder(
+                cfg.encoding_bg, input_dim=2, num_levels=4, log2_hashmap_size=19,
+                desired_resolution=2048, compute_dtype=dtype, generator=g, device=device,
+            )
+            self.bg_net = MLP(in_dim_dir + in_dim_bg, 3, cfg.hidden_dim_bg, cfg.num_layers_bg,
+                              dtype, g, device)
 
     def _scale_to_unit(self, x):
         b = self.render.bound
@@ -68,6 +78,16 @@ class NeRFNetwork(nn.Module):
     def forward(self, x, d):
         sigma, geo = self.density(x)
         return sigma, self.color(d, geo)
+
+    def background(self, sph, d):
+        """sph: [..., 2] in [-1, 1] (``ops.rays.sph_from_ray``), d: [..., 3]
+        unit dirs -> rgb [..., 3]."""
+        if self.render.bg_radius <= 0:
+            raise ValueError("background() requires bg_radius > 0")
+        h = self.encoder_bg((sph + 1.0) / 2.0)
+        de = self.encoder_dir(d)
+        h = self.bg_net(torch.cat([de.to(h.dtype), h], dim=-1))
+        return torch.sigmoid(h.float())
 
     def tv_loss(self) -> torch.Tensor:
         """TV regulariser of the spatial encoder's table; 0 for encoders
@@ -141,13 +161,15 @@ def params_from_jax(tree) -> Dict[str, torch.Tensor]:
 
     Reads ``encoder/factors_<res>`` (cpgrid) or ``encoder/embeddings``
     (hash or tiled grid), ``sigma_net/dense_<i>/kernel`` and
-    ``color_net/dense_<i>/kernel``; the kernels keep their [in, out]
-    layout."""
+    ``color_net/dense_<i>/kernel``, and with the background net
+    ``encoder_bg/embeddings`` and ``bg_net/dense_<i>/kernel``; the kernels
+    keep their [in, out] layout."""
     p = tree.get("params", tree)
     out = {}
-    for name, arr in p["encoder"].items():
-        out[f"encoder.{name}"] = torch.from_numpy(np.array(arr, np.float32))
-    for net in ("sigma_net", "color_net"):
-        for name, layer in p[net].items():
+    for enc in ("encoder", "encoder_bg"):
+        for name, arr in p.get(enc, {}).items():
+            out[f"{enc}.{name}"] = torch.from_numpy(np.array(arr, np.float32))
+    for net in ("sigma_net", "color_net", "bg_net"):
+        for name, layer in p.get(net, {}).items():
             out[f"{net}.{name}"] = torch.from_numpy(np.array(layer["kernel"], np.float32))
     return out

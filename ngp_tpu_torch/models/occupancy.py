@@ -43,6 +43,7 @@ from ngp_tpu_torch.ops.lattice import (  # noqa: F401  (re-exported)
     mip_from_pos,
     t_lattice,
 )
+from ngp_tpu_torch.models.renderer import background
 from ngp_tpu_torch.ops.rays import near_far_from_aabb
 
 ALIGN = 4  # compact segment alignment (samples per placement row)
@@ -339,20 +340,22 @@ def render_rays_grid(density_fn: Callable, color_fn: Callable, rays_o, rays_d,
                      max_samples: Optional[int] = None, aabb=None,
                      t_range: Optional[torch.Tensor] = None, perturb: bool = False,
                      generator: Optional[torch.Generator] = None,
-                     noise: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+                     noise: Optional[torch.Tensor] = None,
+                     bg_fn: Optional[Callable] = None) -> Dict[str, torch.Tensor]:
     """v1 march -> network -> compositing. The network runs on all N * S
     slots, the masked ones included, as the JAX renderer does: their
     compositing weights are zero, so they add nothing to a pixel or a
     gradient. There is no ``n_dropped``: the v1 march has no budget
-    below S per ray."""
+    below S per ray. ``bg_fn`` (``bg_radius > 0``) replaces ``bg_color``
+    (``models.renderer.background``)."""
     m = march_rays(rays_o, rays_d, state, cfg, max_samples=max_samples, aabb=aabb,
                    t_range=t_range, perturb=perturb, generator=generator, noise=noise)
     sigmas, geo = density_fn(m["xyzs"])
     rgbs = color_fn(m["dirs"], geo)
     out = composite_rays(sigmas, rgbs, m["ts"], m["deltas"], m["mask"], m["nears"],
                          m["fars"], density_scale=cfg.density_scale, t_thresh=cfg.t_thresh)
-    bg = 1.0 if bg_color is None else bg_color
-    out["image"] = out["image"] + (1.0 - out["weights_sum"])[..., None] * bg
+    out["image"] = out["image"] + (1.0 - out["weights_sum"])[..., None] * background(
+        rays_o, rays_d, cfg, bg_color, bg_fn)
     out["n_samples"] = m["mask"].sum()
     out["ts"], out["deltas"] = m["ts"], m["deltas"]
     return out
@@ -538,11 +541,13 @@ def render_rays_grid_turbo(density_fn: Optional[Callable], color_fn: Optional[Ca
                            t_range: Optional[torch.Tensor] = None,
                            vals_fn: Optional[Callable] = None, perturb: bool = False,
                            generator: Optional[torch.Generator] = None,
-                           noise: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+                           noise: Optional[torch.Tensor] = None,
+                           bg_fn: Optional[Callable] = None) -> Dict[str, torch.Tensor]:
     """Turbo march -> compaction -> network on the compact batch ->
     placement -> compositing. ``vals_fn(pts, dirs) -> [M, 4]`` (eval)
     replaces the density_fn / color_fn pair. ``perturb`` (training)
-    jitters the lattice start (see :func:`march_rays_turbo`)."""
+    jitters the lattice start (see :func:`march_rays_turbo`). ``bg_fn``
+    (``bg_radius > 0``) replaces ``bg_color`` (``models.renderer.background``)."""
     m, S, budget, src, valid_m, offsets, t_c, pts, dirs, maskb = _turbo_compact_geometry(
         rays_o, rays_d, state, cfg, max_samples, aabb, budget, t_range=t_range,
         perturb=perturb, generator=generator, noise=noise,
@@ -557,8 +562,8 @@ def render_rays_grid_turbo(density_fn: Optional[Callable], color_fn: Optional[Ca
     out = composite_rays(placed[..., 0], placed[..., 1:], m["ts"], m["deltas"], maskb,
                          m["nears"], m["fars"], density_scale=cfg.density_scale,
                          t_thresh=cfg.t_thresh)
-    bg = 1.0 if bg_color is None else bg_color
-    out["image"] = out["image"] + (1.0 - out["weights_sum"])[..., None] * bg
+    out["image"] = out["image"] + (1.0 - out["weights_sum"])[..., None] * background(
+        rays_o, rays_d, cfg, bg_color, bg_fn)
     out["n_samples"] = maskb.sum()
     out["n_dropped"] = m["n_dropped"].sum() + (m["mask"] & ~maskb).sum()
     out["ts"], out["deltas"] = m["ts"], m["deltas"]

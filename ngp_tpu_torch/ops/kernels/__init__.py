@@ -28,8 +28,11 @@ can show that its path went through the kernels;
 that wrote residuals, ``cp_density_fwd_tc`` and ``cp_sigma_rgb_tc``
 the launches of the two heads that took the tensor-core kernels (bf16
 heads the tensor-core tiles take; they count under ``cp_density_fwd``
-and ``cp_sigma_rgb`` too), and ``fused_mlp_tc`` those of ``fused_mlp``
-that took its tensor-core kernel.
+and ``cp_sigma_rgb`` too), ``fused_mlp_tc`` those of ``fused_mlp``
+that took its tensor-core kernel, and ``grid_encode_fwd_2d`` and
+``grid_encode_bwd_2d`` the grid kernels' launches on 2-D points (the
+background net's encoder; they count under ``grid_encode_fwd`` and
+``grid_encode_bwd`` too).
 """
 
 from typing import Dict
@@ -48,6 +51,8 @@ LAUNCHES: Dict[str, int] = {
     "fused_mlp_tc": 0,
     "grid_encode_fwd": 0,
     "grid_encode_bwd": 0,
+    "grid_encode_fwd_2d": 0,
+    "grid_encode_bwd_2d": 0,
     "scatter_add_rows": 0,
 }
 

@@ -60,12 +60,12 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _P, _P,
     ],
     "ngp_grid_encode_fwd": [
-        _P, _L, _P, _I, _I, _I, ctypes.POINTER(ctypes.c_float), ctypes.POINTER(_I),
+        _P, _L, _I, _P, _I, _I, _I, ctypes.POINTER(ctypes.c_float), ctypes.POINTER(_I),
         ctypes.POINTER(_U), ctypes.POINTER(_U), ctypes.POINTER(_I), ctypes.c_float, _I,
         _P, _I, _P,
     ],
     "ngp_grid_encode_bwd": [
-        _P, _L, _P, _I, _I, _I, ctypes.POINTER(ctypes.c_float), ctypes.POINTER(_I),
+        _P, _L, _I, _P, _I, _I, _I, ctypes.POINTER(ctypes.c_float), ctypes.POINTER(_I),
         ctypes.POINTER(_U), ctypes.POINTER(_U), ctypes.POINTER(_I), ctypes.c_float, _I,
         _P, _P,
     ],

@@ -161,6 +161,13 @@ def _check_banks(name, pos, factors, resolutions) -> Tuple[int, torch.dtype, int
     M = pos.shape[0]
     dev = pos.device
     _check_rows(f"{name} pos", pos, M, dev)
+    # the kernels count rows, and a row's first position (3 * row), in an int
+    # (ctypes would wrap a larger count without a word); they address the
+    # rows of features, residuals and g with 64-bit offsets, so [M, D]
+    # tensors past 2^31 elements are fine
+    if 3 * M >= 2**31:
+        raise ValueError(f"{name}: {M} rows are more than the kernels' int row arithmetic "
+                         "reaches")
     if len(factors) != len(resolutions) or not 1 <= len(factors) <= 8:
         raise ValueError(f"{name}: 1-8 factor banks, one per resolution")
     dt = factors[0].dtype

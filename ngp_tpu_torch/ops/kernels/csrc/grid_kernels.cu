@@ -4,15 +4,18 @@
 // grid_encode: a take of the table and an einsum with the d-linear weights per
 // level, hashgrid.py:203-204); these kernels do that work by hand.
 //
-//   ngp_grid_encode_fwd  features [B, L*C] from points [B, 3] and the table
+//   ngp_grid_encode_fwd  features [B, L*C] from points [B, D] and the table
 //   ngp_grid_encode_bwd  the VJP of the take + einsum in one pass: every
 //                        (point, level, corner) adds its cotangent row
 //                        w * g by f32 atomics into the table gradient
 //
-// Per-level scale, row offset, row count (and its mask where it is a power of
-// two), dense strides and the hashed flag sit in the kernel's parameter
-// block; both kernels hold the level uniform across a warp, so each is one
-// broadcast read. corner_row is the one device copy of the index arithmetic
+// Both kernels are templated on the point dimension D, with instances for
+// D = 2 (the background net's encoder of sphere coordinates) and D = 3: a
+// cell has 2^D corners, and a level D dense strides. Per-level scale, row
+// offset, row count (and its mask where it is a power of two), dense strides
+// and the hashed flag sit in the kernel's parameter block; both kernels hold
+// the level uniform across a warp, so each is one broadcast read. corner_row
+// is the one device copy of the index arithmetic
 // (gridencoder.cu:66-84 through hashgrid.py:125-158), in 32 bits: row-major
 // dense index over the dims whose stride fits the level, XOR of per-dim primes
 // in wrapping uint32 when a hashed level overflows, then % rows (a mask for
@@ -32,10 +35,11 @@
 // hashed level when x is even (primes[0] = 1, and the mask keeps bit 0), rows
 // r and r + 1 on a dense one, and level offsets are multiples of 8 rows, so
 // where the two rows form an aligned pair one vector load (16 bytes at C = 2
-// in f32) brings both; and consecutive samples of a ray, neighbouring lanes,
-// share their coarse cells. Staging the output rows in shared memory to
-// store them coalesced cost more than it saved: it took L1 from the table
-// (PERF.md).
+// in f32) brings both. None of that depends on D, so the pair load holds at
+// D = 2 as at D = 3 (the kernel tests r1 == r0 ^ 1 before it loads a pair);
+// and consecutive samples of a ray, neighbouring lanes, share their coarse
+// cells. Staging the output rows in shared memory to store them coalesced
+// cost more than it saved: it took L1 from the table (PERF.md).
 //
 // Backward: one warp per (32 points, level), level outside, so the warps of a
 // block share their points' x and g rows in L1, and at a coarse level a
@@ -56,7 +60,8 @@
 // feature rounded once, as JAX's bf16 einsum on the CPU does; backward, the
 // weight and the product w * g are rounded to bf16 (the einsum's VJP), and
 // the gradient then sums in f32 where JAX sums in bf16. Points outside
-// [0, 1]^3 get zero features and add nothing.
+// [0, 1]^D (a coordinate below 0 or above 1; 0 and 1 are inside) get zero
+// features and add nothing.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -69,19 +74,20 @@
 namespace {
 
 constexpr int kMaxLevels = 32;
+constexpr int kMaxDims = 3;
 constexpr int kThreads = 256;
 constexpr long long kMaxBlocks = 132 * 64;
 constexpr int kFwdThreads = 128;  // points per forward block
 
 struct GridParams {
-  const float* x;  // [B, 3]
+  const float* x;  // [B, D]
   long long B;
   int L;
   float scale[kMaxLevels];
   int offset[kMaxLevels];          // first table row of the level
   uint32_t size[kMaxLevels];       // table rows of the level
   uint32_t mask[kMaxLevels];       // size - 1 where size is a power of two, else 0
-  uint32_t stride[kMaxLevels][3];  // dense strides; 0 for dims past the ones that fit
+  uint32_t stride[kMaxLevels][kMaxDims];  // dense strides; 0 for dims past the ones that fit
   int hashed[kMaxLevels];
   float shift;  // 0.5, or 0 with align_corners
   int smoothstep;
@@ -99,16 +105,19 @@ __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16(v));  // round to nearest even
 }
 
-__device__ __forceinline__ bool in_box(const float* q) {
-  return !(q[0] < 0.f || q[0] > 1.f || q[1] < 0.f || q[1] > 1.f || q[2] < 0.f ||
-           q[2] > 1.f);
+template <int D> __device__ __forceinline__ bool in_box(const float* q) {
+  bool in = true;
+#pragma unroll
+  for (int d = 0; d < D; ++d) in = in && !(q[d] < 0.f || q[d] > 1.f);
+  return in;
 }
 
 // lower corner i0 and interpolation fractions of point q at level l
+template <int D>
 __device__ __forceinline__ void level_pos(const GridParams& p, int l, const float* q,
                                           uint32_t* i0, float* frac) {
 #pragma unroll
-  for (int d = 0; d < 3; ++d) {
+  for (int d = 0; d < D; ++d) {
     const float pos = __fadd_rn(__fmul_rn(q[d], p.scale[l]), p.shift);
     const float pf = floorf(pos);
     float f = __fsub_rn(pos, pf);
@@ -118,20 +127,25 @@ __device__ __forceinline__ void level_pos(const GridParams& p, int l, const floa
   }
 }
 
-// d-linear weight of corner k (bit d of k: the upper corner along axis d)
-__device__ __forceinline__ float corner_weight(const float* frac, int k) {
+// d-linear weight of corner k (bit d of k: the upper corner along axis d),
+// multiplied in axis order
+template <int D> __device__ __forceinline__ float corner_weight(const float* frac, int k) {
   float w = (k & 1) ? frac[0] : __fsub_rn(1.f, frac[0]);
-  w = __fmul_rn(w, (k & 2) ? frac[1] : __fsub_rn(1.f, frac[1]));
-  return __fmul_rn(w, (k & 4) ? frac[2] : __fsub_rn(1.f, frac[2]));
+#pragma unroll
+  for (int d = 1; d < D; ++d) {
+    w = __fmul_rn(w, (k >> d & 1) ? frac[d] : __fsub_rn(1.f, frac[d]));
+  }
+  return w;
 }
 
 // flat table row of corner k of the cell at i0, level l
+template <int D>
 __device__ __forceinline__ uint32_t corner_row(const GridParams& p, int l, const uint32_t* i0,
                                                int k) {
-  const uint32_t primes[3] = {1u, 2654435761u, 805459861u};
+  const uint32_t primes[kMaxDims] = {1u, 2654435761u, 805459861u};
   uint32_t idx = 0;
 #pragma unroll
-  for (int d = 0; d < 3; ++d) {
+  for (int d = 0; d < D; ++d) {
     const uint32_t c = i0[d] + (uint32_t)((k >> d) & 1);
     idx = p.hashed[l] ? (idx ^ (c * primes[d])) : (idx + c * p.stride[l][d]);
   }
@@ -168,17 +182,17 @@ __device__ __forceinline__ void load_vals(const TT* src, float* v) {
 // acc[c] = sum over corners k of round(w_k) * round(table[corner_row(k)][c])
 // of the point q at level l (rounding with a bf16 output only); the table
 // starts on a pair of rows, so rows and pairs load as vectors
-template <typename TT, int C, bool kRound>
+template <typename TT, int C, int D, bool kRound>
 __device__ __forceinline__ void level_features(const GridParams& p, const TT* table, int l,
                                                const float* q, float* acc) {
-  uint32_t i0[3];
-  float frac[3];
-  level_pos(p, l, q, i0, frac);
+  uint32_t i0[D];
+  float frac[D];
+  level_pos<D>(p, l, q, i0, frac);
 #pragma unroll
-  for (int k = 0; k < 8; k += 2) {
+  for (int k = 0; k < (1 << D); k += 2) {
     // the x-corners k and k + 1: one load of their aligned pair of rows
     // where the two rows are r and r ^ 1, else one load each
-    const uint32_t r0 = corner_row(p, l, i0, k), r1 = corner_row(p, l, i0, k + 1);
+    const uint32_t r0 = corner_row<D>(p, l, i0, k), r1 = corner_row<D>(p, l, i0, k + 1);
     float v0[C], v1[C];
     if (r1 == (r0 ^ 1u)) {
       float v[2 * C];
@@ -193,7 +207,7 @@ __device__ __forceinline__ void level_features(const GridParams& p, const TT* ta
       load_vals<TT, C>(table + (size_t)r0 * C, v0);
       load_vals<TT, C>(table + (size_t)r1 * C, v1);
     }
-    float w0 = corner_weight(frac, k), w1 = corner_weight(frac, k + 1);
+    float w0 = corner_weight<D>(frac, k), w1 = corner_weight<D>(frac, k + 1);
     if (kRound) {
       w0 = round_bf16(w0);
       w1 = round_bf16(w1);
@@ -210,7 +224,7 @@ __device__ __forceinline__ void level_features(const GridParams& p, const TT* ta
 // (16 bytes of the output row, or one level where that is wider) are made in
 // registers and stored together: one 16-byte store per thread where the rows
 // are whole 16-byte vectors, else element by element.
-template <typename TT, typename TO, int C>
+template <typename TT, typename TO, int C, int D>
 __global__ void __launch_bounds__(kFwdThreads)
     grid_fwd_kernel(GridParams p, const TT* __restrict__ table, TO* __restrict__ out) {
   constexpr bool kRound = sizeof(TO) == 2;
@@ -219,8 +233,10 @@ __global__ void __launch_bounds__(kFwdThreads)
   constexpr int kWords = (kG * kLevelBytes + 15) / 16;
   const long long b = (long long)blockIdx.x * kFwdThreads + threadIdx.x;
   if (b >= p.B) return;
-  const float q[3] = {__ldg(p.x + 3 * b), __ldg(p.x + 3 * b + 1), __ldg(p.x + 3 * b + 2)};
-  const bool live = in_box(q);
+  float q[D];
+#pragma unroll
+  for (int d = 0; d < D; ++d) q[d] = __ldg(p.x + D * b + d);
+  const bool live = in_box<D>(q);
   TO* row = out + b * p.L * C;
   const bool vec = (p.L * kLevelBytes) % 16 == 0 && (uintptr_t)out % 16 == 0;
   for (int l0 = 0; l0 < p.L; l0 += kG) {
@@ -233,7 +249,7 @@ __global__ void __launch_bounds__(kFwdThreads)
       float acc[C];
 #pragma unroll
       for (int c = 0; c < C; ++c) acc[c] = 0.f;
-      if (live && l0 + j < p.L) level_features<TT, C, kRound>(p, table, l0 + j, q, acc);
+      if (live && l0 + j < p.L) level_features<TT, C, D, kRound>(p, table, l0 + j, q, acc);
 #pragma unroll
       for (int c = 0; c < C; ++c) st(w.e, j * C + c, acc[c]);
     }
@@ -291,7 +307,7 @@ template <> __device__ __forceinline__ void add_row<8>(float* dst, const float* 
 // coarse level are mostly equal (consecutive samples of one ray share a
 // cell): lanes whose row is equal sum their products by shuffles and one
 // lane adds the sum.
-template <typename TG, int C>
+template <typename TG, int C, int D>
 __global__ void grid_bwd_kernel(GridParams p, const TG* __restrict__ g,
                                 float* __restrict__ dtable) {
   constexpr bool kRound = sizeof(TG) == 2;
@@ -304,13 +320,10 @@ __global__ void grid_bwd_kernel(GridParams p, const TG* __restrict__ g,
     const long long b = (u / p.L) * 32 + lane;
     float gv[C];
     bool live = b < p.B;
-    float q[3] = {0.f, 0.f, 0.f};
-    if (live) {
-      q[0] = __ldg(p.x + 3 * b);
-      q[1] = __ldg(p.x + 3 * b + 1);
-      q[2] = __ldg(p.x + 3 * b + 2);
-      live = in_box(q);
-    }
+    float q[D];
+#pragma unroll
+    for (int d = 0; d < D; ++d) q[d] = live ? __ldg(p.x + D * b + d) : 0.f;
+    live = live && in_box<D>(q);
     bool any = false;
 #pragma unroll
     for (int c = 0; c < C; ++c) {
@@ -320,12 +333,12 @@ __global__ void grid_bwd_kernel(GridParams p, const TG* __restrict__ g,
     // a zero cotangent row adds +-0 to sums that start at +0: skipping it is exact
     const unsigned active = __ballot_sync(0xffffffffu, any);
     if (!any) continue;
-    uint32_t i0[3];
-    float frac[3];
-    level_pos(p, l, q, i0, frac);
+    uint32_t i0[D];
+    float frac[D];
+    level_pos<D>(p, l, q, i0, frac);
 #pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      float w = corner_weight(frac, k);
+    for (int k = 0; k < (1 << D); ++k) {
+      float w = corner_weight<D>(frac, k);
       if (kRound) w = round_bf16(w);
       float v[C];
       bool nz = false;
@@ -335,7 +348,7 @@ __global__ void grid_bwd_kernel(GridParams p, const TG* __restrict__ g,
         if (kRound) v[c] = round_bf16(v[c]);
         nz |= v[c] != 0.f;
       }
-      const uint32_t row = corner_row(p, l, i0, k);
+      const uint32_t row = corner_row<D>(p, l, i0, k);
       // zero rows take part under a key no row has, so the set stays whole
       const unsigned peers = __match_any_sync(active, nz ? row : 0xffffffffu);
 #pragma unroll
@@ -345,10 +358,11 @@ __global__ void grid_bwd_kernel(GridParams p, const TG* __restrict__ g,
   }
 }
 
-int fill_params(GridParams* p, const float* x, long long B, int L, const float* scales,
+// strides: D per level, level-major
+int fill_params(GridParams* p, const float* x, long long B, int D, int L, const float* scales,
                 const int* offsets, const unsigned* sizes, const unsigned* strides,
                 const int* hashed, float shift, int smoothstep) {
-  if (L < 1 || L > kMaxLevels) return (int)cudaErrorInvalidValue;
+  if (L < 1 || L > kMaxLevels || D < 2 || D > kMaxDims) return (int)cudaErrorInvalidValue;
   p->x = x;
   p->B = B;
   p->L = L;
@@ -357,7 +371,7 @@ int fill_params(GridParams* p, const float* x, long long B, int L, const float* 
     p->offset[l] = offsets[l];
     p->size[l] = sizes[l];
     p->mask[l] = sizes[l] != 0u && (sizes[l] & (sizes[l] - 1u)) == 0u ? sizes[l] - 1u : 0u;
-    for (int d = 0; d < 3; ++d) p->stride[l][d] = strides[3 * l + d];
+    for (int d = 0; d < kMaxDims; ++d) p->stride[l][d] = d < D ? strides[D * l + d] : 0u;
     p->hashed[l] = hashed[l];
   }
   p->shift = shift;
@@ -370,75 +384,91 @@ int blocks_for(long long n) {
   return (int)(blocks > kMaxBlocks ? kMaxBlocks : blocks);
 }
 
-template <typename TT, typename TO, int C>
-int launch_fwd_c(const GridParams& p, const void* table, void* out, cudaStream_t s) {
+template <typename TT, typename TO, int C, int D>
+int launch_fwd_cd(const GridParams& p, const void* table, void* out, cudaStream_t s) {
   const int blocks = (int)((p.B + kFwdThreads - 1) / kFwdThreads);
   // the kernel loads rows and row pairs as vectors
   if ((uintptr_t)table % (2 * C * sizeof(TT)) != 0) return (int)cudaErrorInvalidValue;
-  grid_fwd_kernel<TT, TO, C><<<blocks, kFwdThreads, 0, s>>>(p, static_cast<const TT*>(table),
-                                                            static_cast<TO*>(out));
+  grid_fwd_kernel<TT, TO, C, D><<<blocks, kFwdThreads, 0, s>>>(
+      p, static_cast<const TT*>(table), static_cast<TO*>(out));
   return (int)cudaGetLastError();
 }
 
+template <typename TT, typename TO, int C>
+int launch_fwd_c(const GridParams& p, int D, const void* table, void* out, cudaStream_t s) {
+  return D == 2 ? launch_fwd_cd<TT, TO, C, 2>(p, table, out, s)
+                : launch_fwd_cd<TT, TO, C, 3>(p, table, out, s);
+}
+
 template <typename TT, typename TO>
-int launch_fwd(const GridParams& p, int C, const void* table, void* out, cudaStream_t s) {
+int launch_fwd(const GridParams& p, int C, int D, const void* table, void* out,
+               cudaStream_t s) {
   switch (C) {
-    case 1: return launch_fwd_c<TT, TO, 1>(p, table, out, s);
-    case 2: return launch_fwd_c<TT, TO, 2>(p, table, out, s);
-    case 4: return launch_fwd_c<TT, TO, 4>(p, table, out, s);
-    case 8: return launch_fwd_c<TT, TO, 8>(p, table, out, s);
+    case 1: return launch_fwd_c<TT, TO, 1>(p, D, table, out, s);
+    case 2: return launch_fwd_c<TT, TO, 2>(p, D, table, out, s);
+    case 4: return launch_fwd_c<TT, TO, 4>(p, D, table, out, s);
+    case 8: return launch_fwd_c<TT, TO, 8>(p, D, table, out, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-template <typename TG, int C>
-int launch_bwd_c(const GridParams& p, const void* g, float* dtable, cudaStream_t s) {
+template <typename TG, int C, int D>
+int launch_bwd_cd(const GridParams& p, const void* g, float* dtable, cudaStream_t s) {
   const int blocks = blocks_for((p.B + 31) / 32 * p.L * 32);
-  grid_bwd_kernel<TG, C><<<blocks, kThreads, 0, s>>>(p, static_cast<const TG*>(g), dtable);
+  grid_bwd_kernel<TG, C, D><<<blocks, kThreads, 0, s>>>(p, static_cast<const TG*>(g), dtable);
   return (int)cudaGetLastError();
 }
 
+template <typename TG, int C>
+int launch_bwd_c(const GridParams& p, int D, const void* g, float* dtable, cudaStream_t s) {
+  return D == 2 ? launch_bwd_cd<TG, C, 2>(p, g, dtable, s)
+                : launch_bwd_cd<TG, C, 3>(p, g, dtable, s);
+}
+
 template <typename TG>
-int launch_bwd(const GridParams& p, int C, const void* g, float* dtable, cudaStream_t s) {
+int launch_bwd(const GridParams& p, int C, int D, const void* g, float* dtable,
+               cudaStream_t s) {
   switch (C) {
-    case 1: return launch_bwd_c<TG, 1>(p, g, dtable, s);
-    case 2: return launch_bwd_c<TG, 2>(p, g, dtable, s);
-    case 4: return launch_bwd_c<TG, 4>(p, g, dtable, s);
-    case 8: return launch_bwd_c<TG, 8>(p, g, dtable, s);
+    case 1: return launch_bwd_c<TG, 1>(p, D, g, dtable, s);
+    case 2: return launch_bwd_c<TG, 2>(p, D, g, dtable, s);
+    case 4: return launch_bwd_c<TG, 4>(p, D, g, dtable, s);
+    case 8: return launch_bwd_c<TG, 8>(p, D, g, dtable, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-extern "C" int ngp_grid_encode_fwd(const float* x, long long B, const void* table, int table_bf16,
-                                   int C, int L, const float* scales, const int* offsets,
-                                   const unsigned* sizes, const unsigned* strides,
+extern "C" int ngp_grid_encode_fwd(const float* x, long long B, int D, const void* table,
+                                   int table_bf16, int C, int L, const float* scales,
+                                   const int* offsets, const unsigned* sizes,
+                                   const unsigned* strides,
                                    const int* hashed, float shift, int smoothstep, void* out,
                                    int out_bf16, void* stream) {
   GridParams p;
-  const int err = fill_params(&p, x, B, L, scales, offsets, sizes, strides, hashed, shift,
+  const int err = fill_params(&p, x, B, D, L, scales, offsets, sizes, strides, hashed, shift,
                               smoothstep);
   if (err != (int)cudaSuccess || B <= 0) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (table_bf16) {
-    return out_bf16 ? launch_fwd<__nv_bfloat16, __nv_bfloat16>(p, C, table, out, s)
-                    : launch_fwd<__nv_bfloat16, float>(p, C, table, out, s);
+    return out_bf16 ? launch_fwd<__nv_bfloat16, __nv_bfloat16>(p, C, D, table, out, s)
+                    : launch_fwd<__nv_bfloat16, float>(p, C, D, table, out, s);
   }
-  return out_bf16 ? launch_fwd<float, __nv_bfloat16>(p, C, table, out, s)
-                  : launch_fwd<float, float>(p, C, table, out, s);
+  return out_bf16 ? launch_fwd<float, __nv_bfloat16>(p, C, D, table, out, s)
+                  : launch_fwd<float, float>(p, C, D, table, out, s);
 }
 
-extern "C" int ngp_grid_encode_bwd(const float* x, long long B, const void* g, int g_bf16,
-                                   int C, int L, const float* scales, const int* offsets,
-                                   const unsigned* sizes, const unsigned* strides,
+extern "C" int ngp_grid_encode_bwd(const float* x, long long B, int D, const void* g,
+                                   int g_bf16, int C, int L, const float* scales,
+                                   const int* offsets, const unsigned* sizes,
+                                   const unsigned* strides,
                                    const int* hashed, float shift, int smoothstep,
                                    float* dtable, void* stream) {
   GridParams p;
-  const int err = fill_params(&p, x, B, L, scales, offsets, sizes, strides, hashed, shift,
+  const int err = fill_params(&p, x, B, D, L, scales, offsets, sizes, strides, hashed, shift,
                               smoothstep);
   if (err != (int)cudaSuccess || B <= 0) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return g_bf16 ? launch_bwd<__nv_bfloat16>(p, C, g, dtable, s)
-                : launch_bwd<float>(p, C, g, dtable, s);
+  return g_bf16 ? launch_bwd<__nv_bfloat16>(p, C, D, g, dtable, s)
+                : launch_bwd<float>(p, C, D, g, dtable, s);
 }

@@ -14,7 +14,8 @@ the einsum. Its plain version makes the corner rows
 ``GridGeometry`` is what the kernels read of a ``GridConfig``
 (``ops/hashgrid.py``): per level the interpolation scale, row offset and
 count, the dense strides of the dims that fit the level and whether the
-level hashes.
+level hashes. The kernels take points of D = 2 (the background net's
+sphere coordinates) or D = 3 dimensions; the plain versions take any D.
 
 Rounding with the bf16 compute type (a bf16 output): table values and
 corner weights are rounded to bf16 and their products summed in f32,
@@ -39,6 +40,7 @@ PRIMES = (1, 2654435761, 805459861, 3674653429, 2097192037, 1434869437, 21652197
 _M32 = 0xFFFFFFFF
 _DTYPES = (torch.float32, torch.bfloat16)
 _MAX_LEVELS = 32
+_KERNEL_DIMS = (2, 3)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -178,30 +180,34 @@ def grid_encode_bwd_plain(x: torch.Tensor, g: torch.Tensor, geom: GridGeometry) 
 
 
 def _check_points(name: str, x: torch.Tensor, geom: GridGeometry) -> int:
-    if geom.input_dim != 3:
-        raise ValueError(f"{name}: the kernel takes 3-D points, the grid is {geom.input_dim}-D")
+    D = geom.input_dim
+    if D not in _KERNEL_DIMS:
+        raise ValueError(f"{name}: the kernel takes 2-D or 3-D points, the grid is {D}-D")
     if geom.level_dim not in (1, 2, 4, 8) or not 1 <= geom.num_levels <= _MAX_LEVELS:
         raise ValueError(f"{name}: the kernel takes 1, 2, 4 or 8 features on 1-{_MAX_LEVELS} "
                          f"levels, not {geom.level_dim} on {geom.num_levels}")
-    if x.dtype != torch.float32 or x.ndim != 2 or x.shape[1] != 3 or not x.is_contiguous():
-        raise ValueError(f"{name}: x must be contiguous f32 [B, 3], got {x.dtype} "
+    if x.dtype != torch.float32 or x.ndim != 2 or x.shape[1] != D or not x.is_contiguous():
+        raise ValueError(f"{name}: x must be contiguous f32 [B, {D}], got {x.dtype} "
                          f"{tuple(x.shape)}")
-    if x.shape[0] * geom.num_levels * 8 >= 2**31:
+    if x.shape[0] * geom.num_levels * 2**D >= 2**31:
         raise ValueError(f"{name}: {x.shape[0]} points are more corners than int32 reaches")
     return x.shape[0]
 
 
 def _geometry_args(geom: GridGeometry):
-    L = geom.num_levels
-    strides = [0] * (3 * L)
+    """The C arguments of the geometry: per level the scale, row offset,
+    row count, D dense strides (0 past the dims that fit) and the hashed
+    flag, then the shift and the interpolation."""
+    L, D = geom.num_levels, geom.input_dim
+    strides = [0] * (D * L)
     for level, st in enumerate(geom.strides):
-        strides[3 * level:3 * level + len(st)] = st
+        strides[D * level:D * level + len(st)] = st
     sizes = [geom.offsets[i + 1] - geom.offsets[i] for i in range(L)]
     return (
         (ctypes.c_float * L)(*geom.scales),
         int_array(geom.offsets[:L]),
         (ctypes.c_uint * L)(*sizes),
-        (ctypes.c_uint * (3 * L))(*strides),
+        (ctypes.c_uint * (D * L))(*strides),
         int_array([int(h) for h in geom.hashed]),
         float(geom.shift),
         int(geom.smoothstep),
@@ -210,8 +216,8 @@ def _geometry_args(geom: GridGeometry):
 
 def grid_encode_fwd(x: torch.Tensor, table: torch.Tensor, geom: GridGeometry,
                     out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """Grid features: x [B, 3] f32 -> [B, L*C] in ``out_dtype`` (f32 or
-    bf16; the table's dtype when None), zero outside [0, 1]^3. table
+    """Grid features: x [B, D] f32 (D = 2 or 3) -> [B, L*C] in ``out_dtype``
+    (f32 or bf16; the table's dtype when None), zero outside [0, 1]^D. table
     [num_rows, C] f32 or bf16, contiguous, starting on a pair of rows (the
     kernel loads rows and row pairs as vectors)."""
     if x.device.type == "cpu":
@@ -234,21 +240,23 @@ def grid_encode_fwd(x: torch.Tensor, table: torch.Tensor, geom: GridGeometry,
     if B > 0:
         lib = load_library()
         err = lib.ngp_grid_encode_fwd(
-            x.data_ptr(), B, table.data_ptr(), int(table.dtype == torch.bfloat16),
+            x.data_ptr(), B, geom.input_dim, table.data_ptr(),
+            int(table.dtype == torch.bfloat16),
             geom.level_dim, geom.num_levels, *_geometry_args(geom), out.data_ptr(),
             int(od == torch.bfloat16), torch.cuda.current_stream(x.device).cuda_stream,
         )
         check_launch("grid_encode_fwd", err)
         LAUNCHES["grid_encode_fwd"] += 1
+        LAUNCHES["grid_encode_fwd_2d"] += int(geom.input_dim == 2)
     return out
 
 
 def grid_encode_bwd(x: torch.Tensor, g: torch.Tensor, geom: GridGeometry) -> torch.Tensor:
-    """The table gradient [num_rows, C] f32 in one launch: x [B, 3] f32,
-    g [B, L*C] f32 or bf16 (the output's cotangent); every (point, level,
-    corner) whose product row w * g is not zero is added by f32 atomics
-    into a table the wrapper zeroes (the lanes of a warp that add to one
-    row sum first). Points outside [0, 1]^3 add nothing."""
+    """The table gradient [num_rows, C] f32 in one launch: x [B, D] f32
+    (D = 2 or 3), g [B, L*C] f32 or bf16 (the output's cotangent); every
+    (point, level, corner) whose product row w * g is not zero is added by
+    f32 atomics into a table the wrapper zeroes (the lanes of a warp that
+    add to one row sum first). Points outside [0, 1]^D add nothing."""
     if x.device.type == "cpu":
         return grid_encode_bwd_plain(x, g, geom)
     if x.device.type != "cuda":
@@ -262,12 +270,14 @@ def grid_encode_bwd(x: torch.Tensor, g: torch.Tensor, geom: GridGeometry) -> tor
     if B > 0:
         lib = load_library()
         err = lib.ngp_grid_encode_bwd(
-            x.data_ptr(), B, g.data_ptr(), int(g.dtype == torch.bfloat16), geom.level_dim,
+            x.data_ptr(), B, geom.input_dim, g.data_ptr(), int(g.dtype == torch.bfloat16),
+            geom.level_dim,
             geom.num_levels, *_geometry_args(geom), dtable.data_ptr(),
             torch.cuda.current_stream(x.device).cuda_stream,
         )
         check_launch("grid_encode_bwd", err)
         LAUNCHES["grid_encode_bwd"] += 1
+        LAUNCHES["grid_encode_bwd_2d"] += int(geom.input_dim == 2)
     return dtable
 
 

@@ -1,4 +1,4 @@
-"""Image quality meters: PSNR and SSIM (``ngp_tpu/training/metrics.py``).
+"""Image quality meters: PSNR, SSIM and LPIPS (``ngp_tpu/training/metrics.py``).
 
 The clear/update/measure/write/report protocol of the JAX meters
 (reference nerf/utils.py:206-314). SSIM is the Gaussian-windowed
@@ -12,15 +12,21 @@ cuDNN would run the f32 convolution in TF32 by default
 swamps SSIM's variance terms on mostly white frames (the JAX module
 records SSIM reading 1.05-2.5 when its convolution lost precision).
 
-LPIPS needs pretrained perceptual-network weights and is not ported:
-``LPIPSMeter`` raises.
+LPIPS (``training/lpips.py``) needs perceptual-network weights, which
+nothing fetches: ``LPIPSMeter`` takes a local checkpoint's path or
+converted params, and raises without either. It runs on ``device`` (the
+card unless the caller asks for another), its convolutions in full f32.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 import torch.nn.functional as tnf
+
+from ngp_tpu_torch.training.lpips import load_torch_weights, lpips
 
 
 def _host(x) -> torch.Tensor:
@@ -112,11 +118,44 @@ class SSIMMeter(_MeterBase):
 
 
 class LPIPSMeter(_MeterBase):
-    """Not ported: LPIPS needs local AlexNet-LPIPS weights and a port of
-    ``ngp_tpu/training/lpips.py``."""
+    """LPIPS distance meter (the reference's nerf/utils.py:280-314) on the
+    AlexNet-LPIPS of ``training/lpips.py``. Weights are not downloaded:
+    pass a local ``weights_path`` (a torch checkpoint in the ``lpips``
+    package's or the torchvision + heads layout) or converted ``params``;
+    without either, ``update`` raises."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "LPIPS is not ported to ngp_tpu_torch yet (it needs local AlexNet-LPIPS "
-            "weights and a port of ngp_tpu/training/lpips.py); evaluate without it"
-        )
+    def __init__(self, net: str = "alex", weights_path: Optional[str] = None, params=None,
+                 device="cuda"):
+        super().__init__()
+        if net != "alex":
+            raise ValueError("only the 'alex' backbone is implemented")
+        self.net = net
+        self.weights_path = weights_path
+        self.device = torch.device(device)
+        self._params = params
+
+    def name(self):
+        return f"LPIPS ({self.net})"
+
+    def _ensure(self):
+        if self._params is None:
+            if self.weights_path is None:
+                raise RuntimeError("LPIPS requires pretrained perceptual-network weights; "
+                                   "provide weights_path= or params= to LPIPSMeter (nothing "
+                                   "downloads them)")
+            self._params = load_torch_weights(self.weights_path)
+        return self._params
+
+    @torch.no_grad()
+    def update(self, preds, truths):
+        params = self._ensure()
+        p = torch.as_tensor(preds, dtype=torch.float32, device=self.device)
+        t = torch.as_tensor(truths, dtype=torch.float32, device=self.device)
+        if p.ndim == 3:
+            p, t = p[None], t[None]
+        vals = lpips(params, p, t)
+        self.V += float(vals.sum())
+        self.N += int(vals.shape[0])
+
+    def report(self):
+        return f"LPIPS ({self.net}) = {self.measure():.6f}"

@@ -1,5 +1,10 @@
 """NeRF trainer (``ngp_tpu/training/nerf.py:NeRFTrainer``).
 
+This class renders without the occupancy grid: the uniform + PDF
+renderer of ``models/renderer.py`` (``main_nerf`` without ``-O``); the
+grid trainer (``training/nerf_grid.py``) overrides ``_render_with``.
+Both composite the background net when ``bg_radius > 0``.
+
 ``train_step`` trains on one batch of sampled rays of one frame: the
 frame gather, pixel sampling (uniform, error map or patches), a random
 per-pixel background for RGBA frames, the render, per-ray MSE plus the
@@ -7,14 +12,16 @@ TV term (``tv_weight``, the encoder table's dense levels) and the
 distortion term (``distortion_weight``, ``eff_distloss`` on the render's
 per-slot weights, ts and deltas), the optimizer step and the error-map
 EMA. Its random draws come from the trainer's generator, or from
-``draws`` (the sampler's draws, "bg" and "noise"), so that a test can
-feed it the numbers ``jax.random`` drew. With ``rand_pose`` >= 0 and a
+``draws`` (the sampler's draws, "bg", the render's "noise" and, for the
+PDF samples of the uniform renderer, "pdf_u"), so that a test can feed
+it the numbers ``jax.random`` drew. With ``rand_pose`` >= 0 and a
 ``guidance_loss``, the loader also yields random-pose batches, which
 ``guidance_step`` trains on: a low-resolution full frame from a random
 orbit pose on a white background, scored by the image loss.
 
 ``render_frame`` renders with the EMA weights when there are any, a
-full frame in fixed-size ray chunks. Which rays share a chunk decides
+full frame in fixed-size ray chunks, inside ``aabb_infer`` (the
+inference crop box) when it is set. Which rays share a chunk decides
 the pixels, because the occupancy-grid
 renderer water-fills a per-chunk sample budget, so the chunking follows
 the JAX code exactly: the frame's rays are interleaved by a fixed
@@ -25,7 +32,8 @@ padded by repeating the last index. The JAX code loops over chunks with
 ``jax.lax.map`` inside one compiled call; here it is a Python loop
 whose chunks run on the device without a host sync.
 
-``evaluate`` scores a split (PSNR, SSIM) on the u8 frames
+``evaluate`` scores a split (PSNR, SSIM, and LPIPS with
+``lpips_weights``) on the u8 frames
 ``render_frames`` returns, ``test`` writes a split's frames as PNGs
 (and a video where a writer can be imported), ``save_mesh`` samples the
 density on a 256^3 lattice through ``NeRFNetwork.density`` (the unfused
@@ -52,8 +60,10 @@ from ngp_tpu_torch.data.raysampler import (
     rays_from_indices,
     sample_ray_indices,
 )
-from ngp_tpu_torch.models.nerf import NeRFNetwork
+from ngp_tpu_torch.models.nerf import NeRFNetwork, make_fused_density
+from ngp_tpu_torch.models.renderer import render_rays
 from ngp_tpu_torch.ops.losses import eff_distloss
+from ngp_tpu_torch.ops.rays import sph_from_ray
 from ngp_tpu_torch.training.metrics import LPIPSMeter, PSNRMeter, SSIMMeter
 from ngp_tpu_torch.training.trainer import Trainer
 from ngp_tpu_torch.utils.color import linear_to_srgb_np
@@ -93,32 +103,45 @@ class NeRFTrainer(Trainer):
         # image loss of the random-pose guidance steps (clip_guidance), or
         # None: the loader then skips the virtual indices
         self.guidance_loss = None
+        # LPIPS weights for evaluate: a path to a torch checkpoint (the
+        # --lpips_weights flag) or converted params (training/lpips.py)
+        self.lpips_weights = None
+        # the inference crop box [xmin, ymin, zmin, xmax, ymax, zmax] of the
+        # frame renders, or None for the scene's box
+        self.aabb_infer = None
 
     def init_aux(self):
         return {}
 
     def _fns(self):
-        """(density_fn, color_fn) on the live weights, recording autograd
-        when grad mode is on."""
-        raise NotImplementedError(
-            "the non-grid renderer is not ported yet; use GridNeRFTrainer"
-        )
+        """(density_fn, color_fn, bg_fn) on the live weights, recording
+        autograd when grad mode is on: the fused CP density when the model
+        has one (``make_fused_density``), else the module's; bg_fn is the
+        background net when ``bg_radius > 0``, else None."""
+        density_fn = make_fused_density(self.model)
+        if density_fn is None:
+            density_fn = self.model.density
+        bg_fn = self.model.background if self.render_cfg.bg_radius > 0 else None
+        return density_fn, self.model.color, bg_fn
 
     def _eval_fns(self):
         """The network closures one frame render uses (built once per
-        frame, not per chunk)."""
-        raise NotImplementedError(
-            "the non-grid renderer is not ported yet; use GridNeRFTrainer"
-        )
+        frame, not per chunk): ``_fns`` and a fused radiance closure, which
+        this renderer does not have (None), as in JAX."""
+        return (*self._fns(), None)
 
     def _render_with(self, fns, rays_o, rays_d, bg_color=None, aabb=None,
-                     t_range=None, perturb=False, noise=None):
+                     t_range=None, perturb=False, noise=None, pdf_u=None):
         """Render one batch of rays with the closures of ``_fns`` plus a
         fused radiance closure or None (training: ``perturb``) or of
-        ``_eval_fns`` (eval)."""
-        raise NotImplementedError(
-            "the non-grid renderer is not ported yet; use GridNeRFTrainer"
-        )
+        ``_eval_fns`` (eval): here the uniform + PDF renderer, which takes
+        no per-ray t range."""
+        if t_range is not None:
+            raise ValueError("t_range needs the occupancy-grid renderer")
+        density_fn, color_fn, bg_fn, _ = fns
+        return render_rays(density_fn, color_fn, rays_o, rays_d, self.render_cfg,
+                           perturb=perturb, bg_color=bg_color, bg_fn=bg_fn, aabb=aabb,
+                           generator=self.generator, noise=noise, pdf_u=pdf_u)
 
     # ---- train -----------------------------------------------------------
 
@@ -152,7 +175,8 @@ class NeRFTrainer(Trainer):
 
         self.optimizer.zero_grad(set_to_none=True)
         out = self._render_with((*self._fns(), None), rays["rays_o"], rays["rays_d"],
-                                bg_color=bg, perturb=True, noise=draws.get("noise"))
+                                bg_color=bg, perturb=True, noise=draws.get("noise"),
+                                pdf_u=draws.get("pdf_u"))
         per_ray = ((out["image"] - gt_rgb) ** 2).mean(dim=-1)
         loss = per_ray.mean() + self._loss_extra()
         wd = self.train_cfg.distortion_weight
@@ -184,8 +208,9 @@ class NeRFTrainer(Trainer):
         """Train on a random pose with ``guidance_loss`` instead of ground
         truth (the reference's utils.py:473-488): batch "pose" [4, 4],
         "intrinsics" [4] and the frame size "rH", "rW"; every pixel of
-        the frame, white background. ``draws["noise"]`` [rH * rW] replaces
-        the march's perturbation draw."""
+        the frame, white background. ``draws["noise"]`` replaces the
+        render's perturbation draw ([rH * rW] for the march, [rH * rW, T]
+        for the uniform renderer) and ``draws["pdf_u"]`` its PDF draw."""
         self.ensure_initialized()
         draws = draws or {}
         rH, rW = int(batch["rH"]), int(batch["rW"])
@@ -194,7 +219,8 @@ class NeRFTrainer(Trainer):
         rays = rays_from_indices(batch["pose"], batch["intrinsics"], rH, rW, inds)
         self.optimizer.zero_grad(set_to_none=True)
         out = self._render_with((*self._fns(), None), rays["rays_o"], rays["rays_d"],
-                                bg_color=1.0, perturb=True, noise=draws.get("noise"))
+                                bg_color=1.0, perturb=True, noise=draws.get("noise"),
+                                pdf_u=draws.get("pdf_u"))
         loss = self.guidance_loss(out["image"].reshape(1, rH, rW, 3))
         loss.backward()
         self._apply_gradients()
@@ -314,7 +340,8 @@ class NeRFTrainer(Trainer):
 
     def _render_one(self, pose: np.ndarray, intrinsics, H: int, W: int, chunk: int):
         dev = self.device
-        aabb_eff = np.asarray(self.render_cfg.aabb, np.float32)
+        crop = self.render_cfg.aabb if self.aabb_infer is None else self.aabb_infer
+        aabb_eff = np.asarray(crop, np.float32)
         box = self._fetch_eval_tight_box()
         if box is not None:
             lo = np.maximum(aabb_eff[:3], box[:3])
@@ -330,6 +357,12 @@ class NeRFTrainer(Trainer):
         if pre is not None:
             self._set_eval_lattice_span_value(pre["span"])
         n = H * W
+        # with the background net and a prepass, the rays the cull drops
+        # still see the background: a march-free pass renders it for the
+        # whole frame first
+        bg_frame = None
+        if self.render_cfg.bg_radius > 0 and pre is not None:
+            bg_frame = self._render_bg_frames(pose_t, intr_t, H, W)
         if pre is not None:
             C = max(1, -(-pre["count"] // chunk))
             C = 1 << (C - 1).bit_length() if C <= 8 else -(-C // 16) * 16
@@ -343,7 +376,11 @@ class NeRFTrainer(Trainer):
             inds = self._sorted_chunk_slices(pre["sorted_inds"], C, chunk)
         else:
             sel = self._frame_perm(n)
-            bbox = self._project_aabb_bbox(pose, intrinsics, H, W, aabb_eff)
+            # the pixel-bbox cull, unless the background net would have to
+            # fill the culled pixels and no background pass ran
+            bbox = None
+            if self.render_cfg.bg_radius <= 0 or bg_frame is not None:
+                bbox = self._project_aabb_bbox(pose, intrinsics, H, W, aabb_eff)
             if bbox is not None:
                 r0, r1, c0, c1 = bbox
                 rows, cols = sel // W, sel % W
@@ -357,6 +394,8 @@ class NeRFTrainer(Trainer):
                 inds = torch.as_tensor(sel.reshape(C, chunk).astype(np.int64), device=dev)
         # one spare row takes the writes of the slots that do not win
         images = torch.ones((n + 1, 3), device=dev)
+        if bg_frame is not None:
+            images[:n] = bg_frame
         depths = torch.zeros((n + 1,), device=dev)
         n_samples = torch.zeros((), device=dev)
         n_dropped = torch.zeros((), device=dev)
@@ -380,12 +419,38 @@ class NeRFTrainer(Trainer):
                     dep = dep.to(torch.bfloat16).float()
                 images[dst[c]] = img
                 depths[dst[c]] = dep
-                n_samples += out["n_samples"]
-                # the v1 march has no budget to overflow: 0 dropped
+                # the uniform renderer counts no samples; the v1 march has
+                # no budget to overflow: 0 dropped
+                n_samples += out.get("n_samples", 0.0)
                 n_dropped += out.get("n_dropped", 0.0)
         stats = {"n_samples": float(n_samples), "n_dropped": float(n_dropped)}
         return (images[:n].reshape(H, W, 3).cpu().numpy(),
                 depths[:n].reshape(H, W).cpu().numpy(), stats)
+
+    def _render_bg_frames(self, poses: torch.Tensor, intrinsics: torch.Tensor, H: int,
+                          W: int) -> torch.Tensor:
+        """The background net alone over a whole frame, [H * W, 3] on the
+        device: the rays the eval prepass culls still need the background
+        (the reference composites it for dead rays too), but not the march.
+        Chunks of 65,536 rays (the last one wraps to the frame's start),
+        ``sph_from_ray`` and the bg net, clipped to [0, 1] and, unless
+        ``eval_f32_frames``, rounded to u8 levels as the frame chunks are.
+        poses [1, 4, 4] and intrinsics [4] on the device."""
+        dev = self.device
+        n = H * W
+        chunk = 65536
+        inds = torch.arange(-(-n // chunk) * chunk, device=dev) % n
+        fids = torch.zeros((chunk,), dtype=torch.int64, device=dev)
+        out = []
+        for c in range(inds.shape[0] // chunk):
+            rays = rays_from_frame_indices(poses, intrinsics, H, W,
+                                           inds[c * chunk:(c + 1) * chunk], fids)
+            sph = sph_from_ray(rays["rays_o"], rays["rays_d"], self.render_cfg.bg_radius)
+            col = torch.clamp(self.model.background(sph, rays["rays_d"]), 0.0, 1.0)
+            if not self.eval_f32_frames:
+                col = torch.round(col * 255.0).to(torch.uint8).float() / 255.0
+            out.append(col)
+        return torch.cat(out)[:n]
 
     @staticmethod
     def _last_slots(inds: torch.Tensor, n: int) -> torch.Tensor:
@@ -402,17 +467,25 @@ class NeRFTrainer(Trainer):
     # ---- evaluate, test, mesh export ---------------------------------------
 
     def evaluate(self, dataset: NeRFDataset, max_frames: Optional[int] = None,
-                 with_ssim: bool = False, with_lpips: bool = False) -> Dict[str, float]:
-        """PSNR (and SSIM) over the first ``max_frames`` frames of a split
-        with the EMA weights, each frame saved as a PNG under
-        ``workspace/validation``. The meters score the u8-quantized
-        frames ``render_frames`` returns (unless ``eval_f32_frames``)
-        against the ground truth composited on white, as the JAX trainer
-        does; the quantization caps PSNR near 59 dB."""
+                 with_ssim: bool = False,
+                 with_lpips: Optional[bool] = None) -> Dict[str, float]:
+        """PSNR (and SSIM, and LPIPS) over the first ``max_frames`` frames
+        of a split with the EMA weights, each frame saved as a PNG under
+        ``workspace/validation``. LPIPS needs ``lpips_weights``: with
+        ``with_lpips`` None it is scored whenever they are set. The meters
+        score the u8-quantized frames ``render_frames`` returns (unless
+        ``eval_f32_frames``) against the ground truth composited on white,
+        as the JAX trainer does; the quantization caps PSNR near 59 dB."""
         meter = PSNRMeter()
         ssim_meter = SSIMMeter() if with_ssim else None
+        if with_lpips is None:
+            with_lpips = self.lpips_weights is not None
+        lpips_meter = None
         if with_lpips:
-            LPIPSMeter()  # raises: not ported
+            lw = self.lpips_weights
+            # a dict is converted params, a string a checkpoint's path
+            lpips_meter = (LPIPSMeter(params=lw, device=self.device) if isinstance(lw, dict)
+                           else LPIPSMeter(weights_path=lw, device=self.device))
         n = len(dataset) if max_frames is None else min(max_frames, len(dataset))
         out_dir = os.path.join(self.workspace, "validation")
         os.makedirs(out_dir, exist_ok=True)
@@ -423,6 +496,8 @@ class NeRFTrainer(Trainer):
             meter.update(img, gt)
             if ssim_meter is not None:
                 ssim_meter.update(img, gt)
+            if lpips_meter is not None:
+                lpips_meter.update(img, gt)
             self._save_image(os.path.join(out_dir, f"{self.name}_{self.epoch:04d}_{i:04d}.png"),
                              self._export_color(img))
         result = {"psnr": meter.measure()}
@@ -430,6 +505,9 @@ class NeRFTrainer(Trainer):
         if ssim_meter is not None:
             result["ssim"] = ssim_meter.measure()
             report += ", " + ssim_meter.report()
+        if lpips_meter is not None:
+            result["lpips"] = lpips_meter.measure()
+            report += ", " + lpips_meter.report()
         self.log(f"evaluate: {report} over {n} frames")
         return result
 
@@ -553,6 +631,7 @@ class NeRFTrainer(Trainer):
 
     def _run_eval_prepass(self, poses, intrinsics, H, W, aabb_eff):
         return None
+
 
     @staticmethod
     def _sorted_chunk_slices(sorted_inds: torch.Tensor, C: int, chunk: int):

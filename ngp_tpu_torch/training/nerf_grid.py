@@ -13,7 +13,10 @@ configuration, ``-O --encoding hashgrid``) both go through the v1 march
 per ray); the prepass and the tight box stay turbo-only, as in JAX.
 ``eval_max_samples`` and ``eval_probe_stride`` are eval dials of both.
 The density grid is refreshed from the live weights every
-``update_extra_interval`` steps (``on_step_begin``).
+``update_extra_interval`` steps (``on_step_begin``). With ``bg_radius >
+0`` both marches composite the background net, and a frame whose
+prepass culls rays first renders the background alone
+(``_render_bg_frames``).
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ import torch
 import torch.nn.functional as tnf
 
 from ngp_tpu_torch.data.raysampler import rays_from_frame_indices
-from ngp_tpu_torch.models.nerf import make_fused_density, make_fused_sigma_rgb
+from ngp_tpu_torch.models.nerf import make_fused_sigma_rgb
 from ngp_tpu_torch.models.occupancy import (
     SQRT3,
     OccupancyState,
@@ -63,15 +66,8 @@ class GridNeRFTrainer(NeRFTrainer):
     def init_aux(self):
         return {"occ": init_occupancy(self.render_cfg, self.device)}
 
-    def _fns(self):
-        density_fn = make_fused_density(self.model)
-        if density_fn is None:
-            density_fn = self.model.density
-        return density_fn, self.model.color
-
     def _eval_fns(self):
-        density_fn, color_fn = self._fns()
-        return density_fn, color_fn, make_fused_sigma_rgb(self.model)
+        return (*self._fns(), make_fused_sigma_rgb(self.model))
 
     @torch.no_grad()
     def render_batch(self, rays_o, rays_d, bg_color=None, aabb=None, t_range=None):
@@ -79,15 +75,17 @@ class GridNeRFTrainer(NeRFTrainer):
                                  aabb=aabb, t_range=t_range)
 
     def _render_with(self, fns, rays_o, rays_d, bg_color=None, aabb=None,
-                     t_range=None, perturb=False, noise=None):
+                     t_range=None, perturb=False, noise=None, pdf_u=None):
+        """The turbo or the v1 march (the grid renders draw no PDF samples:
+        ``pdf_u`` is not used)."""
         cfg = self.render_cfg
-        density_fn, color_fn, vals_fn = fns
+        density_fn, color_fn, bg_fn, vals_fn = fns
         if perturb:
             # training: the config's own budgets, no eval dials
             render = render_rays_grid_turbo if cfg.turbo else render_rays_grid
             return render(density_fn, color_fn, rays_o, rays_d, self.aux["occ"], cfg,
                           bg_color=bg_color, aabb=aabb, t_range=t_range, perturb=True,
-                          generator=self.generator, noise=noise)
+                          generator=self.generator, noise=noise, bg_fn=bg_fn)
         over = {}
         if self.eval_probe_stride > 1:
             over["max_steps"] = max(cfg.max_steps // self.eval_probe_stride, 16)
@@ -100,14 +98,14 @@ class GridNeRFTrainer(NeRFTrainer):
         if not cfg.turbo:
             return render_rays_grid(density_fn, color_fn, rays_o, rays_d, self.aux["occ"], cfg,
                                     bg_color=bg_color, max_samples=max_samples, aabb=aabb,
-                                    t_range=t_range)
+                                    t_range=t_range, bg_fn=bg_fn)
         S = max_samples or cfg.max_samples_per_ray
         ems = self.eval_mean_samples
         budget = rays_o.shape[0] * (S if ems is None else min(ems, S))
         return render_rays_grid_turbo(
             density_fn, color_fn, rays_o, rays_d, self.aux["occ"], cfg,
             bg_color=bg_color, max_samples=max_samples, budget=budget, aabb=aabb,
-            t_range=t_range, vals_fn=vals_fn,
+            t_range=t_range, vals_fn=vals_fn, bg_fn=bg_fn,
         )
 
     def _fetch_eval_tight_box(self):

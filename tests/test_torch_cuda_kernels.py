@@ -19,7 +19,10 @@ output type. The row scatter-add and the grid encoder's table gradient
 (``grid_encode_bwd``, alone and as ``GridEncode``'s backward): f32 sums
 of n terms in two orders, at most 2 (n - 1) 2^-24 times the sum of
 their magnitudes. The hash-grid train
-step: as the cpgrid step."""
+step: as the cpgrid step. The grid kernels on 2-D points (the background
+net's encoder) and the background net on the card against the CPU: the
+same bounds. LPIPS on the card with the default cuDNN flags against the
+CPU: 1e-4 relative (TF32 convolutions would miss it by about 1e-3)."""
 
 import numpy as np
 import pytest
@@ -164,6 +167,41 @@ def test_cp_density_kernel_residuals(dev, dtype, res, rank, fd, M, scale, h1, ou
     for i, (a, b, bound) in enumerate(zip(got, want, _density_bound(pos, factors, res, want))):
         err = (a.float() - b.float()).abs()
         assert torch.isfinite(a).all() and (err <= bound).all(), (i, float(err.max()))
+
+
+def test_cp_kernels_past_2_31_feature_elements(dev):
+    """The uniform renderer at ``--num_steps 1024`` gives the fused density
+    head 4096 x 1024 = 4,194,304 rows at the turbo-hq widths: its residual
+    feats are [4,194,304, 679], 2.85e9 elements, past int32. The kernels
+    address rows with 64-bit offsets: the last rows' outputs are those of
+    the same rows alone (to the bf16 bound), and the factor gradient of
+    the last rows alone is that of the full call with the other rows'
+    cotangent zero (to the summation-order bound). A row
+    count whose positions 3 * M pass int32 raises before any launch."""
+    res, rank, fd = (128, 256, 512, 1024, 2048), 128, 6
+    factors, w1, w2, _ = _weights(dev, torch.bfloat16, res, rank, fd)
+    M, tail = 4096 * 1024, 4099
+    pos = torch.rand((M, 3), generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+    out, feats, h1 = tk.cp_density_fwd(pos, factors, w1, w2, res, fd, residuals=True)
+    assert feats.numel() >= 2**31
+    last = tk.cp_density_fwd(pos[-tail:].contiguous(), factors, w1, w2, res, fd, residuals=True)
+    torch.cuda.synchronize()
+    for a, b in zip((out, feats, h1), last):
+        _check(a[-tail:].float(), b.float(), torch.bfloat16)
+    del out, feats, h1, last
+    nbR = len(res) * rank
+    g = torch.zeros((M, nbR), device=dev)
+    g[-tail:] = torch.randn((tail, nbR), generator=torch.Generator(device=dev).manual_seed(1),
+                            device=dev)
+    full = tk.cp_bwd_banks(pos, factors, g, res)
+    alone = tk.cp_bwd_banks(pos[-tail:].contiguous(), factors, g[-tail:].contiguous(), res)
+    for a, b, bound in zip(full, alone, bwd_bound(pos[-tail:].contiguous(), factors,
+                                                  g[-tail:].contiguous(), res, alone)):
+        assert ((a.float() - b.float()).abs() <= bound).all()
+    del g, full
+    big = torch.empty((2**31 // 3 + 1, 3), device=dev)
+    with pytest.raises(ValueError, match="int row arithmetic"):
+        tk.cp_density_fwd(big, factors, w1, w2, res, fd)
 
 
 def bwd_bound(pos, factors, g_cp, res, want):
@@ -634,10 +672,22 @@ GRIDS = {
 }
 
 
+# 2-D grids: the background net's encoder (4 levels x 2, the finest hashed
+# at 2^19 rows), a tiled one and a smoothstep one with 4 features
+GRIDS_2D = {
+    "bg": dict(input_dim=2, num_levels=4, log2_hashmap_size=19, desired_resolution=2048),
+    "tiled2": dict(input_dim=2, num_levels=3, base_resolution=4, log2_hashmap_size=10,
+                   desired_resolution=64, gridtype="tiled"),
+    "smooth2": dict(input_dim=2, num_levels=3, level_dim=4, base_resolution=5,
+                    log2_hashmap_size=8, per_level_scale=1.7, interpolation="smoothstep",
+                    align_corners=True),
+}
+
+
 def _grid(name, dev, dtype=torch.float32, seed=0):
     from ngp_tpu_torch.ops.hashgrid import GridConfig
 
-    cfg = GridConfig(**GRIDS[name])
+    cfg = GridConfig(**{**GRIDS, **GRIDS_2D}[name])
     g = torch.Generator().manual_seed(seed)
     table = (torch.rand((cfg.num_rows, cfg.level_dim), generator=g) * 2 - 1).to(dev, dtype)
     return cfg, table
@@ -758,6 +808,164 @@ def test_grid_encode_backward_kernel(dev, name, dtype):
     assert ((tk_.grad - tp.grad).abs() <= bound).all()
     with pytest.raises(NotImplementedError):
         grid_encode(pos.clone().requires_grad_(), tk_, cfg)
+
+
+def _sph_points(dev, n=5001, seed=9):
+    """2-D points as the background net gets them, (sph + 1) / 2 of rays
+    from inside the sphere, then rows on the box's edges and corners
+    (exactly 0 and 1, inside) and a float past them (outside)."""
+    from ngp_tpu_torch.ops.rays import sph_from_ray
+
+    g = torch.Generator().manual_seed(seed)
+    o = torch.rand((n, 3), generator=g) * 2.0 - 1.0
+    d = torch.nn.functional.normalize(torch.randn((n, 3), generator=g), dim=-1)
+    x = (sph_from_ray(o, d, 4.0) + 1.0) / 2.0
+    edge = torch.tensor([[0.0, 0.0], [1.0, 1.0], [0.0, 1.0], [1.0, 0.5], [0.5, 0.0],
+                         [-1e-7, 0.5], [0.5, 1.0 + 1e-7], [1.0, 1e-30]])
+    return torch.cat([x, edge]).contiguous().to(dev)
+
+
+@pytest.mark.parametrize("points", ["random", "sph"])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("table_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", list(GRIDS_2D))
+def test_grid_encode_fwd_kernel_2d(dev, name, table_dtype, out_dtype, points):
+    """The D = 2 instance of the forward against its plain version, on
+    random points and on the background net's points with the box's
+    edges; counted under ``grid_encode_fwd_2d`` too."""
+    from ngp_tpu_torch.ops.kernels import hashgrid as kh
+
+    cfg, table = _grid(name, dev, table_dtype)
+    if points == "random":
+        pos = (torch.rand((5001, 2), generator=torch.Generator().manual_seed(3)) * 1.1
+               - 0.05).to(dev)
+    else:
+        pos = _sph_points(dev)
+    before = dict(LAUNCHES)
+    got = kh.grid_encode_fwd(pos, table, cfg.geometry, out_dtype)
+    for k in ("grid_encode_fwd", "grid_encode_fwd_2d"):
+        assert LAUNCHES[k] == before[k] + 1, k
+    want = kh.grid_encode_plain(pos, table, cfg.geometry, out_dtype)
+    assert got.dtype == out_dtype and got.shape == (pos.shape[0], cfg.output_dim)
+    oob = ((pos < 0) | (pos > 1)).any(dim=-1)
+    assert not got[oob].float().any() and got[~oob].float().abs().sum() > 0
+    _check(got.float(), want.float(), out_dtype)
+
+
+@pytest.mark.parametrize("g_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", list(GRIDS_2D))
+def test_grid_encode_bwd_kernel_2d(dev, name, g_dtype):
+    """The D = 2 table gradient against its plain version, within the f32
+    summation-order bound, on the background net's points (the edges
+    included) with 85% zero cotangent rows."""
+    from ngp_tpu_torch.ops.kernels import hashgrid as kh
+
+    cfg, _ = _grid(name, dev)
+    pos = _sph_points(dev)
+    gen = torch.Generator().manual_seed(5)
+    g = torch.randn((pos.shape[0], cfg.output_dim), generator=gen)
+    g[torch.rand(pos.shape[0], generator=gen) < 0.85] = 0.0
+    g[-8:] = 1.0  # the edge rows
+    g = g.to(dev, g_dtype)
+    before = dict(LAUNCHES)
+    got = kh.grid_encode_bwd(pos, g, cfg.geometry)
+    torch.cuda.synchronize()
+    for k in ("grid_encode_bwd", "grid_encode_bwd_2d"):
+        assert LAUNCHES[k] == before[k] + 1, k
+    want = kh.grid_encode_bwd_plain(pos, g, cfg.geometry)
+    idx, rows = kh.grid_encode_bwd_rows_plain(pos, g, cfg.geometry)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert ((got - want).abs() <= scatter_bound(idx, rows, cfg.num_rows)).all()
+    assert want.abs().max() > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grid_encode_backward_kernel_2d(dev, dtype):
+    """``GridEncode`` on the background net's grid: forward and table
+    gradient against autograd of the plain version."""
+    from ngp_tpu_torch.ops.hashgrid import grid_encode
+    from ngp_tpu_torch.ops.kernels import hashgrid as kh
+
+    cfg, table = _grid("bg", dev)
+    pos = _sph_points(dev, n=20000)
+    g = torch.randn((pos.shape[0], cfg.output_dim), generator=torch.Generator().manual_seed(6))
+    g = g.to(dev, dtype)
+    tk_ = table.clone().requires_grad_()
+    tp = table.clone().requires_grad_()
+    out = grid_encode(pos, tk_, cfg, dtype)
+    _check(out.float(), kh.grid_encode_plain(pos, table, cfg.geometry, dtype).float(), dtype)
+    out.backward(g)
+    kh.grid_encode_plain(pos, tp, cfg.geometry, dtype).backward(g)
+    idx, rows = kh.grid_encode_bwd_rows_plain(pos, g, cfg.geometry)
+    assert ((tk_.grad - tp.grad).abs() <= scatter_bound(idx, rows, cfg.num_rows)).all()
+
+
+def test_grid_kernels_raise_on_4d_points(dev):
+    """D = 4 (D-NeRF's hyper grid) has no kernel instance: both wrappers
+    raise ValueError on the card, and nothing launches."""
+    from ngp_tpu_torch.ops.hashgrid import GridConfig
+    from ngp_tpu_torch.ops.kernels import hashgrid as kh
+
+    cfg = GridConfig(input_dim=4, num_levels=2, base_resolution=4, log2_hashmap_size=10,
+                     desired_resolution=16)
+    table = torch.zeros((cfg.num_rows, cfg.level_dim), device=dev)
+    pos = torch.rand((64, 4), device=dev)
+    before = dict(LAUNCHES)
+    with pytest.raises(ValueError, match="2-D or 3-D"):
+        kh.grid_encode_fwd(pos, table, cfg.geometry)
+    with pytest.raises(ValueError, match="2-D or 3-D"):
+        kh.grid_encode_bwd(pos, torch.zeros((64, cfg.output_dim), device=dev), cfg.geometry)
+    assert dict(LAUNCHES) == before
+    cfg2, table2 = _grid("bg", dev)
+    with pytest.raises(ValueError):  # 3-D points into a 2-D grid
+        kh.grid_encode_fwd(torch.rand((64, 3), device=dev), table2, cfg2.geometry)
+
+
+@pytest.mark.parametrize("use_bf16", [False, True])
+def test_background_net_on_the_card_matches_cpu(dev, use_bf16):
+    """``NeRFNetwork.background`` through the 2-D grid kernel against the
+    same weights on the CPU (the plain version). The table keeps its own
+    allocation after ``load_state_dict``, which starts on a pair of rows."""
+    from ngp_tpu_torch.config import NetworkConfig, RenderConfig
+    from ngp_tpu_torch.models.nerf import NeRFNetwork
+    from ngp_tpu_torch.ops.rays import sph_from_ray
+
+    rc = RenderConfig(bg_radius=4.0)
+    nc = NetworkConfig(encoding="hashgrid", num_levels=4, log2_hashmap_size=12,
+                       use_bf16=use_bf16)
+    cpu = NeRFNetwork(nc, rc, torch.Generator().manual_seed(2), device="cpu")
+    with torch.no_grad():  # a table of O(1) values, so every level counts
+        cpu.encoder_bg.embeddings.uniform_(-1.0, 1.0, generator=torch.Generator().manual_seed(3))
+    gpu = NeRFNetwork(nc, rc, torch.Generator().manual_seed(5), device=dev)
+    gpu.load_state_dict(cpu.state_dict())
+    emb = gpu.encoder_bg.embeddings
+    assert emb.is_cuda and emb.data_ptr() % (2 * emb.shape[1] * emb.element_size()) == 0
+    g = torch.Generator().manual_seed(4)
+    o = torch.rand((4096, 3), generator=g) * 2.0 - 1.0
+    d = torch.nn.functional.normalize(torch.randn((4096, 3), generator=g), dim=-1)
+    sph = sph_from_ray(o, d, rc.bg_radius)
+    before = LAUNCHES["grid_encode_fwd_2d"]
+    with torch.no_grad():
+        got = gpu.background(sph.to(dev), d.to(dev))
+        want = cpu.background(sph, d)
+    assert LAUNCHES["grid_encode_fwd_2d"] == before + 1
+    _check(got.cpu(), want, torch.bfloat16 if use_bf16 else torch.float32)
+
+
+def test_lpips_on_the_card_with_default_flags(dev):
+    """LPIPS on the card with cuDNN's default flags (TF32 allowed) against
+    the CPU, 1e-4 relative: the meter's convolutions run in full f32."""
+    from ngp_tpu_torch.training.lpips import lpips, random_params
+
+    torch.backends.cudnn.allow_tf32 = True
+    params = random_params(torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(1)
+    x = torch.rand((2, 64, 64, 3), generator=g)
+    y = (x + 0.1 * torch.randn(x.shape, generator=g)).clamp(0, 1)
+    got = lpips(params, x.to(dev), y.to(dev)).cpu()
+    want = lpips(params, x, y)
+    assert torch.backends.cudnn.allow_tf32
+    assert ((got - want).abs() <= 1e-4 * want.abs()).all(), (got, want)
 
 
 @pytest.mark.parametrize("W", [1, 2, 3, 4, 8, 128, 130])

@@ -31,6 +31,7 @@ from ngp_tpu_torch.data import nerf_dataset as tds
 from ngp_tpu_torch.data import synthetic as tsyn
 from ngp_tpu_torch.training.nerf import NeRFTrainer
 from ngp_tpu_torch.utils.png import read_png
+from test_torch_renderer import one_torch_thread  # noqa: F401
 
 SIZE = 24
 FRAMES = dict(n_train=3, n_val=2, n_test=2)
@@ -234,10 +235,7 @@ def test_resolve_opts_agrees_with_main_nerf(argv):
 
 
 @pytest.mark.parametrize("flags,item", [
-    ([], "item 5"),  # no -O / --cuda_ray: the non-grid renderer
     (["--cuda_ray", "--encoding", "tiledgrid", "--gui"], "item 4"),
-    (["-O", "--lpips_weights", "alex.pth"], "item 5"),
-    (["-O", "--bg_radius", "4"], "item 5"),
     (["-O", "--rand_pose", "0", "--clip_model_path", "clip"], "item 9"),
     (["-O", "--encoding", "brickgrid"], "item 7"),
     (["--preset", "tpu"], "item 7"),
@@ -247,6 +245,63 @@ def test_unported_flags_raise(tmp_path, flags, item):
         tmain.main([str(tmp_path / "none"), "--workspace", str(tmp_path / "ws")] + flags,
                    device="cpu")
     assert not (tmp_path / "ws").exists()
+
+
+@pytest.mark.parametrize("flags", [
+    [],  # no -O / --cuda_ray: NeRFTrainer, the uniform + PDF renderer
+    ["-O", "--bg_radius", "4"],  # the background net and its frames
+    ["-O", "--lpips_weights"],  # LPIPS in evaluate, from a checkpoint on disk
+], ids=["uniform", "bg_radius", "lpips_weights"])
+def test_main_runs_the_rest_of_main_nerf_on_the_cpu(tmp_path, monkeypatch, flags):
+    """The runs ROADMAP §1 item 5 brought up, as ``main_nerf.py`` runs them:
+    without -O (``NeRFTrainer``, 16 + 8 samples a ray here), with the
+    background net, and with LPIPS from a random-weight checkpoint the
+    test writes (32 x 32 frames: AlexNet needs 31 or more); each trains
+    two epochs, evaluates and tests on the CPU. The grid is cut to 16^3,
+    the hash grid to 4 levels of 2^12 rows and the CP grid to rank 16 on
+    two banks (the presets set the widths; these runs test the paths)."""
+    from ngp_tpu_torch.training.lpips import random_params
+    from ngp_tpu_torch.training.nerf_grid import GridNeRFTrainer
+
+    size = 32 if "--lpips_weights" in flags else SIZE
+    root = tsyn.make_synthetic_dataset(str(tmp_path / "scene"), n_train=4, n_val=1, n_test=2,
+                                       H=size, W=size, num_steps=64, device="cpu")
+    monkeypatch.setattr(tmain, "RenderConfig",
+                        functools.partial(tconfig.RenderConfig, grid_size=16))
+    monkeypatch.setattr(tmain, "NetworkConfig", lambda **kw: tconfig.NetworkConfig(**dict(
+        kw, num_levels=4, log2_hashmap_size=12, cp_rank=16, cp_resolutions=(32, 64))))
+    results = []
+    evaluate = NeRFTrainer.evaluate
+    monkeypatch.setattr(NeRFTrainer, "evaluate",
+                        lambda self, *a, **k: results.append(evaluate(self, *a, **k))
+                        or results[-1])
+    flags = list(flags)
+    if "--lpips_weights" in flags:
+        path = str(tmp_path / "alex.pth")
+        params = random_params(torch.Generator().manual_seed(0))
+        sd = {}  # torchvision's AlexNet features and the LPIPS heads
+        for i, idx in enumerate((0, 3, 6, 8, 10)):
+            w = params[f"conv{i}_w"].transpose(3, 2, 0, 1).copy()  # HWIO -> OIHW
+            sd[f"features.{idx}.weight"] = torch.from_numpy(w)
+            sd[f"features.{idx}.bias"] = torch.from_numpy(params[f"conv{i}_b"])
+            sd[f"lins.{i}.weight"] = torch.from_numpy(params[f"lin{i}_w"]).reshape(1, -1, 1, 1)
+        torch.save(sd, path)
+        flags.append(path)
+    ws = str(tmp_path / "ws")
+    argv = [root, "--workspace", ws, "--iters", "8", "--num_rays", "128", "--num_steps", "16",
+            "--upsample_steps", "8", "--seed", "3"] + flags
+    tr = tmain.main(argv, device="cpu")
+    assert tr.global_step == 8 and tr.epoch == 2 and np.isfinite(tr.stats["loss"]).all()
+    assert isinstance(tr, GridNeRFTrainer) == ("-O" in flags)
+    assert tr.render_cfg.bg_radius == (4.0 if "--bg_radius" in flags else -1.0)
+    assert hasattr(tr.model, "bg_net") == ("--bg_radius" in flags)
+    assert len(results) == 1 and np.isfinite(results[0]["psnr"])
+    assert ("lpips" in results[0]) == ("--lpips_weights" in flags)
+    if "lpips" in results[0]:
+        assert tr.lpips_weights == flags[-1] and 0.0 < results[0]["lpips"] < 10.0
+    for i in range(2):
+        assert read_png(os.path.join(ws, "results", f"ngp_{i:04d}_rgb.png")).shape == \
+            (size, size, 3)
 
 
 def test_clip_loss_is_not_ported():

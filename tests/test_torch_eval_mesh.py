@@ -4,7 +4,7 @@ density grid and marching tetrahedra, the mesh writer, the PNG codec,
 and best checkpoints from ``train_on_dataset(train_ds, valid_ds)``.
 
 Tolerances. PSNR and SSIM on the same images: 1e-5 (f32 sums in another
-order); SSIM of a mostly white frame 1e-4, since its variance terms
+order), and the LPIPS meter on JAX's random weights 1e-5 relative; SSIM of a mostly white frame 1e-4, since its variance terms
 E[x^2] - E[x]^2 cancel two blurs near 1.0 (f32 steps of 6e-8 against
 c2 = 9e-4): measured against an f64 SSIM of 0.9753487, JAX reads
 0.9753435 and the port 0.9753775. ``evaluate``: PSNR to 0.01 dB and SSIM to 1e-3, since the port's
@@ -16,6 +16,7 @@ on one grid and the mesh files: equal.
 
 import os
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -25,6 +26,7 @@ from ngp_tpu import config as jconfig
 from ngp_tpu.models import occupancy as jo
 from ngp_tpu.models.nerf import NeRFNetwork as JNeRFNetwork
 from ngp_tpu.training import metrics as jm
+from ngp_tpu.training.lpips import random_params as jlpips_random_params
 from ngp_tpu.training.nerf_grid import GridNeRFTrainer as JGridNeRFTrainer
 from ngp_tpu_torch import config as tconfig
 from ngp_tpu_torch import native as tnative
@@ -95,8 +97,16 @@ def test_meters_match_jax():
     assert tp.report().startswith("PSNR = ") and ts.report().startswith("SSIM = ")
     tp.clear()
     assert (tp.N, tp.measure()) == (0, 0.0)
-    with pytest.raises(NotImplementedError, match="LPIPS"):
-        tm.LPIPSMeter()
+    # LPIPS on JAX's random weights (frames of at least 31 x 31 pixels)
+    params = jax.tree.map(np.asarray, jlpips_random_params(jax.random.PRNGKey(3)))
+    c, d = _images((2, 32, 33, 3), seed=6)
+    tl, jl = tm.LPIPSMeter(params=params, device="cpu"), jm.LPIPSMeter(params=params)
+    for meter in (tl, jl):
+        meter.update(c[0], d[0])
+        meter.update(c, d)
+    assert tl.N == jl.N == 3
+    assert tl.measure() == pytest.approx(jl.measure(), rel=1e-5) and tl.measure() > 0
+    assert tl.report().startswith("LPIPS (alex) = ")
 
 
 # ---------------------------------------------------------------------------

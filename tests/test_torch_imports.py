@@ -38,6 +38,7 @@ MODULES = [
     "ngp_tpu_torch.models.encoders",
     "ngp_tpu_torch.models.nerf",
     "ngp_tpu_torch.models.occupancy",
+    "ngp_tpu_torch.models.renderer",
     "ngp_tpu_torch.data.raysampler",
     "ngp_tpu_torch.data.nerf_dataset",
     "ngp_tpu_torch.data.synthetic",
@@ -46,6 +47,7 @@ MODULES = [
     "ngp_tpu_torch.utils.color",
     "ngp_tpu_torch.utils.png",
     "ngp_tpu_torch.training.metrics",
+    "ngp_tpu_torch.training.lpips",
     "ngp_tpu_torch.training.state",
     "ngp_tpu_torch.training.checkpoints",
     "ngp_tpu_torch.training.trainer",

@@ -2,9 +2,9 @@
 """Drive the PyTorch port's paths once on one NVIDIA GPU: the eval render,
 training, and the end of a run (evaluate, test, mesh export), at the
 turbo-hq preset and in the hash-grid configuration (``-O --encoding
-hashgrid``), then the port's command line: ``-O`` and the rest of
+hashgrid``), then the port's command lines: ``-O`` and the rest of
 ``main_nerf`` (the background net, the renderer without the occupancy
-grid, LPIPS).
+grid, LPIPS), ``main_sdf`` and ``main_tensoRF``.
 
 Run from the repository root, with no arguments:
 
@@ -111,7 +111,27 @@ no 64-bit division routine, and of the turbo march), then
      ``--encoding cpgrid --fp16`` at the turbo-hq widths (the loss
      falls; the CP kernels launched, and held against their plain
      versions at its 2,097,152 rows) and (d) ``-O --encoding hashgrid
-     --bg_radius 32`` (the v1 march with the background net).
+     --bg_radius 32`` (the v1 march with the background net);
+13.  runs ``ngp_tpu_torch.main_sdf sphere`` in this process
+     (``sdf_runs``): (a) ``--epochs 2`` (200 steps of 262,144 points, the
+     256^3 mesh; the validation MAPE falls, the mesh's median vertex
+     radius is the normalised sphere's within ``SDF_RADIUS_TOL``; points/s,
+     the host's sampling and BVH label time a batch, a profiled step; the
+     grid kernels on the last step's own points against their plain
+     versions), (b) ``--test`` on (a)'s workspace (the same mesh), (c)
+     ``--fp16 --epochs 1`` (the MAPE falls; the grid kernels in bf16);
+14.  runs ``ngp_tpu_torch.main_tensoRF`` on phase 11's scene
+     (``tensorf_runs``): (a) ``-O --iters 2048`` (51 epochs, past the
+     shrink and the upsample to 152^3 at step 2000; the loss falls, the
+     AABB shrank inside the box, the test PSNR beats a white frame's and
+     ``TENSORF_MIN_PSNR``; rays/s, a profiled step, the factor taps as
+     ``index_select`` and as advanced indexing, ``march_turbo`` on the
+     last step's and a test frame's own march inputs, every ray bit for
+     bit, and ``coarse_lookup_bits`` on a test frame's prepass), (b)
+     ``--test`` (a fresh trainer resizes to 152^3 before it loads; the
+     PSNR equals (a)'s), (c) ``--cp --iters 512`` and (d) ``--bg_radius 32
+     --iters 256`` (the loss falls; the background net runs in training
+     and in eval).
 
 Each path is run with the launch counts set to 0 just before it and read
 just after; a kernel of the path that was not launched fails the run.
@@ -277,6 +297,25 @@ CLI_TURBO_HQ = ["--cp_rank", "128", "--cp_freq_degree", "6", "--cp_resolutions",
 # the background net's encoder (NeRFNetwork.encoder_bg: 4 levels x 2 of 2-D
 # points, the finest hashed into 2^19 rows) at a background-frame chunk and a
 # CLI train step's rays
+# phase 13: main_sdf sphere at the CLI's widths (262,144 points a batch, 100
+# batches an epoch); the mesh's median vertex radius must be the normalised
+# sphere's (normalize_mesh: 0.95 / sqrt(3)) within about one lattice cell of
+# the 256^3 mesh (2 / 255)
+SDF_EPOCHS = 2
+SDF_POINTS = 2**18
+SDF_RADIUS = 0.95 / math.sqrt(3)
+SDF_RADIUS_TOL = 0.01
+# phase 14: main_tensoRF on phase 11's scene; 2048 iterations are 51 epochs,
+# past step 2000's shrink and upsample to 152^3 (resolutions 128 -> 300 over
+# five steps); the test PSNR must beat a white frame's and this floor: the
+# first two runs (NVIDIA H100 80GB HBM3, 700.00 W) read 25.91 and 25.88 dB,
+# the floor is the lowest less 1.5 dB (wider than the 0.9 dB over which
+# turbo-hq's PSNR spreads within one tree), rounded down
+TENSORF_ITERS = 2048
+TENSORF_RES = 152
+TENSORF_MIN_PSNR = 24.0
+TENSORF_CP_ITERS = 512
+TENSORF_BG_ITERS = 256
 BG_GRID = dict(input_dim=2, num_levels=4, log2_hashmap_size=19, desired_resolution=2048)
 BG_ROWS = (65536, 4096)
 # H100 SXM (NVIDIA's data sheet): HBM bytes/s, dense bf16 tensor-core and
@@ -877,7 +916,8 @@ def gamma_window(dev, card, rc, nc, train_ds, results):
 def cli_recorder(dev, card):
     """Run ``ngp_tpu_torch.main_nerf`` in this process and see what it does:
     yields (seen, run). ``run(argv, label)`` clears ``seen``, resets the
-    launch counts, runs ``main(argv)`` on the card and returns (trainer,
+    launch counts, runs ``main(argv)`` on the card (``main_nerf``'s, or
+    another NeRF-family CLI's given as ``main``) and returns (trainer,
     launch counts, seconds, the loss readings). ``seen`` then holds each
     epoch's wall time (its last step's loss read to the host ends it),
     evaluate's results and wall times, test's wall time, the guidance
@@ -937,12 +977,12 @@ def cli_recorder(dev, card):
         seen["step_losses"].append(out["loss"])  # on the device: no sync
         return out
 
-    def run(argv, label):
+    def run(argv, label, main=main_nerf.main):
         for v in seen.values():
             v.clear()
         reset_launch_counts()
         t0 = time.perf_counter()
-        trainer = main_nerf.main(argv, device=dev)
+        trainer = main(argv, device=dev)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         counts = launch_counts()
@@ -1102,6 +1142,18 @@ def cli_steps(iters):
     return max(1, iters // CLI_FRAMES[0]) * CLI_FRAMES[0]
 
 
+def white_psnr(scene, split, downscale=1, frames=None):
+    """The mean PSNR of a constant white frame on a split's first frames."""
+    import numpy as np
+
+    from ngp_tpu_torch.data.nerf_dataset import NeRFDataset
+
+    ds = NeRFDataset(scene, split=split, downscale=downscale)
+    gt = ds.images[:frames, ..., :3] * ds.images[:frames, ..., 3:] + (
+        1.0 - ds.images[:frames, ..., 3:])
+    return float(np.mean([-10.0 * math.log10(float(np.mean((1.0 - f) ** 2))) for f in gt]))
+
+
 def write_lpips_checkpoint(path):
     """Random AlexNet-LPIPS weights from the seed, saved as torchvision's
     ``features.*`` and the heads' ``lins.<i>.weight`` (nothing downloads the
@@ -1177,15 +1229,7 @@ def cli_rest_runs(dev, card, scene, psnr_11a, rays_s_11a, results):
     from ngp_tpu_torch.ops.kernels import scatter as sk
 
     n_train, n_val, n_test = CLI_FRAMES
-
-    def white_psnr(split, downscale, frames=None):
-        """The mean PSNR of a constant white frame on a split's first frames."""
-        ds = NeRFDataset(scene, split=split, downscale=downscale)
-        gt = ds.images[:frames, ..., :3] * ds.images[:frames, ..., 3:] + (
-            1.0 - ds.images[:frames, ..., 3:])
-        return float(np.mean([-10.0 * math.log10(float(np.mean((1.0 - f) ** 2))) for f in gt]))
-
-    white = white_psnr("test", 1)
+    white = white_psnr(scene, "test", 1)
     counts = []
 
     def losses_fall(label):
@@ -1237,8 +1281,8 @@ def cli_rest_runs(dev, card, scene, psnr_11a, rays_s_11a, results):
                               downscale=CLI_BG_DOWNSCALE)
         fg_psnr = trainer.evaluate(test_ds)["psnr"]
         del trainer.model.background
-        white_a = white_psnr("test", CLI_BG_DOWNSCALE)
-        white_v = white_psnr("train", CLI_BG_DOWNSCALE, CLI_BG_VIEWS)
+        white_a = white_psnr(scene, "test", CLI_BG_DOWNSCALE)
+        white_v = white_psnr(scene, "train", CLI_BG_DOWNSCALE, CLI_BG_VIEWS)
         print(f"CLI 12(a): {a_dt:.3f} s wall for {CLI_BG_ITERS} iterations at --downscale "
               f"{CLI_BG_DOWNSCALE}; {rays_s:.0f} rays/s over the middle epochs (phase 11 (a): "
               f"{rays_s_11a:.0f}); PSNR on the first {CLI_BG_VIEWS} train views {train_psnr:.4f} "
@@ -1364,6 +1408,416 @@ def cli_rest_runs(dev, card, scene, psnr_11a, rays_s_11a, results):
               f"passes (no prepass on the v1 march)  [{card}]", flush=True)
         del trainer
     return counts
+
+
+@contextlib.contextmanager
+def patched(*swaps):
+    """Set (object, attribute, value) for the body of the ``with`` block
+    and put the old values back after it."""
+    old = [(obj, name, getattr(obj, name)) for obj, name, _ in swaps]
+    for obj, name, value in swaps:
+        setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        for obj, name, value in old:
+            setattr(obj, name, value)
+
+
+def sdf_runs(dev, card, results):
+    """Phase 13: ``ngp_tpu_torch.main_sdf sphere`` in this process, at the
+    CLI's widths (262,144 points a batch, 100 batches an epoch, a 256^3
+    mesh). (a) ``--epochs 2``: the validation MAPE falls, the mesh's median
+    vertex radius is the normalised sphere's, points/s on the host clock,
+    the host's sampling and label time a batch, one profiled step, and the
+    grid kernels on the last step's own points against their plain
+    versions (f32); (b) ``--test`` on (a)'s workspace writes the same mesh;
+    (c) ``--fp16 --epochs 1``: the MAPE falls, the grid kernels on its
+    last step's points (bf16). Returns the launch counts of (a)-(c)."""
+    import numpy as np
+    import torch
+
+    from ngp_tpu_torch import main_sdf, native
+    from ngp_tpu_torch.data import sdf_dataset
+    from ngp_tpu_torch.data.mesh import icosphere, load_mesh
+    from ngp_tpu_torch.ops.kernels import hashgrid as hk
+    from ngp_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from ngp_tpu_torch.ops.kernels import scatter as sk
+    from ngp_tpu_torch.training.sdf import SDFTrainer
+
+    seen = {"valid": [], "epochs": [], "sample_s": [], "label_s": []}
+    train, epoch = SDFTrainer.train, SDFTrainer.train_one_epoch
+    sample, label = sdf_dataset.SDFDataset.sample_batch, native.MeshSDF.__call__
+
+    def train_w(self, train_loader, valid_loader=None, max_epochs=1):
+        seen["valid"].append(self.evaluate_one_epoch(valid_loader))
+        train(self, train_loader, valid_loader, max_epochs)
+        seen["valid"].append(self.evaluate_one_epoch(valid_loader))
+
+    def epoch_w(self, loader):
+        t0 = time.perf_counter()
+        epoch(self, loader)  # its last loss read to the host ends it
+        seen["epochs"].append(time.perf_counter() - t0)
+
+    def timed(fn, key):
+        def wrapped(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            seen[key].append(time.perf_counter() - t0)
+            return out
+        return wrapped
+
+    def run(argv, what, last):
+        for v in seen.values():
+            v.clear()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with grid_inputs(lambda n, D: f"SDF {what} step {last}" if n == last else None) as caught:
+            trainer = main_sdf.main(argv, device=dev)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = launch_counts()
+        check_launched(f"SDF {what}", counts, ("grid_encode_fwd",) + (
+            ("grid_encode_bwd",) if last is not None else ()),
+            absent=("march_turbo", "cp_density_fwd", "grid_encode_fwd_2d"))
+        valid = list(seen["valid"])
+        print(f"SDF {what}: {dt:.3f} s, global step {trainer.global_step}, validation MAPE "
+              f"{np.round(valid, 6).tolist()}  [{card}]", flush=True)
+        if last is not None and not (len(valid) == 2 and valid[1] < valid[0]):
+            raise RuntimeError(f"SDF {what}: the validation MAPE did not fall: {valid}")
+        return trainer, counts, caught
+
+    def radius(path):
+        v, f = load_mesh(path)
+        if len(v) == 0 or len(f) == 0:
+            raise RuntimeError(f"SDF mesh {path}: {len(v)} vertices, {len(f)} faces")
+        return v, float(np.median(np.linalg.norm(v, axis=-1)))
+
+    swaps = ((SDFTrainer, "train", train_w), (SDFTrainer, "train_one_epoch", epoch_w),
+             (sdf_dataset.SDFDataset, "sample_batch", timed(sample, "sample_s")),
+             (native.MeshSDF, "__call__", timed(label, "label_s")))
+    counts = []
+    with tempfile.TemporaryDirectory() as tmp, patched(*swaps):
+        # (a) the default run
+        ws = os.path.join(tmp, "ws")
+        argv = ["sphere", "--workspace", ws, "--epochs", str(SDF_EPOCHS)]
+        last = 100 * SDF_EPOCHS - 1
+        trainer, a_counts, caught = run(argv, "(a)", last)
+        counts.append(a_counts)
+        n = trainer.global_step
+        mesh_a = os.path.join(tmp, "mesh_a.obj")
+        os.replace(trainer.last_mesh_path, mesh_a)
+        verts_a, r_a = radius(mesh_a)
+        epochs = seen["epochs"]
+        pts_s = 100 * SDF_POINTS / epochs[-1]
+        sample_ms = 1e3 * float(np.mean(seen["sample_s"]))
+        label_ms = 1e3 * float(np.mean(seen["label_s"]))
+        print(f"SDF (a): {SDF_POINTS} points a step; epochs {np.round(epochs, 3).tolist()} s, "
+              f"{pts_s:.0f} points/s in epoch {len(epochs)} (host clock); the host's batch "
+              f"{sample_ms:.2f} ms, of which BVH labels of {SDF_POINTS // 2} points {label_ms:.2f} "
+              f"ms; mesh {len(verts_a)} vertices, median radius {r_a:.6f} (the sphere's "
+              f"{SDF_RADIUS:.6f})  [{card}]", flush=True)
+        if n != 100 * SDF_EPOCHS or not abs(r_a - SDF_RADIUS) <= SDF_RADIUS_TOL:
+            raise RuntimeError(f"SDF (a): {n} steps, median mesh radius {r_a} (want "
+                               f"{SDF_RADIUS} within {SDF_RADIUS_TOL})")
+        e = caught[f"SDF (a) step {last}"]
+        geom = trainer.model.encoder.cfg.geometry
+        table = e["table"].detach()
+        table = (table / table.abs().max()).contiguous()
+        grid_checks(hk, sk, e["x"], table, geom, torch.float32, e["g"],
+                    f"SDF f32 step {last}", results)
+        del caught, e, table
+        v, f = icosphere(subdiv=5, radius=1.0)
+        ds = sdf_dataset.SDFDataset(vertices=v, faces=f, size=1, num_samples=SDF_POINTS,
+                                    seed=SEED + 13)
+        trainer.step(ds.sample_batch())
+        profile(lambda: trainer.step(ds.sample_batch()), 4, "SDF step", card,
+                focus=("grid_fwd", "grid_bwd", "gemm", "elementwise"))
+        del trainer
+
+        # (b) --test on (a)'s workspace: the same mesh from the checkpoint
+        trainer, b_counts, _ = run(argv + ["--test"], "(b) --test", None)
+        counts.append(b_counts)
+        verts_b, r_b = radius(trainer.last_mesh_path)
+        diff = (float(np.abs(verts_b - verts_a).max()) if verts_b.shape == verts_a.shape
+                else math.inf)
+        print(f"SDF (b): global step {trainer.global_step}, mesh {len(verts_b)} vertices, "
+              f"max |vertex - (a)'s| {diff:.3e}  [{card}]", flush=True)
+        if trainer.global_step != n or not diff <= 1e-6:
+            raise RuntimeError(f"SDF (b): step {trainer.global_step}, the mesh differs from "
+                               f"(a)'s by {diff}")
+        del trainer
+
+        # (c) bf16
+        last = 99
+        trainer, c_counts, caught = run(
+            ["sphere", "--workspace", os.path.join(tmp, "ws_bf16"), "--fp16", "--epochs", "1"],
+            "(c) --fp16", last)
+        counts.append(c_counts)
+        e = caught[f"SDF (c) --fp16 step {last}"]
+        table = e["table"].detach()
+        table = (table / table.abs().max()).contiguous()
+        grid_checks(hk, sk, e["x"], table, geom, torch.bfloat16, e["g"],
+                    f"SDF bf16 step {last}", results)
+        del trainer, caught, e, table
+    return counts
+
+
+def tensorf_runs(dev, card, scene, rays_s_11a, results):
+    """Phase 14: ``ngp_tpu_torch.main_tensoRF`` on phase 11's scene, in this
+    process. (a) ``-O --iters 2048`` (51 epochs: the shrink and the first
+    upsample at step 2000): the loss falls, the factors end at 152^3 in an
+    AABB that shrank inside the box, the test PSNR beats a white frame's
+    and ``TENSORF_MIN_PSNR``; rays/s over the middle epochs, one profiled
+    step, the factor sampling's two tap forms (``tap_forms``),
+    ``march_turbo`` held against its plain version on the last step's own
+    march inputs and on the test frames' first chunk, and
+    ``coarse_lookup_bits`` on the last test frame's prepass; (b)
+    ``--test`` on (a)'s workspace: a fresh trainer resizes to 152^3 before
+    it loads, and its PSNR equals (a)'s; (c) ``--cp --iters 512``: the loss
+    falls and the PSNR beats a white frame's; (d) ``--bg_radius 32 --iters
+    256``: the loss falls and the background closure runs in training and
+    in eval. Returns the launch counts of (a)-(d)."""
+    import numpy as np
+    import torch
+
+    from ngp_tpu_torch import main_tensoRF
+    from ngp_tpu_torch.data.nerf_dataset import NeRFDataset
+    from ngp_tpu_torch.models import occupancy
+    from ngp_tpu_torch.models.tensorf import TensoRFNetwork
+    from ngp_tpu_torch.ops.kernels import march
+
+    n_train = CLI_FRAMES[0]
+    white = white_psnr(scene, "test")
+    box = main_tensoRF.build_parser().parse_args([scene]).bound
+    launch, lookup, background = (occupancy.march_turbo, occupancy.coarse_lookup_bits,
+                                  TensoRFNetwork.background)
+    kept, bg_calls = {}, {"train": 0, "eval": 0}
+
+    def keep_march(rays_o, rays_d, coarse, fine, cfg, S, K2, U, aabb=None, t_range=None,
+                   noise=None):
+        label = "TensoRF step" if noise is not None else "TensoRF frame chunk"
+        if label == "TensoRF step" or label not in kept:
+            def c(t):
+                return t.clone() if torch.is_tensor(t) else t
+            kept[label] = ((rays_o.clone(), rays_d.clone(), coarse.clone(), fine.clone(), cfg, S,
+                            K2, U), dict(aabb=c(aabb), t_range=c(t_range), noise=c(noise)))
+        return launch(rays_o, rays_d, coarse, fine, cfg, S, K2, U, aabb=aabb, t_range=t_range,
+                      noise=noise)
+
+    def keep_lookup(payload, flatcell):
+        kept["prepass"] = (payload.clone(), flatcell.clone())
+        return lookup(payload, flatcell)
+
+    def counting_background(self, sph, d):
+        bg_calls["train" if torch.is_grad_enabled() else "eval"] += 1
+        return background(self, sph, d)
+
+    def epoch_means(seen, label):
+        steps = torch.stack(seen["step_losses"]).cpu().numpy()
+        means = steps.reshape(-1, n_train).mean(axis=1)
+        if not means[-1] < means[0]:
+            raise RuntimeError(f"TensoRF {label}: the loss did not fall: epoch means {means}")
+        return means
+
+    counts = []
+    swaps = ((occupancy, "march_turbo", keep_march),
+             (occupancy, "coarse_lookup_bits", keep_lookup),
+             (TensoRFNetwork, "background", counting_background))
+    with (tempfile.TemporaryDirectory() as tmp, cli_recorder(dev, card) as (seen, run),
+          patched(*swaps)):
+        # (a) VM, -O, across the shrink and the first upsample
+        ws = os.path.join(tmp, "ws")
+        argv = [scene, "-O", "--workspace", ws, "--iters", str(TENSORF_ITERS)]
+        trainer, a_counts, a_dt, _ = run(argv, "14(a) main_tensoRF -O", main_tensoRF.main)
+        counts.append(a_counts)
+        check_launched("TensoRF (a) -O", a_counts, ("march_turbo", "coarse_lookup_bits"),
+                       absent=("cp_density_fwd", "cp_sigma_rgb", "grid_encode_fwd"))
+        means = epoch_means(seen, "(a)")
+        psnr = seen["results"][-1]["psnr"]
+        mid = seen["epochs"][1:-1]
+        rays_s = len(mid) * n_train * trainer.train_cfg.num_rays / sum(mid)
+        aabb = trainer.aabb
+        reso = trainer.current_resolution
+        print(f"TensoRF (a): {a_dt:.3f} s wall, {trainer.global_step} steps, {rays_s:.0f} rays/s "
+              f"over epochs 2-{len(seen['epochs']) - 1} (phase 11 (a), turbo-hq: "
+              f"{rays_s_11a:.0f}); resolution {reso}, aabb {np.round(aabb, 4).tolist()}; test "
+              f"PSNR {psnr:.4f} dB (a white frame: {white:.4f}; floor {TENSORF_MIN_PSNR}); "
+              f"epoch-mean loss {means[0]:.6f} -> {means[-1]:.6f}  [{card}]", flush=True)
+        shrunk = (aabb[:3] >= -box).all() and (aabb[3:] <= box).all() and (
+            (aabb[:3] > -box).any() or (aabb[3:] < box).any())
+        if reso != (TENSORF_RES,) * 3 or not shrunk or not psnr > max(white, TENSORF_MIN_PSNR):
+            raise RuntimeError(f"TensoRF (a): resolution {reso}, aabb {aabb}, test PSNR {psnr}")
+        if sorted(kept) != ["TensoRF frame chunk", "TensoRF step", "prepass"]:
+            raise RuntimeError(f"TensoRF (a): caught {sorted(kept)}")
+        for label in ("TensoRF step", "TensoRF frame chunk"):
+            compare_march(label, *kept[label], card, results)
+        payload, fc = kept.pop("prepass")
+        got = march.coarse_lookup_bits(payload, fc)
+        if not torch.equal(got, march.coarse_lookup_plain(payload, fc)):
+            raise RuntimeError("coarse_lookup_bits [TensoRF frame prepass]: bits differ")
+        p1 = cuda_ms(lambda: march.coarse_lookup_plain(payload, fc))
+        k1 = cuda_ms(lambda: march.coarse_lookup_bits(payload, fc))
+        k2 = cuda_ms(lambda: march.coarse_lookup_bits(payload, fc))
+        p2 = cuda_ms(lambda: march.coarse_lookup_plain(payload, fc))
+        results[("coarse_lookup_bits", "TensoRF frame prepass")] = (
+            0.0, (k1 + k2) / 2, (p1 + p2) / 2, bound(nbytes(payload, fc, got)))
+        kept.clear()
+        del payload, fc, got
+        train_ds = NeRFDataset(scene, split="train", scale=0.33)
+        batches = itertools.chain.from_iterable(
+            trainer.make_loader(train_ds)() for _ in itertools.count())
+        trainer.step(next(batches))
+        profile(lambda: trainer.step(next(batches)), 1, "TensoRF step", card,
+                focus=("index", "gather", "march", "elementwise", "gemm"))
+        del trainer, train_ds, batches
+        tap_forms(dev, card)
+
+        # (b) --test on (a)'s workspace
+        trainer, b_counts, _, _ = run(argv + ["--test"], "14(b) --test", main_tensoRF.main)
+        counts.append(b_counts)
+        check_launched("TensoRF (b) --test", b_counts, ("march_turbo", "coarse_lookup_bits"))
+        psnr_b = seen["results"][-1]["psnr"]
+        print(f"TensoRF (b): resumed step {seen['loaded']}, resolution "
+              f"{trainer.current_resolution}, test PSNR {psnr_b:.6f} dB ((a): {psnr:.6f})  "
+              f"[{card}]", flush=True)
+        if (trainer.current_resolution != reso or not np.allclose(trainer.aabb, aabb)
+                or not abs(psnr_b - psnr) <= 0.01):
+            raise RuntimeError(f"TensoRF (b): resolution {trainer.current_resolution}, aabb "
+                               f"{trainer.aabb}, PSNR {psnr_b} against (a)'s {psnr}")
+        del trainer
+
+        # (c) CP
+        trainer, c_counts, _, _ = run(
+            [scene, "-O", "--cp", "--workspace", os.path.join(tmp, "ws_cp"), "--iters",
+             str(TENSORF_CP_ITERS)], "14(c) main_tensoRF -O --cp", main_tensoRF.main)
+        counts.append(c_counts)
+        check_launched("TensoRF (c) --cp", c_counts, ("march_turbo", "coarse_lookup_bits"))
+        means = epoch_means(seen, "(c)")
+        psnr_c = seen["results"][-1]["psnr"]
+        print(f"TensoRF (c): resolution {trainer.current_resolution}, test PSNR {psnr_c:.4f} dB "
+              f"(a white frame: {white:.4f}); epoch-mean loss {means[0]:.6f} -> "
+              f"{means[-1]:.6f}  [{card}]", flush=True)
+        if not psnr_c > white:
+            raise RuntimeError(f"TensoRF (c): test PSNR {psnr_c} not above a white frame's")
+        del trainer
+
+        # (d) the background plane and net
+        bg_calls.update(train=0, eval=0)
+        trainer, d_counts, _, _ = run(
+            [scene, "-O", "--bg_radius", str(CLI_BG_RADIUS), "--workspace",
+             os.path.join(tmp, "ws_bg"), "--iters", str(TENSORF_BG_ITERS)],
+            "14(d) main_tensoRF -O --bg_radius", main_tensoRF.main)
+        counts.append(d_counts)
+        check_launched("TensoRF (d) --bg_radius", d_counts, ("march_turbo",))
+        means = epoch_means(seen, "(d)")
+        print(f"TensoRF (d): background calls {bg_calls}, {len(seen['bg_frames'])} "
+              f"background-frame passes, test PSNR {seen['results'][-1]['psnr']:.4f} dB; "
+              f"epoch-mean loss {means[0]:.6f} -> {means[-1]:.6f}  [{card}]", flush=True)
+        if not (bg_calls["train"] > 0 and bg_calls["eval"] > 0):
+            raise RuntimeError(f"TensoRF (d): background calls {bg_calls}")
+        del trainer
+    return counts
+
+
+def advanced_sample_1d(line, u):
+    """``interp.sample_1d`` (align_corners) with advanced-indexing taps."""
+    import torch
+
+    D = line.shape[-1]
+    p = (u.float() + 1.0) / 2.0 * (D - 1)
+    p0 = torch.floor(p)
+    f = p - p0
+    p0 = p0.long()
+
+    def tap(idx):
+        ok = (idx >= 0) & (idx < D)
+        return torch.where(ok[None, :], line[:, idx.clamp(0, D - 1)], 0.0)
+
+    return tap(p0) * (1.0 - f)[None, :] + tap(p0 + 1) * f[None, :]
+
+
+def advanced_sample_2d(plane, uv):
+    """``interp.sample_2d`` (align_corners) with advanced-indexing taps."""
+    import torch
+
+    R, H, W = plane.shape
+    px = (uv[:, 0].float() + 1.0) / 2.0 * (W - 1)
+    py = (uv[:, 1].float() + 1.0) / 2.0 * (H - 1)
+    x0, y0 = torch.floor(px), torch.floor(py)
+    fx, fy = px - x0, py - y0
+    x0, y0 = x0.long(), y0.long()
+    flat = plane.reshape(R, H * W)
+
+    def tap(yi, xi):
+        ok = (xi >= 0) & (xi < W) & (yi >= 0) & (yi < H)
+        return torch.where(ok[None, :], flat[:, yi.clamp(0, H - 1) * W + xi.clamp(0, W - 1)],
+                           0.0)
+
+    return (tap(y0, x0) * ((1 - fx) * (1 - fy))[None, :]
+            + tap(y0, x0 + 1) * (fx * (1 - fy))[None, :]
+            + tap(y0 + 1, x0) * ((1 - fx) * fy)[None, :]
+            + tap(y0 + 1, x0 + 1) * (fx * fy)[None, :])
+
+
+def tap_forms(dev, card):
+    """TensoRF's factor sampling, forward and factor backward, with the
+    port's ``index_select`` taps and with advanced indexing
+    (``factor[:, idx]``), whose backward sorts the indices and walks each
+    run of equal ones in turn. At a ``-O`` step's shapes after the first
+    upsample: VM factors at 152^3 (sigma rank 16, colour 48, three
+    plane/line pairs each), 32,768 points (4096 rays x 8) drawn uniform in
+    the box, as a march places them (8 samples 2/152 apart on rays through
+    a N(0, 0.3^2) cluster), and those with the budget's unused slots
+    (18,495 of a step of 14,273 samples) at one point, as the compaction
+    pads them (ray 0 at t = 0). The features must agree bit for bit; times
+    are ``cuda_ms`` in turns (advanced, index_select, index_select,
+    advanced)."""
+    import torch
+
+    from ngp_tpu_torch.models.tensorf import MAT_IDS, VEC_IDS
+    from ngp_tpu_torch.ops import interp
+
+    res, ranks, n, used = TENSORF_RES, (16, 48), 4096 * 8, 14_273
+    gen = torch.Generator(device=dev).manual_seed(SEED + 14)
+    planes = [(0.1 * torch.randn((r, res, res), generator=gen, device=dev)).requires_grad_()
+              for r in ranks for _ in range(3)]
+    lines = [(0.1 * torch.randn((r, res), generator=gen, device=dev)).requires_grad_()
+             for r in ranks for _ in range(3)]
+    centres = (0.3 * torch.randn((n // 8, 1, 3), generator=gen, device=dev)).clamp(-1, 1)
+    dirs = torch.nn.functional.normalize(
+        torch.randn((n // 8, 1, 3), generator=gen, device=dev), dim=-1)
+    clustered = (centres + dirs * torch.arange(8, device=dev).view(1, 8, 1) * (2.0 / res))
+    clustered = clustered.reshape(n, 3).clamp(-1, 1)
+    padded = clustered.clone()
+    padded[used:] = padded[0]
+    points = {"uniform": torch.rand((n, 3), generator=gen, device=dev) * 2.0 - 1.0,
+              "clustered": clustered, "padded": padded}
+    cot = torch.randn((sum(ranks) * 3, n), generator=gen, device=dev)
+    forms = {"advanced": (advanced_sample_2d, advanced_sample_1d),
+             "index_select": (interp.sample_2d, interp.sample_1d)}
+
+    def step(form, xn):
+        s2, s1 = forms[form]
+        feats = []
+        for j, (plane, line) in enumerate(zip(planes, lines)):
+            m0, m1 = MAT_IDS[j % 3]
+            uv = torch.stack([xn[:, m0], xn[:, m1]], dim=-1)
+            feats.append(s2(plane, uv) * s1(line, xn[:, VEC_IDS[j % 3]]))
+        out = torch.cat(feats)
+        return out.detach(), torch.autograd.grad((out * cot).sum(), planes + lines)
+
+    for name, xn in points.items():
+        (out_a, grads_a), (out_i, grads_i) = step("advanced", xn), step("index_select", xn)
+        if not torch.equal(out_a, out_i):
+            raise RuntimeError(f"TensoRF taps [{name}]: the two forms' features differ")
+        err = max(float((a - b).abs().max()) for a, b in zip(grads_a, grads_i))
+        a1, i1 = cuda_ms(lambda: step("advanced", xn)), cuda_ms(lambda: step("index_select", xn))
+        i2, a2 = cuda_ms(lambda: step("index_select", xn)), cuda_ms(lambda: step("advanced", xn))
+        print(f"TensoRF taps [{name} points]: forward + factor backward of {n} points on 6 "
+              f"planes and 6 lines at {res}: advanced indexing {(a1 + a2) / 2:.3f} ms, "
+              f"index_select {(i1 + i2) / 2:.3f} ms; features equal, max |gradient "
+              f"difference| {err:.3e}  [{card}]", flush=True)
 
 
 def train_step_gpu_vs_cpu(dev, hash_grid=False):
@@ -2241,10 +2695,20 @@ def main():
         rest_counts = cli_rest_runs(dev, card, scene, psnr_11a, rays_11a, results)
         phase("CLI rest (-O --bg_radius + LPIPS, no -O hash grid and cpgrid, v1 + bg)", t0)
 
+        # 13. SDF: main_sdf sphere, --test, --fp16
+        t0 = time.perf_counter()
+        sdf_counts = sdf_runs(dev, card, results)
+        phase("SDF (sphere, --test, --fp16)", t0)
+
+        # 14. TensoRF on the same scene: -O (VM), --test, --cp, --bg_radius
+        t0 = time.perf_counter()
+        tensorf_counts = tensorf_runs(dev, card, scene, rays_11a, results)
+        phase("TensoRF (-O, --test, --cp, --bg_radius)", t0)
+
     print_results(results, library, card, printed)
     path_counts = (eval_counts, train_counts, frame_counts, evaluate_counts, test_counts,
                    mesh_counts, wide_counts, gamma_counts, gamma_frame_counts, hash_train_counts,
-                   hash_frame_counts, *cli_counts, *rest_counts)
+                   hash_frame_counts, *cli_counts, *rest_counts, *sdf_counts, *tensorf_counts)
     csrc = "ngp_tpu_torch/ops/kernels/csrc/"
     sources = {
         "cp_density_fwd": (csrc + "cp_kernels.cu", "ngp_tpu/ops/pallas/cp_kernels.py:345",

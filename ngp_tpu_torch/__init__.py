@@ -6,14 +6,17 @@ path is a CUDA kernel written for Hopper (``ops/kernels/csrc``). The
 layout mirrors ``ngp_tpu``:
 
 - ``ngp_tpu_torch.ops``      — rays, encoders, activations, CP grid, losses, Morton
-  codes, kernels
-- ``ngp_tpu_torch.models``   — MLP, encoders, NeRF network, occupancy grid
+  codes, bilinear factor sampling, kernels
+- ``ngp_tpu_torch.models``   — MLP, encoders, NeRF network, occupancy grid, SDF
+  network, TensoRF (VM and CP)
 - ``ngp_tpu_torch.data``     — ray generation, the transforms.json loaders, the
-  synthetic scene, the mesh writer
-- ``ngp_tpu_torch.training`` — the NeRF trainers, the guidance loss and the image
-  metrics
-- ``ngp_tpu_torch.main_nerf`` — the command line (``python -m ngp_tpu_torch.main_nerf``)
-- ``ngp_tpu_torch.native``   — marching tetrahedra (host C++ over ctypes)
+  synthetic scene, mesh IO and sampling, the SDF dataset
+- ``ngp_tpu_torch.training`` — the generic loop, the NeRF, SDF and TensoRF trainers,
+  the guidance loss and the image metrics
+- ``ngp_tpu_torch.main_nerf``, ``main_sdf``, ``main_tensoRF`` — the command lines
+  (``python -m ngp_tpu_torch.main_nerf`` and so on)
+- ``ngp_tpu_torch.native``   — marching tetrahedra and the mesh SDF oracle (host C++
+  over ctypes)
 - ``ngp_tpu_torch.utils``    — color spaces, the PNG codec
 
 Importing the package needs only ``torch`` and ``numpy``: the kernel

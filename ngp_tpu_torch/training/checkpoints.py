@@ -1,15 +1,21 @@
 """Checkpoints (``ngp_tpu/training/checkpoints.py``): numbered
 checkpoints with ``max_keep`` retention, a separate best checkpoint,
-and the latest one found by name. Each is one ``torch.save`` file of
-state dicts, tensors and plain scalars; JAX checkpoints are not read
-(weights move with ``models.nerf.params_from_jax``).
+the latest one found by name, and a tolerant restore. Each is one
+``torch.save`` file of state dicts, tensors and plain scalars; JAX
+checkpoints are not read (weights move with ``params_from_jax``).
+
+``tolerant_merge`` is the JAX package's ``_tolerant_merge`` (the
+reference's ``strict=False`` load): every key of the fresh state takes
+the saved value when the checkpoint has it with the same shape, and
+keeps its fresh value, its name recorded, when the key is missing or
+its shape changed. Saved keys the fresh state lacks are dropped.
 """
 
 from __future__ import annotations
 
 import glob
 import os
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Mapping, Optional
 
 import torch
 
@@ -35,3 +41,24 @@ def latest_checkpoint(workspace: str, name: str) -> Optional[str]:
 def load_checkpoint(path: str) -> Dict[str, Any]:
     """A checkpoint's dict, its tensors on the CPU."""
     return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def _same_shape(a, b) -> bool:
+    sa, sb = getattr(a, "shape", None), getattr(b, "shape", None)
+    return sa is None or sb is None or tuple(sa) == tuple(sb)
+
+
+def tolerant_merge(fresh: Mapping[str, Any], saved: Optional[Mapping[str, Any]],
+                   prefix: str, skipped: List[str]) -> Dict[str, Any]:
+    """``fresh`` with each key replaced by ``saved[key]`` where that exists
+    with the same shape; the others keep their fresh values and are
+    appended to ``skipped`` as ``prefix/key``."""
+    saved = saved if saved is not None else {}
+    out = {}
+    for k, v in fresh.items():
+        if k in saved and _same_shape(v, saved[k]):
+            out[k] = saved[k]
+        else:
+            skipped.append(f"{prefix}/{k}")
+            out[k] = v
+    return out

@@ -292,19 +292,7 @@ class NeRFTrainer(Trainer):
         if self.train_cfg.error_map and train_ds.images is not None:
             if "error_map" not in self.aux:
                 self.enable_error_map(len(train_ds))
-        epoch_iter = self.make_loader(train_ds)
-        for epoch in range(self.epoch + 1, max_epochs + 1):
-            self.epoch = epoch
-            self.train_one_epoch(epoch_iter())
-            if (epoch == max_epochs
-                    or time.time() - self._last_ckpt_time > self.ckpt_min_interval_s):
-                self.save_checkpoint()
-                self._last_ckpt_time = time.time()
-            if valid_ds is not None and epoch % self.eval_interval == 0:
-                metric = self.eval_metric(valid_ds)
-                if self.stats["best_loss"] is None or metric < self.stats["best_loss"]:
-                    self.stats["best_loss"] = metric
-                    self.save_checkpoint(best=True)
+        self.train(self.make_loader(train_ds), valid_ds, max_epochs)
 
     # ---- eval ------------------------------------------------------------
 

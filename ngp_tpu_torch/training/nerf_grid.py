@@ -30,19 +30,22 @@ import torch
 import torch.nn.functional as tnf
 
 from ngp_tpu_torch.data.raysampler import rays_from_frame_indices
-from ngp_tpu_torch.models.nerf import make_fused_sigma_rgb
+from ngp_tpu_torch.models.nerf import NeRFNetwork, make_fused_sigma_rgb
 from ngp_tpu_torch.models.occupancy import (
     SQRT3,
     OccupancyState,
     init_occupancy,
     mark_untrained_grid,
     occupied_aabb,
+    pack_occupancy_payloads,
+    pack_prepass_payload,
     prepass_spacing,
     ray_prepass,
     render_rays_grid,
     render_rays_grid_turbo,
     update_occupancy,
 )
+from ngp_tpu_torch.training.checkpoints import tolerant_merge
 from ngp_tpu_torch.training.nerf import NeRFTrainer
 
 
@@ -67,7 +70,11 @@ class GridNeRFTrainer(NeRFTrainer):
         return {"occ": init_occupancy(self.render_cfg, self.device)}
 
     def _eval_fns(self):
-        return (*self._fns(), make_fused_sigma_rgb(self.model))
+        """``_fns`` and the fused radiance closure, which only the
+        ``NeRFNetwork`` has (TensoRF and the other families render with
+        their density and colour closures, as in JAX)."""
+        vals_fn = make_fused_sigma_rgb(self.model) if type(self.model) is NeRFNetwork else None
+        return (*self._fns(), vals_fn)
 
     @torch.no_grad()
     def render_batch(self, rays_o, rays_d, bg_color=None, aabb=None, t_range=None):
@@ -249,8 +256,24 @@ class GridNeRFTrainer(NeRFTrainer):
             out["error_map"] = self.aux["error_map"]
         return out
 
-    def _load_aux_state(self, sd):
-        occ = OccupancyState(**sd["occ"]).to(self.device)
-        self.aux = {"occ": occ}
+    def _load_aux_state(self, sd, skipped):
+        """The occupancy state field by field onto the fresh one
+        (``tolerant_merge``), and the error map when it was saved."""
+        occ = self.aux["occ"]
+        fresh = {f.name: getattr(occ, f.name) for f in dataclasses.fields(occ)}
+        merged = tolerant_merge(fresh, sd.get("occ"), "aux/occ", skipped)
+        self.aux = {"occ": OccupancyState(**merged).to(self.device)}
         if "error_map" in sd:
             self.aux["error_map"] = sd["error_map"].to(self.device)
+
+    def _post_restore(self, skipped):
+        """Repack the march's payloads from the restored grids when the
+        restore skipped any of them (they are functions of ``occ_grid``
+        and ``density_grid``)."""
+        if not any(k.startswith("aux/occ/") and "payload" in k for k in skipped):
+            return
+        occ = self.aux["occ"]
+        coarse, fine = pack_occupancy_payloads(occ.occ_grid, occ.density_grid)
+        self.aux = dict(self.aux)
+        self.aux["occ"] = dataclasses.replace(occ, coarse_payload=coarse, fine_payload=fine,
+                                              prepass_payload=pack_prepass_payload(occ.occ_grid))

@@ -5,13 +5,27 @@ draws=None) -> metrics`` (a dict of device scalars), which runs the
 forward, ``loss.backward()`` and ``_apply_gradients``. Scalars are
 fetched to the host every ``log_every`` steps, so the loop does not
 wait for the device on every step.
+
+``train(train_loader, valid_loader, max_epochs)`` runs the epochs, saves
+a numbered checkpoint at the last epoch or after ``ckpt_min_interval_s``
+and, every ``eval_interval`` epochs, the best checkpoint on
+``eval_metric`` (lower is better; by default the mean ``eval_step`` loss
+over the validation batches, ``evaluate_one_epoch``).
+
+A checkpoint restores tolerantly, as the JAX trainer's does: each key
+of the model, the Adam state (kept by parameter name) and the EMA
+shadow takes the saved value where the checkpoint has it with the same
+shape, and keeps its fresh value, logged, where not; ``_post_restore``
+then rebuilds what derives from skipped keys. ``_extra_ckpt_metadata``
+is stored in the file, and ``_restore_metadata`` reads it back before
+the merge (TensoRF resizes its factors there).
 """
 
 from __future__ import annotations
 
 import os
 import time
-from typing import Any, Dict, Iterable, Optional
+from typing import Any, Callable, Dict, Iterable, List, Optional, Union
 
 import torch
 
@@ -35,7 +49,7 @@ class Trainer:
         self.log_every = log_every
         self.epoch = 0
         self.global_step = 0
-        self.stats = {"loss": [], "best_loss": None}
+        self.stats = {"loss": [], "valid_loss": [], "best_loss": None}
         # at most one numbered checkpoint per interval (besides the last)
         self.ckpt_min_interval_s = 120.0
         self._last_ckpt_time = 0.0
@@ -43,6 +57,7 @@ class Trainer:
         self.optimizer = None
         self.scheduler = None
         self.ema: Optional[EMA] = None
+        self.last_restore_skipped: List[str] = []
 
     # ---- subclass hooks --------------------------------------------------
 
@@ -56,19 +71,48 @@ class Trainer:
     def _aux_state(self) -> Dict[str, Any]:
         return {}
 
-    def _load_aux_state(self, sd: Dict[str, Any]) -> None:
+    def _load_aux_state(self, sd: Dict[str, Any], skipped: List[str]) -> None:
         pass
+
+    def eval_step(self, batch) -> Dict[str, torch.Tensor]:
+        raise NotImplementedError(
+            "implement eval_step (batch-loss eval) or override eval_metric (e.g. -PSNR "
+            "via evaluate) for best-checkpoint selection")
+
+    def eval_metric(self, valid) -> float:
+        """Best-checkpoint metric (lower is better) of the validation input:
+        by default the mean ``eval_step`` loss over its batches."""
+        return self.evaluate_one_epoch(valid)
+
+    def _make_optimizer(self):
+        """(optimizer, scheduler) over ``self.model``'s parameters."""
+        return make_optimizer([("all", list(self.model.parameters()), self.lr,
+                                self.lr_decay_target)], self.max_steps)
+
+    def _extra_ckpt_metadata(self) -> Dict[str, Any]:
+        """Plain values stored in the checkpoint beside the state."""
+        return {}
+
+    def _restore_metadata(self, meta: Dict[str, Any]) -> None:
+        """Called with the stored metadata before the state is restored."""
+
+    def _post_restore(self, skipped: List[str]) -> None:
+        """Rebuild derived state after a restore that kept fresh values for
+        the ``skipped`` keys."""
 
     # ---- lifecycle -------------------------------------------------------
 
     def ensure_initialized(self):
         """The optimizer, schedule and EMA shadow of ``self.model``."""
         if self.optimizer is None:
-            self.optimizer, self.scheduler = make_optimizer(
-                self.model.parameters(), self.lr, self.max_steps, self.lr_decay_target
-            )
-            if self.ema_decay is not None:
-                self.ema = EMA(self.model, self.ema_decay)
+            self.reset_optimizer()
+
+    def reset_optimizer(self):
+        """A fresh optimizer and schedule, and an EMA shadow that starts as
+        a copy of the parameters (after the module's parameters were
+        replaced)."""
+        self.optimizer, self.scheduler = self._make_optimizer()
+        self.ema = EMA(self.model, self.ema_decay) if self.ema_decay is not None else None
 
     def _apply_gradients(self):
         """Adam step, schedule step, then the EMA of the new weights."""
@@ -86,6 +130,35 @@ class Trainer:
         metrics = self.train_step(batch, draws)
         self.global_step += 1
         return metrics
+
+    def train(self, train_loader: Union[Iterable, Callable[[], Iterable]],
+              valid_loader=None, max_epochs: int = 1):
+        """Train to ``max_epochs``. ``train_loader`` is iterated once an
+        epoch, or called for each epoch's iterator when it is a function."""
+        self.ensure_initialized()
+        for epoch in range(self.epoch + 1, max_epochs + 1):
+            self.epoch = epoch
+            self.train_one_epoch(train_loader() if callable(train_loader) else train_loader)
+            if (epoch == max_epochs
+                    or time.time() - self._last_ckpt_time > self.ckpt_min_interval_s):
+                self.save_checkpoint()
+                self._last_ckpt_time = time.time()
+            if valid_loader is not None and epoch % self.eval_interval == 0:
+                metric = self.eval_metric(valid_loader)
+                if self.stats["best_loss"] is None or metric < self.stats["best_loss"]:
+                    self.stats["best_loss"] = metric
+                    self.save_checkpoint(best=True)
+
+    def evaluate_one_epoch(self, loader: Iterable) -> float:
+        """The mean ``eval_step`` loss over the loader's batches."""
+        total, n = 0.0, 0
+        for batch in loader:
+            total += float(self.eval_step(batch)["loss"])
+            n += 1
+        loss = total / max(n, 1)
+        self.stats["valid_loss"].append(loss)
+        self.log(f"eval epoch {self.epoch}: loss={loss:.6f}")
+        return loss
 
     def train_one_epoch(self, loader: Iterable):
         t0 = time.perf_counter()
@@ -129,15 +202,61 @@ class Trainer:
 
     # ---- checkpoints -----------------------------------------------------
 
+    def _optimizer_state(self) -> Dict[str, Any]:
+        """The optimizer's state dict with its per-parameter state and
+        groups keyed by parameter name, not by index: an added network
+        then shifts no other parameter's moments."""
+        names = {id(p): k for k, p in self.model.named_parameters()}
+        order = [names[id(p)] for g in self.optimizer.param_groups for p in g["params"]]
+        sd = self.optimizer.state_dict()
+        return {"by_name": True,
+                "state": {order[i]: v for i, v in sd["state"].items()},
+                "param_groups": [{**g, "params": [order[i] for i in g["params"]]}
+                                 for g in sd["param_groups"]]}
+
+    def _load_optimizer_state(self, saved: Dict[str, Any], skipped: List[str]) -> None:
+        """Restore ``_optimizer_state`` (or an older index-keyed state dict,
+        whose indices are the fresh optimizer's order): a parameter whose
+        state is missing or reshaped gets zero moments at the restored step
+        count (the JAX optimizer keeps one count for all parameters) and is
+        appended to ``skipped``."""
+        params = dict(self.model.named_parameters())
+        names = {id(p): k for k, p in params.items()}
+        order = [names[id(p)] for g in self.optimizer.param_groups for p in g["params"]]
+        if saved.get("by_name"):
+            by_name = saved["state"]
+        else:
+            by_name = {order[i]: v for i, v in saved["state"].items() if i < len(order)}
+        state = {}
+        for i, name in enumerate(order):
+            s = by_name.get(name)
+            if s is not None and all(tuple(v.shape) == tuple(params[name].shape)
+                                     for k, v in s.items() if k != "step"):
+                state[i] = s
+            else:
+                skipped.append(f"optimizer/{name}")
+        step = next((s["step"] for s in state.values() if "step" in s), None)
+        if step is not None:
+            for i, name in enumerate(order):
+                if i not in state:
+                    z = torch.zeros_like(params[name], memory_format=torch.preserve_format)
+                    state[i] = {"step": step.clone(), "exp_avg": z, "exp_avg_sq": z.clone()}
+        groups = self.optimizer.state_dict()["param_groups"]
+        if len(saved["param_groups"]) == len(groups):
+            groups = [{**g, **{k: v for k, v in sg.items() if k != "params"}}
+                      for g, sg in zip(groups, saved["param_groups"])]
+        self.optimizer.load_state_dict({"state": state, "param_groups": groups})
+
     def _ckpt_state(self) -> Dict[str, Any]:
         return {
             "model": self.model.state_dict(),
-            "optimizer": self.optimizer.state_dict(),
+            "optimizer": self._optimizer_state(),
             "scheduler": self.scheduler.state_dict(),
             "ema": self.ema.state_dict() if self.ema is not None else None,
             "aux": self._aux_state(),
             "global_step": self.global_step,
             "best_loss": self.stats["best_loss"],
+            "meta": self._extra_ckpt_metadata(),
         }
 
     def save_checkpoint(self, best: bool = False) -> str:
@@ -151,6 +270,9 @@ class Trainer:
                                         max_keep=self.max_keep_ckpt, best=best)
 
     def load_checkpoint(self, path: Optional[str] = None) -> bool:
+        """Restore tolerantly (see the module docstring); returns whether a
+        checkpoint was found. ``self.last_restore_skipped`` lists the keys
+        that kept their fresh values."""
         self.ensure_initialized()
         if path is None:
             path = ckpt_lib.latest_checkpoint(self.workspace, self.name)
@@ -158,14 +280,22 @@ class Trainer:
             self.log("no checkpoint found, training from scratch")
             return False
         sd = ckpt_lib.load_checkpoint(path)
-        self.model.load_state_dict(sd["model"])
-        self.optimizer.load_state_dict(sd["optimizer"])
+        self._restore_metadata(sd.get("meta") or {})
+        skipped: List[str] = []
+        self.model.load_state_dict(
+            ckpt_lib.tolerant_merge(self.model.state_dict(), sd.get("model"), "model", skipped))
+        self._load_optimizer_state(sd["optimizer"], skipped)
         self.scheduler.load_state_dict(sd["scheduler"])
-        if self.ema is not None and sd["ema"] is not None:
-            self.ema.load_state_dict(sd["ema"])
-        self._load_aux_state(sd["aux"])
+        if self.ema is not None:
+            skipped += [f"ema/{k}" for k in self.ema.load_state_dict(sd.get("ema") or {})]
+        self._load_aux_state(sd.get("aux") or {}, skipped)
         self.global_step = sd["global_step"]
         self.epoch = sd["epoch"]
-        self.stats["best_loss"] = sd["best_loss"]
+        self.stats["best_loss"] = sd.get("best_loss")
+        self.last_restore_skipped = skipped
+        if skipped:
+            self.log(f"checkpoint restore: kept fresh values for {len(skipped)} "
+                     f"missing/mismatched keys: {skipped}")
+            self._post_restore(skipped)
         self.log(f"loaded checkpoint {path} (epoch {self.epoch})")
         return True

@@ -1,7 +1,7 @@
 """The PyTorch port imports on a CPU-only machine without JAX, the JAX
-package, the JAX package's ``main_nerf.py`` or Triton, and its config
-copy matches the JAX package's; its command line and ``chip_smoke.py``
-exit non-zero without a CUDA device."""
+package, the JAX package's mains or Triton, and its config copy matches
+the JAX package's; its command lines and ``chip_smoke.py`` exit non-zero
+without a CUDA device."""
 
 import dataclasses
 import os
@@ -27,6 +27,7 @@ MODULES = [
     "ngp_tpu_torch.ops.hashgrid",
     "ngp_tpu_torch.ops.losses",
     "ngp_tpu_torch.ops.morton",
+    "ngp_tpu_torch.ops.interp",
     "ngp_tpu_torch.ops.kernels",
     "ngp_tpu_torch.ops.kernels.build",
     "ngp_tpu_torch.ops.kernels.cp",
@@ -39,10 +40,13 @@ MODULES = [
     "ngp_tpu_torch.models.nerf",
     "ngp_tpu_torch.models.occupancy",
     "ngp_tpu_torch.models.renderer",
+    "ngp_tpu_torch.models.sdf",
+    "ngp_tpu_torch.models.tensorf",
     "ngp_tpu_torch.data.raysampler",
     "ngp_tpu_torch.data.nerf_dataset",
     "ngp_tpu_torch.data.synthetic",
     "ngp_tpu_torch.data.mesh",
+    "ngp_tpu_torch.data.sdf_dataset",
     "ngp_tpu_torch.native",
     "ngp_tpu_torch.utils.color",
     "ngp_tpu_torch.utils.png",
@@ -54,7 +58,11 @@ MODULES = [
     "ngp_tpu_torch.training.nerf",
     "ngp_tpu_torch.training.nerf_grid",
     "ngp_tpu_torch.training.clip_guidance",
+    "ngp_tpu_torch.training.sdf",
+    "ngp_tpu_torch.training.tensorf",
     "ngp_tpu_torch.main_nerf",
+    "ngp_tpu_torch.main_sdf",
+    "ngp_tpu_torch.main_tensoRF",
     "chip_smoke",
 ]
 
@@ -66,12 +74,13 @@ def test_every_module_imports_without_jax_or_triton():
             importlib.import_module(name)
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
-                                            "ngp_tpu", "triton", "main_nerf"))
+                                            "ngp_tpu", "triton", "main_nerf",
+                                            "main_sdf", "main_tensoRF"))
         assert not bad, bad
         from ngp_tpu_torch.ops.kernels import build
         assert build._lib is None  # the kernel library loads at first launch
         from ngp_tpu_torch import native
-        assert native._lib is None  # so does the marching library
+        assert not native._libs  # so do the marching and SDF libraries
         print("ok")
     """)
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
@@ -97,7 +106,9 @@ def test_config_properties_match(bound):
     assert a.aabb == b.aabb
 
 
-@pytest.mark.parametrize("argv", [["chip_smoke.py"], ["-m", "ngp_tpu_torch.main_nerf", "scene", "-O"]])
+@pytest.mark.parametrize("argv", [["chip_smoke.py"], ["-m", "ngp_tpu_torch.main_nerf", "scene", "-O"],
+                                  ["-m", "ngp_tpu_torch.main_sdf", "sphere"],
+                                  ["-m", "ngp_tpu_torch.main_tensoRF", "scene", "-O"]])
 def test_card_entry_points_fail_without_cuda(tmp_path, argv):
     import torch
 

@@ -4,7 +4,8 @@ training, and the end of a run (evaluate, test, mesh export), at the
 turbo-hq preset and in the hash-grid configuration (``-O --encoding
 hashgrid``), then the port's command lines: ``-O`` and the rest of
 ``main_nerf`` (the background net, the renderer without the occupancy
-grid, LPIPS), ``main_sdf`` and ``main_tensoRF``.
+grid, LPIPS), ``main_sdf``, ``main_tensoRF``, ``main_CCNeRF`` and
+``main_dnerf``.
 
 Run from the repository root, with no arguments:
 
@@ -129,9 +130,31 @@ no 64-bit division routine, and of the turbo march), then
      last step's and a test frame's own march inputs, every ray bit for
      bit, and ``coarse_lookup_bits`` on a test frame's prepass), (b)
      ``--test`` (a fresh trainer resizes to 152^3 before it loads; the
-     PSNR equals (a)'s), (c) ``--cp --iters 512`` and (d) ``--bg_radius 32
-     --iters 256`` (the loss falls; the background net runs in training
-     and in eval).
+     PSNR equals (a)'s), (c) ``--cp --iters 256`` and (d) ``--bg_radius 32
+     --iters 128`` (the loss falls; the background net runs in training
+     and in eval);
+15.  runs ``ngp_tpu_torch.main_CCNeRF`` on phase 11's scene
+     (``ccnerf_runs``) at the CLI's widths: (a) ``-O --compose --iters
+     512`` (the loss falls; rays/s; the finalized full rank's and the
+     three compression levels' test PSNRs beside a white frame's;
+     ``finalize`` leaves sigma and rgb at 65,536 points within
+     ``FINALIZE_TOL``; the composed scene's frames written; one profiled
+     step of the rank-residual model; ``march_turbo`` on a step's own
+     inputs, bit for bit), (b) ``--test`` (the same full-rank PSNR);
+16.  writes the dynamic synthetic scene (a moving sphere) and runs
+     ``ngp_tpu_torch.main_dnerf`` on it (``dnerf_runs``) at the CLI's
+     widths: (a) ``-O --iters 1024`` (the loss falls, the test PSNR beats
+     a white frame's and ``DNERF_MIN_PSNR``; rays/s; the refresh wall of a
+     full 64-slice sweep and of a quarter; one profiled step;
+     ``grid_encode_bwd_x`` held against its plain version on the last
+     step's own points, with its bf16 cotangent and in f32, and on random
+     points with 25% outside the box, the forward and table gradient on
+     the step's points), (b) ``--test`` (the same PSNR), (c) ``--hyper
+     --iters 80`` (the D = 4 forward, table gradient and x-gradient on its
+     last step's points and on random 4-D points), (d) ``--basis --iters
+     80`` (no x-gradient launched); with ``--dnerf-control`` also (e), (a)
+     with the deformation net frozen, whose test PSNR must stay below
+     ``DNERF_MIN_PSNR``.
 
 Each path is run with the launch counts set to 0 just before it and read
 just after; a kernel of the path that was not launched fails the run.
@@ -266,6 +289,7 @@ CLI_FRAMES = (40, 4, 8)
 # (scripts/torch_march_psnr_spread.py), rounded down
 MIN_PSNR_CLI = 37.0
 CLI_HASH_ITERS = 256
+CLI_V1_BG_ITERS = 128
 CLI_GUIDE_ITERS = 64
 CLI_RAND_POSE = 4
 # phase 12: the rest of main_nerf on the same scene. (a) turbo-hq with the
@@ -275,7 +299,8 @@ CLI_RAND_POSE = 4
 # CLI_BG_DOWNSCALE); (b) no -O at the CLI's defaults (hash grid, f32, 512
 # samples a ray, 4096 rays: 2,097,152 samples a step), CLI_UNIFORM_ITERS;
 # (c) no -O with the CP grid at the turbo-hq widths in bf16, CLI_CP_ITERS;
-# (d) the hash grid's v1 march with the background net, CLI_HASH_ITERS.
+# (d) the hash grid's v1 march with the background net, CLI_V1_BG_ITERS
+# (256 until phases 15-16 came; cut to hold the smoke near 700 s).
 # On this white-background scene, whose cameras sit inside the box, the
 # background net learns the train views on its own and the density field
 # stays empty: the test split reads a white frame's PSNR, with the net's
@@ -314,9 +339,28 @@ SDF_RADIUS_TOL = 0.01
 TENSORF_ITERS = 2048
 TENSORF_RES = 152
 TENSORF_MIN_PSNR = 24.0
-TENSORF_CP_ITERS = 512
-TENSORF_BG_ITERS = 256
+# (c) and (d) were 512 and 256 iterations until phases 15-16 came; cut to
+# hold the smoke near 700 s
+TENSORF_CP_ITERS = 256
+TENSORF_BG_ITERS = 128
 BG_GRID = dict(input_dim=2, num_levels=4, log2_hashmap_size=19, desired_resolution=2048)
+# phase 15, CCNeRF at the CLI's widths on phase 11's scene: cut from 30,000
+# iterations; the finalized field held to its trained one (sums over ranks
+# in another order)
+CCNERF_ITERS = 512
+CCNERF_MIN_PSNR = 28.0
+FINALIZE_TOL = 1e-4
+# phase 16, D-NeRF at the CLI's widths on the dynamic scene: (a) cut from
+# 30,000 iterations to 25 epochs (16 full refreshes, then 46 of a quarter),
+# (c) and (d) to 2 epochs; the x-gradient's tolerance by cotangent type
+# (see bwd_x_checks). The floor sits between (a)'s readings (NVIDIA H100
+# 80GB HBM3, 700.00 W: 13.43-14.48 dB in four runs) and those of (a) with
+# the deformation net frozen (--dnerf-control: 12.11-12.12 in two runs; a
+# white frame 11.56)
+DNERF_ITERS = 1024
+DNERF_SHORT_ITERS = 80
+DNERF_MIN_PSNR = 12.8
+BWD_X_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 BG_ROWS = (65536, 4096)
 # H100 SXM (NVIDIA's data sheet): HBM bytes/s, dense bf16 tensor-core and
 # f32 CUDA-core FLOP/s
@@ -1397,7 +1441,7 @@ def cli_rest_runs(dev, card, scene, psnr_11a, rays_s_11a, results):
         # (d) the v1 march with the background net
         trainer, d_counts, _, _ = run(
             [scene, "-O", "--encoding", "hashgrid", "--workspace", os.path.join(tmp, "ws_v1bg"),
-             "--iters", str(CLI_HASH_ITERS)] + bg, "12(d) -O --encoding hashgrid --bg_radius")
+             "--iters", str(CLI_V1_BG_ITERS)] + bg, "12(d) -O --encoding hashgrid --bg_radius")
         counts.append(d_counts)
         check_launched("CLI 12(d) hashgrid --bg_radius", d_counts,
                        ("grid_encode_fwd", "grid_encode_bwd", "grid_encode_fwd_2d",
@@ -1574,9 +1618,9 @@ def tensorf_runs(dev, card, scene, rays_s_11a, results):
     march inputs and on the test frames' first chunk, and
     ``coarse_lookup_bits`` on the last test frame's prepass; (b)
     ``--test`` on (a)'s workspace: a fresh trainer resizes to 152^3 before
-    it loads, and its PSNR equals (a)'s; (c) ``--cp --iters 512``: the loss
+    it loads, and its PSNR equals (a)'s; (c) ``--cp --iters 256``: the loss
     falls and the PSNR beats a white frame's; (d) ``--bg_radius 32 --iters
-    256``: the loss falls and the background closure runs in training and
+    128``: the loss falls and the background closure runs in training and
     in eval. Returns the launch counts of (a)-(d)."""
     import numpy as np
     import torch
@@ -1716,6 +1760,356 @@ def tensorf_runs(dev, card, scene, rays_s_11a, results):
               f"epoch-mean loss {means[0]:.6f} -> {means[-1]:.6f}  [{card}]", flush=True)
         if not (bg_calls["train"] > 0 and bg_calls["eval"] > 0):
             raise RuntimeError(f"TensoRF (d): background calls {bg_calls}")
+        del trainer
+    return counts
+
+
+def bwd_x_checks(hk, x, table, geom, g, label, results):
+    """``grid_encode_bwd_x`` on points x [B, D] (table, cotangent g) against
+    its plain version (autograd of ``grid_encode_plain`` in x): the plain
+    version sums the same terms in another order, so 1e-4 of the largest
+    entry with an f32 cotangent; with a bf16 one both round each corner's
+    <g, row> to bf16, and a rounding that flips moves a term by one bf16
+    step, so 1e-2 of the largest entry. Work: x, g and dx once, the corner
+    rows' sectors (``table_bytes``); per (point, level) inside [0, 1]^D
+    with a non-zero cotangent, 3 D operations of position, then per corner
+    2 C of the dot product and D^2 + D of the weights' derivatives."""
+    import torch
+
+    D, L, C = geom.input_dim, geom.num_levels, geom.level_dim
+    dtype = str(g.dtype).split(".")[-1]
+    idx, _ = hk.grid_encode_bwd_rows_plain(x, torch.ones_like(g, dtype=torch.float32), geom)
+    live = int(((g.view(-1, L, C) != 0).any(dim=2) & inside_rows(x)[:, None]).sum())
+    work = (nbytes(x, g) + 4 * x.numel() + table_bytes(idx, geom), 0,
+            live * (3 * D + 2**D * (2 * C + D * D + D)))
+    del idx
+    scale = BWD_X_TOL[dtype]
+    results[("grid_encode_bwd_x", label)] = compare(
+        "grid_encode_bwd_x", lambda: hk.grid_encode_bwd_x(x, table, g, geom),
+        lambda: hk.grid_encode_bwd_x_plain(x, table, g, geom), dtype, work,
+        tol=lambda want: [torch.full_like(want[0], scale * float(want[0].abs().max()))])
+
+
+def random_points(dev, n, D, seed):
+    """n points in [0, 1]^D of which about 25% are outside (one coordinate
+    past 1)."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.rand((n, D), generator=gen)
+    out = torch.rand(n, generator=gen) < 0.25
+    x[out, 0] = 1.01 + 0.2 * x[out, 0]
+    return x.contiguous().to(dev)
+
+
+def ccnerf_runs(dev, card, scene, results):
+    """Phase 15: ``ngp_tpu_torch.main_CCNeRF`` on phase 11's scene at the
+    CLI's widths (res 128^3, K = 5 rank groups to density ranks 64 vec /
+    16 mat and colour ranks 64 / 64, SH degree 4, 4096 rays), in this
+    process. (a) ``-O --compose --iters CCNERF_ITERS``: the loss falls;
+    rays/s over the middle epochs; the finalized full rank and the three
+    compression levels' PSNRs beside a white frame's (the full rank above
+    ``CCNERF_MIN_PSNR``); ``finalize`` leaves the field unchanged (sigma
+    and rgb at 65,536 random points, before and after, within
+    ``FINALIZE_TOL``); the composed scene's test frames written; one
+    profiled step of the trained rank-residual model; ``march_turbo`` held
+    against its plain version on the last step's own march inputs. (b)
+    ``--test`` on (a)'s workspace: the full-rank PSNR equals (a)'s.
+    Returns the launch counts of (a) and (b)."""
+    import numpy as np
+    import torch
+
+    from ngp_tpu_torch import main_CCNeRF
+    from ngp_tpu_torch.data.nerf_dataset import NeRFDataset
+    from ngp_tpu_torch.models import occupancy
+    from ngp_tpu_torch.models.ccnerf import CCNeRF
+    from ngp_tpu_torch.training.ccnerf import CCNeRFTrainer
+
+    n_train = CLI_FRAMES[0]
+    white = white_psnr(scene, "test", frames=2)
+    launch, finalize, step = occupancy.march_turbo, CCNeRF.finalize, CCNeRFTrainer.train_step
+    kept, losses, pre = {}, [], {}
+
+    def keep_march(rays_o, rays_d, coarse, fine, cfg, S, K2, U, aabb=None, t_range=None,
+                   noise=None):
+        if noise is not None:
+            kept["CCNeRF step"] = ((rays_o.clone(), rays_d.clone(), coarse.clone(), fine.clone(),
+                                    cfg, S, K2, U), dict(aabb=aabb, t_range=t_range,
+                                                         noise=noise.clone()))
+        return launch(rays_o, rays_d, coarse, fine, cfg, S, K2, U, aabb=aabb, t_range=t_range,
+                      noise=noise)
+
+    def keep_finalize(self, params):
+        if self.objects is None and not pre:
+            pre["cfg"] = self.cfg
+            pre["params"] = {k: [{"U": [u.detach().clone() for u in g["U"]],
+                                  "S": g["S"].detach().clone()} for g in v]
+                             for k, v in params.items()}
+        return finalize(self, params)
+
+    def keep_loss(self, *a, **kw):
+        out = step(self, *a, **kw)
+        losses.append(out["loss"])
+        return out
+
+    counts = []
+    swaps = ((occupancy, "march_turbo", keep_march), (CCNeRF, "finalize", keep_finalize),
+             (CCNeRFTrainer, "train_step", keep_loss))
+    with (tempfile.TemporaryDirectory() as tmp, cli_recorder(dev, card) as (seen, run),
+          patched(*swaps)):
+        ws = os.path.join(tmp, "ws")
+        argv = [scene, "-O", "--workspace", ws, "--iters", str(CCNERF_ITERS)]
+        trainer, a_counts, a_dt, _ = run(argv + ["--compose"], "15(a) main_CCNeRF -O --compose",
+                                         main_CCNeRF.main)
+        counts.append(a_counts)
+        check_launched("CCNeRF (a) -O", a_counts, ("march_turbo", "coarse_lookup_bits"),
+                       absent=("cp_density_fwd", "cp_sigma_rgb", "grid_encode_fwd"))
+        steps = torch.stack(losses).cpu().numpy()
+        means = steps.reshape(-1, n_train).mean(axis=1)
+        mid = seen["epochs"][1:-1]
+        rays_s = len(mid) * n_train * trainer.train_cfg.num_rays / sum(mid)
+        psnrs = [r["psnr"] for r in seen["results"]]
+        print(f"CCNeRF (a): {a_dt:.3f} s wall, {trainer.global_step} steps, {rays_s:.0f} rays/s "
+              f"over epochs 2-{len(seen['epochs']) - 1}; epoch-mean loss {means[0]:.6f} -> "
+              f"{means[-1]:.6f}; test PSNR (2 frames) full rank {psnrs[0]:.4f} dB, compressed "
+              f"{dict(zip(main_CCNeRF.COMPRESS_RANKS, np.round(psnrs[1:], 4).tolist()))} (a white "
+              f"frame: {white:.4f}); compose test {seen['test_s'][-1]:.3f} s  [{card}]",
+              flush=True)
+        if not (means[-1] < means[0] and len(psnrs) == 4 and psnrs[0] > max(white,
+                                                                          CCNERF_MIN_PSNR)):
+            raise RuntimeError(f"CCNeRF (a): epoch means {means}, PSNRs {psnrs}")
+        if not any(f.startswith("ccnerf_") and f.endswith("_rgb.png")
+                   for f in os.listdir(os.path.join(ws, "results"))):
+            raise RuntimeError("CCNeRF (a): the composed scene wrote no frames")
+        # finalize only sorts and concatenates: the field stays the trained one's
+        model0 = CCNeRF(pre["cfg"], bound=trainer.model.bound, device=dev)
+        model0.load_params(pre["params"])
+        gen = torch.Generator().manual_seed(SEED + 15)
+        x = (torch.rand((65536, 3), generator=gen) * 2 - 1).to(dev)
+        d = torch.nn.functional.normalize(torch.randn((65536, 3), generator=gen), dim=-1).to(dev)
+        with torch.no_grad():
+            s0, r0 = model0.sigma_rgb(x, d)
+            s1, r1 = trainer.model.sigma_rgb(x, d)
+        ds_, dr = float(((s1 - s0).abs() / (1 + s0.abs())).max()), float((r1 - r0).abs().max())
+        print(f"CCNeRF finalize: K {pre['cfg'].K} -> {trainer.model.cfg.K}; max |sigma change| / "
+              f"(1 + sigma) {ds_:.3e}, max |rgb change| {dr:.3e} at 65,536 points (tolerance "
+              f"{FINALIZE_TOL})  [{card}]", flush=True)
+        if not (ds_ <= FINALIZE_TOL and dr <= FINALIZE_TOL):
+            raise RuntimeError(f"CCNeRF finalize moved the field: {ds_}, {dr}")
+        compare_march("CCNeRF step", *kept.pop("CCNeRF step"), card, results)
+        # one profiled step of the trained rank-residual model
+        pt = CCNeRFTrainer(model0, trainer.render_cfg, trainer.train_cfg, seed=SEED)
+        pt.aux = trainer.aux
+        batches = itertools.chain.from_iterable(
+            pt.make_loader(NeRFDataset(scene, split="train", scale=0.8))()
+            for _ in itertools.count())
+        pt.step(next(batches))
+        profile(lambda: pt.step(next(batches)), 1, "CCNeRF step", card,
+                focus=("index", "march", "elementwise", "gemm", "reduce"))
+        del trainer, pt, model0, batches, pre["params"]
+
+        # (b) --test on (a)'s workspace
+        losses.clear()
+        trainer, b_counts, _, _ = run(argv + ["--test"], "15(b) --test", main_CCNeRF.main)
+        counts.append(b_counts)
+        check_launched("CCNeRF (b) --test", b_counts, ("march_turbo", "coarse_lookup_bits"))
+        psnr_b = seen["results"][0]["psnr"]
+        print(f"CCNeRF (b): resumed step {seen['loaded']}, full-rank test PSNR {psnr_b:.6f} dB "
+              f"((a): {psnrs[0]:.6f})  [{card}]", flush=True)
+        if not abs(psnr_b - psnrs[0]) <= 0.01:
+            raise RuntimeError(f"CCNeRF (b): PSNR {psnr_b} against (a)'s {psnrs[0]}")
+        del trainer
+    return counts
+
+
+def dnerf_runs(dev, card, results, control=False):
+    """Phase 16: ``ngp_tpu_torch.main_dnerf`` at the CLI's widths (16 levels
+    x 2, 2^19 rows, finest 4096 at bound 2; the deformation MLP 5 x 128;
+    T = 64 time slices of a 128^3 grid; 4096 rays; bf16 with ``-O``) on the
+    dynamic synthetic scene (``make_synthetic_dataset(dynamic=True)``), in
+    this process. (a) ``-O --iters DNERF_ITERS``: the loss falls, the test
+    PSNR beats a white frame's and ``DNERF_MIN_PSNR``; rays/s; the refresh
+    wall of a full 64-slice sweep and of a quarter; one profiled step; the
+    grid kernels on the last step's own points (``grid_encode_bwd_x``, D =
+    3, the step's bf16 cotangent and in f32; the forward and the table
+    gradient) and on random points with 25% outside the box. (b) ``--test``
+    on (a)'s workspace: the same PSNR. (c) ``--hyper --iters
+    DNERF_SHORT_ITERS``: the 4-D instances (forward, table gradient,
+    x-gradient) launched and held against their plain versions on its last
+    step's own points and on random 4-D points. (d) ``--basis --iters
+    DNERF_SHORT_ITERS``: the loss falls; no x-gradient is launched. With
+    ``control`` (``--dnerf-control``), (e): (a) again with the deformation
+    net frozen (its output detached: no gradient reaches it, and no
+    x-gradient is launched), whose test PSNR must stay below
+    ``DNERF_MIN_PSNR``. Returns the launch counts of (a)-(d)."""
+    import numpy as np
+    import torch
+
+    from ngp_tpu_torch import main_dnerf
+    from ngp_tpu_torch.data.nerf_dataset import NeRFDataset
+    from ngp_tpu_torch.data.synthetic import make_synthetic_dataset
+    from ngp_tpu_torch.models.dnerf import DNeRFNetwork
+    from ngp_tpu_torch.ops.kernels import hashgrid as hk
+    from ngp_tpu_torch.ops.kernels import scatter as sk
+    from ngp_tpu_torch.training.dnerf import DNeRFTrainer
+
+    n_train = CLI_FRAMES[0]
+    refresh = DNeRFTrainer._update_occupancy
+    walls = {}
+
+    def timed_refresh(self):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        refresh(self)
+        torch.cuda.synchronize()
+        walls.setdefault(len(self.last_refresh_slices), []).append(time.perf_counter() - t0)
+
+    def epoch_means(seen, label):
+        means = torch.stack(seen["step_losses"]).cpu().numpy().reshape(-1, n_train).mean(axis=1)
+        if not means[-1] < means[0]:
+            raise RuntimeError(f"D-NeRF {label}: the loss did not fall: epoch means {means}")
+        return means
+
+    counts = []
+    with (tempfile.TemporaryDirectory() as tmp, cli_recorder(dev, card) as (seen, run),
+          patched((DNeRFTrainer, "_update_occupancy", timed_refresh))):
+        scene = os.path.join(tmp, "dscene")
+        t0 = time.perf_counter()
+        make_synthetic_dataset(scene, n_train=n_train, n_val=CLI_FRAMES[1],
+                               n_test=CLI_FRAMES[2], dynamic=True, device=dev)
+        print(f"D-NeRF scene ({sum(CLI_FRAMES)} frames of 400x400, dynamic): "
+              f"{time.perf_counter() - t0:.3f} s  [{card}]", flush=True)
+        white = white_psnr(scene, "test")
+
+        def go(argv, label, last):
+            with grid_inputs(lambda n, D: f"D-NeRF {label} step {last}" if n == last
+                             else None) as caught:
+                out = run(argv, label, main_dnerf.main)
+            return (*out, caught)
+
+        # (a) the deformation net
+        ws = os.path.join(tmp, "ws")
+        argv = [scene, "-O", "--workspace", ws, "--iters", str(DNERF_ITERS)]
+        last = cli_steps(DNERF_ITERS) - 1
+        trainer, a_counts, a_dt, _, caught = go(argv, "16(a) main_dnerf -O", last)
+        counts.append(a_counts)
+        check_launched("D-NeRF (a) -O", a_counts,
+                       ("march_turbo", "coarse_lookup_bits", "grid_encode_fwd",
+                        "grid_encode_bwd", "grid_encode_bwd_x"),
+                       absent=("cp_density_fwd", "grid_encode_fwd_4d", "grid_encode_fwd_2d"))
+        means = epoch_means(seen, "(a)")
+        psnr = seen["results"][-1]["psnr"]
+        mid = seen["epochs"][1:-1]
+        rays_s = len(mid) * n_train * trainer.train_cfg.num_rays / sum(mid)
+        T = trainer.render_cfg.time_size
+        full, quarter = walls.get(T, []), walls.get(T // 4, [])
+        print(f"D-NeRF (a): {a_dt:.3f} s wall, {trainer.global_step} steps, {rays_s:.0f} rays/s "
+              f"over epochs 2-{len(seen['epochs']) - 1} (refreshes included); refresh wall: "
+              f"{len(full)} full {T}-slice sweeps, median {np.median(full):.3f} s (first "
+              f"{full[0]:.3f}); {len(quarter)} of a quarter ({T // 4} slices), median "
+              f"{np.median(quarter) if quarter else float('nan'):.3f} s; test PSNR {psnr:.4f} dB "
+              f"(a white frame: {white:.4f}; floor {DNERF_MIN_PSNR}); epoch-mean loss "
+              f"{means[0]:.6f} -> {means[-1]:.6f}  [{card}]", flush=True)
+        if not (psnr > max(white, DNERF_MIN_PSNR) and len(full) == 16 and quarter):
+            raise RuntimeError(f"D-NeRF (a): test PSNR {psnr}, refreshes {sorted(walls)}")
+        if control:
+            def frozen(self, x, t, deform=DNeRFNetwork.deform):
+                with torch.no_grad():
+                    return deform(self, x, t)
+
+            with patched((DNeRFNetwork, "deform", frozen)):
+                trainer_e, e_counts, e_dt, _, _ = go(
+                    [scene, "-O", "--workspace", os.path.join(tmp, "ws_frozen"), "--iters",
+                     str(DNERF_ITERS)], "16(e) deformation frozen", None)
+            del trainer_e
+            check_launched("D-NeRF (e) deformation frozen", e_counts,
+                           ("march_turbo", "grid_encode_fwd", "grid_encode_bwd"),
+                           absent=("grid_encode_bwd_x",))
+            means_e = epoch_means(seen, "(e)")
+            psnr_e = seen["results"][-1]["psnr"]
+            print(f"D-NeRF (e) the deformation net frozen: {e_dt:.3f} s wall; test PSNR "
+                  f"{psnr_e:.4f} dB ((a): {psnr:.4f}; floor {DNERF_MIN_PSNR}; a white frame: "
+                  f"{white:.4f}); epoch-mean loss {means_e[0]:.6f} -> {means_e[-1]:.6f} ((a): "
+                  f"{means[-1]:.6f})  [{card}]", flush=True)
+            if not psnr_e < DNERF_MIN_PSNR:
+                raise RuntimeError(f"D-NeRF (e): the frozen deformation's PSNR {psnr_e} passes "
+                                   f"the floor {DNERF_MIN_PSNR}")
+        e = caught[f"D-NeRF 16(a) main_dnerf -O step {last}"]
+        geom = trainer.model.encoder.cfg.geometry
+        table = e["table"].detach()
+        table = (table / table.abs().max()).contiguous()
+        label = f"D=3 bf16 step {last}"
+        print(f"D-NeRF (a) step {last}: {e['x'].shape[0]} encoder points, "
+              f"{1.0 - float(inside_rows(e['x']).float().mean()):.4f} outside the box, "
+              f"{float((e['g'] == 0).all(dim=1).float().mean()):.4f} zero cotangent rows",
+              flush=True)
+        bwd_x_checks(hk, e["x"], table, geom, e["g"], label, results)
+        bwd_x_checks(hk, e["x"], table, geom, e["g"].float(), f"D=3 f32 step {last}", results)
+        grid_checks(hk, sk, e["x"], table, geom, torch.bfloat16, e["g"], label, results)
+        xr = random_points(dev, 262144, 3, SEED + 16)
+        gr = torch.randn((262144, geom.output_dim), generator=torch.Generator().manual_seed(
+            SEED + 17)).to(dev)
+        bwd_x_checks(hk, xr, table, geom, gr, "D=3 f32 random", results)
+        bwd_x_checks(hk, xr, table, geom, gr.bfloat16(), "D=3 bf16 random", results)
+        del caught, e, xr, gr
+        batches = itertools.chain.from_iterable(
+            trainer.make_loader(NeRFDataset(scene, split="train"))() for _ in itertools.count())
+        trainer.step(next(batches))
+        profile(lambda: trainer.step(next(batches)), 1, "D-NeRF step", card,
+                focus=("grid_bwd_x", "grid_fwd", "grid_bwd_kernel", "march", "gemm"))
+        del trainer, batches
+
+        # (b) --test on (a)'s workspace
+        trainer, b_counts, _, _, _ = go(argv + ["--test"], "16(b) --test", None)
+        counts.append(b_counts)
+        check_launched("D-NeRF (b) --test", b_counts, ("march_turbo", "coarse_lookup_bits"))
+        psnr_b = seen["results"][-1]["psnr"]
+        print(f"D-NeRF (b): resumed step {seen['loaded']}, test PSNR {psnr_b:.6f} dB ((a): "
+              f"{psnr:.6f})  [{card}]", flush=True)
+        if not abs(psnr_b - psnr) <= 0.01:
+            raise RuntimeError(f"D-NeRF (b): PSNR {psnr_b} against (a)'s {psnr}")
+        del trainer
+
+        # (c) the hyper grid: the 4-D instances
+        last = cli_steps(DNERF_SHORT_ITERS) - 1
+        trainer, c_counts, _, _, caught = go(
+            [scene, "-O", "--hyper", "--workspace", os.path.join(tmp, "ws_hyper"), "--iters",
+             str(DNERF_SHORT_ITERS)], "16(c) --hyper", last)
+        counts.append(c_counts)
+        check_launched("D-NeRF (c) --hyper", c_counts,
+                       ("march_turbo", "grid_encode_fwd_4d", "grid_encode_bwd_4d",
+                        "grid_encode_bwd_x_4d"))
+        means = epoch_means(seen, "(c)")
+        print(f"D-NeRF (c): test PSNR {seen['results'][-1]['psnr']:.4f} dB; epoch-mean loss "
+              f"{means[0]:.6f} -> {means[-1]:.6f}  [{card}]", flush=True)
+        e = caught[f"D-NeRF 16(c) --hyper step {last}"]
+        geom = trainer.model.encoder.cfg.geometry
+        table = e["table"].detach()
+        table = (table / table.abs().max()).contiguous()
+        label = f"D=4 bf16 step {last}"
+        bwd_x_checks(hk, e["x"], table, geom, e["g"], label, results)
+        bwd_x_checks(hk, e["x"], table, geom, e["g"].float(), f"D=4 f32 step {last}", results)
+        grid_checks(hk, sk, e["x"], table, geom, torch.bfloat16, e["g"], label, results)
+        grid_checks(hk, sk, e["x"], table, geom, torch.float32, e["g"].float(),
+                    f"D=4 f32 step {last}", results)
+        xr = random_points(dev, 262144, 4, SEED + 18)
+        gr = torch.randn((262144, geom.output_dim), generator=torch.Generator().manual_seed(
+            SEED + 19)).to(dev)
+        grid_checks(hk, sk, xr, table, geom, torch.float32, gr, "D=4 f32 random", results)
+        bwd_x_checks(hk, xr, table, geom, gr, "D=4 f32 random", results)
+        bwd_x_checks(hk, xr, table, geom, gr.bfloat16(), "D=4 bf16 random", results)
+        del trainer, caught, e, xr, gr, table
+
+        # (d) the temporal basis
+        trainer, d_counts, _, _, _ = go(
+            [scene, "-O", "--basis", "--workspace", os.path.join(tmp, "ws_basis"), "--iters",
+             str(DNERF_SHORT_ITERS)], "16(d) --basis", None)
+        counts.append(d_counts)
+        check_launched("D-NeRF (d) --basis", d_counts, ("march_turbo", "grid_encode_bwd"),
+                       absent=("grid_encode_bwd_x", "grid_encode_fwd_4d"))
+        means = epoch_means(seen, "(d)")
+        print(f"D-NeRF (d): test PSNR {seen['results'][-1]['psnr']:.4f} dB; epoch-mean loss "
+              f"{means[0]:.6f} -> {means[-1]:.6f}  [{card}]", flush=True)
         del trainer
     return counts
 
@@ -1936,6 +2330,9 @@ def main():
     parser.add_argument("--probe-scatter", action="store_true",
                         help="also time the replaced corner rows + scatter_add_rows pair and "
                              "index_add_ on the hash steps' own rows (scatter_probe)")
+    parser.add_argument("--dnerf-control", action="store_true",
+                        help="also run phase 16 (a) with the deformation net frozen; its test "
+                             "PSNR must stay below DNERF_MIN_PSNR")
     args = parser.parse_args()
     probe_scatter = args.probe_scatter
     import torch
@@ -2705,10 +3102,21 @@ def main():
         tensorf_counts = tensorf_runs(dev, card, scene, rays_11a, results)
         phase("TensoRF (-O, --test, --cp, --bg_radius)", t0)
 
+        # 15. CCNeRF on the same scene: -O --compose, --test
+        t0 = time.perf_counter()
+        ccnerf_counts = ccnerf_runs(dev, card, scene, results)
+        phase("CCNeRF (-O --compose, --test)", t0)
+
+    # 16. D-NeRF on a dynamic scene: -O, --test, --hyper, --basis
+    t0 = time.perf_counter()
+    dnerf_counts = dnerf_runs(dev, card, results, control=args.dnerf_control)
+    phase("D-NeRF (-O, --test, --hyper, --basis)", t0)
+
     print_results(results, library, card, printed)
     path_counts = (eval_counts, train_counts, frame_counts, evaluate_counts, test_counts,
                    mesh_counts, wide_counts, gamma_counts, gamma_frame_counts, hash_train_counts,
-                   hash_frame_counts, *cli_counts, *rest_counts, *sdf_counts, *tensorf_counts)
+                   hash_frame_counts, *cli_counts, *rest_counts, *sdf_counts, *tensorf_counts,
+                   *ccnerf_counts, *dnerf_counts)
     csrc = "ngp_tpu_torch/ops/kernels/csrc/"
     sources = {
         "cp_density_fwd": (csrc + "cp_kernels.cu", "ngp_tpu/ops/pallas/cp_kernels.py:345",
@@ -2744,6 +3152,19 @@ def main():
                                ("grid_encode_fwd", f"D=2 step {cli_steps(CLI_BG_ITERS) - 1}")),
         "grid_encode_bwd_2d": (csrc + "grid_kernels.cu", "ngp_tpu/ops/hashgrid.py:204",
                                ("grid_encode_bwd", f"D=2 step {cli_steps(CLI_BG_ITERS) - 1}")),
+        # JAX's autodiff of grid_encode in x (D-NeRF), and the 4-D instances
+        # (the hyper grid), on phase 16 (a)'s and (c)'s last steps' own points
+        "grid_encode_bwd_x": (csrc + "grid_bwd_x_kernels.cu", "ngp_tpu/ops/hashgrid.py:161",
+                              ("grid_encode_bwd_x", f"D=3 bf16 step {cli_steps(DNERF_ITERS) - 1}")),
+        "grid_encode_fwd_4d": (csrc + "grid_kernels.cu", "ngp_tpu/ops/hashgrid.py:203",
+                               ("grid_encode_fwd",
+                                f"D=4 bf16 step {cli_steps(DNERF_SHORT_ITERS) - 1}")),
+        "grid_encode_bwd_4d": (csrc + "grid_kernels.cu", "ngp_tpu/ops/hashgrid.py:204",
+                               ("grid_encode_bwd",
+                                f"D=4 bf16 step {cli_steps(DNERF_SHORT_ITERS) - 1}")),
+        "grid_encode_bwd_x_4d": (csrc + "grid_bwd_x_kernels.cu", "ngp_tpu/ops/hashgrid.py:161",
+                                 ("grid_encode_bwd_x",
+                                  f"D=4 bf16 step {cli_steps(DNERF_SHORT_ITERS) - 1}")),
     }
     kernels = []
     for name, (src, replaces, key) in sources.items():

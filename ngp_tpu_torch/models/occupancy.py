@@ -44,6 +44,7 @@ from ngp_tpu_torch.ops.lattice import (  # noqa: F401  (re-exported)
     t_lattice,
 )
 from ngp_tpu_torch.models.renderer import background
+from ngp_tpu_torch.ops.morton import morton3d_invert, packbits
 from ngp_tpu_torch.ops.rays import near_far_from_aabb
 
 ALIGN = 4  # compact segment alignment (samples per placement row)
@@ -181,6 +182,17 @@ def occupancy_from_jax(arrays: Dict[str, np.ndarray], device="cuda") -> Occupanc
         fine_payload=t("fine_payload", np.int64),
         prepass_payload=t("prepass_payload", np.float32),
     )
+
+
+def bitfield(state: OccupancyState) -> torch.Tensor:
+    """uint8 density bitfield [CAS * H^3 / 8] in the reference's cell order:
+    bit m of a cascade is the cell at ``morton3d_invert(m)``
+    (nerf/renderer.py:459-462, packed as raymarching.cu:268 does)."""
+    occ = state.occ_grid
+    H = occ.shape[-1]
+    c = morton3d_invert(torch.arange(H**3, device=occ.device)).long()
+    zorder = occ.reshape(occ.shape[0], -1)[:, (c[:, 0] * H + c[:, 1]) * H + c[:, 2]]
+    return packbits(zorder.float().reshape(-1), 0.5)
 
 
 def occupied_aabb(state: OccupancyState, cfg: RenderConfig) -> torch.Tensor:
@@ -341,13 +353,17 @@ def render_rays_grid(density_fn: Callable, color_fn: Callable, rays_o, rays_d,
                      t_range: Optional[torch.Tensor] = None, perturb: bool = False,
                      generator: Optional[torch.Generator] = None,
                      noise: Optional[torch.Tensor] = None,
-                     bg_fn: Optional[Callable] = None) -> Dict[str, torch.Tensor]:
+                     bg_fn: Optional[Callable] = None,
+                     return_geo: bool = False) -> Dict[str, torch.Tensor]:
     """v1 march -> network -> compositing. The network runs on all N * S
     slots, the masked ones included, as the JAX renderer does: their
     compositing weights are zero, so they add nothing to a pixel or a
     gradient. There is no ``n_dropped``: the v1 march has no budget
     below S per ray. ``bg_fn`` (``bg_radius > 0``) replaces ``bg_color``
-    (``models.renderer.background``)."""
+    (``models.renderer.background``). ``return_geo`` adds the density
+    closure's geometry output (``out["geo"]``, per [N, S] slot) and its
+    validity mask (``out["compact_valid"]``, the march's [N, S] mask), which
+    D-NeRF's deformation regulariser reads."""
     m = march_rays(rays_o, rays_d, state, cfg, max_samples=max_samples, aabb=aabb,
                    t_range=t_range, perturb=perturb, generator=generator, noise=noise)
     sigmas, geo = density_fn(m["xyzs"])
@@ -358,6 +374,8 @@ def render_rays_grid(density_fn: Callable, color_fn: Callable, rays_o, rays_d,
         rays_o, rays_d, cfg, bg_color, bg_fn)
     out["n_samples"] = m["mask"].sum()
     out["ts"], out["deltas"] = m["ts"], m["deltas"]
+    if return_geo:
+        out["geo"], out["compact_valid"] = geo, m["mask"]
     return out
 
 
@@ -542,12 +560,18 @@ def render_rays_grid_turbo(density_fn: Optional[Callable], color_fn: Optional[Ca
                            vals_fn: Optional[Callable] = None, perturb: bool = False,
                            generator: Optional[torch.Generator] = None,
                            noise: Optional[torch.Tensor] = None,
-                           bg_fn: Optional[Callable] = None) -> Dict[str, torch.Tensor]:
+                           bg_fn: Optional[Callable] = None,
+                           return_geo: bool = False) -> Dict[str, torch.Tensor]:
     """Turbo march -> compaction -> network on the compact batch ->
     placement -> compositing. ``vals_fn(pts, dirs) -> [M, 4]`` (eval)
     replaces the density_fn / color_fn pair. ``perturb`` (training)
     jitters the lattice start (see :func:`march_rays_turbo`). ``bg_fn``
-    (``bg_radius > 0``) replaces ``bg_color`` (``models.renderer.background``)."""
+    (``bg_radius > 0``) replaces ``bg_color`` (``models.renderer.background``).
+    ``return_geo`` adds the density closure's geometry output for the
+    compact batch (``out["geo"]``, [budget, ...]) and its validity mask
+    (``out["compact_valid"]``, [budget]); it takes no ``vals_fn``."""
+    if vals_fn is not None and return_geo:
+        raise ValueError("vals_fn is incompatible with return_geo")
     m, S, budget, src, valid_m, offsets, t_c, pts, dirs, maskb = _turbo_compact_geometry(
         rays_o, rays_d, state, cfg, max_samples, aabb, budget, t_range=t_range,
         perturb=perturb, generator=generator, noise=noise,
@@ -567,6 +591,41 @@ def render_rays_grid_turbo(density_fn: Optional[Callable], color_fn: Optional[Ca
     out["n_samples"] = maskb.sum()
     out["n_dropped"] = m["n_dropped"].sum() + (m["mask"] & ~maskb).sum()
     out["ts"], out["deltas"] = m["ts"], m["deltas"]
+    if return_geo:
+        out["geo"], out["compact_valid"] = geo, valid_m
+    return out
+
+
+def render_rays_grid_turbo_multi(sigma_rgb_fn: Callable, rays_o, rays_d,
+                                 state: OccupancyState, cfg: RenderConfig, bg_color=None,
+                                 max_samples: Optional[int] = None, aabb=None,
+                                 budget: Optional[int] = None, perturb: bool = False,
+                                 generator: Optional[torch.Generator] = None,
+                                 noise: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+    """The turbo render of K stacked radiance heads over one march:
+    ``sigma_rgb_fn(pts [M, 3], dirs [M, 3]) -> (sigmas [K, M], rgbs [K, M, 3])``
+    on the compact batch, each head placed and composited into its own
+    image (CCNeRF's rank-residual training forward). The march,
+    compaction and placement are the single-head path's; the K heads are
+    placed together as one [M, 4K] value row. Returns "image" [K, N, 3],
+    "weights_sum", "depth" [K, N], "weights" [K, N, S] and the single-head
+    path's "n_samples" and "n_dropped"."""
+    m, S, budget, src, valid_m, offsets, t_c, pts, dirs, maskb = _turbo_compact_geometry(
+        rays_o, rays_d, state, cfg, max_samples, aabb, budget, perturb=perturb,
+        generator=generator, noise=noise,
+    )
+    sigmas, rgbs = sigma_rgb_fn(pts, dirs)
+    K, M = sigmas.shape
+    vals = torch.cat([sigmas[..., None].float(), rgbs.float()], dim=-1)  # [K, M, 4]
+    placed = place_compact(vals.permute(1, 0, 2).reshape(M, 4 * K), offsets, src, S)
+    placed = placed.reshape(-1, S, K, 4).permute(2, 0, 1, 3)  # [K, N, S, 4]
+    out = composite_rays(placed[..., 0], placed[..., 1:], m["ts"], m["deltas"], maskb,
+                         m["nears"], m["fars"], density_scale=cfg.density_scale,
+                         t_thresh=cfg.t_thresh)
+    bg = 1.0 if bg_color is None else bg_color
+    out["image"] = out["image"] + (1.0 - out["weights_sum"])[..., None] * bg
+    out["n_samples"] = maskb.sum()
+    out["n_dropped"] = m["n_dropped"].sum() + (m["mask"] & ~maskb).sum()
     return out
 
 

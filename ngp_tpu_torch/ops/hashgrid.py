@@ -8,8 +8,9 @@ d-linear or smoothstep interpolation, zero outside [0, 1]^D.
 ``grid_encode`` takes the plain PyTorch version for a CPU tensor
 (differentiable by autograd in x and the table, as the JAX function is)
 and the CUDA kernels for a CUDA tensor (``ops/kernels/hashgrid.py``:
-``GridEncode`` while autograd records the table, the forward launch
-alone otherwise), where it gives the table gradient but no x-gradient.
+``GridEncode`` while autograd records the table or the points, the
+forward launch alone otherwise), where it gives the table gradient and
+the x-gradient (D-NeRF's deformation and ambient nets train through it).
 ``grid_tv_loss`` is the TV regulariser over the table's dense levels,
 plain tensor ops on either device.
 """
@@ -149,8 +150,9 @@ def grid_encode(x: torch.Tensor, embeddings: torch.Tensor, cfg: GridConfig,
     ``compute_dtype`` (the table's dtype when None); zero outside.
 
     CPU tensors: the plain version, differentiable in x and the table.
-    CUDA tensors: ``GridEncode`` (table gradient through ``grid_encode_bwd``)
-    while autograd records the table, the forward kernel otherwise."""
+    CUDA tensors: ``GridEncode`` (table gradient through ``grid_encode_bwd``,
+    x-gradient through ``grid_encode_bwd_x``) while autograd records the
+    table or x, the forward kernel otherwise."""
     if x.shape[-1] != cfg.input_dim:
         raise ValueError(f"expected [..., {cfg.input_dim}] input, got {tuple(x.shape)}")
     batch_shape = x.shape[:-1]

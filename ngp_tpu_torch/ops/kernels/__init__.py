@@ -18,7 +18,9 @@
   kernel: the JAX package leaves the hash-grid encoder and its VJP to XLA
   (``ngp_tpu/ops/hashgrid.py:203-204``); ``hashgrid.GridEncode`` adds the backward
   through ``grid_encode_bwd``, which adds into the table gradient by atomics
-  itself, so no path runs ``scatter_add_rows`` any more
+  itself, so no path runs ``scatter_add_rows`` any more, and through
+  ``hashgrid.grid_encode_bwd_x``, the VJP in the points that JAX's autodiff
+  of ``grid_encode`` gives (``hashgrid.py:161-209``; D-NeRF trains through it)
 
 Each wrapper takes its plain PyTorch version for a CPU tensor and
 launches its kernel for a CUDA tensor; there is no fallback between the
@@ -29,10 +31,12 @@ that wrote residuals, ``cp_density_fwd_tc`` and ``cp_sigma_rgb_tc``
 the launches of the two heads that took the tensor-core kernels (bf16
 heads the tensor-core tiles take; they count under ``cp_density_fwd``
 and ``cp_sigma_rgb`` too), ``fused_mlp_tc`` those of ``fused_mlp``
-that took its tensor-core kernel, and ``grid_encode_fwd_2d`` and
+that took its tensor-core kernel, ``grid_encode_fwd_2d`` and
 ``grid_encode_bwd_2d`` the grid kernels' launches on 2-D points (the
-background net's encoder; they count under ``grid_encode_fwd`` and
-``grid_encode_bwd`` too).
+background net's encoder), and ``grid_encode_fwd_4d``,
+``grid_encode_bwd_4d`` and ``grid_encode_bwd_x_4d`` those on 4-D points
+(D-NeRF's hyper grid); they count under ``grid_encode_fwd``,
+``grid_encode_bwd`` and ``grid_encode_bwd_x`` too.
 """
 
 from typing import Dict
@@ -53,6 +57,10 @@ LAUNCHES: Dict[str, int] = {
     "grid_encode_bwd": 0,
     "grid_encode_fwd_2d": 0,
     "grid_encode_bwd_2d": 0,
+    "grid_encode_bwd_x": 0,
+    "grid_encode_fwd_4d": 0,
+    "grid_encode_bwd_4d": 0,
+    "grid_encode_bwd_x_4d": 0,
     "scatter_add_rows": 0,
 }
 

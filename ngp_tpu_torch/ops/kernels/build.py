@@ -69,6 +69,11 @@ _SIGNATURES = {
         ctypes.POINTER(_U), ctypes.POINTER(_U), ctypes.POINTER(_I), ctypes.c_float, _I,
         _P, _P,
     ],
+    "ngp_grid_encode_bwd_x": [
+        _P, _L, _I, _P, _I, _P, _I, _I, _I, ctypes.POINTER(ctypes.c_float),
+        ctypes.POINTER(_I), ctypes.POINTER(_U), ctypes.POINTER(_U), ctypes.POINTER(_I),
+        ctypes.c_float, _I, _P, _P,
+    ],
     "ngp_scatter_add_rows": [_P, _P, _L, _I, _I, _P, _P],
 }
 

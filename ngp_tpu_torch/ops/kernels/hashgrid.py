@@ -4,24 +4,31 @@ and their plain versions.
 The JAX package leaves this encoder to XLA (``ngp_tpu/ops/hashgrid.py:
 grid_encode``, the take and einsum at ``hashgrid.py:203-204``);
 ``grid_encode_fwd`` and ``grid_encode_bwd`` do that work by hand, in
-``csrc/grid_kernels.cu``, whose header says what bounds them.
-``GridEncode`` is the encoder with its table gradient: the backward adds
-every corner's cotangent row w * g into the f32 gradient in one atomic
-pass (``grid_encode_bwd``), skipping zero rows, the VJP of the take and
-the einsum. Its plain version makes the corner rows
-(``grid_encode_bwd_rows_plain``) and adds them with ``index_add_``.
+``csrc/grid_kernels.cu``, and ``grid_encode_bwd_x`` in
+``csrc/grid_bwd_x_kernels.cu``, whose headers say what bounds them.
+``GridEncode`` is the encoder with its gradients: in the table, the
+backward adds every corner's cotangent row w * g into the f32 gradient in
+one atomic pass (``grid_encode_bwd``), skipping zero rows, the VJP of the
+take and the einsum; its plain version makes the corner rows
+(``grid_encode_bwd_rows_plain``) and adds them with ``index_add_``. In the
+points, ``grid_encode_bwd_x`` gives what JAX's autodiff of ``grid_encode``
+gives for x (``hashgrid.py:161-209``); its plain version is autograd of
+``grid_encode_plain``.
 
 ``GridGeometry`` is what the kernels read of a ``GridConfig``
 (``ops/hashgrid.py``): per level the interpolation scale, row offset and
 count, the dense strides of the dims that fit the level and whether the
 level hashes. The kernels take points of D = 2 (the background net's
-sphere coordinates) or D = 3 dimensions; the plain versions take any D.
+sphere coordinates), D = 3 or D = 4 (D-NeRF's hyper grid) dimensions; the
+plain versions take any D.
 
 Rounding with the bf16 compute type (a bf16 output): table values and
 corner weights are rounded to bf16 and their products summed in f32,
 then each feature rounded once, as JAX's bf16 einsum on the CPU does.
 Backward, the product w * g is rounded to bf16 (the einsum's VJP) and
-the gradient sums in f32, where JAX sums in bf16 and casts.
+the gradient sums in f32, where JAX sums in bf16 and casts; in the points,
+each corner's dot product of the cotangent with its bf16 row is rounded
+to bf16 (the einsum's VJP in the weights), the rest is f32.
 """
 
 from __future__ import annotations
@@ -40,7 +47,7 @@ PRIMES = (1, 2654435761, 805459861, 3674653429, 2097192037, 1434869437, 21652197
 _M32 = 0xFFFFFFFF
 _DTYPES = (torch.float32, torch.bfloat16)
 _MAX_LEVELS = 32
-_KERNEL_DIMS = (2, 3)
+_KERNEL_DIMS = (2, 3, 4)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -165,6 +172,18 @@ def grid_encode_bwd_rows_plain(x: torch.Tensor, g: torch.Tensor,
     return idx.reshape(-1), rows.reshape(B * geom.num_levels * 2**geom.input_dim, C)
 
 
+def grid_encode_bwd_x_plain(x: torch.Tensor, table: torch.Tensor, g: torch.Tensor,
+                            geom: GridGeometry) -> torch.Tensor:
+    """The gradient in the points [B, D] f32: autograd of
+    ``grid_encode_plain`` (output type g's) in x, the cotangent g [B, L*C];
+    zero rows for points outside [0, 1]^D."""
+    with torch.enable_grad():
+        xr = x.detach().requires_grad_()
+        out = grid_encode_plain(xr, table.detach(), geom, g.dtype)
+        (dx,) = torch.autograd.grad(out, xr, g)
+    return dx
+
+
 def grid_encode_bwd_plain(x: torch.Tensor, g: torch.Tensor, geom: GridGeometry) -> torch.Tensor:
     """The table gradient [num_rows, C] f32: the corner rows of
     ``grid_encode_bwd_rows_plain`` added into an f32 zero table with
@@ -182,7 +201,7 @@ def grid_encode_bwd_plain(x: torch.Tensor, g: torch.Tensor, geom: GridGeometry) 
 def _check_points(name: str, x: torch.Tensor, geom: GridGeometry) -> int:
     D = geom.input_dim
     if D not in _KERNEL_DIMS:
-        raise ValueError(f"{name}: the kernel takes 2-D or 3-D points, the grid is {D}-D")
+        raise ValueError(f"{name}: the kernel takes 2-D, 3-D or 4-D points, the grid is {D}-D")
     if geom.level_dim not in (1, 2, 4, 8) or not 1 <= geom.num_levels <= _MAX_LEVELS:
         raise ValueError(f"{name}: the kernel takes 1, 2, 4 or 8 features on 1-{_MAX_LEVELS} "
                          f"levels, not {geom.level_dim} on {geom.num_levels}")
@@ -214,9 +233,31 @@ def _geometry_args(geom: GridGeometry):
     )
 
 
+def _count(name: str, D: int) -> None:
+    LAUNCHES[name] += 1
+    if D in (2, 4) and f"{name}_{D}d" in LAUNCHES:
+        LAUNCHES[f"{name}_{D}d"] += 1
+
+
+def _check_table(name: str, x: torch.Tensor, table: torch.Tensor, geom: GridGeometry,
+                 od: torch.dtype) -> None:
+    """A contiguous f32 or bf16 table [num_rows, C] on x's device that starts
+    on a pair of rows (the kernels load rows and row pairs as vectors)."""
+    if (table.device != x.device or table.dtype not in _DTYPES or od not in _DTYPES
+            or tuple(table.shape) != (geom.num_rows, geom.level_dim)
+            or not table.is_contiguous()):
+        raise ValueError(f"{name}: table must be contiguous f32 or bf16 "
+                         f"[{geom.num_rows}, {geom.level_dim}] on {x.device}, output f32 "
+                         f"or bf16; got {table.dtype} {tuple(table.shape)} -> {od}")
+    pair = 2 * geom.level_dim * table.element_size()
+    if table.data_ptr() % pair != 0:
+        raise ValueError(f"{name}: the table must start on a pair of rows "
+                         f"({pair} bytes); it starts at {table.data_ptr() % pair} past one")
+
+
 def grid_encode_fwd(x: torch.Tensor, table: torch.Tensor, geom: GridGeometry,
                     out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """Grid features: x [B, D] f32 (D = 2 or 3) -> [B, L*C] in ``out_dtype``
+    """Grid features: x [B, D] f32 (D = 2, 3 or 4) -> [B, L*C] in ``out_dtype``
     (f32 or bf16; the table's dtype when None), zero outside [0, 1]^D. table
     [num_rows, C] f32 or bf16, contiguous, starting on a pair of rows (the
     kernel loads rows and row pairs as vectors)."""
@@ -226,16 +267,7 @@ def grid_encode_fwd(x: torch.Tensor, table: torch.Tensor, geom: GridGeometry,
         raise ValueError(f"grid_encode_fwd: no kernel for {x.device}")
     B = _check_points("grid_encode_fwd", x, geom)
     od = out_dtype or table.dtype
-    if (table.device != x.device or table.dtype not in _DTYPES or od not in _DTYPES
-            or tuple(table.shape) != (geom.num_rows, geom.level_dim)
-            or not table.is_contiguous()):
-        raise ValueError(f"grid_encode_fwd: table must be contiguous f32 or bf16 "
-                         f"[{geom.num_rows}, {geom.level_dim}] on {x.device}, output f32 "
-                         f"or bf16; got {table.dtype} {tuple(table.shape)} -> {od}")
-    pair = 2 * geom.level_dim * table.element_size()
-    if table.data_ptr() % pair != 0:
-        raise ValueError(f"grid_encode_fwd: the table must start on a pair of rows "
-                         f"({pair} bytes); it starts at {table.data_ptr() % pair} past one")
+    _check_table("grid_encode_fwd", x, table, geom, od)
     out = torch.empty((B, geom.output_dim), dtype=od, device=x.device)
     if B > 0:
         lib = load_library()
@@ -246,14 +278,13 @@ def grid_encode_fwd(x: torch.Tensor, table: torch.Tensor, geom: GridGeometry,
             int(od == torch.bfloat16), torch.cuda.current_stream(x.device).cuda_stream,
         )
         check_launch("grid_encode_fwd", err)
-        LAUNCHES["grid_encode_fwd"] += 1
-        LAUNCHES["grid_encode_fwd_2d"] += int(geom.input_dim == 2)
+        _count("grid_encode_fwd", geom.input_dim)
     return out
 
 
 def grid_encode_bwd(x: torch.Tensor, g: torch.Tensor, geom: GridGeometry) -> torch.Tensor:
     """The table gradient [num_rows, C] f32 in one launch: x [B, D] f32
-    (D = 2 or 3), g [B, L*C] f32 or bf16 (the output's cotangent); every
+    (D = 2, 3 or 4), g [B, L*C] f32 or bf16 (the output's cotangent); every
     (point, level, corner) whose product row w * g is not zero is added by
     f32 atomics into a table the wrapper zeroes (the lanes of a warp that
     add to one row sum first). Points outside [0, 1]^D add nothing."""
@@ -276,28 +307,58 @@ def grid_encode_bwd(x: torch.Tensor, g: torch.Tensor, geom: GridGeometry) -> tor
             torch.cuda.current_stream(x.device).cuda_stream,
         )
         check_launch("grid_encode_bwd", err)
-        LAUNCHES["grid_encode_bwd"] += 1
-        LAUNCHES["grid_encode_bwd_2d"] += int(geom.input_dim == 2)
+        _count("grid_encode_bwd", geom.input_dim)
     return dtable
 
 
+def grid_encode_bwd_x(x: torch.Tensor, table: torch.Tensor, g: torch.Tensor,
+                      geom: GridGeometry) -> torch.Tensor:
+    """The gradient in the points [B, D] f32 in one launch, one thread a
+    point: x [B, D] f32 (D = 2, 3 or 4), the table as ``grid_encode_fwd``
+    takes it, g [B, L*C] f32 or bf16 (the output's cotangent, whose dtype is
+    the output's). Points outside [0, 1]^D get zero rows."""
+    if x.device.type == "cpu":
+        return grid_encode_bwd_x_plain(x, table, g, geom)
+    if x.device.type != "cuda":
+        raise ValueError(f"grid_encode_bwd_x: no kernel for {x.device}")
+    B = _check_points("grid_encode_bwd_x", x, geom)
+    _check_table("grid_encode_bwd_x", x, table, geom, g.dtype)
+    if (g.device != x.device or tuple(g.shape) != (B, geom.output_dim)
+            or not g.is_contiguous()):
+        raise ValueError(f"grid_encode_bwd_x: g must be contiguous f32 or bf16 "
+                         f"[{B}, {geom.output_dim}] on {x.device}")
+    dx = torch.empty((B, geom.input_dim), dtype=torch.float32, device=x.device)
+    if B > 0:
+        lib = load_library()
+        err = lib.ngp_grid_encode_bwd_x(
+            x.data_ptr(), B, geom.input_dim, table.data_ptr(),
+            int(table.dtype == torch.bfloat16), g.data_ptr(), int(g.dtype == torch.bfloat16),
+            geom.level_dim, geom.num_levels, *_geometry_args(geom), dx.data_ptr(),
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+        check_launch("grid_encode_bwd_x", err)
+        _count("grid_encode_bwd_x", geom.input_dim)
+    return dx
+
+
 class GridEncode(torch.autograd.Function):
-    """The grid encoder with its table gradient, ``grid_encode_bwd``. It
-    gives no x-gradient (the NeRF path needs none) and raises if one is
-    asked for."""
+    """The grid encoder with its gradients: in the table through
+    ``grid_encode_bwd``, in the points through ``grid_encode_bwd_x``, each
+    only where autograd asks for it."""
 
     @staticmethod
     def forward(ctx, x, table, geom, out_dtype):
-        if ctx.needs_input_grad[0]:
-            raise NotImplementedError("GridEncode: the x-gradient of the grid encoder is not "
-                                      "ported to the card")
-        ctx.save_for_backward(x)
+        ctx.save_for_backward(x, table)
         ctx.geom = geom
-        ctx.table_dtype = table.dtype
         return grid_encode_fwd(x, table, geom, out_dtype)
 
     @staticmethod
     def backward(ctx, g):
-        (x,) = ctx.saved_tensors
-        dtable = grid_encode_bwd(x, g.contiguous(), ctx.geom)
-        return None, dtable.to(ctx.table_dtype), None, None
+        x, table = ctx.saved_tensors
+        g = g.contiguous()
+        dx = dtable = None
+        if ctx.needs_input_grad[0]:
+            dx = grid_encode_bwd_x(x, table, g, ctx.geom)
+        if ctx.needs_input_grad[1]:
+            dtable = grid_encode_bwd(x, g, ctx.geom).to(table.dtype)
+        return dx, dtable, None, None

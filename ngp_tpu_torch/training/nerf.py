@@ -19,6 +19,13 @@ it the numbers ``jax.random`` drew. With ``rand_pose`` >= 0 and a
 ``guidance_step`` trains on: a low-resolution full frame from a random
 orbit pose on a white background, scored by the image loss.
 
+Dynamic scenes (D-NeRF, ``training/dnerf.py``) share this stack: a batch
+that carries ``times`` renders at its frame's time (``_step_fns(time)``
+and ``_render_with(..., time=)``), ``_render_loss_extra`` adds a loss
+term read from the render's output, and ``render_frames(...,
+times=)`` renders each frame at its time; ``evaluate`` and ``test``
+pass the split's times, which a static scene's closures ignore.
+
 ``render_frame`` renders with the EMA weights when there are any, a
 full frame in fixed-size ray chunks, inside ``aabb_infer`` (the
 inference crop box) when it is set. Which rays share a chunk decides
@@ -124,18 +131,25 @@ class NeRFTrainer(Trainer):
         bg_fn = self.model.background if self.render_cfg.bg_radius > 0 else None
         return density_fn, self.model.color, bg_fn
 
-    def _eval_fns(self):
+    def _eval_fns(self, time=None):
         """The network closures one frame render uses (built once per
         frame, not per chunk): ``_fns`` and a fused radiance closure, which
-        this renderer does not have (None), as in JAX."""
+        this renderer does not have (None), as in JAX. ``time``: the
+        frame's scene time, which a static scene ignores."""
+        return (*self._fns(), None)
+
+    def _step_fns(self, time=None):
+        """The closures a train step renders with: ``_fns`` and no fused
+        radiance closure; ``time`` (the batch's scene time, None for a
+        static scene) is for the dynamic trainer."""
         return (*self._fns(), None)
 
     def _render_with(self, fns, rays_o, rays_d, bg_color=None, aabb=None,
-                     t_range=None, perturb=False, noise=None, pdf_u=None):
-        """Render one batch of rays with the closures of ``_fns`` plus a
-        fused radiance closure or None (training: ``perturb``) or of
-        ``_eval_fns`` (eval): here the uniform + PDF renderer, which takes
-        no per-ray t range."""
+                     t_range=None, perturb=False, noise=None, pdf_u=None, time=None):
+        """Render one batch of rays with the closures of ``_step_fns``
+        (training: ``perturb``) or of ``_eval_fns`` (eval): here the
+        uniform + PDF renderer, which takes no per-ray t range and no scene
+        time."""
         if t_range is not None:
             raise ValueError("t_range needs the occupancy-grid renderer")
         density_fn, color_fn, bg_fn, _ = fns
@@ -172,13 +186,18 @@ class NeRFTrainer(Trainer):
         else:
             bg = 1.0
         gt_rgb = pixels[:, :3] * pixels[:, 3:] + bg * (1.0 - pixels[:, 3:]) if C == 4 else pixels
+        # a dynamic scene's frame time rides the batch (host values)
+        time = float(batch["times"][idx]) if "times" in batch else None
 
         self.optimizer.zero_grad(set_to_none=True)
-        out = self._render_with((*self._fns(), None), rays["rays_o"], rays["rays_d"],
+        out = self._render_with(self._step_fns(time), rays["rays_o"], rays["rays_d"],
                                 bg_color=bg, perturb=True, noise=draws.get("noise"),
-                                pdf_u=draws.get("pdf_u"))
+                                pdf_u=draws.get("pdf_u"), time=time)
         per_ray = ((out["image"] - gt_rgb) ** 2).mean(dim=-1)
         loss = per_ray.mean() + self._loss_extra()
+        extra = self._render_loss_extra(out)
+        if extra is not None:
+            loss = loss + extra
         wd = self.train_cfg.distortion_weight
         if wd > 0:
             # per ray slot; padded slots have weight 0 and add nothing
@@ -201,6 +220,11 @@ class NeRFTrainer(Trainer):
         """``tv_weight`` times the model's TV loss."""
         wt = self.train_cfg.tv_weight
         return wt * self.model.tv_loss() if wt > 0 else 0.0
+
+    def _render_loss_extra(self, out):
+        """A loss term read from the render's output (D-NeRF's deformation
+        L1), or None."""
+        return None
 
     # ---- random-pose guidance steps -----------------------------------------
 
@@ -309,16 +333,26 @@ class NeRFTrainer(Trainer):
         return imgs[0], deps[0]
 
     @torch.no_grad()
-    def render_frames(self, poses, intrinsics, H: int, W: int, chunk: int = 0):
+    def render_frames(self, poses, intrinsics, H: int, W: int, chunk: int = 0, times=None):
         """poses [F, 4, 4] -> (images [F, H, W, 3], depths [F, H, W]),
-        each frame rendered as its own single-frame group."""
+        each frame rendered as its own single-frame group; ``times`` [F]:
+        the frames' scene times (a dynamic scene's; a static one ignores
+        them). A group of several frames must share one time, as in JAX,
+        whose chunks span frames."""
         poses = np.asarray(poses, np.float32)
+        F = poses.shape[0]
+        if times is not None:
+            times = np.asarray(times, np.float32).reshape(-1)
+            if F > 1 and np.unique(times).size > 1:
+                raise ValueError("render_frames: a multi-frame group must share one scene "
+                                 "time; render distinct times one frame per call")
         imgs, deps = [], []
         n_samples = n_dropped = 0.0
         with self._eval_weights():
-            for f in range(poses.shape[0]):
+            for f in range(F):
+                time = None if times is None else float(times[f])
                 img, dep, stats = self._render_one(poses[f], intrinsics, H, W,
-                                                   chunk or self.max_ray_batch)
+                                                   chunk or self.max_ray_batch, time=time)
                 imgs.append(img)
                 deps.append(dep)
                 n_samples += stats["n_samples"]
@@ -326,7 +360,8 @@ class NeRFTrainer(Trainer):
         self.last_render_stats = {"n_samples": n_samples, "n_dropped": n_dropped}
         return np.stack(imgs), np.stack(deps)
 
-    def _render_one(self, pose: np.ndarray, intrinsics, H: int, W: int, chunk: int):
+    def _render_one(self, pose: np.ndarray, intrinsics, H: int, W: int, chunk: int,
+                    time=None):
         dev = self.device
         crop = self.render_cfg.aabb if self.aabb_infer is None else self.aabb_infer
         aabb_eff = np.asarray(crop, np.float32)
@@ -341,7 +376,7 @@ class NeRFTrainer(Trainer):
             self._eval_lattice_span = None
         pose_t = torch.as_tensor(pose, device=dev)[None]
         intr_t = torch.as_tensor(np.asarray(intrinsics, np.float32), device=dev)
-        pre = self._run_eval_prepass(pose_t, intr_t, H, W, aabb_eff)
+        pre = self._run_eval_prepass(pose_t, intr_t, H, W, aabb_eff, time=time)
         if pre is not None:
             self._set_eval_lattice_span_value(pre["span"])
         n = H * W
@@ -389,7 +424,7 @@ class NeRFTrainer(Trainer):
         n_dropped = torch.zeros((), device=dev)
         if inds is not None:
             dst = torch.where(self._last_slots(inds, n), inds, n)
-            fns = self._eval_fns()
+            fns = self._eval_fns(time)
             aabb_t = torch.as_tensor(aabb_eff, device=dev)
             fids = torch.zeros((chunk,), dtype=torch.int64, device=dev)
             for c in range(inds.shape[0]):
@@ -399,7 +434,7 @@ class NeRFTrainer(Trainer):
                 if pre is not None:
                     t_range = torch.stack([pre["t0"][ic], pre["t1"][ic]], dim=-1)
                 out = self._render_with(fns, rays["rays_o"], rays["rays_d"],
-                                        bg_color=1.0, aabb=aabb_t, t_range=t_range)
+                                        bg_color=1.0, aabb=aabb_t, t_range=t_range, time=time)
                 img = torch.clamp(out["image"], 0.0, 1.0)
                 dep = out["depth"]
                 if not self.eval_f32_frames:
@@ -501,11 +536,16 @@ class NeRFTrainer(Trainer):
 
     def _render_split(self, dataset: NeRFDataset, n: int) -> Iterator[Tuple[int, np.ndarray]]:
         """Yield (index, image [H, W, 3]) over the first n frames of a
-        split, one frame per render. Synchronous: the JAX trainer
-        pipelines its frame groups one dispatch deep for a remote TPU."""
+        split, one frame per render, at the split's frame times when it
+        has them. Synchronous: the JAX trainer pipelines its frame groups
+        one dispatch deep for a remote TPU."""
+        all_times = getattr(dataset, "times", None)
         for i in range(n):
+            times = None
+            if all_times is not None and len(all_times) > i:
+                times = np.asarray(all_times[i:i + 1], np.float32)
             imgs, _ = self.render_frames(np.asarray(dataset.poses[i:i + 1], np.float32),
-                                         dataset.intrinsics, dataset.H, dataset.W)
+                                         dataset.intrinsics, dataset.H, dataset.W, times=times)
             yield i, imgs[0]
 
     def test(self, dataset: NeRFDataset, write_video: bool = True) -> str:
@@ -617,7 +657,7 @@ class NeRFTrainer(Trainer):
     def _set_eval_lattice_span_value(self, span: float):
         pass
 
-    def _run_eval_prepass(self, poses, intrinsics, H, W, aabb_eff):
+    def _run_eval_prepass(self, poses, intrinsics, H, W, aabb_eff, time=None):
         return None
 
 

@@ -17,6 +17,13 @@ The density grid is refreshed from the live weights every
 0`` both marches composite the background net, and a frame whose
 prepass culls rays first renders the background alone
 (``_render_bg_frames``).
+
+A time-sliced (D-NeRF) occupancy state shares the stack through two
+hooks: ``_occ_at(time)`` gives the state a render at scene time ``time``
+marches (here the whole static state), and the eval prepass runs on a
+time-sliced state only where ``_prepass_time_sliced`` says so, on the
+slice at the frame's time (JAX's ``_prepass_occ``). A time-sliced state
+has no tight eval box, as in JAX.
 """
 
 from __future__ import annotations
@@ -33,7 +40,6 @@ from ngp_tpu_torch.data.raysampler import rays_from_frame_indices
 from ngp_tpu_torch.models.nerf import NeRFNetwork, make_fused_sigma_rgb
 from ngp_tpu_torch.models.occupancy import (
     SQRT3,
-    OccupancyState,
     init_occupancy,
     mark_untrained_grid,
     occupied_aabb,
@@ -50,6 +56,8 @@ from ngp_tpu_torch.training.nerf import NeRFTrainer
 
 
 class GridNeRFTrainer(NeRFTrainer):
+    _prepass_time_sliced = False  # the eval prepass on a time-sliced state
+
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
         # eval dials (see the JAX trainer for what each one trades);
@@ -69,7 +77,7 @@ class GridNeRFTrainer(NeRFTrainer):
     def init_aux(self):
         return {"occ": init_occupancy(self.render_cfg, self.device)}
 
-    def _eval_fns(self):
+    def _eval_fns(self, time=None):
         """``_fns`` and the fused radiance closure, which only the
         ``NeRFNetwork`` has (TensoRF and the other families render with
         their density and colour closures, as in JAX)."""
@@ -81,18 +89,27 @@ class GridNeRFTrainer(NeRFTrainer):
         return self._render_with(self._eval_fns(), rays_o, rays_d, bg_color=bg_color,
                                  aabb=aabb, t_range=t_range)
 
+    def _occ_at(self, time):
+        """The occupancy state a render at scene time ``time`` marches: a
+        static scene's whole state."""
+        return self.aux["occ"]
+
     def _render_with(self, fns, rays_o, rays_d, bg_color=None, aabb=None,
-                     t_range=None, perturb=False, noise=None, pdf_u=None):
-        """The turbo or the v1 march (the grid renders draw no PDF samples:
-        ``pdf_u`` is not used)."""
+                     t_range=None, perturb=False, noise=None, pdf_u=None, time=None,
+                     return_geo=False):
+        """The turbo or the v1 march on ``_occ_at(time)`` (the grid renders
+        draw no PDF samples: ``pdf_u`` is not used); ``return_geo`` as the
+        renders take it."""
         cfg = self.render_cfg
         density_fn, color_fn, bg_fn, vals_fn = fns
+        occ = self._occ_at(time)
         if perturb:
             # training: the config's own budgets, no eval dials
             render = render_rays_grid_turbo if cfg.turbo else render_rays_grid
-            return render(density_fn, color_fn, rays_o, rays_d, self.aux["occ"], cfg,
+            return render(density_fn, color_fn, rays_o, rays_d, occ, cfg,
                           bg_color=bg_color, aabb=aabb, t_range=t_range, perturb=True,
-                          generator=self.generator, noise=noise, bg_fn=bg_fn)
+                          generator=self.generator, noise=noise, bg_fn=bg_fn,
+                          return_geo=return_geo)
         over = {}
         if self.eval_probe_stride > 1:
             over["max_steps"] = max(cfg.max_steps // self.eval_probe_stride, 16)
@@ -103,23 +120,24 @@ class GridNeRFTrainer(NeRFTrainer):
         cfg = dataclasses.replace(cfg, **over)
         max_samples = self.eval_max_samples
         if not cfg.turbo:
-            return render_rays_grid(density_fn, color_fn, rays_o, rays_d, self.aux["occ"], cfg,
+            return render_rays_grid(density_fn, color_fn, rays_o, rays_d, occ, cfg,
                                     bg_color=bg_color, max_samples=max_samples, aabb=aabb,
-                                    t_range=t_range, bg_fn=bg_fn)
+                                    t_range=t_range, bg_fn=bg_fn, return_geo=return_geo)
         S = max_samples or cfg.max_samples_per_ray
         ems = self.eval_mean_samples
         budget = rays_o.shape[0] * (S if ems is None else min(ems, S))
         return render_rays_grid_turbo(
-            density_fn, color_fn, rays_o, rays_d, self.aux["occ"], cfg,
+            density_fn, color_fn, rays_o, rays_d, occ, cfg,
             bg_color=bg_color, max_samples=max_samples, budget=budget, aabb=aabb,
-            t_range=t_range, vals_fn=vals_fn, bg_fn=bg_fn,
+            t_range=t_range, vals_fn=None if return_geo else vals_fn, bg_fn=bg_fn,
+            return_geo=return_geo,
         )
 
     def _fetch_eval_tight_box(self):
         """Occupied-region AABB [6] (numpy), cached per grid state."""
-        if not (self.render_cfg.turbo and self.eval_tight_march):
-            return None
         occ = self.aux["occ"]
+        if not (self.render_cfg.turbo and self.eval_tight_march) or occ.occ_grid.ndim != 4:
+            return None
         if self._tight_box_for is not occ:
             self._tight_box_cache = (
                 occupied_aabb(occ, self.render_cfg).cpu().numpy().astype(np.float32)
@@ -146,16 +164,20 @@ class GridNeRFTrainer(NeRFTrainer):
         self._span_sticky = bucket
         self._eval_lattice_span = None if bucket >= chord else bucket
 
-    def _run_eval_prepass(self, poses, intrinsics, H: int, W: int, aabb_eff):
+    def _run_eval_prepass(self, poses, intrinsics, H: int, W: int, aabb_eff, time=None):
         """Frame-level eval cull (``occupancy.ray_prepass``) for a single
         frame: "t0"/"t1" per pixel, "span" (longest hit interval),
         "sorted_inds" (the frame permutation stably sorted hit-first)
-        and "count" (hit rays); None when the prepass is off."""
+        and "count" (hit rays); None when the prepass is off. A
+        time-sliced state is probed at the frame's ``time`` (0 when None),
+        where ``_prepass_time_sliced`` allows it."""
         cfg = self.render_cfg
         if not (self.eval_prepass and cfg.turbo):
             return None
+        if self.aux["occ"].occ_grid.ndim != 4 and not self._prepass_time_sliced:
+            return None
         dev = self.device
-        occ = self.aux["occ"]
+        occ = self._occ_at(0.0 if time is None else time)
         n = H * W
         s = max(int(self.eval_prepass_stride), 1)
         Hs, Ws = -(-H // s), -(-W // s)
@@ -262,7 +284,7 @@ class GridNeRFTrainer(NeRFTrainer):
         occ = self.aux["occ"]
         fresh = {f.name: getattr(occ, f.name) for f in dataclasses.fields(occ)}
         merged = tolerant_merge(fresh, sd.get("occ"), "aux/occ", skipped)
-        self.aux = {"occ": OccupancyState(**merged).to(self.device)}
+        self.aux = {"occ": type(occ)(**merged).to(self.device)}
         if "error_map" in sd:
             self.aux["error_map"] = sd["error_map"].to(self.device)
 
@@ -273,7 +295,12 @@ class GridNeRFTrainer(NeRFTrainer):
         if not any(k.startswith("aux/occ/") and "payload" in k for k in skipped):
             return
         occ = self.aux["occ"]
-        coarse, fine = pack_occupancy_payloads(occ.occ_grid, occ.density_grid)
+        # a time-sliced state packs each slice
+        sliced = occ.occ_grid.ndim == 5
+        grids = zip(occ.occ_grid, occ.density_grid) if sliced else [(occ.occ_grid,
+                                                                      occ.density_grid)]
+        packed = [(*pack_occupancy_payloads(og, dg), pack_prepass_payload(og)) for og, dg in grids]
+        coarse, fine, pre = (torch.stack(p) if sliced else p[0] for p in zip(*packed))
         self.aux = dict(self.aux)
         self.aux["occ"] = dataclasses.replace(occ, coarse_payload=coarse, fine_payload=fine,
-                                              prepass_payload=pack_prepass_payload(occ.occ_grid))
+                                              prepass_payload=pre)

@@ -21,7 +21,12 @@ of n terms in two orders, at most 2 (n - 1) 2^-24 times the sum of
 their magnitudes. The hash-grid train
 step: as the cpgrid step. The grid kernels on 2-D points (the background
 net's encoder) and the background net on the card against the CPU: the
-same bounds. LPIPS on the card with the default cuDNN flags against the
+same bounds; on 4-D points (D-NeRF's hyper grid), the same bounds. The
+grid encoder's x-gradient (``grid_encode_bwd_x``, alone and as
+``GridEncode``'s backward): its plain version sums the same terms in
+another order, so 1e-4 of the largest entry in f32; with a bf16 cotangent
+each corner's dot product is rounded to bf16 by both, and a rounding that
+flips moves a term by one bf16 step, so 1e-2 of the largest entry. LPIPS on the card with the default cuDNN flags against the
 CPU: 1e-4 relative (TF32 convolutions would miss it by about 1e-3)."""
 
 import numpy as np
@@ -806,8 +811,13 @@ def test_grid_encode_backward_kernel(dev, name, dtype):
     bound = scatter_bound(idx, rows, cfg.num_rows)
     assert tk_.grad.dtype == torch.float32 and torch.isfinite(tk_.grad).all()
     assert ((tk_.grad - tp.grad).abs() <= bound).all()
-    with pytest.raises(NotImplementedError):
-        grid_encode(pos.clone().requires_grad_(), tk_, cfg)
+    # the x-gradient is asked for too: GridEncode launches grid_encode_bwd_x
+    xk, xp = pos.clone().requires_grad_(), pos.clone().requires_grad_()
+    before = dict(LAUNCHES)
+    grid_encode(xk, tk_, cfg, dtype).backward(g)
+    assert LAUNCHES["grid_encode_bwd_x"] == before["grid_encode_bwd_x"] + 1
+    kh.grid_encode_plain(xp, tp, cfg.geometry, dtype).backward(g)
+    _check_dx(xk.grad, xp.grad, dtype)
 
 
 def _sph_points(dev, n=5001, seed=9):
@@ -901,24 +911,130 @@ def test_grid_encode_backward_kernel_2d(dev, dtype):
 
 
 def test_grid_kernels_raise_on_4d_points(dev):
-    """D = 4 (D-NeRF's hyper grid) has no kernel instance: both wrappers
-    raise ValueError on the card, and nothing launches."""
+    """4-D points (D-NeRF's hyper grid) now take the D = 4 instances; a
+    5-D grid has no kernel instance: the three wrappers raise ValueError on
+    the card, and nothing launches."""
     from ngp_tpu_torch.ops.hashgrid import GridConfig
     from ngp_tpu_torch.ops.kernels import hashgrid as kh
 
     cfg = GridConfig(input_dim=4, num_levels=2, base_resolution=4, log2_hashmap_size=10,
                      desired_resolution=16)
     table = torch.zeros((cfg.num_rows, cfg.level_dim), device=dev)
-    pos = torch.rand((64, 4), device=dev)
+    before = LAUNCHES["grid_encode_fwd_4d"]
+    kh.grid_encode_fwd(torch.rand((64, 4), device=dev), table, cfg.geometry)
+    assert LAUNCHES["grid_encode_fwd_4d"] == before + 1
+    cfg = GridConfig(input_dim=5, num_levels=2, base_resolution=4, log2_hashmap_size=10,
+                     desired_resolution=16)
+    table = torch.zeros((cfg.num_rows, cfg.level_dim), device=dev)
+    pos = torch.rand((64, 5), device=dev)
+    g = torch.zeros((64, cfg.output_dim), device=dev)
     before = dict(LAUNCHES)
-    with pytest.raises(ValueError, match="2-D or 3-D"):
+    with pytest.raises(ValueError, match="2-D, 3-D or 4-D"):
         kh.grid_encode_fwd(pos, table, cfg.geometry)
-    with pytest.raises(ValueError, match="2-D or 3-D"):
-        kh.grid_encode_bwd(pos, torch.zeros((64, cfg.output_dim), device=dev), cfg.geometry)
+    with pytest.raises(ValueError, match="2-D, 3-D or 4-D"):
+        kh.grid_encode_bwd(pos, g, cfg.geometry)
+    with pytest.raises(ValueError, match="2-D, 3-D or 4-D"):
+        kh.grid_encode_bwd_x(pos, table, g, cfg.geometry)
     assert dict(LAUNCHES) == before
     cfg2, table2 = _grid("bg", dev)
     with pytest.raises(ValueError):  # 3-D points into a 2-D grid
         kh.grid_encode_fwd(torch.rand((64, 3), device=dev), table2, cfg2.geometry)
+
+
+# 4-D grids: D-NeRF's hyper grid (16 levels x 2, 2^19 rows, finest 4096 at
+# bound 2), a small hashed one and a tiled smoothstep one with 4 features
+GRIDS_4D = {
+    "hyper": dict(input_dim=4, log2_hashmap_size=19, desired_resolution=4096),
+    "hash4": dict(input_dim=4, num_levels=4, base_resolution=4, log2_hashmap_size=12,
+                  desired_resolution=64),
+    "smooth4d": dict(input_dim=4, num_levels=3, level_dim=4, base_resolution=3,
+                     log2_hashmap_size=10, per_level_scale=1.5, interpolation="smoothstep",
+                     gridtype="tiled"),
+}
+
+
+def _grid_nd(name, dev, dtype=torch.float32, seed=0):
+    from ngp_tpu_torch.ops.hashgrid import GridConfig
+
+    cfg = GridConfig(**{**GRIDS, **GRIDS_2D, **GRIDS_4D}[name])
+    g = torch.Generator().manual_seed(seed)
+    table = (torch.rand((cfg.num_rows, cfg.level_dim), generator=g) * 2 - 1).to(dev, dtype)
+    return cfg, table
+
+
+def _points_nd(dev, n, D, seed=3):
+    """Points of D dims, about 25% of them outside [0, 1]^D."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.rand((n, D), generator=g)
+    out = torch.rand(n, generator=g) < 0.25
+    x[out, 0] = x[out, 0] * 0.2 + 1.01
+    return x.contiguous().to(dev)
+
+
+def _check_dx(got, want, g_dtype):
+    torch.cuda.synchronize()
+    tol = 1e-4 if g_dtype == torch.float32 else 1e-2
+    scale = float(want.abs().max())
+    assert got.dtype == torch.float32 and torch.isfinite(got).all() and scale > 0
+    assert ((got - want).abs() <= tol * scale).all(), float((got - want).abs().max()) / scale
+
+
+@pytest.mark.parametrize("g_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("table_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", ["full", "smooth4", "bg", "smooth2", *GRIDS_4D])
+def test_grid_encode_bwd_x_kernel(dev, name, table_dtype, g_dtype):
+    """The x-gradient against autograd of the plain version on D = 2, 3 and
+    4 grids, 25% of the points outside the box (zero rows), 30% of the
+    cotangent rows zero; counted under ``grid_encode_bwd_x_4d`` too on 4-D
+    points."""
+    from ngp_tpu_torch.ops.kernels import hashgrid as kh
+
+    cfg, table = _grid_nd(name, dev, table_dtype)
+    D = cfg.input_dim
+    pos = _points_nd(dev, 5001, D)
+    gen = torch.Generator().manual_seed(8)
+    g = torch.randn((5001, cfg.output_dim), generator=gen)
+    g[torch.rand(5001, generator=gen) < 0.3] = 0.0
+    g = g.to(dev, g_dtype)
+    before = dict(LAUNCHES)
+    got = kh.grid_encode_bwd_x(pos, table, g, cfg.geometry)
+    assert LAUNCHES["grid_encode_bwd_x"] == before["grid_encode_bwd_x"] + 1
+    assert LAUNCHES["grid_encode_bwd_x_4d"] == before["grid_encode_bwd_x_4d"] + (D == 4)
+    want = kh.grid_encode_bwd_x_plain(pos, table, g, cfg.geometry)
+    oob = ((pos < 0) | (pos > 1)).any(dim=-1)
+    assert got.shape == (5001, D) and not got[oob].any()
+    _check_dx(got, want, g_dtype)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("table_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", list(GRIDS_4D))
+def test_grid_encode_kernels_4d(dev, name, table_dtype, out_dtype):
+    """The D = 4 instances of the forward and the table gradient against
+    their plain versions (the forward to its output type's bound, the table
+    gradient within the f32 summation-order bound), counted under
+    ``grid_encode_fwd_4d`` and ``grid_encode_bwd_4d`` too."""
+    from ngp_tpu_torch.ops.kernels import hashgrid as kh
+
+    cfg, table = _grid_nd(name, dev, table_dtype)
+    pos = _points_nd(dev, 5001, 4)
+    before = dict(LAUNCHES)
+    got = kh.grid_encode_fwd(pos, table, cfg.geometry, out_dtype)
+    want = kh.grid_encode_plain(pos, table, cfg.geometry, out_dtype)
+    oob = ((pos < 0) | (pos > 1)).any(dim=-1)
+    assert not got[oob].float().any() and got[~oob].float().abs().sum() > 0
+    _check(got.float(), want.float(), out_dtype)
+    g = torch.randn((5001, cfg.output_dim), generator=torch.Generator().manual_seed(5))
+    g[:2000] = 0.0
+    g = g.to(dev, out_dtype)
+    got = kh.grid_encode_bwd(pos, g, cfg.geometry)
+    torch.cuda.synchronize()
+    for k in ("grid_encode_fwd", "grid_encode_fwd_4d", "grid_encode_bwd", "grid_encode_bwd_4d"):
+        assert LAUNCHES[k] == before[k] + 1, k
+    want = kh.grid_encode_bwd_plain(pos, g, cfg.geometry)
+    idx, rows = kh.grid_encode_bwd_rows_plain(pos, g, cfg.geometry)
+    assert ((got - want).abs() <= scatter_bound(idx, rows, cfg.num_rows)).all()
+    assert want.abs().max() > 0
 
 
 @pytest.mark.parametrize("use_bf16", [False, True])

@@ -300,3 +300,92 @@ def test_grid_encoder_module_matches_jax(encoding):
         got = tenc(torch.from_numpy(x)).numpy()
     np.testing.assert_allclose(got, np.asarray(jenc.apply(params, jnp.asarray(x))),
                                atol=1e-10, rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the gradient in the points and 4-D grids (D-NeRF's deformation and hyper
+# nets): grid_encode_bwd_x_plain, GridEncode in x
+# ---------------------------------------------------------------------------
+
+XGRIDS = {
+    "2d": dict(input_dim=2, num_levels=4, base_resolution=4, log2_hashmap_size=8,
+               desired_resolution=64),
+    "3d": SMALL,
+    "4d": dict(input_dim=4, num_levels=4, base_resolution=4, log2_hashmap_size=10,
+               desired_resolution=64),
+    "4d_tiled": dict(input_dim=4, num_levels=3, level_dim=4, base_resolution=3,
+                     log2_hashmap_size=10, per_level_scale=1.5, gridtype="tiled"),
+}
+
+
+def _points_nd(n, D, seed):
+    return np.random.default_rng(seed).uniform(-0.05, 1.05, size=(n, D)).astype(np.float32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("interpolation", ["linear", "smoothstep"])
+@pytest.mark.parametrize("name", list(XGRIDS))
+def test_x_gradient_matches_jax_vjp(name, interpolation, dtype):
+    """``grid_encode_bwd_x_plain`` (the plain version of the kernel
+    ``grid_encode_bwd_x``) against ``jax.vjp`` of ``grid_encode`` in x, on
+    D = 2, 3 and 4 grids, points partly outside [0, 1]^D (zero rows) and a
+    cotangent with 30% zero rows. f32: 1e-5 of the largest entry (sums in
+    another order). bf16: both round each corner's <g, row> to bf16 (the
+    einsum's VJP in the weights) and work in f32 from there; a rounding
+    that flips on f32 sums taken in another order moves a term by one bf16
+    step, so 1e-2 of the largest entry. ``GridEncode`` on CPU tensors gives
+    the same x-gradient, bit for bit, and the same table gradient as
+    ``grid_encode_bwd_plain``."""
+    kw = dict(XGRIDS[name], interpolation=interpolation)
+    jc, tc = jh.GridConfig(**kw), th.GridConfig(**kw)
+    D, n = jc.input_dim, 500
+    x, tab = _points_nd(n, D, seed=21), _table(jc, seed=22)
+    rng = np.random.default_rng(23)
+    g = rng.normal(size=(n, jc.output_dim)).astype(np.float32)
+    g[rng.random(n) < 0.3] = 0.0
+    bf = dtype == "bfloat16"
+    jd, td = (jnp.bfloat16, torch.bfloat16) if bf else (None, torch.float32)
+    _, vjp = jax.vjp(lambda a: jh.grid_encode(a, jnp.asarray(tab), jc, jd), jnp.asarray(x))
+    want = np.asarray(vjp(jnp.asarray(g).astype(jd or jnp.float32))[0], np.float32)
+    gt = torch.from_numpy(g).to(td)
+    got = kh.grid_encode_bwd_x_plain(torch.from_numpy(x), torch.from_numpy(tab), gt,
+                                     tc.geometry)
+    assert got.dtype == torch.float32 and got.shape == (n, D)
+    oob = ((x < 0) | (x > 1)).any(-1)
+    assert oob.any() and not got[torch.from_numpy(oob)].any() and not want[oob].any()
+    _scaled(got, want, 1e-2 if bf else 1e-5)
+    assert float(np.abs(want).max()) > 0
+    xt = torch.from_numpy(x).requires_grad_()
+    tt = torch.from_numpy(tab).requires_grad_()
+    kh.GridEncode.apply(xt, tt, tc.geometry, td).backward(gt)
+    np.testing.assert_array_equal(xt.grad.numpy(), got.numpy())
+    np.testing.assert_array_equal(
+        tt.grad.numpy(), kh.grid_encode_bwd_plain(torch.from_numpy(x), gt, tc.geometry).numpy())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", ["4d", "4d_tiled"])
+def test_forward_4d_matches_jax(name, dtype):
+    """The 4-D forward (16 corners, the fourth prime on hashed levels)
+    through ``grid_encode`` against JAX's, and the corner rows against
+    ``_level_indices``: f32 to 1e-6, bf16 to one bf16 step of the feature
+    (16 products summed in another order before the one rounding)."""
+    jc, tc = jh.GridConfig(**XGRIDS[name]), th.GridConfig(**XGRIDS[name])
+    x, tab = _points_nd(700, 4, seed=24), _table(jc, seed=25)
+    jd = None if dtype == "float32" else jnp.bfloat16
+    td = None if dtype == "float32" else torch.bfloat16
+    want = np.asarray(jh.grid_encode(jnp.asarray(x), jnp.asarray(tab), jc, jd)
+                      .astype(jnp.float32))
+    got = th.grid_encode(torch.from_numpy(x), torch.from_numpy(tab), tc, td).float().numpy()
+    oob = ((x < 0) | (x > 1)).any(-1)
+    assert oob.any() and not got[oob].any()
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, atol=1e-6, rtol=0)
+    else:
+        assert (np.abs(got - want) <= 2.0**-8 * np.abs(want) + 1e-30).all()
+    assert any(tc.geometry.hashed) == (name == "4d")
+    g = np.stack(np.meshgrid(*[np.arange(-3, 40, 9)] * 4, indexing="ij"), -1).reshape(-1, 4)
+    for lv in range(jc.num_levels):
+        want = np.asarray(jh._level_indices(jc, lv, jnp.asarray(g, jnp.int32)))
+        np.testing.assert_array_equal(th._level_indices(tc, lv, torch.from_numpy(g)).numpy(),
+                                      want)

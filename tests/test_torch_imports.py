@@ -42,6 +42,8 @@ MODULES = [
     "ngp_tpu_torch.models.renderer",
     "ngp_tpu_torch.models.sdf",
     "ngp_tpu_torch.models.tensorf",
+    "ngp_tpu_torch.models.ccnerf",
+    "ngp_tpu_torch.models.dnerf",
     "ngp_tpu_torch.data.raysampler",
     "ngp_tpu_torch.data.nerf_dataset",
     "ngp_tpu_torch.data.synthetic",
@@ -60,9 +62,13 @@ MODULES = [
     "ngp_tpu_torch.training.clip_guidance",
     "ngp_tpu_torch.training.sdf",
     "ngp_tpu_torch.training.tensorf",
+    "ngp_tpu_torch.training.ccnerf",
+    "ngp_tpu_torch.training.dnerf",
     "ngp_tpu_torch.main_nerf",
     "ngp_tpu_torch.main_sdf",
     "ngp_tpu_torch.main_tensoRF",
+    "ngp_tpu_torch.main_CCNeRF",
+    "ngp_tpu_torch.main_dnerf",
     "chip_smoke",
 ]
 
@@ -75,7 +81,8 @@ def test_every_module_imports_without_jax_or_triton():
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
                                             "ngp_tpu", "triton", "main_nerf",
-                                            "main_sdf", "main_tensoRF"))
+                                            "main_sdf", "main_tensoRF", "main_CCNeRF",
+                                            "main_dnerf"))
         assert not bad, bad
         from ngp_tpu_torch.ops.kernels import build
         assert build._lib is None  # the kernel library loads at first launch
@@ -108,7 +115,9 @@ def test_config_properties_match(bound):
 
 @pytest.mark.parametrize("argv", [["chip_smoke.py"], ["-m", "ngp_tpu_torch.main_nerf", "scene", "-O"],
                                   ["-m", "ngp_tpu_torch.main_sdf", "sphere"],
-                                  ["-m", "ngp_tpu_torch.main_tensoRF", "scene", "-O"]])
+                                  ["-m", "ngp_tpu_torch.main_tensoRF", "scene", "-O"],
+                                  ["-m", "ngp_tpu_torch.main_CCNeRF", "scene", "-O"],
+                                  ["-m", "ngp_tpu_torch.main_dnerf", "scene", "-O"]])
 def test_card_entry_points_fail_without_cuda(tmp_path, argv):
     import torch
 

@@ -5,7 +5,7 @@ turbo-hq preset and in the hash-grid configuration (``-O --encoding
 hashgrid``), then the port's command lines: ``-O`` and the rest of
 ``main_nerf`` (the background net, the renderer without the occupancy
 grid, LPIPS), ``main_sdf``, ``main_tensoRF``, ``main_CCNeRF`` and
-``main_dnerf``.
+``main_dnerf``, and last the viewers, CLIP guidance and the brick grid.
 
 Run from the repository root, with no arguments:
 
@@ -154,7 +154,26 @@ no 64-bit division routine, and of the turbo march), then
      last step's points and on random 4-D points), (d) ``--basis --iters
      80`` (no x-gradient launched); with ``--dnerf-control`` also (e), (a)
      with the deformation net frozen, whose test PSNR must stay below
-     ``DNERF_MIN_PSNR``.
+     ``DNERF_MIN_PSNR``;
+17.  the viewers, CLIP guidance and the brick grid: (a) ``viewer_runs``:
+     ``main_nerf <phase 11's scene> -O --gui`` on 11 (a)'s workspace and
+     ``main_dnerf -O --gui`` on 16 (a)'s, ``viewer_web.serve`` replaced by
+     passes of its loop body (``serve_step``) against a real server on a
+     free localhost port: the page, the frame and stats, a train call that
+     moves the step, the view held to ``render_frame`` of its pose, SPP
+     accumulation and its reset, training off, the ``max_samples`` dial, a
+     crop, and a time scrub that changes D-NeRF's view; (b) ``clip_runs``:
+     ``CLIPLoss`` at ViT-B/16's widths on weights from SEED, its towers and
+     image gradient on the card against the CPU in f32, CLIP's forward and
+     backward at 224^2 timed, then ``main_nerf -O --rand_pose 4
+     --clip_model_path`` (``CLIPLoss`` replaced by a maker of this loss):
+     every guidance step ran with a finite loss and gave the CP factors a
+     gradient, the kernels they launched, one profiled guidance step; (c)
+     ``brick_runs``: ``main_nerf --preset tpu --iters 400`` and ``--test``
+     (a PSNR floor over a white frame's, no kernel launched) and
+     ``brick_encode`` (torch) on the last step's own points: the card
+     against the CPU, its forward and forward + table gradient timed
+     beside their bound.
 
 Each path is run with the launch counts set to 0 just before it and read
 just after; a kernel of the path that was not launched fails the run.
@@ -165,7 +184,8 @@ plain version's, the library call's where one PyTorch call computes the
 same function (else null), and its bound, the least time the card could
 take for the same work: the larger of the bytes it must move over the
 memory rate and its operations over the peak rate of the units that
-could do them (``bound``). The last line is a JSON object
+could do them (``bound``), and under "paths" its launches on each of
+phase 17's paths. The last line is a JSON object
 ``{"ok": true, "device": {...}}``; any failure raises and exits non-zero.
 """
 
@@ -360,6 +380,19 @@ FINALIZE_TOL = 1e-4
 DNERF_ITERS = 1024
 DNERF_SHORT_ITERS = 80
 DNERF_MIN_PSNR = 12.8
+# phase 17: (a) the viewers, their views held to render_frame within this many
+# u8 levels (f32 atomics in the compositor); (b) CLIP guidance at ViT-B/16's
+# widths on random weights: fixed token ids (start of text 49406, then ids of
+# the vocabulary, end of text 49407, the largest id, where the text tower
+# pools), the card's towers and image gradient held to the CPU's in f32 within
+# CLIP_TOL of the largest entry; (c) --preset tpu for BRICK_ITERS iterations
+# (10 epochs), whose test PSNR must beat a white frame's by BRICK_MIN_GAIN dB
+# (set before its first run; PERF.md)
+VIEW_LEVELS = 1
+CLIP_IDS = (49406, 320, 1125, 539, 320, 4269, 49407)
+CLIP_TOL = 1e-3
+BRICK_ITERS = 400
+BRICK_MIN_GAIN = 5.0
 BWD_X_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 BG_ROWS = (65536, 4096)
 # H100 SXM (NVIDIA's data sheet): HBM bytes/s, dense bf16 tensor-core and
@@ -1049,7 +1082,7 @@ def cli_recorder(dev, card):
             setattr(NeRFTrainer, k, original[k])
 
 
-def cli_runs(dev, card, scene, api_rays_s):
+def cli_runs(dev, card, scene, api_rays_s, work):
     """Phase 11: ``ngp_tpu_torch.main_nerf`` on the scene on disk, as a user
     runs it. (a) turbo-hq through ``main`` in this process, (b) the same
     command one epoch longer, resuming from ``--ckpt latest``, (c) ``--test``
@@ -1057,15 +1090,18 @@ def cli_runs(dev, card, scene, api_rays_s):
     (b)'s ``evaluate`` (both start from a fresh trainer: the eval's sticky
     chunk counts and spans, which (a)'s validation frames raised, are then
     the same), (d) the hash grid with the TV and distortion losses, (e)
-    the random-pose guidance steps. Returns the launch counts of (a), (b),
-    (d) and (e), (a)'s rays/s over its middle epochs and its test PSNR."""
+    the random-pose guidance steps. The workspaces go under ``work``
+    (``work/cli/ws`` is (a)'s, which phase 17 serves). Returns the launch
+    counts of (a), (b), (d) and (e), (a)'s rays/s over its middle epochs and
+    its test PSNR."""
     import numpy as np
     import torch
 
     from ngp_tpu_torch.utils.png import read_png
 
     n_train, n_val, n_test = CLI_FRAMES
-    with tempfile.TemporaryDirectory() as tmp, cli_recorder(dev, card) as (seen, run):
+    tmp = os.path.join(work, "cli")
+    with cli_recorder(dev, card) as (seen, run):
         # (a) turbo-hq, 51 epochs, one validation, evaluate, test, mesh
         ws = os.path.join(tmp, "ws")
         argv = [scene, "-O", "--workspace", ws, "--iters", str(CLI_ITERS), "--save_mesh"]
@@ -1922,7 +1958,7 @@ def ccnerf_runs(dev, card, scene, results):
     return counts
 
 
-def dnerf_runs(dev, card, results, control=False):
+def dnerf_runs(dev, card, results, work, control=False):
     """Phase 16: ``ngp_tpu_torch.main_dnerf`` at the CLI's widths (16 levels
     x 2, 2^19 rows, finest 4096 at bound 2; the deformation MLP 5 x 128;
     T = 64 time slices of a 128^3 grid; 4096 rays; bf16 with ``-O``) on the
@@ -1941,7 +1977,9 @@ def dnerf_runs(dev, card, results, control=False):
     ``control`` (``--dnerf-control``), (e): (a) again with the deformation
     net frozen (its output detached: no gradient reaches it, and no
     x-gradient is launched), whose test PSNR must stay below
-    ``DNERF_MIN_PSNR``. Returns the launch counts of (a)-(d)."""
+    ``DNERF_MIN_PSNR``. The scene and workspaces go under ``work/dnerf``
+    (``dscene``; (a)'s ``ws``, which phase 17 serves). Returns the launch
+    counts of (a)-(d)."""
     import numpy as np
     import torch
 
@@ -1971,7 +2009,8 @@ def dnerf_runs(dev, card, results, control=False):
         return means
 
     counts = []
-    with (tempfile.TemporaryDirectory() as tmp, cli_recorder(dev, card) as (seen, run),
+    tmp = os.path.join(work, "dnerf")
+    with (cli_recorder(dev, card) as (seen, run),
           patched((DNeRFTrainer, "_update_occupancy", timed_refresh))):
         scene = os.path.join(tmp, "dscene")
         t0 = time.perf_counter()
@@ -2112,6 +2151,445 @@ def dnerf_runs(dev, card, results, control=False):
               f"{means[0]:.6f} -> {means[-1]:.6f}  [{card}]", flush=True)
         del trainer
     return counts
+
+
+@contextlib.contextmanager
+def served(session, W, H, radius, fovy):
+    """What ``viewer_web.serve`` sets up for ``session``: the camera, the
+    shared state and a real server, here on a free localhost port and on a
+    thread of its own; yields (camera, state, get), ``get(path)`` the body
+    of an HTTP GET. The server is shut down and its thread joined after."""
+    import threading
+    import urllib.request
+
+    from ngp_tpu_torch import viewer_web
+    from ngp_tpu_torch.viewer import OrbitCamera
+
+    camera = OrbitCamera(W, H, r=radius, fovy=fovy)
+    state = {"frame": None, "stats": {}, "lock": threading.Lock()}
+    server = viewer_web.make_server(session, camera, state, W, H, 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    port = server.server_address[1]
+
+    def get(path):
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=120) as r:
+            return r.read()
+
+    try:
+        yield camera, state, get
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+
+
+def u8_frame(img):
+    """A view as ``serve_step`` publishes it: u8 levels, truncated."""
+    import numpy as np
+
+    return (np.clip(img, 0, 1) * 255).astype(np.uint8)
+
+
+def same_view(label, frame, img):
+    """The loop's u8 frame against ``render_frame``'s image of the same pose:
+    at most one level apart (the compositor adds by f32 atomics)."""
+    import numpy as np
+
+    want = u8_frame(img)
+    d = np.abs(frame.astype(np.int32) - want.astype(np.int32))
+    if frame.shape != want.shape or d.max() > VIEW_LEVELS:
+        raise RuntimeError(f"viewer {label}: the view differs from render_frame's by "
+                           f"{d.max() if frame.shape == want.shape else frame.shape} levels")
+    return float(np.mean(d > 0))
+
+
+def viewer_runs(dev, card, scene, ws, dscene, dws):
+    """Phase 17 (a): ``main_nerf <phase 11's scene> -O --gui`` on 11 (a)'s
+    workspace ``ws`` and ``main_dnerf <dscene> -O --gui`` on 16 (a)'s
+    ``dws``, each with ``viewer_web.serve`` replaced by ``served`` and
+    passes of its loop body (``serve_step``), the HTTP requests a browser
+    sends in between. The render budget is raised so that every view is
+    at downscale 1 (the adaptive downscale is tested on the CPU). NeRF:
+    the checkpoint's step loaded, the page, a train call of 16 steps that
+    moves ``global_step``, the view equal to ``render_frame`` of its pose
+    (``same_view``), the JPEG and the stats, SPP accumulation on an
+    unchanged pose and its reset on an orbit, then training off, the
+    ``max_samples`` dial and an aabb crop (xmin at 0.99 of the bound: a
+    lighter frame);
+    the ms of a train call and of a view. D-NeRF: a train call, training
+    off, then a /ctl time scrub to 0.5: SPP resets, the view equals
+    ``render_frame(..., time=0.5)`` and differs from the view at 0.
+    Returns the launch counts of the two runs."""
+    import numpy as np
+    import torch
+
+    from ngp_tpu_torch import main_dnerf, main_nerf, viewer_web
+    from ngp_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    def timed_pass(session, camera, state):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        viewer_web.serve_step(session, camera, state)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    def drive(label, main, argv, checks):
+        def fake_serve(session, W=800, H=800, port=7860, train=True, radius=2.0, fovy=60.0):
+            if not train:
+                raise RuntimeError(f"viewer {label}: serve called with train=False")
+            session.render_budget_ms = 1e9
+            with served(session, W, H, radius, fovy) as (camera, state, get):
+                if b"ngp_tpu viewer" not in get("/"):
+                    raise RuntimeError(f"viewer {label}: no viewer page at /")
+                checks(session, camera, state, get)
+            served_to.append(session)
+
+        served_to = []
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with patched((viewer_web, "serve", fake_serve)):
+            trainer = main(argv, device=dev)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        if len(served_to) != 1 or served_to[0].trainer is not trainer:
+            raise RuntimeError(f"viewer {label}: serve was not reached with the trainer")
+        print(f"viewer {label}: {time.perf_counter() - t0:.3f} s in all  [{card}]", flush=True)
+        return counts
+
+    def nerf_checks(session, camera, state, get):
+        tr = session.trainer
+        step0 = tr.global_step
+        if step0 <= 0:
+            raise RuntimeError("viewer (nerf): no checkpoint was loaded")
+        # pass 1: a train call of 16 steps, then the view at downscale 1
+        first_s = timed_pass(session, camera, state)
+        stats = json.loads(get("/stats"))
+        if not (tr.global_step == step0 + 16 == stats["step"] and math.isfinite(stats["loss"])):
+            raise RuntimeError(f"viewer (nerf): step {tr.global_step} after a train call from "
+                               f"{step0}, stats {stats}")
+        img, _ = tr.render_frame(camera.pose, camera.intrinsics, camera.H, camera.W)
+        differ = same_view("(nerf)", state["frame"], img)
+        if get("/frame")[:2] != b"\xff\xd8":
+            raise RuntimeError("viewer (nerf): /frame is not a JPEG")
+        # pass 2: the same pose accumulates
+        second_s = timed_pass(session, camera, state)
+        stats2 = json.loads(get("/stats"))
+        if stats2["spp"] != 2 or stats2["downscale"] != 1.0:
+            raise RuntimeError(f"viewer (nerf): stats {stats2} on an unchanged pose")
+        # pass 3: an orbit resets the accumulation
+        get("/ctl?op=orbit&dx=40&dy=-10")
+        timed_pass(session, camera, state)
+        if json.loads(get("/stats"))["spp"] != 1:
+            raise RuntimeError("viewer (nerf): an orbit did not reset the accumulation")
+        before = state["frame"].copy()
+        # pass 4: training off, the eval dial, xmin near the box's side
+        get("/ctl?op=train")
+        get("/ctl?op=max_samples&dx=16")
+        get("/ctl?op=aabb&axis=0&dx=99")
+        step = tr.global_step
+        timed_pass(session, camera, state)
+        crop = tr.aabb_infer
+        bound_x = 0.99 * tr.render_cfg.bound
+        if (session.training or tr.global_step != step or tr.eval_max_samples != 16
+                or crop is None or abs(crop[0] - bound_x) > 1e-6):
+            raise RuntimeError(f"viewer (nerf): training {session.training}, step "
+                               f"{tr.global_step} (was {step}), eval_max_samples "
+                               f"{tr.eval_max_samples}, aabb_infer {crop}")
+        dark = [float(np.mean(255 - f.astype(np.float32))) for f in (before, state["frame"])]
+        if not dark[1] < dark[0]:
+            raise RuntimeError(f"viewer (nerf): the crop did not lighten the view ({dark})")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        session.render_view(camera)
+        torch.cuda.synchronize()
+        view_s = time.perf_counter() - t0
+        print(f"viewer (nerf): step {step0} loaded; a train call of 16 steps {stats['train_ms']:.1f}"
+              f" ms (the first pass {first_s * 1e3:.1f} ms with its view), then "
+              f"{stats2['train_ms']:.1f} ms for {session.steps_per_call} steps (pass 2, "
+              f"{second_s * 1e3:.1f} ms); a {camera.W}x{camera.H} view {view_s * 1e3:.1f} ms "
+              f"(cropped, 16 samples a ray); the view against render_frame: {differ:.5f} of "
+              f"the values one level apart; the crop's mean darkness {dark[0]:.2f} -> "
+              f"{dark[1]:.2f}  [{card}]", flush=True)
+
+    def dnerf_checks(session, camera, state, get):
+        tr = session.trainer
+        step0 = tr.global_step
+        if step0 <= 0 or not session._supports_time:
+            raise RuntimeError("viewer (dnerf): no checkpoint loaded, or no scene time")
+        timed_pass(session, camera, state)
+        if tr.global_step != step0 + 16:
+            raise RuntimeError(f"viewer (dnerf): step {tr.global_step} after a train call "
+                               f"from {step0}")
+        get("/ctl?op=train")
+        timed_pass(session, camera, state)
+        at0 = state["frame"].copy()
+        get("/ctl?op=time&dx=0.5")
+        t_s = timed_pass(session, camera, state)
+        stats = json.loads(get("/stats"))
+        if session.time != 0.5 or stats["spp"] != 1 or tr.global_step != step0 + 16:
+            raise RuntimeError(f"viewer (dnerf): time {session.time}, stats {stats}")
+        img, _ = tr.render_frame(camera.pose, camera.intrinsics, camera.H, camera.W, time=0.5)
+        differ = same_view("(dnerf)", state["frame"], img)
+        moved = float(np.mean(np.abs(state["frame"].astype(np.int32) - at0) > VIEW_LEVELS))
+        if not moved >= 1e-3:
+            raise RuntimeError(f"viewer (dnerf): the scrub to 0.5 left the view as at 0 "
+                               f"({moved} of the values moved)")
+        print(f"viewer (dnerf): step {step0} loaded; a {camera.W}x{camera.H} view at time 0.5 "
+              f"{t_s * 1e3:.1f} ms; {moved:.4f} of the values differ from the view at 0 by "
+              f"more than {VIEW_LEVELS} level; against render_frame {differ:.5f} one level "
+              f"apart  [{card}]", flush=True)
+
+    nerf_counts = drive("17(a) main_nerf -O --gui", main_nerf.main,
+                        [scene, "-O", "--gui", "--workspace", ws, "--iters", str(CLI_ITERS)],
+                        nerf_checks)
+    check_launched("viewer main_nerf -O --gui", nerf_counts,
+                   ("march_turbo", "cp_density_fwd", "cp_bwd_banks", "cp_sigma_rgb",
+                    "coarse_lookup_bits"), absent=("cp_encode_fwd", "fused_mlp"))
+    dnerf_counts = drive("17(a) main_dnerf -O --gui", main_dnerf.main,
+                         [dscene, "-O", "--gui", "--workspace", dws, "--iters",
+                          str(DNERF_ITERS)], dnerf_checks)
+    check_launched("viewer main_dnerf -O --gui", dnerf_counts,
+                   ("march_turbo", "grid_encode_fwd", "grid_encode_bwd", "grid_encode_bwd_x",
+                    "coarse_lookup_bits"), absent=("cp_density_fwd",))
+    return nerf_counts, dnerf_counts
+
+
+def rel_err(got, want):
+    """max |got - want| over max |want|, on the CPU in f32."""
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    return float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+
+
+def clip_runs(dev, card, scene, work):
+    """Phase 17 (b): CLIP guidance at ViT-B/16's widths (``CLIPConfig()``:
+    vision 768 x 12 layers x 12 heads, patch 16, 224^2; text 512 x 12 x 8;
+    embedding 512) on weights drawn from SEED and the fixed token ids
+    ``CLIP_IDS``. The towers' embeddings, the loss and d loss / d images of
+    a 64 x 64 image (a guidance frame's size here) on the card against the
+    same module and weights on the CPU in f32, within ``CLIP_TOL`` of the
+    largest entry; the device ms of CLIP's forward and forward + backward
+    at 224^2. Then ``main_nerf <scene> -O --rand_pose 4 --clip_model_path
+    <name> --iters 64`` (one epoch: 40 frames and 10 guidance steps on
+    64 x 64 frames), with ``clip_guidance.CLIPLoss`` replaced by a maker
+    of this loss (no checkout is read): every guidance step ran, with a
+    finite loss in [-1, 1], and left a finite, non-zero gradient on each CP
+    factor bank; the kernels the guidance steps launched (counted around
+    each); one profiled guidance step. Returns the run's launch counts and
+    the guidance steps'."""
+    import numpy as np
+    import torch
+
+    from ngp_tpu_torch.data.nerf_dataset import NeRFDataset
+    from ngp_tpu_torch.models import clip as tclip
+    from ngp_tpu_torch.ops.kernels import launch_counts
+    from ngp_tpu_torch.training import clip_guidance
+    from ngp_tpu_torch.training.nerf import NeRFTrainer
+
+    cfg = tclip.CLIPConfig()
+    t0 = time.perf_counter()
+    params = tclip.CLIP(cfg, torch.Generator().manual_seed(SEED), device=dev).state_dict()
+    ids = np.zeros((1, cfg.context_length), np.int64)
+    ids[0, :len(CLIP_IDS)] = CLIP_IDS
+    loss_fn = clip_guidance.CLIPLoss("a chair", clip_cfg=cfg, params=params, token_ids=ids,
+                                     device=dev)
+    cpu = clip_guidance.CLIPLoss("a chair", clip_cfg=cfg,
+                                 params={k: v.cpu() for k, v in params.items()},
+                                 token_ids=ids, device="cpu")
+    n_params = sum(v.numel() for v in params.values())
+    print(f"CLIP ViT-B/16: {n_params} parameters from seed {SEED}, both towers built in "
+          f"{time.perf_counter() - t0:.3f} s  [{card}]", flush=True)
+
+    def value_grad(loss, x):
+        x = x.clone().requires_grad_(True)
+        v = loss(x)
+        (g,) = torch.autograd.grad(v, x)
+        return v.detach(), g
+
+    img = torch.rand((1, 64, 64, 3), generator=torch.Generator().manual_seed(SEED + 20))
+    v_d, g_d = value_grad(loss_fn, img.to(dev))
+    v_c, g_c = value_grad(cpu, img)
+    with torch.no_grad():
+        px = tclip.preprocess(img, cfg)
+        e_d, e_c = loss_fn.model.encode_image(px.to(dev)), cpu.model.encode_image(px)
+    errs = {"image embedding": rel_err(e_d, e_c),
+            "text embedding": rel_err(loss_fn.text_features, cpu.text_features),
+            "loss": rel_err(v_d, v_c), "d loss / d images": rel_err(g_d, g_c)}
+    print(f"CLIP card vs CPU (f32, of the largest entry): "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f"; loss {float(v_d):.6f}  [{card}]", flush=True)
+    if not all(e <= CLIP_TOL for e in errs.values()) or not float(g_c.abs().max()) > 0:
+        raise RuntimeError(f"CLIP: the card's towers differ from the CPU's past {CLIP_TOL}: "
+                           f"{errs}")
+    x224 = torch.rand((1, 224, 224, 3), device=dev, requires_grad=True)
+    with torch.no_grad():
+        fwd_ms = cuda_ms(lambda: loss_fn(x224))
+    fb_ms = cuda_ms(lambda: torch.autograd.grad(loss_fn(x224), x224))
+    print(f"CLIP at 224^2 (batch 1): forward {fwd_ms:.3f} ms, forward + backward to the "
+          f"pixels {fb_ms:.3f} ms (CUDA events)  [{card}]", flush=True)
+    del cpu, e_c, g_c
+
+    guided = {k: 0 for k in launch_counts()}
+    grads = []
+
+    def scored(text, model_path=None, device="cuda"):
+        return loss_fn
+
+    with cli_recorder(dev, card) as (seen, run):
+        recorded = NeRFTrainer.guidance_step
+
+        def guidance_step(self, *a, **kw):
+            before = launch_counts()
+            out = recorded(self, *a, **kw)
+            for k, v in launch_counts().items():
+                guided[k] += v - before[k]
+            grads.append([float(f.grad.abs().sum()) if f.grad is not None else 0.0
+                          for f in self.model.encoder.factors])
+            return out
+
+        with patched((clip_guidance, "CLIPLoss", scored),
+                     (NeRFTrainer, "guidance_step", guidance_step)):
+            trainer, counts, dt, _ = run(
+                [scene, "-O", "--rand_pose", str(CLI_RAND_POSE), "--clip_model_path",
+                 "clip-vit-base-patch16", "--clip_text", "a chair", "--workspace",
+                 os.path.join(work, "ws_clip"), "--iters", str(CLI_GUIDE_ITERS)],
+                "17(b) --rand_pose --clip_model_path")
+        losses = [float(x) for x in seen["guidance"]]
+    want = CLI_FRAMES[0] // CLI_RAND_POSE
+    print(f"CLIP guidance: {len(losses)} guidance steps, losses {np.round(losses, 6).tolist()}; "
+          f"the CP factor banks' gradient sums (first, last step) {grads[:1]}, {grads[-1:]}; "
+          f"{dt:.3f} s  [{card}]", flush=True)
+    if (trainer.guidance_loss is not loss_fn or len(losses) != want
+            or not all(math.isfinite(v) and -1.0 <= v <= 1.0 for v in losses)
+            or not all(math.isfinite(g) and g > 0 for step in grads for g in step)):
+        raise RuntimeError(f"CLIP guidance: {len(losses)} steps (want {want}), losses {losses}, "
+                           f"factor gradients {grads}")
+    check_launched("CLIP run -O --rand_pose --clip_model_path", counts,
+                   ("cp_density_fwd", "cp_bwd_banks", "march_turbo", "cp_sigma_rgb"))
+    check_launched("CLIP guidance steps", guided,
+                   ("cp_density_fwd", "cp_bwd_banks", "march_turbo"),
+                   absent=("cp_sigma_rgb", "coarse_lookup_bits", "cp_encode_fwd"))
+    batches = trainer.make_loader(NeRFDataset(scene, split="train"))()
+    batch = next(b for b in batches if "guidance" in b)
+    trainer.guidance_step(batch)
+    profile(lambda: trainer.guidance_step(batch), 1, "guidance step", card,
+            focus=("gemm", "softmax", "cp_", "march", "upsample"))
+    del trainer, loss_fn
+    return counts, guided
+
+
+def brick_rows(x, cfg):
+    """The distinct table rows ``brick_encode`` gathers for points x [N, 3]."""
+    import torch
+
+    from ngp_tpu_torch.ops import brickgrid
+
+    rows = []
+    for level in range(cfg.num_levels):
+        x0 = torch.floor(x * cfg.level_scale(level) + 0.5).long()
+        rows.append(brickgrid._brick_index(cfg, level, x0 >> 1) + cfg.offsets[level])
+    inside = inside_rows(x)
+    return torch.unique(torch.stack(rows, dim=1)[inside]).numel()
+
+
+def brick_runs(dev, card, scene, work):
+    """Phase 17 (c): ``main_nerf <scene> --preset tpu --iters BRICK_ITERS``
+    (the brick grid, 8 levels x 4 of up to 2^16 bricks of 108 values, bf16,
+    the v1 march at 256 steps and 32 samples a ray; 10 epochs), then
+    ``--test`` on its workspace: the epoch-mean loss falls, the test PSNR
+    beats a white frame's by ``BRICK_MIN_GAIN`` dB and ``--test`` gives the
+    same PSNR; no kernel is launched (the brick grid and the v1 march are
+    torch, as JAX leaves them to XLA). On the last step's own encoder
+    points and cotangent, ``brick_encode``'s forward on the card against
+    the CPU (bf16, ``TOL``) and the device ms of its forward and its forward
+    + table gradient beside their bound: each distinct gathered row read
+    once, the points and cotangent read, the bf16 output and the dense f32
+    table gradient written once (``brick_rows``, ``bound``); two profiled
+    train steps. Returns the launch counts of the two runs."""
+    import numpy as np
+    import torch
+
+    from ngp_tpu_torch.data.nerf_dataset import NeRFDataset
+    from ngp_tpu_torch.models.encoders import BrickGridEncoder
+    from ngp_tpu_torch.ops import brickgrid
+
+    white = white_psnr(scene, "test")
+    caught, calls = {}, [0]
+    forward = BrickGridEncoder.forward
+
+    def catching(self, x):
+        out = forward(self, x)
+        calls[0] += 1
+        if out.requires_grad:
+            entry = caught["last"] = {"x": x.detach().reshape(-1, 3).float().contiguous()
+                                      .clone(), "enc": self}
+            out.register_hook(lambda g, e=entry: e.__setitem__(
+                "g", g.detach().reshape(e["x"].shape[0], -1).contiguous().clone()))
+        return out
+
+    ws = os.path.join(work, "ws_brick")
+    argv = [scene, "--preset", "tpu", "--workspace", ws, "--iters", str(BRICK_ITERS)]
+    n_train = CLI_FRAMES[0]
+    with cli_recorder(dev, card) as (seen, run), patched((BrickGridEncoder, "forward", catching)):
+        trainer, a_counts, a_dt, _ = run(argv, "17(c) --preset tpu")
+        n_calls = calls[0]
+        enc = trainer.model.encoder
+        means = torch.stack(seen["step_losses"]).cpu().numpy().reshape(-1, n_train).mean(axis=1)
+        psnr = seen["results"][-1]["psnr"]
+        mid = seen["epochs"][1:-1]
+        rays_s = len(mid) * n_train * trainer.train_cfg.num_rays / sum(mid)
+        n_epochs = len(seen["epochs"])
+        _, b_counts, _, _ = run(argv + ["--test"], "17(c) --test")
+        psnr_b = seen["results"][-1]["psnr"]
+    cfg = enc.cfg
+    print(f"brick grid (c): {cfg.num_levels} levels x {cfg.level_dim}, {cfg.num_rows} bricks "
+          f"of {cfg.row_width} values ({cfg.num_rows * cfg.row_width * 4} bytes in f32); "
+          f"{trainer.global_step} steps in {a_dt:.3f} s, {rays_s:.0f} rays/s over epochs "
+          f"2-{n_epochs - 1}; {n_calls} brick_encode calls; epoch-mean loss "
+          f"{means[0]:.6f} -> {means[-1]:.6f}; test PSNR {psnr:.4f} dB (--test {psnr_b:.4f}; a "
+          f"white frame {white:.4f}, floor +{BRICK_MIN_GAIN})  [{card}]", flush=True)
+    if not (isinstance(enc, BrickGridEncoder) and enc.compute_dtype == torch.bfloat16
+            and cfg.num_levels == 8 and cfg.level_dim == 4):
+        raise RuntimeError(f"brick grid: not the preset's encoder: {cfg}")
+    if not (means[-1] < means[0] and psnr >= white + BRICK_MIN_GAIN
+            and abs(psnr_b - psnr) <= 0.01):
+        raise RuntimeError(f"brick grid: epoch means {means}, test PSNR {psnr} (white {white}), "
+                           f"--test {psnr_b}")
+    check_launched("brick grid --preset tpu", a_counts, (), absent=tuple(a_counts))
+    check_launched("brick grid --test", b_counts, (), absent=tuple(b_counts))
+
+    e = caught["last"]
+    x, g = e["x"], e["g"]
+    table = e["enc"].embeddings.detach().requires_grad_(True)
+    out = brickgrid.brick_encode(x, table, cfg, torch.bfloat16)
+    n = min(x.shape[0], 16384)
+    want = brickgrid.brick_encode(x[:n].cpu(), table.detach().cpu(), cfg, torch.bfloat16)
+    err = (out[:n].detach().float().cpu() - want.float()).abs()
+    if not bool((err <= TOL["bfloat16"] * (1.0 + want.float().abs())).all()):
+        raise RuntimeError(f"brick_encode: the card's forward differs from the CPU's by "
+                           f"{float(err.max())}")
+    with torch.no_grad():
+        fwd_ms = cuda_ms(lambda: brickgrid.brick_encode(x, table, cfg, torch.bfloat16))
+    fb_ms = cuda_ms(lambda: torch.autograd.grad(
+        brickgrid.brick_encode(x, table, cfg, torch.bfloat16), (table,), g))
+    N, L, C = x.shape[0], cfg.num_levels, cfg.level_dim
+    rows = brick_rows(x, cfg)
+    io = nbytes(x) + rows * cfg.row_width * 4 + N * L * C * 2
+    ops = N * L * (9 + 8 * (2 + 2 * C))
+    f_bound = bound(io, 0, ops)
+    fb_bound = bound(io + nbytes(g) + cfg.num_rows * cfg.row_width * 4, 0, 2 * ops)
+    print(f"brick_encode (torch, no kernel) on step {trainer.global_step - 1}'s {N} points "
+          f"({1.0 - float(inside_rows(x).float().mean()):.4f} outside the box, {rows} distinct "
+          f"rows): forward {fwd_ms:.4f} ms (bound {f_bound[0]:.4f}, {f_bound[1]}), forward + "
+          f"table gradient {fb_ms:.4f} ms (bound {fb_bound[0]:.4f}, {fb_bound[1]}); the card "
+          f"vs the CPU on {n} points {float(err.max()):.3e}  [{card}]", flush=True)
+    del out, want, table, caught, e, x, g
+    batches = itertools.chain.from_iterable(
+        trainer.make_loader(NeRFDataset(scene, split="train"))() for _ in itertools.count())
+    trainer.step(next(batches))
+    profile(lambda: trainer.step(next(batches)), 2, "brick-grid step", card,
+            focus=("index", "gemm", "where", "elementwise"))
+    return a_counts, b_counts
 
 
 def advanced_sample_1d(line, u):
@@ -3084,7 +3562,7 @@ def main():
         make_synthetic_dataset(scene, n_train=n_train, n_val=n_val, n_test=n_test, device=dev)
         phase(f"CLI scene ({sum(CLI_FRAMES)} frames of 400x400 written)", t0)
         t0 = time.perf_counter()
-        cli_counts, rays_11a, psnr_11a = cli_runs(dev, card, scene, g_rays_s)
+        cli_counts, rays_11a, psnr_11a = cli_runs(dev, card, scene, g_rays_s, tmp)
         phase("CLI (-O, resume, --test, hashgrid with losses, --rand_pose)", t0)
 
         # 12. the rest of main_nerf: the background net, no -O, LPIPS
@@ -3107,16 +3585,36 @@ def main():
         ccnerf_counts = ccnerf_runs(dev, card, scene, results)
         phase("CCNeRF (-O --compose, --test)", t0)
 
-    # 16. D-NeRF on a dynamic scene: -O, --test, --hyper, --basis
-    t0 = time.perf_counter()
-    dnerf_counts = dnerf_runs(dev, card, results, control=args.dnerf_control)
-    phase("D-NeRF (-O, --test, --hyper, --basis)", t0)
+        # 16. D-NeRF on a dynamic scene: -O, --test, --hyper, --basis
+        t0 = time.perf_counter()
+        dnerf_counts = dnerf_runs(dev, card, results, tmp, control=args.dnerf_control)
+        phase("D-NeRF (-O, --test, --hyper, --basis)", t0)
+
+        # 17. the viewers on 11 (a)'s and 16 (a)'s workspaces, CLIP guidance,
+        # the brick grid
+        t0 = time.perf_counter()
+        view_counts = viewer_runs(dev, card, scene, os.path.join(tmp, "cli", "ws"),
+                                  os.path.join(tmp, "dnerf", "dscene"),
+                                  os.path.join(tmp, "dnerf", "ws"))
+        phase("viewers (main_nerf -O --gui, main_dnerf -O --gui)", t0)
+        t0 = time.perf_counter()
+        clip_counts, guided_counts = clip_runs(dev, card, scene, tmp)
+        phase("CLIP guidance (ViT-B/16, -O --rand_pose --clip_model_path)", t0)
+        t0 = time.perf_counter()
+        brick_counts = brick_runs(dev, card, scene, tmp)
+        phase("brick grid (--preset tpu, --test)", t0)
 
     print_results(results, library, card, printed)
     path_counts = (eval_counts, train_counts, frame_counts, evaluate_counts, test_counts,
                    mesh_counts, wide_counts, gamma_counts, gamma_frame_counts, hash_train_counts,
                    hash_frame_counts, *cli_counts, *rest_counts, *sdf_counts, *tensorf_counts,
-                   *ccnerf_counts, *dnerf_counts)
+                   *ccnerf_counts, *dnerf_counts, *view_counts, clip_counts, *brick_counts)
+    # phase 17's paths on their own (the guidance steps are a part of the
+    # CLIP run)
+    slice_paths = {"17a_viewer_nerf": view_counts[0], "17a_viewer_dnerf": view_counts[1],
+                   "17b_clip_run": clip_counts, "17b_clip_guidance_steps": guided_counts,
+                   "17c_brickgrid": {k: a + b for (k, a), b in zip(brick_counts[0].items(),
+                                                                   brick_counts[1].values())}}
     csrc = "ngp_tpu_torch/ops/kernels/csrc/"
     sources = {
         "cp_density_fwd": (csrc + "cp_kernels.cu", "ngp_tpu/ops/pallas/cp_kernels.py:345",
@@ -3173,7 +3671,8 @@ def main():
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
                         "launches": launches, "max_abs_err": err, "ms": k_ms,
                         "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-                        "library_ms": library.get(key)})
+                        "library_ms": library.get(key),
+                        "paths": {p: c[name] for p, c in slice_paths.items()}})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

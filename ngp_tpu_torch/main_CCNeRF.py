@@ -9,10 +9,11 @@ the K rank prefixes, at most 256 lattice steps and 32 samples a ray), then
 the three ``compress`` levels evaluated the same way, and with
 ``--compose`` a scene of the finalized model and a copy translated by 0.6
 along x, rendered by ``test(write_video=True)``. ``--test`` loads
-``--ckpt`` (the latest by default) instead of training. It runs on the
-CUDA device; ``main`` takes ``device="cpu"`` from a caller (the tests), no
-flag does. ``--gui`` raises ``NotImplementedError`` (the viewers are
-ROADMAP §1 item 4); ``--preload`` is accepted and changes nothing.
+``--ckpt`` (the latest by default) instead of training; ``--gui`` loads
+it and serves the browser viewer (``viewer_web.serve``) instead of all of
+that. It runs on the CUDA device; ``main`` takes ``device="cpu"`` from a
+caller (the tests), no flag does. ``--preload`` is accepted and changes
+nothing.
 """
 
 import argparse
@@ -71,8 +72,6 @@ def main(argv: Optional[Sequence[str]] = None, device="cuda") -> CCNeRFTrainer:
     """Parse ``argv`` (the command line when None), run, and return the
     trainer of the finalized full-rank model."""
     opt = build_parser().parse_args(argv)
-    if opt.gui:
-        raise NotImplementedError("--gui: the viewers are not ported yet (ROADMAP §1 item 4)")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("ngp_tpu_torch.main_CCNeRF runs on a CUDA device, and none is "
@@ -96,10 +95,19 @@ def main(argv: Optional[Sequence[str]] = None, device="cuda") -> CCNeRFTrainer:
     )
     model = CCNeRF(CCNeRFConfig(), bound=opt.bound,
                    generator=torch.Generator().manual_seed(opt.seed), device=device)
-    trainer = CCNeRFTrainer(model, render_cfg, train_cfg, seed=opt.seed)
+    trainer = CCNeRFTrainer(model, render_cfg, train_cfg, seed=opt.seed, use_tensorboard=True)
     trainer.max_ray_batch = opt.max_ray_batch
     dataset = functools.partial(NeRFDataset, opt.path, scale=opt.scale, offset=opt.offset,
                                 downscale=opt.downscale, color_space=opt.color_space)
+    if opt.gui:
+        from ngp_tpu_torch.viewer import InteractiveSession
+        from ngp_tpu_torch.viewer_web import serve
+
+        trainer.load_checkpoint(None if opt.ckpt == "latest" else opt.ckpt)
+        session = InteractiveSession(trainer, dataset(split="train", seed=opt.seed),
+                                     max_spp=opt.max_spp)
+        serve(session, W=opt.W, H=opt.H, radius=opt.radius, fovy=opt.fovy)
+        return trainer
     test_ds = dataset(split="test")
     ckpt = None if opt.ckpt == "latest" else opt.ckpt
     if not opt.test:

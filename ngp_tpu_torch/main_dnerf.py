@@ -12,9 +12,10 @@ its moving sphere (``dynamic=True``); training validates every
 ``eval_interval`` epochs, then ``evaluate`` scores the test split;
 ``--test`` loads ``--ckpt`` (the latest by default) and only evaluates. It
 runs on the CUDA device; ``main`` takes ``device="cpu"`` from a caller (the
-tests), no flag does. ``--gui`` raises ``NotImplementedError`` (the viewers
-are ROADMAP §1 item 4); ``--cuda_ray``, ``--preload`` and ``--lr_net`` are
-accepted and change nothing, as in JAX.
+tests), no flag does. ``--gui`` (after the ``--test`` branch, as in JAX)
+loads the checkpoint and serves the browser viewer, the scene time on
+its ``[``/``]`` keys (``viewer_web.serve``); ``--cuda_ray``, ``--preload``
+and ``--lr_net`` are accepted and change nothing, as in JAX.
 """
 
 import argparse
@@ -76,8 +77,6 @@ def main(argv: Optional[Sequence[str]] = None, device="cuda") -> DNeRFTrainer:
     """Parse ``argv`` (the command line when None), run, and return the
     trainer."""
     opt = build_parser().parse_args(argv)
-    if opt.gui:
-        raise NotImplementedError("--gui: the viewers are not ported yet (ROADMAP §1 item 4)")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("ngp_tpu_torch.main_dnerf runs on a CUDA device, and none is "
@@ -107,7 +106,8 @@ def main(argv: Optional[Sequence[str]] = None, device="cuda") -> DNeRFTrainer:
         cls = DNeRFBasisNetwork if opt.basis else DNeRFNetwork
     model = cls(net_cfg, render_cfg, generator=torch.Generator().manual_seed(opt.seed),
                 device=device)
-    trainer = DNeRFTrainer(model, render_cfg, train_cfg, name="dnerf", seed=opt.seed)
+    trainer = DNeRFTrainer(model, render_cfg, train_cfg, name="dnerf", seed=opt.seed,
+                           use_tensorboard=True)
 
     dataset = functools.partial(NeRFDataset, opt.path, scale=opt.scale, offset=opt.offset,
                                 downscale=opt.downscale)
@@ -121,6 +121,14 @@ def main(argv: Optional[Sequence[str]] = None, device="cuda") -> DNeRFTrainer:
     train_ds = dataset(split="train", seed=opt.seed, color_space=opt.color_space)
     valid_ds = dataset(split="val", color_space=opt.color_space)
     trainer.max_ray_batch = opt.max_ray_batch
+    if opt.gui:
+        from ngp_tpu_torch.viewer import InteractiveSession
+        from ngp_tpu_torch.viewer_web import serve
+
+        trainer.load_checkpoint(None if opt.ckpt == "latest" else opt.ckpt)
+        serve(InteractiveSession(trainer, train_ds, max_spp=opt.max_spp), W=opt.W, H=opt.H,
+              radius=opt.radius, fovy=opt.fovy)
+        return trainer
     max_epochs = opt.epochs or max(1, opt.iters // len(train_ds))
     trainer.train_on_dataset(train_ds, valid_ds, max_epochs=max_epochs)
     if test_ds.has_gt:

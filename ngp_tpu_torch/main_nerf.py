@@ -11,13 +11,16 @@ every ``eval_interval`` epochs and keeps the best checkpoint, ``--ckpt
 latest`` resumes, then ``evaluate`` (with LPIPS when ``--lpips_weights``
 names a local checkpoint) and ``test`` on the test split and, with
 ``--save_mesh``, the mesh; ``--test`` does only the last part from a
-checkpoint. ``--bg_radius > 0`` adds the background net. It runs on the
-CUDA device; ``main`` takes ``device="cpu"`` from a caller (the tests),
-no flag does.
-
-Flags whose path is not ported (``--gui``, ``--clip_model_path``, the
-brick grid) raise ``NotImplementedError`` naming the ROADMAP item that
-ports it; ``--ff``, ``--tcnn`` and ``--preload`` are accepted and change
+checkpoint. ``--bg_radius > 0`` adds the background net. ``--preset tpu``
+(or ``--encoding brickgrid``) trains the brick grid through the v1
+march. ``--rand_pose`` adds the guidance steps, scored by CLIP
+(``CLIPLoss``) when ``--clip_model_path`` names a local HuggingFace CLIP
+checkout (it needs ``transformers``), else by the stand-in
+``GradientImageLoss``. ``--gui`` loads the checkpoint and serves the
+browser viewer (``viewer_web.serve``, port 7860) instead of the batch
+run, as in JAX. It runs on the CUDA device; ``main`` takes
+``device="cpu"`` from a caller (the tests), no flag does.
+``--ff``, ``--tcnn`` and ``--preload`` are accepted and change
 nothing, as in JAX. The parser and ``resolve_opts``
 are copies of ``main_nerf.py``'s (the port imports nothing of the JAX
 side); ``tests/test_torch_dataset_cli.py`` pins them to it.
@@ -193,25 +196,10 @@ def resolve_opts(opt):
     return opt
 
 
-def unported(opt) -> Optional[str]:
-    """Why a resolved option set cannot run in the port, or None."""
-    if opt.gui:
-        return "--gui: the viewers are not ported yet (ROADMAP §1 item 4)"
-    if opt.encoding == "brickgrid":
-        return ("--encoding brickgrid / --preset tpu: the brick grid is not ported yet "
-                "(ROADMAP §1 item 7)")
-    if opt.clip_model_path:
-        return "--clip_model_path: CLIP guidance is not ported yet (ROADMAP §1 item 9)"
-    return None
-
-
 def main(argv: Optional[Sequence[str]] = None, device="cuda") -> NeRFTrainer:
     """Parse ``argv`` (the command line when None), run, and return the
     trainer."""
     opt = resolve_opts(build_parser().parse_args(argv))
-    why = unported(opt)
-    if why is not None:
-        raise NotImplementedError(why)
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("ngp_tpu_torch.main_nerf runs on a CUDA device, and none is "
@@ -244,7 +232,7 @@ def main(argv: Optional[Sequence[str]] = None, device="cuda") -> NeRFTrainer:
     model = NeRFNetwork(net_cfg, render_cfg, torch.Generator().manual_seed(opt.seed),
                         device=device)
     trainer_cls = GridNeRFTrainer if opt.cuda_ray else NeRFTrainer
-    trainer = trainer_cls(model, render_cfg, train_cfg, seed=opt.seed)
+    trainer = trainer_cls(model, render_cfg, train_cfg, seed=opt.seed, use_tensorboard=True)
     trainer.max_ray_batch = opt.max_ray_batch
     if opt.lpips_weights:
         trainer.lpips_weights = opt.lpips_weights
@@ -255,11 +243,23 @@ def main(argv: Optional[Sequence[str]] = None, device="cuda") -> NeRFTrainer:
     if not opt.test:
         train_ds = dataset(split="train", error_map=opt.error_map, seed=opt.seed)
         if opt.rand_pose >= 0:
-            from ngp_tpu_torch.training.clip_guidance import GradientImageLoss
+            from ngp_tpu_torch.training.clip_guidance import CLIPLoss, GradientImageLoss
 
-            print("[warn] no --clip_model_path: using the stand-in GradientImageLoss for "
-                  "guidance steps")
-            trainer.guidance_loss = GradientImageLoss(opt.clip_text)
+            if opt.clip_model_path:
+                trainer.guidance_loss = CLIPLoss(opt.clip_text, model_path=opt.clip_model_path,
+                                                 device=device)
+            else:
+                print("[warn] no --clip_model_path: using the stand-in GradientImageLoss for "
+                      "guidance steps")
+                trainer.guidance_loss = GradientImageLoss(opt.clip_text)
+        if opt.gui:
+            from ngp_tpu_torch.viewer import InteractiveSession
+            from ngp_tpu_torch.viewer_web import serve
+
+            trainer.load_checkpoint(ckpt)
+            serve(InteractiveSession(trainer, train_ds, max_spp=opt.max_spp), W=opt.W, H=opt.H,
+                  radius=opt.radius, fovy=opt.fovy)
+            return trainer
         valid_ds = dataset(split="val")
         max_epochs = opt.epochs or max(1, opt.iters // len(train_ds))
         trainer.load_checkpoint(ckpt)

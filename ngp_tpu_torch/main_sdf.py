@@ -62,7 +62,7 @@ def main(argv: Optional[Sequence[str]] = None, device="cuda") -> SDFTrainer:
     valid_ds = SDFDataset(size=1, num_samples=opt.num_samples, clip_sdf=opt.clip_sdf,
                           seed=opt.seed + 1, **kw)
     trainer = SDFTrainer(model, workspace=opt.workspace, lr=opt.lr,
-                         max_steps=100 * opt.epochs, eval_interval=5)
+                         max_steps=100 * opt.epochs, eval_interval=5, use_tensorboard=True)
     trainer.load_checkpoint()
     if not opt.test:
         trainer.train(train_ds, valid_ds, max_epochs=opt.epochs)

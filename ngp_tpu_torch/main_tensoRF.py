@@ -12,9 +12,9 @@ budget of 8 (``compact_mean_samples``), and ``max_steps <= 256``.
 load from ``<path>``; ``TensoRFTrainer`` trains with validation every
 ``eval_interval`` epochs, then ``evaluate`` and ``test`` on the test
 split; ``--test`` loads ``--ckpt`` (the latest by default) and does only
-the last part. It runs on the CUDA device; ``main`` takes
-``device="cpu"`` from a caller (the tests), no flag does. ``--gui``
-raises ``NotImplementedError`` (the viewers are ROADMAP §1 item 4);
+the last part; ``--gui`` loads the checkpoint and serves the browser
+viewer (``viewer_web.serve``) instead. It runs on the CUDA device;
+``main`` takes ``device="cpu"`` from a caller (the tests), no flag does.
 ``--preload`` is accepted and changes nothing.
 """
 
@@ -92,8 +92,6 @@ def main(argv: Optional[Sequence[str]] = None, device="cuda") -> TensoRFTrainer:
     """Parse ``argv`` (the command line when None), run, and return the
     trainer."""
     opt = resolve_opts(build_parser().parse_args(argv))
-    if opt.gui:
-        raise NotImplementedError("--gui: the viewers are not ported yet (ROADMAP §1 item 4)")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("ngp_tpu_torch.main_tensoRF runs on a CUDA device, and none is "
@@ -124,11 +122,20 @@ def main(argv: Optional[Sequence[str]] = None, device="cuda") -> TensoRFTrainer:
     trainer = TensoRFTrainer(
         model, render_cfg, train_cfg, lr_net=opt.lr1, l1_reg_weight=opt.l1_reg_weight,
         upsample_model_steps=opt.upsample_model_steps, resolution0=opt.resolution0,
-        resolution1=opt.resolution1, seed=opt.seed,
+        resolution1=opt.resolution1, seed=opt.seed, use_tensorboard=True,
     )
     trainer.max_ray_batch = opt.max_ray_batch
     dataset = functools.partial(NeRFDataset, opt.path, scale=opt.scale, offset=opt.offset,
                                 downscale=opt.downscale, color_space=opt.color_space)
+    if opt.gui:
+        from ngp_tpu_torch.viewer import InteractiveSession
+        from ngp_tpu_torch.viewer_web import serve
+
+        trainer.load_checkpoint(None if opt.ckpt == "latest" else opt.ckpt)
+        session = InteractiveSession(trainer, dataset(split="train", seed=opt.seed),
+                                     max_spp=opt.max_spp)
+        serve(session, W=opt.W, H=opt.H, radius=opt.radius, fovy=opt.fovy)
+        return trainer
     test_ds = dataset(split="test")
     if opt.test:
         trainer.load_checkpoint(None if opt.ckpt == "latest" else opt.ckpt)

@@ -1,8 +1,7 @@
-"""Encoder factory (``ngp_tpu/models/encoders.py``); the port has the
-identity (``None``), ``frequency``, ``sphere_harmonics``, ``cpgrid``,
-``hashgrid`` and ``tiledgrid`` encoders (``brickgrid`` is not ported).
-Weights are drawn from a CPU ``torch.Generator`` and placed on
-``device``."""
+"""Encoder factory (``ngp_tpu/models/encoders.py``): the identity
+(``None``), ``frequency``, ``sphere_harmonics``, ``cpgrid``,
+``brickgrid``, ``hashgrid`` and ``tiledgrid`` encoders. Weights are
+drawn from a CPU ``torch.Generator`` and placed on ``device``."""
 
 from __future__ import annotations
 
@@ -11,6 +10,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
+from ngp_tpu_torch.ops.brickgrid import BrickGridConfig, brick_encode
 from ngp_tpu_torch.ops.cpgrid import CPGridConfig, cpgrid_encode
 from ngp_tpu_torch.ops.freq import freq_encode, freq_encode_dim
 from ngp_tpu_torch.ops.hashgrid import GridConfig, grid_encode, grid_tv_loss
@@ -44,6 +44,24 @@ class SHEncoder(nn.Module):
 
     def forward(self, dirs: torch.Tensor) -> torch.Tensor:
         return sh_encode(dirs, self.degree)
+
+
+class BrickGridEncoder(nn.Module):
+    """Brick-halo multiresolution grid (``ops/brickgrid.py``: one gather per
+    point and level), one learned table, the ``embeddings`` parameter
+    [num_rows, 27 * level_dim], as the flax module names it."""
+
+    def __init__(self, cfg: BrickGridConfig, compute_dtype: Optional[torch.dtype] = None,
+                 generator: Optional[torch.Generator] = None, device="cuda"):
+        super().__init__()
+        self.cfg = cfg
+        self.compute_dtype = compute_dtype
+        self.output_dim = cfg.output_dim
+        g = generator or torch.Generator().manual_seed(0)
+        self.embeddings = nn.Parameter(cfg.init(g, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return brick_encode(x, self.embeddings, self.cfg, self.compute_dtype)
 
 
 class CPGridEncoder(nn.Module):
@@ -126,6 +144,15 @@ def get_encoder(
         enc = CPGridEncoder(cfg, compute_dtype=compute_dtype, generator=generator,
                             device=device)
         return enc, cfg.output_dim
+    if encoding == "brickgrid":
+        cfg = BrickGridConfig(
+            num_levels=num_levels, level_dim=level_dim, base_resolution=base_resolution,
+            log2_hashmap_size=min(log2_hashmap_size, 16),
+            desired_resolution=desired_resolution,
+        )
+        enc = BrickGridEncoder(cfg, compute_dtype=compute_dtype, generator=generator,
+                               device=device)
+        return enc, cfg.output_dim
     if encoding in ("hashgrid", "tiledgrid"):
         cfg = GridConfig(
             input_dim=input_dim, num_levels=num_levels, level_dim=level_dim,
@@ -137,4 +164,4 @@ def get_encoder(
         enc = GridEncoder(cfg, compute_dtype=compute_dtype, generator=generator,
                           device=device)
         return enc, cfg.output_dim
-    raise NotImplementedError(f"encoding {encoding!r} is not ported yet")
+    raise ValueError(f"unknown encoding: {encoding}")

@@ -39,6 +39,9 @@ padded by repeating the last index. The JAX code loops over chunks with
 ``jax.lax.map`` inside one compiled call; here it is a Python loop
 whose chunks run on the device without a host sync.
 
+``train_gui`` and ``test_gui`` are the GUI loop's two halves
+(``viewer.py`` drives them through ``step`` and ``render_frame``).
+
 ``evaluate`` scores a split (PSNR, SSIM, and LPIPS with
 ``lpips_weights``) on the u8 frames
 ``render_frames`` returns, ``test`` writes a split's frames as PNGs
@@ -116,6 +119,9 @@ class NeRFTrainer(Trainer):
         # the inference crop box [xmin, ymin, zmin, xmax, ymax, zmax] of the
         # frame renders, or None for the scene's box
         self.aabb_infer = None
+        # train_gui's loader and its iterator, which carry on across calls
+        self._gui_loader = None
+        self._gui_iter = None
 
     def init_aux(self):
         return {}
@@ -487,6 +493,47 @@ class NeRFTrainer(Trainer):
         last.scatter_reduce_(0, flat, pos, reduce="amax")
         return (last[flat] == pos).reshape(inds.shape)
 
+    # ---- the GUI loop's two halves (nerf/utils.py:718-829) -------------------
+
+    def train_gui(self, train_ds: NeRFDataset, step: int = 16) -> Dict[str, float]:
+        """Run ``step`` train steps on ``train_ds``'s loader, which carries
+        on across calls, and report the last loss, the learning rate and
+        the seconds taken (reading the loss waits for the device): the
+        trainer half of the reference's GUI loop (utils.py:718-776).
+        ``viewer.InteractiveSession`` adapts the step count to a budget."""
+        self.ensure_initialized()
+        if self._gui_loader is None:
+            self._gui_loader = self.make_loader(train_ds)
+            self._gui_iter = iter(self._gui_loader())
+        t0 = time.perf_counter()
+        metrics = None
+        for _ in range(step):
+            try:
+                batch = next(self._gui_iter)
+            except StopIteration:
+                self._gui_iter = iter(self._gui_loader())
+                batch = next(self._gui_iter)
+            metrics = self.step(batch)
+        loss = float(metrics["loss"])
+        return {"loss": loss, "lr": self.optimizer.param_groups[0]["lr"],
+                "time": time.perf_counter() - t0}
+
+    def test_gui(self, pose, intrinsics, W: int, H: int, bg_color=None, spp: int = 1,
+                 downscale: float = 1.0) -> Dict[str, np.ndarray]:
+        """Render one view at ``downscale`` and bring it back to (H, W) by
+        nearest-neighbour resizing: the render half of the GUI loop
+        (utils.py:780-829). ``bg_color`` and ``spp`` are the reference's
+        arguments and change nothing, as in JAX."""
+        rH, rW = int(H * downscale), int(W * downscale)
+        intr = np.asarray(intrinsics, np.float32) * downscale
+        image, depth = self.render_frame(pose, intr, rH, rW)
+        if downscale != 1.0:
+            import cv2
+
+            image = cv2.resize(image, (W, H), interpolation=cv2.INTER_NEAREST)
+            depth = cv2.resize(depth, (W, H), interpolation=cv2.INTER_NEAREST)
+        return {"image": image, "depth": depth}
+
     # ---- evaluate, test, mesh export ---------------------------------------
 
     def evaluate(self, dataset: NeRFDataset, max_frames: Optional[int] = None,
@@ -532,6 +579,9 @@ class NeRFTrainer(Trainer):
             result["lpips"] = lpips_meter.measure()
             report += ", " + lpips_meter.report()
         self.log(f"evaluate: {report} over {n} frames")
+        if self.writer is not None:
+            for k, v in result.items():
+                self.writer.add_scalar(f"eval/{k}", v, self.global_step)
         return result
 
     def _render_split(self, dataset: NeRFDataset, n: int) -> Iterator[Tuple[int, np.ndarray]]:

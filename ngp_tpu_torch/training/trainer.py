@@ -19,6 +19,14 @@ shape, and keeps its fresh value, logged, where not; ``_post_restore``
 then rebuilds what derives from skipped keys. ``_extra_ckpt_metadata``
 is stored in the file, and ``_restore_metadata`` reads it back before
 the merge (TensoRF resizes its factors there).
+
+With ``use_tensorboard`` (the command lines set it, as the JAX trainer's
+default does) and where ``tensorboardX`` imports, ``writer`` is a
+``SummaryWriter`` on ``<workspace>/run/<name>``, and the scalars go where
+the JAX trainer writes them: ``train/<metric>`` and ``train/lr`` at each
+metrics flush, ``eval/loss`` after ``evaluate_one_epoch`` and
+``eval/<metric>`` after the NeRF trainers' ``evaluate``; otherwise
+``writer`` is None.
 """
 
 from __future__ import annotations
@@ -37,7 +45,8 @@ class Trainer:
     def __init__(self, name: str, workspace: str = "workspace", lr: float = 1e-3,
                  lr_decay_target: float = 0.1, max_steps: int = 30000,
                  ema_decay: Optional[float] = 0.95, max_keep_ckpt: int = 2,
-                 eval_interval: int = 1, log_every: int = 100):
+                 eval_interval: int = 1, log_every: int = 100,
+                 use_tensorboard: bool = False):
         self.name = name
         self.workspace = workspace
         self.lr = lr
@@ -58,6 +67,14 @@ class Trainer:
         self.scheduler = None
         self.ema: Optional[EMA] = None
         self.last_restore_skipped: List[str] = []
+        self.writer = None
+        if use_tensorboard:
+            try:
+                from tensorboardX import SummaryWriter
+            except ImportError:
+                pass
+            else:
+                self.writer = SummaryWriter(os.path.join(workspace, "run", name))
 
     # ---- subclass hooks --------------------------------------------------
 
@@ -158,6 +175,8 @@ class Trainer:
         loss = total / max(n, 1)
         self.stats["valid_loss"].append(loss)
         self.log(f"eval epoch {self.epoch}: loss={loss:.6f}")
+        if self.writer is not None:
+            self.writer.add_scalar("eval/loss", loss, self.global_step)
         return loss
 
     def train_one_epoch(self, loader: Iterable):
@@ -182,6 +201,10 @@ class Trainer:
         step, metrics = pending[-1]
         host = {k: float(v) for k, v in metrics.items()}
         self.stats["loss"].append(host.get("loss", 0.0))
+        if self.writer is not None:
+            for k, v in host.items():
+                self.writer.add_scalar(f"train/{k}", v, step)
+            self.writer.add_scalar("train/lr", self.optimizer.param_groups[0]["lr"], step)
         self.log(f"step {step}: " + " ".join(f"{k}={v:.6f}" for k, v in host.items()))
         # turbo budget overflow: a calibrated estimate of the dropped
         # share of samples; a healthy converged scene reads about 0.1,

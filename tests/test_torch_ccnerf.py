@@ -305,7 +305,8 @@ def test_main_runs_on_the_cpu_and_refuses_the_viewer(tmp_path, monkeypatch):
     grid to 16^3): training, the finalized full rank and the three
     compression levels evaluated, the composed scene's frames written;
     then ``--test`` from the checkpoint gives the same full-rank PSNR.
-    ``--gui`` raises, naming the ROADMAP item."""
+    ``--gui`` resumes the checkpoint and reaches ``serve`` (replaced)
+    with an ``InteractiveSession``."""
     from ngp_tpu_torch.training.nerf import NeRFTrainer
 
     root = tsyn.make_synthetic_dataset(str(tmp_path / "scene"), n_train=3, n_val=1, n_test=1,
@@ -330,5 +331,11 @@ def test_main_runs_on_the_cpu_and_refuses_the_viewer(tmp_path, monkeypatch):
     back = tmain.main(argv[:-1] + ["--test"], device="cpu")
     assert back.global_step == 6 and results[4]["psnr"] == pytest.approx(results[0]["psnr"],
                                                                          abs=1e-6)
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 4"):
-        tmain.main([root, "--gui"], device="cpu")
+    from ngp_tpu_torch import viewer_web
+    from ngp_tpu_torch.viewer import InteractiveSession
+
+    served = []
+    monkeypatch.setattr(viewer_web, "serve", lambda session, **kw: served.append(session))
+    gui = tmain.main(argv + ["--gui"], device="cpu")
+    assert len(served) == 1 and isinstance(served[0], InteractiveSession)
+    assert served[0].trainer is gui and gui.global_step == tr.global_step

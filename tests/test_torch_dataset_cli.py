@@ -4,8 +4,8 @@ JAX package: ``NeRFDataset`` on scenes that the JAX package's
 colmap ``transforms.json`` with ``fl_x``/``cx`` and its slerp test path;
 ``downscale``; RGB images; a missing file; linear colour), the port's
 ``make_synthetic_dataset`` beside JAX's, ``rand_poses``, the parser and
-``resolve_opts`` pinned to ``main_nerf.py``'s, the flags the port
-refuses, and one small ``main`` run on the CPU.
+``resolve_opts`` pinned to ``main_nerf.py``'s, every option of each JAX
+main accepted by the port's, and small ``main`` runs on the CPU.
 
 Tolerances. The loaders: equal, bit for bit. The scene writer: the JSON
 to 1e-6, the PNGs within one u8 level in under 1% of the pixels (the
@@ -234,17 +234,67 @@ def test_resolve_opts_agrees_with_main_nerf(argv):
     assert vars(got) == vars(want)
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--cuda_ray", "--encoding", "tiledgrid", "--gui"], "item 4"),
-    (["-O", "--rand_pose", "0", "--clip_model_path", "clip"], "item 9"),
-    (["-O", "--encoding", "brickgrid"], "item 7"),
-    (["--preset", "tpu"], "item 7"),
-])
-def test_unported_flags_raise(tmp_path, flags, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP §1 {item}"):
-        tmain.main([str(tmp_path / "none"), "--workspace", str(tmp_path / "ws")] + flags,
-                   device="cpu")
-    assert not (tmp_path / "ws").exists()
+class _Stop(Exception):
+    """Raised where a run would first read its scene."""
+
+
+def _option_argvs(parser):
+    """One argument list per option of ``parser``: a flag alone, each
+    choice of an option with choices, else the option's default (for a
+    list, its items; for None, "1")."""
+    out = []
+    for a in parser._actions:
+        if not a.option_strings or a.dest == "help":
+            continue
+        flag = a.option_strings[0]
+        if a.nargs == 0:
+            out.append([flag])
+        elif a.choices:
+            out += [[flag, str(c)] for c in a.choices]
+        elif isinstance(a.default, list):
+            out.append([flag] + [str(v) for v in a.default[:1 if a.nargs is None else None]])
+        else:
+            out.append([flag, "1" if a.default is None else str(a.default)])
+    return out
+
+
+@pytest.mark.parametrize("script", ["main_nerf", "main_sdf", "main_tensoRF", "main_CCNeRF",
+                                    "main_dnerf"])
+def test_every_jax_option_runs_in_the_port(tmp_path, monkeypatch, script):
+    """Every option of the JAX main's parser (each choice of a choice
+    option, ``--gui``, ``--clip_model_path``, ``--encoding brickgrid`` and
+    ``--preset tpu`` among them) parses in the port's main of the same
+    name, and ``main(..., device="cpu")`` runs with it to the point where
+    it reads its scene (the loaders replaced, the grid cut to 16^3, no
+    scene written, no tensorboard): no option raises
+    ``NotImplementedError``."""
+    import importlib
+    import sys
+
+    from test_torch_sdf import jax_main_parser
+
+    parser = (jmain.build_parser() if script == "main_nerf"
+              else jax_main_parser(monkeypatch, f"{script}.py"))
+    port = importlib.import_module(f"ngp_tpu_torch.{script}")
+
+    def stop(*a, **kw):
+        raise _Stop
+
+    if script == "main_sdf":
+        monkeypatch.setattr(port, "SDFDataset", stop)
+    else:
+        monkeypatch.setattr(port, "NeRFDataset", stop)
+        monkeypatch.setattr(port, "RenderConfig",
+                            functools.partial(tconfig.RenderConfig, grid_size=16))
+        monkeypatch.setattr(tsyn, "make_synthetic_dataset", lambda *a, **kw: None)
+    monkeypatch.setitem(sys.modules, "tensorboardX", None)
+    path = "sphere" if script == "main_sdf" else str(tmp_path / "none")
+    argvs = _option_argvs(parser)
+    assert len(argvs) >= 10
+    for args in argvs:
+        port.build_parser().parse_args([path] + args)
+        with pytest.raises(_Stop):
+            port.main([path, "--workspace", str(tmp_path / "ws")] + args, device="cpu")
 
 
 @pytest.mark.parametrize("flags", [
@@ -302,13 +352,6 @@ def test_main_runs_the_rest_of_main_nerf_on_the_cpu(tmp_path, monkeypatch, flags
     for i in range(2):
         assert read_png(os.path.join(ws, "results", f"ngp_{i:04d}_rgb.png")).shape == \
             (size, size, 3)
-
-
-def test_clip_loss_is_not_ported():
-    from ngp_tpu_torch.training.clip_guidance import CLIPLoss
-
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 9"):
-        CLIPLoss("a chair", model_path="clip")
 
 
 def test_main_runs_on_cuda_by_default(tmp_path):

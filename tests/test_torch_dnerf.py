@@ -533,8 +533,8 @@ def test_main_runs_on_the_cpu(tmp_path, monkeypatch, variant):
     """``-O --time_size 4`` on a small dynamic scene (the grid cut to 16^3,
     the hash grid to 4 levels of 2^12 rows): training at the frames'
     times, evaluate on the test split; then ``--test`` from the
-    checkpoint gives the same PSNR. ``--gui`` raises, naming the ROADMAP
-    item."""
+    checkpoint gives the same PSNR. ``--gui`` resumes the checkpoint and
+    reaches ``serve`` (replaced) with an ``InteractiveSession``."""
     from ngp_tpu_torch.training.nerf import NeRFTrainer
 
     root = tsyn.make_synthetic_dataset(str(tmp_path / "scene"), n_train=4, n_val=1, n_test=2,
@@ -559,5 +559,11 @@ def test_main_runs_on_the_cpu(tmp_path, monkeypatch, variant):
     back = tmain.main(argv + ["--test"], device="cpu")
     assert back.global_step == 8 and back.aux["occ"].iter_density == tr.aux["occ"].iter_density
     assert results[1]["psnr"] == pytest.approx(results[0]["psnr"], abs=1e-6)
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 4"):
-        tmain.main([root, "--gui"], device="cpu")
+    from ngp_tpu_torch import viewer_web
+    from ngp_tpu_torch.viewer import InteractiveSession
+
+    served = []
+    monkeypatch.setattr(viewer_web, "serve", lambda session, **kw: served.append(session))
+    gui = tmain.main(argv + ["--gui"], device="cpu")
+    assert len(served) == 1 and isinstance(served[0], InteractiveSession)
+    assert served[0].trainer is gui and gui.global_step == tr.global_step

@@ -28,6 +28,7 @@ MODULES = [
     "ngp_tpu_torch.ops.losses",
     "ngp_tpu_torch.ops.morton",
     "ngp_tpu_torch.ops.interp",
+    "ngp_tpu_torch.ops.brickgrid",
     "ngp_tpu_torch.ops.kernels",
     "ngp_tpu_torch.ops.kernels.build",
     "ngp_tpu_torch.ops.kernels.cp",
@@ -44,6 +45,7 @@ MODULES = [
     "ngp_tpu_torch.models.tensorf",
     "ngp_tpu_torch.models.ccnerf",
     "ngp_tpu_torch.models.dnerf",
+    "ngp_tpu_torch.models.clip",
     "ngp_tpu_torch.data.raysampler",
     "ngp_tpu_torch.data.nerf_dataset",
     "ngp_tpu_torch.data.synthetic",
@@ -52,6 +54,9 @@ MODULES = [
     "ngp_tpu_torch.native",
     "ngp_tpu_torch.utils.color",
     "ngp_tpu_torch.utils.png",
+    "ngp_tpu_torch.utils.vis",
+    "ngp_tpu_torch.viewer",
+    "ngp_tpu_torch.viewer_web",
     "ngp_tpu_torch.training.metrics",
     "ngp_tpu_torch.training.lpips",
     "ngp_tpu_torch.training.state",
@@ -82,7 +87,8 @@ def test_every_module_imports_without_jax_or_triton():
                      if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
                                             "ngp_tpu", "triton", "main_nerf",
                                             "main_sdf", "main_tensoRF", "main_CCNeRF",
-                                            "main_dnerf"))
+                                            "main_dnerf", "transformers",
+                                            "matplotlib", "tensorboardX"))
         assert not bad, bad
         from ngp_tpu_torch.ops.kernels import build
         assert build._lib is None  # the kernel library loads at first launch
@@ -117,7 +123,11 @@ def test_config_properties_match(bound):
                                   ["-m", "ngp_tpu_torch.main_sdf", "sphere"],
                                   ["-m", "ngp_tpu_torch.main_tensoRF", "scene", "-O"],
                                   ["-m", "ngp_tpu_torch.main_CCNeRF", "scene", "-O"],
-                                  ["-m", "ngp_tpu_torch.main_dnerf", "scene", "-O"]])
+                                  ["-m", "ngp_tpu_torch.main_dnerf", "scene", "-O"],
+                                  ["-m", "ngp_tpu_torch.main_nerf", "scene", "-O", "--gui"],
+                                  ["-m", "ngp_tpu_torch.main_tensoRF", "scene", "-O", "--gui"],
+                                  ["-m", "ngp_tpu_torch.main_CCNeRF", "scene", "-O", "--gui"],
+                                  ["-m", "ngp_tpu_torch.main_dnerf", "scene", "-O", "--gui"]])
 def test_card_entry_points_fail_without_cuda(tmp_path, argv):
     import torch
 

@@ -38,7 +38,8 @@ no 64-bit division routine, and of the turbo march), then
      and table gradient, and the row scatter-add (which no path runs
      any more) at the probe script's shape and one hash level's, with
      ``Tensor.index_add_`` timed beside it; the coarse lookup (which
-     only the eval prepass runs) on random cells; the grid kernels' 2-D
+     no path runs since the eval prepass became one kernel) on random
+     cells; the grid kernels' 2-D
      instances on the background net's encoder (4 levels x 2, the
      finest hashed into 2^19 rows) at a background-frame chunk (65,536
      points) and a CLI step's rays (4096), bf16 and f32;
@@ -64,7 +65,10 @@ no 64-bit division routine, and of the turbo march), then
      ``save_mesh`` at 256^3 (256 CP-encoder launches through
      ``NeRFNetwork.density``, a non-empty mesh inside the box); then
      profiles an 800x800 frame of the trained model and 16 more train
-     steps (device time by kernel, the device's idle share);
+     steps (device time by kernel, the device's idle share), after
+     holding the prepass kernel against its plain version on the three
+     prepass chunks of an unprofiled 800x800 frame, every ray bit for
+     bit;
 8.   runs one small f32 train step on the GPU and the same step on the
      CPU through the plain versions, and compares loss and gradients;
      then a bf16 network with ``hidden_dim=128`` refreshes, takes a
@@ -92,7 +96,8 @@ no 64-bit division routine, and of the turbo march), then
      one validation and best checkpoint, evaluate and test on the test
      split, the mesh; the loss falls, the test PNGs decode, the mesh is
      not empty, the test PSNR reaches a floor; rays/s over the middle
-     epochs beside phase 8c's), (b) the same one epoch longer, which
+     epochs beside phase 8c's; the prepass kernel on the last test
+     frame's prepass, bit for bit), (b) the same one epoch longer, which
      must resume at the saved step, (c) ``--test`` as a subprocess, whose
      PSNR must equal (b)'s, (d) ``-O --encoding hashgrid`` with
      ``--tv_weight`` and ``--distortion_weight`` (a finite TV loss, a
@@ -128,7 +133,7 @@ no 64-bit division routine, and of the turbo march), then
      ``TENSORF_MIN_PSNR``; rays/s, a profiled step, the factor taps as
      ``index_select`` and as advanced indexing, ``march_turbo`` on the
      last step's and a test frame's own march inputs, every ray bit for
-     bit, and ``coarse_lookup_bits`` on a test frame's prepass), (b)
+     bit, and the prepass kernel on a test frame's prepass), (b)
      ``--test`` (a fresh trainer resizes to 152^3 before it loads; the
      PSNR equals (a)'s), (c) ``--cp --iters 256`` and (d) ``--bg_radius 32
      --iters 128`` (the loss falls; the background net runs in training
@@ -140,12 +145,14 @@ no 64-bit division routine, and of the turbo march), then
      ``finalize`` leaves sigma and rgb at 65,536 points within
      ``FINALIZE_TOL``; the composed scene's frames written; one profiled
      step of the rank-residual model; ``march_turbo`` on a step's own
-     inputs, bit for bit), (b) ``--test`` (the same full-rank PSNR);
+     inputs, and the prepass kernel on a test frame's prepass, bit for
+     bit), (b) ``--test`` (the same full-rank PSNR);
 16.  writes the dynamic synthetic scene (a moving sphere) and runs
      ``ngp_tpu_torch.main_dnerf`` on it (``dnerf_runs``) at the CLI's
      widths: (a) ``-O --iters 1024`` (the loss falls, the test PSNR beats
      a white frame's and ``DNERF_MIN_PSNR``; rays/s; the refresh wall of a
-     full 64-slice sweep and of a quarter; one profiled step;
+     full 64-slice sweep and of a quarter; one profiled step; the prepass
+     kernel on a test frame's prepass at time 0.5, bit for bit;
      ``grid_encode_bwd_x`` held against its plain version on the last
      step's own points, with its bf16 cotangent and in f32, and on random
      points with 25% outside the box, the forward and table gradient on
@@ -176,7 +183,9 @@ no 64-bit division routine, and of the turbo march), then
      beside their bound.
 
 Each path is run with the launch counts set to 0 just before it and read
-just after; a kernel of the path that was not launched fails the run.
+just after; a kernel of the path that was not launched fails the run, and
+so does ``coarse_lookup_bits`` launched on any path (the prepass kernel
+took its place).
 Every time is printed beside the card's name and power limit. The line
 before the last two is ``{"kernels": [...]}``: per kernel its launches on
 the paths, its largest difference from its plain version, its time, the
@@ -420,6 +429,15 @@ def bound(n_bytes, tensor_flops=0.0, core_flops=0.0):
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
+def head_work(n_bytes, dtype, product_flops, other_flops):
+    """(bytes, tensor-core operations, CUDA-core operations) of a CP head:
+    its matrix products on the tensor cores in bf16, on the CUDA cores in
+    f32 (the f32 kernels compute them there), the rest on the CUDA cores."""
+    if dtype == "bfloat16":
+        return n_bytes, product_flops, other_flops
+    return n_bytes, 0, product_flops + other_flops
+
+
 def inside_rows(pos):
     return ((pos >= 0.0) & (pos <= 1.0)).all(dim=1)
 
@@ -516,6 +534,27 @@ def cuda_ms(fn, reps=10):
     for _ in range(2):
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps=20):
+    """Device time of one call: CUDA events around ``reps`` calls that the
+    host queues behind a 10 ms sleep kernel, so they run back to back
+    without the host time between launches, which ``cuda_ms`` includes
+    where the wrapper is slower than its kernel. The call must not make
+    the host wait for the device."""
+    import torch
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)  # clock cycles: ~10 ms at the H100's 1.98 GHz
     start.record()
     for _ in range(reps):
         fn()
@@ -917,6 +956,63 @@ def compare_march(label, args, kw, card, results):
     results[("march_turbo", label)] = (err, (k1 + k2) / 2, (p1 + p2) / 2, bound(n_bytes))
 
 
+def keep_prepasses(occupancy, kept, last):
+    """Wrap the prepass kernel that ``occupancy.ray_prepass`` calls, so the
+    list ``kept`` holds the inputs (cloned) of its last ``last`` calls.
+    Returns a function that restores the kernel."""
+    import torch
+
+    launch = occupancy.ray_prepass_kernel
+
+    def keep(rays_o, rays_d, payload, cfg, aabb=None):
+        kept.append(((rays_o.clone(), rays_d.clone(), payload.clone(), cfg),
+                     dict(aabb=aabb.clone() if torch.is_tensor(aabb) else aabb)))
+        del kept[:-last]
+        return launch(rays_o, rays_d, payload, cfg, aabb=aabb)
+
+    occupancy.ray_prepass_kernel = keep
+
+    def restore():
+        occupancy.ray_prepass_kernel = launch
+
+    return restore
+
+
+def compare_prepass(label, args, kw, card, results):
+    """``ray_prepass_kernel`` against ``ray_prepass_plain`` on one prepass
+    call's own inputs: every ray's hit, t0, t1, near and far bit for bit;
+    then the times (plain, kernel, kernel, plain). Bound: the rays and the
+    payload read once, the five outputs written once."""
+    import torch
+
+    from ngp_tpu_torch.ops.kernels import march
+
+    got = march.ray_prepass_kernel(*args, **kw)
+    want = march.ray_prepass_plain(*args, **kw)
+    torch.cuda.synchronize()
+    differ = torch.zeros_like(want["hit"])
+    for k in ("hit", "t0", "t1", "nears", "fars"):
+        if got[k].dtype != want[k].dtype or got[k].shape != want[k].shape:
+            raise RuntimeError(f"ray_prepass [{label}]: {k} differs in type or shape")
+        differ |= got[k] != want[k]
+    n_diff = int(differ.sum())
+    hit = want["hit"]
+    span = float((want["t1"] - want["t0"])[hit].mean()) if bool(hit.any()) else 0.0
+    print(f"ray_prepass [{label}]: {hit.numel()} rays, {int(hit.sum())} hit, mean span "
+          f"{span:.4f}, {n_diff} rays differ from the plain version", flush=True)
+    if n_diff:
+        raise RuntimeError(f"ray_prepass [{label}]: {n_diff} rays differ from the plain version")
+    n_bytes = nbytes(*args[:3], *got.values())
+    p1 = cuda_ms(lambda: march.ray_prepass_plain(*args, **kw))
+    k1 = cuda_ms(lambda: march.ray_prepass_kernel(*args, **kw))
+    k2 = cuda_ms(lambda: march.ray_prepass_kernel(*args, **kw))
+    p2 = cuda_ms(lambda: march.ray_prepass_plain(*args, **kw))
+    dev_ms = device_ms(lambda: march.ray_prepass_kernel(*args, **kw))
+    print(f"ray_prepass [{label}]: device {dev_ms:.4f} ms a launch (queued), "
+          f"{(k1 + k2) / 2:.4f} ms between back-to-back calls  [{card}]", flush=True)
+    results[("ray_prepass", label)] = (0.0, (k1 + k2) / 2, (p1 + p2) / 2, bound(n_bytes))
+
+
 def gamma_window(dev, card, rc, nc, train_ds, results):
     """turbo-hq at the CLI's default lattice (``dt_gamma = 1/128``, about
     218 probes a ray): a fresh network trained GAMMA_STEPS steps, then
@@ -983,7 +1079,7 @@ def gamma_window(dev, card, rc, nc, train_ds, results):
             compare_march(label, m_args, m_kw, card, results)
         del march_seen, frame_seen
         frame_prof = profile(lambda: trainer.render_frame(pose, intr, FRAME, FRAME), 1, "frame",
-                             card, focus=("march", "coarse_lookup"))
+                             card, focus=("march", "ray_prepass", "coarse_lookup"))
         step_prof = profile(lambda: trainer.step(next(batches)), 16, "step", card,
                             focus=("march", "topk"))
     return rays_s, step_counts, frame_counts, step_prof, frame_prof
@@ -999,18 +1095,20 @@ def cli_recorder(dev, card):
     epoch's wall time (its last step's loss read to the host ends it),
     evaluate's results and wall times, test's wall time, the guidance
     steps' losses, the step a checkpoint load resumed at, the calls of
-    the background-frame pass and every train step's loss (a device
-    scalar); ``NeRFTrainer``'s methods are wrapped at
-    class level for it and restored after."""
+    the background-frame pass, every train step's loss (a device
+    scalar) and the inputs of the last eval prepass (``keep_prepasses``);
+    ``NeRFTrainer``'s methods are wrapped at class level for it and
+    restored after."""
     import numpy as np
     import torch
 
     from ngp_tpu_torch import main_nerf
+    from ngp_tpu_torch.models import occupancy
     from ngp_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
     from ngp_tpu_torch.training.nerf import NeRFTrainer
 
     seen = {"epochs": [], "evaluate": [], "results": [], "evaluate_s": [], "test_s": [],
-            "guidance": [], "loaded": [], "bg_frames": [], "step_losses": []}
+            "guidance": [], "loaded": [], "bg_frames": [], "step_losses": [], "prepass": []}
     names = ("train_one_epoch", "evaluate", "test", "guidance_step", "load_checkpoint",
              "_render_bg_frames", "train_step")
     original = {k: getattr(NeRFTrainer, k) for k in names}
@@ -1075,14 +1173,16 @@ def cli_recorder(dev, card):
                "_render_bg_frames": render_bg_frames, "train_step": train_step}
     for k, fn in patched.items():
         setattr(NeRFTrainer, k, fn)
+    restore_prepass = keep_prepasses(occupancy, seen["prepass"], 1)
     try:
         yield seen, run
     finally:
+        restore_prepass()
         for k in names:
             setattr(NeRFTrainer, k, original[k])
 
 
-def cli_runs(dev, card, scene, api_rays_s, work):
+def cli_runs(dev, card, scene, api_rays_s, work, results):
     """Phase 11: ``ngp_tpu_torch.main_nerf`` on the scene on disk, as a user
     runs it. (a) turbo-hq through ``main`` in this process, (b) the same
     command one epoch longer, resuming from ``--ckpt latest``, (c) ``--test``
@@ -1090,8 +1190,10 @@ def cli_runs(dev, card, scene, api_rays_s, work):
     (b)'s ``evaluate`` (both start from a fresh trainer: the eval's sticky
     chunk counts and spans, which (a)'s validation frames raised, are then
     the same), (d) the hash grid with the TV and distortion losses, (e)
-    the random-pose guidance steps. The workspaces go under ``work``
-    (``work/cli/ws`` is (a)'s, which phase 17 serves). Returns the launch
+    the random-pose guidance steps. The prepass kernel is held against its
+    plain version on (a)'s last test frame (``results``). The workspaces go
+    under ``work`` (``work/cli/ws`` is (a)'s, which phase 17 serves).
+    Returns the launch
     counts of (a), (b), (d) and (e), (a)'s rays/s over its middle epochs and
     its test PSNR."""
     import numpy as np
@@ -1108,7 +1210,9 @@ def cli_runs(dev, card, scene, api_rays_s, work):
         trainer, a_counts, a_dt, losses = run(argv, "(a) -O")
         check_launched("CLI (a) -O", a_counts,
                        ("cp_density_fwd", "cp_bwd_banks", "march_turbo", "cp_sigma_rgb",
-                        "coarse_lookup_bits", "cp_encode_fwd"))
+                        "ray_prepass", "cp_encode_fwd"), absent=("coarse_lookup_bits",))
+        # the prepass of (a)'s last test frame (bound 2: two cascades)
+        compare_prepass("11 (a) test frame, bound 2", *seen["prepass"][-1], card, results)
         epochs = CLI_ITERS // n_train
         if trainer.epoch != epochs or len(seen["epochs"]) != epochs:
             raise RuntimeError(f"CLI (a): epoch {trainer.epoch}, {len(seen['epochs'])} "
@@ -1343,7 +1447,8 @@ def cli_rest_runs(dev, card, scene, psnr_11a, rays_s_11a, results):
         counts.append(a_counts)
         check_launched("CLI 12(a) -O --bg_radius", a_counts,
                        ("grid_encode_fwd_2d", "grid_encode_bwd_2d", "cp_density_fwd",
-                        "cp_bwd_banks", "march_turbo", "cp_sigma_rgb", "coarse_lookup_bits"))
+                        "cp_bwd_banks", "march_turbo", "cp_sigma_rgb", "ray_prepass"),
+                       absent=("coarse_lookup_bits",))
         res = seen["results"][-1]
         psnr, lp = res["psnr"], res.get("lpips", float("nan"))
         rays_s, ms = timed_epochs(seen, trainer)
@@ -1396,7 +1501,8 @@ def cli_rest_runs(dev, card, scene, psnr_11a, rays_s_11a, results):
                  str(CLI_UNIFORM_ITERS)], "12(b) no -O")
         counts.append(b_counts)
         check_launched("CLI 12(b) no -O", b_counts, ("grid_encode_fwd", "grid_encode_bwd"),
-                       absent=("march_turbo", "coarse_lookup_bits", "cp_density_fwd"))
+                       absent=("march_turbo", "coarse_lookup_bits", "ray_prepass",
+                               "cp_density_fwd"))
         means = losses_fall("(b)")
         psnr = seen["results"][-1]["psnr"]
         rays_s, ms = timed_epochs(seen, trainer)
@@ -1651,8 +1757,8 @@ def tensorf_runs(dev, card, scene, rays_s_11a, results):
     and ``TENSORF_MIN_PSNR``; rays/s over the middle epochs, one profiled
     step, the factor sampling's two tap forms (``tap_forms``),
     ``march_turbo`` held against its plain version on the last step's own
-    march inputs and on the test frames' first chunk, and
-    ``coarse_lookup_bits`` on the last test frame's prepass; (b)
+    march inputs and on the test frames' first chunk, and the prepass
+    kernel on the last test frame's prepass; (b)
     ``--test`` on (a)'s workspace: a fresh trainer resizes to 152^3 before
     it loads, and its PSNR equals (a)'s; (c) ``--cp --iters 256``: the loss
     falls and the PSNR beats a white frame's; (d) ``--bg_radius 32 --iters
@@ -1665,13 +1771,11 @@ def tensorf_runs(dev, card, scene, rays_s_11a, results):
     from ngp_tpu_torch.data.nerf_dataset import NeRFDataset
     from ngp_tpu_torch.models import occupancy
     from ngp_tpu_torch.models.tensorf import TensoRFNetwork
-    from ngp_tpu_torch.ops.kernels import march
 
     n_train = CLI_FRAMES[0]
     white = white_psnr(scene, "test")
     box = main_tensoRF.build_parser().parse_args([scene]).bound
-    launch, lookup, background = (occupancy.march_turbo, occupancy.coarse_lookup_bits,
-                                  TensoRFNetwork.background)
+    launch, background = occupancy.march_turbo, TensoRFNetwork.background
     kept, bg_calls = {}, {"train": 0, "eval": 0}
 
     def keep_march(rays_o, rays_d, coarse, fine, cfg, S, K2, U, aabb=None, t_range=None,
@@ -1684,10 +1788,6 @@ def tensorf_runs(dev, card, scene, rays_s_11a, results):
                             K2, U), dict(aabb=c(aabb), t_range=c(t_range), noise=c(noise)))
         return launch(rays_o, rays_d, coarse, fine, cfg, S, K2, U, aabb=aabb, t_range=t_range,
                       noise=noise)
-
-    def keep_lookup(payload, flatcell):
-        kept["prepass"] = (payload.clone(), flatcell.clone())
-        return lookup(payload, flatcell)
 
     def counting_background(self, sph, d):
         bg_calls["train" if torch.is_grad_enabled() else "eval"] += 1
@@ -1702,7 +1802,6 @@ def tensorf_runs(dev, card, scene, rays_s_11a, results):
 
     counts = []
     swaps = ((occupancy, "march_turbo", keep_march),
-             (occupancy, "coarse_lookup_bits", keep_lookup),
              (TensoRFNetwork, "background", counting_background))
     with (tempfile.TemporaryDirectory() as tmp, cli_recorder(dev, card) as (seen, run),
           patched(*swaps)):
@@ -1711,8 +1810,9 @@ def tensorf_runs(dev, card, scene, rays_s_11a, results):
         argv = [scene, "-O", "--workspace", ws, "--iters", str(TENSORF_ITERS)]
         trainer, a_counts, a_dt, _ = run(argv, "14(a) main_tensoRF -O", main_tensoRF.main)
         counts.append(a_counts)
-        check_launched("TensoRF (a) -O", a_counts, ("march_turbo", "coarse_lookup_bits"),
-                       absent=("cp_density_fwd", "cp_sigma_rgb", "grid_encode_fwd"))
+        check_launched("TensoRF (a) -O", a_counts, ("march_turbo", "ray_prepass"),
+                       absent=("cp_density_fwd", "cp_sigma_rgb", "grid_encode_fwd",
+                               "coarse_lookup_bits"))
         means = epoch_means(seen, "(a)")
         psnr = seen["results"][-1]["psnr"]
         mid = seen["epochs"][1:-1]
@@ -1728,22 +1828,13 @@ def tensorf_runs(dev, card, scene, rays_s_11a, results):
             (aabb[:3] > -box).any() or (aabb[3:] < box).any())
         if reso != (TENSORF_RES,) * 3 or not shrunk or not psnr > max(white, TENSORF_MIN_PSNR):
             raise RuntimeError(f"TensoRF (a): resolution {reso}, aabb {aabb}, test PSNR {psnr}")
-        if sorted(kept) != ["TensoRF frame chunk", "TensoRF step", "prepass"]:
-            raise RuntimeError(f"TensoRF (a): caught {sorted(kept)}")
+        if sorted(kept) != ["TensoRF frame chunk", "TensoRF step"] or not seen["prepass"]:
+            raise RuntimeError(f"TensoRF (a): caught {sorted(kept)}, {len(seen['prepass'])} "
+                               "prepasses")
         for label in ("TensoRF step", "TensoRF frame chunk"):
             compare_march(label, *kept[label], card, results)
-        payload, fc = kept.pop("prepass")
-        got = march.coarse_lookup_bits(payload, fc)
-        if not torch.equal(got, march.coarse_lookup_plain(payload, fc)):
-            raise RuntimeError("coarse_lookup_bits [TensoRF frame prepass]: bits differ")
-        p1 = cuda_ms(lambda: march.coarse_lookup_plain(payload, fc))
-        k1 = cuda_ms(lambda: march.coarse_lookup_bits(payload, fc))
-        k2 = cuda_ms(lambda: march.coarse_lookup_bits(payload, fc))
-        p2 = cuda_ms(lambda: march.coarse_lookup_plain(payload, fc))
-        results[("coarse_lookup_bits", "TensoRF frame prepass")] = (
-            0.0, (k1 + k2) / 2, (p1 + p2) / 2, bound(nbytes(payload, fc, got)))
+        compare_prepass("TensoRF test frame", *seen["prepass"][-1], card, results)
         kept.clear()
-        del payload, fc, got
         train_ds = NeRFDataset(scene, split="train", scale=0.33)
         batches = itertools.chain.from_iterable(
             trainer.make_loader(train_ds)() for _ in itertools.count())
@@ -1756,7 +1847,8 @@ def tensorf_runs(dev, card, scene, rays_s_11a, results):
         # (b) --test on (a)'s workspace
         trainer, b_counts, _, _ = run(argv + ["--test"], "14(b) --test", main_tensoRF.main)
         counts.append(b_counts)
-        check_launched("TensoRF (b) --test", b_counts, ("march_turbo", "coarse_lookup_bits"))
+        check_launched("TensoRF (b) --test", b_counts, ("march_turbo", "ray_prepass"),
+                       absent=("coarse_lookup_bits",))
         psnr_b = seen["results"][-1]["psnr"]
         print(f"TensoRF (b): resumed step {seen['loaded']}, resolution "
               f"{trainer.current_resolution}, test PSNR {psnr_b:.6f} dB ((a): {psnr:.6f})  "
@@ -1772,7 +1864,8 @@ def tensorf_runs(dev, card, scene, rays_s_11a, results):
             [scene, "-O", "--cp", "--workspace", os.path.join(tmp, "ws_cp"), "--iters",
              str(TENSORF_CP_ITERS)], "14(c) main_tensoRF -O --cp", main_tensoRF.main)
         counts.append(c_counts)
-        check_launched("TensoRF (c) --cp", c_counts, ("march_turbo", "coarse_lookup_bits"))
+        check_launched("TensoRF (c) --cp", c_counts, ("march_turbo", "ray_prepass"),
+                       absent=("coarse_lookup_bits",))
         means = epoch_means(seen, "(c)")
         psnr_c = seen["results"][-1]["psnr"]
         print(f"TensoRF (c): resolution {trainer.current_resolution}, test PSNR {psnr_c:.4f} dB "
@@ -1800,7 +1893,7 @@ def tensorf_runs(dev, card, scene, rays_s_11a, results):
     return counts
 
 
-def bwd_x_checks(hk, x, table, geom, g, label, results):
+def bwd_x_checks(hk, x, table, geom, g, label, results, card):
     """``grid_encode_bwd_x`` on points x [B, D] (table, cotangent g) against
     its plain version (autograd of ``grid_encode_plain`` in x): the plain
     version sums the same terms in another order, so 1e-4 of the largest
@@ -1824,6 +1917,10 @@ def bwd_x_checks(hk, x, table, geom, g, label, results):
         "grid_encode_bwd_x", lambda: hk.grid_encode_bwd_x(x, table, g, geom),
         lambda: hk.grid_encode_bwd_x_plain(x, table, g, geom), dtype, work,
         tol=lambda want: [torch.full_like(want[0], scale * float(want[0].abs().max()))])
+    dev_ms = device_ms(lambda: hk.grid_encode_bwd_x(x, table, g, geom))
+    print(f"grid_encode_bwd_x [{label}]: device {dev_ms:.4f} ms a launch (queued), "
+          f"{results[('grid_encode_bwd_x', label)][1]:.4f} ms between back-to-back calls  "
+          f"[{card}]", flush=True)
 
 
 def random_points(dev, n, D, seed):
@@ -1849,7 +1946,8 @@ def ccnerf_runs(dev, card, scene, results):
     and rgb at 65,536 random points, before and after, within
     ``FINALIZE_TOL``); the composed scene's test frames written; one
     profiled step of the trained rank-residual model; ``march_turbo`` held
-    against its plain version on the last step's own march inputs. (b)
+    against its plain version on the last step's own march inputs, and the
+    prepass kernel on the last test frame's prepass. (b)
     ``--test`` on (a)'s workspace: the full-rank PSNR equals (a)'s.
     Returns the launch counts of (a) and (b)."""
     import numpy as np
@@ -1898,8 +1996,10 @@ def ccnerf_runs(dev, card, scene, results):
         trainer, a_counts, a_dt, _ = run(argv + ["--compose"], "15(a) main_CCNeRF -O --compose",
                                          main_CCNeRF.main)
         counts.append(a_counts)
-        check_launched("CCNeRF (a) -O", a_counts, ("march_turbo", "coarse_lookup_bits"),
-                       absent=("cp_density_fwd", "cp_sigma_rgb", "grid_encode_fwd"))
+        check_launched("CCNeRF (a) -O", a_counts, ("march_turbo", "ray_prepass"),
+                       absent=("cp_density_fwd", "cp_sigma_rgb", "grid_encode_fwd",
+                               "coarse_lookup_bits"))
+        compare_prepass("CCNeRF test frame", *seen["prepass"][-1], card, results)
         steps = torch.stack(losses).cpu().numpy()
         means = steps.reshape(-1, n_train).mean(axis=1)
         mid = seen["epochs"][1:-1]
@@ -1948,7 +2048,8 @@ def ccnerf_runs(dev, card, scene, results):
         losses.clear()
         trainer, b_counts, _, _ = run(argv + ["--test"], "15(b) --test", main_CCNeRF.main)
         counts.append(b_counts)
-        check_launched("CCNeRF (b) --test", b_counts, ("march_turbo", "coarse_lookup_bits"))
+        check_launched("CCNeRF (b) --test", b_counts, ("march_turbo", "ray_prepass"),
+                       absent=("coarse_lookup_bits",))
         psnr_b = seen["results"][0]["psnr"]
         print(f"CCNeRF (b): resumed step {seen['loaded']}, full-rank test PSNR {psnr_b:.6f} dB "
               f"((a): {psnrs[0]:.6f})  [{card}]", flush=True)
@@ -1966,7 +2067,8 @@ def dnerf_runs(dev, card, results, work, control=False):
     this process. (a) ``-O --iters DNERF_ITERS``: the loss falls, the test
     PSNR beats a white frame's and ``DNERF_MIN_PSNR``; rays/s; the refresh
     wall of a full 64-slice sweep and of a quarter; one profiled step; the
-    grid kernels on the last step's own points (``grid_encode_bwd_x``, D =
+    prepass kernel on the prepass of a test frame at time 0.5; the grid
+    kernels on the last step's own points (``grid_encode_bwd_x``, D =
     3, the step's bf16 cotangent and in f32; the forward and the table
     gradient) and on random points with 25% outside the box. (b) ``--test``
     on (a)'s workspace: the same PSNR. (c) ``--hyper --iters
@@ -2033,9 +2135,10 @@ def dnerf_runs(dev, card, results, work, control=False):
         trainer, a_counts, a_dt, _, caught = go(argv, "16(a) main_dnerf -O", last)
         counts.append(a_counts)
         check_launched("D-NeRF (a) -O", a_counts,
-                       ("march_turbo", "coarse_lookup_bits", "grid_encode_fwd",
+                       ("march_turbo", "ray_prepass", "grid_encode_fwd",
                         "grid_encode_bwd", "grid_encode_bwd_x"),
-                       absent=("cp_density_fwd", "grid_encode_fwd_4d", "grid_encode_fwd_2d"))
+                       absent=("cp_density_fwd", "grid_encode_fwd_4d", "grid_encode_fwd_2d",
+                               "coarse_lookup_bits"))
         means = epoch_means(seen, "(a)")
         psnr = seen["results"][-1]["psnr"]
         mid = seen["epochs"][1:-1]
@@ -2082,15 +2185,22 @@ def dnerf_runs(dev, card, results, work, control=False):
               f"{1.0 - float(inside_rows(e['x']).float().mean()):.4f} outside the box, "
               f"{float((e['g'] == 0).all(dim=1).float().mean()):.4f} zero cotangent rows",
               flush=True)
-        bwd_x_checks(hk, e["x"], table, geom, e["g"], label, results)
-        bwd_x_checks(hk, e["x"], table, geom, e["g"].float(), f"D=3 f32 step {last}", results)
+        bwd_x_checks(hk, e["x"], table, geom, e["g"], label, results, card)
+        bwd_x_checks(hk, e["x"], table, geom, e["g"].float(), f"D=3 f32 step {last}", results, card)
         grid_checks(hk, sk, e["x"], table, geom, torch.bfloat16, e["g"], label, results)
         xr = random_points(dev, 262144, 3, SEED + 16)
         gr = torch.randn((262144, geom.output_dim), generator=torch.Generator().manual_seed(
             SEED + 17)).to(dev)
-        bwd_x_checks(hk, xr, table, geom, gr, "D=3 f32 random", results)
-        bwd_x_checks(hk, xr, table, geom, gr.bfloat16(), "D=3 bf16 random", results)
+        bwd_x_checks(hk, xr, table, geom, gr, "D=3 f32 random", results, card)
+        bwd_x_checks(hk, xr, table, geom, gr.bfloat16(), "D=3 bf16 random", results, card)
         del caught, e, xr, gr
+        # the prepass of a test frame at time 0.5, on that time's slice
+        seen["prepass"].clear()
+        test_ds = NeRFDataset(scene, split="test")
+        trainer.render_frame(test_ds.poses[0], test_ds.intrinsics, test_ds.H, test_ds.W,
+                             time=0.5)
+        compare_prepass("D-NeRF test frame at time 0.5", *seen["prepass"][-1], card, results)
+        del test_ds
         batches = itertools.chain.from_iterable(
             trainer.make_loader(NeRFDataset(scene, split="train"))() for _ in itertools.count())
         trainer.step(next(batches))
@@ -2101,7 +2211,8 @@ def dnerf_runs(dev, card, results, work, control=False):
         # (b) --test on (a)'s workspace
         trainer, b_counts, _, _, _ = go(argv + ["--test"], "16(b) --test", None)
         counts.append(b_counts)
-        check_launched("D-NeRF (b) --test", b_counts, ("march_turbo", "coarse_lookup_bits"))
+        check_launched("D-NeRF (b) --test", b_counts, ("march_turbo", "ray_prepass"),
+                       absent=("coarse_lookup_bits",))
         psnr_b = seen["results"][-1]["psnr"]
         print(f"D-NeRF (b): resumed step {seen['loaded']}, test PSNR {psnr_b:.6f} dB ((a): "
               f"{psnr:.6f})  [{card}]", flush=True)
@@ -2126,8 +2237,8 @@ def dnerf_runs(dev, card, results, work, control=False):
         table = e["table"].detach()
         table = (table / table.abs().max()).contiguous()
         label = f"D=4 bf16 step {last}"
-        bwd_x_checks(hk, e["x"], table, geom, e["g"], label, results)
-        bwd_x_checks(hk, e["x"], table, geom, e["g"].float(), f"D=4 f32 step {last}", results)
+        bwd_x_checks(hk, e["x"], table, geom, e["g"], label, results, card)
+        bwd_x_checks(hk, e["x"], table, geom, e["g"].float(), f"D=4 f32 step {last}", results, card)
         grid_checks(hk, sk, e["x"], table, geom, torch.bfloat16, e["g"], label, results)
         grid_checks(hk, sk, e["x"], table, geom, torch.float32, e["g"].float(),
                     f"D=4 f32 step {last}", results)
@@ -2135,8 +2246,8 @@ def dnerf_runs(dev, card, results, work, control=False):
         gr = torch.randn((262144, geom.output_dim), generator=torch.Generator().manual_seed(
             SEED + 19)).to(dev)
         grid_checks(hk, sk, xr, table, geom, torch.float32, gr, "D=4 f32 random", results)
-        bwd_x_checks(hk, xr, table, geom, gr, "D=4 f32 random", results)
-        bwd_x_checks(hk, xr, table, geom, gr.bfloat16(), "D=4 bf16 random", results)
+        bwd_x_checks(hk, xr, table, geom, gr, "D=4 f32 random", results, card)
+        bwd_x_checks(hk, xr, table, geom, gr.bfloat16(), "D=4 bf16 random", results, card)
         del trainer, caught, e, xr, gr, table
 
         # (d) the temporal basis
@@ -2345,13 +2456,13 @@ def viewer_runs(dev, card, scene, ws, dscene, dws):
                         nerf_checks)
     check_launched("viewer main_nerf -O --gui", nerf_counts,
                    ("march_turbo", "cp_density_fwd", "cp_bwd_banks", "cp_sigma_rgb",
-                    "coarse_lookup_bits"), absent=("cp_encode_fwd", "fused_mlp"))
+                    "ray_prepass"), absent=("cp_encode_fwd", "fused_mlp", "coarse_lookup_bits"))
     dnerf_counts = drive("17(a) main_dnerf -O --gui", main_dnerf.main,
                          [dscene, "-O", "--gui", "--workspace", dws, "--iters",
                           str(DNERF_ITERS)], dnerf_checks)
     check_launched("viewer main_dnerf -O --gui", dnerf_counts,
                    ("march_turbo", "grid_encode_fwd", "grid_encode_bwd", "grid_encode_bwd_x",
-                    "coarse_lookup_bits"), absent=("cp_density_fwd",))
+                    "ray_prepass"), absent=("cp_density_fwd", "coarse_lookup_bits"))
     return nerf_counts, dnerf_counts
 
 
@@ -2468,7 +2579,7 @@ def clip_runs(dev, card, scene, work):
                    ("cp_density_fwd", "cp_bwd_banks", "march_turbo", "cp_sigma_rgb"))
     check_launched("CLIP guidance steps", guided,
                    ("cp_density_fwd", "cp_bwd_banks", "march_turbo"),
-                   absent=("cp_sigma_rgb", "coarse_lookup_bits", "cp_encode_fwd"))
+                   absent=("cp_sigma_rgb", "coarse_lookup_bits", "ray_prepass", "cp_encode_fwd"))
     batches = trainer.make_loader(NeRFDataset(scene, split="train"))()
     batch = next(b for b in batches if "guidance" in b)
     trainer.guidance_step(batch)
@@ -2752,7 +2863,8 @@ def train_step_gpu_vs_cpu(dev, hash_grid=False):
             {k: v.to(dev) for k, v in draws.items()})
         torch.cuda.synchronize()
         hook.remove()
-        check_launched(path, launch_counts(), kernels, absent=("coarse_lookup_bits",))
+        check_launched(path, launch_counts(), kernels,
+                       absent=("coarse_lookup_bits", "ray_prepass"))
         mc = cpu_tr.train_step(batch, draws)
     if hash_grid:
         # the card's table gradient against the plain version's on the
@@ -2873,8 +2985,9 @@ def main():
               flush=True)
         if divs:
             raise RuntimeError(f"{kernel} calls a division routine: {divs[:2]}")
-    for name, regs, spills in ptxas_usage(report, "march_turbo_kernel"):
-        print(f"ptxas: {name}: {regs} registers, {spills} bytes of spill stores", flush=True)
+    for kernel in ("march_turbo_kernel", "ray_prepass_kernel", "grid_bwd_x_kernel"):
+        for name, regs, spills in ptxas_usage(report, kernel):
+            print(f"ptxas: {name}: {regs} registers, {spills} bytes of spill stores", flush=True)
 
     # 2. the turbo-hq network at full width, random weights from a seed
     rc = RenderConfig(
@@ -2916,7 +3029,8 @@ def main():
         images.append(img)
     eval_counts = launch_counts()
     check_launched("eval", eval_counts, ("cp_density_fwd", "cp_density_fwd_tc", "cp_sigma_rgb",
-                                         "cp_sigma_rgb_tc", "march_turbo", "coarse_lookup_bits"))
+                                         "cp_sigma_rgb_tc", "march_turbo", "ray_prepass"),
+                   absent=("coarse_lookup_bits",))
     for img in images:
         if img.shape != (FRAME, FRAME, 3) or not np.isfinite(img).all():
             raise RuntimeError("frame is not a finite 800x800x3 image")
@@ -2959,7 +3073,8 @@ def main():
             "cp_density_fwd",
             lambda: cp.cp_density_fwd(pos, fa, a1, a2, res, fd),
             lambda: cp.cp_density_plain(pos, fa, a1, a2, res, fd), dtype,
-            (nbytes(pos, *fa, a1, a2) + M * OUT * 4, M * mlp_flops, 14 * M * nbR))
+            head_work(nbytes(pos, *fa, a1, a2) + M * OUT * 4, dtype, M * mlp_flops,
+                      14 * M * nbR))
         M = TRAIN_ROWS
         pos_t = torch.rand((M, 3), generator=gen, device=dev) * 1.1 - 0.05
         resid_tol = None
@@ -2969,8 +3084,8 @@ def main():
             "cp_density_fwd+residuals",
             lambda: cp.cp_density_fwd(pos_t, fa, a1, a2, res, fd, residuals=True),
             lambda: cp.cp_density_plain(pos_t, fa, a1, a2, res, fd, residuals=True), dtype,
-            (nbytes(pos_t, *fa, a1, a2) + M * (OUT * 4 + (D + H1) * esz), M * mlp_flops,
-             14 * M * nbR), tol=resid_tol)
+            head_work(nbytes(pos_t, *fa, a1, a2) + M * (OUT * 4 + (D + H1) * esz), dtype,
+                      M * mlp_flops, 14 * M * nbR), tol=resid_tol)
         # the density head's edge shapes, with and without residuals
         for M_e, small, scale in DENSITY_EDGES:
             fe, e1, e2, res_e, fd_e = tuple(f * scale for f in fa), a1, a2, res, fd
@@ -2992,8 +3107,8 @@ def main():
                     "cp_density_fwd",
                     lambda: cp.cp_density_fwd(pos_x, fe, e1, e2, res_e, fd_e, residuals=resid),
                     lambda: cp.cp_density_plain(pos_x, fe, e1, e2, res_e, fd_e, residuals=resid),
-                    dtype, (nbytes(pos_x, *fe, e1, e2) + M_e * OUT * 4, M_e * mlp_flops, 0),
-                    tol=tol)
+                    dtype, head_work(nbytes(pos_x, *fe, e1, e2) + M_e * OUT * 4, dtype,
+                                     M_e * mlp_flops, 0), tol=tol)
         # sigma MLPs wider than the 128-row tiles take, on the model's banks;
         # bf16 must take the tensor-core kernel (its launch count says so)
         pos_x = torch.rand((WIDE_ROWS, 3), generator=gen, device=dev) * 1.1 - 0.05
@@ -3013,7 +3128,8 @@ def main():
                     "cp_density_fwd",
                     lambda: cp.cp_density_fwd(pos_x, fa, e1, e2, res, fd, residuals=resid),
                     lambda: cp.cp_density_plain(pos_x, fa, e1, e2, res, fd, residuals=resid),
-                    dtype, (nbytes(pos_x, *fa, e1, e2) + WIDE_ROWS * OUT * 4, flops, 0), tol=tol)
+                    dtype, head_work(nbytes(pos_x, *fa, e1, e2) + WIDE_ROWS * OUT * 4, dtype,
+                                     flops, 0), tol=tol)
         # the factor gradient from a d(CP features) of the train shape,
         # contiguous as the density backward passes it
         g_cp = torch.randn((M, nbR), generator=gen, device=dev)
@@ -3041,8 +3157,8 @@ def main():
             "cp_sigma_rgb",
             lambda: cp.cp_sigma_rgb(pos, dirs, fa, a1, a2, ca, res, fd, nc.sh_degree),
             lambda: cp.cp_sigma_rgb_plain(pos, dirs, fa, a1, a2, ca, res, fd, nc.sh_degree),
-            dtype, (nbytes(pos, dirs, *fa, a1, a2, *ca) + M * 4 * 4,
-                    M * (mlp_flops + color_flops), 14 * M * nbR))
+            dtype, head_work(nbytes(pos, dirs, *fa, a1, a2, *ca) + M * 4 * 4, dtype,
+                             M * (mlp_flops + color_flops), 14 * M * nbR))
         # the radiance head's edge shapes
         for M_e, small, scale, h1_e, sh_e, hidden in SIGMA_RGB_EDGES:
             fe, res_e, fd_e, e1, e2, ce = tuple(f * scale for f in fa), res, fd, a1, a2, ca
@@ -3068,7 +3184,8 @@ def main():
                 "cp_sigma_rgb",
                 lambda: cp.cp_sigma_rgb(pos_x, dirs_x, fe, e1, e2, ce, res_e, fd_e, sh_e),
                 lambda: cp.cp_sigma_rgb_plain(pos_x, dirs_x, fe, e1, e2, ce, res_e, fd_e, sh_e),
-                dtype, (nbytes(pos_x, dirs_x, *fe, e1, e2, *ce) + M_e * 16, flops, 0))
+                dtype, head_work(nbytes(pos_x, dirs_x, *fe, e1, e2, *ce) + M_e * 16, dtype,
+                                 flops, 0))
         # the CP encoder at the mesh chunk's size, each bank type to each
         # output type: random rows, then save_mesh's own chunk (an x-slice
         # of the 256^3 lattice)
@@ -3287,7 +3404,7 @@ def main():
         check_launched("train", train_counts, ("cp_density_fwd", "cp_density_fwd_tc",
                                               "cp_density_fwd_residuals",
                                               "cp_bwd_banks", "march_turbo"),
-                       absent=("coarse_lookup_bits",))
+                       absent=("coarse_lookup_bits", "ray_prepass"))
         steps_s = TIMED_STEPS / dt
         held = sum(nbytes(pos, *fac, g) for pos, fac, g, _ in bwd_seen.values())
         print(f"train: {steps_s:.2f} steps/s, {steps_s * TRAIN_RAYS:.0f} rays/s, "
@@ -3326,7 +3443,8 @@ def main():
         dt2 = phase(f"trained frame again ({H}x{W})", t0)
         frame_counts = launch_counts()
         check_launched("trained frame", frame_counts, ("cp_sigma_rgb", "cp_sigma_rgb_tc",
-                                                       "march_turbo", "coarse_lookup_bits"))
+                                                       "march_turbo", "ray_prepass"),
+                       absent=("coarse_lookup_bits",))
         for label, (m_args, m_kw) in march_seen.items():
             compare_march(label, m_args, m_kw, card, results)
         if "eval chunk" not in march_seen:
@@ -3348,7 +3466,8 @@ def main():
         phase("evaluate (1 val frame, PSNR and SSIM)", t0)
         evaluate_counts = launch_counts()
         check_launched("evaluate", evaluate_counts, ("cp_sigma_rgb", "cp_sigma_rgb_tc",
-                                                     "march_turbo", "coarse_lookup_bits"))
+                                                     "march_turbo", "ray_prepass"),
+                       absent=("coarse_lookup_bits",))
         if not (math.isfinite(ev["psnr"]) and ev["psnr"] >= MIN_PSNR and 0.0 < ev["ssim"] <= 1.0):
             raise RuntimeError(f"evaluate: PSNR {ev['psnr']}, SSIM {ev['ssim']}")
         if abs(ev["psnr"] - psnr) > EVAL_PSNR_TOL:
@@ -3362,7 +3481,8 @@ def main():
         phase("test (1 frame, PNG)", t0)
         test_counts = launch_counts()
         check_launched("test", test_counts, ("cp_sigma_rgb", "cp_sigma_rgb_tc",
-                                             "march_turbo", "coarse_lookup_bits"))
+                                             "march_turbo", "ray_prepass"),
+                       absent=("coarse_lookup_bits",))
         png = read_png(os.path.join(out_dir, f"{trainer.name}_0000_rgb.png"))
         if not np.array_equal(png, (np.clip(img, 0, 1) * 255).astype(np.uint8)):
             raise RuntimeError("test: the PNG does not decode to the rendered frame")
@@ -3397,9 +3517,19 @@ def main():
         # counts are settled), then 16 more train steps (one grid refresh
         # among them)
         pose, intr = orbit_pose(0.7), intrinsics(FRAME)
+        api_prepass = []
+        restore_prepass = keep_prepasses(occupancy, api_prepass, 3)
         trainer.render_frame(pose, intr, FRAME, FRAME)
+        restore_prepass()
+        # the prepass of the 800x800 frame at stride 2: three chunks
+        if len(api_prepass) != 3:
+            raise RuntimeError(f"trained 800x800 frame: {len(api_prepass)} prepass chunks kept")
+        for i, (p_args, p_kw) in enumerate(api_prepass):
+            compare_prepass(f"API frame chunk {i}", p_args, p_kw, card, results)
+        del api_prepass
         frame_prof = profile(lambda: trainer.render_frame(pose, intr, FRAME, FRAME), 1, "frame",
-                             card, focus=("cp_sigma_rgb", "cp_density", "march", "coarse_lookup"))
+                             card, focus=("cp_sigma_rgb", "cp_density", "march", "ray_prepass",
+                                          "coarse_lookup"))
         step_prof = profile(lambda: trainer.step(next(batches)), 16, "step", card,
                             focus=("cp_bwd", "cp_density", "march", "topk"))
 
@@ -3425,7 +3555,8 @@ def main():
         wide_counts = launch_counts()
         check_launched("hidden_dim=128", wide_counts,
                        ("cp_density_fwd_tc", "cp_density_fwd_residuals", "cp_bwd_banks",
-                        "cp_sigma_rgb_tc", "march_turbo", "coarse_lookup_bits"))
+                        "cp_sigma_rgb_tc", "march_turbo", "ray_prepass"),
+                       absent=("coarse_lookup_bits",))
         if not math.isfinite(loss) or not np.isfinite(img).all() or img.min() < 0 or img.max() > 1:
             raise RuntimeError(f"hidden_dim=128: loss {loss}, frame values "
                                f"{img.min()}..{img.max()}")
@@ -3439,9 +3570,10 @@ def main():
         dev, card, rc, nc, train_ds, results)
     phase(f"dt_gamma {CLI_DT_GAMMA} window", t0)
     check_launched(f"dt_gamma {CLI_DT_GAMMA} train", gamma_counts, ("march_turbo",),
-                   absent=("coarse_lookup_bits",))
+                   absent=("coarse_lookup_bits", "ray_prepass"))
     check_launched(f"dt_gamma {CLI_DT_GAMMA} frame", gamma_frame_counts,
-                   ("march_turbo", "coarse_lookup_bits", "cp_sigma_rgb_tc"))
+                   ("march_turbo", "ray_prepass", "cp_sigma_rgb_tc"),
+                   absent=("coarse_lookup_bits",))
     for what, (zero, gamma) in (("step", (step_prof, g_step)), ("frame", (frame_prof, g_frame))):
         print(f"{what}: dt_gamma 0 {zero[0]:.2f} ms device time in {zero[1]:.0f} launches "
               f"(idle {zero[2]:.3f}); dt_gamma {CLI_DT_GAMMA} {gamma[0]:.2f} ms in "
@@ -3562,7 +3694,7 @@ def main():
         make_synthetic_dataset(scene, n_train=n_train, n_val=n_val, n_test=n_test, device=dev)
         phase(f"CLI scene ({sum(CLI_FRAMES)} frames of 400x400 written)", t0)
         t0 = time.perf_counter()
-        cli_counts, rays_11a, psnr_11a = cli_runs(dev, card, scene, g_rays_s, tmp)
+        cli_counts, rays_11a, psnr_11a = cli_runs(dev, card, scene, g_rays_s, tmp, results)
         phase("CLI (-O, resume, --test, hashgrid with losses, --rand_pose)", t0)
 
         # 12. the rest of main_nerf: the background net, no -O, LPIPS
@@ -3622,9 +3754,12 @@ def main():
         "cp_sigma_rgb": (csrc + "cp_kernels.cu", "ngp_tpu/ops/pallas/cp_kernels.py:506",
                          ("cp_sigma_rgb", "bfloat16")),
         # the march around the lookup on the train and eval paths, on the last
-        # train step's own inputs; the lookup alone in the eval prepass
+        # train step's own inputs; the eval prepass around it, on the trained
+        # 800x800 frame's first prepass chunk; the lookup alone, on no path
         "march_turbo": (csrc + "march_kernels.cu", "ngp_tpu/ops/pallas/march_kernels.py:73",
                         ("march_turbo", f"step {TRAIN_STEPS - 1}")),
+        "ray_prepass": (csrc + "march_kernels.cu", "ngp_tpu/ops/pallas/march_kernels.py:73",
+                        ("ray_prepass", "API frame chunk 0")),
         "coarse_lookup_bits": (csrc + "march_kernels.cu",
                                "ngp_tpu/ops/pallas/march_kernels.py:73",
                                ("coarse_lookup_bits", "bits")),
@@ -3664,6 +3799,10 @@ def main():
                                  ("grid_encode_bwd_x",
                                   f"D=4 bf16 step {cli_steps(DNERF_SHORT_ITERS) - 1}")),
     }
+    lookups = sum(c["coarse_lookup_bits"] for c in path_counts)
+    if lookups:
+        raise RuntimeError(f"coarse_lookup_bits was launched {lookups} times on the paths: the "
+                           "prepass kernel replaces it")
     kernels = []
     for name, (src, replaces, key) in sources.items():
         err, k_ms, p_ms, (b_ms, b_by) = results[key]

@@ -10,8 +10,10 @@ hand-written kernel, ``ops/kernels/march.march_turbo``, which walks each
 ray's lattice in march order and compacts with warp ballots where the
 JAX code selects by top-k over t-bits keys and routes the fine payload
 by one-hot einsums; its plain version keeps the JAX composition. The
-prepass's coarse test is the kernel ``coarse_lookup_bits``. Compaction
-is one stable sort of the ray-major mask.
+eval prepass is one kernel too, ``ray_prepass_kernel``, which walks each
+ray's prepass probes where the JAX code builds the dense probe lattice
+around its coarse lookup. Compaction is one stable sort of the ray-major
+mask.
 
 The fine payload's uint32 words are held in int64 tensors.
 """
@@ -26,7 +28,11 @@ import numpy as np
 import torch
 
 from ngp_tpu_torch.config import RenderConfig
-from ngp_tpu_torch.ops.kernels.march import coarse_lookup_bits, march_turbo
+from ngp_tpu_torch.ops.kernels.march import (  # noqa: F401  (ray_prepass_plain re-exported)
+    march_turbo,
+    ray_prepass_kernel,
+    ray_prepass_plain,
+)
 from ngp_tpu_torch.ops.lattice import (  # noqa: F401  (re-exported)
     _TKEY_INVALID,
     _TKEY_THRESH,
@@ -41,6 +47,8 @@ from ngp_tpu_torch.ops.lattice import (  # noqa: F401  (re-exported)
     lattice_probes,
     mip_from_dt,
     mip_from_pos,
+    prepass_probes,
+    prepass_spacing,
     t_lattice,
 )
 from ngp_tpu_torch.models.renderer import background
@@ -229,54 +237,13 @@ def occupied_aabb(state: OccupancyState, cfg: RenderConfig) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def prepass_spacing(cfg: RenderConfig) -> float:
-    """Prepass probe spacing: one cascade-0 coarse cell."""
-    return 2.0 * min(1.0, cfg.bound) / (cfg.grid_size // COARSE_FACTOR)
-
-
-def prepass_probes(cfg: RenderConfig) -> int:
-    h = prepass_spacing(cfg)
-    span = 2.0 * SQRT3 * cfg.bound if cfg.lattice_span is None else cfg.lattice_span
-    return max(int(math.ceil(span / h)) + 2, 2)
-
-
 def ray_prepass(rays_o, rays_d, state: OccupancyState, cfg: RenderConfig,
                 aabb=None) -> Dict[str, torch.Tensor]:
     """Conservative eval cull: per ray, may it produce any march sample
-    (``hit``), and an interval [t0, t1] holding all of them."""
-    cas = cfg.cascades
-    h = prepass_spacing(cfg)
-    Kp = prepass_probes(cfg)
-    dt_min, dt_max = dt_bounds(cfg)
-    if aabb is None:
-        aabb = cfg.aabb
-    nears, fars = near_far_from_aabb(rays_o, rays_d, aabb, cfg.min_near)
-    hit_box = fars > nears
-    ts = nears[:, None] + h * torch.arange(Kp, dtype=torch.float32, device=nears.device)[None, :]
-    if cfg.dt_gamma == 0.0:
-        dts = torch.full_like(ts, dt_min)
-    else:
-        dts = torch.clamp(ts * cfg.dt_gamma, dt_min, dt_max)
-    x = _points(rays_o, rays_d, ts, cfg.bound)
-
-    def lookup_level(level):
-        return coarse_lookup_bits(state.prepass_payload, _cells(x, dts, cfg, level)[1])
-
-    if cas == 1:
-        occ = lookup_level(torch.zeros(ts.shape, dtype=torch.int32, device=ts.device))
-    else:
-        level = torch.maximum(mip_from_pos(x, cas), mip_from_dt(dts, cfg.grid_size, cas))
-        occ = lookup_level(level)
-        occ = occ | lookup_level(torch.clamp(level - 1, min=0))
-        occ = occ | lookup_level(torch.clamp(level + 1, max=cas - 1))
-    occ = occ & (ts <= fars[:, None] + 0.5 * h) & hit_box[:, None]
-    hit = occ.any(dim=1)
-    inf = torch.tensor(math.inf, device=ts.device)
-    t0 = torch.where(occ, ts, inf).amin(dim=1) - 0.5 * h
-    t1 = torch.where(occ, ts, -inf).amax(dim=1) + 0.5 * h
-    t0 = torch.where(hit, torch.maximum(t0, nears), nears)
-    t1 = torch.where(hit, torch.minimum(t1, fars), nears)
-    return {"hit": hit, "t0": t0, "t1": t1, "nears": nears, "fars": fars}
+    (``hit``), and an interval [t0, t1] holding all of them; also the
+    ray's ``nears`` and ``fars``. One kernel launch on the card
+    (``ray_prepass_kernel``); ``ray_prepass_plain`` on the CPU."""
+    return ray_prepass_kernel(rays_o, rays_d, state.prepass_payload, cfg, aabb=aabb)
 
 
 # ---------------------------------------------------------------------------

@@ -7,8 +7,10 @@
 - ``march.march_turbo``      replaces the turbo march around
   ``ngp_tpu/ops/pallas/march_kernels.py:coarse_lookup_bits`` (``models/occupancy.py:
   march_rays_turbo``, one launch a march)
+- ``march.ray_prepass_kernel`` replaces the eval prepass around the same Pallas kernel
+  (``models/occupancy.py:ray_prepass``, one launch a chunk of rays)
 - ``march.coarse_lookup_bits`` replaces ``ngp_tpu/ops/pallas/march_kernels.py:coarse_lookup_bits``
-  alone (the eval prepass)
+  alone; no path calls it
 - ``cp.cp_encode_fwd``       replaces ``ngp_tpu/ops/pallas/cp_kernels.py:cp_encode`` (forward;
   ``cp.CPEncode`` adds its backward through ``cp_bwd_banks``)
 - ``fused_mlp.fused_mlp``    replaces ``ngp_tpu/ops/pallas/fused_mlp.py:fused_mlp``
@@ -46,6 +48,7 @@ LAUNCHES: Dict[str, int] = {
     "cp_sigma_rgb": 0,
     "coarse_lookup_bits": 0,
     "march_turbo": 0,
+    "ray_prepass": 0,
     "cp_bwd_banks": 0,
     "cp_density_fwd_residuals": 0,
     "cp_density_fwd_tc": 0,

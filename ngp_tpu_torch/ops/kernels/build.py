@@ -59,6 +59,10 @@ _SIGNATURES = {
         _F, _F, _F, _F, _F, _I, _I, _I, _I, _I, _I, _I, _F, _F,
         _P, _P, _P, _P, _P, _P, _P, _P,
     ],
+    "ngp_ray_prepass": [
+        _P, _P, ctypes.POINTER(_L), _I, ctypes.POINTER(_F), _P, _P, _I,
+        _F, _F, _I, _F, _F, _F, _F, _F, _I, _I, _P, _P, _P, _P, _P, _P,
+    ],
     "ngp_grid_encode_fwd": [
         _P, _L, _I, _P, _I, _I, _I, ctypes.POINTER(ctypes.c_float), ctypes.POINTER(_I),
         ctypes.POINTER(_U), ctypes.POINTER(_U), ctypes.POINTER(_I), ctypes.c_float, _I,

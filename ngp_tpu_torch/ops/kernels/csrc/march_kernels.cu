@@ -57,9 +57,32 @@
 // (227 KB: at grid 128, 56 cascades; the package's bounds <= 8 need 4); any
 // lattice, K2, U and S <= K2.
 //
-// ngp_coarse_lookup_bits is the Pallas kernel's port alone, which the eval
-// prepass (ray_prepass) runs on its dilated payload. The TPU kernel held the
-// [R, 128] byte payload in VMEM and fetched each probe's byte with an unrolled
+// ngp_ray_prepass replaces the eval prepass of ngp_tpu/models/occupancy.py:
+// ray_prepass around the same Pallas kernel. The TPU forced a dense [N, Kp]
+// probe lattice at one coarse cell's spacing, its [N, Kp, 3] points, the mip
+// levels and cells of up to three levels and a lookup of each, reduced to
+// three values a ray (about 90 XLA ops at one cascade, 210 at two, each a
+// launch in the PyTorch composition). Here one warp walks one ray's probes
+// in rounds of 32 lanes, and no [N, Kp] tensor reaches device memory: the
+// slab test, t = near + h k, the march's dt at t, the clipped point, its mip
+// level max(level of |x|, level of dt), and the probe's bits of the dilated
+// payload at that level and, with more than one cascade, at the levels
+// beside it, read from the block's copy of the payload staged in shared
+// memory as bytes (as the march stages its coarse payload). The probes
+// ascend in t, so the first occupied one (__ffs of the first non-empty
+// ballot) gives t0 and the last (__clz of the last) t1, and the walk stops at
+// the first round that starts past far + h / 2. Every product, sum, clamp and
+// division is rounded as the plain version's torch op rounds it (as in the
+// march), so hit, t0 and t1 are bit-equal to ray_prepass_plain on the card.
+// Bound: the rays in and five values out (41 B a ray: 2.7 MB, 0.0008 ms at
+// 3.35 TB/s for a 65,536-ray chunk); what bounds it is instruction issue:
+// per probe the point, two log2f of the mip level and one to three
+// lookups of three divisions each, over Kp / 32 rounds per ray in the box
+// (58 probes at bound 1 and grid 128, 113 at bound 2).
+//
+// ngp_coarse_lookup_bits is the Pallas kernel's port alone, which no path
+// calls since the prepass became one kernel. The TPU kernel held the [R, 128]
+// byte payload in VMEM and fetched each probe's byte with an unrolled
 // lane-local gather over the R rows, because a TPU scalar gather moves a whole
 // tile. On Hopper a probe's byte is one load from the payload (resident in
 // L1/L2): byte payload[fc >> 3], bit fc & 7. It is bound by device memory:
@@ -153,45 +176,67 @@ struct Cell {
   int bit6;  // the fine cell within it, z fastest
 };
 
+// ops/lattice.py:_points: o + d t clipped to the bound
+__device__ __forceinline__ void clipped_point(const float (&o)[3], const float (&d)[3], float t,
+                                              float bound, float (&x)[3]) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i) x[i] = nan_clamp(__fadd_rn(o[i], __fmul_rn(d[i], t)), -bound, bound);
+}
+
+// ops/lattice.py: max(mip_from_pos(x), mip_from_dt(dt))
+__device__ __forceinline__ int mip_level(const float (&x)[3], float dt, int H, int cas) {
+  const float mx = nan_max(nan_max(fabsf(x[0]), fabsf(x[1])), fabsf(x[2]));
+  const int lvl_pos = clampi(frexp_exponent(mx), 0, cas - 1);
+  const int lvl_dt = clampi(frexp_exponent(__fmul_rn(__fmul_rn(dt, (float)H), 0.5f)), 0, cas - 1);
+  return max(lvl_pos, lvl_dt);
+}
+
+// ops/lattice.py:_cells at a given level: the fine cell coordinates n
+__device__ __forceinline__ void fine_cell(const float (&x)[3], int level, float bound, int H,
+                                          int (&n)[3]) {
+  const float mb = fminf(powf(2.f, (float)level), bound);
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+    n[i] = clampi((int)__fmul_rn(__fmul_rn(0.5f, __fadd_rn(__fdiv_rn(x[i], mb), 1.f)),
+                                 (float)H),
+                  0, H - 1);
+}
+
+// the flat coarse cell id of fine cell n at a level
+__device__ __forceinline__ int coarse_flat(const int (&n)[3], int level, int H) {
+  const int Hc = H / kCoarseFactor;
+  return ((level * Hc + n[0] / kCoarseFactor) * Hc + n[1] / kCoarseFactor) * Hc +
+         n[2] / kCoarseFactor;
+}
+
+// bit fc of a byte payload; cells past it read as empty (coarse_lookup_plain)
+__device__ __forceinline__ bool payload_bit(const uint8_t* bytes, int n_bytes, int fc) {
+  const int byte_idx = fc >> 3;
+  return fc >= 0 && byte_idx < n_bytes && ((bytes[byte_idx] >> (fc & 7)) & 1);
+}
+
 // ops/lattice.py:_cells of the clipped point o + d t with step dt
 __device__ __forceinline__ Cell probe_cell(const MarchParams& p, const float (&o)[3],
                                            const float (&d)[3], float t, float dt) {
   float x[3];
-#pragma unroll
-  for (int i = 0; i < 3; ++i) x[i] = nan_clamp(__fadd_rn(o[i], __fmul_rn(d[i], t)), -p.bound, p.bound);
-  const float mx = nan_max(nan_max(fabsf(x[0]), fabsf(x[1])), fabsf(x[2]));
-  const int lvl_pos = clampi(frexp_exponent(mx), 0, p.cas - 1);
-  const int lvl_dt =
-      clampi(frexp_exponent(__fmul_rn(__fmul_rn(dt, (float)p.H), 0.5f)), 0, p.cas - 1);
-  const int level = max(lvl_pos, lvl_dt);
-  const float mb = fminf(powf(2.f, (float)level), p.bound);
+  clipped_point(o, d, t, p.bound, x);
+  const int level = mip_level(x, dt, p.H, p.cas);
   int n[3];
-#pragma unroll
-  for (int i = 0; i < 3; ++i)
-    n[i] = clampi((int)__fmul_rn(__fmul_rn(0.5f, __fadd_rn(__fdiv_rn(x[i], mb), 1.f)),
-                                 (float)p.H),
-                  0, p.H - 1);
-  const int Hc = p.H / kCoarseFactor;
+  fine_cell(x, level, p.bound, p.H, n);
   Cell c;
-  c.flat = ((level * Hc + n[0] / kCoarseFactor) * Hc + n[1] / kCoarseFactor) * Hc +
-           n[2] / kCoarseFactor;
+  c.flat = coarse_flat(n, level, p.H);
   c.bit6 = ((n[0] % kCoarseFactor) * kCoarseFactor + n[1] % kCoarseFactor) * kCoarseFactor +
            n[2] % kCoarseFactor;
   return c;
 }
 
-// ray `ray` marched by the calling warp (see the header)
-__device__ void march_ray(const MarchParams& p, const uint8_t* occ, const float (&box)[6],
-                          int ray, int lane) {
-  const unsigned below_me = (1u << lane) - 1u;
-  float o[3], d[3];
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    o[i] = __ldg(p.rays_o + ray * p.o_rs + i * p.o_cs);
-    d[i] = __ldg(p.rays_d + ray * p.d_rs + i * p.d_cs);
-  }
-  // the slab test of ops/rays.py:near_far_from_aabb: 1 / d, then products
-  float nr = 0.f, fr = 0.f;
+// the slab test of ops/rays.py:near_far_from_aabb: 1 / d, then products;
+// near clamped below by min_near, both 1e10 for a ray that misses the slabs
+__device__ __forceinline__ void near_far(const float (&box)[6], const float (&o)[3],
+                                         const float (&d)[3], float min_near, float& nr,
+                                         float& fr) {
+  nr = 0.f;
+  fr = 0.f;
 #pragma unroll
   for (int i = 0; i < 3; ++i) {
     const float inv = __fdiv_rn(1.f, d[i]);
@@ -201,8 +246,29 @@ __device__ void march_ray(const MarchParams& p, const uint8_t* occ, const float 
     fr = i == 0 ? nan_max(lo, hi) : nan_min(fr, nan_max(lo, hi));
   }
   const bool miss = nr > fr;
-  nr = nr != nr ? nr : fmaxf(nr, p.min_near);
+  nr = nr != nr ? nr : fmaxf(nr, min_near);
   if (miss) nr = fr = kMissT;
+}
+
+// a ray's origin and direction, from their strides
+__device__ __forceinline__ void load_ray(const float* rays_o, const float* rays_d,
+                                         long long o_rs, long long o_cs, long long d_rs,
+                                         long long d_cs, int ray, float (&o)[3], float (&d)[3]) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    o[i] = __ldg(rays_o + ray * o_rs + i * o_cs);
+    d[i] = __ldg(rays_d + ray * d_rs + i * d_cs);
+  }
+}
+
+// ray `ray` marched by the calling warp (see the header)
+__device__ void march_ray(const MarchParams& p, const uint8_t* occ, const float (&box)[6],
+                          int ray, int lane) {
+  const unsigned below_me = (1u << lane) - 1u;
+  float o[3], d[3];
+  load_ray(p.rays_o, p.rays_d, p.o_rs, p.o_cs, p.d_rs, p.d_cs, ray, o, d);
+  float nr, fr;
+  near_far(box, o, d, p.min_near, nr, fr);
   if (p.t_range != nullptr) {
     nr = nan_max(nr, __ldg(p.t_range + 2 * ray));
     fr = nan_min(fr, __ldg(p.t_range + 2 * ray + 1));
@@ -242,8 +308,7 @@ __device__ void march_ray(const MarchParams& p, const uint8_t* occ, const float 
     bool valid_c = false;
     if (k < p.K && t < far_c) {
       c = probe_cell(p, o, d, t, dt);
-      const int byte_idx = c.flat >> 3;
-      valid_c = c.flat >= 0 && byte_idx < p.coarse_bytes && ((occ[byte_idx] >> (c.flat & 7)) & 1);
+      valid_c = payload_bit(occ, p.coarse_bytes, c.flat);
     }
     const unsigned m_c = __ballot_sync(kFull, valid_c);
     const int cand = n_coarse + __popc(m_c & below_me);
@@ -322,6 +387,125 @@ __global__ void __launch_bounds__(kMarchThreads) march_turbo_kernel(MarchParams 
     march_ray(p, occ, box, ray, lane);
 }
 
+
+struct PrepassParams {
+  const float* rays_o;  // [N, 3], element (n, i) at n * o_rs + i * o_cs
+  const float* rays_d;  // [N, 3], element (n, i) at n * d_rs + i * d_cs
+  long long o_rs, o_cs, d_rs, d_cs;
+  int N;
+  float box[6];          // the box, unless box_dev holds it on the card
+  const float* box_dev;  // [6] or null
+  const float* payload;  // [payload_bytes] f32 byte values of the dilated grid
+  int payload_bytes;
+  float h, half_h;  // the probe spacing and h / 2
+  int Kp;           // probes a ray
+  float dt_min, dt_max, dt_gamma, min_near, bound;
+  int H, cas;
+  uint8_t* hit;  // [N] bool
+  float* t0;     // [N]
+  float* t1;     // [N]
+  float* nears;  // [N]
+  float* fars;   // [N]
+};
+
+// is probe point x (march step dt) occupied: its own mip level's bit of the
+// dilated payload and, with more than one cascade, the bits of the levels
+// beside it
+__device__ __forceinline__ bool prepass_occupied(const PrepassParams& p, const uint8_t* occ,
+                                                 const float (&x)[3], float dt) {
+  int n[3];
+  if (p.cas == 1) {
+    fine_cell(x, 0, p.bound, p.H, n);
+    return payload_bit(occ, p.payload_bytes, coarse_flat(n, 0, p.H));
+  }
+  const int level = mip_level(x, dt, p.H, p.cas);
+  const int levels[3] = {level, max(level - 1, 0), min(level + 1, p.cas - 1)};
+  bool on = false;
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    fine_cell(x, levels[j], p.bound, p.H, n);
+    on = on || payload_bit(occ, p.payload_bytes, coarse_flat(n, levels[j], p.H));
+  }
+  return on;
+}
+
+// ray `ray` walked by the calling warp (see the header)
+__device__ void prepass_ray(const PrepassParams& p, const uint8_t* occ, const float (&box)[6],
+                            int ray, int lane) {
+  float o[3], d[3];
+  load_ray(p.rays_o, p.rays_d, p.o_rs, p.o_cs, p.d_rs, p.d_cs, ray, o, d);
+  float nr, fr;
+  near_far(box, o, d, p.min_near, nr, fr);
+  const float far_lim = __fadd_rn(fr, p.half_h);
+  int first = -1, last = -1;  // warp-uniform: the first and last occupied probe
+  for (int base = 0; fr > nr && base < p.Kp; base += 32) {
+    const int k = base + lane;
+    const float t = __fadd_rn(nr, __fmul_rn((float)k, p.h));
+    // the probes ascend: a round that starts past far + h / 2 (or at NaN)
+    // holds no probe before it, nor does any later round
+    if (!(__shfl_sync(kFull, t, 0) <= far_lim)) break;
+    bool on = false;
+    if (k < p.Kp && t <= far_lim) {
+      const float dt =
+          p.dt_gamma == 0.f ? p.dt_min : nan_clamp(__fmul_rn(t, p.dt_gamma), p.dt_min, p.dt_max);
+      float x[3];
+      clipped_point(o, d, t, p.bound, x);
+      on = prepass_occupied(p, occ, x, dt);
+    }
+    const unsigned m = __ballot_sync(kFull, on);
+    if (m) {
+      if (first < 0) first = base + __ffs(m) - 1;
+      last = base + 31 - __clz(m);
+    }
+  }
+  if (lane == 0) {
+    float a = nr, b = nr;
+    if (first >= 0) {
+      a = nan_max(__fsub_rn(__fadd_rn(nr, __fmul_rn((float)first, p.h)), p.half_h), nr);
+      b = nan_min(__fadd_rn(__fadd_rn(nr, __fmul_rn((float)last, p.h)), p.half_h), fr);
+    }
+    p.hit[ray] = first >= 0;
+    p.t0[ray] = a;
+    p.t1[ray] = b;
+    p.nears[ray] = nr;
+    p.fars[ray] = fr;
+  }
+}
+
+// Persistent blocks of kMarchWarps warps, one ray per warp at a time; each
+// block stages the dilated payload once, as bytes.
+__global__ void __launch_bounds__(kMarchThreads) ray_prepass_kernel(PrepassParams p) {
+  extern __shared__ uint8_t occ[];
+  for (int i = threadIdx.x; i < p.payload_bytes; i += kMarchThreads)
+    occ[i] = (uint8_t)(int)__ldg(p.payload + i);
+  __syncthreads();
+  float box[6];
+#pragma unroll
+  for (int i = 0; i < 6; ++i) box[i] = p.box_dev != nullptr ? __ldg(p.box_dev + i) : p.box[i];
+  const int lane = threadIdx.x & 31;
+  const int warps = gridDim.x * kMarchWarps;
+  for (int ray = blockIdx.x * kMarchWarps + (threadIdx.x >> 5); ray < p.N; ray += warps)
+    prepass_ray(p, occ, box, ray, lane);
+}
+
+// the launch of a persistent kernel of kMarchThreads threads with `bytes` of
+// dynamic shared memory over n rays, one warp a ray
+template <typename Params>
+int launch_per_ray(void (*kernel)(Params), const Params& p, int n, int bytes,
+                   cudaStream_t stream) {
+  cudaError_t e;
+  if (bytes > 48 * 1024) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) return e;
+  }
+  // as many blocks as are resident at once, each walking rays
+  int most = 0;
+  if ((e = resident_blocks(kernel, kMarchThreads, bytes, &most)) != cudaSuccess) return e;
+  const long long want = ((long long)n + kMarchWarps - 1) / kMarchWarps;
+  kernel<<<(int)(want < most ? want : most), kMarchThreads, bytes, stream>>>(p);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int ngp_coarse_lookup_bits(const float* payload, int n_bytes, const int* flatcell,
@@ -389,18 +573,49 @@ extern "C" int ngp_march_turbo(const float* rays_o, const float* rays_d, const l
   p.mask = mask;
   p.n_total = n_total;
   p.n_dropped = n_dropped;
-  cudaError_t e;
-  if (coarse_bytes > 48 * 1024) {
-    e = cudaFuncSetAttribute(march_turbo_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             coarse_bytes);
-    if (e != cudaSuccess) return e;
-  }
-  // as many blocks as are resident at once, each walking rays
-  int most = 0;
-  if ((e = resident_blocks(march_turbo_kernel, kMarchThreads, coarse_bytes, &most)) != cudaSuccess)
-    return e;
-  const long long want = ((long long)N + kMarchWarps - 1) / kMarchWarps;
-  march_turbo_kernel<<<(int)(want < most ? want : most), kMarchThreads, coarse_bytes,
-                       static_cast<cudaStream_t>(stream)>>>(p);
-  return cudaGetLastError();
+  return launch_per_ray(march_turbo_kernel, p, N, coarse_bytes,
+                        static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int ngp_ray_prepass(const float* rays_o, const float* rays_d,
+                               const long long* strides, int N, const float* box,
+                               const float* box_dev, const float* payload, int payload_bytes,
+                               float h, float half_h, int Kp, float dt_min, float dt_max,
+                               float dt_gamma, float min_near, float bound, int H, int cas,
+                               uint8_t* hit, float* t0, float* t1, float* nears, float* fars,
+                               void* stream) {
+  if (N < 0 || H < kCoarseFactor || H % kCoarseFactor != 0 || cas < 1 || Kp < 1 ||
+      payload_bytes < 0)
+    return cudaErrorInvalidValue;
+  if (payload_bytes > kMaxSmemBytes) return kUnsupportedShape;
+  if (N == 0) return cudaSuccess;
+  PrepassParams p;
+  p.rays_o = rays_o;
+  p.rays_d = rays_d;
+  p.o_rs = strides[0];
+  p.o_cs = strides[1];
+  p.d_rs = strides[2];
+  p.d_cs = strides[3];
+  p.N = N;
+  for (int i = 0; i < 6; ++i) p.box[i] = box[i];
+  p.box_dev = box_dev;
+  p.payload = payload;
+  p.payload_bytes = payload_bytes;
+  p.h = h;
+  p.half_h = half_h;
+  p.Kp = Kp;
+  p.dt_min = dt_min;
+  p.dt_max = dt_max;
+  p.dt_gamma = dt_gamma;
+  p.min_near = min_near;
+  p.bound = bound;
+  p.H = H;
+  p.cas = cas;
+  p.hit = hit;
+  p.t0 = t0;
+  p.t1 = t1;
+  p.nears = nears;
+  p.fars = fars;
+  return launch_per_ray(ray_prepass_kernel, p, N, payload_bytes,
+                        static_cast<cudaStream_t>(stream));
 }

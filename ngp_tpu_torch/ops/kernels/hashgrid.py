@@ -35,6 +35,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -213,10 +214,13 @@ def _check_points(name: str, x: torch.Tensor, geom: GridGeometry) -> int:
     return x.shape[0]
 
 
+@functools.lru_cache(maxsize=64)
 def _geometry_args(geom: GridGeometry):
     """The C arguments of the geometry: per level the scale, row offset,
     row count, D dense strides (0 past the dims that fit) and the hashed
-    flag, then the shift and the interpolation."""
+    flag, then the shift and the interpolation. Made once per geometry:
+    the kernels only read them, and building the ctypes arrays costs more
+    host time than a small launch."""
     L, D = geom.num_levels, geom.input_dim
     strides = [0] * (D * L)
     for level, st in enumerate(geom.strides):
@@ -314,7 +318,7 @@ def grid_encode_bwd(x: torch.Tensor, g: torch.Tensor, geom: GridGeometry) -> tor
 def grid_encode_bwd_x(x: torch.Tensor, table: torch.Tensor, g: torch.Tensor,
                       geom: GridGeometry) -> torch.Tensor:
     """The gradient in the points [B, D] f32 in one launch, one thread a
-    point: x [B, D] f32 (D = 2, 3 or 4), the table as ``grid_encode_fwd``
+    point and a slice of its levels: x [B, D] f32 (D = 2, 3 or 4), the table as ``grid_encode_fwd``
     takes it, g [B, L*C] f32 or bf16 (the output's cotangent, whose dtype is
     the output's). Points outside [0, 1]^D get zero rows."""
     if x.device.type == "cpu":

@@ -1,13 +1,17 @@
-"""The turbo march and the coarse occupancy lookup: the CUDA kernels'
-wrappers and their plain versions.
+"""The turbo march, the eval prepass and the coarse occupancy lookup:
+the CUDA kernels' wrappers and their plain versions.
 
 ``march_turbo`` replaces the turbo march of
 ``ngp_tpu/models/occupancy.py:march_rays_turbo`` around its Pallas
 kernel ``ngp_tpu/ops/pallas/march_kernels.py:coarse_lookup_bits``: the
 lattice, the coarse test, the candidate, crossing and sample budgets
-and the drop estimate, as one kernel. ``coarse_lookup_bits`` is that
-Pallas kernel's port alone, which the eval prepass calls. Both kernels
-are in ``csrc/march_kernels.cu``, whose header says what bounds them.
+and the drop estimate, as one kernel. ``ray_prepass_kernel`` replaces
+the eval prepass around the same Pallas kernel
+(``ngp_tpu/models/occupancy.py:ray_prepass``): the slab test, the probe
+lattice, the mip levels, the lookups of the dilated payload and the
+first and last occupied probe, as one kernel. ``coarse_lookup_bits`` is
+that Pallas kernel's port alone, which no path calls. The kernels are in
+``csrc/march_kernels.cu``, whose header says what bounds them.
 """
 
 from __future__ import annotations
@@ -31,6 +35,10 @@ from ngp_tpu_torch.ops.lattice import (
     _tbits,
     dt_bounds,
     lattice_probes,
+    mip_from_dt,
+    mip_from_pos,
+    prepass_probes,
+    prepass_spacing,
     t_lattice,
 )
 from ngp_tpu_torch.ops.rays import near_far_from_aabb
@@ -180,28 +188,35 @@ def march_turbo_plain(rays_o, rays_d, coarse_payload, fine_payload, cfg: RenderC
             "n_total": n_total, "n_dropped": dropped}
 
 
-def _device_box(aabb, dev):
-    """(6 host floats, device pointer or None) of the march's box: a
+def _device_box(aabb, dev, kernel="march_turbo"):
+    """(6 host floats, device pointer or None) of a kernel's box: a
     tensor on the card is read there, anything else on the host."""
     if torch.is_tensor(aabb) and aabb.device == dev:
         box = aabb.to(torch.float32).contiguous()
         if box.numel() != 6:
-            raise ValueError(f"march_turbo: aabb must hold 6 values, got {box.numel()}")
+            raise ValueError(f"{kernel}: aabb must hold 6 values, got {box.numel()}")
         return (ctypes.c_float * 6)(), box
     vals = [float(v) for v in (aabb.tolist() if torch.is_tensor(aabb) else aabb)]
     if len(vals) != 6:
-        raise ValueError(f"march_turbo: aabb must hold 6 values, got {len(vals)}")
+        raise ValueError(f"{kernel}: aabb must hold 6 values, got {len(vals)}")
     return (ctypes.c_float * 6)(*vals), None
 
 
-def _check_f32(name, t, shape, dev, strided=False):
+def _check_f32(name, t, shape, dev, strided=False, kernel="march_turbo"):
     """f32 of this shape on dev, contiguous (or, strided, any strides >= 0:
     the rays are often views, one origin expanded over a chunk)."""
     if t.device != dev or t.dtype != torch.float32 or tuple(t.shape) != shape \
             or not (t.is_contiguous() or strided and min(t.stride(), default=0) >= 0):
-        raise ValueError(f"march_turbo: {name} must be {'' if strided else 'contiguous '}f32 "
+        raise ValueError(f"{kernel}: {name} must be {'' if strided else 'contiguous '}f32 "
                          f"{shape} on {dev}, got {t.dtype} {tuple(t.shape)} strides "
                          f"{t.stride()} on {t.device}")
+
+
+def _check_payload(kernel, payload, dev):
+    if payload.device != dev or payload.dtype != torch.float32 or payload.ndim != 2 \
+            or payload.shape[1] != 128 or not payload.is_contiguous():
+        raise ValueError(f"{kernel}: the payload must be contiguous f32 [R, 128] on {dev}, "
+                         f"got {payload.dtype} {tuple(payload.shape)}")
 
 
 def march_turbo(rays_o, rays_d, coarse_payload, fine_payload, cfg: RenderConfig,
@@ -224,11 +239,7 @@ def march_turbo(rays_o, rays_d, coarse_payload, fine_payload, cfg: RenderConfig,
         _check_f32("t_range", t_range, (N, 2), dev)
     if noise is not None:
         _check_f32("noise", noise, (N,), dev)
-    if coarse_payload.device != dev or coarse_payload.dtype != torch.float32 \
-            or coarse_payload.ndim != 2 or coarse_payload.shape[1] != 128 \
-            or not coarse_payload.is_contiguous():
-        raise ValueError("march_turbo: coarse_payload must be contiguous f32 [R, 128] on "
-                         f"{dev}, got {coarse_payload.dtype} {tuple(coarse_payload.shape)}")
+    _check_payload("march_turbo", coarse_payload, dev)
     if fine_payload.device != dev or fine_payload.dtype != torch.int64 \
             or fine_payload.ndim != 2 or fine_payload.shape[1] < 2 \
             or not fine_payload.is_contiguous():
@@ -268,4 +279,92 @@ def march_turbo(rays_o, rays_d, coarse_payload, fine_payload, cfg: RenderConfig,
     check_launch("march_turbo", err)
     if N > 0:
         LAUNCHES["march_turbo"] += 1
+    return out
+
+
+def ray_prepass_plain(rays_o, rays_d, payload, cfg: RenderConfig,
+                      aabb=None) -> Dict[str, torch.Tensor]:
+    """The eval prepass as the JAX code composes it
+    (``ngp_tpu/models/occupancy.py:ray_prepass``): the [N, Kp] probe
+    lattice at one coarse cell's spacing from each ray's near end, the
+    probes' points and mip levels, the dilated payload's bit at the
+    probe's level (and, with more than one cascade, the levels beside
+    it), masked to the box and to t <= far + h / 2, then per ray ``hit``
+    (any probe occupied) and [``t0``, ``t1``] (the first and last
+    occupied probe, widened by h / 2 and clipped to [near, far]; near
+    where nothing is hit), with ``nears`` and ``fars``.
+
+    payload [R, 128] f32 bytes (``pack_prepass_payload``); ``aabb`` the
+    box (the config's when None)."""
+    cas = cfg.cascades
+    h = prepass_spacing(cfg)
+    Kp = prepass_probes(cfg)
+    dt_min, dt_max = dt_bounds(cfg)
+    if aabb is None:
+        aabb = cfg.aabb
+    nears, fars = near_far_from_aabb(rays_o, rays_d, aabb, cfg.min_near)
+    hit_box = fars > nears
+    ts = nears[:, None] + h * torch.arange(Kp, dtype=torch.float32, device=nears.device)[None, :]
+    if cfg.dt_gamma == 0.0:
+        dts = torch.full_like(ts, dt_min)
+    else:
+        dts = torch.clamp(ts * cfg.dt_gamma, dt_min, dt_max)
+    x = _points(rays_o, rays_d, ts, cfg.bound)
+
+    def lookup_level(level):
+        return coarse_lookup_plain(payload, _cells(x, dts, cfg, level)[1])
+
+    if cas == 1:
+        occ = lookup_level(torch.zeros(ts.shape, dtype=torch.int32, device=ts.device))
+    else:
+        level = torch.maximum(mip_from_pos(x, cas), mip_from_dt(dts, cfg.grid_size, cas))
+        occ = lookup_level(level)
+        occ = occ | lookup_level(torch.clamp(level - 1, min=0))
+        occ = occ | lookup_level(torch.clamp(level + 1, max=cas - 1))
+    occ = occ & (ts <= fars[:, None] + 0.5 * h) & hit_box[:, None]
+    hit = occ.any(dim=1)
+    inf = torch.tensor(math.inf, device=ts.device)
+    t0 = torch.where(occ, ts, inf).amin(dim=1) - 0.5 * h
+    t1 = torch.where(occ, ts, -inf).amax(dim=1) + 0.5 * h
+    t0 = torch.where(hit, torch.maximum(t0, nears), nears)
+    t1 = torch.where(hit, torch.minimum(t1, fars), nears)
+    return {"hit": hit, "t0": t0, "t1": t1, "nears": nears, "fars": fars}
+
+
+def ray_prepass_kernel(rays_o, rays_d, payload, cfg: RenderConfig,
+                       aabb=None) -> Dict[str, torch.Tensor]:
+    """The eval prepass: ``ray_prepass_plain``'s function, one kernel
+    launch on the card, bit-equal to it there. Raises ValueError where
+    the payload does not fit a block's shared memory (more than 227 KB:
+    at grid 128, 56 cascades)."""
+    dev = rays_o.device
+    if dev.type == "cpu":
+        return ray_prepass_plain(rays_o, rays_d, payload, cfg, aabb=aabb)
+    if dev.type != "cuda":
+        raise ValueError(f"ray_prepass: no kernel for {dev}")
+    N = rays_o.shape[0]
+    _check_f32("rays_o", rays_o, (N, 3), dev, strided=True, kernel="ray_prepass")
+    _check_f32("rays_d", rays_d, (N, 3), dev, strided=True, kernel="ray_prepass")
+    _check_payload("ray_prepass", payload, dev)
+    box, box_dev = _device_box(cfg.aabb if aabb is None else aabb, dev, "ray_prepass")
+    dt_min, dt_max = dt_bounds(cfg)
+    h = prepass_spacing(cfg)
+    f32 = dict(dtype=torch.float32, device=dev)
+    out = {"hit": torch.empty((N,), dtype=torch.bool, device=dev),
+           "t0": torch.empty((N,), **f32), "t1": torch.empty((N,), **f32),
+           "nears": torch.empty((N,), **f32), "fars": torch.empty((N,), **f32)}
+    lib = load_library()
+    # called for N = 0 too, so a payload the kernel does not take raises alike
+    strides = (ctypes.c_longlong * 4)(*rays_o.stride(), *rays_d.stride())
+    err = lib.ngp_ray_prepass(
+        rays_o.data_ptr(), rays_d.data_ptr(), strides, N, box,
+        None if box_dev is None else box_dev.data_ptr(), payload.data_ptr(), payload.numel(),
+        h, 0.5 * h, prepass_probes(cfg), dt_min, dt_max, cfg.dt_gamma, cfg.min_near,
+        cfg.bound, cfg.grid_size, cfg.cascades,
+        *(out[k].data_ptr() for k in ("hit", "t0", "t1", "nears", "fars")),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    check_launch("ray_prepass", err)
+    if N > 0:
+        LAUNCHES["ray_prepass"] += 1
     return out

@@ -1,9 +1,10 @@
 """The march lattice: step sizes, probe counts, mip levels, cells and
-t-bits keys (``ngp_tpu/models/occupancy.py``).
+t-bits keys, and the eval prepass's probe spacing and count
+(``ngp_tpu/models/occupancy.py``).
 
 Shared by ``models/occupancy.py`` (which re-exports every name) and the
-turbo march's plain version in ``ops/kernels/march.py``, which must not
-import the models package.
+plain versions of the turbo march and the prepass in
+``ops/kernels/march.py``, which must not import the models package.
 """
 
 from __future__ import annotations
@@ -56,6 +57,19 @@ def lattice_probes(cfg: RenderConfig) -> int:
         cfg.dt_gamma, dt_min, dt_max, cfg.min_near,
         2.0 * SQRT3 * cfg.bound if span is None else span,
     )
+
+
+def prepass_spacing(cfg: RenderConfig) -> float:
+    """Prepass probe spacing: one cascade-0 coarse cell."""
+    return 2.0 * min(1.0, cfg.bound) / (cfg.grid_size // COARSE_FACTOR)
+
+
+def prepass_probes(cfg: RenderConfig) -> int:
+    """Probe count of the prepass lattice: the marched span at
+    ``prepass_spacing``, plus the half-step slack."""
+    h = prepass_spacing(cfg)
+    span = 2.0 * SQRT3 * cfg.bound if cfg.lattice_span is None else cfg.lattice_span
+    return max(int(math.ceil(span / h)) + 2, 2)
 
 
 def _frexp_exponent(x: torch.Tensor) -> torch.Tensor:

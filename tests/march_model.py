@@ -1,7 +1,8 @@
 """The turbo march's test cases and a numpy model of its CUDA kernel
-(``ngp_tpu_torch/ops/kernels/csrc/march_kernels.cu``), without JAX, so
-that the CPU tests (``test_torch_march_fused.py``) and the card tests
-(``test_torch_cuda_kernels.py``) share them.
+(``ngp_tpu_torch/ops/kernels/csrc/march_kernels.cu``), and the eval
+prepass's test cases, without JAX, so that the CPU tests
+(``test_torch_march_fused.py``, ``test_torch_occupancy.py``) and the card
+tests (``test_torch_cuda_kernels.py``) share them.
 
 The model marches each ray as the kernel's warp does: the lattice in
 rounds of 32 probes in march order, the coarse survivors compacted in
@@ -38,6 +39,25 @@ CASES = {
     "more than U crossings": (dict(crossing_slots=2), 0.3, "box", False, False),
     "misses and starts inside": (dict(), 0.15, "edge", False, False),
     "bound 2, noise": (dict(bound=2.0), 0.15, "box", True, False),
+}
+
+
+# the eval prepass: name -> (config changes, occupied share of the grid,
+# rays, box override); bound 1, 2 and 4 have one, two and three cascades
+PREPASS_CASES = {
+    "default": (dict(), 0.02, "box", None),
+    "bound 2, dt_gamma": (dict(bound=2.0, dt_gamma=1 / 128), 0.02, "box", None),
+    "bound 2": (dict(bound=2.0), 0.02, "box", None),
+    "bound 4": (dict(bound=4.0), 0.02, "box", None),
+    "bound 4, dt_gamma": (dict(bound=4.0, dt_gamma=1 / 128), 0.02, "box", None),
+    "dt_gamma": (dict(dt_gamma=1 / 128), 0.02, "box", None),
+    "tight box": (dict(), 0.05, "box", (-0.45, -0.4, -0.6, 0.35, 0.5, 0.3)),
+    "tight box, bound 2": (dict(bound=2.0), 0.05, "box", (-0.9, -1.2, -0.7, 1.1, 0.6, 1.3)),
+    "lattice span": (dict(lattice_span=1.5), 0.05, "box", None),
+    "lattice span, bound 2": (dict(bound=2.0, lattice_span=2.5, dt_gamma=1 / 128), 0.05, "box",
+                              None),
+    "misses and starts inside": (dict(), 0.05, "edge", None),
+    "misses and starts inside, bound 4": (dict(bound=4.0, dt_gamma=1 / 128), 0.05, "edge", None),
 }
 
 

@@ -27,7 +27,9 @@ grid encoder's x-gradient (``grid_encode_bwd_x``, alone and as
 another order, so 1e-4 of the largest entry in f32; with a bf16 cotangent
 each corner's dot product is rounded to bf16 by both, and a rounding that
 flips moves a term by one bf16 step, so 1e-2 of the largest entry. LPIPS on the card with the default cuDNN flags against the
-CPU: 1e-4 relative (TF32 convolutions would miss it by about 1e-3)."""
+CPU: 1e-4 relative (TF32 convolutions would miss it by about 1e-3). The
+turbo march and the eval prepass round every float as their plain
+versions do: equal, bit for bit."""
 
 import numpy as np
 import pytest
@@ -525,6 +527,63 @@ def test_march_turbo_kernel(dev, name, box):
     assert int(got["mask"].sum()) > 0
 
 
+# the CPU tests' prepass cases (march_model.PREPASS_CASES), and one at grid
+# 128 with 4096 rays
+PREPASS_CASES = list(march_model.PREPASS_CASES) + ["grid 128"]
+
+
+@pytest.mark.parametrize("box", ["config", "tensor"])
+@pytest.mark.parametrize("name", PREPASS_CASES)
+def test_ray_prepass_kernel(dev, name, box):
+    """The prepass kernel gives the plain version's hit, t0, t1, nears and
+    fars bit for bit, the box given on the host or as a tensor on the
+    card."""
+    from ngp_tpu_torch.config import RenderConfig
+    from ngp_tpu_torch.models import occupancy as to
+
+    if name == "grid 128":
+        changes, frac, kind, aabb, n = dict(grid_size=128, max_steps=256), 0.002, "box", None, 4096
+    else:
+        (changes, frac, kind, aabb), n = march_model.PREPASS_CASES[name], 200
+    cfg = RenderConfig(**march_model.config(changes))
+    occ, _ = march_model.grids(cfg, frac=frac)
+    payload = to.pack_prepass_payload(torch.from_numpy(occ).to(dev))
+    ro, rd = march_model.rays(kind, n=n, seed=2, bound=cfg.bound)
+    ro, rd = _on(ro, dev), _on(rd, dev)
+    if box == "tensor":
+        aabb = torch.tensor(cfg.aabb if aabb is None else aabb, device=dev)
+    before = LAUNCHES["ray_prepass"]
+    got = tm.ray_prepass_kernel(ro, rd, payload, cfg, aabb=aabb)
+    assert LAUNCHES["ray_prepass"] == before + 1
+    want = tm.ray_prepass_plain(ro, rd, payload, cfg, aabb=aabb)
+    torch.cuda.synchronize()
+    assert set(got) == set(want) == {"hit", "t0", "t1", "nears", "fars"}
+    for k in want:
+        assert got[k].dtype == want[k].dtype and got[k].shape == want[k].shape, k
+        assert torch.equal(got[k], want[k]), (k, int((got[k] != want[k]).sum()))
+    assert 0 < int(got["hit"].sum()) < n
+
+
+def test_ray_prepass_kernel_no_rays_and_wide_payload(dev):
+    from ngp_tpu_torch.config import RenderConfig
+
+    cfg = RenderConfig(**march_model.config({}))
+    empty = torch.zeros((0, 3), device=dev)
+    before = LAUNCHES["ray_prepass"]
+    out = tm.ray_prepass_kernel(empty, empty, torch.zeros((1, 128), device=dev), cfg)
+    assert LAUNCHES["ray_prepass"] == before
+    assert set(out) == {"hit", "t0", "t1", "nears", "fars"}
+    assert all(v.shape == (0,) for v in out.values()) and out["hit"].dtype == torch.bool
+    # a payload past a block's shared memory (grid 512, 4 cascades), with and
+    # without rays
+    for rays in (empty, torch.ones((8, 3), device=dev)):
+        with pytest.raises(ValueError, match="shared memory"):
+            tm.ray_prepass_kernel(rays, rays, torch.zeros((2048, 128), device=dev), cfg)
+    with pytest.raises(ValueError):
+        tm.ray_prepass_kernel(empty, empty, torch.zeros((1, 64), device=dev), cfg)
+    assert LAUNCHES["ray_prepass"] == before
+
+
 def test_march_turbo_kernel_no_rays_and_wide_payload(dev):
     from ngp_tpu_torch.config import RenderConfig
 
@@ -585,8 +644,9 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
 
 
 def test_kernels_on_the_render_path(dev):
-    """A tiny GPU frame goes through the three eval kernels and matches the
-    same frame rendered on the CPU through the plain versions."""
+    """A tiny GPU frame goes through the eval kernels (the heads, the march,
+    the prepass) and matches the same frame rendered on the CPU through the
+    plain versions; the prepass no longer launches the lookup alone."""
     from ngp_tpu_torch.config import NetworkConfig, RenderConfig
     from ngp_tpu_torch.models.nerf import NeRFNetwork
     from ngp_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
@@ -612,9 +672,10 @@ def test_kernels_on_the_render_path(dev):
     intr = np.array([40.0, 40.0, 16.0, 16.0], np.float32)
     img_g, _ = gpu_tr.render_frame(pose, intr, 32, 32, chunk=256)
     counts = launch_counts()
-    # the march is one kernel; the prepass keeps the coarse lookup
+    # the march is one kernel, and so is the prepass
     assert all(counts[k] > 0 for k in ("cp_density_fwd", "cp_sigma_rgb", "march_turbo",
-                                       "coarse_lookup_bits")), counts
+                                       "ray_prepass")), counts
+    assert counts["coarse_lookup_bits"] == 0, counts
     img_c, _ = cpu_tr.render_frame(pose, intr, 32, 32, chunk=256)
     assert np.abs(img_g - img_c).mean() <= 1e-4
 
@@ -655,7 +716,7 @@ def test_train_step_on_the_card_matches_cpu(dev, tmp_path):
     counts = launch_counts()
     for name in ("cp_density_fwd_residuals", "cp_bwd_banks", "march_turbo"):
         assert counts[name] > 0, counts
-    assert counts["coarse_lookup_bits"] == 0, counts
+    assert counts["coarse_lookup_bits"] == 0 and counts["ray_prepass"] == 0, counts
     mc = cpu_tr.train_step(batch, draws)
     assert abs(float(mg["loss"]) - float(mc["loss"])) <= 1e-4 * float(mc["loss"])
     cpu_grads = dict(cpu_tr.model.named_parameters())
@@ -985,25 +1046,42 @@ def _check_dx(got, want, g_dtype):
 def test_grid_encode_bwd_x_kernel(dev, name, table_dtype, g_dtype):
     """The x-gradient against autograd of the plain version on D = 2, 3 and
     4 grids, 25% of the points outside the box (zero rows), 30% of the
-    cotangent rows zero; counted under ``grid_encode_bwd_x_4d`` too on 4-D
-    points."""
+    cotangent rows zero, at 5001 points and at 0, 1, 33 and 4099 (blocks of
+    32 points: a ragged last block, one point alone); then an all-zero
+    cotangent, whose gradient is all zero. Counted under
+    ``grid_encode_bwd_x_4d`` too on 4-D points; no launch for no points."""
     from ngp_tpu_torch.ops.kernels import hashgrid as kh
 
     cfg, table = _grid_nd(name, dev, table_dtype)
     D = cfg.input_dim
-    pos = _points_nd(dev, 5001, D)
-    gen = torch.Generator().manual_seed(8)
-    g = torch.randn((5001, cfg.output_dim), generator=gen)
-    g[torch.rand(5001, generator=gen) < 0.3] = 0.0
-    g = g.to(dev, g_dtype)
-    before = dict(LAUNCHES)
-    got = kh.grid_encode_bwd_x(pos, table, g, cfg.geometry)
-    assert LAUNCHES["grid_encode_bwd_x"] == before["grid_encode_bwd_x"] + 1
-    assert LAUNCHES["grid_encode_bwd_x_4d"] == before["grid_encode_bwd_x_4d"] + (D == 4)
-    want = kh.grid_encode_bwd_x_plain(pos, table, g, cfg.geometry)
-    oob = ((pos < 0) | (pos > 1)).any(dim=-1)
-    assert got.shape == (5001, D) and not got[oob].any()
-    _check_dx(got, want, g_dtype)
+    for B in (5001, 0, 1, 33, 4099):
+        pos = _points_nd(dev, B, D)
+        gen = torch.Generator().manual_seed(8)
+        g = torch.randn((B, cfg.output_dim), generator=gen)
+        g[torch.rand(B, generator=gen) < 0.3] = 0.0
+        if B == 1:
+            pos[0] = 0.37  # inside the box
+        g = g.to(dev, g_dtype)
+        before = dict(LAUNCHES)
+        got = kh.grid_encode_bwd_x(pos, table, g, cfg.geometry)
+        assert LAUNCHES["grid_encode_bwd_x"] == before["grid_encode_bwd_x"] + (B > 0)
+        assert LAUNCHES["grid_encode_bwd_x_4d"] == before["grid_encode_bwd_x_4d"] + (
+            D == 4 and B > 0)
+        assert got.shape == (B, D) and got.dtype == torch.float32
+        if B == 0:
+            continue
+        want = kh.grid_encode_bwd_x_plain(pos, table, g, cfg.geometry)
+        oob = ((pos < 0) | (pos > 1)).any(dim=-1)
+        assert not got[oob].any()
+        if float(want.abs().max()) > 0:
+            _check_dx(got, want, g_dtype)
+        else:
+            torch.cuda.synchronize()
+            assert not got.any()
+    zero = torch.zeros((4099, cfg.output_dim), device=dev, dtype=g_dtype)
+    got = kh.grid_encode_bwd_x(_points_nd(dev, 4099, D), table, zero, cfg.geometry)
+    torch.cuda.synchronize()
+    assert got.shape == (4099, D) and not got.any()
 
 
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])

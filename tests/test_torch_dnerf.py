@@ -1,7 +1,8 @@
 """The port's D-NeRF slice against the JAX package on the same inputs:
 the three networks (``DNeRFNetwork``, ``DNeRFHyperNetwork`` on its 4-D
 grid, ``DNeRFBasisNetwork``) with JAX's weights (``params_from_jax``) and
-their gradients, ``slice_at_time``, the refresh schedule's slice sets over
+their gradients, ``slice_at_time``, the eval prepass on the slice at a
+frame's time, the refresh schedule's slice sets over
 120 refreshes (the freeze included), a whole refresh (full and quarter)
 with JAX's draws, one ``DNeRFTrainer`` step with the deformation L1 on
 each path (turbo and the v1 march) with JAX's draws, 24 steps with three
@@ -37,6 +38,7 @@ import torch
 
 from ngp_tpu import config as jconfig
 from ngp_tpu.models import dnerf as jdn
+from ngp_tpu.models import occupancy as jo
 from ngp_tpu.training import dnerf as jdt
 from ngp_tpu_torch import config as tconfig
 from ngp_tpu_torch import main_dnerf as tmain
@@ -212,6 +214,47 @@ def test_slice_at_time_matches_jax(turbo_pair):
             got = getattr(ts, f.name)
             got = got.numpy() if torch.is_tensor(got) else np.asarray(got)
             np.testing.assert_array_equal(got.astype(want.dtype), want, err_msg=f.name)
+
+
+@pytest.mark.parametrize("t", [0.0, 0.5, 0.9])
+def test_prepass_at_time_matches_jax(turbo_pair, t):
+    """The eval prepass on the slice a frame at time t probes: the port's
+    ``_occ_at(t)`` through ``ray_prepass_plain`` (what the prepass runs on
+    the CPU) against JAX's ``_prepass_occ`` through its ``ray_prepass``,
+    on a time-sliced state whose slices hold different occupancy: hit
+    equal, t0 and t1 to 1e-6."""
+    import copy
+
+    import march_model
+
+    jtr, ttr = turbo_pair
+    rc = ttr.render_cfg
+    T = rc.time_size
+    # one occupied cell a slice, in another corner of the grid each time:
+    # the dilated payloads of the slices differ
+    H = rc.grid_size
+    occ = np.zeros((T, rc.cascades, H, H, H), bool)
+    for i, cell in enumerate([(1, 1, 1), (H - 2, H - 2, H - 2), (1, H - 2, H // 2),
+                              (H - 2, 1, H // 2)][:T]):
+        occ[(i, 0) + cell] = True
+    dens = np.where(occ, np.float32(20.0), np.float32(0.0)).astype(np.float32)
+    packed = [jo.pack_occupancy_payloads(jnp.asarray(o), jnp.asarray(d)) for o, d in zip(occ, dens)]
+    jstate = jtr.aux["occ"].replace(
+        occ_grid=jnp.asarray(occ), density_grid=jnp.asarray(dens),
+        coarse_payload=jnp.stack([c for c, _ in packed]),
+        fine_payload=jnp.stack([f for _, f in packed]),
+        prepass_payload=jnp.stack([jo.pack_prepass_payload(jnp.asarray(o)) for o in occ]))
+    port = copy.copy(ttr)
+    port.aux = {"occ": _time_occ(jstate)}
+    ro, rd = march_model.rays("edge", n=200, seed=2, bound=rc.bound)
+    jp = jo.ray_prepass(jnp.asarray(ro), jnp.asarray(rd),
+                        jtr._prepass_occ({"occ": jstate}, jnp.float32(t)), jtr.render_cfg)
+    tp = to.ray_prepass_plain(torch.from_numpy(ro), torch.from_numpy(rd),
+                              port._occ_at(t).prepass_payload, rc)
+    np.testing.assert_array_equal(tp["hit"].numpy(), np.asarray(jp["hit"]))
+    assert 0 < int(tp["hit"].sum()) < 200
+    for k in ("t0", "t1"):
+        np.testing.assert_allclose(tp[k].numpy(), np.asarray(jp[k]), atol=1e-6, rtol=1e-6)
 
 
 def test_refresh_schedule_matches_jax(tmp_path, monkeypatch):

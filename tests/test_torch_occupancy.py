@@ -15,6 +15,8 @@ from ngp_tpu.models import occupancy as jo
 from ngp_tpu_torch.config import RenderConfig
 from ngp_tpu_torch.models import occupancy as to
 
+import march_model
+
 
 def _cfg(**kw):
     kw.setdefault("bound", 1.0)
@@ -196,14 +198,26 @@ def test_march_rays_turbo_t_range_and_proxy():
     _close(tm["ts"], jm["ts"], 1e-6)
 
 
-@pytest.mark.parametrize("kw", [dict(), dict(bound=2.0, dt_gamma=1 / 128)])
+@pytest.mark.parametrize("kw", list(march_model.PREPASS_CASES.values()))
 def test_ray_prepass(kw):
-    jcfg, cfg = _cfg(**kw)
-    occ, dens = _grids(jcfg, frac=0.02)
+    """ray_prepass_plain (which ray_prepass runs on the CPU) against JAX's
+    ray_prepass over march_model.PREPASS_CASES: one, two and three
+    cascades, dt_gamma 0 and 1/128, a box override, a lattice span, rays
+    that miss the box and rays that start inside it."""
+    changes, frac, kind, box = kw
+    jcfg, cfg = _cfg(**changes)
+    occ, dens = _grids(jcfg, frac=frac)
     js = _jax_state(jcfg, occ, dens)
-    ro, rd = _rays(n=200, seed=2, bound=jcfg.bound)
-    jp = jo.ray_prepass(jnp.asarray(ro), jnp.asarray(rd), js, jcfg)
-    tp = to.ray_prepass(torch.from_numpy(ro), torch.from_numpy(rd), _to_port(js), cfg)
+    ro, rd = march_model.rays(kind, n=200, seed=2, bound=jcfg.bound)
+    jp = jo.ray_prepass(jnp.asarray(ro), jnp.asarray(rd), js, jcfg,
+                        aabb=None if box is None else jnp.asarray(box, jnp.float32))
+    ts = _to_port(js)
+    tro, trd = torch.from_numpy(ro), torch.from_numpy(rd)
+    tp = to.ray_prepass_plain(tro, trd, ts.prepass_payload, cfg, aabb=box)
+    via = to.ray_prepass(tro, trd, ts, cfg, aabb=box)
+    assert set(tp) == set(via) == {"hit", "t0", "t1", "nears", "fars"}
+    for k in tp:
+        assert torch.equal(via[k], tp[k]), k
     _eq(tp["hit"], jp["hit"])
     assert 0 < int(tp["hit"].sum()) < 200
     _close(tp["t0"], jp["t0"], 1e-6)

@@ -13,16 +13,21 @@ Run from the repository root, with no arguments:
 
 (``--probe-scatter`` adds ``scatter_probe`` to phase 9.)
 It builds the CUDA kernels from ``ngp_tpu_torch/ops/kernels/csrc`` (and
-counts the tensor-core instructions, HMMA, of the two bf16 heads and of
-the MLP chain's tensor-core kernel in the library's SASS, and their
-spills in the compiler's report; and prints the registers and spills of
-the CP factor backward's and encoder's run kernels, whose SASS must call
-no 64-bit division routine, and of the turbo march), then
+counts the tensor-core instructions, HMMA, of the two heads' bf16 and f32
+(3xTF32) kernels and of the MLP chain's tensor-core kernel in the
+library's SASS, and their spills in the compiler's report, none allowed
+but in the f32 heads'; and prints the registers and spills of the CP
+factor backward's and encoder's run kernels, whose SASS must call no
+64-bit division routine, and of the turbo march), then
 
 2-3. builds the turbo-hq NeRF network at full width from a seeded
      generator (random weights), refreshes the 128^3 occupancy grid (16
      full sweeps, then one partial refresh), renders 800x800 frames
-     through ``GridNeRFTrainer.render_frame`` (the eval path);
+     through ``GridNeRFTrainer.render_frame`` (the eval path); then (3b)
+     the same network built with ``use_bf16=False`` (the f32 heads' API
+     path): 16 full refreshes and one 800x800 frame, both heads on their
+     3xTF32 route, the radiance kernel held against its plain version on
+     the frame's first radiance chunk's own inputs;
 4.   holds each kernel against its plain PyTorch version at the paths'
      shapes: the refresh and the eval chunk, the train step's 98,304
      rows for the density forward with residuals and the factor
@@ -116,8 +121,12 @@ no 64-bit division routine, and of the turbo march), then
      3-D grid kernels on the last step's own points), (c) no ``-O`` with
      ``--encoding cpgrid --fp16`` at the turbo-hq widths (the loss
      falls; the CP kernels launched, and held against their plain
-     versions at its 2,097,152 rows) and (d) ``-O --encoding hashgrid
-     --bg_radius 32`` (the v1 march with the background net);
+     versions at its 2,097,152 rows), (d) ``-O --encoding hashgrid
+     --bg_radius 32`` (the v1 march with the background net) and (e) (c)
+     without ``--fp16``, in f32 as the JAX CLI defaults (the loss falls;
+     the density head on its 3xTF32 route, and held against its plain
+     version at the step's 2,097,152 rows on the trained weights; rays/s
+     and ms a step);
 13.  runs ``ngp_tpu_torch.main_sdf sphere`` in this process
      (``sdf_runs``): (a) ``--epochs 2`` (200 steps of 262,144 points, the
      256^3 mesh; the validation MAPE falls, the mesh's median vertex
@@ -329,7 +338,8 @@ CLI_RAND_POSE = 4
 # samples a ray, 4096 rays: 2,097,152 samples a step), CLI_UNIFORM_ITERS;
 # (c) no -O with the CP grid at the turbo-hq widths in bf16, CLI_CP_ITERS;
 # (d) the hash grid's v1 march with the background net, CLI_V1_BG_ITERS
-# (256 until phases 15-16 came; cut to hold the smoke near 700 s).
+# (256 until phases 15-16 came; cut to hold the smoke near 700 s); (e) (c)
+# in f32, CLI_CP_ITERS.
 # On this white-background scene, whose cameras sit inside the box, the
 # background net learns the train views on its own and the density field
 # stays empty: the test split reads a white frame's PSNR, with the net's
@@ -381,13 +391,19 @@ CCNERF_MIN_PSNR = 28.0
 FINALIZE_TOL = 1e-4
 # phase 16, D-NeRF at the CLI's widths on the dynamic scene: (a) cut from
 # 30,000 iterations to 25 epochs (16 full refreshes, then 46 of a quarter),
-# (c) and (d) to 2 epochs; the x-gradient's tolerance by cotangent type
+# (c) and (d) to 2 epochs, their 5 refreshes cut from JAX's schedule (16
+# full 64-slice sweeps, then quarters; 4-7.6 s a sweep, 0.4-0.5 s a quarter)
+# to DNERF_SHORT_FULL_SWEEPS full sweeps, then quarters (so that the smoke
+# holds its time limit; (a) with 4 full sweeps read 12.71 dB, under the
+# floor; the schedule itself is held to JAX's on the CPU,
+# tests/test_torch_dnerf.py); the x-gradient's tolerance by cotangent type
 # (see bwd_x_checks). The floor sits between (a)'s readings (NVIDIA H100
 # 80GB HBM3, 700.00 W: 13.43-14.48 dB in four runs) and those of (a) with
 # the deformation net frozen (--dnerf-control: 12.11-12.12 in two runs; a
 # white frame 11.56)
 DNERF_ITERS = 1024
 DNERF_SHORT_ITERS = 80
+DNERF_SHORT_FULL_SWEEPS = 1
 DNERF_MIN_PSNR = 12.8
 # phase 17: (a) the viewers, their views held to render_frame within this many
 # u8 levels (f32 atomics in the compositor); (b) CLIP guidance at ViT-B/16's
@@ -405,10 +421,12 @@ BRICK_MIN_GAIN = 5.0
 BWD_X_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 BG_ROWS = (65536, 4096)
 # H100 SXM (NVIDIA's data sheet): HBM bytes/s, dense bf16 tensor-core and
-# f32 CUDA-core FLOP/s
+# f32 CUDA-core FLOP/s, and f32-accurate products on the tensor cores: three
+# TF32 products each (3xTF32) at the dense TF32 rate, 495 TFLOP/s
 HBM_RATE = 3.35e12
 BF16_TENSOR_RATE = 989e12
 F32_CORE_RATE = 67e12
+TF32X3_TENSOR_RATE = 495e12 / 3
 # the least HBM moves at once: a table row read or written costs its sector
 SECTOR = 32
 # the profiler trace's event categories that are device work
@@ -419,23 +437,52 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def bound(n_bytes, tensor_flops=0.0, core_flops=0.0):
+def bound(n_bytes, tensor_flops=0.0, core_flops=0.0, tf32x3_flops=0.0):
     """(ms, "bytes" or "operations"): the least time of a kernel that reads
     and writes ``n_bytes`` once and does ``tensor_flops`` of matrix
-    products (bf16 tensor cores) and ``core_flops`` of other arithmetic
-    (f32 CUDA cores)."""
+    products (bf16 tensor cores), ``core_flops`` of other arithmetic (f32
+    CUDA cores) and ``tf32x3_flops`` of f32-accurate matrix products
+    (3xTF32 on the tensor cores)."""
     t_bytes = n_bytes / HBM_RATE
-    t_ops = max(tensor_flops / BF16_TENSOR_RATE, core_flops / F32_CORE_RATE)
+    t_ops = max(tensor_flops / BF16_TENSOR_RATE, core_flops / F32_CORE_RATE,
+                tf32x3_flops / TF32X3_TENSOR_RATE)
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
 def head_work(n_bytes, dtype, product_flops, other_flops):
-    """(bytes, tensor-core operations, CUDA-core operations) of a CP head:
-    its matrix products on the tensor cores in bf16, on the CUDA cores in
-    f32 (the f32 kernels compute them there), the rest on the CUDA cores."""
+    """(bytes, bf16 tensor-core operations, CUDA-core operations, 3xTF32
+    operations) of a CP head, ``bound``'s arguments: its matrix products on
+    the tensor cores, in bf16 or, for f32, at the 3xTF32 rate (the least
+    the card needs for f32-accurate products, whichever route the kernel
+    takes), the rest on the CUDA cores."""
     if dtype == "bfloat16":
-        return n_bytes, product_flops, other_flops
-    return n_bytes, 0, product_flops + other_flops
+        return n_bytes, product_flops, other_flops, 0
+    return n_bytes, 0, other_flops, product_flops
+
+
+def density_work(pos, factors, w1, w2, residuals=False):
+    """``head_work`` of ``cp_density_fwd`` on these tensors: pos, the banks
+    and the weights read, the f32 output (and the feats and h1 residuals,
+    in the weight type) written; both products; a CP lerp about 14
+    operations per (row, bank column), three taps of 4 and two products."""
+    M, (D, H1), OUT = pos.shape[0], w1.shape, w2.shape[1]
+    n_bytes = nbytes(pos, *factors, w1, w2) + M * OUT * 4
+    if residuals:
+        n_bytes += M * (D + H1) * w1.element_size()
+    nbR = len(factors) * factors[0].shape[-1]
+    return head_work(n_bytes, str(w1.dtype).split(".")[-1], 2 * M * (D * H1 + H1 * OUT),
+                     14 * M * nbR)
+
+
+def sigma_rgb_work(pos, dirs, factors, w1, w2, color):
+    """``head_work`` of ``cp_sigma_rgb`` on these tensors: pos, dirs, the
+    banks and every weight read, 16 bytes a row written; the density
+    products and the colour MLP's; the lerps as ``density_work``."""
+    M = pos.shape[0]
+    flops = 2 * M * sum(w.numel() for w in (w1, w2, *color))
+    nbR = len(factors) * factors[0].shape[-1]
+    return head_work(nbytes(pos, dirs, *factors, w1, w2, *color) + M * 16,
+                     str(w1.dtype).split(".")[-1], flops, 14 * M * nbR)
 
 
 def inside_rows(pos):
@@ -1085,6 +1132,69 @@ def gamma_window(dev, card, rc, nc, train_ds, results):
     return rays_s, step_counts, frame_counts, step_prof, frame_prof
 
 
+def f32_eval_run(dev, card, nc, rc, results):
+    """Phase 3b, the f32 heads' API path: the turbo-hq network of phase 2
+    built with ``use_bf16=False`` (random weights from SEED), 16 full grid
+    refreshes (the density head on 131,072-row chunks) and one 800x800
+    frame through ``GridNeRFTrainer.render_frame`` (the radiance head),
+    both heads on their 3xTF32 route; the radiance kernel held against its
+    plain version on the frame's first radiance chunk's own inputs.
+    Returns the path's launch counts."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from ngp_tpu_torch.models.nerf import NeRFNetwork
+    from ngp_tpu_torch.ops import cpgrid
+    from ngp_tpu_torch.ops.kernels import cp, launch_counts, reset_launch_counts
+    from ngp_tpu_torch.training.nerf_grid import GridNeRFTrainer
+
+    nc32 = dataclasses.replace(nc, use_bf16=False)
+    model = NeRFNetwork(nc32, rc, torch.Generator().manual_seed(SEED)).to(dev)
+    trainer = GridNeRFTrainer(model, rc, seed=SEED)
+    caught, head = [], cpgrid.cp_sigma_rgb
+
+    def catching(x, d, *rest):
+        if not caught:
+            caught.append((x.clone(), d.clone(), *rest))
+        return head(x, d, *rest)
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(16):
+        trainer._update_occupancy()
+    torch.cuda.synchronize()
+    t_refresh = time.perf_counter() - t0
+    cpgrid.cp_sigma_rgb = catching
+    try:
+        t0 = time.perf_counter()
+        img, _ = trainer.render_frame(orbit_pose(0.7), intrinsics(FRAME), FRAME, FRAME)
+        torch.cuda.synchronize()
+        t_frame = time.perf_counter() - t0
+    finally:
+        cpgrid.cp_sigma_rgb = head
+    counts = launch_counts()
+    check_launched("f32 eval", counts, ("cp_density_fwd_tf32x3", "cp_sigma_rgb_tf32x3",
+                                        "march_turbo", "ray_prepass"),
+                   absent=("cp_density_fwd_tc", "cp_sigma_rgb_tc", "coarse_lookup_bits"))
+    if img.shape != (FRAME, FRAME, 3) or not np.isfinite(img).all():
+        raise RuntimeError("f32 eval: the frame is not a finite 800x800x3 image")
+    x, d, factors, w1, w2, color, res, fd, sh = caught[0]
+    # the heads read the parameters themselves (an f32 cast is no copy)
+    factors, color = tuple(f.detach() for f in factors), tuple(w.detach() for w in color)
+    w1, w2 = w1.detach(), w2.detach()
+    results[("cp_sigma_rgb", "float32 API frame chunk 0")] = compare(
+        "cp_sigma_rgb", lambda: cp.cp_sigma_rgb(x, d, factors, w1, w2, color, res, fd, sh),
+        lambda: cp.cp_sigma_rgb_plain(x, d, factors, w1, w2, color, res, fd, sh), "float32",
+        sigma_rgb_work(x, d, factors, w1, w2, color))
+    st = trainer.last_render_stats
+    print(f"f32 eval: 16 full refreshes {t_refresh:.3f} s, one {FRAME}x{FRAME} frame "
+          f"{t_frame * 1e3:.1f} ms (n_samples {st['n_samples']:.0f}), its first radiance "
+          f"chunk {x.shape[0]} rows  [{card}]", flush=True)
+    return counts
+
+
 @contextlib.contextmanager
 def cli_recorder(dev, card):
     """Run ``ngp_tpu_torch.main_nerf`` in this process and see what it does:
@@ -1401,8 +1511,11 @@ def cli_rest_runs(dev, card, scene, psnr_11a, rays_s_11a, results):
     the turbo-hq widths in bf16 (the fused density head on 2,097,152 rows
     a step): the loss falls, the CP kernels launched, and both at that row
     count against their plain versions; (d) ``-O --encoding hashgrid
-    --bg_radius``, the v1 march with the background net. Returns the
-    launch counts of (a)-(d)."""
+    --bg_radius``, the v1 march with the background net; (e) (c) in f32
+    (no ``--fp16``, the JAX CLI's default type): the loss falls, the
+    density head on its 3xTF32 route, held against its plain version at
+    the step's row count on the trained weights. Returns the
+    launch counts of (a)-(e)."""
     import numpy as np
     import torch
 
@@ -1562,15 +1675,13 @@ def cli_rest_runs(dev, card, scene, psnr_11a, rays_s_11a, results):
         a1, a2 = (w.detach().to(torch.bfloat16).contiguous() for w in m.sigma_net.weights)
         fd = m.cfg.cp_freq_degree
         pos = torch.rand((rows, 3), generator=gen, device=dev) * 1.1 - 0.05
-        D, H1, OUT = a1.shape[0], a1.shape[1], a2.shape[1]
         nbR = len(res) * m.cfg.cp_rank
         del trainer, m
         results[("cp_density_fwd+residuals", f"bfloat16 {rows} rows of 12(c)")] = compare(
             "cp_density_fwd+residuals",
             lambda: cp.cp_density_fwd(pos, fa, a1, a2, res, fd, residuals=True),
             lambda: cp.cp_density_plain(pos, fa, a1, a2, res, fd, residuals=True), "bfloat16",
-            (nbytes(pos, *fa, a1, a2) + rows * (OUT * 4 + (D + H1) * 2),
-             rows * 2 * (D * H1 + H1 * OUT), 14 * rows * nbR),
+            density_work(pos, fa, a1, a2, residuals=True),
             tol=lambda want: density_bound(cp, pos, fa, res, want))
         g_cp = torch.randn((rows, nbR), generator=gen, device=dev)
         results[("cp_bwd_banks", f"bfloat16 {rows} rows of 12(c)")] = compare(
@@ -1593,6 +1704,45 @@ def cli_rest_runs(dev, card, scene, psnr_11a, rays_s_11a, results):
               f"{means[0]:.6f} -> {means[-1]:.6f}, {len(seen['bg_frames'])} background-frame "
               f"passes (no prepass on the v1 march)  [{card}]", flush=True)
         del trainer
+
+        # (e) as (c) in f32, the JAX CLI's default type: the density head on
+        # its 3xTF32 route
+        seen_rows.clear()
+        cp.cp_bwd_banks = counting_bwd
+        try:
+            trainer, e_counts, e_dt, _ = run(
+                [scene, "--encoding", "cpgrid", "--workspace", os.path.join(tmp, "ws_cp32"),
+                 "--iters", str(CLI_CP_ITERS)] + CLI_TURBO_HQ,
+                "12(e) no -O --encoding cpgrid (f32)")
+        finally:
+            cp.cp_bwd_banks = bwd
+        counts.append(e_counts)
+        check_launched("CLI 12(e) cpgrid f32", e_counts,
+                       ("cp_density_fwd", "cp_density_fwd_residuals", "cp_density_fwd_tf32x3",
+                        "cp_bwd_banks"),
+                       absent=("march_turbo", "grid_encode_fwd", "cp_density_fwd_tc"))
+        means = losses_fall("(e)")
+        rays_s, ms = timed_epochs(seen, trainer)
+        rows = max(seen_rows)
+        print(f"CLI 12(e): {e_dt:.3f} s wall for {CLI_CP_ITERS} iterations; {rays_s:.0f} rays/s, "
+              f"{ms:.2f} ms a step; the density head's rows a step {rows}; test split PSNR "
+              f"{seen['results'][-1]['psnr']:.4f} dB; epoch-mean loss {means[0]:.6f} -> "
+              f"{means[-1]:.6f}  [{card}]", flush=True)
+        # the density head with residuals at that row count, on the trained weights
+        m = trainer.model
+        if m.compute_dtype is not None:
+            raise RuntimeError(f"CLI 12(e): the network computes in {m.compute_dtype}, not f32")
+        res, fd = tuple(m.cfg.cp_resolutions), m.cfg.cp_freq_degree
+        fa = tuple(f.detach().contiguous() for f in m.encoder.factors)
+        a1, a2 = (w.detach().contiguous() for w in m.sigma_net.weights)
+        pos = torch.rand((rows, 3), generator=gen, device=dev) * 1.1 - 0.05
+        del trainer, m
+        results[("cp_density_fwd+residuals", f"float32 {rows} rows of 12(e)")] = compare(
+            "cp_density_fwd+residuals",
+            lambda: cp.cp_density_fwd(pos, fa, a1, a2, res, fd, residuals=True),
+            lambda: cp.cp_density_plain(pos, fa, a1, a2, res, fd, residuals=True), "float32",
+            density_work(pos, fa, a1, a2, residuals=True))
+        del pos, fa
     return counts
 
 
@@ -2072,7 +2222,8 @@ def dnerf_runs(dev, card, results, work, control=False):
     3, the step's bf16 cotangent and in f32; the forward and the table
     gradient) and on random points with 25% outside the box. (b) ``--test``
     on (a)'s workspace: the same PSNR. (c) ``--hyper --iters
-    DNERF_SHORT_ITERS``: the 4-D instances (forward, table gradient,
+    DNERF_SHORT_ITERS`` (as (d), ``DNERF_SHORT_FULL_SWEEPS`` full refreshes
+    before the quarters): the 4-D instances (forward, table gradient,
     x-gradient) launched and held against their plain versions on its last
     step's own points and on random 4-D points. (d) ``--basis --iters
     DNERF_SHORT_ITERS``: the loss falls; no x-gradient is launched. With
@@ -2091,11 +2242,18 @@ def dnerf_runs(dev, card, results, work, control=False):
     from ngp_tpu_torch.models.dnerf import DNeRFNetwork
     from ngp_tpu_torch.ops.kernels import hashgrid as hk
     from ngp_tpu_torch.ops.kernels import scatter as sk
+    from ngp_tpu_torch.training import dnerf as dnerf_training
     from ngp_tpu_torch.training.dnerf import DNeRFTrainer
 
     n_train = CLI_FRAMES[0]
     refresh = DNeRFTrainer._update_occupancy
     walls = {}
+    schedule = dnerf_training.refresh_slices
+
+    def fewer_full(iter_density, *rest):
+        # refreshes past the first DNERF_SHORT_FULL_SWEEPS take JAX's quarters
+        return schedule(iter_density if iter_density < DNERF_SHORT_FULL_SWEEPS
+                        else max(iter_density, 16), *rest)
 
     def timed_refresh(self):
         torch.cuda.synchronize()
@@ -2222,9 +2380,10 @@ def dnerf_runs(dev, card, results, work, control=False):
 
         # (c) the hyper grid: the 4-D instances
         last = cli_steps(DNERF_SHORT_ITERS) - 1
-        trainer, c_counts, _, _, caught = go(
-            [scene, "-O", "--hyper", "--workspace", os.path.join(tmp, "ws_hyper"), "--iters",
-             str(DNERF_SHORT_ITERS)], "16(c) --hyper", last)
+        with patched((dnerf_training, "refresh_slices", fewer_full)):
+            trainer, c_counts, _, _, caught = go(
+                [scene, "-O", "--hyper", "--workspace", os.path.join(tmp, "ws_hyper"),
+                 "--iters", str(DNERF_SHORT_ITERS)], "16(c) --hyper", last)
         counts.append(c_counts)
         check_launched("D-NeRF (c) --hyper", c_counts,
                        ("march_turbo", "grid_encode_fwd_4d", "grid_encode_bwd_4d",
@@ -2251,9 +2410,10 @@ def dnerf_runs(dev, card, results, work, control=False):
         del trainer, caught, e, xr, gr, table
 
         # (d) the temporal basis
-        trainer, d_counts, _, _, _ = go(
-            [scene, "-O", "--basis", "--workspace", os.path.join(tmp, "ws_basis"), "--iters",
-             str(DNERF_SHORT_ITERS)], "16(d) --basis", None)
+        with patched((dnerf_training, "refresh_slices", fewer_full)):
+            trainer, d_counts, _, _, _ = go(
+                [scene, "-O", "--basis", "--workspace", os.path.join(tmp, "ws_basis"),
+                 "--iters", str(DNERF_SHORT_ITERS)], "16(d) --basis", None)
         counts.append(d_counts)
         check_launched("D-NeRF (d) --basis", d_counts, ("march_turbo", "grid_encode_bwd"),
                        absent=("grid_encode_bwd_x", "grid_encode_fwd_4d"))
@@ -2964,14 +3124,17 @@ def main():
     for line in report.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"ptxas: {line.strip()}")
-    # the tensor-core kernels of the bf16 heads and the MLP chain: HMMA in
-    # their SASS, no spills
-    for kernel in ("cp_density_tc_kernel", "cp_sigma_rgb_tc_kernel", "fused_mlp_tc_kernel"):
+    # the tensor-core kernels of the heads (bf16, and f32 in 3xTF32) and the
+    # MLP chain: HMMA in their SASS, no spills but in the f32 heads' (each
+    # thread holds a K chunk's loads beside its products' state in 128
+    # registers; PERF.md)
+    for kernel in ("cp_density_tc_kernel", "cp_sigma_rgb_tc_kernel", "cp_density_tf32x3_kernel",
+                   "cp_sigma_rgb_tf32x3_kernel", "fused_mlp_tc_kernel"):
         hmma = sum("HMMA" in line for line in sass_lines(build.library_path(), kernel))
         spills = sum(n for _, _, n in ptxas_usage(report, kernel))
         print(f"SASS: {kernel} has {hmma} HMMA instructions; ptxas: {spills} bytes of spill "
               "stores", flush=True)
-        if hmma == 0 or spills > 0:
+        if hmma == 0 or (spills > 0 and "tf32x3" not in kernel):
             raise RuntimeError(f"{kernel}: {hmma} tensor-core instructions, {spills} bytes of "
                                "spill stores")
     # the CP run kernels: registers and spills of each instance; no call to
@@ -3038,6 +3201,12 @@ def main():
             raise RuntimeError("frame values outside [0, 1]")
     if trainer.last_render_stats["n_samples"] <= 0:
         raise RuntimeError("the frames rendered no samples")
+    results = {}
+
+    # 3b. the f32 heads' API path: the same network in f32, refreshes, a frame
+    t0 = time.perf_counter()
+    f32_eval_counts = f32_eval_run(dev, card, nc, rc, results)
+    phase("f32 eval (16 full refreshes, one 800x800 frame)", t0)
 
     # 4. each kernel against its plain version at the paths' shapes
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
@@ -3047,12 +3216,9 @@ def main():
     res, fd = nc.cp_resolutions, nc.cp_freq_degree
     nbR = len(res) * nc.cp_rank
     rows = {"cp_density_fwd": 128 * 128 * 8, "cp_sigma_rgb": EVAL_ROWS}
-    results = {}
-    # the work of each function for its bound: a CP lerp is about 14
-    # operations per (row, bank column), three taps of 4 and two products;
-    # the factor backward 2 taps of ~4 per (row, bank column, axis)
-    mlp_flops = 2 * (w1.shape[0] * w1.shape[1] + w2.shape[0] * w2.shape[1])
-    color_flops = 2 * sum(w.shape[0] * w.shape[1] for w in color)
+    # the work of each function for its bound: the heads' as density_work
+    # and sigma_rgb_work count it; the factor backward 2 taps of ~4 per
+    # (row, bank column, axis)
     D, H1, OUT = w1.shape[0], w1.shape[1], w2.shape[1]
     # one save_mesh chunk: x-slice MESH_RES / 2 of density_grid's lattice,
     # scaled to [0, 1] as NeRFNetwork.density scales it
@@ -3063,7 +3229,9 @@ def main():
     mesh_chunk = ((mesh_chunk + rc.bound) / (2 * rc.bound)).contiguous()
     for dtype in ("bfloat16", "float32"):
         dt = getattr(torch, dtype)
-        esz = dt.itemsize
+        # the tensor-core route's count of each head in this type
+        route = {head: head + ("_tc" if dtype == "bfloat16" else "_tf32x3")
+                 for head in ("cp_density_fwd", "cp_sigma_rgb")}
         fa = tuple(f.to(dt).contiguous() for f in factors)
         a1, a2 = w1.to(dt).contiguous(), w2.to(dt).contiguous()
         ca = tuple(w.to(dt).contiguous() for w in color)
@@ -3073,8 +3241,7 @@ def main():
             "cp_density_fwd",
             lambda: cp.cp_density_fwd(pos, fa, a1, a2, res, fd),
             lambda: cp.cp_density_plain(pos, fa, a1, a2, res, fd), dtype,
-            head_work(nbytes(pos, *fa, a1, a2) + M * OUT * 4, dtype, M * mlp_flops,
-                      14 * M * nbR))
+            density_work(pos, fa, a1, a2))
         M = TRAIN_ROWS
         pos_t = torch.rand((M, 3), generator=gen, device=dev) * 1.1 - 0.05
         resid_tol = None
@@ -3084,8 +3251,7 @@ def main():
             "cp_density_fwd+residuals",
             lambda: cp.cp_density_fwd(pos_t, fa, a1, a2, res, fd, residuals=True),
             lambda: cp.cp_density_plain(pos_t, fa, a1, a2, res, fd, residuals=True), dtype,
-            head_work(nbytes(pos_t, *fa, a1, a2) + M * (OUT * 4 + (D + H1) * esz), dtype,
-                      M * mlp_flops, 14 * M * nbR), tol=resid_tol)
+            density_work(pos_t, fa, a1, a2, residuals=True), tol=resid_tol)
         # the density head's edge shapes, with and without residuals
         for M_e, small, scale in DENSITY_EDGES:
             fe, e1, e2, res_e, fd_e = tuple(f * scale for f in fa), a1, a2, res, fd
@@ -3107,18 +3273,16 @@ def main():
                     "cp_density_fwd",
                     lambda: cp.cp_density_fwd(pos_x, fe, e1, e2, res_e, fd_e, residuals=resid),
                     lambda: cp.cp_density_plain(pos_x, fe, e1, e2, res_e, fd_e, residuals=resid),
-                    dtype, head_work(nbytes(pos_x, *fe, e1, e2) + M_e * OUT * 4, dtype,
-                                     M_e * mlp_flops, 0), tol=tol)
+                    dtype, density_work(pos_x, fe, e1, e2, residuals=resid), tol=tol)
         # sigma MLPs wider than the 128-row tiles take, on the model's banks;
-        # bf16 must take the tensor-core kernel (its launch count says so)
+        # each must take its type's tensor-core kernel (its launch count says so)
         pos_x = torch.rand((WIDE_ROWS, 3), generator=gen, device=dev) * 1.1 - 0.05
         for h1_w in WIDE_H1:
             e1, e2, _ = head_weights(gen, dev, dt, D, h1_w, OUT, nc.sh_degree, ())
-            before = launch_counts()["cp_density_fwd_tc"]
+            before = launch_counts()[route["cp_density_fwd"]]
             cp.cp_density_fwd(pos_x, fa, e1, e2, res, fd)
-            if launch_counts()["cp_density_fwd_tc"] - before != int(dtype == "bfloat16"):
+            if launch_counts()[route["cp_density_fwd"]] - before != 1:
                 raise RuntimeError(f"cp_density_fwd: H1 {h1_w} {dtype} took the wrong route")
-            flops = 2 * WIDE_ROWS * (D * h1_w + h1_w * OUT)
             for resid in (False, True):
                 tol = None
                 if resid and dtype == "bfloat16":
@@ -3128,8 +3292,7 @@ def main():
                     "cp_density_fwd",
                     lambda: cp.cp_density_fwd(pos_x, fa, e1, e2, res, fd, residuals=resid),
                     lambda: cp.cp_density_plain(pos_x, fa, e1, e2, res, fd, residuals=resid),
-                    dtype, head_work(nbytes(pos_x, *fa, e1, e2) + WIDE_ROWS * OUT * 4, dtype,
-                                     flops, 0), tol=tol)
+                    dtype, density_work(pos_x, fa, e1, e2, residuals=resid), tol=tol)
         # the factor gradient from a d(CP features) of the train shape,
         # contiguous as the density backward passes it
         g_cp = torch.randn((M, nbR), generator=gen, device=dev)
@@ -3157,8 +3320,7 @@ def main():
             "cp_sigma_rgb",
             lambda: cp.cp_sigma_rgb(pos, dirs, fa, a1, a2, ca, res, fd, nc.sh_degree),
             lambda: cp.cp_sigma_rgb_plain(pos, dirs, fa, a1, a2, ca, res, fd, nc.sh_degree),
-            dtype, head_work(nbytes(pos, dirs, *fa, a1, a2, *ca) + M * 4 * 4, dtype,
-                             M * (mlp_flops + color_flops), 14 * M * nbR))
+            dtype, sigma_rgb_work(pos, dirs, fa, a1, a2, ca))
         # the radiance head's edge shapes
         for M_e, small, scale, h1_e, sh_e, hidden in SIGMA_RGB_EDGES:
             fe, res_e, fd_e, e1, e2, ce = tuple(f * scale for f in fa), res, fd, a1, a2, ca
@@ -3172,20 +3334,17 @@ def main():
             pos_x = torch.rand((M_e, 3), generator=gen, device=dev)
             dirs_x = torch.nn.functional.normalize(
                 torch.randn((M_e, 3), generator=gen, device=dev), dim=-1)
-            if dtype == "bfloat16":
-                before = launch_counts()["cp_sigma_rgb_tc"]
-                cp.cp_sigma_rgb(pos_x, dirs_x, fe, e1, e2, ce, res_e, fd_e, sh_e)
-                if launch_counts()["cp_sigma_rgb_tc"] == before:
-                    raise RuntimeError("cp_sigma_rgb: a bf16 edge shape missed the tensor cores")
-            flops = 2 * M_e * (e1.numel() + e2.numel() + sum(w.numel() for w in ce))
+            before = launch_counts()[route["cp_sigma_rgb"]]
+            cp.cp_sigma_rgb(pos_x, dirs_x, fe, e1, e2, ce, res_e, fd_e, sh_e)
+            if launch_counts()[route["cp_sigma_rgb"]] == before:
+                raise RuntimeError(f"cp_sigma_rgb: a {dtype} edge shape missed the tensor cores")
             shape = (f"{dtype} {M_e} rows, rank {fe[0].shape[-1]}, freq degree {fd_e}, "
                      f"factors x{scale}, H1 {h1_e}, SH {sh_e}, colour {len(ce)} layers")
             results[("cp_sigma_rgb", shape)] = compare(
                 "cp_sigma_rgb",
                 lambda: cp.cp_sigma_rgb(pos_x, dirs_x, fe, e1, e2, ce, res_e, fd_e, sh_e),
                 lambda: cp.cp_sigma_rgb_plain(pos_x, dirs_x, fe, e1, e2, ce, res_e, fd_e, sh_e),
-                dtype, head_work(nbytes(pos_x, dirs_x, *fe, e1, e2, *ce) + M_e * 16, dtype,
-                                 flops, 0))
+                dtype, sigma_rgb_work(pos_x, dirs_x, fe, e1, e2, ce))
         # the CP encoder at the mesh chunk's size, each bank type to each
         # output type: random rows, then save_mesh's own chunk (an x-slice
         # of the 256^3 lattice)
@@ -3737,10 +3896,11 @@ def main():
         phase("brick grid (--preset tpu, --test)", t0)
 
     print_results(results, library, card, printed)
-    path_counts = (eval_counts, train_counts, frame_counts, evaluate_counts, test_counts,
-                   mesh_counts, wide_counts, gamma_counts, gamma_frame_counts, hash_train_counts,
-                   hash_frame_counts, *cli_counts, *rest_counts, *sdf_counts, *tensorf_counts,
-                   *ccnerf_counts, *dnerf_counts, *view_counts, clip_counts, *brick_counts)
+    path_counts = (eval_counts, f32_eval_counts, train_counts, frame_counts, evaluate_counts,
+                   test_counts, mesh_counts, wide_counts, gamma_counts, gamma_frame_counts,
+                   hash_train_counts, hash_frame_counts, *cli_counts, *rest_counts, *sdf_counts,
+                   *tensorf_counts, *ccnerf_counts, *dnerf_counts, *view_counts, clip_counts,
+                   *brick_counts)
     # phase 17's paths on their own (the guidance steps are a part of the
     # CLIP run)
     slice_paths = {"17a_viewer_nerf": view_counts[0], "17a_viewer_dnerf": view_counts[1],
@@ -3753,6 +3913,11 @@ def main():
                            ("cp_density_fwd+residuals", "bfloat16")),
         "cp_sigma_rgb": (csrc + "cp_kernels.cu", "ngp_tpu/ops/pallas/cp_kernels.py:506",
                          ("cp_sigma_rgb", "bfloat16")),
+        # the same heads' f32 route (3xTF32): at phase 4's shapes, as above
+        "cp_density_fwd_tf32x3": (csrc + "cp_kernels.cu", "ngp_tpu/ops/pallas/cp_kernels.py:345",
+                                  ("cp_density_fwd+residuals", "float32")),
+        "cp_sigma_rgb_tf32x3": (csrc + "cp_kernels.cu", "ngp_tpu/ops/pallas/cp_kernels.py:506",
+                                ("cp_sigma_rgb", "float32")),
         # the march around the lookup on the train and eval paths, on the last
         # train step's own inputs; the eval prepass around it, on the trained
         # 800x800 frame's first prepass chunk; the lookup alone, on no path

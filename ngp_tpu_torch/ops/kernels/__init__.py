@@ -30,10 +30,12 @@ two. ``LAUNCHES`` counts the kernel launches of each wrapper, so a run
 can show that its path went through the kernels;
 ``cp_density_fwd_residuals`` counts the launches of ``cp_density_fwd``
 that wrote residuals, ``cp_density_fwd_tc`` and ``cp_sigma_rgb_tc``
-the launches of the two heads that took the tensor-core kernels (bf16
-heads the tensor-core tiles take; they count under ``cp_density_fwd``
-and ``cp_sigma_rgb`` too), ``fused_mlp_tc`` those of ``fused_mlp``
-that took its tensor-core kernel, ``grid_encode_fwd_2d`` and
+the launches of the two heads that took the bf16 tensor-core kernels,
+``cp_density_fwd_tf32x3`` and ``cp_sigma_rgb_tf32x3`` those that took
+the f32 ones (3xTF32; heads the tensor-core tiles take; all four count
+under ``cp_density_fwd`` and ``cp_sigma_rgb`` too), ``fused_mlp_tc``
+those of ``fused_mlp`` that took its tensor-core kernel,
+``grid_encode_fwd_2d`` and
 ``grid_encode_bwd_2d`` the grid kernels' launches on 2-D points (the
 background net's encoder), and ``grid_encode_fwd_4d``,
 ``grid_encode_bwd_4d`` and ``grid_encode_bwd_x_4d`` those on 4-D points
@@ -53,6 +55,8 @@ LAUNCHES: Dict[str, int] = {
     "cp_density_fwd_residuals": 0,
     "cp_density_fwd_tc": 0,
     "cp_sigma_rgb_tc": 0,
+    "cp_density_fwd_tf32x3": 0,
+    "cp_sigma_rgb_tf32x3": 0,
     "cp_encode_fwd": 0,
     "fused_mlp": 0,
     "fused_mlp_tc": 0,

@@ -205,10 +205,12 @@ def cp_density_fwd(pos, factors, w1, w2, resolutions, freq_degree,
     [H1, OUT]; all f32 or all bf16 (the MLP compute type). Rows outside
     [0, 1]^3 get zero CP features but keep their freq columns. With
     ``residuals`` returns (out, feats [M, D], h1 [M, H1]), the last two
-    in the weight dtype: the values the kernel multiplied. bf16 runs
-    both products on the tensor cores for H1 up to 256 (tiles of 128, 64
-    or 32 rows) and on the CUDA cores above; f32 runs them on the CUDA
-    cores in full f32. The kernel picks its route from the shape."""
+    in the weight dtype: the values the kernel multiplied. For H1 up to
+    256 both products run on the tensor cores (tiles of 128, 64 or 32
+    rows): bf16 in bf16, f32 in 3xTF32, each product three TF32 products
+    of split values, to f32's accuracy (the f32 feats residual is the
+    features as split, hi + lo, within 2^-22 of f32's); above, on the
+    CUDA cores. The kernel picks its route from the shape."""
     if pos.device.type == "cpu":
         return cp_density_plain(pos, factors, w1, w2, resolutions, freq_degree,
                                 residuals)
@@ -239,7 +241,8 @@ def cp_density_fwd(pos, factors, w1, w2, resolutions, freq_degree,
     if M > 0:
         LAUNCHES["cp_density_fwd"] += 1
         LAUNCHES["cp_density_fwd_residuals"] += int(residuals)
-        LAUNCHES["cp_density_fwd_tc"] += int(route.value > 0)
+        LAUNCHES["cp_density_fwd_tc"] += int(route.value > 0 and bf16)
+        LAUNCHES["cp_density_fwd_tf32x3"] += int(route.value > 0 and not bf16)
     return (out, feats, h1) if residuals else out
 
 
@@ -385,9 +388,9 @@ def cp_sigma_rgb(pos, dirs, factors, w1, w2, color_ws, resolutions,
     [M, 4] f32 rows (exp(sigma_raw), sigmoid(rgb)). color_ws: the
     bias-free color MLP kernels, [sh_degree**2 + OUT - 1, H] ... [H, 3].
 
-    bf16 runs every product on the tensor cores where the widths allow
-    (H1 <= 256, color hidden layers <= 64) and on the CUDA cores
-    otherwise; f32 on the CUDA cores."""
+    Every product runs on the tensor cores where the widths allow (H1
+    <= 256, color hidden layers <= 64), bf16 in bf16 and f32 in 3xTF32,
+    and on the CUDA cores otherwise."""
     if pos.device.type == "cpu":
         return cp_sigma_rgb_plain(pos, dirs, factors, w1, w2, color_ws,
                                   resolutions, freq_degree, sh_degree)
@@ -422,6 +425,8 @@ def cp_sigma_rgb(pos, dirs, factors, w1, w2, color_ws, resolutions,
         torch.cuda.current_stream(pos.device).cuda_stream,
     )
     check_launch("cp_sigma_rgb", err)
+    bf16 = w1.dtype == torch.bfloat16
     LAUNCHES["cp_sigma_rgb"] += 1
-    LAUNCHES["cp_sigma_rgb_tc"] += int(route.value > 0)
+    LAUNCHES["cp_sigma_rgb_tc"] += int(route.value > 0 and bf16)
+    LAUNCHES["cp_sigma_rgb_tf32x3"] += int(route.value > 0 and not bf16)
     return out

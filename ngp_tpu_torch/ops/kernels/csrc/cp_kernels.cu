@@ -28,13 +28,20 @@
 // config) go out by 2-byte stores. The radiance kernel then runs the colour
 // half on chip: the SH basis and the geo columns into one shared bf16 tile,
 // the colour MLP chained through registers, one 16-byte store per row. The
-// f32 heads, and bf16 heads wider than the tensor-core tiles take (tc_route),
-// keep the first design: one block owns kRows sample rows, its feature rows
-// and activations in shared memory as f32, the products on the CUDA cores with
-// a register tile of kRowsPerThread rows per weight load (full f32, where TF32
-// would break the f32 tolerance). With residuals, each block also writes its
-// [rows, D] feature rows and [rows, H1] hidden rows in the weight type, the
-// values the backward's MLP products read.
+// f32 heads take the same tile shape on the tensor cores in 3xTF32
+// (cp_density_tf32x3_kernel, cp_sigma_rgb_tf32x3_kernel): each product is
+// three TF32 products of values split into a high and a low TF32 part, so
+// its sums keep f32's accuracy where one TF32 product, about three digits,
+// would break the f32 tolerance; w1 streams through shared memory a K chunk
+// at a time. What bounds them is the L2 traffic of the f32 factor lines,
+// 15.4 KB a row (2.0 GB for a 131,072-row refresh chunk), twice the bf16
+// heads'; their section's note says how. Heads wider than the tensor-core
+// tiles take (tc_route, x3_route) keep the first design: one block owns kRows
+// sample rows, its feature rows and activations in shared memory as f32, the
+// products on the CUDA cores with a register tile of kRowsPerThread rows per
+// weight load. With residuals, each block also writes its [rows, D] feature
+// rows and [rows, H1] hidden rows in the weight type, the values the
+// backward's MLP products read.
 //
 // The factor backward (cp_bwd_runs_kernel) replaces the TPU's transposed
 // tent matmul (_bwd_kernel / _cp_bwd_banks) with what the tent encodes: each
@@ -93,6 +100,7 @@
 #include <stdint.h>
 
 #include "mma_bf16.cuh"
+#include "mma_tf32.cuh"
 
 namespace {
 
@@ -1368,13 +1376,684 @@ int launch_tc(void (*kern)(HeadParams, TcShape, int), const HeadParams& p, int r
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The f32 heads on the tensor cores in 3xTF32 (mma.sync m16n8k8, TF32 -> f32,
+// mma_tf32.cuh): every MLP product of both heads, the colour MLP's included,
+// is three TF32 products of split values, so its sums keep f32's accuracy.
+//
+// The bf16 tile code's shape: a persistent block of 16 warps per SM walks
+// tiles of tc_rows(H1) rows, each warp one 16-row group and a column group of
+// at most kTcMaxNtw n-tiles. What differs is shared memory. Split into hi and
+// lo parts, w1 at turbo-hq (K padded per bank to 8: 680 x 64) takes 348 KB,
+// more than a block has. Kept whole in f32 (174 KB) and split as each
+// fragment loads, it would leave room for A tiles of 16 columns (a split
+// feature takes 8 bytes), twice the chunks and barriers a tile, and every
+// row group would split w1 again. So w1 streams in: each K chunk of kc
+// (kXChunk = 32) columns brings its rows (16 KB split at turbo-hq) into the
+// other of two buffers beside the chunk's features. w1 stays in L2, and
+// re-reading it costs 174 KB per 128-row tile, 1.4 KB a row against the 15.4
+// KB of factor lines a row's gathers read. w1, w2 and the colour layers are
+// split once, as they are written to shared memory in fragment order, a
+// lane slot {b0 hi, b1 hi, b0 lo, b1 lo} a thread, so each of those writes
+// and each B fragment load is one conflict-free 16-byte access. A thread
+// keeps one row of the tile and reads its position once per tile; it makes
+// its row's column groups of 4 by 16-byte gathers with the f32 lerps and
+// products of the row-block kernel, and splits each feature into {hi, lo}
+// once, as it writes it to the double-buffered A tile (rows padded by 4
+// pairs, so the 8-byte fragment loads of a half-warp hit 32 distinct banks).
+// The loads of a chunk (two gather items, twelve 16-byte loads, and the w1
+// slots) are issued before the chunk before it is multiplied, so they are in
+// flight meanwhile. h1 = ReLU(feats @ w1) stays f32 in its own tile, and the
+// second product and the colour MLP (whose tile takes the A buffers once the
+// K loop is done) split their A fragments as they read them: they are 1/43
+// of the density head's operations and 1/7 of the radiance head's. Each
+// k-step's three products go to a fresh accumulator that the CUDA cores add
+// to the running sum (mma_3xtf32).
+//
+// What bounds these heads is the gathers, and the products only in part
+// behind them. On an H100 80GB HBM3 at 700 W, at a 131,072-row refresh
+// chunk of random rows (1.5 GB of f32 factor lines from L2, twice the bf16
+// heads'), the kernel takes 0.811 ms, 0.547 without its K-loop products and
+// 0.576 without its gathers (scripts/torch_cp_f32_variants.py), against a
+// bound of 0.071 ms for the products at the 3xTF32 rate (495 / 3 TFLOP/s):
+// a chunk's time is set by the memory system's rate for a thread's two
+// items in flight (tiles of 64 rows, half the items a chunk, take 1.7x as
+// long a row), and each tile's three dependent mma.sync run in turn. Split
+// producer and consumer warps (8 + 8, 12 + 4), 8 warps of 255 registers
+// with four items in flight each, and products interleaved across tiles
+// (which spilled) were each slower on the card.
+// With residuals, the feats rows (2,716 bytes apart at D = 679, no 16-byte
+// alignment) go out from the A tile, a warp writing a row's consecutive
+// floats: hi + lo, the values the products multiplied (within 2^-22 of the
+// f32 features), as the bf16 heads write the rounded features; h1 goes out
+// from its tile by 16-byte stores.
+// ---------------------------------------------------------------------------
+
+constexpr int kXChunk = 32;  // columns of a K chunk at most: 4 k-steps of 8
+constexpr int kXW = 4;       // B fragment slots of a chunk's w1 a thread loads ahead
+
+// The padded widths, tile rows, K chunk and shared-memory layout of an f32
+// head, made on the host (x3_shape) and passed as a kernel parameter, as
+// TcShape is. K is padded per bank to a multiple of 8 (a k-step), H1 and OUT
+// to 8 (an n-tile); the colour layers as the bf16 heads pad them.
+struct XShape {
+  int rankp, freq, freqp, H1p, OUTp, rows, kc;
+  int lda;  // A tile row stride in {hi, lo} pairs (kc + 4)
+  int ldh;  // h1 tile row stride in floats (H1p + 4)
+  int ldc;  // colour tile row stride in floats (radiance; sigma in its last 4)
+  int w2_at, c_at, a_at, h1_at, bytes;  // byte offsets (the w1 chunks at 0), total
+};
+
+__host__ __device__ inline XShape x3_shape(const HeadParams& p, int rows, int kc) {
+  XShape t;
+  t.rankp = (p.rank + 7) & ~7;
+  t.freq = p.D - p.nb * p.rank;
+  t.freqp = (t.freq + 7) & ~7;
+  t.H1p = (p.H1 + 7) & ~7;
+  t.OUTp = (p.OUT + 7) & ~7;
+  t.rows = rows;
+  t.kc = kc;
+  t.lda = kc + 4;
+  t.ldh = t.H1p + 4;
+  t.ldc = p.n_color > 0 ? (color_kp(p, 0) > kTcMaxColor ? color_kp(p, 0) : kTcMaxColor) + 4 : 0;
+  int at = 2 * 8 * kc * t.H1p;  // two K chunks of w1, split
+  t.w2_at = at;
+  at += 8 * t.H1p * t.OUTp;
+  t.c_at = at;
+  for (int l = 0; l < p.n_color; ++l) at += 8 * color_kp(p, l) * color_np(p, l);
+  t.a_at = at;
+  const int a_bytes = 2 * 8 * rows * t.lda, c_bytes = 4 * rows * t.ldc;
+  at += a_bytes > c_bytes ? a_bytes : c_bytes;  // two A tiles, later the colour tile
+  t.h1_at = at;
+  at += 4 * rows * t.ldh;
+  t.bytes = at;
+  return t;
+}
+
+// The one source of the route of an f32 head (density: n_color 0): the rows of
+// the 3xTF32 kernel's tiles and its K chunk (the widest of 32, 16 and 8
+// columns whose w1 rows are at most kXW fragment slots a thread and whose
+// layout fits in shared memory), or 0 for the row-block kernel, which takes
+// the widths tc_route gives it and layouts that do not fit. At most 128 rows
+// x 32 columns: a thread has at most two gather items a chunk (XStage).
+int x3_route(const HeadParams& p, int* kc) {
+  const int rows = tc_rows(p.H1);
+  if (rows == 0) return 0;
+  for (int l = 0; l < p.n_color; ++l)
+    if (color_kp(p, l) > (l == 0 ? kTcMaxColorIn : kTcMaxColor)) return 0;
+  const int H1p = (p.H1 + 7) & ~7;
+  for (int c = kXChunk; c >= 8; c >>= 1) {
+    if (c * H1p <= 2 * kXW * kTcThreads && x3_shape(p, rows, c).bytes <= kMaxSmemBytes) {
+      *kc = c;
+      return rows;
+    }
+  }
+  return 0;
+}
+
+struct XSmem {
+  float4* w1s;   // two K chunks of w1, split, in fragment order
+  float4* w2s;   // w2, split, in fragment order
+  float4* cws;   // the colour layers, split, in fragment order
+  float2* abuf;  // two A tiles [rows, lda] of {hi, lo}; after the K loop the colour tile
+  float* sh1;    // the h1 tile [rows, ldh]
+};
+
+__device__ inline XSmem x3_smem(const XShape& t, unsigned char* base) {
+  XSmem s;
+  s.w1s = reinterpret_cast<float4*>(base);
+  s.w2s = reinterpret_cast<float4*>(base + t.w2_at);
+  s.cws = reinterpret_cast<float4*>(base + t.c_at);
+  s.abuf = reinterpret_cast<float2*>(base + t.a_at);
+  s.sh1 = reinterpret_cast<float*>(base + t.h1_at);
+  return s;
+}
+
+// w1's row of padded K index kp, or -1 for a padding row
+__device__ __forceinline__ int x3_w1_row(const HeadParams& p, const XShape& t, int kp) {
+  const int nbp = p.nb * t.rankp;
+  if (kp < nbp) {
+    const int b = kp / t.rankp;
+    const int c = kp - b * t.rankp;
+    return c < p.rank ? b * p.rank + c : -1;
+  }
+  return kp - nbp < t.freq ? p.nb * p.rank + kp - nbp : -1;
+}
+
+// Slot i of a split [K, N] B operand in fragment order (n_tiles n-tiles): the
+// k-step, n-tile and lane it holds, and the two values it takes from an f32
+// matrix w [*, N] whose row k is w's row row(k) (-1: a zero row): b0 = (k-step
+// row t, column g), b1 = row t + 4. Consecutive slots are consecutive lanes,
+// so a warp that writes its slots as 16-byte stores hits distinct banks, and
+// each of its loads reads 4 rows of 8 adjacent columns.
+template <typename Row>
+__device__ __forceinline__ float2 x3_b_load(const float* w, int N, int n_tiles, int i, Row row) {
+  const int lane = i & 31, f = i >> 5, ks = f / n_tiles;
+  const int n = 8 * (f - ks * n_tiles) + (lane >> 2), k = 8 * ks + (lane & 3);
+  const int r0 = row(k), r1 = row(k + 4);
+  return make_float2(r0 >= 0 && n < N ? __ldg(w + (size_t)r0 * N + n) : 0.f,
+                     r1 >= 0 && n < N ? __ldg(w + (size_t)r1 * N + n) : 0.f);
+}
+
+// a slot's two values, split: {b0 hi, b1 hi, b0 lo, b1 lo}
+__device__ __forceinline__ float4 x3_b_split(float2 v) {
+  const Tf32Split a = split_tf32(v.x), b = split_tf32(v.y);
+  return make_float4(a.hi, b.hi, a.lo, b.lo);
+}
+
+// nk rows of an f32 matrix w [*, N] (row k of them at w's row row(k), -1: a
+// zero row), padded to np columns, split into dst in fragment order
+template <typename Row>
+__device__ void x3_load_b(const float* w, int N, int nk, int np, Row row, float4* dst) {
+  for (int i = threadIdx.x; i < nk * np / 2; i += kTcThreads)
+    dst[i] = x3_b_split(x3_b_load(w, N, np >> 3, i, row));
+}
+
+__device__ __forceinline__ bool vec4(const void* w, int N) {
+  return (N & 3) == 0 && ((uintptr_t)w & 15) == 0;
+}
+
+// up to 4 f32 of a factor line: one 16-byte load, or n scalar loads (the
+// rank tail, or lines that are not 16-byte aligned); zeros past n
+__device__ __forceinline__ float4 ld_cols4(const float* src, int n, bool vec) {
+  if (vec) return __ldg(reinterpret_cast<const float4*>(src));
+  float4 r = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (n > 0) r.x = __ldg(src);
+  if (n > 1) r.y = __ldg(src + 1);
+  if (n > 2) r.z = __ldg(src + 2);
+  if (n > 3) r.w = __ldg(src + 3);
+  return r;
+}
+
+// The taps of 4 rank columns of one bank at one row: loaded first, so that a
+// thread has two items' twelve loads in flight before it does arithmetic.
+struct Gather4 {
+  float4 lo[3], hi[3];
+  float w[3];
+  bool live;
+};
+
+// a thread's row of the tile: its position, and whether it is live (before
+// M and inside [0, 1]^3), read once per tile
+struct XRow {
+  float q[3];
+  bool live;
+};
+
+__device__ __forceinline__ XRow x3_row(const HeadParams& p, int row) {
+  XRow r = {{0.f, 0.f, 0.f}, false};
+  if (row < p.M) {
+#pragma unroll
+    for (int ax = 0; ax < 3; ++ax) r.q[ax] = __ldg(p.pos + 3 * (size_t)row + ax);
+    r.live = in_box(r.q);
+  }
+  return r;
+}
+
+// the loads of rank columns c .. c + 3 of bank b at row r
+__device__ __forceinline__ void gather4_load(const HeadParams& p, int b, const XRow& r, int c,
+                                             bool vec, Gather4& G) {
+  const int n = min(4, p.rank - c);
+  G.live = r.live && n > 0;
+  if (!G.live) return;
+  const int res = p.res[b];
+  const float* f = static_cast<const float*>(p.factors[b]);
+  const bool v4 = vec && n == 4;
+#pragma unroll
+  for (int ax = 0; ax < 3; ++ax) {
+    const Tap t = tap(r.q[ax], res);
+    G.w[ax] = t.w;
+    const float* line = f + ((size_t)ax * res + t.i0) * p.rank + c;
+    G.lo[ax] = ld_cols4(line, n, v4);
+    G.hi[ax] = ld_cols4(line + p.rank, n, v4);
+  }
+}
+
+// the item's 4 CP features (f32 lerps, product over the axes; zero for a row
+// that is not live), each split, into 4 {hi, lo} pairs of an A tile row
+__device__ __forceinline__ void gather4_finish(const Gather4& G, float2* dst) {
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  if (G.live) {
+#pragma unroll
+    for (int ax = 0; ax < 3; ++ax) {
+      const float lo[4] = {G.lo[ax].x, G.lo[ax].y, G.lo[ax].z, G.lo[ax].w};
+      const float hi[4] = {G.hi[ax].x, G.hi[ax].y, G.hi[ax].z, G.hi[ax].w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float v = lerp(lo[j], hi[j], G.w[ax]);
+        acc[j] = ax == 0 ? v : acc[j] * v;
+      }
+    }
+  }
+  Tf32Split s[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) s[j] = split_tf32(acc[j]);
+  float4* d = reinterpret_cast<float4*>(dst);
+  d[0] = make_float4(s[0].hi, s[0].lo, s[1].hi, s[1].lo);
+  d[1] = make_float4(s[2].hi, s[2].lo, s[3].hi, s[3].lo);
+}
+
+// A tile columns 0 .. kc-1 = frequency columns c0 .. c0+kc-1 of 2 pos - 1,
+// split; zero past the ladder
+__device__ void x3_fill_freq(const HeadParams& p, const XShape& t, int row0, int c0, int kc,
+                             float2* A) {
+  const int pad0 = max(t.freq - c0, 0);
+  for (int i = threadIdx.x; i < t.rows * (kc - pad0); i += kTcThreads) {
+    const int m = i / (kc - pad0);
+    A[m * t.lda + pad0 + (i - m * (kc - pad0))] = make_float2(0.f, 0.f);
+  }
+  for (int i = threadIdx.x; i < t.rows * 3; i += kTcThreads) {
+    const int m = i / 3;
+    const int ax = i - 3 * m;
+    const int row = row0 + m;
+    const float x = row < p.M ? 2.f * __ldg(p.pos + 3 * row + ax) - 1.f : -1.f;
+    // ladder column 3 k + ax lands at chunk column 3 k + ax - c0
+    float2* arow = A + m * t.lda;
+    const int j0 = ax - c0;
+    freq_ladder(x, p.freq_degree, [&](int j, float v) {
+      if (j0 + j >= 0 && j0 + j < kc) {
+        const Tf32Split s = split_tf32(v);
+        arow[j0 + j] = make_float2(s.hi, s.lo);
+      }
+    });
+  }
+}
+
+// One K chunk of a tile: bank seg's rank columns c0 .. c0 + kc - 1, or
+// (seg == nb) frequency columns c0 .. c0 + kc - 1; kp0 its first padded K row.
+struct XChunk {
+  int seg, c0, kc, kp0;
+};
+
+__device__ __forceinline__ XChunk x3_chunk(const HeadParams& p, const XShape& t, int seg, int c0) {
+  const int segp = seg == p.nb ? t.freqp : t.rankp;
+  return {seg, c0, min(t.kc, segp - c0), seg * t.rankp + c0};
+}
+
+// the chunk after c in the tile; its seg is past nb after the last
+__device__ __forceinline__ XChunk x3_next(const HeadParams& p, const XShape& t, const XChunk& c) {
+  const int segp = c.seg == p.nb ? t.freqp : t.rankp;
+  return c.c0 + t.kc < segp ? x3_chunk(p, t, c.seg, c.c0 + t.kc) : x3_chunk(p, t, c.seg + 1, 0);
+}
+
+// What a thread loads ahead for a chunk: two gather items of its bank
+// columns and at most kXW fragment slots of its w1 rows (kc * H1p / 2 <=
+// kXW * kTcThreads, x3_route). A thread keeps one row of the tile, row
+// threadIdx.x / tpr for tpr = kTcThreads / rows threads a row, so that it
+// reads its position once per tile; its items are the row's column groups
+// of 4, threadIdx.x % tpr + tpr j for j = 0, 1 (rows * kc / 4 <= 2 *
+// kTcThreads, x3_route).
+struct XStage {
+  Gather4 g[2];
+  float2 w[kXW];
+};
+
+// The loads of chunk c, issued: they stay in flight while the thread
+// multiplies the chunk before it.
+__device__ __forceinline__ void x3_issue(const HeadParams& p, const XShape& t, const XRow& r,
+                                         const XChunk& c, bool vec, XStage& S) {
+  if (c.seg < p.nb) {
+    const int tpr = kTcThreads / t.rows, q = threadIdx.x % tpr;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int g = q + tpr * j;
+      if (4 * g < c.kc) gather4_load(p, c.seg, r, c.c0 + 4 * g, vec, S.g[j]);
+    }
+  }
+  const float* w1 = static_cast<const float*>(p.w1);
+  const auto row = [&](int k) { return x3_w1_row(p, t, c.kp0 + k); };
+#pragma unroll
+  for (int j = 0; j < kXW; ++j) {
+    const int i = threadIdx.x + j * kTcThreads;
+    if (i < c.kc * t.H1p / 2) S.w[j] = x3_b_load(w1, p.H1, t.H1p >> 3, i, row);
+  }
+}
+
+// Chunk c made from its loads: its w1 rows, split, into W in fragment order,
+// and its A tile columns into A (bank columns: zero past the rank and for
+// rows outside [0, 1]^3 or past M).
+__device__ __forceinline__ void x3_make(const HeadParams& p, const XShape& t, int row0,
+                                        const XChunk& c, const XStage& S, float2* A, float4* W) {
+#pragma unroll
+  for (int j = 0; j < kXW; ++j) {
+    const int i = threadIdx.x + j * kTcThreads;
+    if (i < c.kc * t.H1p / 2) W[i] = x3_b_split(S.w[j]);
+  }
+  if (c.seg == p.nb) {
+    x3_fill_freq(p, t, row0, c.c0, c.kc, A);
+    return;
+  }
+  const int tpr = kTcThreads / t.rows, m = threadIdx.x / tpr, q = threadIdx.x % tpr;
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int g = q + tpr * j;
+    if (4 * g < c.kc) gather4_finish(S.g[j], A + m * t.lda + 4 * g);
+  }
+}
+
+// the residual feats columns of this chunk from the A tile, hi + lo; a warp
+// writes a row's consecutive floats
+__device__ void x3_store_feats(const HeadParams& p, const XShape& t, int row0, int seg, int c0,
+                               int kc, const float2* A) {
+  const bool freq = seg == p.nb;
+  const int ncols = min(kc, (freq ? t.freq : p.rank) - c0);
+  const int gcol = (freq ? p.nb * p.rank : seg * p.rank) + c0;
+  float* fo = static_cast<float*>(p.feats_out);
+  for (int m = threadIdx.x >> 5; m < t.rows && row0 + m < p.M; m += kTcWarps) {
+    float* dst = fo + (size_t)(row0 + m) * p.D + gcol;
+    for (int j = threadIdx.x & 31; j < ncols; j += 32) {
+      const float2 v = A[m * t.lda + j];
+      dst[j] = v.x + v.y;
+    }
+  }
+}
+
+// acc[i] += A rows (16 of this warp, {hi, lo} pairs) x n-tile nt0 + i of a
+// chunk's split w1, over its kc columns, in 3xTF32
+__device__ __forceinline__ void x3_mma_chunk(const float2* A, int lda, int kc, const float4* W,
+                                             int n_tiles, int nt0, int ntw,
+                                             float (&acc)[kTcMaxNtw][4]) {
+  const int lane = threadIdx.x & 31;
+  const float2* a_lo = A + (lane >> 2) * lda + (lane & 3);
+  const float2* a_hi = a_lo + 8 * lda;
+  for (int k0 = 0; k0 < kc; k0 += 8) {
+    const float2 v[4] = {a_lo[k0], a_hi[k0], a_lo[k0 + 4], a_hi[k0 + 4]};
+    uint32_t ah[4], al[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      ah[i] = __float_as_uint(v[i].x);
+      al[i] = __float_as_uint(v[i].y);
+    }
+    const float4* bk = W + ((k0 >> 3) * n_tiles + nt0) * 32 + lane;
+#pragma unroll
+    for (int i = 0; i < kTcMaxNtw; ++i)
+      if (i < ntw) mma_3xtf32(acc[i], ah, al, bk[32 * i]);
+  }
+}
+
+// w2 (and the colour layers) into shared memory, split, once per block
+__device__ void x3_load_weights(const HeadParams& p, const XShape& t, const XSmem& s) {
+  const float* w2 = static_cast<const float*>(p.w2);
+  const int H1 = p.H1;
+  x3_load_b(w2, p.OUT, t.H1p, t.OUTp, [H1](int k) { return k < H1 ? k : -1; }, s.w2s);
+  float4* dst = s.cws;
+  for (int l = 0; l < p.n_color; ++l) {
+    const int kp = color_kp(p, l), np = color_np(p, l);
+    const int K = p.cdim[l], N = p.cdim[l + 1];
+    const float* w = static_cast<const float*>(p.wc[l]);
+    x3_load_b(w, N, kp, np, [K](int k) { return k < K ? k : -1; }, dst);
+    dst += kp * np / 2;
+  }
+}
+
+// h1 = ReLU(feats @ w1) of the tile at row0 into the f32 h1 tile. The
+// features and w1's rows are made a K chunk at a time into the buffers
+// `parity` names, and each chunk's loads are issued before the chunk before
+// it is multiplied, so they are in flight meanwhile (with residuals, a
+// chunk's feats are stored before it is multiplied); warp w multiplies the
+// 16 rows of row group w % (rows / 16) into its column group's n-tiles. Ends
+// with a barrier, after which every warp may read the h1 tile.
+__device__ void x3_tile_h1(const HeadParams& p, const XShape& t, const XSmem& s, int row0,
+                           bool vec, int& parity) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int rgs = t.rows >> 4;      // row groups of 16 rows
+  const int cgs = kTcWarps / rgs;   // column groups
+  const int rg = warp % rgs;
+  const int nt1 = t.H1p >> 3;
+  const int ntw = (nt1 + cgs - 1) / cgs;  // <= kTcMaxNtw (tc_rows)
+  const int nt0 = warp / rgs * ntw;
+  const int nth = min(ntw, nt1 - nt0);    // this warp's n-tiles: none past H1p
+  const int w_size = t.kc * t.H1p / 2;    // float4 of a split w1 chunk
+  float acc[kTcMaxNtw][4];
+#pragma unroll
+  for (int i = 0; i < kTcMaxNtw; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  const XRow r = x3_row(p, row0 + threadIdx.x / (kTcThreads / t.rows));
+  XStage S;
+  XChunk cur = x3_chunk(p, t, 0, 0);
+  // the first chunk's buffers were last read before the previous tile's last barrier
+  x3_issue(p, t, r, cur, vec, S);
+  x3_make(p, t, row0, cur, S, s.abuf + parity * t.rows * t.lda, s.w1s + parity * w_size);
+  __syncthreads();
+  for (;;) {
+    const XChunk next = x3_next(p, t, cur);
+    const bool more = next.seg <= p.nb;
+    if (more) x3_issue(p, t, r, next, vec, S);
+    const float2* A = s.abuf + parity * t.rows * t.lda;
+    if (p.feats_out != nullptr) x3_store_feats(p, t, row0, cur.seg, cur.c0, cur.kc, A);
+    if (nth > 0)
+      x3_mma_chunk(A + rg * 16 * t.lda, t.lda, cur.kc, s.w1s + parity * w_size, nt1, nt0, nth,
+                   acc);
+    parity ^= 1;
+    if (!more) break;
+    // the buffers `parity` names were last read before the previous barrier
+    x3_make(p, t, row0, next, S, s.abuf + parity * t.rows * t.lda, s.w1s + parity * w_size);
+    __syncthreads();
+    cur = next;
+  }
+  // the previous tile's reads of the h1 tile came before this tile's chunk barriers
+#pragma unroll
+  for (int i = 0; i < kTcMaxNtw; ++i) {
+    if (i < nth) {
+      float* o = s.sh1 + (rg * 16 + g) * t.ldh + (nt0 + i) * 8 + 2 * tq;
+      *reinterpret_cast<float2*>(o) = make_float2(fmaxf(acc[i][0], 0.f), fmaxf(acc[i][1], 0.f));
+      *reinterpret_cast<float2*>(o + 8 * t.ldh) =
+          make_float2(fmaxf(acc[i][2], 0.f), fmaxf(acc[i][3], 0.f));
+    }
+  }
+  __syncthreads();
+}
+
+// d += rows 16 r16 .. 16 r16 + 15 of the h1 tile (split as read) times
+// n-tile nt of w2, in 3xTF32
+__device__ __forceinline__ void x3_h1_w2_ntile(const XShape& t, const XSmem& s, int r16, int nt,
+                                               float (&d)[4]) {
+  const int lane = threadIdx.x & 31, nt2 = t.OUTp >> 3;
+  const float* a_lo = s.sh1 + (r16 * 16 + (lane >> 2)) * t.ldh + (lane & 3);
+  const float* a_hi = a_lo + 8 * t.ldh;
+  for (int k0 = 0; k0 < t.H1p; k0 += 8) {
+    uint32_t ah[4], al[4];
+    split_a(a_lo + k0, a_hi + k0, ah, al);
+    mma_3xtf32(d, ah, al, s.w2s[((k0 >> 3) * nt2 + nt) * 32 + lane]);
+  }
+}
+
+// The density epilogue of the tile at row0: out = h1 @ w2, one (16-row group,
+// n-tile) item per warp, and the h1 residual rows by 16-byte stores.
+__device__ void x3_density_out(const HeadParams& p, const XShape& t, const XSmem& s, int row0) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int rgs = t.rows >> 4;
+  for (int item = warp; item < rgs * (t.OUTp >> 3); item += kTcWarps) {
+    const int r16 = item % rgs, nt = item / rgs;
+    float d[4] = {0.f, 0.f, 0.f, 0.f};
+    x3_h1_w2_ntile(t, s, r16, nt, d);
+    const int col = nt * 8 + 2 * (lane & 3);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + r16 * 16 + (lane >> 2) + 8 * h;
+      if (row >= p.M) continue;
+      float* o = p.out + (size_t)row * p.OUT;
+      if (col < p.OUT) o[col] = d[2 * h];
+      if (col + 1 < p.OUT) o[col + 1] = d[2 * h + 1];
+    }
+  }
+  if (p.h1_out == nullptr) return;
+  float* ho = static_cast<float*>(p.h1_out);
+  if (vec4(ho, p.H1)) {
+    const int vpr = p.H1 >> 2;
+    for (int i = threadIdx.x; i < t.rows * vpr; i += kTcThreads) {
+      const int m = i / vpr, v = i - m * vpr;
+      if (row0 + m < p.M)
+        *reinterpret_cast<float4*>(ho + (size_t)(row0 + m) * p.H1 + 4 * v) =
+            *reinterpret_cast<const float4*>(s.sh1 + m * t.ldh + 4 * v);
+    }
+  } else {
+    for (int i = threadIdx.x; i < t.rows * p.H1; i += kTcThreads) {
+      const int m = i / p.H1, j = i - m * p.H1;
+      if (row0 + m < p.M) ho[(size_t)(row0 + m) * p.H1 + j] = s.sh1[m * t.ldh + j];
+    }
+  }
+}
+
+// The radiance epilogue of the tile at row0, as tc_radiance_out in f32:
+// warps w < rows / 16 take the second product of row group w, sigma =
+// exp(column 0) into the colour row's padding and the geo columns after the
+// SH columns, which the other warps make meanwhile; then each of those warps
+// runs its 16 rows through the colour MLP, each layer's A fragments split as
+// they are read and its output (ReLU, f32) written back into its rows, and
+// stores (sigma, r, g, b) as one 16-byte row. Ends with a barrier: the next
+// tile refills the A buffers.
+__device__ void x3_radiance_out(const HeadParams& p, const XShape& t, const XSmem& s, int row0) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int rgs = t.rows >> 4;
+  const int nsh = p.sh_degree * p.sh_degree;
+  const int cin = p.cdim[0], kc0 = color_kp(p, 0);
+  const int ldc = t.ldc;
+  float* ctile = reinterpret_cast<float*>(s.abuf);  // [rows, ldc]
+  auto sigma = [&](int m) -> float& { return ctile[m * ldc + ldc - 4]; };
+  if (warp < rgs) {
+    float* geo = ctile + (warp * 16 + g) * ldc + nsh - 1;  // geo column c at geo[c]
+    for (int nt = 0; nt < (t.OUTp >> 3); ++nt) {
+      float d[4] = {0.f, 0.f, 0.f, 0.f};
+      x3_h1_w2_ntile(t, s, warp, nt, d);
+      if (nt == 0 && tq == 0) {
+        sigma(warp * 16 + g) = expf(d[0]);
+        sigma(warp * 16 + g + 8) = expf(d[2]);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = nt * 8 + 2 * tq + (e & 1);
+        if (c >= 1 && c < p.OUT) geo[(e >> 1) * 8 * ldc + c] = d[e];
+      }
+    }
+    for (int i = lane; i < 16 * (kc0 - cin); i += 32) {
+      const int m = i / (kc0 - cin);
+      ctile[(warp * 16 + m) * ldc + cin + i - m * (kc0 - cin)] = 0.f;
+    }
+  } else {
+    for (int m = threadIdx.x - 32 * rgs; m < t.rows; m += kTcThreads - 32 * rgs) {
+      const int row = row0 + m;
+      const bool in = row < p.M;
+      const float dx = in ? __ldg(p.dirs + 3 * row) : 0.f;
+      const float dy = in ? __ldg(p.dirs + 3 * row + 1) : 0.f;
+      const float dz = in ? __ldg(p.dirs + 3 * row + 2) : 0.f;
+      float* crow = ctile + m * ldc;
+      sh_row(dx, dy, dz, p.sh_degree, [crow](int j, float v) { crow[j] = v; });
+    }
+  }
+  __syncthreads();
+  if (warp < rgs) {
+    const float* a_lo = ctile + (warp * 16 + g) * ldc + tq;
+    const float* a_hi = a_lo + 8 * ldc;
+    float* c_lo = ctile + (warp * 16 + g) * ldc + 2 * tq;
+    float* c_hi = c_lo + 8 * ldc;
+    const float4* wl = s.cws + lane;
+    float acc[8][4];
+    for (int l = 0; l < p.n_color; ++l) {
+      const int ks = color_kp(p, l) >> 3, nt = color_np(p, l) >> 3;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+#pragma unroll 1
+      for (int kk = 0; kk < ks; ++kk) {
+        uint32_t ah[4], al[4];
+        split_a(a_lo + 8 * kk, a_hi + 8 * kk, ah, al);
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          if (j < nt) mma_3xtf32(acc[j], ah, al, wl[(kk * nt + j) * 32]);
+      }
+      wl += ks * nt * 32;
+      if (l == p.n_color - 1) break;
+      // ReLU(out) over this warp's rows: the next layer's input
+      __syncwarp();
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        if (j < nt) {
+          *reinterpret_cast<float2*>(c_lo + 8 * j) =
+              make_float2(fmaxf(acc[j][0], 0.f), fmaxf(acc[j][1], 0.f));
+          *reinterpret_cast<float2*>(c_hi + 8 * j) =
+              make_float2(fmaxf(acc[j][2], 0.f), fmaxf(acc[j][3], 0.f));
+        }
+      }
+      __syncwarp();
+    }
+    // the colours sit in n-tile 0: columns 0, 1 in lanes tq == 0, column 2 in tq == 1
+    const float b_lo = __shfl_down_sync(kFull, acc[0][0], 1);
+    const float b_hi = __shfl_down_sync(kFull, acc[0][2], 1);
+    if (tq == 0) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = row0 + warp * 16 + g + 8 * h;
+        if (row < p.M)
+          reinterpret_cast<float4*>(p.out)[row] =
+              make_float4(sigma(warp * 16 + g + 8 * h), sigmoid(acc[0][2 * h]),
+                          sigmoid(acc[0][2 * h + 1]), sigmoid(h ? b_hi : b_lo));
+      }
+    }
+  }
+  __syncthreads();
+}
+
+// flags: bit 0, 16-byte factor gathers
+__global__ void __launch_bounds__(kTcThreads, 1)
+    cp_density_tf32x3_kernel(HeadParams p, XShape t, int flags) {
+  extern __shared__ __align__(16) unsigned char smem_tc[];
+  const XSmem s = x3_smem(t, smem_tc);
+  x3_load_weights(p, t, s);
+  __syncthreads();
+  const int n_tiles = (p.M + t.rows - 1) / t.rows;
+  int parity = 0;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    x3_tile_h1(p, t, s, tile * t.rows, flags & 1, parity);
+    x3_density_out(p, t, s, tile * t.rows);
+  }
+}
+
+// the radiance head: the density head's tile code, then x3_radiance_out
+__global__ void __launch_bounds__(kTcThreads, 1)
+    cp_sigma_rgb_tf32x3_kernel(HeadParams p, XShape t, int flags) {
+  extern __shared__ __align__(16) unsigned char smem_tc[];
+  const XSmem s = x3_smem(t, smem_tc);
+  x3_load_weights(p, t, s);
+  __syncthreads();
+  const int n_tiles = (p.M + t.rows - 1) / t.rows;
+  int parity = 0;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    x3_tile_h1(p, t, s, tile * t.rows, flags & 1, parity);
+    x3_radiance_out(p, t, s, tile * t.rows);
+  }
+}
+
+// an f32 head at the route's tile rows and K chunk: one persistent block per
+// SM, at most one per tile
+int launch_x3(void (*kern)(HeadParams, XShape, int), const HeadParams& p, int rows, int kc,
+              cudaStream_t stream) {
+  const XShape t = x3_shape(p, rows, kc);
+  if (p.M == 0) return cudaSuccess;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, t.bytes);
+  if (e != cudaSuccess) return e;
+  int dev = 0, sms = 0;
+  e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  const int tiles = (p.M + rows - 1) / rows;
+  int flags = p.rank % 4 == 0;
+  for (int b = 0; b < p.nb; ++b) flags &= (uintptr_t)p.factors[b] % 16 == 0;
+  kern<<<tiles < sms ? tiles : sms, kTcThreads, t.bytes, stream>>>(p, t, flags);
+  return cudaGetLastError();
+}
+
 size_t smem_bytes(const HeadParams& p, bool radiance) {
   size_t floats = (size_t)kRows * (p.D + p.H1 + p.OUT);
   if (radiance) floats += 2 * (size_t)kRows * p.cmax;
   return floats * sizeof(float);
 }
 
-// the row-block heads: the f32 heads, and the bf16 heads tc_route gives them
+// the row-block heads: the heads tc_route (bf16) and x3_route (f32) give them
 int launch(void (*kern)(HeadParams), const HeadParams& p, cudaStream_t stream, bool radiance) {
   const size_t bytes = smem_bytes(p, radiance);
   if (bytes > (size_t)kMaxSmemBytes) return kUnsupportedShape;
@@ -1468,10 +2147,14 @@ extern "C" int ngp_cp_density_fwd(const float* pos, int M, const void* const* fa
   p.feats_out = feats_out;
   p.h1_out = h1_out;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // route: the tensor-core kernel's tile rows, or 0 for the row-block kernel
-  const int rows = bf16 ? tc_route(p) : 0;
+  // route: the tensor-core kernel's tile rows (bf16, or f32 in 3xTF32), or 0
+  // for the row-block kernel
+  int kc = 0;
+  const int rows = bf16 ? tc_route(p) : x3_route(p, &kc);
   *route = rows;
-  if (rows > 0) return launch_tc(cp_density_tc_kernel, p, rows, s);
+  if (rows > 0)
+    return bf16 ? launch_tc(cp_density_tc_kernel, p, rows, s)
+                : launch_x3(cp_density_tf32x3_kernel, p, rows, kc, s);
   return bf16 ? launch(&cp_density_kernel<__nv_bfloat16>, p, s, false)
               : launch(&cp_density_kernel<float>, p, s, false);
 }
@@ -1526,10 +2209,14 @@ extern "C" int ngp_cp_sigma_rgb(const float* pos, const float* dirs, int M,
   for (int l = 0; l < n_color; ++l) p.wc[l] = color_ws[l];
   p.cmax = cmax;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // route: the tensor-core kernel's tile rows, or 0 for the row-block kernel
-  const int rows = bf16 ? tc_route(p) : 0;
+  // route: the tensor-core kernel's tile rows (bf16, or f32 in 3xTF32), or 0
+  // for the row-block kernel
+  int kc = 0;
+  const int rows = bf16 ? tc_route(p) : x3_route(p, &kc);
   *route = rows;
-  if (rows > 0) return launch_tc(cp_sigma_rgb_tc_kernel, p, rows, s);
+  if (rows > 0)
+    return bf16 ? launch_tc(cp_sigma_rgb_tc_kernel, p, rows, s)
+                : launch_x3(cp_sigma_rgb_tf32x3_kernel, p, rows, kc, s);
   return bf16 ? launch(&cp_sigma_rgb_kernel<__nv_bfloat16>, p, s, true)
               : launch(&cp_sigma_rgb_kernel<float>, p, s, true);
 }

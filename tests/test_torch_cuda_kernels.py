@@ -29,7 +29,10 @@ each corner's dot product is rounded to bf16 by both, and a rounding that
 flips moves a term by one bf16 step, so 1e-2 of the largest entry. LPIPS on the card with the default cuDNN flags against the
 CPU: 1e-4 relative (TF32 convolutions would miss it by about 1e-3). The
 turbo march and the eval prepass round every float as their plain
-versions do: equal, bit for bit."""
+versions do: equal, bit for bit. The f32 heads (3xTF32 on the tensor
+cores for H1 <= 256) are held to the f32 tolerance above; their feats
+residual is the features as the products split them, within 2^-22 of
+f32's."""
 
 import numpy as np
 import pytest
@@ -85,15 +88,21 @@ def _check(got, want, dtype):
 SHAPES = [((32, 64), 16, 4, 1000), ((128, 256, 512, 1024, 2048), 128, 6, 4099)]
 # the density head's edges besides, with the factors' scale: one row,
 # fewer 128-row tiles than SMs, a rank that is no multiple of 8 (scalar
-# tail), eight banks with no frequency ladder (3 frequency columns), rank
-# 256 on five banks (w1 streams through shared memory a K chunk at a
-# time), and factors of std 1.5, whose CP features (std ~2 against ~4e-3)
-# dominate h1, so a wrong bank, axis or tap moves the output past its bound
+# tail) and one that is no multiple of 4 either (the f32 heads' scalar
+# gathers), eight banks with no frequency ladder (3 frequency columns),
+# rank 256 on five banks (a bf16 w1 streams through shared memory a K chunk
+# at a time, as every f32 w1 does), factors of std 1.5, whose CP features
+# (std ~2 against ~4e-3) dominate h1, so a wrong bank, axis or tap moves the
+# output past its bound, and rank 1024 on two banks (K 2075: an f32 w1 this
+# long fits in shared memory neither whole nor split, and the row-block
+# kernel's f32 feature rows did not fit)
 DENSITY_SHAPES = [s + (0.2,) for s in SHAPES] + [
     ((32, 64), 16, 4, 1, 0.2), ((128, 256, 512, 1024, 2048), 128, 6, 300, 0.2),
-    ((32, 64), 12, 2, 1000, 0.2), ((16, 24, 32, 48, 64, 96, 128, 256), 8, 0, 777, 0.2),
+    ((32, 64), 12, 2, 1000, 0.2), ((32, 64), 6, 2, 1000, 0.2),
+    ((16, 24, 32, 48, 64, 96, 128, 256), 8, 0, 777, 0.2),
     ((128, 256, 512, 1024, 2048), 256, 6, 1000, 0.2),
     ((128, 256, 512, 1024, 2048), 128, 6, 4099, 1.5),
+    ((32, 64), 1024, 4, 1000, 0.2),
 ]
 
 
@@ -112,14 +121,29 @@ def _density_bound(pos, factors, res, want):
     return [tol * (1 + out.abs()), 2.0**-7 * feats.abs() + slack, tol * (1 + h1.abs())]
 
 
+def _tc_route(h1, hidden=()):
+    """Whether a head of these widths takes the tensor-core kernels (bf16,
+    or f32 in 3xTF32)."""
+    return h1 <= 256 and all(w <= 64 for w in hidden)
+
+
+def _check_route(head, dtype, before, tc):
+    """One launch of ``head`` since ``before``, counted under the route its
+    type and widths give: ``<head>_tc`` (bf16), ``<head>_tf32x3`` (f32) or
+    neither (the row-block kernel)."""
+    assert LAUNCHES[head] == before[head] + 1
+    for route, dt in (("_tc", torch.bfloat16), ("_tf32x3", torch.float32)):
+        assert LAUNCHES[head + route] - before[head + route] == int(tc and dtype == dt), route
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("res,rank,fd,M,scale", DENSITY_SHAPES)
 def test_cp_density_kernel(dev, dtype, res, rank, fd, M, scale):
     factors, w1, w2, _ = _weights(dev, dtype, res, rank, fd, scale=scale)
     pos, _ = _inputs(dev, M)
-    before = LAUNCHES["cp_density_fwd"]
+    before = dict(LAUNCHES)
     got = tk.cp_density_fwd(pos, factors, w1, w2, res, fd)
-    assert LAUNCHES["cp_density_fwd"] == before + 1
+    _check_route("cp_density_fwd", dtype, before, _tc_route(64))
     _check(got, tk.cp_density_plain(pos, factors, w1, w2, res, fd), dtype)
 
 
@@ -130,23 +154,16 @@ WIDE_H1 = [TURBO + (4099, 0.2, h1, 16) for h1 in (72, 128, 256, 300)] + [
     TURBO + (4099, 1.5, 128, 16), ((32, 64), 12, 2, 1000, 0.2, 200, 7)]
 
 
-def _tc_route(dtype, h1, hidden=()):
-    """Whether a head of these widths takes the tensor-core kernel."""
-    return dtype == torch.bfloat16 and h1 <= 256 and all(w <= 64 for w in hidden)
-
-
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("res,rank,fd,M,scale,h1,out", WIDE_H1)
 def test_cp_density_kernel_wide(dev, dtype, res, rank, fd, M, scale, h1, out):
-    """Without residuals at the wide H1s; bf16 takes the tensor-core
-    kernel up to H1 = 256 and the row-block kernel above."""
+    """Without residuals at the wide H1s; both types take the tensor-core
+    kernels up to H1 = 256 and the row-block kernel above."""
     factors, w1, w2, _ = _weights(dev, dtype, res, rank, fd, h1=h1, out=out, scale=scale)
     pos, _ = _inputs(dev, M)
     before = dict(LAUNCHES)
     got = tk.cp_density_fwd(pos, factors, w1, w2, res, fd)
-    assert LAUNCHES["cp_density_fwd"] == before["cp_density_fwd"] + 1
-    tc = LAUNCHES["cp_density_fwd_tc"] - before["cp_density_fwd_tc"]
-    assert tc == int(_tc_route(dtype, h1))
+    _check_route("cp_density_fwd", dtype, before, _tc_route(h1))
     _check(got, tk.cp_density_plain(pos, factors, w1, w2, res, fd), dtype)
 
 
@@ -160,9 +177,10 @@ def test_cp_density_kernel_residuals(dev, dtype, res, rank, fd, M, scale, h1, ou
     step (``_density_bound``)."""
     factors, w1, w2, _ = _weights(dev, dtype, res, rank, fd, h1=h1, out=out, scale=scale)
     pos, _ = _inputs(dev, M)
-    before = LAUNCHES["cp_density_fwd_residuals"]
+    before = dict(LAUNCHES)
     got = tk.cp_density_fwd(pos, factors, w1, w2, res, fd, residuals=True)
-    assert LAUNCHES["cp_density_fwd_residuals"] == before + 1
+    assert LAUNCHES["cp_density_fwd_residuals"] == before["cp_density_fwd_residuals"] + 1
+    _check_route("cp_density_fwd", dtype, before, _tc_route(h1))
     want = tk.cp_density_plain(pos, factors, w1, w2, res, fd, residuals=True)
     for a, b in zip(got, want):
         assert a.dtype == b.dtype and a.shape == b.shape
@@ -176,25 +194,28 @@ def test_cp_density_kernel_residuals(dev, dtype, res, rank, fd, M, scale, h1, ou
         assert torch.isfinite(a).all() and (err <= bound).all(), (i, float(err.max()))
 
 
-def test_cp_kernels_past_2_31_feature_elements(dev):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cp_kernels_past_2_31_feature_elements(dev, dtype):
     """The uniform renderer at ``--num_steps 1024`` gives the fused density
     head 4096 x 1024 = 4,194,304 rows at the turbo-hq widths: its residual
-    feats are [4,194,304, 679], 2.85e9 elements, past int32. The kernels
-    address rows with 64-bit offsets: the last rows' outputs are those of
-    the same rows alone (to the bf16 bound), and the factor gradient of
-    the last rows alone is that of the full call with the other rows'
-    cotangent zero (to the summation-order bound). A row
+    feats are [4,194,304, 679], 2.85e9 elements, past int32 (11.4 GB in
+    f32). The kernels address rows with 64-bit offsets: the last rows'
+    outputs are those of the same rows alone (to the type's bound), and the
+    factor gradient of the last rows alone is that of the full call with the
+    other rows' cotangent zero (to the summation-order bound). A row
     count whose positions 3 * M pass int32 raises before any launch."""
     res, rank, fd = (128, 256, 512, 1024, 2048), 128, 6
-    factors, w1, w2, _ = _weights(dev, torch.bfloat16, res, rank, fd)
+    factors, w1, w2, _ = _weights(dev, dtype, res, rank, fd)
     M, tail = 4096 * 1024, 4099
     pos = torch.rand((M, 3), generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+    before = dict(LAUNCHES)
     out, feats, h1 = tk.cp_density_fwd(pos, factors, w1, w2, res, fd, residuals=True)
+    _check_route("cp_density_fwd", dtype, before, True)
     assert feats.numel() >= 2**31
     last = tk.cp_density_fwd(pos[-tail:].contiguous(), factors, w1, w2, res, fd, residuals=True)
     torch.cuda.synchronize()
     for a, b in zip((out, feats, h1), last):
-        _check(a[-tail:].float(), b.float(), torch.bfloat16)
+        _check(a[-tail:].float(), b.float(), dtype)
     del out, feats, h1, last
     nbR = len(res) * rank
     g = torch.zeros((M, nbR), device=dev)
@@ -209,6 +230,25 @@ def test_cp_kernels_past_2_31_feature_elements(dev):
     big = torch.empty((2**31 // 3 + 1, 3), device=dev)
     with pytest.raises(ValueError, match="int row arithmetic"):
         tk.cp_density_fwd(big, factors, w1, w2, res, fd)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cp_heads_take_no_rows(dev, dtype):
+    """M = 0 on either route: empty outputs of the right shapes and types,
+    no launch counted; a shape no kernel takes still raises at M = 0."""
+    for h1 in (64, 300):
+        factors, w1, w2, color = _weights(dev, dtype, (32, 64), 16, 4, h1=h1)
+        pos, dirs = _inputs(dev, 0)
+        before = dict(LAUNCHES)
+        out, feats, h1_ = tk.cp_density_fwd(pos, factors, w1, w2, (32, 64), 4, residuals=True)
+        rgb = tk.cp_sigma_rgb(pos, dirs, factors, w1, w2, color, (32, 64), 4, 4)
+        assert LAUNCHES == before
+        assert out.shape == (0, 16) and out.dtype == torch.float32
+        assert feats.shape == (0, w1.shape[0]) and h1_.shape == (0, h1)
+        assert feats.dtype == h1_.dtype == dtype and rgb.shape == (0, 4)
+    factors, w1, w2, _ = _weights(dev, dtype, (32, 64), 16, 4, h1=2048)
+    with pytest.raises(ValueError, match="shared memory"):
+        tk.cp_density_fwd(pos, factors, w1, w2, (32, 64), 4)
 
 
 def bwd_bound(pos, factors, g_cp, res, want):
@@ -370,9 +410,7 @@ def test_cp_sigma_rgb_kernel(dev, dtype, res, rank, fd, M, scale, h1, out, sh, h
     pos, dirs = _inputs(dev, M)
     before = dict(LAUNCHES)
     got = tk.cp_sigma_rgb(pos, dirs, factors, w1, w2, color, res, fd, sh)
-    assert LAUNCHES["cp_sigma_rgb"] == before["cp_sigma_rgb"] + 1
-    tc = LAUNCHES["cp_sigma_rgb_tc"] - before["cp_sigma_rgb_tc"]
-    assert tc == int(_tc_route(dtype, h1, hidden))
+    _check_route("cp_sigma_rgb", dtype, before, _tc_route(h1, hidden))
     _check(got, tk.cp_sigma_rgb_plain(pos, dirs, factors, w1, w2, color, res, fd, sh), dtype)
 
 
@@ -606,19 +644,16 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         tk.cp_density_fwd(pos, factors, w1.bfloat16(), w2, (32, 64), 4)
     with pytest.raises(ValueError):
         tk.cp_density_fwd(pos, factors, w1, w2, (32, 64), 3)
-    # shared memory past a block's in both kernels: a bf16 H1 of 2048 (the
-    # row-block kernel's route), a bf16 w2 of 2000 columns, an f32 feature
-    # row of 2075 columns
-    fb, w1b, w2b, _ = _weights(dev, torch.bfloat16, (32, 64), 16, 4, h1=2048)
-    with pytest.raises(ValueError, match="shared memory"):
-        tk.cp_density_fwd(pos, fb, w1b, w2b, (32, 64), 4)
-    fb, w1b, _, _ = _weights(dev, torch.bfloat16, (32, 64), 16, 4)
-    w2b = torch.zeros((64, 2000), dtype=torch.bfloat16, device=dev)
-    with pytest.raises(ValueError, match="shared memory"):
-        tk.cp_density_fwd(pos, fb, w1b, w2b, (32, 64), 4)
-    fw, w1w, w2w, _ = _weights(dev, torch.float32, (32, 64), 1024, 4)
-    with pytest.raises(ValueError, match="shared memory"):
-        tk.cp_density_fwd(pos, fw, w1w, w2w, (32, 64), 4)
+    # shared memory past a block's in both kernels, of either type: an H1 of
+    # 2048 (the row-block kernel's route), a w2 of 2000 columns
+    for dt in (torch.bfloat16, torch.float32):
+        fb, w1b, w2b, _ = _weights(dev, dt, (32, 64), 16, 4, h1=2048)
+        with pytest.raises(ValueError, match="shared memory"):
+            tk.cp_density_fwd(pos, fb, w1b, w2b, (32, 64), 4)
+        fb, w1b, _, _ = _weights(dev, dt, (32, 64), 16, 4)
+        w2b = torch.zeros((64, 2000), dtype=dt, device=dev)
+        with pytest.raises(ValueError, match="shared memory"):
+            tk.cp_density_fwd(pos, fb, w1b, w2b, (32, 64), 4)
     with pytest.raises(ValueError):
         tm.coarse_lookup_bits(torch.zeros((4, 128), device=dev),
                               torch.zeros((8, 2), dtype=torch.int32, device=dev).t())

@@ -5,7 +5,8 @@ turbo-hq preset and in the hash-grid configuration (``-O --encoding
 hashgrid``), then the port's command lines: ``-O`` and the rest of
 ``main_nerf`` (the background net, the renderer without the occupancy
 grid, LPIPS), ``main_sdf``, ``main_tensoRF``, ``main_CCNeRF`` and
-``main_dnerf``, and last the viewers, CLIP guidance and the brick grid.
+``main_dnerf``, the viewers, CLIP guidance and the brick grid, and last
+the trainers under a mesh (``ngp_tpu_torch/parallel/``, one NCCL rank).
 
 Run from the repository root, with no arguments:
 
@@ -189,7 +190,20 @@ factor backward's and encoder's run kernels, whose SASS must call no
      (a PSNR floor over a white frame's, no kernel launched) and
      ``brick_encode`` (torch) on the last step's own points: the card
      against the CPU, its forward and forward + table gradient timed
-     beside their bound.
+     beside their bound;
+18.  ``ngp_tpu_torch/parallel/`` on one rank over NCCL (``parallel_runs``):
+     turbo-hq at full width from one seed with no mesh, under
+     ``make_mesh(1)`` and under a (1, 1) ("data", "model") mesh with the CP
+     banks split (``shard_params``; the feature gather at one rank):
+     ``PARALLEL_STEPS`` steps each (refreshes at 0 and 16), the losses in
+     lockstep with no mesh's, rays/s over steps 1-15 and the device time of
+     ``PARALLEL_PROFILED`` profiled steps; the 800x800 frame under each
+     mesh against the frame of the same weights with no mesh (the fused
+     head), ``evaluate`` through ``eval_metrics_dp``, and
+     ``eval_metrics_dp`` and ``gather_predictions_dp`` against one-device
+     torch. Under a mesh the fused heads step aside, as in JAX: the paths
+     must launch ``cp_encode_fwd``, ``cp_bwd_banks`` (training),
+     ``march_turbo`` and ``ray_prepass`` (frames) and no CP head.
 
 Each path is run with the launch counts set to 0 just before it and read
 just after; a kernel of the path that was not launched fails the run, and
@@ -203,7 +217,7 @@ same function (else null), and its bound, the least time the card could
 take for the same work: the larger of the bytes it must move over the
 memory rate and its operations over the peak rate of the units that
 could do them (``bound``), and under "paths" its launches on each of
-phase 17's paths. The last line is a JSON object
+phases 17's and 18's paths. The last line is a JSON object
 ``{"ok": true, "device": {...}}``; any failure raises and exits non-zero.
 """
 
@@ -228,6 +242,11 @@ FRAMES = 3
 # a different summation order can flip one bf16 rounding (2^-8
 # relative) of a hidden unit, which the next layer spreads
 TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+# calls of a plain version timed in each of compare's two plain windows
+# (after two warm-ups): the plain versions take 0.1-200 ms a call, and
+# PERF.md holds their times from runs of 10; fewer keep the smoke inside
+# its time limit
+PLAIN_REPS = 3
 # mean |pixel| difference of a small frame, GPU kernels vs CPU plain
 # versions, bf16 network: a flipped rounding moves a sample's colour by
 # ~1e-2 at most, and few samples flip
@@ -419,6 +438,18 @@ CLIP_TOL = 1e-3
 BRICK_ITERS = 400
 BRICK_MIN_GAIN = 5.0
 BWD_X_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+# calls of a plain version timed in each of compare's two plain windows
+# (after two warm-ups): the plain versions take 0.1-200 ms a call, and
+# PERF.md holds their times from runs of 10; fewer keep the smoke inside
+# its time limit
+PLAIN_REPS = 3
+# phase 18: turbo-hq under a mesh of one rank (NCCL), update_extra_interval
+# + 1 steps (refreshes at steps 0 and 16), each loss within
+# PARALLEL_LOSS_TOL[0] + PARALLEL_LOSS_TOL[1] |one device's|
+# (__graft_entry__.py:_dryrun_multichip_inner); steps 1-15 timed (no refresh)
+PARALLEL_STEPS = 17
+PARALLEL_LOSS_TOL = (1e-4, 5e-3)
+PARALLEL_PROFILED = 4
 BG_ROWS = (65536, 4096)
 # H100 SXM (NVIDIA's data sheet): HBM bytes/s, dense bf16 tensor-core and
 # f32 CUDA-core FLOP/s, and f32-accurate products on the tensor cores: three
@@ -634,7 +665,8 @@ def compare(name, kernel, plain, dtype, work, tol=None):
             raise RuntimeError(f"{name} [{dtype}] output {i}: max |kernel - plain| "
                                f"{float(err.max())} exceeds its bound")
         err_max = max(err_max, float(err.max()))
-    p1, k1, k2, p2 = cuda_ms(plain), cuda_ms(kernel), cuda_ms(kernel), cuda_ms(plain)
+    p1, k1 = cuda_ms(plain, reps=PLAIN_REPS), cuda_ms(kernel)
+    k2, p2 = cuda_ms(kernel), cuda_ms(plain, reps=PLAIN_REPS)
     return err_max, (k1 + k2) / 2, (p1 + p2) / 2, bound(*work)
 
 
@@ -1193,6 +1225,199 @@ def f32_eval_run(dev, card, nc, rc, results):
           f"{t_frame * 1e3:.1f} ms (n_samples {st['n_samples']:.0f}), its first radiance "
           f"chunk {x.shape[0]} rows  [{card}]", flush=True)
     return counts
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def parallel_runs(dev, card, rc, nc, train_ds, val_ds, results):
+    """Phase 18: ``ngp_tpu_torch/parallel/`` on one rank over NCCL. The
+    turbo-hq trainer from one seed with no mesh, under ``make_mesh(1)`` (the
+    data axis) and under a (1, 1) ("data", "model") mesh with the banks
+    split by ``shard_params`` (the feature gather's path, at one rank):
+    PARALLEL_STEPS steps each, the losses in lockstep with no mesh's, steps
+    1-15 timed and PARALLEL_PROFILED profiled; then the 800x800 frame under
+    each mesh against the same trainer's frame with no mesh (the fused
+    head), ``evaluate``'s PSNR through ``eval_metrics_dp``, and the two
+    collectives against one-device torch. Under a mesh the fused heads step
+    aside: ``cp_encode_fwd`` and ``cp_bwd_banks`` carry the CP work, and
+    each is held against its plain version on the (1, 1) mesh's last
+    step's own inputs (the split banks). Returns (the train launch
+    counts, the frame launch counts)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from ngp_tpu_torch.config import TrainConfig
+    from ngp_tpu_torch.models.nerf import NeRFNetwork
+    from ngp_tpu_torch.ops.kernels import cp, launch_counts, reset_launch_counts
+    from ngp_tpu_torch.parallel import eval_metrics_dp, gather_predictions_dp, make_mesh
+    from ngp_tpu_torch.parallel.mesh import shard_params
+    from ngp_tpu_torch.training.nerf_grid import GridNeRFTrainer
+
+    fused = ("cp_density_fwd", "cp_density_fwd_tc", "cp_density_fwd_residuals",
+             "cp_density_fwd_tf32x3", "cp_sigma_rgb", "cp_sigma_rgb_tc", "cp_sigma_rgb_tf32x3")
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}", rank=0,
+                            world_size=1)
+    try:
+        data_mesh = make_mesh(1)
+        if make_mesh(1, model_parallel=1).mesh_dim_names != ("data",):
+            raise RuntimeError("make_mesh(1, model_parallel=1) is not a data mesh")
+        split_mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+        train_counts = {}
+        runs = {}
+        with tempfile.TemporaryDirectory() as ws:
+            for label, mesh in (("no mesh", None), ("data", data_mesh),
+                                ("data x model", split_mesh)):
+                model = NeRFNetwork(nc, rc, torch.Generator().manual_seed(SEED), device=dev)
+                if label == "data x model":
+                    if shard_params(model, mesh) != {f"encoder.factors_{r}"
+                                                    for r in nc.cp_resolutions}:
+                        raise RuntimeError("shard_params did not split the CP banks")
+                tc = TrainConfig(iters=30000, lr=1e-2, num_rays=TRAIN_RAYS,
+                                 update_extra_interval=16, workspace=os.path.join(ws, label))
+                trainer = GridNeRFTrainer(model, rc, tc, seed=SEED)
+                trainer.mesh = mesh
+                trainer.mark_untrained(train_ds.poses, train_ds.intrinsics, train_ds.H,
+                                       train_ds.W)
+                epoch_iter = trainer.make_loader(train_ds)
+                batches = itertools.chain.from_iterable(epoch_iter() for _ in itertools.count())
+                # the last train call's inputs of the CP encoder and its
+                # backward (a step's TRAIN_ROWS rows; the refresh's chunks
+                # are larger)
+                seen, launch = {}, (cp.cp_encode_fwd, cp.cp_bwd_banks)
+
+                def clone(a):
+                    if torch.is_tensor(a):
+                        return a.clone()
+                    return tuple(map(clone, a)) if isinstance(a, (tuple, list)) else a
+
+                def keep(name, fn):
+                    def call(pos, *args):
+                        if pos.shape[0] == TRAIN_ROWS:
+                            seen[name] = clone((pos, *args))
+                        return fn(pos, *args)
+                    return call
+
+                if label == "data x model":
+                    cp.cp_encode_fwd = keep("cp_encode_fwd", launch[0])
+                    cp.cp_bwd_banks = keep("cp_bwd_banks", launch[1])
+                torch.cuda.synchronize()
+                reset_launch_counts()
+                try:
+                    losses = [trainer.step(next(batches))["loss"]]
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    losses += [trainer.step(next(batches))["loss"] for _ in range(15)]
+                    torch.cuda.synchronize()
+                    dt = time.perf_counter() - t0
+                    losses += [trainer.step(next(batches))["loss"]
+                               for _ in range(PARALLEL_STEPS - 16)]
+                finally:
+                    cp.cp_encode_fwd, cp.cp_bwd_banks = launch
+                counts = launch_counts()
+                if label == "data x model":
+                    if sorted(seen) != ["cp_bwd_banks", "cp_encode_fwd"]:
+                        raise RuntimeError(f"parallel train ({label}): caught {sorted(seen)}")
+                    pos, fa, res, od = seen["cp_encode_fwd"]
+                    M, nbR = pos.shape[0], len(fa) * fa[0].shape[-1]
+                    step_label = f"18 (1, 1) mesh step {PARALLEL_STEPS - 1}"
+                    results[("cp_encode_fwd", step_label)] = compare(
+                        "cp_encode_fwd", lambda: cp.cp_encode_fwd(pos, fa, res, od),
+                        lambda: cp.cp_encode_plain(pos, fa, res, od), str(od).split(".")[1],
+                        (nbytes(pos, *fa) + M * nbR * od.itemsize, 0, 14 * M * nbR))
+                    step_factor_gradient(*seen["cp_bwd_banks"], step_label, card, results)
+                    del seen
+                if mesh is not None:
+                    check_launched(f"parallel train ({label})", counts,
+                                   ("cp_encode_fwd", "cp_bwd_banks", "march_turbo"),
+                                   absent=fused + ("coarse_lookup_bits",))
+                    train_counts = {k: train_counts.get(k, 0) + v for k, v in counts.items()}
+                losses = torch.stack(losses).cpu().numpy()
+                if not np.isfinite(losses).all():
+                    raise RuntimeError(f"parallel train ({label}): non-finite loss")
+                print(f"parallel train ({label}): {15 * TRAIN_RAYS / dt:.0f} rays/s over steps "
+                      f"1-15 ({dt * 1e3 / 15:.2f} ms a step); losses {losses[0]:.6f} -> "
+                      f"{losses[-1]:.6f}  [{card}]", flush=True)
+                runs[label] = (trainer, losses, 15 * TRAIN_RAYS / dt, batches)
+            ref = runs["no mesh"][1]
+            for label in ("data", "data x model"):
+                gap = np.abs(runs[label][1] - ref)
+                if not (gap <= PARALLEL_LOSS_TOL[0] + PARALLEL_LOSS_TOL[1] * np.abs(ref)).all():
+                    raise RuntimeError(f"parallel train ({label}): losses {runs[label][1]} not "
+                                       f"in lockstep with no mesh's {ref}")
+                print(f"parallel train ({label}): {PARALLEL_STEPS} losses within "
+                      f"{float((gap / np.abs(ref)).max()):.2e} of no mesh's (relative)", flush=True)
+
+            # the frames: the data mesh trainer's 800x800 frame with no mesh
+            # (the fused head) against each mesh trainer's under its mesh
+            pose, intr = orbit_pose(0.7), intrinsics(FRAME)
+            trainer = runs["data"][0]
+            trainer.mesh = None
+            t0 = time.perf_counter()
+            base, _ = trainer.render_frame(pose, intr, FRAME, FRAME)
+            fused_ms = (time.perf_counter() - t0) * 1e3
+            trainer.mesh = data_mesh
+            frame_counts = {}
+            for label in ("data", "data x model"):
+                trainer = runs[label][0]
+                trainer.render_frame(pose, intr, FRAME, FRAME)  # sticky chunk counts settle
+                reset_launch_counts()
+                t0 = time.perf_counter()
+                img, _ = trainer.render_frame(pose, intr, FRAME, FRAME)
+                mesh_ms = (time.perf_counter() - t0) * 1e3
+                counts = launch_counts()
+                check_launched(f"parallel frame ({label})", counts,
+                               ("cp_encode_fwd", "march_turbo", "ray_prepass"),
+                               absent=fused + ("coarse_lookup_bits",))
+                frame_counts = {k: frame_counts.get(k, 0) + v for k, v in counts.items()}
+                diff = float(np.abs(img - base).mean())
+                print(f"parallel frame ({label}): {FRAME}x{FRAME} {mesh_ms:.1f} ms under the mesh "
+                      f"(no mesh, fused head: {fused_ms:.1f} ms); mean |mesh - no mesh| "
+                      f"{diff:.3e}, max {float(np.abs(img - base).max()):.3e}  [{card}]",
+                      flush=True)
+                if img.shape != (FRAME, FRAME, 3) or not np.isfinite(img).all() or diff > FRAME_TOL:
+                    raise RuntimeError(f"parallel frame ({label}): differs by {diff}")
+                # the collectives against one-device torch on the frame's pixels
+                p = torch.as_tensor(img.reshape(-1, 3), device=dev)
+                g = torch.as_tensor(base.reshape(-1, 3), device=dev)
+                m = eval_metrics_dp(trainer.mesh, p, g)
+                mse = torch.mean((p - g) ** 2)
+                if abs(float(m["mse"]) - float(mse)) > 1e-6 * float(mse) + 1e-12:
+                    raise RuntimeError(f"eval_metrics_dp: {float(m['mse'])} against {float(mse)}")
+                if not torch.equal(gather_predictions_dp(trainer.mesh, p), p):
+                    raise RuntimeError("gather_predictions_dp changed the rows")
+            # evaluate under the data mesh scores through eval_metrics_dp
+            trainer = runs["data"][0]
+            ev = trainer.evaluate(val_ds)
+            img, _ = trainer.render_frame(val_ds.poses[0], val_ds.intrinsics, val_ds.H, val_ds.W)
+            gt = val_ds.images[0]
+            gt = gt[..., :3] * gt[..., 3:] + (1.0 - gt[..., 3:])
+            psnr = -10.0 * math.log10(float(np.mean((img - gt) ** 2)))
+            print(f"parallel evaluate (data): PSNR {ev['psnr']:.4f} dB through eval_metrics_dp, "
+                  f"the frame's {psnr:.4f}  [{card}]", flush=True)
+            if abs(ev["psnr"] - psnr) > EVAL_PSNR_TOL:
+                raise RuntimeError(f"parallel evaluate: PSNR {ev['psnr']} against {psnr}")
+            # last, under the profiler (no timed window follows one)
+            dev_ms = {}
+            for label, (trainer, _, _, batches) in runs.items():
+                print(f"parallel profile ({label}):")
+                dev_ms[label] = profile(lambda: trainer.step(next(batches)), PARALLEL_PROFILED,
+                                        "step", card, focus=("cp_encode", "cp_bwd", "cp_density",
+                                                             "nccl"))[0]
+            print("parallel train: rays/s " + ", ".join(
+                f"{k} {v[2]:.0f}" for k, v in runs.items()) + "; device ms a step " + ", ".join(
+                f"{k} {v:.3f}" for k, v in dev_ms.items()) + f"  [{card}]", flush=True)
+    finally:
+        dist.destroy_process_group()
+    return train_counts, frame_counts
 
 
 @contextlib.contextmanager
@@ -3895,18 +4120,25 @@ def main():
         brick_counts = brick_runs(dev, card, scene, tmp)
         phase("brick grid (--preset tpu, --test)", t0)
 
+    # 18. parallelism: the trainers' mesh branches on one rank over NCCL
+    t0 = time.perf_counter()
+    par_train_counts, par_frame_counts = parallel_runs(dev, card, rc, nc, train_ds, val_ds,
+                                                       results)
+    phase(f"parallel (one NCCL rank: 3 x {PARALLEL_STEPS} steps, two mesh frames)", t0)
+
     print_results(results, library, card, printed)
     path_counts = (eval_counts, f32_eval_counts, train_counts, frame_counts, evaluate_counts,
                    test_counts, mesh_counts, wide_counts, gamma_counts, gamma_frame_counts,
                    hash_train_counts, hash_frame_counts, *cli_counts, *rest_counts, *sdf_counts,
                    *tensorf_counts, *ccnerf_counts, *dnerf_counts, *view_counts, clip_counts,
-                   *brick_counts)
-    # phase 17's paths on their own (the guidance steps are a part of the
-    # CLIP run)
+                   *brick_counts, par_train_counts, par_frame_counts)
+    # phases 17's and 18's paths on their own (the guidance steps are a part
+    # of the CLIP run)
     slice_paths = {"17a_viewer_nerf": view_counts[0], "17a_viewer_dnerf": view_counts[1],
                    "17b_clip_run": clip_counts, "17b_clip_guidance_steps": guided_counts,
                    "17c_brickgrid": {k: a + b for (k, a), b in zip(brick_counts[0].items(),
-                                                                   brick_counts[1].values())}}
+                                                                   brick_counts[1].values())},
+                   "18_parallel_train": par_train_counts, "18_parallel_frame": par_frame_counts}
     csrc = "ngp_tpu_torch/ops/kernels/csrc/"
     sources = {
         "cp_density_fwd": (csrc + "cp_kernels.cu", "ngp_tpu/ops/pallas/cp_kernels.py:345",

@@ -66,7 +66,10 @@ class BrickGridEncoder(nn.Module):
 
 class CPGridEncoder(nn.Module):
     """Multiresolution CP factor banks, one ``factors_<res>`` parameter
-    ([3, res, rank]) per bank, as the flax module names them."""
+    ([3, res, rank]) per bank, as the flax module names them. Split over a
+    mesh's ``model`` axis (``parallel.shard_params``), each bank holds this
+    rank's columns and ``feature_gather`` all-gathers the ranks' feature
+    columns before the frequency columns are appended."""
 
     def __init__(self, cfg: CPGridConfig,
                  compute_dtype: Optional[torch.dtype] = None,
@@ -78,13 +81,15 @@ class CPGridEncoder(nn.Module):
         g = generator or torch.Generator().manual_seed(0)
         for r, f in zip(cfg.resolutions, cfg.init(g, device=device)):
             self.register_parameter(f"factors_{r}", nn.Parameter(f))
+        self.feature_gather = None
 
     @property
     def factors(self):
         return tuple(getattr(self, f"factors_{r}") for r in self.cfg.resolutions)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return cpgrid_encode(x, self.factors, self.cfg, self.compute_dtype)
+        return cpgrid_encode(x, self.factors, self.cfg, self.compute_dtype,
+                             gather=self.feature_gather)
 
 
 class GridEncoder(nn.Module):

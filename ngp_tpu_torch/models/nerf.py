@@ -99,7 +99,9 @@ class NeRFNetwork(nn.Module):
 
 def _fused_parts(model: NeRFNetwork):
     c = model.cfg
-    if c.encoding != "cpgrid" or c.num_layers != 2:
+    # the fused heads read whole banks: none for a model rank's shards
+    if (c.encoding != "cpgrid" or c.num_layers != 2
+            or model.encoder.feature_gather is not None):
         return None
     cfg = CPGridConfig(resolutions=tuple(c.cp_resolutions), rank=c.cp_rank,
                        freq_degree=c.cp_freq_degree)

@@ -459,24 +459,30 @@ def place_compact(vals: torch.Tensor, offsets: torch.Tensor, src: torch.Tensor,
 
 
 def _turbo_compact_geometry(rays_o, rays_d, state, cfg, max_samples, aabb, budget,
-                            t_range=None, perturb=False, generator=None, noise=None):
+                            t_range=None, perturb=False, generator=None, noise=None,
+                            train_budget=None):
     """March -> ALIGN-padded compaction -> per-compact-sample points.
 
     An explicit (eval) budget is water-filled: every ray gets the same
     depth allowance k*, the largest ALIGN multiple whose total fits the
     budget, and the leftover goes as one more block to the first rays
     still cut. Without one (training) the budget is
-    N * compact_mean_samples and the ray-major tail is dropped."""
+    N * compact_mean_samples and the ray-major tail is dropped;
+    ``train_budget(n_valid)`` replaces it when the rays are one data
+    rank's slice of a batch (``parallel.collectives.rank_budget``), and a
+    budget of 0 keeps one masked block."""
     N = rays_o.shape[0]
     dev = rays_o.device
     m = march_rays_turbo(rays_o, rays_d, state, cfg, max_samples=max_samples, aabb=aabb,
                          t_range=t_range, perturb=perturb, generator=generator, noise=noise)
     S = m["mask"].shape[1]
+    n_total8 = torch.clamp((m["n_total"] + ALIGN - 1) // ALIGN * ALIGN, max=S)
     water_fill = budget is not None
     if budget is None:
-        budget = N * cfg.compact_mean_samples
-    budget = min(budget, N * S)
-    n_total8 = torch.clamp((m["n_total"] + ALIGN - 1) // ALIGN * ALIGN, max=S)
+        budget = (N * cfg.compact_mean_samples if train_budget is None
+                  else train_budget(n_total8.sum()))
+    limit = min(budget, N * S)
+    budget = max(limit, ALIGN)
     if water_fill and budget < N * S:
         ks = torch.arange(0, S + 1, ALIGN, device=dev)
         tot = torch.minimum(n_total8[None, :], ks[:, None]).sum(dim=1)
@@ -492,10 +498,12 @@ def _turbo_compact_geometry(rays_o, rays_d, state, cfg, max_samples, aabb, budge
     iota_s = torch.arange(S, device=dev)[None, :]
     mask8 = iota_s < n_alloc[:, None]
     src, valid_m, offsets, t_c = compact_valid_samples(mask8, budget, extra=m["ts"])
+    if limit < budget:
+        valid_m = valid_m & (torch.arange(budget, device=dev) < limit)
     ray = src // S
     pts = torch.clamp(rays_o[ray] + rays_d[ray] * t_c[:, None], -cfg.bound, cfg.bound)
     dirs = rays_d[ray]
-    maskb = m["mask"] & (iota_s < n_alloc[:, None]) & ((offsets[:, None] + iota_s) < budget)
+    maskb = m["mask"] & (iota_s < n_alloc[:, None]) & ((offsets[:, None] + iota_s) < limit)
     return m, S, budget, src, valid_m, offsets, t_c, pts, dirs, maskb
 
 
@@ -528,7 +536,8 @@ def render_rays_grid_turbo(density_fn: Optional[Callable], color_fn: Optional[Ca
                            generator: Optional[torch.Generator] = None,
                            noise: Optional[torch.Tensor] = None,
                            bg_fn: Optional[Callable] = None,
-                           return_geo: bool = False) -> Dict[str, torch.Tensor]:
+                           return_geo: bool = False,
+                           train_budget: Optional[Callable] = None) -> Dict[str, torch.Tensor]:
     """Turbo march -> compaction -> network on the compact batch ->
     placement -> compositing. ``vals_fn(pts, dirs) -> [M, 4]`` (eval)
     replaces the density_fn / color_fn pair. ``perturb`` (training)
@@ -536,12 +545,13 @@ def render_rays_grid_turbo(density_fn: Optional[Callable], color_fn: Optional[Ca
     (``bg_radius > 0``) replaces ``bg_color`` (``models.renderer.background``).
     ``return_geo`` adds the density closure's geometry output for the
     compact batch (``out["geo"]``, [budget, ...]) and its validity mask
-    (``out["compact_valid"]``, [budget]); it takes no ``vals_fn``."""
+    (``out["compact_valid"]``, [budget]); it takes no ``vals_fn``.
+    ``train_budget``: see :func:`_turbo_compact_geometry`."""
     if vals_fn is not None and return_geo:
         raise ValueError("vals_fn is incompatible with return_geo")
     m, S, budget, src, valid_m, offsets, t_c, pts, dirs, maskb = _turbo_compact_geometry(
         rays_o, rays_d, state, cfg, max_samples, aabb, budget, t_range=t_range,
-        perturb=perturb, generator=generator, noise=noise,
+        perturb=perturb, generator=generator, noise=noise, train_budget=train_budget,
     )
     if vals_fn is not None:
         vals = vals_fn(pts, dirs)

@@ -15,7 +15,7 @@ CUDA tensors (the Pallas branch, with zero d(pos)).
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -60,16 +60,21 @@ def _cast(ts, dtype):
 
 
 def cpgrid_encode(x, factors, cfg: CPGridConfig,
-                  compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                  compute_dtype: Optional[torch.dtype] = None,
+                  gather: Optional[Callable] = None) -> torch.Tensor:
     """x in [0, 1]^3, any leading shape -> [..., output_dim] in
     ``compute_dtype`` (f32 when None): the CP features, then the freq
-    columns of 2x - 1."""
+    columns of 2x - 1. With ``gather`` the factors are a model rank's
+    column shards, and ``gather`` maps their features to the whole banks'
+    (``parallel.collectives.gather_cp_features``)."""
     batch_shape = x.shape[:-1]
     xf = x.reshape(-1, 3).float().contiguous()
     factors = tuple(f.contiguous() for f in _cast(factors, compute_dtype))
     out_dtype = compute_dtype or torch.float32
     encode = cp_encode_plain if xf.device.type == "cpu" else cp_encode
     feats = encode(xf, factors, cfg.resolutions, out_dtype)
+    if gather is not None:
+        feats = gather(feats)
     if cfg.freq_degree > 0:
         fr = freq_encode(2.0 * xf - 1.0, cfg.freq_degree).to(out_dtype)
         feats = torch.cat([feats, fr], dim=-1)

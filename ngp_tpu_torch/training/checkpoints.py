@@ -20,12 +20,16 @@ from typing import Any, Dict, List, Mapping, Optional
 import torch
 
 
+def checkpoint_path(workspace: str, name: str, epoch: int = 0, best: bool = False) -> str:
+    fname = f"{name}_best.pth" if best else f"{name}_ep{epoch:04d}.pth"
+    return os.path.join(workspace, "checkpoints", fname)
+
+
 def save_checkpoint(workspace: str, name: str, state: Dict[str, Any], epoch: int = 0,
                     max_keep: int = 2, best: bool = False) -> str:
     ckpt_dir = os.path.join(workspace, "checkpoints")
     os.makedirs(ckpt_dir, exist_ok=True)
-    fname = f"{name}_best.pth" if best else f"{name}_ep{epoch:04d}.pth"
-    path = os.path.join(ckpt_dir, fname)
+    path = checkpoint_path(workspace, name, epoch, best)
     torch.save({**state, "epoch": epoch}, path)
     if not best and max_keep > 0:
         for old in sorted(glob.glob(os.path.join(ckpt_dir, f"{name}_ep*.pth")))[:-max_keep]:

@@ -41,6 +41,8 @@ from ngp_tpu_torch.models.occupancy import (
     pack_prepass_payload,
     update_occupancy,
 )
+from ngp_tpu_torch.parallel.collectives import data_sum
+from ngp_tpu_torch.parallel.mesh import DATA_AXIS, axis_size
 from ngp_tpu_torch.training.nerf import NeRFTrainer
 from ngp_tpu_torch.training.nerf_grid import GridNeRFTrainer
 
@@ -175,12 +177,19 @@ class DNeRFTrainer(GridNeRFTrainer):
         return out
 
     def _render_loss_extra(self, out):
-        """The deformation's L1 over valid samples (dnerf/utils.py:117-119)."""
+        """The deformation's L1 over valid samples (dnerf/utils.py:117-119);
+        under a mesh over the whole batch's samples: each data rank's sum
+        over the batch's count, times D, since the ranks' losses are
+        averaged."""
         deform = out.get("deform")
         if deform is None:
             return None
         dmask = out["sample_mask"][..., None].float()
-        reg = (deform.abs() * dmask).sum() / (dmask.sum() * 3 + 1e-6)
+        num, count = (deform.abs() * dmask).sum(), dmask.sum()
+        if self.mesh is not None:
+            num = num * axis_size(self.mesh, DATA_AXIS)
+            count = data_sum(self.mesh, count)
+        reg = num / (count * 3 + 1e-6)
         return self.deform_reg_weight * reg
 
     @torch.no_grad()

@@ -39,6 +39,18 @@ padded by repeating the last index. The JAX code loops over chunks with
 ``jax.lax.map`` inside one compiled call; here it is a Python loop
 whose chunks run on the device without a host sync.
 
+Under a mesh (``self.mesh``, ``parallel.make_mesh``), as the JAX trainer
+under its ``jax.sharding.Mesh``: every rank draws the whole step's
+numbers from its identically seeded generator (ray indices, background,
+the render's noise), data rank d trains on the d-th contiguous slice of
+the rays, the gradients are averaged over ``data`` before the optimizer
+step, and the loss, ``turbo_overflow`` and the error map are the whole
+batch's. A frame deals its whole chunks to the data ranks (every model
+rank of a data group on the same chunk; a chunk keeps its budget's drop
+rule) and all-gathers them, so it equals the one-device frame;
+``evaluate`` scores through ``eval_metrics_dp``. The fused CP heads step
+aside, as in JAX.
+
 ``train_gui`` and ``test_gui`` are the GUI loop's two halves
 (``viewer.py`` drives them through ``step`` and ``render_frame``).
 
@@ -74,6 +86,14 @@ from ngp_tpu_torch.models.nerf import NeRFNetwork, make_fused_density
 from ngp_tpu_torch.models.renderer import render_rays
 from ngp_tpu_torch.ops.losses import eff_distloss
 from ngp_tpu_torch.ops.rays import sph_from_ray
+from ngp_tpu_torch.parallel.collectives import (
+    data_sum,
+    eval_metrics_dp,
+    gather_predictions_dp,
+    rank_budget,
+    sync_gradients,
+)
+from ngp_tpu_torch.parallel.mesh import DATA_AXIS, axis_rank, axis_size, data_slice
 from ngp_tpu_torch.training.metrics import LPIPSMeter, PSNRMeter, SSIMMeter
 from ngp_tpu_torch.training.trainer import Trainer
 from ngp_tpu_torch.utils.color import linear_to_srgb_np
@@ -129,9 +149,10 @@ class NeRFTrainer(Trainer):
     def _fns(self):
         """(density_fn, color_fn, bg_fn) on the live weights, recording
         autograd when grad mode is on: the fused CP density when the model
-        has one (``make_fused_density``), else the module's; bg_fn is the
-        background net when ``bg_radius > 0``, else None."""
-        density_fn = make_fused_density(self.model)
+        has one (``make_fused_density``) and there is no mesh, else the
+        module's; bg_fn is the background net when ``bg_radius > 0``, else
+        None."""
+        density_fn = make_fused_density(self.model) if self.mesh is None else None
         if density_fn is None:
             density_fn = self.model.density
         bg_fn = self.model.background if self.render_cfg.bg_radius > 0 else None
@@ -150,12 +171,30 @@ class NeRFTrainer(Trainer):
         static scene) is for the dynamic trainer."""
         return (*self._fns(), None)
 
+    def _step_draws(self, n_rays: int, draws, dev) -> Dict[str, torch.Tensor]:
+        """The render's draws for a whole step of ``n_rays`` rays, from
+        ``draws`` or, in the order the render draws them, the generator:
+        the perturbation noise [n, T] and, with upsampling, the PDF draws
+        [n, U]."""
+        cfg = self.render_cfg
+        out = {"noise": draws.get("noise")}
+        if out["noise"] is None:
+            out["noise"] = torch.rand((n_rays, cfg.num_steps), generator=self.generator,
+                                      device=dev)
+        if cfg.upsample_steps > 0:
+            out["pdf_u"] = draws.get("pdf_u")
+            if out["pdf_u"] is None:
+                out["pdf_u"] = torch.rand((n_rays, cfg.upsample_steps),
+                                          generator=self.generator, device=dev)
+        return out
+
     def _render_with(self, fns, rays_o, rays_d, bg_color=None, aabb=None,
-                     t_range=None, perturb=False, noise=None, pdf_u=None, time=None):
+                     t_range=None, perturb=False, noise=None, pdf_u=None, time=None,
+                     train_budget=None):
         """Render one batch of rays with the closures of ``_step_fns``
         (training: ``perturb``) or of ``_eval_fns`` (eval): here the
         uniform + PDF renderer, which takes no per-ray t range and no scene
-        time."""
+        time, and has no sample budget (``train_budget`` is not used)."""
         if t_range is not None:
             raise ValueError("t_range needs the occupancy-grid renderer")
         density_fn, color_fn, bg_fn, _ = fns
@@ -184,21 +223,32 @@ class NeRFTrainer(Trainer):
             generator=self.generator, draws=draws, device=dev,
         )
         inds = sample["inds"]
-        rays = rays_from_indices(pose, intrinsics, H, W, inds)
-        pixels = image.reshape(H * W, C)[inds].float()
         if C == 4 and self.render_cfg.bg_radius <= 0:
             bg = draws["bg"].to(dev) if "bg" in draws else torch.rand(
                 (n_rays, 3), generator=self.generator, device=dev)
         else:
             bg = 1.0
+        rdraws = {k: draws[k] for k in ("noise", "pdf_u") if k in draws}
+        mesh, kw = self.mesh, {}
+        if mesh is not None:
+            # the whole step's draws on every rank, then this data rank's rays
+            rdraws = self._step_draws(n_rays, rdraws, dev)
+            rows = data_slice(mesh, n_rays)
+            inds = inds[rows]
+            bg = bg[rows] if torch.is_tensor(bg) else bg
+            rdraws = {k: v.to(dev)[rows] for k, v in rdraws.items()}
+            whole = n_rays * self.render_cfg.compact_mean_samples
+            kw["train_budget"] = lambda n_valid: rank_budget(mesh, n_valid, whole)
+        rays = rays_from_indices(pose, intrinsics, H, W, inds)
+        pixels = image.reshape(H * W, C)[inds].float()
         gt_rgb = pixels[:, :3] * pixels[:, 3:] + bg * (1.0 - pixels[:, 3:]) if C == 4 else pixels
         # a dynamic scene's frame time rides the batch (host values)
         time = float(batch["times"][idx]) if "times" in batch else None
 
         self.optimizer.zero_grad(set_to_none=True)
         out = self._render_with(self._step_fns(time), rays["rays_o"], rays["rays_d"],
-                                bg_color=bg, perturb=True, noise=draws.get("noise"),
-                                pdf_u=draws.get("pdf_u"), time=time)
+                                bg_color=bg, perturb=True, noise=rdraws.get("noise"),
+                                pdf_u=rdraws.get("pdf_u"), time=time, **kw)
         per_ray = ((out["image"] - gt_rgb) ** 2).mean(dim=-1)
         loss = per_ray.mean() + self._loss_extra()
         extra = self._render_loss_extra(out)
@@ -209,17 +259,29 @@ class NeRFTrainer(Trainer):
             # per ray slot; padded slots have weight 0 and add nothing
             loss = loss + wd * eff_distloss(out["weights"], out["ts"], out["deltas"])
         loss.backward()
+        if mesh is not None:
+            sync_gradients(self.model.parameters(), mesh)
         self._apply_gradients()
 
-        metrics = {"loss": loss.detach()}
+        loss, per_ray = loss.detach(), per_ray.detach()
+        counts = None
         if "n_dropped" in out:
-            tot = (out["n_dropped"] + out["n_samples"]).float()
-            metrics["turbo_overflow"] = out["n_dropped"].float() / torch.clamp(tot, min=1.0)
+            counts = torch.stack([out["n_dropped"].float(), out["n_samples"].float()])
+        if mesh is not None:
+            # the batch's mean loss and counters, and every ray's error
+            tot = data_sum(mesh, torch.cat([loss.reshape(1), *([] if counts is None
+                                                                else [counts])]))
+            loss = tot[0] / axis_size(mesh, DATA_AXIS)
+            counts = None if counts is None else tot[1:]
+            per_ray = gather_predictions_dp(mesh, per_ray)
+        metrics = {"loss": loss}
+        if counts is not None:
+            metrics["turbo_overflow"] = counts[0] / torch.clamp(counts.sum(), min=1.0)
         if error_map is not None:
             # in place: the map is trainer state that nothing else holds
             em = self.aux["error_map"]
             ic = sample["inds_coarse"]
-            em[idx, ic] = 0.1 * em[idx][ic] + 0.9 * per_ray.detach()
+            em[idx, ic] = 0.1 * em[idx][ic] + 0.9 * per_ray
         return metrics
 
     def _loss_extra(self):
@@ -433,7 +495,12 @@ class NeRFTrainer(Trainer):
             fns = self._eval_fns(time)
             aabb_t = torch.as_tensor(aabb_eff, device=dev)
             fids = torch.zeros((chunk,), dtype=torch.int64, device=dev)
-            for c in range(inds.shape[0]):
+            C = inds.shape[0]
+            # under a mesh data rank d renders chunks d, d + D, ...
+            D = 1 if self.mesh is None else axis_size(self.mesh, DATA_AXIS)
+            mine = range(0 if self.mesh is None else axis_rank(self.mesh, DATA_AXIS), C, D)
+            dealt = []
+            for c in mine:
                 ic = inds[c]
                 rays = rays_from_frame_indices(pose_t, intr_t, H, W, ic, fids)
                 t_range = None
@@ -446,12 +513,26 @@ class NeRFTrainer(Trainer):
                 if not self.eval_f32_frames:
                     img = torch.round(img * 255.0).to(torch.uint8).float() / 255.0
                     dep = dep.to(torch.bfloat16).float()
-                images[dst[c]] = img
-                depths[dst[c]] = dep
+                if self.mesh is None:
+                    images[dst[c]] = img
+                    depths[dst[c]] = dep
+                else:
+                    dealt.append(torch.cat([img, dep[:, None]], dim=-1))
                 # the uniform renderer counts no samples; the v1 march has
                 # no budget to overflow: 0 dropped
                 n_samples += out.get("n_samples", 0.0)
                 n_dropped += out.get("n_dropped", 0.0)
+            if self.mesh is not None:
+                # every rank's chunks, back in chunk order c = j * D + d
+                J = -(-C // D)
+                mine_out = torch.zeros((J, chunk, 4), device=dev)
+                if dealt:
+                    mine_out[:len(dealt)] = torch.stack(dealt)
+                every = gather_predictions_dp(self.mesh, mine_out)
+                every = every.view(D, J, chunk, 4).transpose(0, 1).reshape(J * D, chunk, 4)[:C]
+                images[dst.reshape(-1)] = every[..., :3].reshape(-1, 3)
+                depths[dst.reshape(-1)] = every[..., 3].reshape(-1)
+                n_samples, n_dropped = data_sum(self.mesh, torch.stack([n_samples, n_dropped]))
         stats = {"n_samples": float(n_samples), "n_dropped": float(n_dropped)}
         return (images[:n].reshape(H, W, 3).cpu().numpy(),
                 depths[:n].reshape(H, W).cpu().numpy(), stats)
@@ -563,7 +644,11 @@ class NeRFTrainer(Trainer):
             gt = dataset.images[i]
             if gt.shape[-1] == 4:
                 gt = gt[..., :3] * gt[..., 3:] + 1.0 * (1 - gt[..., 3:])
-            meter.update(img, gt)
+            if self.mesh is None:
+                meter.update(img, gt)
+            else:
+                meter.V += self._psnr_dp(img, gt)
+                meter.N += 1
             if ssim_meter is not None:
                 ssim_meter.update(img, gt)
             if lpips_meter is not None:
@@ -583,6 +668,16 @@ class NeRFTrainer(Trainer):
             for k, v in result.items():
                 self.writer.add_scalar(f"eval/{k}", v, self.global_step)
         return result
+
+    def _psnr_dp(self, img: np.ndarray, gt: np.ndarray) -> float:
+        """A frame's PSNR through ``eval_metrics_dp``: each data rank scores
+        its contiguous share of the pixels (every rank holds the frame)."""
+        share = axis_rank(self.mesh, DATA_AXIS)
+        D = axis_size(self.mesh, DATA_AXIS)
+        p, g = (torch.tensor_split(torch.as_tensor(np.asarray(a, np.float32).reshape(-1, 3),
+                                                   device=self.device), D)[share]
+                for a in (img, gt))
+        return float(eval_metrics_dp(self.mesh, p, g)["psnr"])
 
     def _render_split(self, dataset: NeRFDataset, n: int) -> Iterator[Tuple[int, np.ndarray]]:
         """Yield (index, image [H, W, 3]) over the first n frames of a
@@ -608,7 +703,7 @@ class NeRFTrainer(Trainer):
             img = self._export_color(img)
             frames.append((np.clip(img, 0, 1) * 255).astype(np.uint8))
             self._save_image(os.path.join(out_dir, f"{self.name}_{i:04d}_rgb.png"), img)
-        if write_video and frames:
+        if write_video and frames and self._writes():
             self._write_video(out_dir, frames)
         return out_dir
 
@@ -645,9 +740,9 @@ class NeRFTrainer(Trainer):
             return linear_to_srgb_np(img)
         return img
 
-    @staticmethod
-    def _save_image(path: str, img: np.ndarray):
-        write_png(path, (np.clip(img, 0, 1) * 255).astype(np.uint8))
+    def _save_image(self, path: str, img: np.ndarray):
+        if self._writes():
+            write_png(path, (np.clip(img, 0, 1) * 255).astype(np.uint8))
 
     @torch.no_grad()
     def density_grid(self, resolution: int = 256) -> np.ndarray:
@@ -676,7 +771,8 @@ class NeRFTrainer(Trainer):
                   threshold: float = 10.0) -> str:
         """The iso-surface sigma = ``threshold`` of ``density_grid`` by
         marching tetrahedra, scaled to [-bound, bound]^3 and written to
-        ``path`` (default ``workspace/meshes/<name>_<epoch>.obj``)."""
+        ``path`` (default ``workspace/meshes/<name>_<epoch>.obj``). Under
+        a mesh every rank samples the density, and rank 0 writes."""
         from ngp_tpu_torch import native
 
         self.ensure_initialized()
@@ -685,6 +781,8 @@ class NeRFTrainer(Trainer):
         os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
         t0 = time.perf_counter()
         sigma = self.density_grid(resolution)
+        if not self._writes():
+            return path
         t1 = time.perf_counter()
         verts, faces = native.marching_cubes(sigma, threshold)
         b = self.render_cfg.bound

@@ -80,8 +80,11 @@ class GridNeRFTrainer(NeRFTrainer):
     def _eval_fns(self, time=None):
         """``_fns`` and the fused radiance closure, which only the
         ``NeRFNetwork`` has (TensoRF and the other families render with
-        their density and colour closures, as in JAX)."""
-        vals_fn = make_fused_sigma_rgb(self.model) if type(self.model) is NeRFNetwork else None
+        their density and colour closures, as in JAX), and not under a
+        mesh (as in JAX)."""
+        vals_fn = None
+        if type(self.model) is NeRFNetwork and self.mesh is None:
+            vals_fn = make_fused_sigma_rgb(self.model)
         return (*self._fns(), vals_fn)
 
     @torch.no_grad()
@@ -94,22 +97,31 @@ class GridNeRFTrainer(NeRFTrainer):
         static scene's whole state."""
         return self.aux["occ"]
 
+    def _step_draws(self, n_rays: int, draws, dev):
+        """The march's draw for a whole step: its lattice noise [n]."""
+        noise = draws.get("noise")
+        if noise is None:
+            noise = torch.rand((n_rays,), generator=self.generator, device=dev)
+        return {"noise": noise}
+
     def _render_with(self, fns, rays_o, rays_d, bg_color=None, aabb=None,
                      t_range=None, perturb=False, noise=None, pdf_u=None, time=None,
-                     return_geo=False):
+                     return_geo=False, train_budget=None):
         """The turbo or the v1 march on ``_occ_at(time)`` (the grid renders
         draw no PDF samples: ``pdf_u`` is not used); ``return_geo`` as the
-        renders take it."""
+        renders take it, ``train_budget`` as the turbo render takes it (the
+        v1 march has no budget)."""
         cfg = self.render_cfg
         density_fn, color_fn, bg_fn, vals_fn = fns
         occ = self._occ_at(time)
         if perturb:
             # training: the config's own budgets, no eval dials
+            kw = {"train_budget": train_budget} if cfg.turbo else {}
             render = render_rays_grid_turbo if cfg.turbo else render_rays_grid
             return render(density_fn, color_fn, rays_o, rays_d, occ, cfg,
                           bg_color=bg_color, aabb=aabb, t_range=t_range, perturb=True,
                           generator=self.generator, noise=noise, bg_fn=bg_fn,
-                          return_geo=return_geo)
+                          return_geo=return_geo, **kw)
         over = {}
         if self.eval_probe_stride > 1:
             over["max_steps"] = max(cfg.max_steps // self.eval_probe_stride, 16)

@@ -27,6 +27,12 @@ the JAX trainer writes them: ``train/<metric>`` and ``train/lr`` at each
 metrics flush, ``eval/loss`` after ``evaluate_one_epoch`` and
 ``eval/<metric>`` after the NeRF trainers' ``evaluate``; otherwise
 ``writer`` is None.
+
+Under a mesh (``self.mesh``, ``parallel.make_mesh``; every rank runs the
+same loop) rank 0 alone logs and writes files. A checkpoint holds the
+whole CP factor banks, their Adam moments and EMA shadows, gathered over
+the ``model`` axis, as the JAX trainer's ``device_get`` gives them, so it
+equals a one-device checkpoint; ``load_checkpoint`` splits them again.
 """
 
 from __future__ import annotations
@@ -37,6 +43,7 @@ from typing import Any, Callable, Dict, Iterable, List, Optional, Union
 
 import torch
 
+from ngp_tpu_torch.parallel.mesh import gather_split, split_names, take_split
 from ngp_tpu_torch.training import checkpoints as ckpt_lib
 from ngp_tpu_torch.training.state import EMA, make_optimizer
 
@@ -67,6 +74,9 @@ class Trainer:
         self.scheduler = None
         self.ema: Optional[EMA] = None
         self.last_restore_skipped: List[str] = []
+        # a parallel.make_mesh mesh: rays split over "data" in the train
+        # step and the frame renders (see training/nerf.py), or None
+        self.mesh = None
         self.writer = None
         if use_tensorboard:
             try:
@@ -156,8 +166,8 @@ class Trainer:
         for epoch in range(self.epoch + 1, max_epochs + 1):
             self.epoch = epoch
             self.train_one_epoch(train_loader() if callable(train_loader) else train_loader)
-            if (epoch == max_epochs
-                    or time.time() - self._last_ckpt_time > self.ckpt_min_interval_s):
+            if self._agree(epoch == max_epochs
+                           or time.time() - self._last_ckpt_time > self.ckpt_min_interval_s):
                 self.save_checkpoint()
                 self._last_ckpt_time = time.time()
             if valid_loader is not None and epoch % self.eval_interval == 0:
@@ -216,7 +226,23 @@ class Trainer:
                 f"scene loses far samples (watch eval PSNR)"
             )
 
+    def _agree(self, flag: bool) -> bool:
+        """Under a mesh, rank 0's ``flag`` on every rank (a decision read
+        off the host clock, which the ranks must take together), else
+        ``flag``."""
+        if self.mesh is None:
+            return flag
+        t = torch.tensor([int(flag)], device=next(self.model.parameters()).device)
+        torch.distributed.broadcast(t, src=0)
+        return bool(t.item())
+
+    def _writes(self) -> bool:
+        """Whether this process logs and writes files: rank 0 under a mesh."""
+        return self.mesh is None or torch.distributed.get_rank() == 0
+
     def log(self, msg: str):
+        if not self._writes():
+            return
         line = f"[{time.strftime('%H:%M:%S')}] {msg}"
         print(line, flush=True)
         os.makedirs(self.workspace, exist_ok=True)
@@ -270,12 +296,32 @@ class Trainer:
                       for g, sg in zip(groups, saved["param_groups"])]
         self.optimizer.load_state_dict({"state": state, "param_groups": groups})
 
+    def _resplit(self, sd: Optional[Dict[str, Any]], fn) -> Optional[Dict[str, Any]]:
+        """``sd`` with ``fn`` applied to the split banks' entries (state
+        dicts by parameter name; the optimizer's per-parameter dicts, all but
+        their step count). Every rank calls it in the same order."""
+        names = split_names(self.model) if self.mesh is not None else ()
+        if sd is None or not names:
+            return sd
+        out = dict(sd)
+        for k in sorted(names):
+            v = out.get(k)
+            if isinstance(v, dict):
+                out[k] = {kk: vv if kk == "step" else fn(vv) for kk, vv in v.items()}
+            elif v is not None:
+                out[k] = fn(v)
+        return out
+
     def _ckpt_state(self) -> Dict[str, Any]:
+        def whole(sd):
+            return self._resplit(sd, lambda t: gather_split(t, self.mesh))
+
+        opt = self._optimizer_state()
         return {
-            "model": self.model.state_dict(),
-            "optimizer": self._optimizer_state(),
+            "model": whole(self.model.state_dict()),
+            "optimizer": dict(opt, state=whole(opt["state"])),
             "scheduler": self.scheduler.state_dict(),
-            "ema": self.ema.state_dict() if self.ema is not None else None,
+            "ema": whole(self.ema.state_dict()) if self.ema is not None else None,
             "aux": self._aux_state(),
             "global_step": self.global_step,
             "best_loss": self.stats["best_loss"],
@@ -284,13 +330,20 @@ class Trainer:
 
     def save_checkpoint(self, best: bool = False) -> str:
         """A numbered checkpoint, or with ``best`` the best one, whose
-        model weights are the EMA's."""
+        model weights are the EMA's. Under a mesh every rank calls it and
+        rank 0 writes the file."""
         self.ensure_initialized()
         state = self._ckpt_state()
-        if best and self.ema is not None:
-            state["model"] = dict(state["model"], **self.ema.state_dict())
-        return ckpt_lib.save_checkpoint(self.workspace, self.name, state, epoch=self.epoch,
-                                        max_keep=self.max_keep_ckpt, best=best)
+        if best and state["ema"] is not None:
+            state["model"] = dict(state["model"], **state["ema"])
+        if self._writes():
+            path = ckpt_lib.save_checkpoint(self.workspace, self.name, state, epoch=self.epoch,
+                                            max_keep=self.max_keep_ckpt, best=best)
+        else:
+            path = ckpt_lib.checkpoint_path(self.workspace, self.name, self.epoch, best)
+        if self.mesh is not None:
+            torch.distributed.barrier()  # the file exists for every rank
+        return path
 
     def load_checkpoint(self, path: Optional[str] = None) -> bool:
         """Restore tolerantly (see the module docstring); returns whether a
@@ -303,6 +356,14 @@ class Trainer:
             self.log("no checkpoint found, training from scratch")
             return False
         sd = ckpt_lib.load_checkpoint(path)
+        if self.mesh is not None:
+            # this model rank's columns of the whole banks
+
+            def mine(sd_):
+                return self._resplit(sd_, lambda t: take_split(t, self.mesh))
+
+            sd = dict(sd, model=mine(sd.get("model")), ema=mine(sd.get("ema")),
+                      optimizer=dict(sd["optimizer"], state=mine(sd["optimizer"]["state"])))
         self._restore_metadata(sd.get("meta") or {})
         skipped: List[str] = []
         self.model.load_state_dict(

@@ -69,6 +69,9 @@ MODULES = [
     "ngp_tpu_torch.training.tensorf",
     "ngp_tpu_torch.training.ccnerf",
     "ngp_tpu_torch.training.dnerf",
+    "ngp_tpu_torch.parallel",
+    "ngp_tpu_torch.parallel.mesh",
+    "ngp_tpu_torch.parallel.collectives",
     "ngp_tpu_torch.main_nerf",
     "ngp_tpu_torch.main_sdf",
     "ngp_tpu_torch.main_tensoRF",

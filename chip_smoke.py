@@ -41,8 +41,9 @@ factor backward's and encoder's run kernels, whose SASS must call no
      runs); the hash-grid encoder at the refresh chunk (131,072 points) and a
      hash-grid train step (4096 rays x 256 samples = 1,048,576 points)
      on the full-width table (16 levels x 2, 6,119,864 rows), forward
-     and table gradient, and the row scatter-add (which no path runs
-     any more) at the probe script's shape and one hash level's, with
+     and table gradient, and the row scatter-add (the brick grid's table
+     gradient; phase 17 (c) holds it on that path's own rows) at the
+     probe script's shape and one hash level's, with
      ``Tensor.index_add_`` timed beside it; the coarse lookup (which
      no path runs since the eval prepass became one kernel) on random
      cells; the grid kernels' 2-D
@@ -140,21 +141,26 @@ factor backward's and encoder's run kernels, whose SASS must call no
      (``tensorf_runs``): (a) ``-O --iters 2048`` (51 epochs, past the
      shrink and the upsample to 152^3 at step 2000; the loss falls, the
      AABB shrank inside the box, the test PSNR beats a white frame's and
-     ``TENSORF_MIN_PSNR``; rays/s, a profiled step, the factor taps as
-     ``index_select`` and as advanced indexing, ``march_turbo`` on the
+     ``TENSORF_MIN_PSNR``; rays/s, a profiled step, ``scatter_add_taps``
+     (the factor taps' gradient) against its plain version on every call
+     of a step's own taps and, at 152^3 on uniform, clustered and padded
+     points in both corner conventions, beside ``index_add_`` and
+     ``grid_sample``'s backward, the factor taps as the port's and as
+     advanced indexing, ``march_turbo`` on the
      last step's and a test frame's own march inputs, every ray bit for
      bit, and the prepass kernel on a test frame's prepass), (b)
      ``--test`` (a fresh trainer resizes to 152^3 before it loads; the
      PSNR equals (a)'s), (c) ``--cp --iters 256`` and (d) ``--bg_radius 32
      --iters 128`` (the loss falls; the background net runs in training
-     and in eval);
+     and in eval); the runs that train launch ``scatter_add_taps``;
 15.  runs ``ngp_tpu_torch.main_CCNeRF`` on phase 11's scene
      (``ccnerf_runs``) at the CLI's widths: (a) ``-O --compose --iters
      512`` (the loss falls; rays/s; the finalized full rank's and the
      three compression levels' test PSNRs beside a white frame's;
      ``finalize`` leaves sigma and rgb at 65,536 points within
      ``FINALIZE_TOL``; the composed scene's frames written; one profiled
-     step of the rank-residual model; ``march_turbo`` on a step's own
+     step of the rank-residual model; ``scatter_add_taps`` on every call
+     of a step's own taps; ``march_turbo`` on a step's own
      inputs, and the prepass kernel on a test frame's prepass, bit for
      bit), (b) ``--test`` (the same full-rank PSNR);
 16.  writes the dynamic synthetic scene (a moving sphere) and runs
@@ -187,10 +193,12 @@ factor backward's and encoder's run kernels, whose SASS must call no
      every guidance step ran with a finite loss and gave the CP factors a
      gradient, the kernels they launched, one profiled guidance step; (c)
      ``brick_runs``: ``main_nerf --preset tpu --iters 400`` and ``--test``
-     (a PSNR floor over a white frame's, no kernel launched) and
-     ``brick_encode`` (torch) on the last step's own points: the card
-     against the CPU, its forward and forward + table gradient timed
-     beside their bound;
+     (a PSNR floor over a white frame's; the training run launches
+     ``scatter_add_rows``, the table gradient, and no other kernel) and
+     ``brick_encode`` on the last step's own points: the card against the
+     CPU, its forward and forward + table gradient timed beside their
+     bound, and ``scatter_add_rows`` against its plain version on that
+     step's own gathered rows, beside ``index_add_``;
 18.  ``ngp_tpu_torch/parallel/`` on one rank over NCCL (``parallel_runs``):
      turbo-hq at full width from one seed with no mesh, under
      ``make_mesh(1)`` and under a (1, 1) ("data", "model") mesh with the CP
@@ -217,7 +225,7 @@ same function (else null), and its bound, the least time the card could
 take for the same work: the larger of the bytes it must move over the
 memory rate and its operations over the peak rate of the units that
 could do them (``bound``), and under "paths" its launches on each of
-phases 17's and 18's paths. The last line is a JSON object
+phases 14's, 15's, 17's and 18's paths. The last line is a JSON object
 ``{"ok": true, "device": {...}}``; any failure raises and exits non-zero.
 """
 
@@ -578,6 +586,110 @@ def scatter_bound(ks, idx, rows, num_rows):
     return 2.0 * 2.0**-24 * adds * s_abs
 
 
+def taps_bound(sk, g, coords, shape, align_corners):
+    """``scatter_add_taps`` sums each cell's products g * w in no fixed
+    order: per entry, 2 (n - 1) 2^-24 times the sum of its n products'
+    magnitudes (n: the taps that land in the cell)."""
+    import torch
+
+    counts = torch.zeros(math.prod(shape[1:]), device=g.device)
+    for idx, ok, _ in sk.factor_taps(coords, shape[1:], align_corners):
+        counts.index_add_(0, idx[ok], torch.ones(int(ok.sum()), device=g.device))
+    s_abs = sk.scatter_add_taps_plain(g.abs(), coords, torch.zeros(shape, device=g.device),
+                                      align_corners)
+    return 2.0 * 2.0**-24 * counts.view(shape[1:]) * s_abs
+
+
+def taps_check(sk, g, coords, shape, align_corners, label, card, results, library, timed=True):
+    """``scatter_add_taps`` (g [R, N], coords [N] or [N, 2], a factor of
+    ``shape``) against its plain version: the same cells receive a
+    gradient (the kernel rounds the pixel coordinates as the forward does)
+    and each entry is within ``taps_bound``. With ``timed``, its time
+    beside its bound (g and the coords read once, the factor gradient
+    written once; per sample about 5 operations a tap for its cell and
+    weight, per row and tap a product and a sum), ``index_add_`` over the
+    taps' concatenated cells and weighted cotangent, and the backward of
+    ``grid_sample`` (bilinear, zeros padding, the same corner convention)
+    into its input: the same gradient in one PyTorch call, its
+    ``library_ms``, beside its largest difference from the kernel (it
+    rounds the pixel coordinates its own way)."""
+    import torch
+    import torch.nn.functional as F
+
+    got = sk.scatter_add_taps(g, coords, torch.zeros(shape, device=g.device), align_corners)
+    want = sk.scatter_add_taps_plain(g, coords, torch.zeros(shape, device=g.device),
+                                     align_corners)
+    bound_t = taps_bound(sk, g, coords, shape, align_corners)
+    err = (got - want).abs()
+    if not torch.equal(got != 0, want != 0) or (err > bound_t).any():
+        raise RuntimeError(f"scatter_add_taps [{label}]: the kernel's cells or sums differ from "
+                           f"the plain version's (max |kernel - plain| {float(err.max())})")
+    if not timed:
+        return float(err.max())
+    R, N = g.shape
+    taps = 2 if len(shape) == 2 else 4
+    key = ("scatter_add_taps", label)
+    outs = [torch.zeros(shape, device=g.device) for _ in range(3)]
+    results[key] = compare(
+        "scatter_add_taps", lambda: sk.scatter_add_taps(g, coords, outs[0], align_corners),
+        lambda: sk.scatter_add_taps_plain(g, coords, outs[1], align_corners), "float32",
+        (nbytes(g, coords) + 4 * math.prod(shape), 0, N * 5 * taps + 2 * R * N * taps),
+        tol=lambda _: [bound_t])
+    cells, vals = [], []
+    for idx, ok, w in sk.factor_taps(coords, shape[1:], align_corners):
+        cells.append(idx)
+        vals.append(torch.where(ok[None, :], g * w[None, :], torch.zeros((), device=g.device)))
+    cells, vals = torch.cat(cells), torch.cat(vals, dim=1)
+    flat = outs[2].view(R, -1)
+    add_ms = cuda_ms(lambda: flat.index_add_(1, cells, vals))
+    # a line is an image of one row, sampled at y = 0 (exactly its row)
+    spatial = (1, shape[1]) if len(shape) == 2 else shape[1:]
+    inp = torch.zeros((1, R, *spatial), device=g.device, requires_grad=True)
+    uv = coords if coords.ndim == 2 else torch.stack([coords, torch.zeros_like(coords)], dim=-1)
+    sampled = F.grid_sample(inp, uv.reshape(1, 1, N, 2), mode="bilinear", padding_mode="zeros",
+                            align_corners=align_corners)
+    gs = g.view(1, R, 1, N)
+    (d_inp,) = torch.autograd.grad(sampled, inp, gs, retain_graph=True)
+    library[key] = cuda_ms(lambda: torch.autograd.grad(sampled, inp, gs, retain_graph=True))
+    gs_diff = float((d_inp.view(shape) - got).abs().max())
+    print(f"scatter_add_taps [{label}]: {R} rows x {N} samples into {tuple(shape[1:])}, "
+          f"align_corners={align_corners}; kernel {results[key][1]:.4f} ms, device "
+          f"{device_ms(lambda: sk.scatter_add_taps(g, coords, outs[0], align_corners)):.4f} ms "
+          f"(queued), plain {results[key][2]:.4f} ms, index_add_ {add_ms:.4f} ms, grid_sample's "
+          f"backward {library[key]:.4f} ms (max |difference| from the kernel {gs_diff:.3e}), "
+          f"bound {results[key][3][0]:.4f} ms  [{card}]", flush=True)
+    return float(err.max())
+
+
+def keep_taps(sk, calls):
+    """A stand-in for ``scatter_add_taps`` that keeps each call's inputs
+    (g and the coords cloned, the factor's shape, the convention) in
+    ``calls`` and launches the kernel."""
+    launch = sk.scatter_add_taps
+
+    def keeping(g, coords, out, align_corners):
+        calls.append((g.clone(), coords.clone(), tuple(out.shape), align_corners))
+        return launch(g, coords, out, align_corners)
+
+    return keeping
+
+
+def step_taps(sk, calls, label, card, results, library):
+    """``taps_check`` on every call of a step's factor taps (``keep_taps``),
+    the largest (rows x samples) one timed, under "<label> largest call"."""
+    largest = max(range(len(calls)), key=lambda i: calls[i][0].numel())
+    worst = 0.0
+    for i, (g, coords, shape, align) in enumerate(calls):
+        if i != largest:
+            worst = max(worst, taps_check(sk, g, coords, shape, align, f"{label} call {i}", card,
+                                          results, library, timed=False))
+    g, coords, shape, align = calls[largest]
+    worst = max(worst, taps_check(sk, g, coords, shape, align, f"{label} largest call", card,
+                                  results, library))
+    print(f"{label}: {len(calls)} scatter_add_taps calls held against the plain version, max "
+          f"|kernel - plain| {worst:.3e}  [{card}]", flush=True)
+
+
 def card_line():
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -782,14 +894,19 @@ def head_weights(gen, dev, dt, D, H1, OUT, sh, hidden):
             tuple(layer(cdims[i], cdims[i + 1]) for i in range(len(cdims) - 1)))
 
 
-def sass_lines(lib_path, kernel):
-    """The SASS instruction lines of every function of the built library
-    whose name holds ``kernel``, from ``cuobjdump --dump-sass``."""
+def sass_dump(lib_path):
+    """The built library's SASS, from ``cuobjdump --dump-sass`` (about
+    15 s on an H100 host: dumped once and read for every kernel)."""
     from ngp_tpu_torch.ops.kernels import build
 
     tool = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
-    sass = subprocess.run([tool, "--dump-sass", str(lib_path)], check=True,
+    return subprocess.run([tool, "--dump-sass", str(lib_path)], check=True,
                           capture_output=True, text=True, timeout=300).stdout
+
+
+def sass_lines(sass, kernel):
+    """The SASS instruction lines of every function in ``sass`` (a
+    ``sass_dump``) whose name holds ``kernel``."""
     lines, inside = [], False
     for line in sass.splitlines():
         if "Function :" in line:
@@ -951,7 +1068,7 @@ def print_results(results, library, card, printed):
         if key in printed:
             continue
         lib = library.get(key)
-        lib = "" if lib is None else f", index_add_ {lib:.4f} ms"
+        lib = "" if lib is None else f", library {lib:.4f} ms"
         print(f"kernel {key[0]} [{key[1]}]: max_abs_err {err:.3e}, kernel {k_ms:.4f} ms, "
               f"plain {p_ms:.4f} ms{lib}, bound {b_ms:.4f} ms ({b_by})  [{card}]")
     return printed | set(results)
@@ -2124,13 +2241,15 @@ def sdf_runs(dev, card, results):
     return counts
 
 
-def tensorf_runs(dev, card, scene, rays_s_11a, results):
+def tensorf_runs(dev, card, scene, rays_s_11a, results, library):
     """Phase 14: ``ngp_tpu_torch.main_tensoRF`` on phase 11's scene, in this
     process. (a) ``-O --iters 2048`` (51 epochs: the shrink and the first
     upsample at step 2000): the loss falls, the factors end at 152^3 in an
     AABB that shrank inside the box, the test PSNR beats a white frame's
     and ``TENSORF_MIN_PSNR``; rays/s over the middle epochs, one profiled
-    step, the factor sampling's two tap forms (``tap_forms``),
+    step, ``scatter_add_taps`` held against its plain version on every
+    call of a step's own taps (``step_taps``), the factor sampling's tap
+    forms and the kernel on their points (``tap_forms``),
     ``march_turbo`` held against its plain version on the last step's own
     march inputs and on the test frames' first chunk, and the prepass
     kernel on the last test frame's prepass; (b)
@@ -2138,7 +2257,8 @@ def tensorf_runs(dev, card, scene, rays_s_11a, results):
     it loads, and its PSNR equals (a)'s; (c) ``--cp --iters 256``: the loss
     falls and the PSNR beats a white frame's; (d) ``--bg_radius 32 --iters
     128``: the loss falls and the background closure runs in training and
-    in eval. Returns the launch counts of (a)-(d)."""
+    in eval. The runs that train ((a), (c), (d)) must launch
+    ``scatter_add_taps``. Returns the launch counts of (a)-(d)."""
     import numpy as np
     import torch
 
@@ -2146,6 +2266,7 @@ def tensorf_runs(dev, card, scene, rays_s_11a, results):
     from ngp_tpu_torch.data.nerf_dataset import NeRFDataset
     from ngp_tpu_torch.models import occupancy
     from ngp_tpu_torch.models.tensorf import TensoRFNetwork
+    from ngp_tpu_torch.ops.kernels import scatter as sk
 
     n_train = CLI_FRAMES[0]
     white = white_psnr(scene, "test")
@@ -2185,7 +2306,8 @@ def tensorf_runs(dev, card, scene, rays_s_11a, results):
         argv = [scene, "-O", "--workspace", ws, "--iters", str(TENSORF_ITERS)]
         trainer, a_counts, a_dt, _ = run(argv, "14(a) main_tensoRF -O", main_tensoRF.main)
         counts.append(a_counts)
-        check_launched("TensoRF (a) -O", a_counts, ("march_turbo", "ray_prepass"),
+        check_launched("TensoRF (a) -O", a_counts, ("march_turbo", "ray_prepass",
+                                                     "scatter_add_taps"),
                        absent=("cp_density_fwd", "cp_sigma_rgb", "grid_encode_fwd",
                                "coarse_lookup_bits"))
         means = epoch_means(seen, "(a)")
@@ -2213,11 +2335,15 @@ def tensorf_runs(dev, card, scene, rays_s_11a, results):
         train_ds = NeRFDataset(scene, split="train", scale=0.33)
         batches = itertools.chain.from_iterable(
             trainer.make_loader(train_ds)() for _ in itertools.count())
-        trainer.step(next(batches))
+        taps = []
+        with patched((sk, "scatter_add_taps", keep_taps(sk, taps))):
+            trainer.step(next(batches))
+        step_taps(sk, taps, "TensoRF step", card, results, library)
         profile(lambda: trainer.step(next(batches)), 1, "TensoRF step", card,
-                focus=("index", "gather", "march", "elementwise", "gemm"))
-        del trainer, train_ds, batches
-        tap_forms(dev, card)
+                focus=("indexFunc", "indexSelect", "scatter_taps", "march", "elementwise",
+                       "gemm"))
+        del trainer, train_ds, batches, taps
+        tap_forms(dev, card, results, library)
 
         # (b) --test on (a)'s workspace
         trainer, b_counts, _, _ = run(argv + ["--test"], "14(b) --test", main_tensoRF.main)
@@ -2239,7 +2365,8 @@ def tensorf_runs(dev, card, scene, rays_s_11a, results):
             [scene, "-O", "--cp", "--workspace", os.path.join(tmp, "ws_cp"), "--iters",
              str(TENSORF_CP_ITERS)], "14(c) main_tensoRF -O --cp", main_tensoRF.main)
         counts.append(c_counts)
-        check_launched("TensoRF (c) --cp", c_counts, ("march_turbo", "ray_prepass"),
+        check_launched("TensoRF (c) --cp", c_counts, ("march_turbo", "ray_prepass",
+                                                      "scatter_add_taps"),
                        absent=("coarse_lookup_bits",))
         means = epoch_means(seen, "(c)")
         psnr_c = seen["results"][-1]["psnr"]
@@ -2257,7 +2384,7 @@ def tensorf_runs(dev, card, scene, rays_s_11a, results):
              os.path.join(tmp, "ws_bg"), "--iters", str(TENSORF_BG_ITERS)],
             "14(d) main_tensoRF -O --bg_radius", main_tensoRF.main)
         counts.append(d_counts)
-        check_launched("TensoRF (d) --bg_radius", d_counts, ("march_turbo",))
+        check_launched("TensoRF (d) --bg_radius", d_counts, ("march_turbo", "scatter_add_taps"))
         means = epoch_means(seen, "(d)")
         print(f"TensoRF (d): background calls {bg_calls}, {len(seen['bg_frames'])} "
               f"background-frame passes, test PSNR {seen['results'][-1]['psnr']:.4f} dB; "
@@ -2310,7 +2437,7 @@ def random_points(dev, n, D, seed):
     return x.contiguous().to(dev)
 
 
-def ccnerf_runs(dev, card, scene, results):
+def ccnerf_runs(dev, card, scene, results, library):
     """Phase 15: ``ngp_tpu_torch.main_CCNeRF`` on phase 11's scene at the
     CLI's widths (res 128^3, K = 5 rank groups to density ranks 64 vec /
     16 mat and colour ranks 64 / 64, SH degree 4, 4096 rays), in this
@@ -2320,7 +2447,9 @@ def ccnerf_runs(dev, card, scene, results):
     ``CCNERF_MIN_PSNR``); ``finalize`` leaves the field unchanged (sigma
     and rgb at 65,536 random points, before and after, within
     ``FINALIZE_TOL``); the composed scene's test frames written; one
-    profiled step of the trained rank-residual model; ``march_turbo`` held
+    profiled step of the trained rank-residual model, ``scatter_add_taps``
+    held against its plain version on every call of a step's own taps
+    (``step_taps``; launched on (a)); ``march_turbo`` held
     against its plain version on the last step's own march inputs, and the
     prepass kernel on the last test frame's prepass. (b)
     ``--test`` on (a)'s workspace: the full-rank PSNR equals (a)'s.
@@ -2332,6 +2461,7 @@ def ccnerf_runs(dev, card, scene, results):
     from ngp_tpu_torch.data.nerf_dataset import NeRFDataset
     from ngp_tpu_torch.models import occupancy
     from ngp_tpu_torch.models.ccnerf import CCNeRF
+    from ngp_tpu_torch.ops.kernels import scatter as sk
     from ngp_tpu_torch.training.ccnerf import CCNeRFTrainer
 
     n_train = CLI_FRAMES[0]
@@ -2371,7 +2501,8 @@ def ccnerf_runs(dev, card, scene, results):
         trainer, a_counts, a_dt, _ = run(argv + ["--compose"], "15(a) main_CCNeRF -O --compose",
                                          main_CCNeRF.main)
         counts.append(a_counts)
-        check_launched("CCNeRF (a) -O", a_counts, ("march_turbo", "ray_prepass"),
+        check_launched("CCNeRF (a) -O", a_counts, ("march_turbo", "ray_prepass",
+                                                    "scatter_add_taps"),
                        absent=("cp_density_fwd", "cp_sigma_rgb", "grid_encode_fwd",
                                "coarse_lookup_bits"))
         compare_prepass("CCNeRF test frame", *seen["prepass"][-1], card, results)
@@ -2414,10 +2545,14 @@ def ccnerf_runs(dev, card, scene, results):
         batches = itertools.chain.from_iterable(
             pt.make_loader(NeRFDataset(scene, split="train", scale=0.8))()
             for _ in itertools.count())
-        pt.step(next(batches))
+        taps = []
+        with patched((sk, "scatter_add_taps", keep_taps(sk, taps))):
+            pt.step(next(batches))
+        step_taps(sk, taps, "CCNeRF step", card, results, library)
         profile(lambda: pt.step(next(batches)), 1, "CCNeRF step", card,
-                focus=("index", "march", "elementwise", "gemm", "reduce"))
-        del trainer, pt, model0, batches, pre["params"]
+                focus=("indexFunc", "indexSelect", "scatter_taps", "march", "elementwise",
+                       "gemm", "reduce"))
+        del trainer, pt, model0, batches, pre["params"], taps
 
         # (b) --test on (a)'s workspace
         losses.clear()
@@ -2988,27 +3123,33 @@ def brick_rows(x, cfg):
     return torch.unique(torch.stack(rows, dim=1)[inside]).numel()
 
 
-def brick_runs(dev, card, scene, work):
+def brick_runs(dev, card, scene, work, results, library):
     """Phase 17 (c): ``main_nerf <scene> --preset tpu --iters BRICK_ITERS``
     (the brick grid, 8 levels x 4 of up to 2^16 bricks of 108 values, bf16,
     the v1 march at 256 steps and 32 samples a ray; 10 epochs), then
     ``--test`` on its workspace: the epoch-mean loss falls, the test PSNR
     beats a white frame's by ``BRICK_MIN_GAIN`` dB and ``--test`` gives the
-    same PSNR; no kernel is launched (the brick grid and the v1 march are
-    torch, as JAX leaves them to XLA). On the last step's own encoder
-    points and cotangent, ``brick_encode``'s forward on the card against
-    the CPU (bf16, ``TOL``) and the device ms of its forward and its forward
-    + table gradient beside their bound: each distinct gathered row read
-    once, the points and cotangent read, the bf16 output and the dense f32
-    table gradient written once (``brick_rows``, ``bound``); two profiled
-    train steps. Returns the launch counts of the two runs."""
+    same PSNR; the training run launches ``scatter_add_rows`` (the table
+    gradient, ``GatherRows``) and no other kernel, ``--test`` none (the
+    selects, weights and the v1 march are torch, as JAX leaves them to
+    XLA). On the last step's own encoder points and cotangent,
+    ``brick_encode``'s forward on the card against the CPU (bf16, ``TOL``)
+    and the device ms of its forward and its forward + table gradient
+    beside their bound: each distinct gathered row read once, the points
+    and cotangent read, the bf16 output and the dense f32 table gradient
+    written once (``brick_rows``, ``bound``); ``scatter_add_rows`` against
+    its plain version on that step's own gathered rows' cotangent (caught
+    from ``GatherRows``'s backward), beside ``index_add_`` and the kernel's
+    per-row branch on a copy of the rows one float into its buffer (4-byte
+    aligned, so no tiles); two profiled train steps. Returns
+    the launch counts of the two runs."""
     import numpy as np
     import torch
 
     from ngp_tpu_torch.data.nerf_dataset import NeRFDataset
     from ngp_tpu_torch.models.encoders import BrickGridEncoder
     from ngp_tpu_torch.ops import brickgrid
-
+    from ngp_tpu_torch.ops.kernels import scatter as sk
     white = white_psnr(scene, "test")
     caught, calls = {}, [0]
     forward = BrickGridEncoder.forward
@@ -3051,7 +3192,8 @@ def brick_runs(dev, card, scene, work):
             and abs(psnr_b - psnr) <= 0.01):
         raise RuntimeError(f"brick grid: epoch means {means}, test PSNR {psnr} (white {white}), "
                            f"--test {psnr_b}")
-    check_launched("brick grid --preset tpu", a_counts, (), absent=tuple(a_counts))
+    check_launched("brick grid --preset tpu", a_counts, ("scatter_add_rows",),
+                   absent=tuple(k for k in a_counts if k != "scatter_add_rows"))
     check_launched("brick grid --test", b_counts, (), absent=tuple(b_counts))
 
     e = caught["last"]
@@ -3074,12 +3216,50 @@ def brick_runs(dev, card, scene, work):
     ops = N * L * (9 + 8 * (2 + 2 * C))
     f_bound = bound(io, 0, ops)
     fb_bound = bound(io + nbytes(g) + cfg.num_rows * cfg.row_width * 4, 0, 2 * ops)
-    print(f"brick_encode (torch, no kernel) on step {trainer.global_step - 1}'s {N} points "
+    print(f"brick_encode (table gradient by scatter_add_rows) on step "
+          f"{trainer.global_step - 1}'s {N} points "
           f"({1.0 - float(inside_rows(x).float().mean()):.4f} outside the box, {rows} distinct "
           f"rows): forward {fwd_ms:.4f} ms (bound {f_bound[0]:.4f}, {f_bound[1]}), forward + "
           f"table gradient {fb_ms:.4f} ms (bound {fb_bound[0]:.4f}, {fb_bound[1]}); the card "
           f"vs the CPU on {n} points {float(err.max()):.3e}  [{card}]", flush=True)
-    del out, want, table, caught, e, x, g
+    # the table gradient's scatter on the step's own rows
+    kept = []
+    launch = sk.scatter_add_rows
+
+    def keeping(idx, rows, out):
+        kept.append((idx.clone(), rows.clone()))
+        return launch(idx, rows, out)
+
+    with patched((sk, "scatter_add_rows", keeping)):
+        torch.autograd.grad(brickgrid.brick_encode(x, table, cfg, torch.bfloat16), (table,), g)
+    idx_b, rows_b = kept[0]
+    R, W = cfg.num_rows, cfg.row_width
+    outs = [torch.zeros((R, W), device=dev) for _ in range(3)]
+    s_bound = scatter_bound(sk, idx_b, rows_b, R)
+    key = ("scatter_add_rows", "17c last step's rows")
+    results[key] = compare(
+        "scatter_add_rows", lambda: sk.scatter_add_rows(idx_b, rows_b, outs[0]),
+        lambda: sk.scatter_add_rows_plain(idx_b, rows_b, outs[1]), "float32",
+        (nbytes(idx_b, rows_b, outs[0]), 0, rows_b.numel()), tol=lambda want: [s_bound])
+    idx_l = idx_b.long()
+    library[key] = cuda_ms(lambda: outs[2].index_add_(0, idx_l, rows_b))
+    # the per-row branch on the same rows: a copy one float into its buffer
+    # is 4-byte aligned only, so it skips the tiles
+    rows_o = torch.empty((rows_b.numel() + 1,), device=dev)[1:].view(rows_b.shape)
+    rows_o.copy_(rows_b)
+    branches = {
+        "tiles": device_ms(lambda: sk.scatter_add_rows(idx_b, rows_b, outs[0])),
+        "a warp per row, unaligned copy": device_ms(
+            lambda: sk.scatter_add_rows(idx_b, rows_o, outs[0]))}
+    del rows_o
+    zero4 = float((rows_b.view(-1, W // 4, 4) == 0).all(-1).float().mean())
+    print(f"scatter_add_rows on step {trainer.global_step - 1}'s {idx_b.numel()} gathered rows "
+          f"({torch.unique(idx_b).numel()} distinct, {zero4:.4f} of their float4s zero) into "
+          f"{R} x {W}: {results[key][1]:.4f} ms, index_add_ {library[key]:.4f} ms, bound "
+          f"{results[key][3][0]:.4f} ms, max |kernel - plain| {results[key][0]:.3e}; device ms "
+          f"by branch {{{', '.join(f'{k}: {v:.4f}' for k, v in branches.items())}}}  "
+          f"[{card}]", flush=True)
+    del out, want, table, caught, e, x, g, kept, idx_b, rows_b, outs, s_bound, idx_l
     batches = itertools.chain.from_iterable(
         trainer.make_loader(NeRFDataset(scene, split="train"))() for _ in itertools.count())
     trainer.step(next(batches))
@@ -3128,23 +3308,26 @@ def advanced_sample_2d(plane, uv):
             + tap(y0 + 1, x0 + 1) * (fx * fy)[None, :])
 
 
-def tap_forms(dev, card):
+def tap_forms(dev, card, results, library):
     """TensoRF's factor sampling, forward and factor backward, with the
-    port's ``index_select`` taps and with advanced indexing
-    (``factor[:, idx]``), whose backward sorts the indices and walks each
-    run of equal ones in turn. At a ``-O`` step's shapes after the first
-    upsample: VM factors at 152^3 (sigma rank 16, colour 48, three
-    plane/line pairs each), 32,768 points (4096 rays x 8) drawn uniform in
-    the box, as a march places them (8 samples 2/152 apart on rays through
-    a N(0, 0.3^2) cluster), and those with the budget's unused slots
-    (18,495 of a step of 14,273 samples) at one point, as the compaction
-    pads them (ray 0 at t = 0). The features must agree bit for bit; times
-    are ``cuda_ms`` in turns (advanced, index_select, index_select,
-    advanced)."""
+    port's taps (``index_select`` forward, ``scatter_add_taps`` backward)
+    and with advanced indexing (``factor[:, idx]``), whose backward sorts
+    the indices and walks each run of equal ones in turn. At a ``-O``
+    step's shapes after the first upsample: VM factors at 152^3 (sigma
+    rank 16, colour 48, three plane/line pairs each), 32,768 points (4096
+    rays x 8) drawn uniform in the box, as a march places them (8 samples
+    2/152 apart on rays through a N(0, 0.3^2) cluster), and those with the
+    budget's unused slots (18,495 of a step of 14,273 samples) at one
+    point, as the compaction pads them (ray 0 at t = 0). The features must
+    agree bit for bit; times are ``cuda_ms`` in turns (advanced, the
+    port's, the port's, advanced). Then ``taps_check`` on each point set,
+    both corner conventions (TensoRF's and CCNeRF's), a plane of rank 16
+    and 48 and a line of rank 48."""
     import torch
 
     from ngp_tpu_torch.models.tensorf import MAT_IDS, VEC_IDS
     from ngp_tpu_torch.ops import interp
+    from ngp_tpu_torch.ops.kernels import scatter as sk
 
     res, ranks, n, used = TENSORF_RES, (16, 48), 4096 * 8, 14_273
     gen = torch.Generator(device=dev).manual_seed(SEED + 14)
@@ -3184,8 +3367,15 @@ def tap_forms(dev, card):
         i2, a2 = cuda_ms(lambda: step("index_select", xn)), cuda_ms(lambda: step("advanced", xn))
         print(f"TensoRF taps [{name} points]: forward + factor backward of {n} points on 6 "
               f"planes and 6 lines at {res}: advanced indexing {(a1 + a2) / 2:.3f} ms, "
-              f"index_select {(i1 + i2) / 2:.3f} ms; features equal, max |gradient "
+              f"the port's taps {(i1 + i2) / 2:.3f} ms; features equal, max |gradient "
               f"difference| {err:.3e}  [{card}]", flush=True)
+        uv = torch.stack([xn[:, MAT_IDS[0][0]], xn[:, MAT_IDS[0][1]]], dim=-1)
+        for align in (True, False):
+            for rank, shape, coords in ((16, (16, res, res), uv), (48, (48, res, res), uv),
+                                        (48, (48, res), xn[:, VEC_IDS[0]])):
+                kind = "plane" if len(shape) == 3 else "line"
+                taps_check(sk, cot[:rank], coords, shape, align,
+                           f"{name} {kind} R{rank} align_corners={align}", card, results, library)
 
 
 def train_step_gpu_vs_cpu(dev, hash_grid=False):
@@ -3349,13 +3539,15 @@ def main():
     for line in report.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"ptxas: {line.strip()}")
+    t0 = time.perf_counter()
+    sass = sass_dump(build.library_path())
     # the tensor-core kernels of the heads (bf16, and f32 in 3xTF32) and the
     # MLP chain: HMMA in their SASS, no spills but in the f32 heads' (each
     # thread holds a K chunk's loads beside its products' state in 128
     # registers; PERF.md)
     for kernel in ("cp_density_tc_kernel", "cp_sigma_rgb_tc_kernel", "cp_density_tf32x3_kernel",
                    "cp_sigma_rgb_tf32x3_kernel", "fused_mlp_tc_kernel"):
-        hmma = sum("HMMA" in line for line in sass_lines(build.library_path(), kernel))
+        hmma = sum("HMMA" in line for line in sass_lines(sass, kernel))
         spills = sum(n for _, _, n in ptxas_usage(report, kernel))
         print(f"SASS: {kernel} has {hmma} HMMA instructions; ptxas: {spills} bytes of spill "
               "stores", flush=True)
@@ -3367,7 +3559,7 @@ def main():
     for kernel in ("cp_bwd_runs_kernel", "cp_encode_runs_kernel"):
         for name, regs, spills in ptxas_usage(report, kernel):
             print(f"ptxas: {name}: {regs} registers, {spills} bytes of spill stores")
-        calls = [ln.strip() for ln in sass_lines(build.library_path(), kernel) if "CALL" in ln]
+        calls = [ln.strip() for ln in sass_lines(sass, kernel) if "CALL" in ln]
         divs = [c for c in calls if "div" in c.lower() or "rem" in c.lower()]
         print(f"SASS: {kernel}: {len(calls)} calls, {len(divs)} to a division routine",
               flush=True)
@@ -3376,6 +3568,8 @@ def main():
     for kernel in ("march_turbo_kernel", "ray_prepass_kernel", "grid_bwd_x_kernel"):
         for name, regs, spills in ptxas_usage(report, kernel):
             print(f"ptxas: {name}: {regs} registers, {spills} bytes of spill stores", flush=True)
+    del sass
+    phase("SASS checks", t0)
 
     # 2. the turbo-hq network at full width, random weights from a seed
     rc = RenderConfig(
@@ -3434,6 +3628,7 @@ def main():
     phase("f32 eval (16 full refreshes, one 800x800 frame)", t0)
 
     # 4. each kernel against its plain version at the paths' shapes
+    t4 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     factors = tuple(f.detach() for f in model.encoder.factors)
     w1, w2 = (w.detach() for w in model.sigma_net.weights)
@@ -3703,6 +3898,7 @@ def main():
         library[key] = cuda_ms(lambda: outs[2].index_add_(0, idx_s, rows_s))
         del idx_s, rows_s, outs, s_bound, lib
     printed = print_results(results, library, card, set())
+    phase("kernels against their plain versions", t4)
 
     # 5. a small frame: GPU kernels against the CPU plain versions, same
     # weights and grid, fresh trainers (no sticky spans or chunk counts)
@@ -4093,12 +4289,12 @@ def main():
 
         # 14. TensoRF on the same scene: -O (VM), --test, --cp, --bg_radius
         t0 = time.perf_counter()
-        tensorf_counts = tensorf_runs(dev, card, scene, rays_11a, results)
+        tensorf_counts = tensorf_runs(dev, card, scene, rays_11a, results, library)
         phase("TensoRF (-O, --test, --cp, --bg_radius)", t0)
 
         # 15. CCNeRF on the same scene: -O --compose, --test
         t0 = time.perf_counter()
-        ccnerf_counts = ccnerf_runs(dev, card, scene, results)
+        ccnerf_counts = ccnerf_runs(dev, card, scene, results, library)
         phase("CCNeRF (-O --compose, --test)", t0)
 
         # 16. D-NeRF on a dynamic scene: -O, --test, --hyper, --basis
@@ -4117,7 +4313,7 @@ def main():
         clip_counts, guided_counts = clip_runs(dev, card, scene, tmp)
         phase("CLIP guidance (ViT-B/16, -O --rand_pose --clip_model_path)", t0)
         t0 = time.perf_counter()
-        brick_counts = brick_runs(dev, card, scene, tmp)
+        brick_counts = brick_runs(dev, card, scene, tmp, results, library)
         phase("brick grid (--preset tpu, --test)", t0)
 
     # 18. parallelism: the trainers' mesh branches on one rank over NCCL
@@ -4132,12 +4328,15 @@ def main():
                    hash_train_counts, hash_frame_counts, *cli_counts, *rest_counts, *sdf_counts,
                    *tensorf_counts, *ccnerf_counts, *dnerf_counts, *view_counts, clip_counts,
                    *brick_counts, par_train_counts, par_frame_counts)
-    # phases 17's and 18's paths on their own (the guidance steps are a part
-    # of the CLIP run)
-    slice_paths = {"17a_viewer_nerf": view_counts[0], "17a_viewer_dnerf": view_counts[1],
+    # phases 14's, 15's, 17's and 18's paths on their own (the guidance steps
+    # are a part of the CLIP run)
+    def summed(runs):
+        return {k: sum(c[k] for c in runs) for k in runs[0]}
+
+    slice_paths = {"14_tensorf": summed(tensorf_counts), "15_ccnerf": summed(ccnerf_counts),
+                   "17a_viewer_nerf": view_counts[0], "17a_viewer_dnerf": view_counts[1],
                    "17b_clip_run": clip_counts, "17b_clip_guidance_steps": guided_counts,
-                   "17c_brickgrid": {k: a + b for (k, a), b in zip(brick_counts[0].items(),
-                                                                   brick_counts[1].values())},
+                   "17c_brickgrid": summed(brick_counts),
                    "18_parallel_train": par_train_counts, "18_parallel_frame": par_frame_counts}
     csrc = "ngp_tpu_torch/ops/kernels/csrc/"
     sources = {
@@ -4165,12 +4364,16 @@ def main():
                          ("cp_bwd_banks", f"step {TRAIN_STEPS - 1}")),
         "cp_encode_fwd": (csrc + "cp_kernels.cu", "ngp_tpu/ops/pallas/cp_kernels.py:159",
                           ("cp_encode_fwd", "bfloat16->bfloat16 mesh chunk")),
-        # on no path: launches stays 0 (scatter_add_rows too since the table
-        # gradient adds by itself)
+        # on no path: launches stays 0
         "fused_mlp": (csrc + "mlp_kernels.cu", "ngp_tpu/ops/pallas/fused_mlp.py:92",
                       ("fused_mlp", str(MLP_ROWS[0]))),
+        # the brick grid's table gradient, on phase 17 (c)'s last step's own
+        # rows; the factor taps' gradient (TensoRF, CCNeRF), on the largest
+        # call of a TensoRF step's own taps
         "scatter_add_rows": (csrc + "scatter_kernels.cu", "scripts/perf_probe2_r2.py:128",
-                             ("scatter_add_rows", "{0}x{2} into {1}".format(*SCATTER_SHAPES[0]))),
+                             ("scatter_add_rows", "17c last step's rows")),
+        "scatter_add_taps": (csrc + "scatter_kernels.cu", "ngp_tpu/ops/interp.py:62",
+                             ("scatter_add_taps", "TensoRF step largest call")),
         # the JAX package leaves these to XLA: its take and einsum
         "grid_encode_fwd": (csrc + "grid_kernels.cu", "ngp_tpu/ops/hashgrid.py:203",
                             ("grid_encode_fwd", f"bfloat16 {GRID_ROWS[-1]}")),

@@ -13,10 +13,13 @@ dense row-major until they overflow ``2^log2_hashmap_size`` rows, then
 hashed by JAX's primes in wrapping uint32 (taken here in int64, cut to 32
 bits after each product and sum, as ``ops/hashgrid.py`` does).
 
-JAX leaves all of it to XLA (no Pallas kernel), and so the port computes
-it in torch on either device: ``index_select`` for the gather (its
-backward, ``index_add_``, gives the table gradient) and autograd through
-the selects and weights for the point gradient.
+JAX leaves all of it to XLA (no Pallas kernel). The port gathers the
+rows by ``index_select`` in ``ops/kernels/scatter.py:GatherRows``, whose
+backward adds the rows' cotangent into the table gradient by the kernel
+``scatter_add_rows`` on the card (its plain version, ``index_add_``, on
+the CPU): one f32 sum of all levels' rows, as JAX gathers all levels in
+one take so that autodiff emits a single scatter-add. The selects and
+weights, and the point gradient through them, are torch ops.
 """
 
 from __future__ import annotations
@@ -27,6 +30,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+
+from ngp_tpu_torch.ops.kernels.scatter import GatherRows
 
 _PRIMES = (1, 2654435761, 805459861)
 _M32 = 0xFFFFFFFF
@@ -145,10 +150,12 @@ def brick_encode(x: torch.Tensor, table: torch.Tensor, cfg: BrickGridConfig,
         x0 = x0.long()
         lo.append(x0 & 1)
         idx.append(_brick_index(cfg, level, x0 >> 1) + cfg.offsets[level])
-    idx = torch.stack(idx, dim=1).reshape(-1)  # [N * L], level fastest
+    if cfg.num_rows >= 2**31:
+        raise ValueError(f"brick_encode: {cfg.num_rows} table rows do not fit int32 indices")
+    idx = torch.stack(idx, dim=1).reshape(-1).to(torch.int32)  # [N * L], level fastest
     f = torch.stack(frac, dim=1)  # [N, L, 3]
     lo = torch.stack(lo, dim=1) == 1  # [N, L, 3]
-    halo = torch.index_select(table, 0, idx).to(dt).reshape(N, L, 3, 3, 3, C)
+    halo = GatherRows.apply(table, idx).to(dt).reshape(N, L, 3, 3, 3, C)
 
     def pick(t, axis, m):
         """The 2 of 3 halo entries along ``axis`` at the stencil's offset."""

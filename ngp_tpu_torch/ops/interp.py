@@ -1,12 +1,14 @@
 """Bilinear sampling and resizing with explicit corner conventions
-(``ngp_tpu/ops/interp.py``), for the TensoRF family: gathers and lerps
-in torch ops, differentiable by autograd in the factors and the points.
-No Pallas kernel computes these (the JAX package leaves them to XLA),
-so no kernel of the port does either. The taps are ``index_select``s,
-whose backward adds into the factors with ``index_add_``. Advanced
-indexing's backward sorts the indices and walks each run of equal ones
-in turn, and a TensoRF step pads its unused sample slots at one point:
-``chip_smoke.py:tap_forms`` times both forms on the card.
+(``ngp_tpu/ops/interp.py``), for the TensoRF family. The taps are
+``index_select``s of the factor lines and planes, lerped in torch ops;
+``FactorTaps`` gives their gradient in the factor by the kernel
+``scatter_add_taps`` on the card (``ops/kernels/scatter.py``; its plain
+version, one ``index_add_`` per tap, on the CPU), and in the points by
+autograd of the same forward. The JAX package leaves both to XLA (no
+Pallas kernel). A TensoRF step pads its unused sample slots at one point,
+so the taps of many consecutive samples hit one cell: the kernel sums
+such runs before it adds. ``chip_smoke.py:tap_forms`` times the taps'
+forms on the card.
 
 - ``align_corners=True``: u in [-1, 1] maps to pixel centres 0 .. W-1,
   (u + 1) / 2 * (W - 1) (``grid_sample``'s convention);
@@ -19,51 +21,63 @@ from __future__ import annotations
 from typing import Sequence
 
 import torch
+from torch.autograd.function import once_differentiable
+
+from ngp_tpu_torch.ops.kernels import scatter
 
 
-def _to_pixel(u: torch.Tensor, size: int, align_corners: bool) -> torch.Tensor:
-    u = u.float()
-    if align_corners:
-        return (u + 1.0) / 2.0 * (size - 1)
-    return (u + 1.0) / 2.0 * size - 0.5
+def _sample(factor: torch.Tensor, coords: torch.Tensor, align_corners: bool) -> torch.Tensor:
+    """The taps' lerp: factor [R, D] and coords [N], or [R, H, W] and
+    [N, 2] -> [R, N]."""
+    R = factor.shape[0]
+    flat = factor.reshape(R, -1)
+    out = None
+    for idx, ok, w in scatter.factor_taps(coords, factor.shape[1:], align_corners):
+        v = flat.index_select(1, idx)
+        v = torch.where(ok[None, :], v, torch.zeros((), dtype=v.dtype, device=v.device))
+        out = v * w[None, :] if out is None else out + v * w[None, :]
+    return out
+
+
+class FactorTaps(torch.autograd.Function):
+    """``_sample`` with its gradients: in the factor by
+    ``scatter.scatter_add_taps`` into a zeroed f32 factor, in the points by
+    autograd of ``_sample`` in the points alone, each only where autograd
+    asks for it."""
+
+    @staticmethod
+    def forward(ctx, factor, coords, align_corners):
+        ctx.save_for_backward(factor, coords)
+        ctx.align_corners = align_corners
+        return _sample(factor, coords, align_corners)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        factor, coords = ctx.saved_tensors
+        d_factor = d_coords = None
+        if ctx.needs_input_grad[0]:
+            d_factor = torch.zeros(factor.shape, dtype=torch.float32, device=factor.device)
+            scatter.scatter_add_taps(g.float().contiguous(), coords.float(), d_factor,
+                                     ctx.align_corners)
+            d_factor = d_factor.to(factor.dtype)
+        if ctx.needs_input_grad[1]:
+            with torch.enable_grad():
+                c = coords.detach().requires_grad_()
+                (d_coords,) = torch.autograd.grad(
+                    _sample(factor.detach(), c, ctx.align_corners), c, g)
+        return d_factor, d_coords, None
 
 
 def sample_1d(line: torch.Tensor, u: torch.Tensor, align_corners: bool = True) -> torch.Tensor:
     """line: [R, D]; u: [N] in [-1, 1] -> [R, N] (zero outside)."""
-    D = line.shape[-1]
-    p = _to_pixel(u, D, align_corners)
-    p0 = torch.floor(p)
-    f = p - p0
-    p0 = p0.long()
-
-    def tap(idx):
-        ok = (idx >= 0) & (idx < D)
-        v = line.index_select(1, idx.clamp(0, D - 1))
-        return torch.where(ok[None, :], v, torch.zeros((), dtype=v.dtype, device=v.device))
-
-    return tap(p0) * (1.0 - f)[None, :] + tap(p0 + 1) * f[None, :]
+    return FactorTaps.apply(line, u, align_corners)
 
 
 def sample_2d(plane: torch.Tensor, uv: torch.Tensor, align_corners: bool = True) -> torch.Tensor:
     """plane: [R, H, W]; uv: [N, 2] with uv[:, 0] = u on the W axis and
     uv[:, 1] = v on the H axis (``grid_sample``'s order) -> [R, N]."""
-    R, H, W = plane.shape
-    px = _to_pixel(uv[:, 0], W, align_corners)
-    py = _to_pixel(uv[:, 1], H, align_corners)
-    x0, y0 = torch.floor(px), torch.floor(py)
-    fx, fy = px - x0, py - y0
-    x0, y0 = x0.long(), y0.long()
-    flat = plane.reshape(R, H * W)
-
-    def tap(yi, xi):
-        ok = (xi >= 0) & (xi < W) & (yi >= 0) & (yi < H)
-        v = flat.index_select(1, yi.clamp(0, H - 1) * W + xi.clamp(0, W - 1))
-        return torch.where(ok[None, :], v, torch.zeros((), dtype=v.dtype, device=v.device))
-
-    return (tap(y0, x0) * ((1 - fx) * (1 - fy))[None, :]
-            + tap(y0, x0 + 1) * (fx * (1 - fy))[None, :]
-            + tap(y0 + 1, x0) * ((1 - fx) * fy)[None, :]
-            + tap(y0 + 1, x0 + 1) * (fx * fy)[None, :])
+    return FactorTaps.apply(plane, uv, align_corners)
 
 
 def _linspace_f32(start: float, stop: float, num: int, device) -> torch.Tensor:

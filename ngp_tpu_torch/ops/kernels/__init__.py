@@ -14,13 +14,16 @@
 - ``cp.cp_encode_fwd``       replaces ``ngp_tpu/ops/pallas/cp_kernels.py:cp_encode`` (forward;
   ``cp.CPEncode`` adds its backward through ``cp_bwd_banks``)
 - ``fused_mlp.fused_mlp``    replaces ``ngp_tpu/ops/pallas/fused_mlp.py:fused_mlp``
-- ``scatter.scatter_add_rows`` replaces ``scripts/perf_probe2_r2.py:scatter_pallas`` (the
-  hash-grid table gradient's row scatter-add)
+- ``scatter.scatter_add_rows`` replaces ``scripts/perf_probe2_r2.py:scatter_pallas`` (a row
+  scatter-add); ``scatter.GatherRows`` adds the brick grid's table gradient through it
+- ``scatter.scatter_add_taps`` replaces no Pallas kernel: the factor gradient of the
+  bilinear taps (TensoRF, CCNeRF), which the JAX package leaves to XLA's VJP of
+  ``jnp.take`` (``ngp_tpu/ops/interp.py:39``, ``:62``); ``interp.FactorTaps`` adds it
 - ``hashgrid.grid_encode_fwd`` and ``hashgrid.grid_encode_bwd`` replace no Pallas
   kernel: the JAX package leaves the hash-grid encoder and its VJP to XLA
   (``ngp_tpu/ops/hashgrid.py:203-204``); ``hashgrid.GridEncode`` adds the backward
   through ``grid_encode_bwd``, which adds into the table gradient by atomics
-  itself, so no path runs ``scatter_add_rows`` any more, and through
+  itself (it does not go through ``scatter_add_rows``), and through
   ``hashgrid.grid_encode_bwd_x``, the VJP in the points that JAX's autodiff
   of ``grid_encode`` gives (``hashgrid.py:161-209``; D-NeRF trains through it)
 
@@ -69,6 +72,7 @@ LAUNCHES: Dict[str, int] = {
     "grid_encode_bwd_4d": 0,
     "grid_encode_bwd_x_4d": 0,
     "scatter_add_rows": 0,
+    "scatter_add_taps": 0,
 }
 
 

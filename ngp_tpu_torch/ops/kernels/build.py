@@ -79,6 +79,7 @@ _SIGNATURES = {
         ctypes.c_float, _I, _P, _P,
     ],
     "ngp_scatter_add_rows": [_P, _P, _L, _I, _I, _P, _P],
+    "ngp_scatter_add_taps": [_P, _I, _L, _P, _L, _P, _L, _I, _I, _I, _P, _P],
 }
 
 

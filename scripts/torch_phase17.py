@@ -52,7 +52,7 @@ def main():
         runs = (("17a", lambda: cs.viewer_runs(dev, card, scene, os.path.join(tmp, "cli", "ws"),
                                                 dscene, os.path.join(tmp, "dnerf", "ws"))),
                 ("17b", lambda: cs.clip_runs(dev, card, scene, tmp)),
-                ("17c", lambda: cs.brick_runs(dev, card, scene, tmp)))
+                ("17c", lambda: cs.brick_runs(dev, card, scene, tmp, {}, {})))
         for name, run in runs:
             t0 = time.perf_counter()
             run()

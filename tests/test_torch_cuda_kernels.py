@@ -15,10 +15,14 @@ rounds each feature once from the same f32 lerps: the same bounds, by
 output type. ``fused_mlp``: 1e-2, a flipped bf16 rounding of a hidden
 unit. The module path of ``NeRFNetwork.density`` on the card against
 the CPU: 1e-4 in f32. The grid encoder forward: the same bounds, by
-output type. The row scatter-add and the grid encoder's table gradient
+output type. The row scatter-add (each of its branches), the taps'
+factor gradient and the grid encoder's table gradient
 (``grid_encode_bwd``, alone and as ``GridEncode``'s backward): f32 sums
 of n terms in two orders, at most 2 (n - 1) 2^-24 times the sum of
-their magnitudes. The hash-grid train
+their magnitudes; the taps' gradient also on exactly the plain
+version's cells. The taps and the brick grid through their autograd
+functions on the card against the CPU: values and gradients to 1e-5 of
+their largest entry. The hash-grid train
 step: as the cpgrid step. The grid kernels on 2-D points (the background
 net's encoder) and the background net on the card against the CPU: the
 same bounds; on 4-D points (D-NeRF's hyper grid), the same bounds. The
@@ -33,6 +37,8 @@ versions do: equal, bit for bit. The f32 heads (3xTF32 on the tensor
 cores for H1 <= 256) are held to the f32 tolerance above; their feats
 residual is the features as the products split them, within 2^-22 of
 f32's."""
+
+import math
 
 import numpy as np
 import pytest
@@ -1221,6 +1227,200 @@ def test_scatter_add_rows_kernel(dev, W, aligned):
     keep = (idx >= 0) & (idx < R)
     bound = scatter_bound(torch.where(keep, idx, -1), rows, R) + 2.0**-23 * out0.abs()
     assert ((got - want).abs() <= bound).all()
+
+
+# (kind, M rows, R table rows, W): duplicate-heavy indices, rows whose
+# float4s are mostly zero (the brick rows: 8 of 27 carry a cotangent), R
+# not a multiple of 32, a 43 MB out whose rows are mostly added once, the
+# widest tiled rows, hash level 0's narrow rows, rows of one float4
+ROW_CASES = [("dups", 200_000, 777, 108), ("zero_float4s", 100_000, 777, 108),
+             ("large_out", 60_000, 100_003, 108), ("wide", 20_000, 333, 256),
+             ("level0", 300_000, 4920, 2), ("narrow_vec", 100_000, 50, 4)]
+
+
+def _rows_case(dev, kind, M, R, W, layout, seed=0):
+    """Indices and rows of a case; ``offset`` rows are a view one float
+    into their buffer (4-byte aligned only), which takes the kernel's
+    per-row branch whatever W is."""
+    g = torch.Generator().manual_seed(seed)
+    idx = torch.randint(-3, R + 3, (M,), generator=g, dtype=torch.int32)
+    rows = torch.randn((M, W), generator=g)
+    if kind == "dups":
+        # runs of one index and a few hot indices, as a ray's samples share bricks
+        idx[: M // 2] = torch.randint(0, 10, (M // 2,), generator=g, dtype=torch.int32)
+        idx[M // 2: M // 2 + 5000] = 7
+    if kind == "zero_float4s":
+        live = torch.rand((M, W // 4), generator=g) < 8 / 27
+        rows = (rows.view(M, W // 4, 4) * live[..., None]).view(M, W)
+        rows[: M // 20] = 0.0
+    on_card = torch.empty((M * W + 1,), device=dev)[int(layout == "offset"):][:M * W]
+    return idx.to(dev), on_card.view(M, W).copy_(rows)
+
+
+@pytest.mark.parametrize("layout", ["aligned", "offset"])
+@pytest.mark.parametrize("kind,M,R,W", ROW_CASES)
+def test_scatter_add_rows_branches(dev, kind, M, R, W, layout):
+    """Both branches of the kernel against the plain version into a random
+    out: ``aligned`` rows of W % 4 == 0, at most 256 floats, take the
+    staged and merged tiles, the rest and every ``offset`` view a thread
+    or warp per row."""
+    from ngp_tpu_torch.ops.kernels import scatter as ks
+
+    idx, rows = _rows_case(dev, kind, M, R, W, layout)
+    out0 = torch.randn((R, W), generator=torch.Generator().manual_seed(1)).to(dev)
+    before = LAUNCHES["scatter_add_rows"]
+    got = ks.scatter_add_rows(idx, rows, out0.clone())
+    torch.cuda.synchronize()
+    assert LAUNCHES["scatter_add_rows"] == before + 1
+    want = ks.scatter_add_rows_plain(idx, rows, out0.clone())
+    # n adds into an entry of out0 are a sum of n + 1 terms; two orders of
+    # it differ by at most 2 n 2^-24 times the sum of the terms' magnitudes
+    adds = ks.scatter_add_rows_plain(idx, torch.ones_like(rows), torch.zeros_like(out0))
+    s_abs = ks.scatter_add_rows_plain(idx, rows.abs(), out0.abs())
+    assert ((got - want).abs() <= 2.0 * 2.0**-24 * adds * s_abs).all()
+
+
+def taps_bound(g, coords, shape, align_corners):
+    """f32 sums of n products g * w in two orders differ by at most
+    2 (n - 1) 2^-24 times the sum of their magnitudes (n: the taps that
+    land in a cell, per cell)."""
+    from ngp_tpu_torch.ops.kernels import scatter as ks
+
+    counts = torch.zeros(math.prod(shape[1:]), device=g.device)
+    for idx, ok, _ in ks.factor_taps(coords, shape[1:], align_corners):
+        counts.index_add_(0, idx[ok], torch.ones_like(idx[ok], dtype=torch.float32))
+    s_abs = ks.scatter_add_taps_plain(g.abs(), coords, torch.zeros(shape, device=g.device),
+                                      align_corners)
+    return 2.0 * 2.0**-24 * counts.view(shape[1:]) * s_abs + 1e-30
+
+
+def _tap_points(dev, kind, N, dims, size, align_corners, seed=0):
+    """Uniform points (some outside the grid), a ray's samples, the same
+    with the last 60% of the slots padded at the first point, or points on
+    cell edges and 1-2 ulps off them."""
+    g = torch.Generator().manual_seed(seed)
+    if kind == "edges":
+        k = torch.arange(-1, size + 1, dtype=torch.float64)
+        u = ((k / (size - 1) * 2 - 1) if align_corners else ((2 * k + 1) / size - 1)).float()
+        near = [u]
+        for steps in (1, 2):
+            for d in (math.inf, -math.inf):
+                v = u.clone()
+                for _ in range(steps):
+                    v = torch.nextafter(v, torch.full_like(v, d))
+                near.append(v)
+        u = torch.cat(near)
+        u = u.repeat((N + u.numel() - 1) // u.numel())[:N]
+        pts = u[:, None] if dims == 1 else torch.stack([u, u[torch.randperm(N, generator=g)]], 1)
+    else:
+        pts = torch.rand((N, dims), generator=g) * 2.4 - 1.2
+        if kind in ("ray", "padded"):
+            start = torch.rand((1, dims), generator=g) * 1.6 - 0.8
+            pts = start + 0.0131 * torch.arange(N)[:, None] * torch.rand((1, dims), generator=g)
+            pts = torch.remainder(pts + 1.0, 2.0) - 1.0
+        if kind == "padded":
+            pts[int(0.4 * N):] = pts[0]
+    pts = pts.contiguous().to(dev)
+    return pts[:, 0] if dims == 1 else pts
+
+
+# (R, grid, N): CCNeRF's narrowest group and TensoRF's ranks, lines and
+# planes at TensoRF's 152 and odd sizes, a tail tile and one sample
+TAP_CASES = [(1, (152,), 32768), (4, (128,), 5000), (16, (152, 152), 32768),
+             (48, (152,), 32768), (7, (13, 11), 1), (64, (128, 128), 4099),
+             (288, (57,), 700)]
+
+
+@pytest.mark.parametrize("kind", ["uniform", "ray", "padded", "edges"])
+@pytest.mark.parametrize("align_corners", [True, False])
+@pytest.mark.parametrize("R,grid,N", TAP_CASES)
+def test_scatter_add_taps_kernel(dev, R, grid, N, align_corners, kind):
+    """The taps' factor gradient against its plain version: the same
+    cells receive a gradient (the kernel rounds the pixel coordinates as
+    the forward does, so a sample on a cell edge adds where the forward
+    read), each entry within the f32 summation-order bound."""
+    from ngp_tpu_torch.ops.kernels import scatter as ks
+
+    coords = _tap_points(dev, kind, N, len(grid), grid[-1], align_corners, seed=R + N)
+    g = torch.randn((R, N), generator=torch.Generator().manual_seed(2)).to(dev)
+    before = LAUNCHES["scatter_add_taps"]
+    got = ks.scatter_add_taps(g, coords, torch.zeros((R, *grid), device=dev), align_corners)
+    torch.cuda.synchronize()
+    assert LAUNCHES["scatter_add_taps"] == before + 1
+    want = ks.scatter_add_taps_plain(g, coords, torch.zeros((R, *grid), device=dev),
+                                     align_corners)
+    assert torch.equal(got != 0, want != 0)
+    assert ((got - want).abs() <= taps_bound(g, coords, (R, *grid), align_corners)).all()
+
+
+def test_factor_taps_and_gather_rows_on_the_card(dev):
+    """``interp.sample_1d`` / ``sample_2d`` (TensoRF's strided coordinate
+    columns) and ``brick_encode`` on the card through the kernels, against
+    the same on the CPU: values and gradients to 1e-5 of their largest
+    entry (f32 sums in another order)."""
+    from ngp_tpu_torch.ops import brickgrid, interp
+    from ngp_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    g = torch.Generator().manual_seed(5)
+    plane, line = torch.randn((16, 40, 33), generator=g), torch.randn((48, 37), generator=g)
+    xn = torch.rand((3000, 3), generator=g) * 2.2 - 1.1
+    xn[1000:] = xn[0]
+    cot = torch.randn((16, 3000), generator=g)
+
+    def taps(dev_, align):
+        p, ln, x = (t.to(dev_).clone().requires_grad_() for t in (plane, line, xn))
+        uv = torch.stack([x[:, 0], x[:, 2]], dim=-1)
+        out = interp.sample_2d(p, uv, align) * interp.sample_1d(ln, x[:, 1], align)[:16]
+        (out * cot.to(dev_)).sum().backward()
+        return out.detach().cpu(), p.grad.cpu(), ln.grad.cpu(), x.grad.cpu()
+
+    cfg = brickgrid.BrickGridConfig(num_levels=4, level_dim=4, base_resolution=8,
+                                    log2_hashmap_size=10)
+    table = cfg.init(torch.Generator().manual_seed(6), device="cpu")
+    x = torch.rand((4096, 3), generator=g) * 1.2 - 0.1
+    x[:2048] = 0.3 + 1e-3 * x[:2048]
+    gb = torch.randn((4096, cfg.output_dim), generator=g)
+
+    def bricks(dev_):
+        t = table.to(dev_).clone().requires_grad_()
+        out = brickgrid.brick_encode(x.to(dev_), t, cfg)
+        out.backward(gb.to(dev_))
+        return out.detach().cpu(), t.grad.cpu()
+
+    for align in (True, False):
+        reset_launch_counts()
+        got = taps(dev, align)
+        torch.cuda.synchronize()
+        assert launch_counts()["scatter_add_taps"] == 2
+        for a, b in zip(got, taps("cpu", align)):
+            assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+    reset_launch_counts()
+    got = bricks(dev)
+    torch.cuda.synchronize()
+    assert launch_counts()["scatter_add_rows"] == 1
+    for a, b in zip(got, bricks("cpu")):
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+
+
+def test_scatter_add_taps_wrapper_raises_on_what_the_kernel_does_not_take(dev):
+    from ngp_tpu_torch.ops.kernels import scatter as ks
+
+    g, u = torch.zeros((4, 8), device=dev), torch.zeros((8,), device=dev)
+    out = torch.zeros((4, 5), device=dev)
+    with pytest.raises(ValueError):
+        ks.scatter_add_taps(g.double(), u, out, True)
+    with pytest.raises(ValueError):
+        ks.scatter_add_taps(g.t().contiguous().t(), u, out, True)
+    with pytest.raises(ValueError):
+        ks.scatter_add_taps(g, u.double(), out, True)
+    with pytest.raises(ValueError):
+        ks.scatter_add_taps(g, torch.zeros((8, 2), device=dev), out, True)
+    with pytest.raises(ValueError):
+        ks.scatter_add_taps(g, u, torch.zeros((3, 5), device=dev), True)
+    with pytest.raises(ValueError):
+        ks.scatter_add_taps(g, u[:7], out, True)
+    with pytest.raises(ValueError):
+        ks.scatter_add_taps(g, u, torch.zeros((4, 5, 6), device=dev), True)
 
 
 def test_grid_and_scatter_wrappers_raise_on_what_the_kernels_do_not_take(dev):

@@ -49,7 +49,15 @@ factor backward's and encoder's run kernels, whose SASS must call no
      cells; the grid kernels' 2-D
      instances on the background net's encoder (4 levels x 2, the
      finest hashed into 2^19 rows) at a background-frame chunk (65,536
-     points) and a CLI step's rays (4096), bf16 and f32;
+     points) and a CLI step's rays (4096), bf16 and f32; the factor taps'
+     forward (``sample_taps_fwd``, bit for bit) on planes and lines of
+     ranks 1, 16 and 48 at 152 on uniform, clustered and padded points,
+     strided and stacked coords, both corner conventions, beside
+     ``grid_sample``'s forward; the brick grid's kernels
+     (``brick_encode_fwd`` within its bound, ``brick_encode_bwd`` bit for
+     bit) at ``--preset tpu``'s geometry on random points, a quarter
+     outside the box, and on every level's cell and brick edges, bf16 and
+     f32;
 5.   renders a small frame on the GPU and the same frame on the CPU
      through the plain versions;
 6.   renders the synthetic scene (16 train frames at 400x400 and one
@@ -141,26 +149,30 @@ factor backward's and encoder's run kernels, whose SASS must call no
      (``tensorf_runs``): (a) ``-O --iters 2048`` (51 epochs, past the
      shrink and the upsample to 152^3 at step 2000; the loss falls, the
      AABB shrank inside the box, the test PSNR beats a white frame's and
-     ``TENSORF_MIN_PSNR``; rays/s, a profiled step, ``scatter_add_taps``
-     (the factor taps' gradient) against its plain version on every call
-     of a step's own taps and, at 152^3 on uniform, clustered and padded
-     points in both corner conventions, beside ``index_add_`` and
-     ``grid_sample``'s backward, the factor taps as the port's and as
-     advanced indexing, ``march_turbo`` on the
+     ``TENSORF_MIN_PSNR``; rays/s, a profiled step, ``sample_taps_fwd``
+     and ``scatter_add_taps`` (the factor taps' forward and gradient)
+     against their plain versions on every call of a step's own taps and,
+     for the gradient at 152^3 on uniform, clustered and padded points in
+     both corner conventions, beside ``index_add_`` and ``grid_sample``'s
+     backward, the factor taps as the port's kernels, as its former
+     ``index_select`` forward and as advanced indexing, ``march_turbo`` on the
      last step's and a test frame's own march inputs, every ray bit for
      bit, and the prepass kernel on a test frame's prepass), (b)
      ``--test`` (a fresh trainer resizes to 152^3 before it loads; the
      PSNR equals (a)'s), (c) ``--cp --iters 256`` and (d) ``--bg_radius 32
      --iters 128`` (the loss falls; the background net runs in training
-     and in eval); the runs that train launch ``scatter_add_taps``;
+     and in eval); every run launches ``sample_taps_fwd``, the runs that
+     train ``scatter_add_taps``, and none the taps' plain gradient in the
+     points;
 15.  runs ``ngp_tpu_torch.main_CCNeRF`` on phase 11's scene
      (``ccnerf_runs``) at the CLI's widths: (a) ``-O --compose --iters
      512`` (the loss falls; rays/s; the finalized full rank's and the
      three compression levels' test PSNRs beside a white frame's;
      ``finalize`` leaves sigma and rgb at 65,536 points within
      ``FINALIZE_TOL``; the composed scene's frames written; one profiled
-     step of the rank-residual model; ``scatter_add_taps`` on every call
-     of a step's own taps; ``march_turbo`` on a step's own
+     step of the rank-residual model; ``sample_taps_fwd`` and
+     ``scatter_add_taps`` on every call of a step's own taps;
+     ``march_turbo`` on a step's own
      inputs, and the prepass kernel on a test frame's prepass, bit for
      bit), (b) ``--test`` (the same full-rank PSNR);
 16.  writes the dynamic synthetic scene (a moving sphere) and runs
@@ -194,11 +206,13 @@ factor backward's and encoder's run kernels, whose SASS must call no
      gradient, the kernels they launched, one profiled guidance step; (c)
      ``brick_runs``: ``main_nerf --preset tpu --iters 400`` and ``--test``
      (a PSNR floor over a white frame's; the training run launches
-     ``scatter_add_rows``, the table gradient, and no other kernel) and
-     ``brick_encode`` on the last step's own points: the card against the
-     CPU, its forward and forward + table gradient timed beside their
-     bound, and ``scatter_add_rows`` against its plain version on that
-     step's own gathered rows, beside ``index_add_``;
+     ``brick_encode_fwd``, ``brick_encode_bwd`` and ``scatter_add_rows``,
+     the table gradient, and no other kernel, ``--test`` the forward
+     alone) and ``brick_encode`` on the last step's own points: the card
+     against the CPU, the two kernels against their plain versions, its
+     forward and forward + table gradient timed beside their bound, and
+     ``scatter_add_rows`` against its plain version on that step's own
+     gathered rows, beside ``index_add_``;
 18.  ``ngp_tpu_torch/parallel/`` on one rank over NCCL (``parallel_runs``):
      turbo-hq at full width from one seed with no mesh, under
      ``make_mesh(1)`` and under a (1, 1) ("data", "model") mesh with the CP
@@ -688,6 +702,194 @@ def step_taps(sk, calls, label, card, results, library):
                                   results, library))
     print(f"{label}: {len(calls)} scatter_add_taps calls held against the plain version, max "
           f"|kernel - plain| {worst:.3e}  [{card}]", flush=True)
+
+
+def restride(t, stride):
+    """A copy of ``t`` laid out with ``stride`` (a column of a wider
+    tensor, as the paths pass the taps' coords), on a buffer of its own."""
+    import torch
+
+    size = 1 + sum((n - 1) * st for n, st in zip(t.shape, stride))
+    return torch.empty(size, dtype=t.dtype, device=t.device).as_strided(t.shape, stride) \
+        .copy_(t)
+
+
+def taps_fwd_check(sk, factor, coords, align_corners, label, card, results, library,
+                   timed=True):
+    """``sample_taps_fwd`` (factor [R, D] or [R, H, W], coords [N] or
+    [N, 2] of any strides) against its plain version on the same inputs:
+    equal bit for bit (every product and sum rounded on its own, in the
+    plain version's order). With ``timed``, its time beside its bound (the
+    factor and the coords read once, the [R, N] f32 output written once;
+    per sample about 5 operations a tap for its cell and weight, per row
+    and tap a product and a sum), and the forward of ``grid_sample``
+    (bilinear, zeros padding, the same corner convention) on the same
+    factor and points, its ``library_ms``, beside its largest difference
+    from the kernel (it rounds the pixel coordinates its own way)."""
+    import torch
+    import torch.nn.functional as F
+
+    got = sk.sample_taps_fwd(factor, coords, align_corners)
+    want = sk.sample_taps_plain(factor, coords, align_corners)
+    if got.shape != want.shape or got.dtype != want.dtype \
+            or not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+        raise RuntimeError(f"sample_taps_fwd [{label}]: the kernel differs from the plain "
+                           f"version (max |kernel - plain| {float((got - want).abs().max())})")
+    if not timed:
+        return
+    R, N = got.shape
+    taps = 2 if factor.ndim == 2 else 4
+    key = ("sample_taps_fwd", label)
+    results[key] = compare(
+        "sample_taps_fwd", lambda: sk.sample_taps_fwd(factor, coords, align_corners),
+        lambda: sk.sample_taps_plain(factor, coords, align_corners), "float32",
+        (nbytes(factor, coords) + 4 * R * N, 0, N * 5 * taps + 2 * R * N * taps),
+        tol=lambda want: [torch.zeros_like(want[0])])
+    # a line is an image of one row, sampled at y = 0 (exactly its row)
+    spatial = (1, factor.shape[1]) if factor.ndim == 2 else factor.shape[1:]
+    inp = factor.float().reshape(1, R, *spatial)
+    uv = coords if coords.ndim == 2 else torch.stack([coords, torch.zeros_like(coords)], dim=-1)
+    uv = uv.float().reshape(1, 1, N, 2)
+
+    def sample():
+        return F.grid_sample(inp, uv, mode="bilinear", padding_mode="zeros",
+                             align_corners=align_corners)
+
+    gs_diff = float((sample().view(R, N) - got).abs().max())
+    library[key] = cuda_ms(sample)
+    print(f"sample_taps_fwd [{label}]: {R} rows of {tuple(factor.shape[1:])} "
+          f"({str(factor.dtype).split('.')[-1]}) at {N} samples (coord strides "
+          f"{coords.stride()}), align_corners={align_corners}; kernel {results[key][1]:.4f} ms, "
+          f"device {device_ms(lambda: sk.sample_taps_fwd(factor, coords, align_corners)):.4f} "
+          f"ms (queued), plain {results[key][2]:.4f} ms, grid_sample {library[key]:.4f} ms (max "
+          f"|difference| from the kernel {gs_diff:.3e}), bound {results[key][3][0]:.4f} ms  "
+          f"[{card}]", flush=True)
+
+
+def keep_taps_fwd(sk, calls):
+    """A stand-in for ``sample_taps_fwd`` that keeps each call's inputs
+    (the factor and the coords cloned, the coords' strides, the
+    convention) in ``calls`` and launches the kernel."""
+    launch = sk.sample_taps_fwd
+
+    def keeping(factor, coords, align_corners):
+        calls.append((factor.clone(), coords.clone(), coords.stride(), align_corners))
+        return launch(factor, coords, align_corners)
+
+    return keeping
+
+
+def step_taps_fwd(sk, calls, label, card, results, library):
+    """``taps_fwd_check`` on every call of a step's taps forward
+    (``keep_taps_fwd``, the coords laid out with their own strides), the
+    largest (rows x samples) one timed, under "<label> largest call"."""
+    largest = max(range(len(calls)), key=lambda i: calls[i][0].shape[0] * calls[i][1].shape[0])
+    for i, (factor, coords, stride, align) in enumerate(calls):
+        taps_fwd_check(sk, factor, restride(coords, stride), align,
+                       f"{label} largest call" if i == largest else f"{label} call {i}", card,
+                       results, library, timed=i == largest)
+    print(f"{label}: {len(calls)} sample_taps_fwd calls equal to the plain version bit for "
+          f"bit  [{card}]", flush=True)
+
+
+def brick_work(x, cfg, out_bytes, per_item):
+    """(bytes, 0, operations) of a brick kernel on points x [N, 3]: x read,
+    the 32-byte sectors of the stencil cells that the points inside the box
+    read (each distinct sector once: 8 cells of C floats a point and
+    level), ``out_bytes`` written; ``per_item`` operations a (point,
+    level)."""
+    import torch
+
+    from ngp_tpu_torch.ops import brickgrid
+
+    L, C = cfg.num_levels, cfg.level_dim
+    inside = inside_rows(x)
+    xi = x[inside]
+    sectors = []
+    ijk = torch.arange(2, device=x.device)
+    for level in range(L):
+        x0 = torch.floor(xi * cfg.level_scale(level) + 0.5).long()
+        row = brickgrid._brick_index(cfg, level, x0 >> 1) + cfg.offsets[level]
+        lo = x0 & 1
+        cell = ((lo[:, 0, None, None, None] + ijk[:, None, None]) * 9
+                + (lo[:, 1, None, None, None] + ijk[None, :, None]) * 3
+                + (lo[:, 2, None, None, None] + ijk[None, None, :])).reshape(-1, 8)
+        first = (row[:, None] * 27 + cell) * C * 4
+        sectors.append(torch.unique(torch.cat([first // SECTOR,
+                                               (first + C * 4 - 1) // SECTOR])))
+    read = torch.unique(torch.cat(sectors)).numel() * SECTOR
+    return nbytes(x) + read + out_bytes, 0, x.shape[0] * L * per_item
+
+
+def brick_fwd_bound(bg, x, table, cfg, dt):
+    """``brick_encode_fwd`` sums the same 8 products of the compute type as
+    its plain version in another f32 order and rounds once: in f32 within
+    1e-6 of the sum of the products' magnitudes S (two orders of 7 f32
+    additions, 2 x 7 x 2^-24 < 1e-6); in bf16 within one bf16 step of the
+    plain value (2^-7 |plain| bounds its ulp) plus 2^-20 S (the f32 orders'
+    difference, which a sum that cancels can carry past one step). S is the
+    plain version on |table|: the weights are not negative."""
+    import torch
+
+    with torch.no_grad():
+        s_abs = bg.brick_encode_plain(x, table.abs(), cfg, dt).float()
+
+    def tol(want):
+        if dt == torch.float32:
+            return [1e-6 * s_abs]
+        return [2.0**-7 * want[0].float().abs() + 2.0**-20 * s_abs]
+
+    return tol
+
+
+def brick_checks(bg, x, table, cfg, g, label, card, results, timed=True):
+    """``brick_encode_fwd`` and ``brick_encode_bwd`` on points x [N, 3],
+    the table and the output's cotangent g (its dtype the compute type)
+    against their plain versions: the forward within ``brick_fwd_bound``,
+    the backward's rows and row indices bit for bit. With ``timed``, both
+    timed beside their bounds (``brick_work``: the forward writes its
+    output, about 9 + 8 (2 + 2 C) operations a point and level; the
+    backward reads g and writes the rows and indices, 9 + 8 (2 + C))."""
+    import torch
+
+    dt = g.dtype
+    N, L, C = x.shape[0], cfg.num_levels, cfg.level_dim
+    tol = brick_fwd_bound(bg, x, table, cfg, dt)
+    with torch.no_grad():
+        got = bg.brick_encode_fwd(x, table, cfg, dt)
+        want = bg.brick_encode_plain(x, table, cfg, dt)
+    err = (got.float() - want.float()).abs()
+    if got.dtype != want.dtype or (err > tol([want])[0]).any():
+        raise RuntimeError(f"brick_encode_fwd [{label}]: max |kernel - plain| "
+                           f"{float(err.max())} exceeds its bound")
+    (idx, rows), (idx_p, rows_p) = bg.brick_encode_bwd(x, g, cfg), \
+        bg.brick_encode_bwd_plain(x, g, cfg)
+    if not (torch.equal(idx, idx_p) and torch.equal(rows.view(torch.int32),
+                                                    rows_p.view(torch.int32))):
+        raise RuntimeError(f"brick_encode_bwd [{label}]: the kernel's rows or indices differ "
+                           "from the plain version's")
+    del idx, rows, idx_p, rows_p
+    if not timed:
+        return float(err.max())
+    name = str(dt).split(".")[-1]
+    with torch.no_grad():
+        results[("brick_encode_fwd", label)] = compare(
+            "brick_encode_fwd", lambda: bg.brick_encode_fwd(x, table, cfg, dt),
+            lambda: bg.brick_encode_plain(x, table, cfg, dt), name,
+            brick_work(x, cfg, N * L * C * dt.itemsize, 9 + 8 * (2 + 2 * C)), tol=tol)
+    results[("brick_encode_bwd", label)] = compare(
+        "brick_encode_bwd", lambda: bg.brick_encode_bwd(x, g, cfg),
+        lambda: bg.brick_encode_bwd_plain(x, g, cfg), name,
+        (nbytes(x, g) + N * L * (4 + cfg.row_width * 4), 0, N * L * (9 + 8 * (2 + C))),
+        tol=lambda want: [torch.zeros_like(w, dtype=torch.float32) for w in want])
+    fwd_dev = device_ms(lambda: bg.brick_encode_fwd(x, table, cfg, dt))
+    bwd_dev = device_ms(lambda: bg.brick_encode_bwd(x, g, cfg))
+    for what, dev_ms in (("brick_encode_fwd", fwd_dev), ("brick_encode_bwd", bwd_dev)):
+        r = results[(what, label)]
+        print(f"{what} [{label}]: {N} points x {L} levels x {C} ({name}); kernel {r[1]:.4f} ms, "
+              f"device {dev_ms:.4f} ms (queued), plain {r[2]:.4f} ms, bound {r[3][0]:.4f} ms "
+              f"({r[3][1]}), max |kernel - plain| {r[0]:.3e}  [{card}]", flush=True)
+    return float(err.max())
 
 
 def card_line():
@@ -2307,9 +2509,9 @@ def tensorf_runs(dev, card, scene, rays_s_11a, results, library):
         trainer, a_counts, a_dt, _ = run(argv, "14(a) main_tensoRF -O", main_tensoRF.main)
         counts.append(a_counts)
         check_launched("TensoRF (a) -O", a_counts, ("march_turbo", "ray_prepass",
-                                                     "scatter_add_taps"),
+                                                     "sample_taps_fwd", "scatter_add_taps"),
                        absent=("cp_density_fwd", "cp_sigma_rgb", "grid_encode_fwd",
-                               "coarse_lookup_bits"))
+                               "coarse_lookup_bits", "taps_coords_grad_plain"))
         means = epoch_means(seen, "(a)")
         psnr = seen["results"][-1]["psnr"]
         mid = seen["epochs"][1:-1]
@@ -2335,21 +2537,24 @@ def tensorf_runs(dev, card, scene, rays_s_11a, results, library):
         train_ds = NeRFDataset(scene, split="train", scale=0.33)
         batches = itertools.chain.from_iterable(
             trainer.make_loader(train_ds)() for _ in itertools.count())
-        taps = []
-        with patched((sk, "scatter_add_taps", keep_taps(sk, taps))):
+        taps, fwd_taps = [], []
+        with patched((sk, "scatter_add_taps", keep_taps(sk, taps)),
+                     (sk, "sample_taps_fwd", keep_taps_fwd(sk, fwd_taps))):
             trainer.step(next(batches))
         step_taps(sk, taps, "TensoRF step", card, results, library)
+        step_taps_fwd(sk, fwd_taps, "TensoRF step", card, results, library)
         profile(lambda: trainer.step(next(batches)), 1, "TensoRF step", card,
-                focus=("indexFunc", "indexSelect", "scatter_taps", "march", "elementwise",
-                       "gemm"))
-        del trainer, train_ds, batches, taps
+                focus=("indexFunc", "indexSelect", "scatter_taps", "sample_taps", "march",
+                       "elementwise", "gemm"))
+        del trainer, train_ds, batches, taps, fwd_taps
         tap_forms(dev, card, results, library)
 
         # (b) --test on (a)'s workspace
         trainer, b_counts, _, _ = run(argv + ["--test"], "14(b) --test", main_tensoRF.main)
         counts.append(b_counts)
-        check_launched("TensoRF (b) --test", b_counts, ("march_turbo", "ray_prepass"),
-                       absent=("coarse_lookup_bits",))
+        check_launched("TensoRF (b) --test", b_counts, ("march_turbo", "ray_prepass",
+                                                         "sample_taps_fwd"),
+                       absent=("coarse_lookup_bits", "taps_coords_grad_plain"))
         psnr_b = seen["results"][-1]["psnr"]
         print(f"TensoRF (b): resumed step {seen['loaded']}, resolution "
               f"{trainer.current_resolution}, test PSNR {psnr_b:.6f} dB ((a): {psnr:.6f})  "
@@ -2366,8 +2571,8 @@ def tensorf_runs(dev, card, scene, rays_s_11a, results, library):
              str(TENSORF_CP_ITERS)], "14(c) main_tensoRF -O --cp", main_tensoRF.main)
         counts.append(c_counts)
         check_launched("TensoRF (c) --cp", c_counts, ("march_turbo", "ray_prepass",
-                                                      "scatter_add_taps"),
-                       absent=("coarse_lookup_bits",))
+                                                      "sample_taps_fwd", "scatter_add_taps"),
+                       absent=("coarse_lookup_bits", "taps_coords_grad_plain"))
         means = epoch_means(seen, "(c)")
         psnr_c = seen["results"][-1]["psnr"]
         print(f"TensoRF (c): resolution {trainer.current_resolution}, test PSNR {psnr_c:.4f} dB "
@@ -2384,7 +2589,9 @@ def tensorf_runs(dev, card, scene, rays_s_11a, results, library):
              os.path.join(tmp, "ws_bg"), "--iters", str(TENSORF_BG_ITERS)],
             "14(d) main_tensoRF -O --bg_radius", main_tensoRF.main)
         counts.append(d_counts)
-        check_launched("TensoRF (d) --bg_radius", d_counts, ("march_turbo", "scatter_add_taps"))
+        check_launched("TensoRF (d) --bg_radius", d_counts,
+                       ("march_turbo", "sample_taps_fwd", "scatter_add_taps"),
+                       absent=("taps_coords_grad_plain",))
         means = epoch_means(seen, "(d)")
         print(f"TensoRF (d): background calls {bg_calls}, {len(seen['bg_frames'])} "
               f"background-frame passes, test PSNR {seen['results'][-1]['psnr']:.4f} dB; "
@@ -2502,9 +2709,9 @@ def ccnerf_runs(dev, card, scene, results, library):
                                          main_CCNeRF.main)
         counts.append(a_counts)
         check_launched("CCNeRF (a) -O", a_counts, ("march_turbo", "ray_prepass",
-                                                    "scatter_add_taps"),
+                                                    "sample_taps_fwd", "scatter_add_taps"),
                        absent=("cp_density_fwd", "cp_sigma_rgb", "grid_encode_fwd",
-                               "coarse_lookup_bits"))
+                               "coarse_lookup_bits", "taps_coords_grad_plain"))
         compare_prepass("CCNeRF test frame", *seen["prepass"][-1], card, results)
         steps = torch.stack(losses).cpu().numpy()
         means = steps.reshape(-1, n_train).mean(axis=1)
@@ -2545,21 +2752,24 @@ def ccnerf_runs(dev, card, scene, results, library):
         batches = itertools.chain.from_iterable(
             pt.make_loader(NeRFDataset(scene, split="train", scale=0.8))()
             for _ in itertools.count())
-        taps = []
-        with patched((sk, "scatter_add_taps", keep_taps(sk, taps))):
+        taps, fwd_taps = [], []
+        with patched((sk, "scatter_add_taps", keep_taps(sk, taps)),
+                     (sk, "sample_taps_fwd", keep_taps_fwd(sk, fwd_taps))):
             pt.step(next(batches))
         step_taps(sk, taps, "CCNeRF step", card, results, library)
+        step_taps_fwd(sk, fwd_taps, "CCNeRF step", card, results, library)
         profile(lambda: pt.step(next(batches)), 1, "CCNeRF step", card,
-                focus=("indexFunc", "indexSelect", "scatter_taps", "march", "elementwise",
-                       "gemm", "reduce"))
-        del trainer, pt, model0, batches, pre["params"], taps
+                focus=("indexFunc", "indexSelect", "scatter_taps", "sample_taps", "march",
+                       "elementwise", "gemm", "reduce"))
+        del trainer, pt, model0, batches, pre["params"], taps, fwd_taps
 
         # (b) --test on (a)'s workspace
         losses.clear()
         trainer, b_counts, _, _ = run(argv + ["--test"], "15(b) --test", main_CCNeRF.main)
         counts.append(b_counts)
-        check_launched("CCNeRF (b) --test", b_counts, ("march_turbo", "ray_prepass"),
-                       absent=("coarse_lookup_bits",))
+        check_launched("CCNeRF (b) --test", b_counts, ("march_turbo", "ray_prepass",
+                                                        "sample_taps_fwd"),
+                       absent=("coarse_lookup_bits", "taps_coords_grad_plain"))
         psnr_b = seen["results"][0]["psnr"]
         print(f"CCNeRF (b): resumed step {seen['loaded']}, full-rank test PSNR {psnr_b:.6f} dB "
               f"((a): {psnrs[0]:.6f})  [{card}]", flush=True)
@@ -3109,6 +3319,42 @@ def clip_runs(dev, card, scene, work):
     return counts, guided
 
 
+def brick_points(gen, dev, n):
+    """n points uniform in [0, 1]^3, a quarter of them moved outside the box
+    on one axis (to -0.1 or 1.1)."""
+    import torch
+
+    x = torch.rand((n, 3), generator=gen, device=dev)
+    out = torch.rand((n,), generator=gen, device=dev) < 0.25
+    axis = torch.randint(0, 3, (n,), generator=gen, device=dev)
+    side = torch.where(torch.rand((n,), generator=gen, device=dev) < 0.5, -0.1, 1.1)
+    x[out, axis[out]] = side[out]
+    return x
+
+
+def brick_edges(gen, dev, cfg):
+    """Points with one coordinate on a level's cell edge (x * scale + 0.5
+    an integer in real arithmetic; even integers are brick edges) or 1 ulp
+    off it, for every cell of every level, or on the box's faces and
+    2^-20 inside or outside them; the other two coordinates uniform."""
+    import torch
+
+    vals = []
+    for level in range(cfg.num_levels):
+        s = cfg.level_scale(level)
+        vals.append(((torch.arange(1, int(s) + 1, device=dev, dtype=torch.float64) - 0.5) / s)
+                    .float())
+    v = torch.cat(vals)
+    v = torch.cat([v, torch.nextafter(v, torch.full_like(v, 2.0)),
+                   torch.nextafter(v, torch.full_like(v, -1.0)),
+                   torch.tensor([0.0, 2.0**-20, -2.0**-20, 1.0, 1.0 + 2.0**-20,
+                                 1.0 - 2.0**-20], device=dev)])
+    x = torch.rand((v.numel(), 3), generator=gen, device=dev)
+    axis = torch.randint(0, 3, (v.numel(),), generator=gen, device=dev)
+    x[torch.arange(v.numel(), device=dev), axis] = v
+    return x
+
+
 def brick_rows(x, cfg):
     """The distinct table rows ``brick_encode`` gathers for points x [N, 3]."""
     import torch
@@ -3129,20 +3375,24 @@ def brick_runs(dev, card, scene, work, results, library):
     the v1 march at 256 steps and 32 samples a ray; 10 epochs), then
     ``--test`` on its workspace: the epoch-mean loss falls, the test PSNR
     beats a white frame's by ``BRICK_MIN_GAIN`` dB and ``--test`` gives the
-    same PSNR; the training run launches ``scatter_add_rows`` (the table
-    gradient, ``GatherRows``) and no other kernel, ``--test`` none (the
-    selects, weights and the v1 march are torch, as JAX leaves them to
-    XLA). On the last step's own encoder points and cotangent,
-    ``brick_encode``'s forward on the card against the CPU (bf16, ``TOL``)
-    and the device ms of its forward and its forward + table gradient
-    beside their bound: each distinct gathered row read once, the points
-    and cotangent read, the bf16 output and the dense f32 table gradient
-    written once (``brick_rows``, ``bound``); ``scatter_add_rows`` against
-    its plain version on that step's own gathered rows' cotangent (caught
-    from ``GatherRows``'s backward), beside ``index_add_`` and the kernel's
-    per-row branch on a copy of the rows one float into its buffer (4-byte
-    aligned, so no tiles); two profiled train steps. Returns
-    the launch counts of the two runs."""
+    same PSNR; the training run launches ``brick_encode_fwd``,
+    ``brick_encode_bwd`` and ``scatter_add_rows`` (the table gradient,
+    ``BrickEncode``) and no other kernel, ``--test`` ``brick_encode_fwd``
+    alone (the v1 march is torch, as JAX leaves it to XLA), and neither
+    asks for the plain x gradient. On the last step's own encoder points
+    and cotangent: ``brick_encode``'s forward on the card against the CPU
+    (bf16, ``TOL``); ``brick_checks`` (the two kernels against their plain
+    versions, timed beside their bounds); the device ms of the forward and
+    the forward + table gradient beside their bound: the 32-byte sectors of
+    the distinct stencil cells read once (``brick_work``: 8 cells of a row
+    a point and level, not the whole row), the points and cotangent read,
+    the bf16 output and the dense f32 table gradient written once
+    (``bound``); ``scatter_add_rows`` against its plain version on that
+    step's own gathered rows' cotangent (caught from ``BrickEncode``'s
+    backward), beside ``index_add_`` and the kernel's per-row branch on a
+    copy of the rows one float into its buffer (4-byte aligned, so no
+    tiles); two profiled train steps. Returns the launch counts of the two
+    runs."""
     import numpy as np
     import torch
 
@@ -3192,9 +3442,11 @@ def brick_runs(dev, card, scene, work, results, library):
             and abs(psnr_b - psnr) <= 0.01):
         raise RuntimeError(f"brick grid: epoch means {means}, test PSNR {psnr} (white {white}), "
                            f"--test {psnr_b}")
-    check_launched("brick grid --preset tpu", a_counts, ("scatter_add_rows",),
-                   absent=tuple(k for k in a_counts if k != "scatter_add_rows"))
-    check_launched("brick grid --test", b_counts, (), absent=tuple(b_counts))
+    trained = ("brick_encode_fwd", "brick_encode_bwd", "scatter_add_rows")
+    check_launched("brick grid --preset tpu", a_counts, trained,
+                   absent=tuple(k for k in a_counts if k not in trained))
+    check_launched("brick grid --test", b_counts, ("brick_encode_fwd",),
+                   absent=tuple(k for k in b_counts if k != "brick_encode_fwd"))
 
     e = caught["last"]
     x, g = e["x"], e["g"]
@@ -3206,22 +3458,23 @@ def brick_runs(dev, card, scene, work, results, library):
     if not bool((err <= TOL["bfloat16"] * (1.0 + want.float().abs())).all()):
         raise RuntimeError(f"brick_encode: the card's forward differs from the CPU's by "
                            f"{float(err.max())}")
+    brick_checks(brickgrid, x, table.detach(), cfg, g, "17c last step", card, results)
     with torch.no_grad():
         fwd_ms = cuda_ms(lambda: brickgrid.brick_encode(x, table, cfg, torch.bfloat16))
     fb_ms = cuda_ms(lambda: torch.autograd.grad(
         brickgrid.brick_encode(x, table, cfg, torch.bfloat16), (table,), g))
     N, L, C = x.shape[0], cfg.num_levels, cfg.level_dim
     rows = brick_rows(x, cfg)
-    io = nbytes(x) + rows * cfg.row_width * 4 + N * L * C * 2
-    ops = N * L * (9 + 8 * (2 + 2 * C))
+    io, _, ops = brick_work(x, cfg, N * L * C * 2, 9 + 8 * (2 + 2 * C))
     f_bound = bound(io, 0, ops)
     fb_bound = bound(io + nbytes(g) + cfg.num_rows * cfg.row_width * 4, 0, 2 * ops)
-    print(f"brick_encode (table gradient by scatter_add_rows) on step "
+    print(f"brick_encode (the two kernels, the table gradient by scatter_add_rows) on step "
           f"{trainer.global_step - 1}'s {N} points "
           f"({1.0 - float(inside_rows(x).float().mean()):.4f} outside the box, {rows} distinct "
-          f"rows): forward {fwd_ms:.4f} ms (bound {f_bound[0]:.4f}, {f_bound[1]}), forward + "
-          f"table gradient {fb_ms:.4f} ms (bound {fb_bound[0]:.4f}, {fb_bound[1]}); the card "
-          f"vs the CPU on {n} points {float(err.max()):.3e}  [{card}]", flush=True)
+          f"rows, {io - nbytes(x) - N * L * C * 2} bytes of stencil sectors): forward "
+          f"{fwd_ms:.4f} ms (bound {f_bound[0]:.4f}, {f_bound[1]}), forward + table gradient "
+          f"{fb_ms:.4f} ms (bound {fb_bound[0]:.4f}, {fb_bound[1]}); the card vs the CPU on {n} "
+          f"points {float(err.max()):.3e}  [{card}]", flush=True)
     # the table gradient's scatter on the step's own rows
     kept = []
     launch = sk.scatter_add_rows
@@ -3254,7 +3507,8 @@ def brick_runs(dev, card, scene, work, results, library):
     del rows_o
     zero4 = float((rows_b.view(-1, W // 4, 4) == 0).all(-1).float().mean())
     print(f"scatter_add_rows on step {trainer.global_step - 1}'s {idx_b.numel()} gathered rows "
-          f"({torch.unique(idx_b).numel()} distinct, {zero4:.4f} of their float4s zero) into "
+          f"({torch.unique(idx_b[idx_b >= 0]).numel()} distinct, {zero4:.4f} of their float4s "
+          f"zero) into "
           f"{R} x {W}: {results[key][1]:.4f} ms, index_add_ {library[key]:.4f} ms, bound "
           f"{results[key][3][0]:.4f} ms, max |kernel - plain| {results[key][0]:.3e}; device ms "
           f"by branch {{{', '.join(f'{k}: {v:.4f}' for k, v in branches.items())}}}  "
@@ -3264,7 +3518,7 @@ def brick_runs(dev, card, scene, work, results, library):
         trainer.make_loader(NeRFDataset(scene, split="train"))() for _ in itertools.count())
     trainer.step(next(batches))
     profile(lambda: trainer.step(next(batches)), 2, "brick-grid step", card,
-            focus=("index", "gemm", "where", "elementwise"))
+            focus=("brick_", "scatter_rows", "index", "gemm", "where", "elementwise"))
     return a_counts, b_counts
 
 
@@ -3308,19 +3562,39 @@ def advanced_sample_2d(plane, uv):
             + tap(y0 + 1, x0 + 1) * (fx * fy)[None, :])
 
 
+def tap_points(gen, dev, res, n, used=14_273):
+    """``n`` points in [-1, 1]^3 (``tap_forms`` says how): "uniform",
+    "clustered" (8 samples 2 / res apart on rays through a N(0, 0.3^2)
+    cluster) and "padded" (those with the slots from ``used`` on at one
+    point, as the compaction pads a step)."""
+    import torch
+
+    centres = (0.3 * torch.randn((n // 8, 1, 3), generator=gen, device=dev)).clamp(-1, 1)
+    dirs = torch.nn.functional.normalize(
+        torch.randn((n // 8, 1, 3), generator=gen, device=dev), dim=-1)
+    clustered = (centres + dirs * torch.arange(8, device=dev).view(1, 8, 1) * (2.0 / res))
+    clustered = clustered.reshape(n, 3).clamp(-1, 1)
+    padded = clustered.clone()
+    padded[used:] = padded[0]
+    return {"uniform": torch.rand((n, 3), generator=gen, device=dev) * 2.0 - 1.0,
+            "clustered": clustered, "padded": padded}
+
+
 def tap_forms(dev, card, results, library):
     """TensoRF's factor sampling, forward and factor backward, with the
-    port's taps (``index_select`` forward, ``scatter_add_taps`` backward)
-    and with advanced indexing (``factor[:, idx]``), whose backward sorts
-    the indices and walks each run of equal ones in turn. At a ``-O``
+    port's kernels (``sample_taps_fwd`` forward, ``scatter_add_taps``
+    backward), with the former taps (the plain ``index_select`` forward,
+    ``scatter_add_taps`` backward) and with advanced indexing
+    (``factor[:, idx]``), whose backward sorts the indices and walks each
+    run of equal ones in turn. At a ``-O``
     step's shapes after the first upsample: VM factors at 152^3 (sigma
     rank 16, colour 48, three plane/line pairs each), 32,768 points (4096
     rays x 8) drawn uniform in the box, as a march places them (8 samples
     2/152 apart on rays through a N(0, 0.3^2) cluster), and those with the
     budget's unused slots (18,495 of a step of 14,273 samples) at one
-    point, as the compaction pads them (ray 0 at t = 0). The features must
-    agree bit for bit; times are ``cuda_ms`` in turns (advanced, the
-    port's, the port's, advanced). Then ``taps_check`` on each point set,
+    point, as the compaction pads them (ray 0 at t = 0; ``tap_points``).
+    The features must agree bit for bit; times are ``cuda_ms`` in turns
+    (each form, then each in reverse order). Then ``taps_check`` on each point set,
     both corner conventions (TensoRF's and CCNeRF's), a plane of rank 16
     and 48 and a line of rank 48."""
     import torch
@@ -3329,45 +3603,48 @@ def tap_forms(dev, card, results, library):
     from ngp_tpu_torch.ops import interp
     from ngp_tpu_torch.ops.kernels import scatter as sk
 
-    res, ranks, n, used = TENSORF_RES, (16, 48), 4096 * 8, 14_273
+    res, ranks, n = TENSORF_RES, (16, 48), 4096 * 8
     gen = torch.Generator(device=dev).manual_seed(SEED + 14)
     planes = [(0.1 * torch.randn((r, res, res), generator=gen, device=dev)).requires_grad_()
               for r in ranks for _ in range(3)]
     lines = [(0.1 * torch.randn((r, res), generator=gen, device=dev)).requires_grad_()
              for r in ranks for _ in range(3)]
-    centres = (0.3 * torch.randn((n // 8, 1, 3), generator=gen, device=dev)).clamp(-1, 1)
-    dirs = torch.nn.functional.normalize(
-        torch.randn((n // 8, 1, 3), generator=gen, device=dev), dim=-1)
-    clustered = (centres + dirs * torch.arange(8, device=dev).view(1, 8, 1) * (2.0 / res))
-    clustered = clustered.reshape(n, 3).clamp(-1, 1)
-    padded = clustered.clone()
-    padded[used:] = padded[0]
-    points = {"uniform": torch.rand((n, 3), generator=gen, device=dev) * 2.0 - 1.0,
-              "clustered": clustered, "padded": padded}
+    points = tap_points(gen, dev, res, n)
     cot = torch.randn((sum(ranks) * 3, n), generator=gen, device=dev)
     forms = {"advanced": (advanced_sample_2d, advanced_sample_1d),
-             "index_select": (interp.sample_2d, interp.sample_1d)}
+             "index_select": (interp.sample_2d, interp.sample_1d),
+             "kernels": (interp.sample_2d, interp.sample_1d)}
 
     def step(form, xn):
         s2, s1 = forms[form]
         feats = []
-        for j, (plane, line) in enumerate(zip(planes, lines)):
-            m0, m1 = MAT_IDS[j % 3]
-            uv = torch.stack([xn[:, m0], xn[:, m1]], dim=-1)
-            feats.append(s2(plane, uv) * s1(line, xn[:, VEC_IDS[j % 3]]))
+        # the port's former taps: the plain forward beside the gradient kernel
+        plain = (sk, "sample_taps_fwd", sk.sample_taps_plain)
+        with patched(*([plain] if form == "index_select" else [])):
+            for j, (plane, line) in enumerate(zip(planes, lines)):
+                m0, m1 = MAT_IDS[j % 3]
+                uv = torch.stack([xn[:, m0], xn[:, m1]], dim=-1)
+                feats.append(s2(plane, uv) * s1(line, xn[:, VEC_IDS[j % 3]]))
         out = torch.cat(feats)
         return out.detach(), torch.autograd.grad((out * cot).sum(), planes + lines)
 
     for name, xn in points.items():
-        (out_a, grads_a), (out_i, grads_i) = step("advanced", xn), step("index_select", xn)
-        if not torch.equal(out_a, out_i):
-            raise RuntimeError(f"TensoRF taps [{name}]: the two forms' features differ")
-        err = max(float((a - b).abs().max()) for a, b in zip(grads_a, grads_i))
-        a1, i1 = cuda_ms(lambda: step("advanced", xn)), cuda_ms(lambda: step("index_select", xn))
-        i2, a2 = cuda_ms(lambda: step("index_select", xn)), cuda_ms(lambda: step("advanced", xn))
+        runs = {form: step(form, xn) for form in forms}
+        out_k, grads_k = runs["kernels"]
+        for form, (out_f, grads_f) in runs.items():
+            if not torch.equal(out_f, out_k):
+                raise RuntimeError(f"TensoRF taps [{name}]: the {form} form's features differ "
+                                   "from the kernels'")
+        err = max(float((a - b).abs().max()) for a, b in zip(grads_k, runs["advanced"][1]))
+        order = list(forms) + list(forms)[::-1]
+        ms = {form: [] for form in forms}
+        for form in order:
+            ms[form].append(cuda_ms(lambda: step(form, xn)))
         print(f"TensoRF taps [{name} points]: forward + factor backward of {n} points on 6 "
-              f"planes and 6 lines at {res}: advanced indexing {(a1 + a2) / 2:.3f} ms, "
-              f"the port's taps {(i1 + i2) / 2:.3f} ms; features equal, max |gradient "
+              f"planes and 6 lines at {res}: advanced indexing "
+              f"{sum(ms['advanced']) / 2:.3f} ms, index_select + scatter_add_taps "
+              f"{sum(ms['index_select']) / 2:.3f} ms, sample_taps_fwd + scatter_add_taps "
+              f"{sum(ms['kernels']) / 2:.3f} ms; features equal, max |gradient "
               f"difference| {err:.3e}  [{card}]", flush=True)
         uv = torch.stack([xn[:, MAT_IDS[0][0]], xn[:, MAT_IDS[0][1]]], dim=-1)
         for align in (True, False):
@@ -3897,6 +4174,48 @@ def main():
             raise RuntimeError("index_add_ differs from scatter_add_rows past the f32 bound")
         library[key] = cuda_ms(lambda: outs[2].index_add_(0, idx_s, rows_s))
         del idx_s, rows_s, outs, s_bound, lib
+    # the factor taps' forward at TensoRF's 152^3 (a -O step after the first
+    # upsample): planes and lines of ranks 1, 16 and 48 on 32,768 uniform,
+    # clustered and padded points (tap_points), both corner conventions, the
+    # coords columns of the points (strided, as the models pass them) and, for
+    # the planes, also stacked as the models stack them; a bf16 plane; rank
+    # 48 timed
+    from ngp_tpu_torch.ops import brickgrid as bg
+
+    for pname, xn in tap_points(gen, dev, TENSORF_RES, 4096 * 8).items():
+        for rank in (1, 16, 48):
+            plane = torch.randn((rank, TENSORF_RES, TENSORF_RES), generator=gen, device=dev)
+            line = torch.randn((rank, TENSORF_RES), generator=gen, device=dev)
+            for align in (True, False):
+                for kind, factor, coords in (
+                        ("plane", plane, xn[:, 0:2]), ("line", line, xn[:, 2]),
+                        ("plane stacked", plane, torch.stack([xn[:, 0], xn[:, 2]], dim=-1))):
+                    taps_fwd_check(sk, factor, coords, align,
+                                   f"{pname} {kind} R{rank} align_corners={align}", card,
+                                   results, library, timed=rank == 48 and kind != "plane stacked")
+        taps_fwd_check(sk, plane[:16].to(torch.bfloat16), xn[:, 0:2], False,
+                       f"{pname} bf16 plane R16", card, results, library, timed=False)
+    del plane, line, xn
+    # the brick grid's kernels at --preset tpu's geometry (8 levels x 4,
+    # levels 0-2 dense, 3-7 hashed; 399,268 rows of 108 f32, drawn N(0, 1)):
+    # 131,072 random points with 25% outside the box; the points of every
+    # level's cell edges (x * scale + 0.5 an integer: even ones are brick
+    # edges) and 1 ulp off them, the box's faces and just outside them; bf16
+    # and f32
+    bcfg = bg.BrickGridConfig(num_levels=8, level_dim=4, base_resolution=16,
+                              log2_hashmap_size=16, desired_resolution=4096)
+    btable = torch.randn((bcfg.num_rows, bcfg.row_width), generator=gen, device=dev)
+    brick_x = {"random": brick_points(gen, dev, 131_072), "edges": brick_edges(gen, dev, bcfg)}
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+        for pname, xb in brick_x.items():
+            gb = torch.randn((xb.shape[0], bcfg.output_dim), generator=gen, device=dev).to(dt)
+            err = brick_checks(bg, xb, btable, bcfg, gb, f"{dtype} {pname}", card, results,
+                               timed=pname == "random")
+            print(f"brick kernels [{dtype} {pname}]: {xb.shape[0]} points, forward within its "
+                  f"bound (max |kernel - plain| {err:.3e}), backward bit for bit  [{card}]",
+                  flush=True)
+    del btable, brick_x, gb
     printed = print_results(results, library, card, set())
     phase("kernels against their plain versions", t4)
 
@@ -4374,6 +4693,15 @@ def main():
                              ("scatter_add_rows", "17c last step's rows")),
         "scatter_add_taps": (csrc + "scatter_kernels.cu", "ngp_tpu/ops/interp.py:62",
                              ("scatter_add_taps", "TensoRF step largest call")),
+        # the taps' forward (TensoRF, CCNeRF), on the largest call of a TensoRF
+        # step's own taps; the brick grid's forward and rows' cotangent, on
+        # phase 17 (c)'s last step's own points and cotangent
+        "sample_taps_fwd": (csrc + "taps_kernels.cu", "ngp_tpu/ops/interp.py:45",
+                            ("sample_taps_fwd", "TensoRF step largest call")),
+        "brick_encode_fwd": (csrc + "brick_kernels.cu", "ngp_tpu/ops/brickgrid.py:143",
+                             ("brick_encode_fwd", "17c last step")),
+        "brick_encode_bwd": (csrc + "brick_kernels.cu", "ngp_tpu/ops/brickgrid.py:143",
+                             ("brick_encode_bwd", "17c last step")),
         # the JAX package leaves these to XLA: its take and einsum
         "grid_encode_fwd": (csrc + "grid_kernels.cu", "ngp_tpu/ops/hashgrid.py:203",
                             ("grid_encode_fwd", f"bfloat16 {GRID_ROWS[-1]}")),

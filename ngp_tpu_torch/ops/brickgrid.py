@@ -13,25 +13,36 @@ dense row-major until they overflow ``2^log2_hashmap_size`` rows, then
 hashed by JAX's primes in wrapping uint32 (taken here in int64, cut to 32
 bits after each product and sum, as ``ops/hashgrid.py`` does).
 
-JAX leaves all of it to XLA (no Pallas kernel). The port gathers the
-rows by ``index_select`` in ``ops/kernels/scatter.py:GatherRows``, whose
-backward adds the rows' cotangent into the table gradient by the kernel
-``scatter_add_rows`` on the card (its plain version, ``index_add_``, on
-the CPU): one f32 sum of all levels' rows, as JAX gathers all levels in
-one take so that autodiff emits a single scatter-add. The selects and
-weights, and the point gradient through them, are torch ops.
+JAX leaves all of it to XLA (no Pallas kernel). On the card two kernels
+run it (``csrc/brick_kernels.cu``, wrapped by ``brick_encode_fwd`` and
+``brick_encode_bwd``): the forward reads only the 8 stencil cells of each
+row, and the backward writes the gathered rows' cotangent, which the
+kernel ``scatter_add_rows`` (``ops/kernels/scatter.py``) adds into the
+table gradient: one f32 sum of all levels' rows, as JAX gathers all
+levels in one take so that autodiff emits a single scatter-add.
+``BrickEncode`` ties them together. On the CPU the same functions take
+their plain versions: ``brick_encode_plain`` (the row gather by
+``GatherRows``, the stencil's masked selects and the weights in torch
+ops) and ``brick_encode_bwd_plain`` (the cotangent autograd of the
+former hands to the row gather, bit for bit). The gradient in x is
+autograd of ``brick_encode_plain`` on every device (no path asks for it;
+each call counts under ``LAUNCHES["brick_x_grad_plain"]``).
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+import functools
 import math
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
+from torch.autograd.function import once_differentiable
 
-from ngp_tpu_torch.ops.kernels.scatter import GatherRows
+from ngp_tpu_torch.ops.kernels import LAUNCHES, scatter
+from ngp_tpu_torch.ops.kernels.build import check_launch, int_array, load_library
 
 _PRIMES = (1, 2654435761, 805459861)
 _M32 = 0xFFFFFFFF
@@ -128,22 +139,17 @@ def dense_field_to_brick_table(field: np.ndarray, cfg: BrickGridConfig,
     return np.ascontiguousarray(np.moveaxis(halos, 3, -1).reshape(n, 27 * C))
 
 
-def brick_encode(x: torch.Tensor, table: torch.Tensor, cfg: BrickGridConfig,
-                 compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """Encode x in [0, 1]^3 -> [..., L * C] in ``compute_dtype`` (the
-    table's dtype when None); zeros outside the box. One gather of a
-    27 * C row per point and level, the stencil's masked selects, the
-    trilinear weights (in the compute type, as JAX casts the table and
-    the fractions). Differentiable in x and the table."""
-    batch_shape = x.shape[:-1]
+def _stencils(x: torch.Tensor, cfg: BrickGridConfig, dt: torch.dtype):
+    """The plain versions' geometry of points x [..., 3]: (whether each
+    lies outside [0, 1]^3 [N], its row per level int32 [N * L] (level
+    fastest), the fractions [N, L, 3] in ``dt``, the low bits of the base
+    cell [N, L, 3] int64, the trilinear weights wxyz [N, L, 2, 2, 2] in
+    ``dt``, rounded as JAX's chain rounds them)."""
     xf = x.reshape(-1, 3)
     xf = xf.to(torch.promote_types(xf.dtype, torch.float32))
-    dt = compute_dtype or table.dtype
-    N, L, C = xf.shape[0], cfg.num_levels, cfg.level_dim
     oob = ((xf < 0.0) | (xf > 1.0)).any(dim=-1)
-
     idx, frac, lo = [], [], []
-    for level in range(L):
+    for level in range(cfg.num_levels):
         pos = xf * cfg.level_scale(level) + 0.5
         x0 = torch.floor(pos)
         frac.append((pos - x0).to(dt))
@@ -152,10 +158,24 @@ def brick_encode(x: torch.Tensor, table: torch.Tensor, cfg: BrickGridConfig,
         idx.append(_brick_index(cfg, level, x0 >> 1) + cfg.offsets[level])
     if cfg.num_rows >= 2**31:
         raise ValueError(f"brick_encode: {cfg.num_rows} table rows do not fit int32 indices")
-    idx = torch.stack(idx, dim=1).reshape(-1).to(torch.int32)  # [N * L], level fastest
-    f = torch.stack(frac, dim=1)  # [N, L, 3]
-    lo = torch.stack(lo, dim=1) == 1  # [N, L, 3]
-    halo = GatherRows.apply(table, idx).to(dt).reshape(N, L, 3, 3, 3, C)
+    idx = torch.stack(idx, dim=1).reshape(-1).to(torch.int32)
+    f = torch.stack(frac, dim=1)
+    w = torch.stack([1.0 - f, f], dim=-1)  # [N, L, 3, 2]
+    wxyz = w[:, :, 0, :, None, None] * w[:, :, 1, None, :, None] * w[:, :, 2, None, None, :]
+    return oob, idx, torch.stack(lo, dim=1), wxyz
+
+
+def brick_encode_plain(x: torch.Tensor, table: torch.Tensor, cfg: BrickGridConfig,
+                       compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """``brick_encode`` in torch ops: one gather of a 27 * C row per point
+    and level (``GatherRows``), the stencil's masked selects, the
+    trilinear weights (in the compute type, as JAX casts the table and
+    the fractions). Differentiable in x and the table by autograd."""
+    dt = compute_dtype or table.dtype
+    oob, idx, lo, wxyz = _stencils(x, cfg, dt)
+    N, L, C = oob.shape[0], cfg.num_levels, cfg.level_dim
+    lo = lo == 1
+    halo = scatter.GatherRows.apply(table, idx).to(dt).reshape(N, L, 3, 3, 3, C)
 
     def pick(t, axis, m):
         """The 2 of 3 halo entries along ``axis`` at the stencil's offset."""
@@ -165,9 +185,176 @@ def brick_encode(x: torch.Tensor, table: torch.Tensor, cfg: BrickGridConfig,
     s = pick(halo, 2, lo[..., 0])  # [N, L, 2, 3, 3, C]
     s = pick(s, 3, lo[..., 1])  # [N, L, 2, 2, 3, C]
     s = pick(s, 4, lo[..., 2])  # [N, L, 2, 2, 2, C]
-    w = torch.stack([1.0 - f, f], dim=-1)  # [N, L, 3, 2]
-    wxyz = (w[:, :, 0, :, None, None] * w[:, :, 1, None, :, None]
-            * w[:, :, 2, None, None, :])  # [N, L, 2, 2, 2]
     out = (s * wxyz[..., None]).sum(dim=(2, 3, 4)).reshape(N, L * C)
     out = torch.where(oob[:, None], torch.zeros((), dtype=out.dtype, device=out.device), out)
-    return out.reshape(*batch_shape, cfg.output_dim)
+    return out.reshape(*x.shape[:-1], cfg.output_dim)
+
+
+def brick_encode_bwd_plain(x: torch.Tensor, g: torch.Tensor,
+                           cfg: BrickGridConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(idx int32 [N * L], rows f32 [N * L, 27 * C]) for points x [N, 3]
+    and the output's cotangent g [N, L * C] (the compute type): each (point,
+    level)'s table row, -1 outside the box, and the cotangent that autograd
+    of ``brick_encode_plain`` hands to its row gather, bit for bit. The 8
+    stencil cells of a row hold the products g * wxyz in the compute type
+    (a -0 made +0, as autograd's selects add each product to a zero) cast
+    to f32; every other cell, and every row outside the box, is zero."""
+    dt = g.dtype
+    oob, idx, lo, wxyz = _stencils(x, cfg, dt)
+    N, L, C = oob.shape[0], cfg.num_levels, cfg.level_dim
+    idx = torch.where(oob[:, None], -1, idx.view(N, L)).reshape(-1)
+    gl = torch.where(oob[:, None], torch.zeros((), dtype=dt, device=g.device), g)
+    prod = (gl.reshape(N, L, 1, 1, 1, C) * wxyz[..., None]).float() + 0.0
+    ijk = torch.arange(2, device=lo.device)
+    cells = ((lo[..., 0, None, None, None] + ijk[:, None, None]) * 9
+             + (lo[..., 1, None, None, None] + ijk[None, :, None]) * 3
+             + (lo[..., 2, None, None, None] + ijk[None, None, :]))  # [N, L, 2, 2, 2]
+    rows = torch.zeros((N * L, 27, C), dtype=torch.float32, device=g.device)
+    rows.scatter_(1, cells.reshape(N * L, 8, 1).expand(-1, -1, C), prod.reshape(N * L, 8, C))
+    return idx, rows.reshape(N * L, 27 * C)
+
+
+@functools.lru_cache(maxsize=16)
+def _level_args(cfg: BrickGridConfig):
+    """The kernels' per-level arrays: scale (rounded to f32, as torch
+    rounds a Python scalar against an f32 tensor), first row, rows, the
+    side of a dense level's brick grid, and whether the level is hashed."""
+    L = cfg.num_levels
+    levels = [cfg.level_bricks(level) for level in range(L)]
+    scales = [float(np.float32(cfg.level_scale(level))) for level in range(L)]
+    return ((ctypes.c_float * L)(*scales),
+            int_array(cfg.offsets[:L]),
+            (ctypes.c_uint * L)(*[n for n, _ in levels]),
+            (ctypes.c_uint * L)(*[cfg.level_resolution(level) // 2 + 1 for level in range(L)]),
+            int_array([int(hashed) for _, hashed in levels]))
+
+
+def _check_brick_args(name: str, x: torch.Tensor, other: torch.Tensor, shape, what: str,
+                      cfg: BrickGridConfig) -> None:
+    """Raise ValueError unless x is floating [N, 3] and ``other`` (the
+    table or the cotangent) floating of ``shape`` on x's device; on the
+    card also unless the kernels take the configuration."""
+    if not (x.is_floating_point() and other.is_floating_point()):
+        raise ValueError(f"{name}: x and the {what} must be floating point")
+    if x.ndim != 2 or x.shape[1] != 3:
+        raise ValueError(f"{name}: x must be [N, 3], not {tuple(x.shape)}")
+    if tuple(other.shape) != tuple(shape):
+        raise ValueError(f"{name}: the {what} must be {tuple(shape)}, not {tuple(other.shape)}")
+    if other.device != x.device:
+        raise ValueError(f"{name}: x and the {what} lie on {x.device} and {other.device}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: no kernel for {x.device}")
+    if x.device.type == "cuda":
+        if x.dtype == torch.float64:
+            raise ValueError(f"{name}: the kernel takes f32, bf16 or f16 points")
+        if cfg.level_dim not in (1, 2, 4, 8) or cfg.num_levels > 32:
+            raise ValueError(f"{name}: the kernel takes level_dim 1, 2, 4 or 8 and at most 32 "
+                             f"levels, not {cfg.level_dim} and {cfg.num_levels}")
+        if cfg.num_rows >= 2**31 or x.shape[0] * cfg.num_levels >= 2**31:
+            raise ValueError(f"{name}: more rows or items than int32 indices reach")
+
+
+def brick_encode_fwd(x: torch.Tensor, table: torch.Tensor, cfg: BrickGridConfig,
+                     compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """The encoding of points x [N, 3] -> [N, L * C] in ``compute_dtype``
+    (the table's when None), zeros outside the box. On the card one kernel
+    launch (table f32 [num_rows, 27 * C], contiguous and 16-byte aligned;
+    f32 or bf16 output): the 8 products of a point and level summed in f32
+    and rounded once, so within one rounding of the compute type of the
+    plain version's sum; ``brick_encode_plain`` on the CPU."""
+    _check_brick_args("brick_encode_fwd", x, table, (cfg.num_rows, cfg.row_width), "table",
+                      cfg)
+    dt = compute_dtype or table.dtype
+    if x.device.type == "cpu":
+        return brick_encode_plain(x, table, cfg, dt)
+    if table.dtype != torch.float32 or not table.is_contiguous() or table.data_ptr() % 16:
+        raise ValueError("brick_encode_fwd: the table must be a contiguous, 16-byte aligned f32 "
+                         "tensor")
+    if dt not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"brick_encode_fwd: the kernel computes in f32 or bf16, not {dt}")
+    xf = x.float().contiguous()
+    N = xf.shape[0]
+    out = torch.empty((N, cfg.output_dim), dtype=dt, device=x.device)
+    if N == 0:
+        return out
+    lib = load_library()
+    err = lib.ngp_brick_encode_fwd(xf.data_ptr(), N, table.data_ptr(), cfg.level_dim,
+                                   cfg.num_levels, *_level_args(cfg),
+                                   int(dt == torch.bfloat16), out.data_ptr(),
+                                   torch.cuda.current_stream(x.device).cuda_stream)
+    check_launch("brick_encode_fwd", err)
+    LAUNCHES["brick_encode_fwd"] += 1
+    return out
+
+
+def brick_encode_bwd(x: torch.Tensor, g: torch.Tensor,
+                     cfg: BrickGridConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(idx int32 [N * L], rows f32 [N * L, 27 * C]): the table row of each
+    point and level (-1 outside the box) and the cotangent of the gathered
+    rows under the output's cotangent g [N, L * C] (f32 or bf16, the
+    compute type), as ``brick_encode_bwd_plain`` makes them. On the card
+    one kernel launch, bit-equal to the plain version; the plain version on
+    the CPU."""
+    _check_brick_args("brick_encode_bwd", x, g, (x.shape[0], cfg.output_dim), "cotangent", cfg)
+    if x.device.type == "cpu":
+        return brick_encode_bwd_plain(x, g, cfg)
+    if g.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"brick_encode_bwd: the kernel takes an f32 or bf16 cotangent, not "
+                         f"{g.dtype}")
+    xf, g = x.float().contiguous(), g.contiguous()
+    N, L = xf.shape[0], cfg.num_levels
+    idx = torch.empty((N * L,), dtype=torch.int32, device=x.device)
+    rows = torch.empty((N * L, cfg.row_width), dtype=torch.float32, device=x.device)
+    if N == 0:
+        return idx, rows
+    lib = load_library()
+    err = lib.ngp_brick_encode_bwd(xf.data_ptr(), N, g.data_ptr(), cfg.level_dim, L,
+                                   *_level_args(cfg), int(g.dtype == torch.bfloat16),
+                                   idx.data_ptr(), rows.data_ptr(),
+                                   torch.cuda.current_stream(x.device).cuda_stream)
+    check_launch("brick_encode_bwd", err)
+    LAUNCHES["brick_encode_bwd"] += 1
+    return idx, rows
+
+
+class BrickEncode(torch.autograd.Function):
+    """``brick_encode`` on points x [N, 3]: the forward by
+    ``brick_encode_fwd``; the table gradient by ``brick_encode_bwd`` and
+    ``scatter.scatter_add_rows`` into a zeroed f32 table, cast to the
+    table's type; the gradient in x by autograd of ``brick_encode_plain``
+    in x alone; each only where autograd asks for it."""
+
+    @staticmethod
+    def forward(ctx, x, table, cfg, compute_dtype):
+        ctx.save_for_backward(x, table)
+        ctx.cfg, ctx.compute_dtype = cfg, compute_dtype
+        return brick_encode_fwd(x, table, cfg, compute_dtype)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        x, table = ctx.saved_tensors
+        d_x = d_table = None
+        if ctx.needs_input_grad[1]:
+            idx, rows = brick_encode_bwd(x, g, ctx.cfg)
+            d_table = torch.zeros(table.shape, dtype=torch.float32, device=g.device)
+            d_table = scatter.scatter_add_rows(idx, rows, d_table).to(table.dtype)
+        if ctx.needs_input_grad[0]:
+            LAUNCHES["brick_x_grad_plain"] += 1
+            with torch.enable_grad():
+                xx = x.detach().requires_grad_()
+                (d_x,) = torch.autograd.grad(
+                    brick_encode_plain(xx, table.detach(), ctx.cfg, ctx.compute_dtype), xx, g)
+        return d_x, d_table, None, None
+
+
+def brick_encode(x: torch.Tensor, table: torch.Tensor, cfg: BrickGridConfig,
+                 compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Encode x in [0, 1]^3 -> [..., L * C] in ``compute_dtype`` (the
+    table's dtype when None); zeros outside the box. Differentiable in x
+    and the table (``BrickEncode``: the kernels on the card, the plain
+    versions on the CPU)."""
+    if x.shape[-1] != 3:
+        raise ValueError(f"brick_encode: x must be [..., 3], not {tuple(x.shape)}")
+    out = BrickEncode.apply(x.reshape(-1, 3), table, cfg, compute_dtype or table.dtype)
+    return out.reshape(*x.shape[:-1], cfg.output_dim)

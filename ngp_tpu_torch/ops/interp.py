@@ -1,14 +1,16 @@
 """Bilinear sampling and resizing with explicit corner conventions
-(``ngp_tpu/ops/interp.py``), for the TensoRF family. The taps are
-``index_select``s of the factor lines and planes, lerped in torch ops;
-``FactorTaps`` gives their gradient in the factor by the kernel
-``scatter_add_taps`` on the card (``ops/kernels/scatter.py``; its plain
-version, one ``index_add_`` per tap, on the CPU), and in the points by
-autograd of the same forward. The JAX package leaves both to XLA (no
-Pallas kernel). A TensoRF step pads its unused sample slots at one point,
-so the taps of many consecutive samples hit one cell: the kernel sums
-such runs before it adds. ``chip_smoke.py:tap_forms`` times the taps'
-forms on the card.
+(``ngp_tpu/ops/interp.py``), for the TensoRF family. ``FactorTaps`` runs
+the taps' forward by the kernel ``sample_taps_fwd`` on the card
+(``ops/kernels/scatter.py``; its plain version, one ``index_select`` +
+``where`` + ``mul`` + ``add`` per tap, on the CPU), their gradient in the
+factor by the kernel ``scatter_add_taps`` (its plain version, one
+``index_add_`` per tap, on the CPU), and their gradient in the points by
+autograd of the plain forward (no path asks for it; each such call counts
+under ``LAUNCHES["taps_coords_grad_plain"]``). The JAX package leaves all
+of it to XLA (no Pallas kernel). A TensoRF step pads its unused sample
+slots at one point, so the taps of many consecutive samples hit one cell:
+the gradient kernel sums such runs before it adds.
+``chip_smoke.py:tap_forms`` times the taps' forms on the card.
 
 - ``align_corners=True``: u in [-1, 1] maps to pixel centres 0 .. W-1,
   (u + 1) / 2 * (W - 1) (``grid_sample``'s convention);
@@ -23,33 +25,21 @@ from typing import Sequence
 import torch
 from torch.autograd.function import once_differentiable
 
-from ngp_tpu_torch.ops.kernels import scatter
-
-
-def _sample(factor: torch.Tensor, coords: torch.Tensor, align_corners: bool) -> torch.Tensor:
-    """The taps' lerp: factor [R, D] and coords [N], or [R, H, W] and
-    [N, 2] -> [R, N]."""
-    R = factor.shape[0]
-    flat = factor.reshape(R, -1)
-    out = None
-    for idx, ok, w in scatter.factor_taps(coords, factor.shape[1:], align_corners):
-        v = flat.index_select(1, idx)
-        v = torch.where(ok[None, :], v, torch.zeros((), dtype=v.dtype, device=v.device))
-        out = v * w[None, :] if out is None else out + v * w[None, :]
-    return out
+from ngp_tpu_torch.ops.kernels import LAUNCHES, scatter
 
 
 class FactorTaps(torch.autograd.Function):
-    """``_sample`` with its gradients: in the factor by
-    ``scatter.scatter_add_taps`` into a zeroed f32 factor, in the points by
-    autograd of ``_sample`` in the points alone, each only where autograd
-    asks for it."""
+    """The taps' lerp, factor [R, D] and coords [N], or [R, H, W] and
+    [N, 2] -> [R, N], by ``scatter.sample_taps_fwd``, with its gradients:
+    in the factor by ``scatter.scatter_add_taps`` into a zeroed f32
+    factor, in the points by autograd of ``scatter.sample_taps_plain`` in
+    the points alone, each only where autograd asks for it."""
 
     @staticmethod
     def forward(ctx, factor, coords, align_corners):
         ctx.save_for_backward(factor, coords)
         ctx.align_corners = align_corners
-        return _sample(factor, coords, align_corners)
+        return scatter.sample_taps_fwd(factor.contiguous(), coords, align_corners)
 
     @staticmethod
     @once_differentiable
@@ -62,10 +52,11 @@ class FactorTaps(torch.autograd.Function):
                                      ctx.align_corners)
             d_factor = d_factor.to(factor.dtype)
         if ctx.needs_input_grad[1]:
+            LAUNCHES["taps_coords_grad_plain"] += 1
             with torch.enable_grad():
                 c = coords.detach().requires_grad_()
                 (d_coords,) = torch.autograd.grad(
-                    _sample(factor.detach(), c, ctx.align_corners), c, g)
+                    scatter.sample_taps_plain(factor.detach(), c, ctx.align_corners), c, g)
         return d_factor, d_coords, None
 
 

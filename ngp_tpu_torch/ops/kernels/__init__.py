@@ -15,10 +15,17 @@
   ``cp.CPEncode`` adds its backward through ``cp_bwd_banks``)
 - ``fused_mlp.fused_mlp``    replaces ``ngp_tpu/ops/pallas/fused_mlp.py:fused_mlp``
 - ``scatter.scatter_add_rows`` replaces ``scripts/perf_probe2_r2.py:scatter_pallas`` (a row
-  scatter-add); ``scatter.GatherRows`` adds the brick grid's table gradient through it
+  scatter-add); ``brickgrid.BrickEncode`` adds the brick grid's table gradient through it
 - ``scatter.scatter_add_taps`` replaces no Pallas kernel: the factor gradient of the
   bilinear taps (TensoRF, CCNeRF), which the JAX package leaves to XLA's VJP of
   ``jnp.take`` (``ngp_tpu/ops/interp.py:39``, ``:62``); ``interp.FactorTaps`` adds it
+- ``scatter.sample_taps_fwd`` replaces no Pallas kernel: the bilinear taps' forward
+  (TensoRF, CCNeRF), which the JAX package leaves to XLA (``ngp_tpu/ops/interp.py:27``,
+  ``:45``); ``interp.FactorTaps`` samples through it
+- ``brickgrid.brick_encode_fwd`` and ``brickgrid.brick_encode_bwd`` (in ``ops/brickgrid.py``)
+  replace no Pallas kernel: the brick grid's encoding and the cotangent of the rows it
+  reads, which the JAX package leaves to XLA (``ngp_tpu/ops/brickgrid.py:143``);
+  ``brickgrid.BrickEncode`` runs both and adds the table gradient by ``scatter_add_rows``
 - ``hashgrid.grid_encode_fwd`` and ``hashgrid.grid_encode_bwd`` replace no Pallas
   kernel: the JAX package leaves the hash-grid encoder and its VJP to XLA
   (``ngp_tpu/ops/hashgrid.py:203-204``); ``hashgrid.GridEncode`` adds the backward
@@ -44,6 +51,10 @@ background net's encoder), and ``grid_encode_fwd_4d``,
 ``grid_encode_bwd_4d`` and ``grid_encode_bwd_x_4d`` those on 4-D points
 (D-NeRF's hyper grid); they count under ``grid_encode_fwd``,
 ``grid_encode_bwd`` and ``grid_encode_bwd_x`` too.
+``taps_coords_grad_plain`` and ``brick_x_grad_plain`` count no kernel:
+the calls of the taps' gradient in the points and of the brick grid's
+gradient in x, which run autograd of the plain versions on every device
+(no path asks for either).
 """
 
 from typing import Dict
@@ -73,6 +84,11 @@ LAUNCHES: Dict[str, int] = {
     "grid_encode_bwd_x_4d": 0,
     "scatter_add_rows": 0,
     "scatter_add_taps": 0,
+    "sample_taps_fwd": 0,
+    "brick_encode_fwd": 0,
+    "brick_encode_bwd": 0,
+    "taps_coords_grad_plain": 0,
+    "brick_x_grad_plain": 0,
 }
 
 

@@ -80,6 +80,15 @@ _SIGNATURES = {
     ],
     "ngp_scatter_add_rows": [_P, _P, _L, _I, _I, _P, _P],
     "ngp_scatter_add_taps": [_P, _I, _L, _P, _L, _P, _L, _I, _I, _I, _P, _P],
+    "ngp_sample_taps_fwd": [_P, _I, _I, _L, _P, _L, _P, _L, _I, _I, _I, _P, _P],
+    "ngp_brick_encode_fwd": [
+        _P, _L, _P, _I, _I, ctypes.POINTER(_F), ctypes.POINTER(_I), ctypes.POINTER(_U),
+        ctypes.POINTER(_U), ctypes.POINTER(_I), _I, _P, _P,
+    ],
+    "ngp_brick_encode_bwd": [
+        _P, _L, _P, _I, _I, ctypes.POINTER(_F), ctypes.POINTER(_I), ctypes.POINTER(_U),
+        ctypes.POINTER(_U), ctypes.POINTER(_I), _I, _P, _P, _P,
+    ],
 }
 
 

@@ -5,7 +5,7 @@
 // scripts/perf_probe2_r2.py:scatter_pallas, the TPU kernel that computes
 // zeros[R, W].at[idx].add(rows) with a serial row loop into an accumulator
 // held in VMEM across the whole grid; the brick grid's table gradient is this
-// function (ops/brickgrid.py, GatherRows). Hopper runs blocks in parallel and
+// function (ops/brickgrid.py, BrickEncode). Hopper runs blocks in parallel and
 // in no order, so the sum goes to f32 atomics into `out`. What bounds it is
 // reading the rows once (0.32 ms at the probe's 2,097,152 x 128 at 3.35 TB/s);
 // what it meets first is the L2's atomic rate, so each branch issues as few
@@ -27,10 +27,9 @@
 // taps (1-D line [R, D], coords u [N]) or 4 taps (2-D plane [R, H, W], coords
 // (u, v)) of each sample: the gradient that XLA's VJP of jnp.take gives in
 // ngp_tpu/ops/interp.py:sample_1d / sample_2d (:39, :62), which no Pallas
-// kernel computes. The kernel makes each sample's cells and weights itself,
-// with the roundings of ops/interp.py's forward (every product and sum
-// rounded on its own, no fused multiply-add), so a sample on a cell edge adds
-// into the cell the forward read. A block takes a tile of 128 samples; its
+// kernel computes. The kernel makes each sample's cells and weights by
+// taps.cuh, which the forward (taps_kernels.cu) shares, so a sample on a cell
+// edge adds into the cell the forward read. A block takes a tile of 128 samples; its
 // threads write each sample's taps to shared memory once and mark, per tap,
 // the runs of consecutive samples that hit one cell (the samples of a ray, and
 // the compaction's padded slots, which all sit at one point); then each warp
@@ -46,6 +45,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "taps.cuh"
 
 #if defined(__CUDA_ARCH__) && (__CUDA_ARCH__ >= 900) && (CUDART_VERSION >= 12010)
 #define NGP_VECTOR_ATOMICS 1
@@ -276,45 +277,6 @@ int launch_tiled(const int* idx, const float* rows, long long M, int W, int R, f
 
 // ---------------------------------------------------------------------------
 // the taps
-
-// ops/kernels/scatter.py:_to_pixel, each operation rounded on its own
-__device__ __forceinline__ float to_pixel(float u, int size, int align) {
-  const float h = __fmul_rn(__fadd_rn(u, 1.f), 0.5f);
-  return align ? __fmul_rn(h, (float)(size - 1))
-               : __fsub_rn(__fmul_rn(h, (float)size), 0.5f);
-}
-
-// the taps of one sample: flat cell (-1 outside the grid) and weight, in the
-// forward's order; W = D and H = 1 for a line (v unused)
-template <int TAPS>
-__device__ __forceinline__ void sample_taps(float u, float v, int H, int W, int align,
-                                            int* cell, float* wt) {
-  const float px = to_pixel(u, W, align);
-  const float x0 = floorf(px);
-  const float fx = __fsub_rn(px, x0);
-  if (TAPS == 2) {
-    cell[0] = (x0 >= 0.f && x0 <= (float)(W - 1)) ? (int)x0 : -1;
-    cell[1] = (x0 >= -1.f && x0 <= (float)(W - 2)) ? (int)x0 + 1 : -1;
-    wt[0] = __fsub_rn(1.f, fx);
-    wt[1] = fx;
-  } else {
-    const float py = to_pixel(v, H, align);
-    const float y0 = floorf(py);
-    const float fy = __fsub_rn(py, y0);
-    const bool xa = x0 >= 0.f && x0 <= (float)(W - 1), xb = x0 >= -1.f && x0 <= (float)(W - 2);
-    const bool ya = y0 >= 0.f && y0 <= (float)(H - 1), yb = y0 >= -1.f && y0 <= (float)(H - 2);
-    const int xi = (xa || xb) ? (int)x0 : 0, yi = (ya || yb) ? (int)y0 : 0;
-    cell[0] = (ya && xa) ? yi * W + xi : -1;
-    cell[1] = (ya && xb) ? yi * W + xi + 1 : -1;
-    cell[2] = (yb && xa) ? (yi + 1) * W + xi : -1;
-    cell[3] = (yb && xb) ? (yi + 1) * W + xi + 1 : -1;
-    const float gx = __fsub_rn(1.f, fx), gy = __fsub_rn(1.f, fy);
-    wt[0] = __fmul_rn(gx, gy);
-    wt[1] = __fmul_rn(fx, gy);
-    wt[2] = __fmul_rn(gx, fy);
-    wt[3] = __fmul_rn(fx, fy);
-  }
-}
 
 // S: the sub-ranges a tile is split into (1, 2 or 4; each a multiple of 32
 // samples), so that R * S items keep a block's 8 warps busy

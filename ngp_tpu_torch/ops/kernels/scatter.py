@@ -1,9 +1,11 @@
-"""Scatter-adds: the CUDA kernels' wrappers and their plain versions.
+"""Scatter-adds, and the factor taps' forward: the CUDA kernels' wrappers
+and their plain versions.
 
 ``scatter_add_rows`` replaces ``scripts/perf_probe2_r2.py:scatter_pallas``
 (``zeros[R, W].at[idx].add(rows)``, the VJP of a row gather). The brick
-grid's table gradient runs it: ``GatherRows`` gathers table rows and adds
-the rows' cotangent back by it (``ops/brickgrid.py:brick_encode``). The
+grid's table gradient runs it: ``ops/brickgrid.py:BrickEncode`` adds the
+rows' cotangent by it on every device, and ``GatherRows`` (the row gather
+of the plain ``brick_encode_plain``) in its backward. The
 hash-grid table gradient adds its corner rows itself
 (``ops/kernels/hashgrid.py:grid_encode_bwd``). Indices outside [0, R) add
 nothing, as XLA's scatter drops them (``jnp``'s ``.at`` wraps indices in
@@ -15,8 +17,13 @@ of ``ops/interp.py``'s bilinear taps, which the JAX package leaves to
 XLA's VJP of ``jnp.take`` (``ngp_tpu/ops/interp.py:39``, ``:62``).
 TensoRF and CCNeRF train through it (``interp.FactorTaps``). It makes
 each sample's cells and weights itself, as ``factor_taps`` makes them
-here. The kernels are in ``csrc/scatter_kernels.cu``, whose header says
-what bounds them and how each is laid out.
+here. ``sample_taps_fwd`` replaces no Pallas kernel either: it is the
+taps' forward, ``ngp_tpu/ops/interp.py:sample_1d`` / ``sample_2d``
+(``:27``, ``:45``), which the JAX package leaves to XLA; ``FactorTaps``
+samples through it. ``factor_taps`` is the one owner of the taps' cells,
+weights and roundings; both kernels make them by ``csrc/taps.cuh``. The
+kernels are in ``csrc/scatter_kernels.cu`` and ``csrc/taps_kernels.cu``,
+whose headers say what bounds them and how each is laid out.
 """
 
 from __future__ import annotations
@@ -102,8 +109,8 @@ class GatherRows(torch.autograd.Function):
 
 def _to_pixel(u: torch.Tensor, size: int, align_corners: bool) -> torch.Tensor:
     """The pixel coordinate of u in [-1, 1] on an axis of ``size`` cells,
-    each operation rounded on its own: ``sample_taps`` in
-    ``csrc/scatter_kernels.cu`` must round the same way (no fused
+    each operation rounded on its own: ``to_pixel`` in
+    ``csrc/taps.cuh`` must round the same way (no fused
     multiply-add), or a sample on a cell edge lands in another cell."""
     u = u.float()
     if align_corners:
@@ -119,9 +126,9 @@ def factor_taps(coords: torch.Tensor, grid: Sequence[int],
     (the flat cell clamped into the grid [N] int64, whether the cell is in
     the grid [N] bool, the weight [N] f32), with ``_to_pixel``'s
     convention (``align_corners``). The one owner of the taps' geometry:
-    ``ops/interp.py``'s forward reads these taps, and ``sample_taps`` in
-    ``csrc/scatter_kernels.cu`` makes the same cells and weights with the
-    same roundings."""
+    ``sample_taps_plain`` reads these taps, and ``sample_taps`` in
+    ``csrc/taps.cuh`` makes the same cells and weights with the same
+    roundings for both kernels."""
     if len(grid) == 1:
         (D,) = grid
         p = _to_pixel(coords, D, align_corners)
@@ -143,6 +150,72 @@ def factor_taps(coords: torch.Tensor, grid: Sequence[int],
 
     return [tap(y0, x0, (1 - fx) * (1 - fy)), tap(y0, x0 + 1, fx * (1 - fy)),
             tap(y0 + 1, x0, (1 - fx) * fy), tap(y0 + 1, x0 + 1, fx * fy)]
+
+
+def sample_taps_plain(factor: torch.Tensor, coords: torch.Tensor,
+                      align_corners: bool) -> torch.Tensor:
+    """The taps' lerp: factor [R, D] and coords [N], or [R, H, W] and [N, 2]
+    -> [R, N] in torch's promotion of the factor's type and f32: per tap
+    of ``factor_taps``, one ``index_select``, ``where``, ``mul`` and ``add``
+    (``out = v_0 w_0``, then ``out = out + v_t w_t``)."""
+    R = factor.shape[0]
+    flat = factor.reshape(R, -1)
+    out = None
+    for idx, ok, w in factor_taps(coords, factor.shape[1:], align_corners):
+        v = flat.index_select(1, idx)
+        v = torch.where(ok[None, :], v, torch.zeros((), dtype=v.dtype, device=v.device))
+        out = v * w[None, :] if out is None else out + v * w[None, :]
+    return out
+
+
+def _check_taps_args(name: str, factor: torch.Tensor, coords: torch.Tensor) -> None:
+    """Raise ValueError unless factor is a floating [R, D] line with
+    floating coords [N], or an [R, H, W] plane with coords [N, 2]."""
+    if not (factor.is_floating_point() and coords.is_floating_point()):
+        raise ValueError(f"{name}: the factor and the coords must be floating point")
+    if factor.ndim == 2:
+        if coords.ndim != 1:
+            raise ValueError(f"{name}: a line's coords must be [N]")
+    elif factor.ndim == 3:
+        if coords.ndim != 2 or coords.shape[1] != 2:
+            raise ValueError(f"{name}: a plane's coords must be [N, 2]")
+    else:
+        raise ValueError(f"{name}: the factor must be a line [R, D] or a plane [R, H, W]")
+
+
+def sample_taps_fwd(factor: torch.Tensor, coords: torch.Tensor,
+                    align_corners: bool) -> torch.Tensor:
+    """The bilinear taps of ``factor_taps`` on each factor row: factor [R,
+    D] with coords u [N], or [R, H, W] with coords [N, 2] -> [R, N]; zero
+    outside the grid. On the card one kernel launch: factor f32 or bf16,
+    contiguous, coords f32 of any strides, output f32, bit-equal to
+    ``sample_taps_plain`` (every product and sum rounded on its own, in
+    its order); ``sample_taps_plain`` on the CPU."""
+    _check_taps_args("sample_taps_fwd", factor, coords)
+    if factor.device.type == "cpu":
+        return sample_taps_plain(factor, coords, align_corners)
+    if factor.device.type != "cuda":
+        raise ValueError(f"sample_taps_fwd: no kernel for {factor.device}")
+    if factor.dtype not in (torch.float32, torch.bfloat16) or not factor.is_contiguous():
+        raise ValueError("sample_taps_fwd: the factor must be a contiguous f32 or bf16 tensor")
+    if coords.device != factor.device or coords.dtype != torch.float32:
+        raise ValueError(f"sample_taps_fwd: coords must be f32 on {factor.device}")
+    R, grid, N = factor.shape[0], factor.shape[1:], coords.shape[0]
+    if factor.numel() >= 2**31 or N >= 2**31 or R > 8 * 65535:
+        raise ValueError("sample_taps_fwd: more entries than the kernel's offsets reach")
+    out = torch.empty((R, N), dtype=torch.float32, device=factor.device)
+    if out.numel() == 0:
+        return out
+    u, su, v, sv = _coord_args(coords, grid)
+    H, W = (1, grid[0]) if len(grid) == 1 else grid
+    lib = load_library()
+    err = lib.ngp_sample_taps_fwd(factor.data_ptr(), int(factor.dtype == torch.bfloat16), R, N,
+                                  u.data_ptr(), su, None if v is None else v.data_ptr(), sv,
+                                  H, W, int(align_corners), out.data_ptr(),
+                                  torch.cuda.current_stream(factor.device).cuda_stream)
+    check_launch("sample_taps_fwd", err)
+    LAUNCHES["sample_taps_fwd"] += 1
+    return out
 
 
 def scatter_add_taps_plain(g: torch.Tensor, coords: torch.Tensor, out: torch.Tensor,

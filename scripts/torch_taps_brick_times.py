@@ -1,0 +1,110 @@
+#!/usr/bin/env python3
+"""Time the train steps that sample factor taps or encode by the brick grid
+(TensoRF, CCNeRF and ``--preset tpu``) of one tree of the PyTorch port on
+one NVIDIA GPU, so that two trees (a parent and its change) can be
+compared in one call on one card:
+
+    python3 scripts/torch_taps_brick_times.py --tree <tree root> --scene <dir>
+
+It builds that tree's kernels, then, on the scene (written there by
+``make_synthetic_dataset`` if the directory is missing), runs
+``main_tensoRF -O``, ``main_CCNeRF -O`` and ``main_nerf --preset tpu``,
+each for ``--iters`` iterations, and on each trainer takes 2 warm-up
+steps, ``--steps`` steps on the host clock (ending in a synchronize: wall
+ms a step and rays/s) and 4 steps under ``chip_smoke.py:profile``
+(device ms and launches a step, the idle share, and the device ms and
+launches of the kernels whose names hold ``sample_taps``,
+``scatter_taps``, ``brick_``, ``indexSelect``, ``indexFunc`` or
+``elementwise``). It prints one JSON line per step kind, naming the tree
+and the card (name and power limit). Run each tree in turn: parent,
+change, change, parent.
+"""
+
+import argparse
+import contextlib
+import importlib.util
+import io
+import itertools
+import json
+import os
+import sys
+import tempfile
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FOCUS = ("sample_taps", "scatter_taps", "brick_", "indexSelect", "indexFunc", "elementwise")
+
+
+def main():
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--tree", default=ROOT, help="root of the tree whose port is timed")
+    parser.add_argument("--scene", required=True,
+                        help="the synthetic scene's directory (written there if missing)")
+    parser.add_argument("--iters", type=int, default=80, help="iterations each main trains")
+    parser.add_argument("--steps", type=int, default=16, help="steps timed on the host clock")
+    args = parser.parse_args()
+    tree = os.path.abspath(args.tree)
+    sys.path.insert(0, tree)
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("torch_taps_brick_times: no CUDA device; this script runs on a GPU")
+    # this script's own helpers (profile, the card line), whichever tree is timed
+    spec = importlib.util.spec_from_file_location("smoke", os.path.join(ROOT, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    from ngp_tpu_torch import main_CCNeRF, main_nerf, main_tensoRF
+    from ngp_tpu_torch.data.nerf_dataset import NeRFDataset
+    from ngp_tpu_torch.data.synthetic import make_synthetic_dataset
+    from ngp_tpu_torch.ops.kernels import build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    card = cs.card_line()
+    name = os.path.basename(tree.rstrip("/")) or tree
+    t0 = time.perf_counter()
+    build.build()
+    build.load_library()
+    print(f"[{name}] build {time.perf_counter() - t0:.1f} s  [{card}]", flush=True)
+    scene = os.path.abspath(args.scene)
+    if not os.path.isdir(scene):
+        make_synthetic_dataset(scene, n_train=40, n_val=4, n_test=8, device=dev)
+
+    runs = (("tensorf_step", main_tensoRF.main, ["-O"], 0.33),
+            ("ccnerf_step", main_CCNeRF.main, ["-O"], 0.8),
+            ("brick_step", main_nerf.main, ["--preset", "tpu"], None))
+    for what, run, flags, scale in runs:
+        with tempfile.TemporaryDirectory() as ws, contextlib.redirect_stdout(io.StringIO()):
+            trainer = run([scene, *flags, "--workspace", ws, "--iters", str(args.iters)])
+        kw = {} if scale is None else {"scale": scale}
+        train_ds = NeRFDataset(scene, split="train", **kw)
+        batches = itertools.chain.from_iterable(
+            trainer.make_loader(train_ds)() for _ in itertools.count())
+        for _ in range(2):
+            trainer.step(next(batches))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(args.steps):
+            trainer.step(next(batches))
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t1) / args.steps
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            busy, launches, idle = cs.profile(lambda: trainer.step(next(batches)), 4, "step",
+                                              card, focus=FOCUS)
+        lines = buf.getvalue().splitlines()
+        focus = {}
+        for key in FOCUS:
+            line = next(ln for ln in lines if ln.strip().startswith(key + ":"))
+            ms, rest = line.split(":", 1)[1].split(" ms per step in ")
+            focus[key] = {"ms": float(ms), "launches": int(rest.split(" launches")[0])}
+        print(json.dumps({"tree": name, "what": what, "wall_ms": wall * 1e3,
+                          "rays_per_s": trainer.train_cfg.num_rays / wall, "device_ms": busy,
+                          "launches": launches, "idle": idle, **focus, "card": card}),
+              flush=True)
+        del trainer, batches, train_ds
+    print(f"[{name}] ok  [{card}]", flush=True)
+
+
+if __name__ == "__main__":
+    main()

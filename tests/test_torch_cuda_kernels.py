@@ -36,7 +36,12 @@ turbo march and the eval prepass round every float as their plain
 versions do: equal, bit for bit. The f32 heads (3xTF32 on the tensor
 cores for H1 <= 256) are held to the f32 tolerance above; their feats
 residual is the features as the products split them, within 2^-22 of
-f32's."""
+f32's. The taps' forward rounds every product and sum as its plain
+version does: equal, bit for bit. The brick grid's forward sums the same
+8 products in another f32 order: within 1e-6 of the sum of their
+magnitudes S in f32, one bf16 step plus 2^-20 S in bf16; its rows'
+cotangent equals its plain version's bit for bit, and the table gradient
+through it is held as the row scatter-add."""
 
 import math
 
@@ -1421,6 +1426,165 @@ def test_scatter_add_taps_wrapper_raises_on_what_the_kernel_does_not_take(dev):
         ks.scatter_add_taps(g, u[:7], out, True)
     with pytest.raises(ValueError):
         ks.scatter_add_taps(g, u, torch.zeros((4, 5, 6), device=dev), True)
+
+
+@pytest.mark.parametrize("factor_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["uniform", "ray", "padded", "edges"])
+@pytest.mark.parametrize("align_corners", [True, False])
+@pytest.mark.parametrize("R,grid,N", TAP_CASES)
+def test_sample_taps_fwd_kernel(dev, R, grid, N, align_corners, kind, factor_dtype):
+    """The taps' forward against its plain version, bit for bit: the same
+    cells and weights (``taps.cuh``, rounded as ``factor_taps`` rounds
+    them) and every product and sum rounded on its own in the plain
+    version's order; the coords contiguous and as columns of a wider
+    tensor (strided, as the models pass them)."""
+    from ngp_tpu_torch.ops.kernels import scatter as ks
+
+    coords = _tap_points(dev, kind, N, len(grid), grid[-1], align_corners, seed=R + N)
+    wide = torch.zeros((N, 3), device=dev)
+    wide[:, :len(grid)] = coords.view(N, -1)
+    strided = wide[:, 0] if len(grid) == 1 else wide[:, 0:2]
+    factor = torch.randn((R, *grid), generator=torch.Generator().manual_seed(3)).to(dev,
+                                                                                 factor_dtype)
+    want = ks.sample_taps_plain(factor, coords, align_corners)
+    for c in (coords, strided):
+        before = LAUNCHES["sample_taps_fwd"]
+        got = ks.sample_taps_fwd(factor, c, align_corners)
+        torch.cuda.synchronize()
+        assert LAUNCHES["sample_taps_fwd"] == before + 1
+        assert got.dtype == want.dtype == torch.float32 and got.shape == want.shape == (R, N)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+# brick grids: the --preset tpu levels with 2^12 bricks a level (levels 0-2
+# dense, 3-7 hashed, 4 features) and a small grid of 2 features
+BRICK_GRIDS = {
+    "preset_cut": dict(num_levels=8, level_dim=4, base_resolution=16, log2_hashmap_size=12,
+                       desired_resolution=4096),
+    "small": dict(num_levels=4, level_dim=2, base_resolution=4, per_level_scale=2.3,
+                  log2_hashmap_size=9),
+}
+
+
+def _brick_case(dev, name, kind, dtype, seed=0):
+    """(cfg, table, x, g): a table drawn N(0, 1); random points with a
+    quarter outside the box, or points on each level's cell and brick
+    edges (x * scale + 0.5 an integer) and 1 ulp off them, on the box's
+    faces and 2^-20 inside and outside them; the cotangent in ``dtype``,
+    negative (against the zero weights of the edge points: -0 products)."""
+    from ngp_tpu_torch.ops import brickgrid
+
+    cfg = brickgrid.BrickGridConfig(**BRICK_GRIDS[name])
+    g = torch.Generator().manual_seed(seed)
+    table = torch.randn((cfg.num_rows, cfg.row_width), generator=g)
+    if kind == "random":
+        x = torch.rand((20000, 3), generator=g)
+        out = torch.rand(20000, generator=g) < 0.25
+        x[out] = torch.rand((int(out.sum()), 3), generator=g) * 1.6 - 0.3
+    else:
+        v = torch.cat([((torch.arange(1, int(cfg.level_scale(lv)) + 1, dtype=torch.float64)
+                         - 0.5) / cfg.level_scale(lv)).float() for lv in range(cfg.num_levels)])
+        v = torch.cat([v, torch.nextafter(v, torch.full_like(v, 2.0)),
+                       torch.nextafter(v, torch.full_like(v, -1.0)),
+                       torch.tensor([0.0, 2.0**-20, -2.0**-20, 1.0, 1.0 + 2.0**-20,
+                                     1.0 - 2.0**-20])])
+        x = torch.rand((v.numel(), 3), generator=g)
+        x[torch.arange(v.numel()), torch.randint(0, 3, (v.numel(),), generator=g)] = v
+    cot = -torch.randn((x.shape[0], cfg.output_dim), generator=g).abs().to(dtype)
+    return cfg, table.to(dev), x.to(dev), cot.to(dev)
+
+
+@pytest.mark.parametrize("kind", ["random", "edges"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", list(BRICK_GRIDS))
+def test_brick_encode_kernels(dev, name, dtype, kind):
+    """``brick_encode_fwd`` against its plain version: the same 8 products
+    of the compute type summed in another f32 order and rounded once, so
+    in f32 within 1e-6 of the sum of their magnitudes S, in bf16 within
+    one bf16 step of the plain value (2^-7 |plain|) plus 2^-20 S;
+    ``brick_encode_bwd``'s rows and row indices bit for bit."""
+    from ngp_tpu_torch.ops import brickgrid
+
+    cfg, table, x, g = _brick_case(dev, name, kind, dtype)
+    before = {k: LAUNCHES[k] for k in ("brick_encode_fwd", "brick_encode_bwd")}
+    got = brickgrid.brick_encode_fwd(x, table, cfg, dtype)
+    idx, rows = brickgrid.brick_encode_bwd(x, g, cfg)
+    torch.cuda.synchronize()
+    assert {k: LAUNCHES[k] - n for k, n in before.items()} == {"brick_encode_fwd": 1,
+                                                               "brick_encode_bwd": 1}
+    want = brickgrid.brick_encode_plain(x, table, cfg, dtype)
+    s_abs = brickgrid.brick_encode_plain(x, table.abs(), cfg, dtype).float()
+    bound = 1e-6 * s_abs if dtype == torch.float32 else \
+        2.0**-7 * want.float().abs() + 2.0**-20 * s_abs
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert ((got.float() - want.float()).abs() <= bound).all()
+    inside = ((x >= 0) & (x <= 1)).all(dim=1)
+    assert (got[~inside] == 0).all()
+    idx_p, rows_p = brickgrid.brick_encode_bwd_plain(x, g, cfg)
+    assert torch.equal(idx, idx_p) and torch.equal(rows.view(torch.int32),
+                                                   rows_p.view(torch.int32))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", list(BRICK_GRIDS))
+def test_brick_encode_table_gradient_on_the_card(dev, name, dtype):
+    """``brick_encode``'s table gradient on the card (``BrickEncode``: the
+    rows' cotangent by ``brick_encode_bwd``, added by ``scatter_add_rows``)
+    against the plain rows added by the plain scatter: f32 sums of the same
+    n terms in two orders, within 2 (n - 1) 2^-24 times the sum of their
+    magnitudes; one launch of each kernel, no plain x gradient."""
+    from ngp_tpu_torch.ops import brickgrid
+    from ngp_tpu_torch.ops.kernels import scatter as ks
+
+    cfg, table, x, g = _brick_case(dev, name, "random", dtype, seed=1)
+    t = table.clone().requires_grad_()
+    names = ("brick_encode_fwd", "brick_encode_bwd", "scatter_add_rows", "brick_x_grad_plain")
+    before = {k: LAUNCHES[k] for k in names}
+    brickgrid.brick_encode(x, t, cfg, dtype).backward(g)
+    torch.cuda.synchronize()
+    assert {k: LAUNCHES[k] - n for k, n in before.items()} == dict(zip(names, (1, 1, 1, 0)))
+    idx, rows = brickgrid.brick_encode_bwd_plain(x, g, cfg)
+    zeros = torch.zeros_like(table)
+    want = ks.scatter_add_rows_plain(idx, rows, zeros.clone())
+    adds = ks.scatter_add_rows_plain(idx, torch.ones_like(rows), zeros.clone())
+    s_abs = ks.scatter_add_rows_plain(idx, rows.abs(), zeros.clone())
+    assert ((t.grad - want).abs() <= 2.0 * 2.0**-24 * adds * s_abs).all()
+    assert float(t.grad.abs().max()) > 0
+
+
+def test_taps_and_brick_wrappers_raise_on_what_the_kernels_do_not_take(dev):
+    from ngp_tpu_torch.ops import brickgrid
+    from ngp_tpu_torch.ops.kernels import scatter as ks
+
+    f, u = torch.zeros((4, 9), device=dev), torch.zeros((6,), device=dev)
+    with pytest.raises(ValueError):
+        ks.sample_taps_fwd(f.double(), u, True)
+    with pytest.raises(ValueError):
+        ks.sample_taps_fwd(torch.zeros((9, 4), device=dev).t(), u, True)
+    with pytest.raises(ValueError):
+        ks.sample_taps_fwd(f, u.double(), True)
+    with pytest.raises(ValueError):
+        ks.sample_taps_fwd(f, u.cpu(), True)
+    cfg = brickgrid.BrickGridConfig(num_levels=2, level_dim=4, base_resolution=4,
+                                    log2_hashmap_size=6)
+    table = torch.zeros((cfg.num_rows, cfg.row_width), device=dev)
+    x, g = torch.zeros((5, 3), device=dev), torch.zeros((5, cfg.output_dim), device=dev)
+    with pytest.raises(ValueError):
+        brickgrid.brick_encode_fwd(x, table.to(torch.bfloat16), cfg)
+    with pytest.raises(ValueError):
+        brickgrid.brick_encode_fwd(x.double(), table, cfg)
+    with pytest.raises(ValueError):
+        brickgrid.brick_encode_fwd(x, table, cfg, torch.float16)
+    with pytest.raises(ValueError):  # a view one float into its buffer: 4-byte aligned
+        brickgrid.brick_encode_fwd(x, torch.zeros(table.numel() + 1, device=dev)[1:].view(
+            table.shape), cfg)
+    with pytest.raises(ValueError):
+        brickgrid.brick_encode_bwd(x, g.half(), cfg)
+    odd = brickgrid.BrickGridConfig(num_levels=2, level_dim=3, base_resolution=4,
+                                    log2_hashmap_size=6)
+    with pytest.raises(ValueError):
+        brickgrid.brick_encode_fwd(x, torch.zeros((odd.num_rows, odd.row_width), device=dev),
+                                   odd)
 
 
 def test_grid_and_scatter_wrappers_raise_on_what_the_kernels_do_not_take(dev):

@@ -50,10 +50,11 @@ factor backward's and encoder's run kernels, whose SASS must call no
      instances on the background net's encoder (4 levels x 2, the
      finest hashed into 2^19 rows) at a background-frame chunk (65,536
      points) and a CLI step's rays (4096), bf16 and f32; the factor taps'
-     forward (``sample_taps_fwd``, bit for bit) on planes and lines of
-     ranks 1, 16 and 48 at 152 on uniform, clustered and padded points,
-     strided and stacked coords, both corner conventions, beside
-     ``grid_sample``'s forward; the brick grid's kernels
+     forward (``sample_taps_fwd``, bit for bit) and gradient
+     (``scatter_add_taps``, within ``taps_bound``) on cell-major planes
+     and lines of ranks 1, 16 and 48 at 152 on uniform, clustered and
+     padded points, strided and stacked coords, both corner conventions,
+     beside ``grid_sample``'s forward; the brick grid's kernels
      (``brick_encode_fwd`` within its bound, ``brick_encode_bwd`` bit for
      bit) at ``--preset tpu``'s geometry on random points, a quarter
      outside the box, and on every level's cell and brick edges, bf16 and
@@ -630,8 +631,8 @@ def taps_check(sk, g, coords, shape, align_corners, label, card, results, librar
     import torch
     import torch.nn.functional as F
 
-    got = sk.scatter_add_taps(g, coords, torch.zeros(shape, device=g.device), align_corners)
-    want = sk.scatter_add_taps_plain(g, coords, torch.zeros(shape, device=g.device),
+    got = sk.scatter_add_taps(g, coords, cell_major_zeros(shape, g.device), align_corners)
+    want = sk.scatter_add_taps_plain(g, coords, cell_major_zeros(shape, g.device),
                                      align_corners)
     bound_t = taps_bound(sk, g, coords, shape, align_corners)
     err = (got - want).abs()
@@ -643,7 +644,9 @@ def taps_check(sk, g, coords, shape, align_corners, label, card, results, librar
     R, N = g.shape
     taps = 2 if len(shape) == 2 else 4
     key = ("scatter_add_taps", label)
-    outs = [torch.zeros(shape, device=g.device) for _ in range(3)]
+    # the kernel's d factor cell-major, index_add_'s row-major (its own layout)
+    outs = [cell_major_zeros(shape, g.device) for _ in range(2)]
+    outs.append(torch.zeros(shape, device=g.device))
     results[key] = compare(
         "scatter_add_taps", lambda: sk.scatter_add_taps(g, coords, outs[0], align_corners),
         lambda: sk.scatter_add_taps_plain(g, coords, outs[1], align_corners), "float32",
@@ -656,6 +659,7 @@ def taps_check(sk, g, coords, shape, align_corners, label, card, results, librar
     cells, vals = torch.cat(cells), torch.cat(vals, dim=1)
     flat = outs[2].view(R, -1)
     add_ms = cuda_ms(lambda: flat.index_add_(1, cells, vals))
+    add_dev = device_ms(lambda: flat.index_add_(1, cells, vals))
     # a line is an image of one row, sampled at y = 0 (exactly its row)
     spatial = (1, shape[1]) if len(shape) == 2 else shape[1:]
     inp = torch.zeros((1, R, *spatial), device=g.device, requires_grad=True)
@@ -665,14 +669,24 @@ def taps_check(sk, g, coords, shape, align_corners, label, card, results, librar
     gs = g.view(1, R, 1, N)
     (d_inp,) = torch.autograd.grad(sampled, inp, gs, retain_graph=True)
     library[key] = cuda_ms(lambda: torch.autograd.grad(sampled, inp, gs, retain_graph=True))
+    gs_dev = device_ms(lambda: torch.autograd.grad(sampled, inp, gs, retain_graph=True))
     gs_diff = float((d_inp.view(shape) - got).abs().max())
     print(f"scatter_add_taps [{label}]: {R} rows x {N} samples into {tuple(shape[1:])}, "
           f"align_corners={align_corners}; kernel {results[key][1]:.4f} ms, device "
           f"{device_ms(lambda: sk.scatter_add_taps(g, coords, outs[0], align_corners)):.4f} ms "
-          f"(queued), plain {results[key][2]:.4f} ms, index_add_ {add_ms:.4f} ms, grid_sample's "
-          f"backward {library[key]:.4f} ms (max |difference| from the kernel {gs_diff:.3e}), "
-          f"bound {results[key][3][0]:.4f} ms  [{card}]", flush=True)
+          f"(queued), plain {results[key][2]:.4f} ms, index_add_ {add_ms:.4f} ms (device "
+          f"{add_dev:.4f}), grid_sample's backward {library[key]:.4f} ms (device {gs_dev:.4f}; "
+          f"max |difference| from the kernel {gs_diff:.3e}), bound {results[key][3][0]:.4f} ms  "
+          f"[{card}]", flush=True)
     return float(err.max())
+
+
+def cell_major_zeros(shape, device):
+    """Zeros of ``shape`` [R, ...] held cell-major (memory [..., R]), the
+    layout of the factors and of their gradient on the card."""
+    import torch
+
+    return torch.zeros((*shape[1:], shape[0]), device=device).movedim(-1, 0)
 
 
 def keep_taps(sk, calls):
@@ -761,9 +775,9 @@ def taps_fwd_check(sk, factor, coords, align_corners, label, card, results, libr
           f"({str(factor.dtype).split('.')[-1]}) at {N} samples (coord strides "
           f"{coords.stride()}), align_corners={align_corners}; kernel {results[key][1]:.4f} ms, "
           f"device {device_ms(lambda: sk.sample_taps_fwd(factor, coords, align_corners)):.4f} "
-          f"ms (queued), plain {results[key][2]:.4f} ms, grid_sample {library[key]:.4f} ms (max "
-          f"|difference| from the kernel {gs_diff:.3e}), bound {results[key][3][0]:.4f} ms  "
-          f"[{card}]", flush=True)
+          f"ms (queued), plain {results[key][2]:.4f} ms, grid_sample {library[key]:.4f} ms "
+          f"(device {device_ms(sample):.4f}; max |difference| from the kernel {gs_diff:.3e}), "
+          f"bound {results[key][3][0]:.4f} ms  [{card}]", flush=True)
 
 
 def keep_taps_fwd(sk, calls):
@@ -3605,10 +3619,11 @@ def tap_forms(dev, card, results, library):
 
     res, ranks, n = TENSORF_RES, (16, 48), 4096 * 8
     gen = torch.Generator(device=dev).manual_seed(SEED + 14)
-    planes = [(0.1 * torch.randn((r, res, res), generator=gen, device=dev)).requires_grad_()
-              for r in ranks for _ in range(3)]
-    lines = [(0.1 * torch.randn((r, res), generator=gen, device=dev)).requires_grad_()
-             for r in ranks for _ in range(3)]
+    # the factors cell-major, as the models hold them
+    planes = [sk.cell_major(0.1 * torch.randn((r, res, res), generator=gen, device=dev))
+              .requires_grad_() for r in ranks for _ in range(3)]
+    lines = [sk.cell_major(0.1 * torch.randn((r, res), generator=gen, device=dev))
+             .requires_grad_() for r in ranks for _ in range(3)]
     points = tap_points(gen, dev, res, n)
     cot = torch.randn((sum(ranks) * 3, n), generator=gen, device=dev)
     forms = {"advanced": (advanced_sample_2d, advanced_sample_1d),
@@ -4174,28 +4189,32 @@ def main():
             raise RuntimeError("index_add_ differs from scatter_add_rows past the f32 bound")
         library[key] = cuda_ms(lambda: outs[2].index_add_(0, idx_s, rows_s))
         del idx_s, rows_s, outs, s_bound, lib
-    # the factor taps' forward at TensoRF's 152^3 (a -O step after the first
-    # upsample): planes and lines of ranks 1, 16 and 48 on 32,768 uniform,
+    # the factor taps at TensoRF's 152^3 (a -O step after the first upsample):
+    # cell-major planes and lines of ranks 1, 16 and 48 on 32,768 uniform,
     # clustered and padded points (tap_points), both corner conventions, the
     # coords columns of the points (strided, as the models pass them) and, for
-    # the planes, also stacked as the models stack them; a bf16 plane; rank
-    # 48 timed
+    # the planes, also stacked as the models stack them; the forward (rank 48
+    # timed; a bf16 plane) and the gradient (timed in phase 14's tap_forms)
     from ngp_tpu_torch.ops import brickgrid as bg
 
     for pname, xn in tap_points(gen, dev, TENSORF_RES, 4096 * 8).items():
+        cot = torch.randn((48, xn.shape[0]), generator=gen, device=dev)
         for rank in (1, 16, 48):
-            plane = torch.randn((rank, TENSORF_RES, TENSORF_RES), generator=gen, device=dev)
-            line = torch.randn((rank, TENSORF_RES), generator=gen, device=dev)
+            plane = sk.cell_major(torch.randn((rank, TENSORF_RES, TENSORF_RES), generator=gen,
+                                              device=dev))
+            line = sk.cell_major(torch.randn((rank, TENSORF_RES), generator=gen, device=dev))
             for align in (True, False):
                 for kind, factor, coords in (
                         ("plane", plane, xn[:, 0:2]), ("line", line, xn[:, 2]),
                         ("plane stacked", plane, torch.stack([xn[:, 0], xn[:, 2]], dim=-1))):
-                    taps_fwd_check(sk, factor, coords, align,
-                                   f"{pname} {kind} R{rank} align_corners={align}", card,
-                                   results, library, timed=rank == 48 and kind != "plane stacked")
-        taps_fwd_check(sk, plane[:16].to(torch.bfloat16), xn[:, 0:2], False,
+                    label = f"{pname} {kind} R{rank} align_corners={align}"
+                    taps_fwd_check(sk, factor, coords, align, label, card, results, library,
+                                   timed=rank == 48 and kind != "plane stacked")
+                    taps_check(sk, cot[:rank], coords, tuple(factor.shape), align, label, card,
+                               results, library, timed=False)
+        taps_fwd_check(sk, sk.cell_major(plane[:16].to(torch.bfloat16)), xn[:, 0:2], False,
                        f"{pname} bf16 plane R16", card, results, library, timed=False)
-    del plane, line, xn
+    del plane, line, xn, cot
     # the brick grid's kernels at --preset tpu's geometry (8 levels x 4,
     # levels 0-2 dense, 3-7 hashed; 399,268 rows of 108 f32, drawn N(0, 1)):
     # 131,072 random points with 25% outside the box; the points of every

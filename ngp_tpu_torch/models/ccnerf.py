@@ -22,7 +22,9 @@ The parameters are ``nn.Parameter``s named ``<kind>_<group>_U<i>`` and
 trainer's optimizer, EMA and checkpoints take them; ``params()`` gives
 them as the JAX package's tree ({kind: [{"U": [3 factors], "S": S}]}), and
 the post-training operations take such a tree and return a new one,
-which ``load_params`` installs.
+which ``load_params`` installs. The factors U are held cell-major
+(``ops/interp.py:cell_major``), the layout the taps kernels read:
+``load_params`` installs them so, and ``compose`` keeps its objects' so.
 """
 
 from __future__ import annotations
@@ -37,7 +39,7 @@ from torch import nn
 
 from ngp_tpu_torch.models.tensorf import MAT_IDS, VEC_IDS
 from ngp_tpu_torch.ops.activation import trunc_exp
-from ngp_tpu_torch.ops.interp import sample_1d, sample_2d
+from ngp_tpu_torch.ops.interp import cell_major, sample_1d, sample_2d
 from ngp_tpu_torch.ops.sh import sh_encode
 
 KINDS = (("vec_density", False), ("mat_density", True), ("vec", False), ("mat", True))
@@ -190,19 +192,22 @@ class CCNeRF(nn.Module):
 
     def load_params(self, params: Tree) -> None:
         """Replace the parameters by new ``nn.Parameter``s holding the tree's
-        tensors (shapes and group counts may change)."""
+        tensors (shapes and group counts may change): the factors U
+        cell-major, S contiguous."""
         for name in self._names:
             delattr(self, name)
         self._names = []
         for kind, _ in KINDS:
             for gi, g in enumerate(params[kind]):
                 for i, u in enumerate(g["U"]):
-                    self._put(f"{kind}_{gi}_U{i}", u)
-                self._put(f"{kind}_{gi}_S", g["S"])
+                    self._put(f"{kind}_{gi}_U{i}", cell_major(self._f32(u)))
+                self._put(f"{kind}_{gi}_S", self._f32(g["S"]).contiguous())
+
+    def _f32(self, t: torch.Tensor) -> torch.Tensor:
+        return t.detach().to(self.aabb.device, torch.float32)
 
     def _put(self, name: str, t: torch.Tensor) -> None:
-        self.register_parameter(name, nn.Parameter(
-            t.detach().to(self.aabb.device, torch.float32).contiguous()))
+        self.register_parameter(name, nn.Parameter(t))
         self._names.append(name)
 
     def params(self) -> Tree:
@@ -286,7 +291,7 @@ class CCNeRF(nn.Module):
                 importance = np.abs(S.cpu().numpy()).sum(0)
                 for u in U:
                     importance = importance * np.linalg.norm(
-                        u.cpu().numpy().reshape(len(importance), -1), axis=-1)
+                        u.cpu().contiguous().numpy().reshape(len(importance), -1), axis=-1)
                 order = torch.as_tensor(np.argsort(-importance), device=S.device)
                 sorted_groups.append({"U": [u[order] for u in U], "S": S[:, order]})
             fused = {"U": [torch.cat([g["U"][i] for g in sorted_groups]) for i in range(3)],
@@ -327,6 +332,8 @@ class CCNeRF(nn.Module):
             T = R = None
             if transforms is not None and transforms[idx] is not None:
                 T, R = transforms[idx]
+            params = {kind: [{"U": [cell_major(u) for u in g["U"]], "S": g["S"]}
+                             for g in params[kind]] for kind, _ in KINDS}
             self.objects.append((params, T, R, model.aabb, model.cfg))
         return self
 

@@ -16,8 +16,11 @@ moves; the trainer passes it. The resolution is an init-time size only:
 every method reads shapes from the parameters, so the parameter
 transforms (``upsample_vm_params``, ``upsample_cp_params``,
 ``shrink_vm_params``, on a dict of tensors by parameter name) need no
-new module. The factor sampling is ``ops/interp.py``'s gathers and lerps
-(torch ops: no Pallas kernel computes it).
+new module. The factor sampling is ``ops/interp.py``'s taps (no Pallas
+kernel computes it), which read the factors cell-major: every factor
+parameter (``FACTOR_PREFIXES``) is made in that layout, at init, by
+``set_parameters`` and by ``params_from_jax`` (``ops/interp.py:cell_major``),
+in JAX's shape.
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ from torch import nn
 from ngp_tpu_torch.models.mlp import MLP, lecun_normal
 from ngp_tpu_torch.ops.activation import trunc_exp
 from ngp_tpu_torch.ops.freq import freq_encode
-from ngp_tpu_torch.ops.interp import resize_bilinear, sample_1d, sample_2d
+from ngp_tpu_torch.ops.interp import cell_major, resize_bilinear, sample_1d, sample_2d
 
 # component i: a plane over the axes MAT_IDS[i], stored [R, res[m1],
 # res[m0]], and a line over the axis VEC_IDS[i] (tensoRF/network.py:36-37)
@@ -49,8 +52,17 @@ def _normalize(x: torch.Tensor, aabb: torch.Tensor) -> torch.Tensor:
     return 2.0 * (x - aabb[:3]) / (aabb[3:] - aabb[:3]) - 1.0
 
 
-def _normal(g: torch.Generator, shape, scale: float, device) -> torch.Tensor:
-    return (scale * torch.randn(shape, generator=g)).to(device)
+def _mean_abs(factor: torch.Tensor) -> torch.Tensor:
+    """mean |factor|, taken over the factor's memory ([..., R], contiguous):
+    its gradient is then cell-major like the factor (``mean``'s backward is
+    contiguous in the shape it sees, and a gradient in another layout than
+    its parameter's costs autograd one more launch, a copy)."""
+    return factor.movedim(0, -1).abs().mean()
+
+
+def _factor(g: torch.Generator, shape, scale: float, device) -> nn.Parameter:
+    """A factor parameter of ``scale`` N(0, 1) entries, held cell-major."""
+    return nn.Parameter(cell_major((scale * torch.randn(shape, generator=g)).to(device)))
 
 
 class _TensoRFBase(nn.Module):
@@ -82,16 +94,16 @@ class TensoRFNetwork(_TensoRFBase):
         for prefix, ranks in (("sigma", sigma_rank), ("color", color_rank)):
             for i in range(3):
                 m0, m1 = MAT_IDS[i]
-                self.register_parameter(f"{prefix}_mat_{i}", nn.Parameter(_normal(
-                    g, (ranks[i], resolution[m1], resolution[m0]), 0.1, device)))
-                self.register_parameter(f"{prefix}_vec_{i}", nn.Parameter(_normal(
-                    g, (ranks[i], resolution[VEC_IDS[i]]), 0.1, device)))
+                self.register_parameter(f"{prefix}_mat_{i}", _factor(
+                    g, (ranks[i], resolution[m1], resolution[m0]), 0.1, device))
+                self.register_parameter(f"{prefix}_vec_{i}", _factor(
+                    g, (ranks[i], resolution[VEC_IDS[i]]), 0.1, device))
         self.basis_mat = nn.Parameter(
             lecun_normal(sum(color_rank), color_feat_dim, g).to(device))
         self.color_net = MLP(5 * color_feat_dim + 15, 3, hidden_dim, num_layers,
                              generator=g, device=device)
         if bg_radius > 0:
-            self.bg_mat = nn.Parameter(_normal(g, (bg_rank, *bg_resolution), 0.1, device))
+            self.bg_mat = _factor(g, (bg_rank, *bg_resolution), 0.1, device)
             self.bg_net = MLP(15 + bg_rank, 3, hidden_dim_bg, num_layers_bg,
                               generator=g, device=device)
 
@@ -132,7 +144,7 @@ class TensoRFNetwork(_TensoRFBase):
         """L1 of the sigma factors (tensoRF/network.py:258-263)."""
         loss = 0.0
         for mat, vec in zip(self._mats("sigma"), self._vecs("sigma")):
-            loss = loss + mat.abs().mean() + vec.abs().mean()
+            loss = loss + _mean_abs(mat) + _mean_abs(vec)
         return loss
 
 
@@ -150,8 +162,8 @@ class TensoRFCPNetwork(_TensoRFBase):
         g = generator or torch.Generator().manual_seed(0)
         for prefix, rank in (("sigma", sigma_rank), ("color", color_rank)):
             for i in range(3):
-                self.register_parameter(f"{prefix}_vec_{i}", nn.Parameter(_normal(
-                    g, (rank, resolution[VEC_IDS[i]]), 0.2, device)))
+                self.register_parameter(f"{prefix}_vec_{i}", _factor(
+                    g, (rank, resolution[VEC_IDS[i]]), 0.2, device))
         self.basis_mat = nn.Parameter(lecun_normal(color_rank, color_feat_dim, g).to(device))
         self.color_net = MLP(5 * color_feat_dim + 15, 3, hidden_dim, num_layers,
                              generator=g, device=device)
@@ -171,7 +183,7 @@ class TensoRFCPNetwork(_TensoRFBase):
         return self._colour_head(self._cp_features(xn, "color").T, d, d.shape[:-1])
 
     def density_loss(self):
-        return sum(getattr(self, f"sigma_vec_{i}").abs().mean() for i in range(3))
+        return sum(_mean_abs(getattr(self, f"sigma_vec_{i}")) for i in range(3))
 
 
 # ---------------------------------------------------------------------------
@@ -250,18 +262,22 @@ def _vm_resolution(params: Params) -> Tuple[int, int, int]:
 
 def set_parameters(model: nn.Module, params: Params) -> None:
     """Replace the model's parameters by new ``nn.Parameter``s holding
-    ``params`` (by name; shapes may change)."""
+    ``params`` (by name; shapes may change): the factors cell-major, the
+    rest contiguous."""
     for name, t in params.items():
         prefix, _, leaf = name.rpartition(".")
         module = model.get_submodule(prefix) if prefix else model
-        setattr(module, leaf, nn.Parameter(t.detach().contiguous()))
+        t = t.detach()
+        setattr(module, leaf, nn.Parameter(
+            cell_major(t) if name.startswith(FACTOR_PREFIXES) else t.contiguous()))
 
 
 def params_from_jax(tree) -> Params:
     """Flax ``TensoRFNetwork`` / ``TensoRFCPNetwork`` params (with or
     without the top-level ``"params"`` key) -> the module's state dict:
-    the factors by name, ``basis_mat/kernel``, and ``color_net`` /
-    ``bg_net`` ``dense_<i>/kernel`` ([in, out], no transpose)."""
+    the factors by name (cell-major), ``basis_mat/kernel``, and
+    ``color_net`` / ``bg_net`` ``dense_<i>/kernel`` ([in, out], no
+    transpose)."""
     p = tree.get("params", tree)
     out = {}
     for name, v in p.items():
@@ -271,5 +287,5 @@ def params_from_jax(tree) -> Params:
         elif name == "basis_mat":
             out[name] = torch.from_numpy(np.array(v["kernel"], np.float32))
         else:
-            out[name] = torch.from_numpy(np.array(v, np.float32))
+            out[name] = cell_major(torch.from_numpy(np.array(v, np.float32)))
     return out

@@ -12,6 +12,12 @@ slots at one point, so the taps of many consecutive samples hit one cell:
 the gradient kernel sums such runs before it adds.
 ``chip_smoke.py:tap_forms`` times the taps' forms on the card.
 
+The factors are held cell-major (``cell_major``: memory [D, R] or [H, W,
+R], seen in JAX's shape [R, D] / [R, H, W]), the layout both kernels
+read: the models make their factor parameters so, and ``FactorTaps``
+passes the factor on as it is and makes the factor's gradient with the
+factor's strides, so that autograd takes it without a copy.
+
 - ``align_corners=True``: u in [-1, 1] maps to pixel centres 0 .. W-1,
   (u + 1) / 2 * (W - 1) (``grid_sample``'s convention);
 - ``align_corners=False``: (u + 1) / 2 * W - 0.5;
@@ -26,20 +32,22 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from ngp_tpu_torch.ops.kernels import LAUNCHES, scatter
+from ngp_tpu_torch.ops.kernels.scatter import cell_major  # noqa: F401
 
 
 class FactorTaps(torch.autograd.Function):
     """The taps' lerp, factor [R, D] and coords [N], or [R, H, W] and
-    [N, 2] -> [R, N], by ``scatter.sample_taps_fwd``, with its gradients:
-    in the factor by ``scatter.scatter_add_taps`` into a zeroed f32
-    factor, in the points by autograd of ``scatter.sample_taps_plain`` in
+    [N, 2] -> [R, N], by ``scatter.sample_taps_fwd`` (on the card the
+    factor must be cell-major), with its gradients: in the factor by
+    ``scatter.scatter_add_taps`` into a zeroed f32 factor of the factor's
+    strides, in the points by autograd of ``scatter.sample_taps_plain`` in
     the points alone, each only where autograd asks for it."""
 
     @staticmethod
     def forward(ctx, factor, coords, align_corners):
         ctx.save_for_backward(factor, coords)
         ctx.align_corners = align_corners
-        return scatter.sample_taps_fwd(factor.contiguous(), coords, align_corners)
+        return scatter.sample_taps_fwd(factor, coords, align_corners)
 
     @staticmethod
     @once_differentiable
@@ -47,7 +55,8 @@ class FactorTaps(torch.autograd.Function):
         factor, coords = ctx.saved_tensors
         d_factor = d_coords = None
         if ctx.needs_input_grad[0]:
-            d_factor = torch.zeros(factor.shape, dtype=torch.float32, device=factor.device)
+            d_factor = torch.zeros_like(factor, dtype=torch.float32,
+                                        memory_format=torch.preserve_format)
             scatter.scatter_add_taps(g.float().contiguous(), coords.float(), d_factor,
                                      ctx.align_corners)
             d_factor = d_factor.to(factor.dtype)

@@ -21,7 +21,8 @@
   ``jnp.take`` (``ngp_tpu/ops/interp.py:39``, ``:62``); ``interp.FactorTaps`` adds it
 - ``scatter.sample_taps_fwd`` replaces no Pallas kernel: the bilinear taps' forward
   (TensoRF, CCNeRF), which the JAX package leaves to XLA (``ngp_tpu/ops/interp.py:27``,
-  ``:45``); ``interp.FactorTaps`` samples through it
+  ``:45``); ``interp.FactorTaps`` samples through it. Both taps kernels read and write
+  factors held cell-major (``scatter.cell_major``)
 - ``brickgrid.brick_encode_fwd`` and ``brickgrid.brick_encode_bwd`` (in ``ops/brickgrid.py``)
   replace no Pallas kernel: the brick grid's encoding and the cotangent of the rows it
   reads, which the JAX package leaves to XLA (``ngp_tpu/ops/brickgrid.py:143``);

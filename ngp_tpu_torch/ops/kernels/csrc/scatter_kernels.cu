@@ -29,15 +29,32 @@
 // ngp_tpu/ops/interp.py:sample_1d / sample_2d (:39, :62), which no Pallas
 // kernel computes. The kernel makes each sample's cells and weights by
 // taps.cuh, which the forward (taps_kernels.cu) shares, so a sample on a cell
-// edge adds into the cell the forward read. A block takes a tile of 128 samples; its
-// threads write each sample's taps to shared memory once and mark, per tap,
-// the runs of consecutive samples that hit one cell (the samples of a ray, and
-// the compaction's padded slots, which all sit at one point); then each warp
-// walks a row r of g (coalesced: lanes on consecutive samples), sums each run
-// by a segmented scan across the lanes (carried from one 32-sample chunk to
-// the next) and issues one f32 atomic per run. Rows R of 4 to 288 (CCNeRF's
-// rank groups, TensoRF's ranks): when R is under 8 the warps also split the
-// tile. Out-of-grid taps add nothing. Bound: reading g and the coords once and
+// edge adds into the cell the forward read. The d factor is held cell-major,
+// as the factor (memory [H * W, R]; ops/kernels/scatter.py:cell_major), so a
+// (sample, tap)'s R sums are contiguous. A block walks tiles of 64 samples in
+// a grid-stride loop, the next tile's copies in flight while the current one
+// is added: it stages the tile's g [rows, 64] in shared memory by coalesced
+// 4-byte cp.async copies (rows 65 floats apart: no bank conflicts) and makes
+// the tile's taps once. Then one of two accumulators:
+//   - a line (ranks in slabs of at most 32 rows, D x rows <= 16,384 floats;
+//     152 x 24 and 128 x 32 on the paths): a block-private accumulator in
+//     shared memory. A thread per (tap, row, stretch of the tile's samples)
+//     walks its samples and adds each run on one cell (a ray's samples, the
+//     compaction's padded slots at one point) into it by one shared-memory
+//     atomic; at the block's end one 16-byte reduction per non-zero float4.
+//     The samples of many rays share a line's few cells, so global atomics
+//     would queue on the same addresses. About 8 blocks an SM: the flushes
+//     cost little beside the latency that more blocks hide;
+//   - a plane (none on the paths fits a block: CCNeRF's smallest is 4 x
+//     128^2): the tile's runs of samples on one cell listed per tap, then a
+//     thread per (run, 4 rows) sums the run and adds the 4 sums by one
+//     16-byte reduction (red.global.add.v4.f32, atomicAdd of a float4): R / 4
+//     reductions a run, where a scalar atomic per row issues R; consecutive
+//     threads take consecutive float4s of one cell.
+// A plane's ranks above 96 are cut into slabs of rows too (gridDim.y); a rank
+// that is not a multiple of 4 (or a d factor that is not 16-byte aligned)
+// adds scalars.
+// Out-of-grid taps add nothing. Bound: reading g and the coords once and
 // writing d factor once.
 //
 // Atomics sum in no fixed order, so both results vary in the last f32 bits
@@ -58,7 +75,6 @@ constexpr int kThreads = 256;
 constexpr long long kMaxBlocks = 132 * 64;
 constexpr int kTiledMaxW = 256;
 constexpr int kKeyNone = 0x7fffffff;
-constexpr int kTapTile = 128;
 
 __device__ __forceinline__ bool nonzero(float4 v) {
   return v.x != 0.f || v.y != 0.f || v.z != 0.f || v.w != 0.f;
@@ -278,86 +294,216 @@ int launch_tiled(const int* idx, const float* rows, long long M, int W, int R, f
 // ---------------------------------------------------------------------------
 // the taps
 
-// S: the sub-ranges a tile is split into (1, 2 or 4; each a multiple of 32
-// samples), so that R * S items keep a block's 8 warps busy
-template <int TAPS>
-__global__ void __launch_bounds__(kThreads)
+constexpr int kTapTile = 64;                 // samples a tile
+constexpr int kTapStride = kTapTile + 1;     // floats from one staged g row to the next
+constexpr int kTapThreads = 256;
+constexpr int kSlabRows = 96;                // the most factor rows a block takes
+constexpr int kLineSlabRows = 32;            // ... on a line (a smaller accumulator)
+constexpr int kAccFloats = 16384;            // the largest block-private accumulator
+constexpr int kTapStage = 2 * kSlabRows * kTapStride;  // floats of the two g tiles
+constexpr int kTapSmemMax = (kTapStage + kAccFloats) * (int)sizeof(float);
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem));
+}
+
+// the positions p < n whose flag is set, in order, into out[0 ..]; their
+// count into *count. Every thread of the block calls it (n <= kTapThreads);
+// it ends on a barrier.
+__device__ __forceinline__ void compact(bool flag, int n, unsigned* warp_bits,
+                                        unsigned char* out, int* count) {
+  const int tid = threadIdx.x, lane = tid & 31;
+  const bool on = tid < n && flag;
+  const unsigned bits = __ballot_sync(0xffffffffu, on);
+  if (lane == 0) warp_bits[tid >> 5] = bits;
+  __syncthreads();
+  int base = 0;
+  for (int w = 0; w < (tid >> 5); ++w) base += __popc(warp_bits[w]);
+  if (on) out[base + __popc(bits & ((1u << lane) - 1u))] = (unsigned char)tid;
+  if (tid == kTapThreads - 1) *count = base + __popc(bits);
+  __syncthreads();
+}
+
+// ACC: the block-private accumulator (lines); VEC: 4 where the rows add as
+// float4s (R % 4 == 0, RS % 4 == 0 and a 16-byte aligned d factor), else 1.
+// Block (x, y) takes the rows [y RS, y RS + RS) of every gridDim.x-th tile.
+template <int TAPS, bool ACC, int VEC>
+__global__ void __launch_bounds__(kTapThreads)
 scatter_taps_kernel(const float* __restrict__ g, int R, long long N,
                     const float* __restrict__ u, long long su, const float* __restrict__ v,
-                    long long sv, int H, int W, int align, int S, float* __restrict__ out) {
-  __shared__ int cell[TAPS][kTapTile];
-  __shared__ float wt[TAPS][kTapTile];
-  // per (tap, sample): bits 0-4 the lane where its run starts within its
-  // 32-sample chunk, bit 5 the run starts here, bit 6 the run ends here
-  __shared__ unsigned char meta[TAPS][kTapTile];
+                    long long sv, int H, int W, int align, int RS, float* __restrict__ out) {
+  constexpr int kEntries = TAPS * kTapTile;  // (tap, sample) entries a tile, tap-major
+  extern __shared__ float4 dyn[];
+  float* const gs = reinterpret_cast<float*>(dyn);  // two tiles of RS x kTapStride floats
+  float* const acc = gs + ((2 * RS * kTapStride + 3) & ~3);  // [cells, rows] (ACC)
+  __shared__ int cell_s[kEntries];  // -1 outside the grid
+  __shared__ float wt_s[kEntries];
+  __shared__ unsigned char run_s[kEntries];  // the runs' first entries, tap-major
+  __shared__ unsigned warp_bits[kTapThreads / 32];
+  __shared__ int nrun_s;
   const int tid = threadIdx.x;
-  const long long n0 = (long long)blockIdx.x * kTapTile;
-  const int nt = (int)min((long long)kTapTile, N - n0);
-  const int L = kTapTile / S;
-  if (tid < kTapTile) {
-    int c[TAPS];
-    float w[TAPS];
-    if (tid < nt) {
-      const long long n = n0 + tid;
-      sample_taps<TAPS>(__ldg(u + n * su), TAPS == 4 ? __ldg(v + n * sv) : 0.f, H, W, align, c,
-                        w);
-    } else {
-#pragma unroll
-      for (int j = 0; j < TAPS; ++j) {
-        c[j] = -1;
-        w[j] = 0.f;
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < TAPS; ++j) {
-      cell[j][tid] = c[j];
-      wt[j][tid] = w[j];
-    }
-  }
-  __syncthreads();
-  if (tid < kTapTile) {
-    const int c0 = tid & ~31;
-#pragma unroll
-    for (int j = 0; j < TAPS; ++j) {
-      const int cj = cell[j][tid];
-      const bool head = tid % L == 0 || cell[j][tid - 1] != cj;
-      const bool tail = tid + 1 >= nt || (tid + 1) % L == 0 || cell[j][tid + 1] != cj;
-      int m = tid;
-      while (m > c0 && cell[j][m - 1] == cj) --m;
-      meta[j][tid] = (unsigned char)((m - c0) | (head << 5) | (tail << 6));
-    }
-  }
-  __syncthreads();
-  const int warp = tid >> 5, lane = tid & 31;
+  const int r0 = blockIdx.y * RS, rows = min(RS, R - r0);
   const int cells = H * W;
-  for (int item = warp; item < R * S; item += kThreads / 32) {
-    const int r = item / S, sub = item - r * S;
-    const float* grow = g + (size_t)r * N + n0;
-    float* orow = out + (size_t)r * cells;
-    float carry[TAPS];
+  const long long ntiles = (N + kTapTile - 1) / kTapTile;
+  if (ACC) {
+    for (int i = tid; i < cells * rows; i += kTapThreads) acc[i] = 0.f;
+  }
+
+  // tile t's g rows into buffer b (cp.async, one group), its coords into cu, cv
+  float cu = 0.f, cv = 0.f;
+  auto issue = [&](long long t, int b) {
+    const long long n0 = t * kTapTile;
+    const int nt = (int)min((long long)kTapTile, N - n0);
+    float* dst = gs + b * RS * kTapStride;
+    for (int i = tid; i < rows * kTapTile; i += kTapThreads) {
+      const int r = i / kTapTile, j = i % kTapTile;
+      if (j < nt) cp_async4(dst + r * kTapStride + j, g + (size_t)(r0 + r) * N + n0 + j);
+    }
+    cp_async_commit();
+    const long long n = n0 + tid;
+    if (tid < kTapTile && n < N) {
+      cu = __ldg(u + n * su);
+      if (TAPS == 4) cv = __ldg(v + n * sv);
+    }
+  };
+
+  long long t = blockIdx.x;
+  int b = 0;
+  if (t < ntiles) issue(t, 0);
+  for (; t < ntiles; t += gridDim.x, b ^= 1) {
+    const int nt = (int)min((long long)kTapTile, N - t * kTapTile);
+    if (tid < kTapTile) {
+      int c[TAPS];
+      float w[TAPS];
+      if (tid < nt) {
+        sample_taps<TAPS>(cu, cv, H, W, align, c, w);
+      } else {
 #pragma unroll
-    for (int j = 0; j < TAPS; ++j) carry[j] = 0.f;
-    const int end = min((sub + 1) * L, nt);
-    for (int base = sub * L; base < end; base += 32) {
-      const int n = base + lane;
-      const float gv = n < nt ? __ldg(grow + n) : 0.f;
-#pragma unroll
-      for (int j = 0; j < TAPS; ++j) {
-        const int cj = cell[j][n];
-        const unsigned mj = meta[j][n];
-        float val = cj >= 0 ? __fmul_rn(gv, wt[j][n]) : 0.f;
-        if (lane == 0 && !(mj & 32u)) val += carry[j];
-        const int start = (int)(mj & 31u);
-#pragma unroll
-        for (int d = 1; d < 32; d <<= 1) {
-          const float up = __shfl_up_sync(0xffffffffu, val, d);
-          if (lane - d >= start) val += up;
+        for (int k = 0; k < TAPS; ++k) {
+          c[k] = -1;
+          w[k] = 0.f;
         }
-        carry[j] = __shfl_sync(0xffffffffu, val, 31);
-        if ((mj & 64u) && cj >= 0 && val != 0.f) atomicAdd(orow + cj, val);
+      }
+#pragma unroll
+      for (int k = 0; k < TAPS; ++k) {
+        cell_s[k * kTapTile + tid] = c[k];
+        wt_s[k * kTapTile + tid] = w[k];
+      }
+    }
+    const long long next = t + gridDim.x;
+    if (next < ntiles) issue(next, b ^ 1);
+    __syncthreads();
+    // the runs of the global accumulator: a run starts at an entry whose cell
+    // is in the grid and is not the previous sample's (same tap); each run is
+    // one cell
+    int runs = 0;
+    if (!ACC) {
+      const int j = tid % kTapTile;
+      const int c = tid < kEntries ? cell_s[tid] : -1;
+      compact(c >= 0 && (j == 0 || cell_s[tid - 1] != c), kEntries, warp_bits, run_s, &nrun_s);
+      runs = nrun_s;
+    }
+    if (next < ntiles) {
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* cur = gs + b * RS * kTapStride;
+    if (ACC) {
+      // a thread per (tap, row, stretch of the tile's samples), the rows
+      // fastest: it walks its samples in order and adds each run of them on
+      // one cell into the accumulator (shared-memory atomics: other threads
+      // may add into the same entry)
+      const int pairs = TAPS * rows;
+      const int stretches = max(1, kTapThreads / pairs);
+      const int len = (kTapTile + stretches - 1) / stretches;
+      for (int it = tid; it < pairs * stretches; it += kTapThreads) {
+        const int st = it / pairs, pr = it - st * pairs;
+        const int tap = pr / rows, r = pr - tap * rows;
+        const int* cl = cell_s + tap * kTapTile;
+        const float* wl = wt_s + tap * kTapTile;
+        const float* gr = cur + r * kTapStride;
+        const int n1 = min(kTapTile, (st + 1) * len);
+        int c = -1;
+        float sum = 0.f;
+        for (int n = st * len; n < n1; ++n) {
+          const int cn = cl[n];
+          if (cn != c) {
+            if (c >= 0 && sum != 0.f) atomicAdd(acc + c * rows + r, sum);
+            c = cn;
+            sum = 0.f;
+          }
+          sum += __fmul_rn(gr[n], wl[n]);
+        }
+        if (c >= 0 && sum != 0.f) atomicAdd(acc + c * rows + r, sum);
+      }
+    } else {
+      // a thread per (run, VEC rows), the rows fastest
+      const int Q = rows / VEC;
+      for (int it = tid; it < runs * Q; it += kTapThreads) {
+        const int k = it / Q, q = it - k * Q;
+        const int e0 = run_s[k], tap0 = e0 - e0 % kTapTile, c = cell_s[e0];
+        const float* gq = cur + q * VEC * kTapStride - tap0;
+        float sum[VEC] = {};
+        for (int e = e0; e < tap0 + kTapTile && cell_s[e] == c; ++e) {
+          const float w = wt_s[e];
+#pragma unroll
+          for (int i = 0; i < VEC; ++i) sum[i] += __fmul_rn(gq[i * kTapStride + e], w);
+        }
+        float* dst = out + (size_t)c * R + r0 + q * VEC;
+        if constexpr (VEC == 4) {
+          add4(dst, make_float4(sum[0], sum[1], sum[2], sum[3]));
+        } else {
+          add1(dst, sum[0]);
+        }
+      }
+    }
+    __syncthreads();  // the taps, the runs and buffer b are free again
+  }
+  if (ACC) {
+    // the accumulator into the d factor: one reduction per non-zero float4
+    __syncthreads();
+    if constexpr (VEC == 4) {
+      const float4* a4 = reinterpret_cast<const float4*>(acc);
+      const int q4 = rows / 4;
+      for (int i = tid; i < cells * q4; i += kTapThreads) {
+        const int c = i / q4;
+        add4(out + (size_t)c * R + r0 + 4 * (i - c * q4), a4[i]);
+      }
+    } else {
+      for (int i = tid; i < cells * rows; i += kTapThreads) {
+        const int c = i / rows;
+        add1(out + (size_t)c * R + r0 + (i - c * rows), acc[i]);
       }
     }
   }
+}
+
+template <int TAPS, bool ACC, int VEC>
+int launch_taps(const float* g, int R, long long N, const float* u, long long su,
+                const float* v, long long sv, int H, int W, int align, int RS, int slabs,
+                float* out, cudaStream_t s) {
+  static bool sized = false;  // once per instance: room for the largest call
+  if (!sized) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        scatter_taps_kernel<TAPS, ACC, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kTapSmemMax);
+    if (err != cudaSuccess) return err;
+    sized = true;
+  }
+  const size_t smem = (size_t)(((2 * RS * kTapStride + 3) & ~3) + (ACC ? H * W * RS : 0)) *
+                      sizeof(float);
+  const long long ntiles = (N + kTapTile - 1) / kTapTile;
+  // as many blocks as the SMs hold (a block-private accumulator's flush is
+  // cheap beside the latency that more blocks hide: 8 a SM in all)
+  long long blocks = (long long)sm_count() * (ACC ? (8 + slabs - 1) / slabs : 4);
+  if (blocks > ntiles) blocks = ntiles;
+  scatter_taps_kernel<TAPS, ACC, VEC><<<dim3((unsigned)blocks, (unsigned)slabs), kTapThreads,
+                                        smem, s>>>(g, R, N, u, su, v, sv, H, W, align, RS,
+                                                   out);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -391,21 +537,31 @@ extern "C" int ngp_scatter_add_rows(const int* idx, const float* rows, long long
 }
 
 // g [R, N] f32 contiguous; u (and v for a plane) f32 with strides su, sv in
-// floats; a line when v is null (W = D, H = 1); out [R, H * W] f32 contiguous
+// floats; a line when v is null (W = D, H = 1); out [H * W, R] f32 (cell-major)
 extern "C" int ngp_scatter_add_taps(const float* g, int R, long long N, const float* u,
                                     long long su, const float* v, long long sv, int H, int W,
                                     int align, float* out, void* stream) {
   if (R <= 0 || N <= 0) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int S = 1;
-  while (R * S < kThreads / 32 && S < kTapTile / 32) S *= 2;
-  const long long blocks = (N + kTapTile - 1) / kTapTile;
+  const bool vec = R % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  // slabs of at most kSlabRows rows; a line's slab also fits the accumulator
+  int most = kSlabRows;
+  const bool acc = v == nullptr && (long long)W * (vec ? 4 : 1) <= kAccFloats;
+  if (acc) most = min(kLineSlabRows, kAccFloats / W);
+  if (vec) most &= ~3;
+  const int slabs = (R + most - 1) / most;
+  int RS = (R + slabs - 1) / slabs;
+  if (vec) RS = (RS + 3) & ~3;
   if (v == nullptr) {
-    scatter_taps_kernel<2><<<(unsigned)blocks, kThreads, 0, s>>>(g, R, N, u, su, nullptr, 0, 1,
-                                                                 W, align, S, out);
-  } else {
-    scatter_taps_kernel<4><<<(unsigned)blocks, kThreads, 0, s>>>(g, R, N, u, su, v, sv, H, W,
-                                                                 align, S, out);
+    return acc ? (vec ? launch_taps<2, true, 4>(g, R, N, u, su, nullptr, 0, 1, W, align, RS,
+                                                slabs, out, s)
+                      : launch_taps<2, true, 1>(g, R, N, u, su, nullptr, 0, 1, W, align, RS,
+                                                slabs, out, s))
+               : (vec ? launch_taps<2, false, 4>(g, R, N, u, su, nullptr, 0, 1, W, align, RS,
+                                                 slabs, out, s)
+                      : launch_taps<2, false, 1>(g, R, N, u, su, nullptr, 0, 1, W, align, RS,
+                                                 slabs, out, s));
   }
-  return cudaGetLastError();
+  return vec ? launch_taps<4, false, 4>(g, R, N, u, su, v, sv, H, W, align, RS, slabs, out, s)
+             : launch_taps<4, false, 1>(g, R, N, u, su, v, sv, H, W, align, RS, slabs, out, s);
 }

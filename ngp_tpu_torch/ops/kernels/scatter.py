@@ -24,6 +24,13 @@ samples through it. ``factor_taps`` is the one owner of the taps' cells,
 weights and roundings; both kernels make them by ``csrc/taps.cuh``. The
 kernels are in ``csrc/scatter_kernels.cu`` and ``csrc/taps_kernels.cu``,
 whose headers say what bounds them and how each is laid out.
+
+Both taps kernels read and write a factor held cell-major
+(``cell_major``): the memory is [D, R] (a line) or [H, W, R] (a plane),
+seen in JAX's shape [R, D] / [R, H, W] with strides (1, R) / (1, W R, R),
+so a sample's R values at a tap are one contiguous read or reduction.
+TensoRF's and CCNeRF's factor parameters are made in that layout; on the
+card the wrappers take no other and raise.
 """
 
 from __future__ import annotations
@@ -35,6 +42,23 @@ from torch.autograd.function import once_differentiable
 
 from ngp_tpu_torch.ops.kernels import LAUNCHES
 from ngp_tpu_torch.ops.kernels.build import check_launch, load_library
+
+
+def is_cell_major(factor: torch.Tensor) -> bool:
+    """Whether ``factor`` [R, D] or [R, H, W] holds its values cell-major:
+    memory [D, R] or [H, W, R] (strides (1, R) or (1, W R, R); a size-1
+    dimension's stride aside), as the taps kernels read it."""
+    return factor.movedim(0, -1).is_contiguous()
+
+
+def cell_major(factor: torch.Tensor) -> torch.Tensor:
+    """``factor`` [R, D] or [R, H, W] with the same values held cell-major
+    (``is_cell_major``): ``factor`` itself when it already is, else one
+    transposed copy."""
+    if is_cell_major(factor):
+        return factor
+    return factor.movedim(0, -1).contiguous().movedim(-1, 0)
+
 
 def scatter_add_rows_plain(idx: torch.Tensor, rows: torch.Tensor,
                            out: torch.Tensor) -> torch.Tensor:
@@ -188,16 +212,17 @@ def sample_taps_fwd(factor: torch.Tensor, coords: torch.Tensor,
     """The bilinear taps of ``factor_taps`` on each factor row: factor [R,
     D] with coords u [N], or [R, H, W] with coords [N, 2] -> [R, N]; zero
     outside the grid. On the card one kernel launch: factor f32 or bf16,
-    contiguous, coords f32 of any strides, output f32, bit-equal to
-    ``sample_taps_plain`` (every product and sum rounded on its own, in
-    its order); ``sample_taps_plain`` on the CPU."""
+    cell-major (``is_cell_major``), coords f32 of any strides, output f32,
+    bit-equal to ``sample_taps_plain`` (every product and sum rounded on
+    its own, in its order); ``sample_taps_plain`` on the CPU."""
     _check_taps_args("sample_taps_fwd", factor, coords)
     if factor.device.type == "cpu":
         return sample_taps_plain(factor, coords, align_corners)
     if factor.device.type != "cuda":
         raise ValueError(f"sample_taps_fwd: no kernel for {factor.device}")
-    if factor.dtype not in (torch.float32, torch.bfloat16) or not factor.is_contiguous():
-        raise ValueError("sample_taps_fwd: the factor must be a contiguous f32 or bf16 tensor")
+    if factor.dtype not in (torch.float32, torch.bfloat16) or not is_cell_major(factor):
+        raise ValueError("sample_taps_fwd: the factor must be an f32 or bf16 tensor held "
+                         "cell-major (ops/kernels/scatter.py:cell_major)")
     if coords.device != factor.device or coords.dtype != torch.float32:
         raise ValueError(f"sample_taps_fwd: coords must be f32 on {factor.device}")
     R, grid, N = factor.shape[0], factor.shape[1:], coords.shape[0]
@@ -247,10 +272,10 @@ def scatter_add_taps(g: torch.Tensor, coords: torch.Tensor, out: torch.Tensor,
     """``out[r, cell_t(n)] += g[r, n] * w_t(n)`` in place over the 2 (out
     [R, D], coords u [N]) or 4 (out [R, H, W], coords [N, 2]) bilinear
     taps of each sample that fall in the grid, as ``factor_taps`` makes
-    them: g [R, N] f32 contiguous, out f32 contiguous, coords f32 of any
-    strides. One kernel launch on the card (runs of samples that hit one
-    cell added before the atomic), ``scatter_add_taps_plain`` on the CPU.
-    Returns out."""
+    them: g [R, N] f32 contiguous, out f32 held cell-major
+    (``is_cell_major``), coords f32 of any strides. One kernel launch on
+    the card (runs of samples that hit one cell summed before they are
+    added), ``scatter_add_taps_plain`` on the CPU. Returns out."""
     if g.device.type == "cpu":
         return scatter_add_taps_plain(g, coords, out, align_corners)
     if g.device.type != "cuda":
@@ -258,9 +283,9 @@ def scatter_add_taps(g: torch.Tensor, coords: torch.Tensor, out: torch.Tensor,
     if g.dtype != torch.float32 or g.ndim != 2 or not g.is_contiguous():
         raise ValueError("scatter_add_taps: g must be a contiguous 2-D f32 tensor")
     if out.device != g.device or out.dtype != torch.float32 or out.ndim not in (2, 3) \
-            or not out.is_contiguous():
-        raise ValueError(f"scatter_add_taps: out must be a contiguous [R, D] or [R, H, W] f32 "
-                         f"tensor on {g.device}")
+            or not is_cell_major(out):
+        raise ValueError(f"scatter_add_taps: out must be an [R, D] or [R, H, W] f32 tensor "
+                         f"held cell-major (ops/kernels/scatter.py:cell_major) on {g.device}")
     if coords.device != g.device or coords.dtype != torch.float32:
         raise ValueError(f"scatter_add_taps: coords must be f32 on {g.device}")
     R, N = g.shape

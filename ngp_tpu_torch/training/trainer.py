@@ -281,7 +281,9 @@ class Trainer:
             s = by_name.get(name)
             if s is not None and all(tuple(v.shape) == tuple(params[name].shape)
                                      for k, v in s.items() if k != "step"):
-                state[i] = s
+                # the moments in their parameter's layout (a factor's is cell-major)
+                state[i] = {k: v if k == "step" else torch.empty_like(params[name]).copy_(v)
+                            for k, v in s.items()}
             else:
                 skipped.append(f"optimizer/{name}")
         step = next((s["step"] for s in state.values() if "step" in s), None)

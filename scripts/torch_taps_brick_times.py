@@ -15,9 +15,13 @@ ms a step and rays/s) and 4 steps under ``chip_smoke.py:profile``
 (device ms and launches a step, the idle share, and the device ms and
 launches of the kernels whose names hold ``sample_taps``,
 ``scatter_taps``, ``brick_``, ``indexSelect``, ``indexFunc`` or
-``elementwise``). It prints one JSON line per step kind, naming the tree
-and the card (name and power limit). Run each tree in turn: parent,
-change, change, parent.
+``elementwise``). On the TensoRF and CCNeRF trainers it then keeps the
+largest call of one step's ``sample_taps_fwd`` and ``scatter_add_taps``
+(factor or d factor in the layout that tree's models hold) and times each
+kernel there, and on a rank-48 152^2 plane at 32,768 uniform points
+(``chip_smoke.py:tap_points``), by ``chip_smoke.py:device_ms``. It prints
+one JSON line per step kind, naming the tree and the card (name and power
+limit). Run each tree in turn: parent, change, change, parent.
 """
 
 import argparse
@@ -33,6 +37,70 @@ import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FOCUS = ("sample_taps", "scatter_taps", "brick_", "indexSelect", "indexFunc", "elementwise")
+
+
+def largest_taps(cs, trainer, batches):
+    """One train step with the tree's taps wrappers wrapped: the inputs of
+    the largest (rows x samples) call of each, as the step passed them."""
+    import torch
+
+    from ngp_tpu_torch.ops.kernels import scatter as sk
+
+    fwd, bwd = sk.sample_taps_fwd, sk.scatter_add_taps
+    kept = {}
+
+    def keep(name, size, args):
+        if name not in kept or size > kept[name][0]:
+            kept[name] = (size, args)
+
+    def keep_fwd(factor, coords, align):
+        keep("sample_taps_fwd", factor.shape[0] * coords.shape[0],
+             (factor.clone(), cs.restride(coords, coords.stride()), align))
+        return fwd(factor, coords, align)
+
+    def keep_bwd(g, coords, out, align):
+        keep("scatter_add_taps", g.numel(),
+             (g.clone(), cs.restride(coords, coords.stride()), torch.zeros_like(out), align))
+        return bwd(g, coords, out, align)
+
+    sk.sample_taps_fwd, sk.scatter_add_taps = keep_fwd, keep_bwd
+    try:
+        trainer.step(next(batches))
+    finally:
+        sk.sample_taps_fwd, sk.scatter_add_taps = fwd, bwd
+    return {name: args for name, (_, args) in kept.items()}
+
+
+def taps_times(cs, trainer, batches, dev):
+    """Device ms of the tree's two taps kernels on a step's largest calls
+    and on the uniform plane, each factor in the layout the tree's wrapper
+    takes (cell-major or row-major)."""
+    import torch
+
+    from ngp_tpu_torch.ops.kernels import scatter as sk
+
+    out = {}
+    for name, args in largest_taps(cs, trainer, batches).items():
+        fn = getattr(sk, name)
+        out[f"{name} step largest call"] = {
+            "shape": [int(args[0].shape[0]), int(args[1].shape[0])],
+            "device_ms": cs.device_ms(lambda: fn(*args))}
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED + 14)
+    xn = cs.tap_points(gen, dev, cs.TENSORF_RES, 4096 * 8)["uniform"]
+    res, uv = cs.TENSORF_RES, xn[:, 0:2]
+    plane = torch.randn((48, res, res), generator=gen, device=dev)
+    try:
+        factor = plane.movedim(0, -1).contiguous().movedim(-1, 0)
+        sk.sample_taps_fwd(factor, uv, True)
+    except ValueError:  # a tree whose kernels read row-major factors
+        factor = plane
+    g = torch.randn((48, uv.shape[0]), generator=gen, device=dev)
+    d_factor = torch.zeros_like(factor)
+    out["sample_taps_fwd uniform plane"] = {
+        "device_ms": cs.device_ms(lambda: sk.sample_taps_fwd(factor, uv, True))}
+    out["scatter_add_taps uniform plane"] = {
+        "device_ms": cs.device_ms(lambda: sk.scatter_add_taps(g, uv, d_factor, True))}
+    return out
 
 
 def main():
@@ -102,6 +170,10 @@ def main():
                           "rays_per_s": trainer.train_cfg.num_rays / wall, "device_ms": busy,
                           "launches": launches, "idle": idle, **focus, "card": card}),
               flush=True)
+        if what != "brick_step":  # the factor taps' trainers
+            print(json.dumps({"tree": name, "what": what.replace("step", "taps"),
+                              **taps_times(cs, trainer, batches, dev), "card": card}),
+                  flush=True)
         del trainer, batches, train_ds
     print(f"[{name}] ok  [{card}]", flush=True)
 

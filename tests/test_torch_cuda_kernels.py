@@ -36,8 +36,9 @@ turbo march and the eval prepass round every float as their plain
 versions do: equal, bit for bit. The f32 heads (3xTF32 on the tensor
 cores for H1 <= 256) are held to the f32 tolerance above; their feats
 residual is the features as the products split them, within 2^-22 of
-f32's. The taps' forward rounds every product and sum as its plain
-version does: equal, bit for bit. The brick grid's forward sums the same
+f32's. The taps' kernels take factors held cell-major
+(``scatter.cell_major``) and raise on other layouts; the forward rounds
+every product and sum as its plain version does: equal, bit for bit. The brick grid's forward sums the same
 8 products in another f32 order: within 1e-6 of the sum of their
 magnitudes S in f32, one bf16 step plus 2^-20 S in bf16; its rows'
 cotangent equals its plain version's bit for bit, and the table gradient
@@ -1330,10 +1331,13 @@ def _tap_points(dev, kind, N, dims, size, align_corners, seed=0):
 
 
 # (R, grid, N): CCNeRF's narrowest group and TensoRF's ranks, lines and
-# planes at TensoRF's 152 and odd sizes, a tail tile and one sample
+# planes at TensoRF's 152 and odd sizes, a tail tile and one sample; for the
+# gradient both accumulators (shared memory where cells x rows fit, else
+# global), rows added as float4s and as scalars (R % 4), and ranks cut into
+# slabs of rows (R > 96)
 TAP_CASES = [(1, (152,), 32768), (4, (128,), 5000), (16, (152, 152), 32768),
              (48, (152,), 32768), (7, (13, 11), 1), (64, (128, 128), 4099),
-             (288, (57,), 700)]
+             (288, (57,), 700), (5, (64, 64), 3000), (96, (300,), 4099), (100, (9, 8), 700)]
 
 
 @pytest.mark.parametrize("kind", ["uniform", "ray", "padded", "edges"])
@@ -1349,7 +1353,8 @@ def test_scatter_add_taps_kernel(dev, R, grid, N, align_corners, kind):
     coords = _tap_points(dev, kind, N, len(grid), grid[-1], align_corners, seed=R + N)
     g = torch.randn((R, N), generator=torch.Generator().manual_seed(2)).to(dev)
     before = LAUNCHES["scatter_add_taps"]
-    got = ks.scatter_add_taps(g, coords, torch.zeros((R, *grid), device=dev), align_corners)
+    got = ks.scatter_add_taps(g, coords, ks.cell_major(torch.zeros((R, *grid), device=dev)),
+                              align_corners)
     torch.cuda.synchronize()
     assert LAUNCHES["scatter_add_taps"] == before + 1
     want = ks.scatter_add_taps_plain(g, coords, torch.zeros((R, *grid), device=dev),
@@ -1360,14 +1365,16 @@ def test_scatter_add_taps_kernel(dev, R, grid, N, align_corners, kind):
 
 def test_factor_taps_and_gather_rows_on_the_card(dev):
     """``interp.sample_1d`` / ``sample_2d`` (TensoRF's strided coordinate
-    columns) and ``brick_encode`` on the card through the kernels, against
-    the same on the CPU: values and gradients to 1e-5 of their largest
-    entry (f32 sums in another order)."""
+    columns, cell-major factors) and ``brick_encode`` on the card through
+    the kernels, against the same on the CPU: values and gradients to 1e-5
+    of their largest entry (f32 sums in another order); the factors'
+    gradients in the factors' strides."""
     from ngp_tpu_torch.ops import brickgrid, interp
     from ngp_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
 
     g = torch.Generator().manual_seed(5)
-    plane, line = torch.randn((16, 40, 33), generator=g), torch.randn((48, 37), generator=g)
+    plane = interp.cell_major(torch.randn((16, 40, 33), generator=g))
+    line = interp.cell_major(torch.randn((48, 37), generator=g))
     xn = torch.rand((3000, 3), generator=g) * 2.2 - 1.1
     xn[1000:] = xn[0]
     cot = torch.randn((16, 3000), generator=g)
@@ -1377,6 +1384,7 @@ def test_factor_taps_and_gather_rows_on_the_card(dev):
         uv = torch.stack([x[:, 0], x[:, 2]], dim=-1)
         out = interp.sample_2d(p, uv, align) * interp.sample_1d(ln, x[:, 1], align)[:16]
         (out * cot.to(dev_)).sum().backward()
+        assert p.grad.stride() == p.stride() and ln.grad.stride() == ln.stride()
         return out.detach().cpu(), p.grad.cpu(), ln.grad.cpu(), x.grad.cpu()
 
     cfg = brickgrid.BrickGridConfig(num_levels=4, level_dim=4, base_resolution=8,
@@ -1411,7 +1419,10 @@ def test_scatter_add_taps_wrapper_raises_on_what_the_kernel_does_not_take(dev):
     from ngp_tpu_torch.ops.kernels import scatter as ks
 
     g, u = torch.zeros((4, 8), device=dev), torch.zeros((8,), device=dev)
-    out = torch.zeros((4, 5), device=dev)
+    out = ks.cell_major(torch.zeros((4, 5), device=dev))
+    ks.scatter_add_taps(g, u, out, True)
+    with pytest.raises(ValueError):  # row-major: the kernel adds into cell-major memory
+        ks.scatter_add_taps(g, u, torch.zeros((4, 5), device=dev), True)
     with pytest.raises(ValueError):
         ks.scatter_add_taps(g.double(), u, out, True)
     with pytest.raises(ValueError):
@@ -1425,7 +1436,7 @@ def test_scatter_add_taps_wrapper_raises_on_what_the_kernel_does_not_take(dev):
     with pytest.raises(ValueError):
         ks.scatter_add_taps(g, u[:7], out, True)
     with pytest.raises(ValueError):
-        ks.scatter_add_taps(g, u, torch.zeros((4, 5, 6), device=dev), True)
+        ks.scatter_add_taps(g, u, ks.cell_major(torch.zeros((4, 5, 6), device=dev)), True)
 
 
 @pytest.mark.parametrize("factor_dtype", [torch.float32, torch.bfloat16])
@@ -1444,8 +1455,8 @@ def test_sample_taps_fwd_kernel(dev, R, grid, N, align_corners, kind, factor_dty
     wide = torch.zeros((N, 3), device=dev)
     wide[:, :len(grid)] = coords.view(N, -1)
     strided = wide[:, 0] if len(grid) == 1 else wide[:, 0:2]
-    factor = torch.randn((R, *grid), generator=torch.Generator().manual_seed(3)).to(dev,
-                                                                                 factor_dtype)
+    factor = ks.cell_major(torch.randn((R, *grid), generator=torch.Generator().manual_seed(3))
+                           .to(dev, factor_dtype))
     want = ks.sample_taps_plain(factor, coords, align_corners)
     for c in (coords, strided):
         before = LAUNCHES["sample_taps_fwd"]
@@ -1454,6 +1465,37 @@ def test_sample_taps_fwd_kernel(dev, R, grid, N, align_corners, kind, factor_dty
         assert LAUNCHES["sample_taps_fwd"] == before + 1
         assert got.dtype == want.dtype == torch.float32 and got.shape == want.shape == (R, N)
         assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("R,grid", [(48, (152,)), (16, (40, 33)), (8, (300,))])
+def test_taps_kernels_on_unaligned_cell_major_factors(dev, R, grid):
+    """Both taps kernels on a cell-major factor one float into its buffer
+    (4-byte aligned: the 16-byte loads and reductions give way to
+    scalars) against the same factor aligned, and against the plain
+    versions: the forward bit for bit, the gradient within the f32
+    summation-order bound."""
+    from ngp_tpu_torch.ops.kernels import scatter as ks
+
+    N = 4099
+    coords = _tap_points(dev, "padded", N, len(grid), grid[-1], True, seed=R)
+    cells = math.prod(grid)
+    base = torch.randn((cells * R + 1,), generator=torch.Generator().manual_seed(4)).to(dev)
+    shifted = base[1:].view(*grid, R).movedim(-1, 0)
+    assert ks.is_cell_major(shifted) and shifted.data_ptr() % 16 == 4
+    aligned = ks.cell_major(shifted.clone())
+    want = ks.sample_taps_plain(aligned, coords, True)
+    for factor in (shifted, aligned):
+        got = ks.sample_taps_fwd(factor, coords, True)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    g = torch.randn((R, N), generator=torch.Generator().manual_seed(5)).to(dev)
+    want = ks.scatter_add_taps_plain(g, coords, torch.zeros((R, *grid), device=dev), True)
+    bound = taps_bound(g, coords, (R, *grid), True)
+    for out in (torch.zeros((cells * R + 1,), device=dev)[1:].view(*grid, R).movedim(-1, 0),
+                ks.cell_major(torch.zeros((R, *grid), device=dev))):
+        got = ks.scatter_add_taps(g, coords, out, True)
+        torch.cuda.synchronize()
+        assert torch.equal(got != 0, want != 0)
+        assert ((got - want).abs() <= bound).all()
 
 
 # brick grids: the --preset tpu levels with 2^12 bricks a level (levels 0-2
@@ -1556,11 +1598,15 @@ def test_taps_and_brick_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     from ngp_tpu_torch.ops import brickgrid
     from ngp_tpu_torch.ops.kernels import scatter as ks
 
-    f, u = torch.zeros((4, 9), device=dev), torch.zeros((6,), device=dev)
+    f, u = torch.zeros((9, 4), device=dev).t(), torch.zeros((6,), device=dev)  # cell-major
+    ks.sample_taps_fwd(f, u, True)
     with pytest.raises(ValueError):
         ks.sample_taps_fwd(f.double(), u, True)
+    with pytest.raises(ValueError):  # row-major: the kernel reads cell-major memory
+        ks.sample_taps_fwd(torch.zeros((4, 9), device=dev), u, True)
     with pytest.raises(ValueError):
-        ks.sample_taps_fwd(torch.zeros((9, 4), device=dev).t(), u, True)
+        ks.sample_taps_fwd(torch.zeros((4, 6, 5), device=dev), torch.zeros((6, 2), device=dev),
+                           True)
     with pytest.raises(ValueError):
         ks.sample_taps_fwd(f, u.double(), True)
     with pytest.raises(ValueError):

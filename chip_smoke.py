@@ -19,7 +19,8 @@ counts the tensor-core instructions, HMMA, of the two heads' bf16 and f32
 library's SASS, and their spills in the compiler's report, none allowed
 but in the f32 heads'; and prints the registers and spills of the CP
 factor backward's and encoder's run kernels, whose SASS must call no
-64-bit division routine, and of the turbo march), then
+64-bit division routine, and of the turbo march; and of the brick grid's
+three kernels, which must not spill nor call a division routine), then
 
 2-3. builds the turbo-hq NeRF network at full width from a seeded
      generator (random weights), refreshes the 128^3 occupancy grid (16
@@ -41,8 +42,9 @@ factor backward's and encoder's run kernels, whose SASS must call no
      runs); the hash-grid encoder at the refresh chunk (131,072 points) and a
      hash-grid train step (4096 rays x 256 samples = 1,048,576 points)
      on the full-width table (16 levels x 2, 6,119,864 rows), forward
-     and table gradient, and the row scatter-add (the brick grid's table
-     gradient; phase 17 (c) holds it on that path's own rows) at the
+     and table gradient, and the row scatter-add (on no path since the brick
+     grid's table gradient became one kernel; phase 17 (c) holds it on the
+     rows of that path's own points) at the
      probe script's shape and one hash level's, with
      ``Tensor.index_add_`` timed beside it; the coarse lookup (which
      no path runs since the eval prepass became one kernel) on random
@@ -55,10 +57,12 @@ factor backward's and encoder's run kernels, whose SASS must call no
      and lines of ranks 1, 16 and 48 at 152 on uniform, clustered and
      padded points, strided and stacked coords, both corner conventions,
      beside ``grid_sample``'s forward; the brick grid's kernels
-     (``brick_encode_fwd`` within its bound, ``brick_encode_bwd`` bit for
-     bit) at ``--preset tpu``'s geometry on random points, a quarter
-     outside the box, and on every level's cell and brick edges, bf16 and
-     f32;
+     (``brick_encode_fwd`` and ``brick_table_grad`` within their bounds,
+     ``brick_encode_bwd`` bit for bit) at ``--preset tpu``'s geometry on
+     random points, a quarter outside the box, and on every level's cell
+     and brick edges, bf16 and f32, the table gradient with its zero fill
+     timed beside the fill, ``brick_encode_bwd`` and ``scatter_add_rows``
+     that made it before;
 5.   renders a small frame on the GPU and the same frame on the CPU
      through the plain versions;
 6.   renders the synthetic scene (16 train frames at 400x400 and one
@@ -207,13 +211,13 @@ factor backward's and encoder's run kernels, whose SASS must call no
      gradient, the kernels they launched, one profiled guidance step; (c)
      ``brick_runs``: ``main_nerf --preset tpu --iters 400`` and ``--test``
      (a PSNR floor over a white frame's; the training run launches
-     ``brick_encode_fwd``, ``brick_encode_bwd`` and ``scatter_add_rows``,
-     the table gradient, and no other kernel, ``--test`` the forward
-     alone) and ``brick_encode`` on the last step's own points: the card
-     against the CPU, the two kernels against their plain versions, its
-     forward and forward + table gradient timed beside their bound, and
-     ``scatter_add_rows`` against its plain version on that step's own
-     gathered rows, beside ``index_add_``;
+     ``brick_encode_fwd`` and ``brick_table_grad``, the table gradient,
+     and no other kernel, ``--test`` the forward alone) and
+     ``brick_encode`` on the last step's own points: the card against the
+     CPU, the three kernels against their plain versions, its forward and
+     forward + table gradient timed beside their bound, and
+     ``scatter_add_rows`` against its plain version on the rows of that
+     step's points and cotangent, beside ``index_add_``;
 18.  ``ngp_tpu_torch/parallel/`` on one rank over NCCL (``parallel_runs``):
      turbo-hq at full width from one seed with no mesh, under
      ``make_mesh(1)`` and under a (1, 1) ("data", "model") mesh with the CP
@@ -806,22 +810,22 @@ def step_taps_fwd(sk, calls, label, card, results, library):
           f"bit  [{card}]", flush=True)
 
 
-def brick_work(x, cfg, out_bytes, per_item):
+def brick_work(x, cfg, out_bytes, per_item, live=None):
     """(bytes, 0, operations) of a brick kernel on points x [N, 3]: x read,
     the 32-byte sectors of the stencil cells that the points inside the box
-    read (each distinct sector once: 8 cells of C floats a point and
-    level), ``out_bytes`` written; ``per_item`` operations a (point,
-    level)."""
+    read or write (each distinct sector once: 8 cells of C floats a point
+    and level; with ``live`` [N, L], only where it is true), ``out_bytes``
+    read or written; ``per_item`` operations a (point, level)."""
     import torch
 
     from ngp_tpu_torch.ops import brickgrid
 
     L, C = cfg.num_levels, cfg.level_dim
     inside = inside_rows(x)
-    xi = x[inside]
     sectors = []
     ijk = torch.arange(2, device=x.device)
     for level in range(L):
+        xi = x[inside if live is None else inside & live[:, level]]
         x0 = torch.floor(xi * cfg.level_scale(level) + 0.5).long()
         row = brickgrid._brick_index(cfg, level, x0 >> 1) + cfg.offsets[level]
         lo = x0 & 1
@@ -856,18 +860,37 @@ def brick_fwd_bound(bg, x, table, cfg, dt):
     return tol
 
 
+def brick_grad_bound(bg, x, g, cfg):
+    """``brick_table_grad`` adds the products ``brick_encode_bwd_plain``
+    puts in its rows, in another f32 order: ``scatter_bound`` of those
+    rows."""
+    from ngp_tpu_torch.ops.kernels import scatter as sk
+
+    idx, rows = bg.brick_encode_bwd_plain(x, g, cfg)
+    return scatter_bound(sk, idx, rows, cfg.num_rows)
+
+
 def brick_checks(bg, x, table, cfg, g, label, card, results, timed=True):
-    """``brick_encode_fwd`` and ``brick_encode_bwd`` on points x [N, 3],
-    the table and the output's cotangent g (its dtype the compute type)
-    against their plain versions: the forward within ``brick_fwd_bound``,
-    the backward's rows and row indices bit for bit. With ``timed``, both
-    timed beside their bounds (``brick_work``: the forward writes its
-    output, about 9 + 8 (2 + 2 C) operations a point and level; the
-    backward reads g and writes the rows and indices, 9 + 8 (2 + C))."""
+    """``brick_encode_fwd``, ``brick_table_grad`` and ``brick_encode_bwd`` on
+    points x [N, 3], the table and the output's cotangent g (its dtype the
+    compute type) against their plain versions: the forward within
+    ``brick_fwd_bound``, the table gradient (into a zeroed table) within
+    ``brick_grad_bound``, the rows kernel's rows and row indices bit for
+    bit. With ``timed``, each timed beside its bound (``brick_work``: the
+    forward writes its output, about 9 + 8 (2 + 2 C) operations a point and
+    level; the table gradient reads g and writes the stencil sectors of the
+    (point, level)s whose cotangent is not zero, 9 + 8 (1 + C); the rows
+    kernel reads g and writes the rows and indices, 9 + 8 (2 + C)), and the
+    device ms of the table gradient with its zero fill beside the fill, the
+    rows kernel and ``scatter_add_rows`` that made it before (on the same
+    inputs), and the fill alone."""
     import torch
+
+    from ngp_tpu_torch.ops.kernels import scatter as sk
 
     dt = g.dtype
     N, L, C = x.shape[0], cfg.num_levels, cfg.level_dim
+    shape = (cfg.num_rows, cfg.row_width)
     tol = brick_fwd_bound(bg, x, table, cfg, dt)
     with torch.no_grad():
         got = bg.brick_encode_fwd(x, table, cfg, dt)
@@ -876,6 +899,14 @@ def brick_checks(bg, x, table, cfg, g, label, card, results, timed=True):
     if got.dtype != want.dtype or (err > tol([want])[0]).any():
         raise RuntimeError(f"brick_encode_fwd [{label}]: max |kernel - plain| "
                            f"{float(err.max())} exceeds its bound")
+    g_bound = brick_grad_bound(bg, x, g, cfg)
+    got_t = bg.brick_table_grad(x, g, cfg, torch.zeros(shape, device=x.device))
+    want_t = bg.brick_table_grad_plain(x, g, cfg, torch.zeros(shape, device=x.device))
+    err_t = (got_t - want_t).abs()
+    if (err_t > g_bound).any():
+        raise RuntimeError(f"brick_table_grad [{label}]: max |kernel - plain| "
+                           f"{float(err_t.max())} exceeds its bound")
+    del got_t, want_t, err_t
     (idx, rows), (idx_p, rows_p) = bg.brick_encode_bwd(x, g, cfg), \
         bg.brick_encode_bwd_plain(x, g, cfg)
     if not (torch.equal(idx, idx_p) and torch.equal(rows.view(torch.int32),
@@ -891,18 +922,39 @@ def brick_checks(bg, x, table, cfg, g, label, card, results, timed=True):
             "brick_encode_fwd", lambda: bg.brick_encode_fwd(x, table, cfg, dt),
             lambda: bg.brick_encode_plain(x, table, cfg, dt), name,
             brick_work(x, cfg, N * L * C * dt.itemsize, 9 + 8 * (2 + 2 * C)), tol=tol)
+    outs = [torch.zeros(shape, device=x.device) for _ in range(2)]
+    live = (g.view(N, L, C) != 0).any(dim=2)
+    results[("brick_table_grad", label)] = compare(
+        "brick_table_grad", lambda: bg.brick_table_grad(x, g, cfg, outs[0]),
+        lambda: bg.brick_table_grad_plain(x, g, cfg, outs[1]), name,
+        brick_work(x, cfg, nbytes(g), 9 + 8 * (1 + C), live), tol=lambda want: [g_bound])
+    del outs, g_bound
     results[("brick_encode_bwd", label)] = compare(
         "brick_encode_bwd", lambda: bg.brick_encode_bwd(x, g, cfg),
         lambda: bg.brick_encode_bwd_plain(x, g, cfg), name,
         (nbytes(x, g) + N * L * (4 + cfg.row_width * 4), 0, N * L * (9 + 8 * (2 + C))),
         tol=lambda want: [torch.zeros_like(w, dtype=torch.float32) for w in want])
-    fwd_dev = device_ms(lambda: bg.brick_encode_fwd(x, table, cfg, dt))
-    bwd_dev = device_ms(lambda: bg.brick_encode_bwd(x, g, cfg))
-    for what, dev_ms in (("brick_encode_fwd", fwd_dev), ("brick_encode_bwd", bwd_dev)):
+    dev_ms = {
+        "brick_encode_fwd": device_ms(lambda: bg.brick_encode_fwd(x, table, cfg, dt)),
+        "brick_table_grad": device_ms(lambda: bg.brick_table_grad(
+            x, g, cfg, torch.zeros(shape, device=x.device))),
+        "brick_encode_bwd": device_ms(lambda: bg.brick_encode_bwd(x, g, cfg))}
+    fill = device_ms(lambda: torch.zeros(shape, device=x.device))
+    before = device_ms(lambda: sk.scatter_add_rows(*bg.brick_encode_bwd(x, g, cfg),
+                                                   torch.zeros(shape, device=x.device)))
+    for what, ms in dev_ms.items():
         r = results[(what, label)]
+        with_fill = " with its zero fill" if what == "brick_table_grad" else ""
         print(f"{what} [{label}]: {N} points x {L} levels x {C} ({name}); kernel {r[1]:.4f} ms, "
-              f"device {dev_ms:.4f} ms (queued), plain {r[2]:.4f} ms, bound {r[3][0]:.4f} ms "
-              f"({r[3][1]}), max |kernel - plain| {r[0]:.3e}  [{card}]", flush=True)
+              f"device{with_fill} {ms:.4f} ms (queued), plain {r[2]:.4f} ms, bound "
+              f"{r[3][0]:.4f} ms ({r[3][1]}), max |kernel - plain| {r[0]:.3e}  [{card}]",
+              flush=True)
+    print(f"brick table gradient [{label}]: device ms, queued: zero fill + brick_table_grad "
+          f"{dev_ms['brick_table_grad']:.4f}; zero fill + brick_encode_bwd + scatter_add_rows "
+          f"{before:.4f}; the fill alone {fill:.4f} ({nbytes(table) / 1e6:.1f} MB); bound of "
+          f"the fill and the table gradient "
+          f"{bound(nbytes(x, g) + cfg.num_rows * cfg.row_width * 4)[0]:.4f}  [{card}]",
+          flush=True)
     return float(err.max())
 
 
@@ -3389,24 +3441,25 @@ def brick_runs(dev, card, scene, work, results, library):
     the v1 march at 256 steps and 32 samples a ray; 10 epochs), then
     ``--test`` on its workspace: the epoch-mean loss falls, the test PSNR
     beats a white frame's by ``BRICK_MIN_GAIN`` dB and ``--test`` gives the
-    same PSNR; the training run launches ``brick_encode_fwd``,
-    ``brick_encode_bwd`` and ``scatter_add_rows`` (the table gradient,
-    ``BrickEncode``) and no other kernel, ``--test`` ``brick_encode_fwd``
-    alone (the v1 march is torch, as JAX leaves it to XLA), and neither
-    asks for the plain x gradient. On the last step's own encoder points
-    and cotangent: ``brick_encode``'s forward on the card against the CPU
-    (bf16, ``TOL``); ``brick_checks`` (the two kernels against their plain
-    versions, timed beside their bounds); the device ms of the forward and
-    the forward + table gradient beside their bound: the 32-byte sectors of
-    the distinct stencil cells read once (``brick_work``: 8 cells of a row
-    a point and level, not the whole row), the points and cotangent read,
-    the bf16 output and the dense f32 table gradient written once
-    (``bound``); ``scatter_add_rows`` against its plain version on that
-    step's own gathered rows' cotangent (caught from ``BrickEncode``'s
-    backward), beside ``index_add_`` and the kernel's per-row branch on a
-    copy of the rows one float into its buffer (4-byte aligned, so no
-    tiles); two profiled train steps. Returns the launch counts of the two
-    runs."""
+    same PSNR; the training run launches ``brick_encode_fwd`` and
+    ``brick_table_grad`` (the table gradient, ``BrickEncode``) and no other
+    kernel (not ``brick_encode_bwd`` or ``scatter_add_rows``, which made the
+    table gradient before), ``--test`` ``brick_encode_fwd`` alone (the v1
+    march is torch, as JAX leaves it to XLA), and neither asks for the plain
+    x gradient. On the last step's own encoder points and cotangent:
+    ``brick_encode``'s forward on the card against the CPU (bf16, ``TOL``);
+    ``brick_checks`` (the three kernels against their plain versions, timed
+    beside their bounds); the forward and the forward + table gradient
+    between back-to-back calls and queued (``device_ms``) beside their
+    bound: the 32-byte sectors of the distinct stencil cells read once
+    (``brick_work``: 8 cells of a row a point and level, not the whole row),
+    the points and cotangent read, the bf16 output and the dense f32 table
+    gradient written once (``bound``); ``scatter_add_rows`` against its
+    plain version on the rows ``brick_encode_bwd`` makes from that step's
+    points and cotangent, beside ``index_add_`` and the kernel's per-row branch on a copy of the
+    rows one float into its buffer (4-byte aligned, so no tiles); two
+    profiled train steps and the peak memory of one. Returns the launch
+    counts of the two runs."""
     import numpy as np
     import torch
 
@@ -3456,7 +3509,7 @@ def brick_runs(dev, card, scene, work, results, library):
             and abs(psnr_b - psnr) <= 0.01):
         raise RuntimeError(f"brick grid: epoch means {means}, test PSNR {psnr} (white {white}), "
                            f"--test {psnr_b}")
-    trained = ("brick_encode_fwd", "brick_encode_bwd", "scatter_add_rows")
+    trained = ("brick_encode_fwd", "brick_table_grad")
     check_launched("brick grid --preset tpu", a_counts, trained,
                    absent=tuple(k for k in a_counts if k not in trained))
     check_launched("brick grid --test", b_counts, ("brick_encode_fwd",),
@@ -3475,31 +3528,27 @@ def brick_runs(dev, card, scene, work, results, library):
     brick_checks(brickgrid, x, table.detach(), cfg, g, "17c last step", card, results)
     with torch.no_grad():
         fwd_ms = cuda_ms(lambda: brickgrid.brick_encode(x, table, cfg, torch.bfloat16))
-    fb_ms = cuda_ms(lambda: torch.autograd.grad(
-        brickgrid.brick_encode(x, table, cfg, torch.bfloat16), (table,), g))
+    def fwd_and_grad():
+        return torch.autograd.grad(brickgrid.brick_encode(x, table, cfg, torch.bfloat16),
+                                   (table,), g)
+
+    fb_ms, fb_dev = cuda_ms(fwd_and_grad), device_ms(fwd_and_grad)
     N, L, C = x.shape[0], cfg.num_levels, cfg.level_dim
     rows = brick_rows(x, cfg)
     io, _, ops = brick_work(x, cfg, N * L * C * 2, 9 + 8 * (2 + 2 * C))
     f_bound = bound(io, 0, ops)
     fb_bound = bound(io + nbytes(g) + cfg.num_rows * cfg.row_width * 4, 0, 2 * ops)
-    print(f"brick_encode (the two kernels, the table gradient by scatter_add_rows) on step "
+    live = float((g.view(N, L, C) != 0).any(dim=2).float().mean())
+    print(f"brick_encode (brick_encode_fwd, brick_table_grad) on step "
           f"{trainer.global_step - 1}'s {N} points "
-          f"({1.0 - float(inside_rows(x).float().mean()):.4f} outside the box, {rows} distinct "
-          f"rows, {io - nbytes(x) - N * L * C * 2} bytes of stencil sectors): forward "
+          f"({1.0 - float(inside_rows(x).float().mean()):.4f} outside the box, {live:.4f} of "
+          f"(point, level)s with a cotangent, {rows} distinct rows, "
+          f"{io - nbytes(x) - N * L * C * 2} bytes of stencil sectors): forward "
           f"{fwd_ms:.4f} ms (bound {f_bound[0]:.4f}, {f_bound[1]}), forward + table gradient "
-          f"{fb_ms:.4f} ms (bound {fb_bound[0]:.4f}, {fb_bound[1]}); the card vs the CPU on {n} "
-          f"points {float(err.max()):.3e}  [{card}]", flush=True)
-    # the table gradient's scatter on the step's own rows
-    kept = []
-    launch = sk.scatter_add_rows
-
-    def keeping(idx, rows, out):
-        kept.append((idx.clone(), rows.clone()))
-        return launch(idx, rows, out)
-
-    with patched((sk, "scatter_add_rows", keeping)):
-        torch.autograd.grad(brickgrid.brick_encode(x, table, cfg, torch.bfloat16), (table,), g)
-    idx_b, rows_b = kept[0]
+          f"{fb_ms:.4f} ms, queued {fb_dev:.4f} ms (bound {fb_bound[0]:.4f}, {fb_bound[1]}); "
+          f"the card vs the CPU on {n} points {float(err.max()):.3e}  [{card}]", flush=True)
+    # the row scatter on the rows the step's points and cotangent make
+    idx_b, rows_b = brickgrid.brick_encode_bwd(x, g, cfg)
     R, W = cfg.num_rows, cfg.row_width
     outs = [torch.zeros((R, W), device=dev) for _ in range(3)]
     s_bound = scatter_bound(sk, idx_b, rows_b, R)
@@ -3527,12 +3576,16 @@ def brick_runs(dev, card, scene, work, results, library):
           f"{results[key][3][0]:.4f} ms, max |kernel - plain| {results[key][0]:.3e}; device ms "
           f"by branch {{{', '.join(f'{k}: {v:.4f}' for k, v in branches.items())}}}  "
           f"[{card}]", flush=True)
-    del out, want, table, caught, e, x, g, kept, idx_b, rows_b, outs, s_bound, idx_l
+    del out, want, table, caught, e, x, g, idx_b, rows_b, outs, s_bound, idx_l
     batches = itertools.chain.from_iterable(
         trainer.make_loader(NeRFDataset(scene, split="train"))() for _ in itertools.count())
     trainer.step(next(batches))
     profile(lambda: trainer.step(next(batches)), 2, "brick-grid step", card,
             focus=("brick_", "scatter_rows", "index", "gemm", "where", "elementwise"))
+    torch.cuda.reset_peak_memory_stats()
+    trainer.step(next(batches))
+    print(f"brick-grid step: peak memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB  "
+          f"[{card}]", flush=True)
     return a_counts, b_counts
 
 
@@ -3860,6 +3913,20 @@ def main():
     for kernel in ("march_turbo_kernel", "ray_prepass_kernel", "grid_bwd_x_kernel"):
         for name, regs, spills in ptxas_usage(report, kernel):
             print(f"ptxas: {name}: {regs} registers, {spills} bytes of spill stores", flush=True)
+    # the brick kernels (32-bit geometry, the rows divided by a mask or a
+    # magic multiplier): no spills, no call to a division routine
+    for kernel in ("brick_fwd_kernel", "brick_grad_kernel", "brick_bwd_kernel"):
+        usage = ptxas_usage(report, kernel)
+        for name, regs, spills in usage:
+            print(f"ptxas: {name}: {regs} registers, {spills} bytes of spill stores")
+        calls = [ln.strip() for ln in sass_lines(sass, kernel) if "CALL" in ln]
+        divs = [c for c in calls if "div" in c.lower() or "rem" in c.lower()]
+        spills = sum(n for _, _, n in usage)
+        print(f"SASS: {kernel}: {len(calls)} calls, {len(divs)} to a division routine; "
+              f"{spills} bytes of spill stores", flush=True)
+        if divs or spills:
+            raise RuntimeError(f"{kernel}: {len(divs)} calls to a division routine "
+                               f"({divs[:2]}), {spills} bytes of spill stores")
     del sass
     phase("SASS checks", t0)
 
@@ -4232,8 +4299,8 @@ def main():
             err = brick_checks(bg, xb, btable, bcfg, gb, f"{dtype} {pname}", card, results,
                                timed=pname == "random")
             print(f"brick kernels [{dtype} {pname}]: {xb.shape[0]} points, forward within its "
-                  f"bound (max |kernel - plain| {err:.3e}), backward bit for bit  [{card}]",
-                  flush=True)
+                  f"bound (max |kernel - plain| {err:.3e}), table gradient within its bound, "
+                  f"rows bit for bit  [{card}]", flush=True)
     del btable, brick_x, gb
     printed = print_results(results, library, card, set())
     phase("kernels against their plain versions", t4)
@@ -4705,20 +4772,23 @@ def main():
         # on no path: launches stays 0
         "fused_mlp": (csrc + "mlp_kernels.cu", "ngp_tpu/ops/pallas/fused_mlp.py:92",
                       ("fused_mlp", str(MLP_ROWS[0]))),
-        # the brick grid's table gradient, on phase 17 (c)'s last step's own
-        # rows; the factor taps' gradient (TensoRF, CCNeRF), on the largest
-        # call of a TensoRF step's own taps
+        # on no path since brick_table_grad: the rows of phase 17 (c)'s last
+        # step's own points and cotangent; the factor taps' gradient (TensoRF,
+        # CCNeRF), on the largest call of a TensoRF step's own taps
         "scatter_add_rows": (csrc + "scatter_kernels.cu", "scripts/perf_probe2_r2.py:128",
                              ("scatter_add_rows", "17c last step's rows")),
         "scatter_add_taps": (csrc + "scatter_kernels.cu", "ngp_tpu/ops/interp.py:62",
                              ("scatter_add_taps", "TensoRF step largest call")),
         # the taps' forward (TensoRF, CCNeRF), on the largest call of a TensoRF
-        # step's own taps; the brick grid's forward and rows' cotangent, on
-        # phase 17 (c)'s last step's own points and cotangent
+        # step's own taps; the brick grid's forward, table gradient and rows'
+        # cotangent (on no path), on phase 17 (c)'s last step's own points and
+        # cotangent
         "sample_taps_fwd": (csrc + "taps_kernels.cu", "ngp_tpu/ops/interp.py:45",
                             ("sample_taps_fwd", "TensoRF step largest call")),
         "brick_encode_fwd": (csrc + "brick_kernels.cu", "ngp_tpu/ops/brickgrid.py:143",
                              ("brick_encode_fwd", "17c last step")),
+        "brick_table_grad": (csrc + "brick_kernels.cu", "ngp_tpu/ops/brickgrid.py:143",
+                             ("brick_table_grad", "17c last step")),
         "brick_encode_bwd": (csrc + "brick_kernels.cu", "ngp_tpu/ops/brickgrid.py:143",
                              ("brick_encode_bwd", "17c last step")),
         # the JAX package leaves these to XLA: its take and einsum

@@ -8,8 +8,9 @@ autograd's, as JAX's are ``jax.grad`` of the same function.
 The random draws (the perturbation noise [N, T] and the PDF draws
 [N, U]) come from ``noise`` and ``pdf_u`` when given (a test feeds the
 numbers ``jax.random`` drew), else from ``generator``. The deterministic
-lattices follow ``jnp.linspace``'s arithmetic (``_linspace``), and the
-merge of the PDF samples sorts stably, as ``jnp.argsort`` does.
+lattices follow ``jnp.linspace``'s arithmetic
+(``ops/interp.py:linspace_f32``), and the merge of the PDF samples sorts
+stably, as ``jnp.argsort`` does.
 """
 
 from __future__ import annotations
@@ -19,21 +20,8 @@ from typing import Callable, Dict, Optional
 import torch
 
 from ngp_tpu_torch.config import RenderConfig
+from ngp_tpu_torch.ops.interp import linspace_f32
 from ngp_tpu_torch.ops.rays import near_far_from_aabb, sph_from_ray
-
-
-def _linspace(start: float, stop: float, n: int, device=None) -> torch.Tensor:
-    """``jnp.linspace(start, stop, n)`` in f32 as XLA evaluates it:
-    step = i * (1 / (n - 1)), start * (1 - step) + stop * step, the last
-    entry ``stop`` itself (``torch.linspace`` rounds some entries another
-    way)."""
-    if n == 1:
-        return torch.full((1,), start, dtype=torch.float32, device=device)
-    a = torch.tensor(start, dtype=torch.float32, device=device)
-    b = torch.tensor(stop, dtype=torch.float32, device=device)
-    step = torch.arange(n - 1, dtype=torch.float32, device=device) * (
-        1.0 / torch.tensor(float(n - 1), dtype=torch.float32, device=device))
-    return torch.cat([a * (1.0 - step) + b * step, b[None]])
 
 
 def sample_pdf(bins: torch.Tensor, weights: torch.Tensor, n_samples: int,
@@ -47,7 +35,7 @@ def sample_pdf(bins: torch.Tensor, weights: torch.Tensor, n_samples: int,
     cdf = torch.cumsum(pdf, dim=-1)
     cdf = torch.cat([torch.zeros_like(cdf[..., :1]), cdf], dim=-1)  # [B, T]
     if u is None:
-        u = _linspace(0.5 / n_samples, 1.0 - 0.5 / n_samples, n_samples, cdf.device)
+        u = linspace_f32(0.5 / n_samples, 1.0 - 0.5 / n_samples, n_samples, cdf.device)
         u = u.expand(*cdf.shape[:-1], n_samples)
     u = u.contiguous()
     inds = torch.searchsorted(cdf.contiguous(), u, right=True)
@@ -116,7 +104,7 @@ def render_rays(density_fn: Callable, color_fn: Callable, rays_o: torch.Tensor,
     # rays that miss (or leave behind the origin) get an empty interval
     fars = torch.where(fars > nears, fars, nears)
 
-    z = _linspace(0.0, 1.0, T, dev)
+    z = linspace_f32(0.0, 1.0, T, dev)
     z_vals = nears[:, None] + (fars - nears)[:, None] * z[None, :]  # [N, T]
     sample_dist = (fars - nears) / T
     if perturb:

@@ -15,18 +15,22 @@ bits after each product and sum, as ``ops/hashgrid.py`` does).
 
 JAX leaves all of it to XLA (no Pallas kernel). On the card two kernels
 run it (``csrc/brick_kernels.cu``, wrapped by ``brick_encode_fwd`` and
-``brick_encode_bwd``): the forward reads only the 8 stencil cells of each
-row, and the backward writes the gathered rows' cotangent, which the
-kernel ``scatter_add_rows`` (``ops/kernels/scatter.py``) adds into the
-table gradient: one f32 sum of all levels' rows, as JAX gathers all
-levels in one take so that autodiff emits a single scatter-add.
-``BrickEncode`` ties them together. On the CPU the same functions take
-their plain versions: ``brick_encode_plain`` (the row gather by
-``GatherRows``, the stencil's masked selects and the weights in torch
-ops) and ``brick_encode_bwd_plain`` (the cotangent autograd of the
-former hands to the row gather, bit for bit). The gradient in x is
-autograd of ``brick_encode_plain`` on every device (no path asks for it;
-each call counts under ``LAUNCHES["brick_x_grad_plain"]``).
+``brick_table_grad``): the forward reads only the 8 stencil cells of each
+row, and the table gradient adds each (point, level)'s 8 stencil
+products straight into a zeroed f32 table gradient: one f32 sum of all
+levels, as JAX gathers all levels in one take so that autodiff emits a
+single scatter-add. ``BrickEncode`` ties them together. A third kernel,
+``brick_encode_bwd``, writes the gathered rows' cotangent, which
+``scatter_add_rows`` (``ops/kernels/scatter.py``) added into the table
+gradient until the two were fused; no path runs it. On the CPU the same
+functions take their plain versions: ``brick_encode_plain`` (the row
+gather by ``GatherRows``, the stencil's masked selects and the weights in
+torch ops), ``brick_encode_bwd_plain`` (the cotangent autograd of the
+former hands to the row gather, bit for bit) and
+``brick_table_grad_plain`` (those rows added by
+``scatter_add_rows_plain``). The gradient in x is autograd of
+``brick_encode_plain`` on every device (no path asks for it; each call
+counts under ``LAUNCHES["brick_x_grad_plain"]``).
 """
 
 from __future__ import annotations
@@ -214,19 +218,35 @@ def brick_encode_bwd_plain(x: torch.Tensor, g: torch.Tensor,
     return idx, rows.reshape(N * L, 27 * C)
 
 
+def _divisor_magic(d: int) -> Tuple[int, int]:
+    """(magic, shift) for dividing any uint32 h by d >= 1 without a
+    division, as the kernels do (``csrc/brick_kernels.cu:level_row``):
+    with t = (magic * h) >> 32, h // d = (t + ((h - t) >> 1)) >> shift
+    (Granlund and Montgomery's round-up multiplier). (0, 0) where d is a
+    power of two: h % d is then h & (d - 1)."""
+    if d & (d - 1) == 0:
+        return 0, 0
+    l = (d - 1).bit_length()  # ceil(log2 d) >= 2
+    return (1 << 32) * ((1 << l) - d) // d + 1, l - 1
+
+
 @functools.lru_cache(maxsize=16)
 def _level_args(cfg: BrickGridConfig):
     """The kernels' per-level arrays: scale (rounded to f32, as torch
     rounds a Python scalar against an f32 tensor), first row, rows, the
-    side of a dense level's brick grid, and whether the level is hashed."""
+    side of a dense level's brick grid, whether the level is hashed, and
+    the magic and shift of division by its rows (``_divisor_magic``)."""
     L = cfg.num_levels
     levels = [cfg.level_bricks(level) for level in range(L)]
     scales = [float(np.float32(cfg.level_scale(level))) for level in range(L)]
+    magic = [_divisor_magic(n) for n, _ in levels]
     return ((ctypes.c_float * L)(*scales),
             int_array(cfg.offsets[:L]),
             (ctypes.c_uint * L)(*[n for n, _ in levels]),
             (ctypes.c_uint * L)(*[cfg.level_resolution(level) // 2 + 1 for level in range(L)]),
-            int_array([int(hashed) for _, hashed in levels]))
+            int_array([int(hashed) for _, hashed in levels]),
+            (ctypes.c_uint * L)(*[m for m, _ in magic]),
+            int_array([sh for _, sh in magic]))
 
 
 def _check_brick_args(name: str, x: torch.Tensor, other: torch.Tensor, shape, what: str,
@@ -294,7 +314,8 @@ def brick_encode_bwd(x: torch.Tensor, g: torch.Tensor,
     rows under the output's cotangent g [N, L * C] (f32 or bf16, the
     compute type), as ``brick_encode_bwd_plain`` makes them. On the card
     one kernel launch, bit-equal to the plain version; the plain version on
-    the CPU."""
+    the CPU. No path calls it (``brick_table_grad`` adds the same products
+    without the rows)."""
     _check_brick_args("brick_encode_bwd", x, g, (x.shape[0], cfg.output_dim), "cotangent", cfg)
     if x.device.type == "cpu":
         return brick_encode_bwd_plain(x, g, cfg)
@@ -317,12 +338,56 @@ def brick_encode_bwd(x: torch.Tensor, g: torch.Tensor,
     return idx, rows
 
 
+def brick_table_grad_plain(x: torch.Tensor, g: torch.Tensor, cfg: BrickGridConfig,
+                           out: torch.Tensor) -> torch.Tensor:
+    """``out`` (f32 [num_rows, 27 * C]) += the table gradient of
+    ``brick_encode_plain`` on points x [N, 3] under the output's cotangent
+    g [N, L * C] (the compute type): ``brick_encode_bwd_plain``'s rows
+    added by ``scatter_add_rows_plain``. Returns out."""
+    idx, rows = brick_encode_bwd_plain(x, g, cfg)
+    return scatter.scatter_add_rows_plain(idx, rows, out)
+
+
+def brick_table_grad(x: torch.Tensor, g: torch.Tensor, cfg: BrickGridConfig,
+                     out: torch.Tensor) -> torch.Tensor:
+    """``out`` (f32 [num_rows, 27 * C], contiguous) += the table gradient
+    of the encoding of points x [N, 3] under the output's cotangent g
+    [N, L * C] (f32 or bf16, the compute type), in place; returns out. On
+    the card one kernel launch: each (point, level)'s 8 stencil products,
+    rounded in the compute type as ``brick_encode_bwd_plain`` rounds them,
+    added into its row by f32 atomics, so within f32 summation order of
+    the plain version; ``brick_table_grad_plain`` on the CPU."""
+    _check_brick_args("brick_table_grad", x, g, (x.shape[0], cfg.output_dim), "cotangent", cfg)
+    if (tuple(out.shape) != (cfg.num_rows, cfg.row_width) or out.dtype != torch.float32
+            or out.device != x.device):
+        raise ValueError(f"brick_table_grad: out must be f32 {(cfg.num_rows, cfg.row_width)} on "
+                         f"{x.device}, not {out.dtype} {tuple(out.shape)} on {out.device}")
+    if x.device.type == "cpu":
+        return brick_table_grad_plain(x, g, cfg, out)
+    if g.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"brick_table_grad: the kernel takes an f32 or bf16 cotangent, not "
+                         f"{g.dtype}")
+    if not out.is_contiguous() or out.data_ptr() % 16:
+        raise ValueError("brick_table_grad: out must be contiguous and 16-byte aligned")
+    xf, g = x.float().contiguous(), g.contiguous()
+    if xf.shape[0] == 0:
+        return out
+    lib = load_library()
+    err = lib.ngp_brick_table_grad(xf.data_ptr(), xf.shape[0], g.data_ptr(), cfg.level_dim,
+                                   cfg.num_levels, *_level_args(cfg),
+                                   int(g.dtype == torch.bfloat16), out.data_ptr(),
+                                   torch.cuda.current_stream(x.device).cuda_stream)
+    check_launch("brick_table_grad", err)
+    LAUNCHES["brick_table_grad"] += 1
+    return out
+
+
 class BrickEncode(torch.autograd.Function):
     """``brick_encode`` on points x [N, 3]: the forward by
-    ``brick_encode_fwd``; the table gradient by ``brick_encode_bwd`` and
-    ``scatter.scatter_add_rows`` into a zeroed f32 table, cast to the
-    table's type; the gradient in x by autograd of ``brick_encode_plain``
-    in x alone; each only where autograd asks for it."""
+    ``brick_encode_fwd``; the table gradient by ``brick_table_grad`` into
+    a zeroed f32 table, cast to the table's type; the gradient in x by
+    autograd of ``brick_encode_plain`` in x alone; each only where
+    autograd asks for it."""
 
     @staticmethod
     def forward(ctx, x, table, cfg, compute_dtype):
@@ -336,9 +401,8 @@ class BrickEncode(torch.autograd.Function):
         x, table = ctx.saved_tensors
         d_x = d_table = None
         if ctx.needs_input_grad[1]:
-            idx, rows = brick_encode_bwd(x, g, ctx.cfg)
             d_table = torch.zeros(table.shape, dtype=torch.float32, device=g.device)
-            d_table = scatter.scatter_add_rows(idx, rows, d_table).to(table.dtype)
+            d_table = brick_table_grad(x, g, ctx.cfg, d_table).to(table.dtype)
         if ctx.needs_input_grad[0]:
             LAUNCHES["brick_x_grad_plain"] += 1
             with torch.enable_grad():

@@ -26,8 +26,10 @@ factor's strides, so that autograd takes it without a copy.
 
 from __future__ import annotations
 
+import functools
 from typing import Sequence
 
+import numpy as np
 import torch
 from torch.autograd.function import once_differentiable
 
@@ -80,16 +82,42 @@ def sample_2d(plane: torch.Tensor, uv: torch.Tensor, align_corners: bool = True)
     return FactorTaps.apply(plane, uv, align_corners)
 
 
-def _linspace_f32(start: float, stop: float, num: int, device) -> torch.Tensor:
-    """``jnp.linspace`` in f32: start + i * step for i < num - 1, the last
-    entry exactly ``stop``."""
+def _fma_f32(p: np.ndarray, q: np.ndarray, c: np.ndarray) -> np.ndarray:
+    """p * q + c for f32 arrays, rounded to f32 once (a fused multiply-add):
+    the f64 sum of the exact product (24 + 24 bits) and c, and its rounding
+    error (Knuth's two-sum), which decides the one case where rounding to
+    f64 and then to f32 is not rounding once (an f64 sum exactly halfway
+    between two f32 values)."""
+    prod = p.astype(np.float64) * q.astype(np.float64)
+    c = c.astype(np.float64)
+    s = prod + c
+    bb = s - prod
+    err = (prod - (s - bb)) + (c - bb)
+    r = s.astype(np.float32)
+    other = np.nextafter(r, np.where(s > r, np.float32(np.inf), np.float32(-np.inf)))
+    tie = (s != r) & (s == (r.astype(np.float64) + other.astype(np.float64)) / 2) & (err != 0)
+    return np.where(tie & ((err > 0) == (other > r)), other, r)
+
+
+@functools.lru_cache(maxsize=64)
+def linspace_f32(start: float, stop: float, num: int, device=None) -> torch.Tensor:
+    """``jnp.linspace(start, stop, num)`` in f32 as XLA on the CPU evaluates
+    it: its simplifier turns JAX's ``start * (1 - i / d) + stop * (i / d)``
+    (d = num - 1) into ``start * (1 - i * r) + i * (stop * r)`` with r =
+    f32(1 / d), and LLVM fuses the last product into the sum; the last
+    entry is ``stop``. Equal to ``jnp.linspace`` on every lattice the port
+    makes (``tests/test_torch_linspace.py``); on other lattices that start
+    off 0 it can be one ulp off (XLA contracts some of those otherwise).
+    Made on the host once per lattice and device (a copy to the card waits
+    for the stream), so callers must not write into it."""
+    f32 = np.float32
     if num == 1:
-        return torch.full((1,), float(start), device=device)
-    step = (stop - start) / (num - 1)
-    out = start + torch.arange(num, device=device, dtype=torch.float32) * torch.tensor(
-        step, dtype=torch.float32, device=device)
-    out[-1] = stop
-    return out
+        return torch.full((1,), float(start), dtype=torch.float32, device=device)
+    a, b = f32(start), f32(stop)
+    i = np.arange(num - 1, dtype=f32)
+    r = f32(1) / f32(num - 1)
+    out = _fma_f32(i, np.full_like(i, b * r), a * (f32(1) - i * r))
+    return torch.from_numpy(np.append(out, b).astype(f32)).to(device)
 
 
 def resize_bilinear(img: torch.Tensor, new_hw: Sequence[int],
@@ -100,8 +128,8 @@ def resize_bilinear(img: torch.Tensor, new_hw: Sequence[int],
     Hn, Wn = (int(n) for n in new_hw)
     dev = img.device
     if align_corners:
-        ys = _linspace_f32(0.0, H - 1.0, Hn, dev)
-        xs = _linspace_f32(0.0, W - 1.0, Wn, dev)
+        ys = linspace_f32(0.0, H - 1.0, Hn, dev)
+        xs = linspace_f32(0.0, W - 1.0, Wn, dev)
     else:
         ys = (torch.arange(Hn, device=dev, dtype=torch.float32) + 0.5) * H / Hn - 0.5
         xs = (torch.arange(Wn, device=dev, dtype=torch.float32) + 0.5) * W / Wn - 0.5

@@ -15,7 +15,9 @@
   ``cp.CPEncode`` adds its backward through ``cp_bwd_banks``)
 - ``fused_mlp.fused_mlp``    replaces ``ngp_tpu/ops/pallas/fused_mlp.py:fused_mlp``
 - ``scatter.scatter_add_rows`` replaces ``scripts/perf_probe2_r2.py:scatter_pallas`` (a row
-  scatter-add); ``brickgrid.BrickEncode`` adds the brick grid's table gradient through it
+  scatter-add); no path calls it (the brick grid's table gradient is
+  ``brickgrid.brick_table_grad``); ``scatter.GatherRows``' backward (the plain brick
+  encoding's table gradient) adds through it
 - ``scatter.scatter_add_taps`` replaces no Pallas kernel: the factor gradient of the
   bilinear taps (TensoRF, CCNeRF), which the JAX package leaves to XLA's VJP of
   ``jnp.take`` (``ngp_tpu/ops/interp.py:39``, ``:62``); ``interp.FactorTaps`` adds it
@@ -23,10 +25,12 @@
   (TensoRF, CCNeRF), which the JAX package leaves to XLA (``ngp_tpu/ops/interp.py:27``,
   ``:45``); ``interp.FactorTaps`` samples through it. Both taps kernels read and write
   factors held cell-major (``scatter.cell_major``)
-- ``brickgrid.brick_encode_fwd`` and ``brickgrid.brick_encode_bwd`` (in ``ops/brickgrid.py``)
-  replace no Pallas kernel: the brick grid's encoding and the cotangent of the rows it
-  reads, which the JAX package leaves to XLA (``ngp_tpu/ops/brickgrid.py:143``);
-  ``brickgrid.BrickEncode`` runs both and adds the table gradient by ``scatter_add_rows``
+- ``brickgrid.brick_encode_fwd``, ``brickgrid.brick_table_grad`` and
+  ``brickgrid.brick_encode_bwd`` (in ``ops/brickgrid.py``) replace no Pallas kernel: the
+  brick grid's encoding, its table gradient and the cotangent of the rows it reads,
+  which the JAX package leaves to XLA (``ngp_tpu/ops/brickgrid.py:143``);
+  ``brickgrid.BrickEncode`` runs the first two. No path runs ``brick_encode_bwd``: with
+  ``scatter_add_rows`` it made the table gradient until ``brick_table_grad`` fused them
 - ``hashgrid.grid_encode_fwd`` and ``hashgrid.grid_encode_bwd`` replace no Pallas
   kernel: the JAX package leaves the hash-grid encoder and its VJP to XLA
   (``ngp_tpu/ops/hashgrid.py:203-204``); ``hashgrid.GridEncode`` adds the backward
@@ -88,6 +92,7 @@ LAUNCHES: Dict[str, int] = {
     "sample_taps_fwd": 0,
     "brick_encode_fwd": 0,
     "brick_encode_bwd": 0,
+    "brick_table_grad": 0,
     "taps_coords_grad_plain": 0,
     "brick_x_grad_plain": 0,
 }

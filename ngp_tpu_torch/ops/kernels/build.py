@@ -35,6 +35,10 @@ _I = ctypes.c_int
 _U = ctypes.c_uint
 _L = ctypes.c_longlong
 _F = ctypes.c_float
+# the brick kernels' per-level arrays (ops/brickgrid.py:_level_args): scale,
+# first row, rows, dense side, hashed, the rows' divisor magic and shift
+_BRICK_LEVELS = (ctypes.POINTER(_F), ctypes.POINTER(_I), ctypes.POINTER(_U), ctypes.POINTER(_U),
+                 ctypes.POINTER(_I), ctypes.POINTER(_U), ctypes.POINTER(_I))
 _SIGNATURES = {
     "ngp_cp_density_fwd": [
         _P, _I, ctypes.POINTER(_P), ctypes.POINTER(_I), _I, _I, _I,
@@ -81,14 +85,9 @@ _SIGNATURES = {
     "ngp_scatter_add_rows": [_P, _P, _L, _I, _I, _P, _P],
     "ngp_scatter_add_taps": [_P, _I, _L, _P, _L, _P, _L, _I, _I, _I, _P, _P],
     "ngp_sample_taps_fwd": [_P, _I, _I, _L, _P, _L, _P, _L, _I, _I, _I, _P, _P],
-    "ngp_brick_encode_fwd": [
-        _P, _L, _P, _I, _I, ctypes.POINTER(_F), ctypes.POINTER(_I), ctypes.POINTER(_U),
-        ctypes.POINTER(_U), ctypes.POINTER(_I), _I, _P, _P,
-    ],
-    "ngp_brick_encode_bwd": [
-        _P, _L, _P, _I, _I, ctypes.POINTER(_F), ctypes.POINTER(_I), ctypes.POINTER(_U),
-        ctypes.POINTER(_U), ctypes.POINTER(_I), _I, _P, _P, _P,
-    ],
+    "ngp_brick_encode_fwd": [_P, _L, _P, _I, _I, *_BRICK_LEVELS, _I, _P, _P],
+    "ngp_brick_table_grad": [_P, _L, _P, _I, _I, *_BRICK_LEVELS, _I, _P, _P],
+    "ngp_brick_encode_bwd": [_P, _L, _P, _I, _I, *_BRICK_LEVELS, _I, _P, _P, _P],
 }
 
 

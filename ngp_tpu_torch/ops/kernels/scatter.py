@@ -2,10 +2,12 @@
 and their plain versions.
 
 ``scatter_add_rows`` replaces ``scripts/perf_probe2_r2.py:scatter_pallas``
-(``zeros[R, W].at[idx].add(rows)``, the VJP of a row gather). The brick
-grid's table gradient runs it: ``ops/brickgrid.py:BrickEncode`` adds the
-rows' cotangent by it on every device, and ``GatherRows`` (the row gather
-of the plain ``brick_encode_plain``) in its backward. The
+(``zeros[R, W].at[idx].add(rows)``, the VJP of a row gather). No path
+runs it: the brick grid's table gradient, which added the rows'
+cotangent by it, is one kernel of its own
+(``ops/brickgrid.py:brick_table_grad``), whose plain version adds the
+plain rows by ``scatter_add_rows_plain``; ``GatherRows`` (the row gather
+of the plain ``brick_encode_plain``) adds by it in its backward. The
 hash-grid table gradient adds its corner rows itself
 (``ops/kernels/hashgrid.py:grid_encode_bwd``). Indices outside [0, R) add
 nothing, as XLA's scatter drops them (``jnp``'s ``.at`` wraps indices in

@@ -19,9 +19,19 @@ launches of the kernels whose names hold ``sample_taps``,
 largest call of one step's ``sample_taps_fwd`` and ``scatter_add_taps``
 (factor or d factor in the layout that tree's models hold) and times each
 kernel there, and on a rank-48 152^2 plane at 32,768 uniform points
-(``chip_smoke.py:tap_points``), by ``chip_smoke.py:device_ms``. It prints
-one JSON line per step kind, naming the tree and the card (name and power
-limit). Run each tree in turn: parent, change, change, parent.
+(``chip_smoke.py:tap_points``), by ``chip_smoke.py:device_ms``. On the
+``--preset tpu`` trainer it keeps one step's encoder call (points,
+table, the output's cotangent) and times its forward and table gradient
+by ``device_ms``, split into the forward, the zero fill and the table
+gradient's kernels (``brick_table_grad``, or ``brick_encode_bwd`` and
+``scatter_add_rows`` in a tree that makes the gradient through rows),
+the forward + table gradient through autograd queued and between
+back-to-back calls, the host's time to issue each part, ten forward +
+table gradients under ``chip_smoke.py:profile`` (each kernel's and
+fill's device ms, the idle share) and the peak memory of a train step. It
+prints one JSON line per step kind, naming the tree and the card (name
+and power limit). ``--runs`` picks the trainers (all three by default).
+Run each tree in turn: parent, change, change, parent.
 """
 
 import argparse
@@ -103,6 +113,96 @@ def taps_times(cs, trainer, batches, dev):
     return out
 
 
+def host_ms(fn, n=50):
+    """The host clock of one call of ``fn``, over ``n`` calls that do not
+    wait for the device."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / n * 1e3
+
+
+def brick_times(cs, trainer, batches, card):
+    """The device ms of one step's brick encoder call's forward and table
+    gradient, split into their parts, with the tree's own wrappers; the
+    profile of ten forward + table gradients; a step's peak memory."""
+    import torch
+
+    from ngp_tpu_torch.models.encoders import BrickGridEncoder
+    from ngp_tpu_torch.ops import brickgrid
+    from ngp_tpu_torch.ops.kernels import scatter as sk
+
+    kept, forward = {}, BrickGridEncoder.forward
+
+    def keeping(self, x):
+        out = forward(self, x)
+        if out.requires_grad and "x" not in kept:
+            kept.update(x=x.detach().reshape(-1, 3).float().contiguous().clone(), enc=self)
+            out.register_hook(lambda g: kept.__setitem__(
+                "g", g.detach().reshape(kept["x"].shape[0], -1).contiguous().clone()))
+        return out
+
+    BrickGridEncoder.forward = keeping
+    try:
+        trainer.step(next(batches))
+    finally:
+        BrickGridEncoder.forward = forward
+    x, g, enc = kept["x"], kept["g"], kept["enc"]
+    cfg, dt = enc.cfg, enc.compute_dtype
+    table = enc.embeddings.detach().requires_grad_(True)
+    shape = (cfg.num_rows, cfg.row_width)
+    out = torch.zeros(shape, device=x.device)
+
+    def fwd_and_grad():
+        return torch.autograd.grad(brickgrid.brick_encode(x, table, cfg, dt), (table,), g)
+
+    parts = {"forward": cs.device_ms(lambda: brickgrid.brick_encode_fwd(x, table, cfg, dt)),
+             "zero fill": cs.device_ms(lambda: torch.zeros(shape, device=x.device))}
+    if hasattr(brickgrid, "brick_table_grad"):
+        parts["brick_table_grad"] = cs.device_ms(lambda: brickgrid.brick_table_grad(
+            x, g, cfg, out))
+        parts["zero fill + brick_table_grad"] = cs.device_ms(lambda: brickgrid.brick_table_grad(
+            x, g, cfg, torch.zeros(shape, device=x.device)))
+    idx, rows = brickgrid.brick_encode_bwd(x, g, cfg)
+    parts["brick_encode_bwd"] = cs.device_ms(lambda: brickgrid.brick_encode_bwd(x, g, cfg))
+    parts["scatter_add_rows"] = cs.device_ms(lambda: sk.scatter_add_rows(idx, rows, out))
+    parts["zero fill + brick_encode_bwd + scatter_add_rows"] = cs.device_ms(
+        lambda: sk.scatter_add_rows(*brickgrid.brick_encode_bwd(x, g, cfg),
+                                    torch.zeros(shape, device=x.device)))
+    del idx, rows
+    parts["forward + table gradient, queued"] = cs.device_ms(fwd_and_grad)
+    parts["forward + table gradient, back to back"] = cs.cuda_ms(fwd_and_grad)
+    # the host's time to issue each part (a call's host clock over 50 calls
+    # that wait for no device work)
+    host = {"forward": host_ms(lambda: brickgrid.brick_encode_fwd(x, table, cfg, dt)),
+            "zero fill": host_ms(lambda: torch.zeros(shape, device=x.device))}
+    if hasattr(brickgrid, "brick_table_grad"):
+        host["brick_table_grad"] = host_ms(lambda: brickgrid.brick_table_grad(x, g, cfg, out))
+    else:
+        host["brick_encode_bwd + scatter_add_rows"] = host_ms(
+            lambda: sk.scatter_add_rows(*brickgrid.brick_encode_bwd(x, g, cfg), out))
+    host["forward + table gradient"] = host_ms(fwd_and_grad)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        busy, launches, idle = cs.profile(fwd_and_grad, 10, "call", card)
+    kernels = [ln.strip().split(None, 3) for ln in buf.getvalue().splitlines()
+               if "ms/call" in ln]
+    profiled = {"device_ms": busy, "launches": launches, "idle": idle,
+                "by_name": [[float(k[0]), float(k[2].rstrip("x")), k[3][:90]] for k in kernels]}
+    torch.cuda.reset_peak_memory_stats()
+    trainer.step(next(batches))
+    return {"points": int(x.shape[0]),
+            "live": float((g.view(x.shape[0], cfg.num_levels, -1) != 0).any(-1).float().mean()),
+            "device_ms": parts, "host_ms": host, "profile": profiled,
+            "step_peak_mib": torch.cuda.max_memory_allocated() / 2**20}
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--tree", default=ROOT, help="root of the tree whose port is timed")
@@ -110,6 +210,8 @@ def main():
                         help="the synthetic scene's directory (written there if missing)")
     parser.add_argument("--iters", type=int, default=80, help="iterations each main trains")
     parser.add_argument("--steps", type=int, default=16, help="steps timed on the host clock")
+    parser.add_argument("--runs", nargs="+", default=["tensorf", "ccnerf", "brick"],
+                        choices=["tensorf", "ccnerf", "brick"], help="the trainers to time")
     args = parser.parse_args()
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, tree)
@@ -142,6 +244,8 @@ def main():
             ("ccnerf_step", main_CCNeRF.main, ["-O"], 0.8),
             ("brick_step", main_nerf.main, ["--preset", "tpu"], None))
     for what, run, flags, scale in runs:
+        if what.split("_")[0] not in args.runs:
+            continue
         with tempfile.TemporaryDirectory() as ws, contextlib.redirect_stdout(io.StringIO()):
             trainer = run([scene, *flags, "--workspace", ws, "--iters", str(args.iters)])
         kw = {} if scale is None else {"scale": scale}
@@ -173,6 +277,10 @@ def main():
         if what != "brick_step":  # the factor taps' trainers
             print(json.dumps({"tree": name, "what": what.replace("step", "taps"),
                               **taps_times(cs, trainer, batches, dev), "card": card}),
+                  flush=True)
+        else:
+            print(json.dumps({"tree": name, "what": "brick_encode",
+                              **brick_times(cs, trainer, batches, card), "card": card}),
                   flush=True)
         del trainer, batches, train_ds
     print(f"[{name}] ok  [{card}]", flush=True)

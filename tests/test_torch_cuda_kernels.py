@@ -41,8 +41,10 @@ f32's. The taps' kernels take factors held cell-major
 every product and sum as its plain version does: equal, bit for bit. The brick grid's forward sums the same
 8 products in another f32 order: within 1e-6 of the sum of their
 magnitudes S in f32, one bf16 step plus 2^-20 S in bf16; its rows'
-cotangent equals its plain version's bit for bit, and the table gradient
-through it is held as the row scatter-add."""
+cotangent equals its plain version's bit for bit, and its table gradient
+(``brick_table_grad``, alone and as ``BrickEncode``'s backward) is held
+as the row scatter-add, an f32 sum of the same products in another
+order."""
 
 import math
 
@@ -1567,31 +1569,153 @@ def test_brick_encode_kernels(dev, name, dtype, kind):
                                                    rows_p.view(torch.int32))
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("name", list(BRICK_GRIDS))
-def test_brick_encode_table_gradient_on_the_card(dev, name, dtype):
-    """``brick_encode``'s table gradient on the card (``BrickEncode``: the
-    rows' cotangent by ``brick_encode_bwd``, added by ``scatter_add_rows``)
-    against the plain rows added by the plain scatter: f32 sums of the same
-    n terms in two orders, within 2 (n - 1) 2^-24 times the sum of their
-    magnitudes; one launch of each kernel, no plain x gradient."""
+def _brick_grad_bound(x, g, cfg, out0=None):
+    """The plain table gradient added into out0 (zeros when None) and its
+    bound: n adds into an entry are a sum of n + 1 terms, and two orders of
+    it differ by at most 2 n 2^-24 times the sum of the terms' magnitudes
+    (n at most the (point, level)s that read the row)."""
     from ngp_tpu_torch.ops import brickgrid
     from ngp_tpu_torch.ops.kernels import scatter as ks
 
+    idx, rows = brickgrid.brick_encode_bwd_plain(x, g, cfg)
+    zeros = torch.zeros((cfg.num_rows, cfg.row_width), device=x.device)
+    out0 = zeros if out0 is None else out0
+    want = ks.scatter_add_rows_plain(idx, rows, out0.clone())
+    adds = ks.scatter_add_rows_plain(idx, torch.ones_like(rows), zeros.clone())
+    s_abs = ks.scatter_add_rows_plain(idx, rows.abs(), out0.abs())
+    return want, 2.0 * 2.0**-24 * adds * s_abs
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", list(BRICK_GRIDS))
+def test_brick_encode_table_gradient_on_the_card(dev, name, dtype):
+    """``brick_encode``'s table gradient on the card (``BrickEncode``: one
+    ``brick_table_grad`` launch into a zeroed table) against the plain rows
+    added by the plain scatter, within ``_brick_grad_bound``; one launch of
+    the forward and the table gradient, none of the rows kernel or the row
+    scatter, no plain x gradient."""
+    from ngp_tpu_torch.ops import brickgrid
+
     cfg, table, x, g = _brick_case(dev, name, "random", dtype, seed=1)
     t = table.clone().requires_grad_()
-    names = ("brick_encode_fwd", "brick_encode_bwd", "scatter_add_rows", "brick_x_grad_plain")
+    names = ("brick_encode_fwd", "brick_table_grad", "brick_encode_bwd", "scatter_add_rows",
+             "brick_x_grad_plain")
     before = {k: LAUNCHES[k] for k in names}
     brickgrid.brick_encode(x, t, cfg, dtype).backward(g)
     torch.cuda.synchronize()
-    assert {k: LAUNCHES[k] - n for k, n in before.items()} == dict(zip(names, (1, 1, 1, 0)))
-    idx, rows = brickgrid.brick_encode_bwd_plain(x, g, cfg)
-    zeros = torch.zeros_like(table)
-    want = ks.scatter_add_rows_plain(idx, rows, zeros.clone())
-    adds = ks.scatter_add_rows_plain(idx, torch.ones_like(rows), zeros.clone())
-    s_abs = ks.scatter_add_rows_plain(idx, rows.abs(), zeros.clone())
-    assert ((t.grad - want).abs() <= 2.0 * 2.0**-24 * adds * s_abs).all()
+    assert {k: LAUNCHES[k] - n for k, n in before.items()} == dict(zip(names, (1, 1, 0, 0, 0)))
+    want, bound = _brick_grad_bound(x, g, cfg)
+    assert ((t.grad - want).abs() <= bound).all()
     assert float(t.grad.abs().max()) > 0
+
+
+# a brick grid of each width the kernels take: dense and hashed levels
+def _brick_width(C, levels=4):
+    from ngp_tpu_torch.ops import brickgrid
+
+    return brickgrid.BrickGridConfig(num_levels=levels, level_dim=C, base_resolution=4,
+                                     per_level_scale=2.3 if levels == 4 else 1.1,
+                                     log2_hashmap_size=9 if levels == 4 else 8)
+
+
+def _brick_width_case(dev, cfg, kind, dtype, layout="aligned", seed=0):
+    """(table, x, g) on the card: the table N(0, 1); points as ``_brick_case``
+    makes them for the "small" grid (``random``, ``edges``), 4096 points within 1e-3 of one point
+    (``one_brick``: one brick and mostly one stencil at every level), or 128
+    rays of 32 samples 1e-3 apart (``rays``, the v1 march's slots); the
+    cotangent N(0, 1) in ``dtype`` with a fifth of its rows zero (masked
+    slots). ``offset``: x and g are views one element into their buffers."""
+    g = torch.Generator().manual_seed(seed)
+    table = torch.randn((cfg.num_rows, cfg.row_width), generator=g)
+    if kind in ("random", "edges"):
+        # the "small" grid's level geometry is that of _brick_width's 4 levels
+        _, _, x, _ = _brick_case("cpu", "small", kind, torch.float32, seed)
+    elif kind == "one_brick":
+        x = 0.3 + torch.rand((4096, 3), generator=g) * 1e-3
+    else:
+        o = torch.rand((128, 1, 3), generator=g) * 0.8 + 0.1
+        d = torch.nn.functional.normalize(torch.randn((128, 1, 3), generator=g), dim=-1)
+        x = (o + torch.arange(32).view(1, 32, 1) * 1e-3 * d).reshape(-1, 3)
+    cot = torch.randn((x.shape[0], cfg.output_dim), generator=g)
+    cot[torch.rand(x.shape[0], generator=g) < 0.2] = 0.0
+    x, cot = x.to(dev), cot.to(dtype).to(dev)
+    if layout == "offset":
+        x = torch.empty(x.numel() + 1, device=dev)[1:].view(x.shape).copy_(x)
+        cot = torch.empty(cot.numel() + 1, dtype=dtype, device=dev)[1:].view(cot.shape) \
+            .copy_(cot)
+    return table.to(dev), x, cot
+
+
+@pytest.mark.parametrize("layout", ["aligned", "offset"])
+@pytest.mark.parametrize("kind", ["random", "edges", "one_brick", "rays"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C", [1, 2, 4, 8])
+def test_brick_table_grad_kernel(dev, C, dtype, kind, layout):
+    """``brick_table_grad`` against its plain version into a zeroed table,
+    within ``_brick_grad_bound``, at every width, on points all in one brick
+    (the most equal keys a warp merges) and on a ray's samples; one launch;
+    into a non-zero out it adds."""
+    from ngp_tpu_torch.ops import brickgrid
+
+    cfg = _brick_width(C)
+    _, x, g = _brick_width_case(dev, cfg, kind, dtype, layout)
+    out = torch.zeros((cfg.num_rows, cfg.row_width), device=dev)
+    before = LAUNCHES["brick_table_grad"]
+    got = brickgrid.brick_table_grad(x, g, cfg, out)
+    torch.cuda.synchronize()
+    assert got is out and LAUNCHES["brick_table_grad"] == before + 1
+    want, bound = _brick_grad_bound(x, g, cfg)
+    assert ((got - want).abs() <= bound).all()
+    assert float(got.abs().max()) > 0
+    base = torch.randn(out.shape, generator=torch.Generator().manual_seed(2)).to(dev)
+    added = brickgrid.brick_table_grad(x, g, cfg, base.clone())
+    want_b, bound_b = _brick_grad_bound(x, g, cfg, base)
+    assert ((added - want_b).abs() <= bound_b).all()
+
+
+@pytest.mark.parametrize("kind", ["random", "edges", "one_brick", "rays"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C", [1, 2, 4, 8])
+def test_brick_encode_fwd_kernel_widths(dev, C, dtype, kind):
+    """``brick_encode_fwd`` at every width within ``brick_fwd_bound``'s
+    bound (as ``test_brick_encode_kernels``), x also a view one float into
+    its buffer; zeros outside the box."""
+    from ngp_tpu_torch.ops import brickgrid
+
+    cfg = _brick_width(C)
+    table, x, _ = _brick_width_case(dev, cfg, kind, dtype)
+    _, x_off, _ = _brick_width_case(dev, cfg, kind, dtype, "offset")
+    want = brickgrid.brick_encode_plain(x, table, cfg, dtype)
+    s_abs = brickgrid.brick_encode_plain(x, table.abs(), cfg, dtype).float()
+    bound = 1e-6 * s_abs if dtype == torch.float32 else \
+        2.0**-7 * want.float().abs() + 2.0**-20 * s_abs
+    for xx in (x, x_off):
+        got = brickgrid.brick_encode_fwd(xx, table, cfg, dtype)
+        torch.cuda.synchronize()
+        assert got.dtype == want.dtype and got.shape == want.shape
+        assert ((got.float() - want.float()).abs() <= bound).all()
+        inside = ((xx >= 0) & (xx <= 1)).all(dim=1)
+        assert (got[~inside] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_brick_kernels_at_32_levels_of_8(dev, dtype):
+    """The widest tile (32 levels x 8 features: 64 KB of shared memory a
+    block, above the 48 KB a block has without opting in): the forward and
+    the table gradient against their plain versions."""
+    from ngp_tpu_torch.ops import brickgrid
+
+    cfg = _brick_width(8, levels=32)
+    table, x, g = _brick_width_case(dev, cfg, "random", dtype)
+    want = brickgrid.brick_encode_plain(x, table, cfg, dtype)
+    s_abs = brickgrid.brick_encode_plain(x, table.abs(), cfg, dtype).float()
+    bound = 1e-6 * s_abs if dtype == torch.float32 else \
+        2.0**-7 * want.float().abs() + 2.0**-20 * s_abs
+    got = brickgrid.brick_encode_fwd(x, table, cfg, dtype)
+    assert ((got.float() - want.float()).abs() <= bound).all()
+    d_table = brickgrid.brick_table_grad(x, g, cfg, torch.zeros_like(table))
+    want_t, bound_t = _brick_grad_bound(x, g, cfg)
+    assert ((d_table - want_t).abs() <= bound_t).all()
 
 
 def test_taps_and_brick_wrappers_raise_on_what_the_kernels_do_not_take(dev):

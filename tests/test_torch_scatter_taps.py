@@ -7,7 +7,8 @@ corner conventions, points outside [-1, 1], narrow and wide ranks, a
 block of padded slots at one point, points on exact cell edges),
 ``FactorTaps``'s values against the taps' formulation before it (bit for
 bit) and its gradients against JAX's, and the brick grid's table
-gradient through ``GatherRows`` against ``jax.vjp`` of
+gradient (``brick_table_grad``, whose plain version adds the rows'
+cotangent by one row scatter) against ``jax.vjp`` of
 ``ngp_tpu.ops.brickgrid.brick_encode`` with many points in one brick and
 points outside the box.
 
@@ -229,18 +230,26 @@ def test_brick_table_gradient_through_gather_rows_matches_jax(name, monkeypatch)
     out, vjp = jax.vjp(lambda tt: jbg.brick_encode(jnp.asarray(x), tt, a), jnp.asarray(table))
     (want,) = vjp(jnp.asarray(g))
     calls = []
-    plain = ks.scatter_add_rows
+    plain, fused = ks.scatter_add_rows_plain, tbg.brick_table_grad
 
     def counting(idx, rows, dst):
         calls.append((idx.dtype, tuple(rows.shape)))
         return plain(idx, rows, dst)
 
-    monkeypatch.setattr(ks, "scatter_add_rows", counting)
+    def fused_counting(xx, gg, cfg, dst):
+        calls.append(("brick_table_grad", tuple(dst.shape)))
+        return fused(xx, gg, cfg, dst)
+
+    monkeypatch.setattr(ks, "scatter_add_rows_plain", counting)
+    monkeypatch.setattr(tbg, "brick_table_grad", fused_counting)
     tt = torch.from_numpy(table).requires_grad_(True)
     got = tbg.brick_encode(torch.from_numpy(x), tt, b)
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(out), atol=1e-5, rtol=1e-5)
     got.backward(torch.from_numpy(g))
-    assert calls == [(torch.int32, (1024 * a.num_levels, a.row_width))]
+    # one table gradient, which on the CPU adds the [N L, 27 C] rows by one
+    # row scatter
+    assert calls == [("brick_table_grad", (a.num_rows, a.row_width)),
+                     (torch.int32, (1024 * a.num_levels, a.row_width))]
     _scaled(tt.grad, np.asarray(want), 1e-5)
     # the cluster's rows received many points' cotangents
     assert float(tt.grad.abs().max()) > 0

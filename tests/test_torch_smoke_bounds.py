@@ -66,3 +66,36 @@ def test_f32_products_count_at_the_3xtf32_rate():
     assert cs.TF32X3_TENSOR_RATE == pytest.approx(165e12)
     assert cs.bound(0, tf32x3_flops=tf32x3_flops)[0] == pytest.approx(
         tf32x3_flops / 165e12 * 1e3)
+
+
+@pytest.mark.parametrize("live_share", [1.0, 0.5, 0.0])
+def test_brick_work_counts_the_live_items_distinct_stencil_sectors(live_share):
+    """``brick_work``'s bytes on a small brick grid: x, each distinct 32-byte
+    sector of the 8 stencil cells of the (point, level)s inside the box and
+    marked live (all where ``live`` is None), and the bytes passed in,
+    against a count of the cells' sectors one by one."""
+    from ngp_tpu_torch.ops import brickgrid as bg
+
+    cfg = bg.BrickGridConfig(num_levels=3, level_dim=4, base_resolution=4, log2_hashmap_size=6)
+    g = torch.Generator().manual_seed(0)
+    x = torch.rand((300, 3), generator=g) * 1.2 - 0.1
+    live = torch.rand((300, cfg.num_levels), generator=g) < live_share
+    got, _, ops = cs.brick_work(x, cfg, 1000, 7, live if live_share < 1.0 else None)
+    sectors = set()
+    for n in range(x.shape[0]):
+        if ((x[n] < 0) | (x[n] > 1)).any():
+            continue
+        for level in range(cfg.num_levels):
+            if not live[n, level] and live_share < 1.0:
+                continue
+            pos = torch.floor(x[n] * cfg.level_scale(level) + 0.5).long()
+            row = int(bg._brick_index(cfg, level, pos >> 1)) + cfg.offsets[level]
+            lo = (pos & 1).tolist()
+            for i in range(2):
+                for j in range(2):
+                    for k in range(2):
+                        cell = (lo[0] + i) * 9 + (lo[1] + j) * 3 + lo[2] + k
+                        first = (row * 27 + cell) * cfg.level_dim * 4
+                        sectors.update({first // 32, (first + cfg.level_dim * 4 - 1) // 32})
+    assert got == x.numel() * 4 + len(sectors) * 32 + 1000
+    assert ops == 300 * cfg.num_levels * 7

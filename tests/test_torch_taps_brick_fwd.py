@@ -251,11 +251,18 @@ def _raising_calls():
             "dtype": lambda: tbg.brick_encode_bwd(x.int(), g, cfg),
             "shape": lambda: tbg.brick_encode_bwd(x, g[:, 1:], cfg),
         },
+        "brick_table_grad": {
+            "meta": lambda: tbg.brick_table_grad(x.to("meta"), g.to("meta"), cfg,
+                                                 table.to("meta")),
+            "dtype": lambda: tbg.brick_table_grad(x.int(), g, cfg, table.clone()),
+            "shape": lambda: tbg.brick_table_grad(x, g[:, 1:], cfg, table.clone()),
+        },
     }
 
 
 @pytest.mark.parametrize("case", ["meta", "dtype", "shape"])
-@pytest.mark.parametrize("wrapper", ["sample_taps_fwd", "brick_encode_fwd", "brick_encode_bwd"])
+@pytest.mark.parametrize("wrapper", ["sample_taps_fwd", "brick_encode_fwd", "brick_encode_bwd",
+                                     "brick_table_grad"])
 def test_wrappers_raise_on_what_they_do_not_take(wrapper, case):
     with pytest.raises(ValueError):
         _raising_calls()[wrapper][case]()

@@ -18,6 +18,7 @@ layout mirrors ``ngp_tpu``:
 - ``ngp_tpu_torch.native``   — marching tetrahedra and the mesh SDF oracle (host C++
   over ctypes)
 - ``ngp_tpu_torch.utils``    — color spaces, the PNG codec
+- ``ngp_tpu_torch.tracing``  — the spans and counters a torch profiler run records
 
 Importing the package needs only ``torch`` and ``numpy``: the kernel
 library is built and loaded at its first launch, a CPU tensor takes

@@ -27,6 +27,7 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ngp_tpu_torch import tracing
 from ngp_tpu_torch.config import RenderConfig
 from ngp_tpu_torch.ops.kernels.march import (  # noqa: F401  (ray_prepass_plain re-exported)
     march_turbo,
@@ -264,6 +265,7 @@ def occupancy_at(state: OccupancyState, x: torch.Tensor, dt: torch.Tensor,
     return state.occ_grid.reshape(cas, -1)[level.long(), cell]
 
 
+@tracing.traced("march")
 def march_rays(rays_o, rays_d, state: OccupancyState, cfg: RenderConfig,
                max_samples: Optional[int] = None, aabb=None,
                t_range: Optional[torch.Tensor] = None, perturb: bool = False,
@@ -314,6 +316,17 @@ def march_rays(rays_o, rays_d, state: OccupancyState, cfg: RenderConfig,
     }
 
 
+def count_samples(evaluated: int, out: Dict[str, torch.Tensor]) -> None:
+    """A render's sample counters (``tracing.count``): the rows the network
+    closures evaluated (``evaluated``, a host int), the samples composited
+    (``out["n_samples"]``) and, where the march has a budget, those it
+    dropped (``out["n_dropped"]``)."""
+    tracing.count("samples_evaluated", evaluated)
+    tracing.count("samples_composited", out["n_samples"])
+    if "n_dropped" in out:
+        tracing.count("samples_dropped", out["n_dropped"])
+
+
 def render_rays_grid(density_fn: Callable, color_fn: Callable, rays_o, rays_d,
                      state: OccupancyState, cfg: RenderConfig, bg_color=None,
                      max_samples: Optional[int] = None, aabb=None,
@@ -340,6 +353,7 @@ def render_rays_grid(density_fn: Callable, color_fn: Callable, rays_o, rays_d,
     out["image"] = out["image"] + (1.0 - out["weights_sum"])[..., None] * background(
         rays_o, rays_d, cfg, bg_color, bg_fn)
     out["n_samples"] = m["mask"].sum()
+    count_samples(m["mask"].numel(), out)
     out["ts"], out["deltas"] = m["ts"], m["deltas"]
     if return_geo:
         out["geo"], out["compact_valid"] = geo, m["mask"]
@@ -364,6 +378,7 @@ def turbo_budgets(cfg: RenderConfig, max_samples: Optional[int] = None) -> Tuple
     return S, K2, cfg.crossing_slots
 
 
+@tracing.traced("march")
 def march_rays_turbo(rays_o, rays_d, state: OccupancyState, cfg: RenderConfig,
                      max_samples: Optional[int] = None, aabb=None,
                      t_range: Optional[torch.Tensor] = None, perturb: bool = False,
@@ -567,6 +582,7 @@ def render_rays_grid_turbo(density_fn: Optional[Callable], color_fn: Optional[Ca
         rays_o, rays_d, cfg, bg_color, bg_fn)
     out["n_samples"] = maskb.sum()
     out["n_dropped"] = m["n_dropped"].sum() + (m["mask"] & ~maskb).sum()
+    count_samples(budget, out)
     out["ts"], out["deltas"] = m["ts"], m["deltas"]
     if return_geo:
         out["geo"], out["compact_valid"] = geo, valid_m
@@ -603,6 +619,7 @@ def render_rays_grid_turbo_multi(sigma_rgb_fn: Callable, rays_o, rays_d,
     out["image"] = out["image"] + (1.0 - out["weights_sum"])[..., None] * bg
     out["n_samples"] = maskb.sum()
     out["n_dropped"] = m["n_dropped"].sum() + (m["mask"] & ~maskb).sum()
+    count_samples(budget, out)
     return out
 
 

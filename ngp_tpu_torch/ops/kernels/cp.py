@@ -31,6 +31,7 @@ from typing import Sequence, Tuple
 
 import torch
 
+from ngp_tpu_torch import tracing
 from ngp_tpu_torch.ops.freq import freq_encode
 from ngp_tpu_torch.ops.kernels import LAUNCHES
 from ngp_tpu_torch.ops.kernels.build import (
@@ -197,6 +198,7 @@ def _check_weights(name, pos, factors, w1, w2, resolutions, freq_degree,
     return M, rank, D, H1
 
 
+@tracing.traced("density_head")
 def cp_density_fwd(pos, factors, w1, w2, resolutions, freq_degree,
                    residuals: bool = False):
     """Fused density head forward: [M, 3] f32 in [0, 1] -> [M, OUT] f32.
@@ -270,6 +272,7 @@ def cp_encode_fwd(pos, factors, resolutions, out_dtype=torch.float32) -> torch.T
     return out
 
 
+@tracing.traced("factor_grad")
 def cp_bwd_banks(pos, factors, g_cp, resolutions):
     """Factor gradients from d(CP features): pos [M, 3] f32, g_cp
     [M, >= nb*R] f32 (row stride free, columns contiguous) -> per bank

@@ -40,6 +40,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ngp_tpu_torch import tracing
 from ngp_tpu_torch.ops.kernels import LAUNCHES
 from ngp_tpu_torch.ops.kernels.build import check_launch, int_array, load_library
 from ngp_tpu_torch.ops.kernels.scatter import scatter_add_rows_plain
@@ -259,6 +260,7 @@ def _check_table(name: str, x: torch.Tensor, table: torch.Tensor, geom: GridGeom
                          f"({pair} bytes); it starts at {table.data_ptr() % pair} past one")
 
 
+@tracing.traced("hash_fwd")
 def grid_encode_fwd(x: torch.Tensor, table: torch.Tensor, geom: GridGeometry,
                     out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Grid features: x [B, D] f32 (D = 2, 3 or 4) -> [B, L*C] in ``out_dtype``
@@ -286,6 +288,7 @@ def grid_encode_fwd(x: torch.Tensor, table: torch.Tensor, geom: GridGeometry,
     return out
 
 
+@tracing.traced("hash_table_grad")
 def grid_encode_bwd(x: torch.Tensor, g: torch.Tensor, geom: GridGeometry) -> torch.Tensor:
     """The table gradient [num_rows, C] f32 in one launch: x [B, D] f32
     (D = 2, 3 or 4), g [B, L*C] f32 or bf16 (the output's cotangent); every

@@ -34,6 +34,7 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
+from ngp_tpu_torch import tracing
 from ngp_tpu_torch.config import RenderConfig
 from ngp_tpu_torch.models.occupancy import (
     OccupancyState,
@@ -202,6 +203,7 @@ class DNeRFTrainer(GridNeRFTrainer):
     # ---- occupancy: all slices, then a rotating quarter, frozen after 100 -----
 
     @torch.no_grad()
+    @tracing.traced("refresh")
     def _update_occupancy(self, draws=None):
         """One refresh of the slices the schedule picks. ``draws`` maps each
         refreshed slice to its draws ("time_u", the time jitter's uniform

@@ -74,6 +74,7 @@ from typing import Dict, Iterator, Optional, Tuple
 import numpy as np
 import torch
 
+from ngp_tpu_torch import tracing
 from ngp_tpu_torch.config import RenderConfig, TrainConfig
 from ngp_tpu_torch.data.mesh import save_mesh as write_mesh
 from ngp_tpu_torch.data.nerf_dataset import NeRFDataset, rand_poses
@@ -207,60 +208,67 @@ class NeRFTrainer(Trainer):
     def train_step(self, batch, draws=None) -> Dict[str, torch.Tensor]:
         """batch: images [F, H, W, C], poses [F, 4, 4], intrinsics [4] on
         the device, and the frame index ``idx``. Returns device scalars
-        "loss" and, from the grid renderer, "turbo_overflow"."""
-        self.ensure_initialized()
-        draws = draws or {}
-        images, poses, intrinsics = batch["images"], batch["poses"], batch["intrinsics"]
-        idx = int(batch["idx"])
-        F, H, W, C = images.shape
-        n_rays = self.train_cfg.num_rays
-        dev = images.device
-        image, pose = images[idx], poses[idx]
-        error_map = self.aux["error_map"][idx] if "error_map" in self.aux else None
-        sample = sample_ray_indices(
-            H, W, n_rays, error_map=error_map, patch_size=self.train_cfg.patch_size,
-            uniform_frac=self.train_cfg.error_map_uniform_frac,
-            generator=self.generator, draws=draws, device=dev,
-        )
-        inds = sample["inds"]
-        if C == 4 and self.render_cfg.bg_radius <= 0:
-            bg = draws["bg"].to(dev) if "bg" in draws else torch.rand(
-                (n_rays, 3), generator=self.generator, device=dev)
-        else:
-            bg = 1.0
-        rdraws = {k: draws[k] for k in ("noise", "pdf_u") if k in draws}
-        mesh, kw = self.mesh, {}
-        if mesh is not None:
-            # the whole step's draws on every rank, then this data rank's rays
-            rdraws = self._step_draws(n_rays, rdraws, dev)
-            rows = data_slice(mesh, n_rays)
-            inds = inds[rows]
-            bg = bg[rows] if torch.is_tensor(bg) else bg
-            rdraws = {k: v.to(dev)[rows] for k, v in rdraws.items()}
-            whole = n_rays * self.render_cfg.compact_mean_samples
-            kw["train_budget"] = lambda n_valid: rank_budget(mesh, n_valid, whole)
-        rays = rays_from_indices(pose, intrinsics, H, W, inds)
-        pixels = image.reshape(H * W, C)[inds].float()
-        gt_rgb = pixels[:, :3] * pixels[:, 3:] + bg * (1.0 - pixels[:, 3:]) if C == 4 else pixels
-        # a dynamic scene's frame time rides the batch (host values)
-        time = float(batch["times"][idx]) if "times" in batch else None
+        "loss" and, from the grid renderer, "turbo_overflow". Under a
+        profiler its phases are the spans ``ngp/batch`` (rays, pixels,
+        ground truth, ``zero_grad``), ``ngp/forward`` (the render and the
+        loss), ``ngp/backward`` and ``ngp/update`` (``_apply_gradients``)."""
+        with tracing.span("batch"):
+            self.ensure_initialized()
+            draws = draws or {}
+            images, poses, intrinsics = batch["images"], batch["poses"], batch["intrinsics"]
+            idx = int(batch["idx"])
+            F, H, W, C = images.shape
+            n_rays = self.train_cfg.num_rays
+            dev = images.device
+            image, pose = images[idx], poses[idx]
+            error_map = self.aux["error_map"][idx] if "error_map" in self.aux else None
+            sample = sample_ray_indices(
+                H, W, n_rays, error_map=error_map, patch_size=self.train_cfg.patch_size,
+                uniform_frac=self.train_cfg.error_map_uniform_frac,
+                generator=self.generator, draws=draws, device=dev,
+            )
+            inds = sample["inds"]
+            if C == 4 and self.render_cfg.bg_radius <= 0:
+                bg = draws["bg"].to(dev) if "bg" in draws else torch.rand(
+                    (n_rays, 3), generator=self.generator, device=dev)
+            else:
+                bg = 1.0
+            rdraws = {k: draws[k] for k in ("noise", "pdf_u") if k in draws}
+            mesh, kw = self.mesh, {}
+            if mesh is not None:
+                # the whole step's draws on every rank, then this data rank's rays
+                rdraws = self._step_draws(n_rays, rdraws, dev)
+                rows = data_slice(mesh, n_rays)
+                inds = inds[rows]
+                bg = bg[rows] if torch.is_tensor(bg) else bg
+                rdraws = {k: v.to(dev)[rows] for k, v in rdraws.items()}
+                whole = n_rays * self.render_cfg.compact_mean_samples
+                kw["train_budget"] = lambda n_valid: rank_budget(mesh, n_valid, whole)
+            rays = rays_from_indices(pose, intrinsics, H, W, inds)
+            pixels = image.reshape(H * W, C)[inds].float()
+            gt_rgb = (pixels[:, :3] * pixels[:, 3:] + bg * (1.0 - pixels[:, 3:]) if C == 4
+                      else pixels)
+            # a dynamic scene's frame time rides the batch (host values)
+            time = float(batch["times"][idx]) if "times" in batch else None
 
-        self.optimizer.zero_grad(set_to_none=True)
-        out = self._render_with(self._step_fns(time), rays["rays_o"], rays["rays_d"],
-                                bg_color=bg, perturb=True, noise=rdraws.get("noise"),
-                                pdf_u=rdraws.get("pdf_u"), time=time, **kw)
-        per_ray = ((out["image"] - gt_rgb) ** 2).mean(dim=-1)
-        loss = per_ray.mean() + self._loss_extra()
-        extra = self._render_loss_extra(out)
-        if extra is not None:
-            loss = loss + extra
-        wd = self.train_cfg.distortion_weight
-        if wd > 0:
-            # per ray slot; padded slots have weight 0 and add nothing
-            loss = loss + wd * eff_distloss(out["weights"], out["ts"], out["deltas"])
-        loss.backward()
-        if mesh is not None:
-            sync_gradients(self.model.parameters(), mesh)
+            self.optimizer.zero_grad(set_to_none=True)
+        with tracing.span("forward"):
+            out = self._render_with(self._step_fns(time), rays["rays_o"], rays["rays_d"],
+                                    bg_color=bg, perturb=True, noise=rdraws.get("noise"),
+                                    pdf_u=rdraws.get("pdf_u"), time=time, **kw)
+            per_ray = ((out["image"] - gt_rgb) ** 2).mean(dim=-1)
+            loss = per_ray.mean() + self._loss_extra()
+            extra = self._render_loss_extra(out)
+            if extra is not None:
+                loss = loss + extra
+            wd = self.train_cfg.distortion_weight
+            if wd > 0:
+                # per ray slot; padded slots have weight 0 and add nothing
+                loss = loss + wd * eff_distloss(out["weights"], out["ts"], out["deltas"])
+        with tracing.span("backward"):
+            loss.backward()
+            if mesh is not None:
+                sync_gradients(self.model.parameters(), mesh)
         self._apply_gradients()
 
         loss, per_ray = loss.detach(), per_ray.detach()

@@ -36,6 +36,7 @@ import numpy as np
 import torch
 import torch.nn.functional as tnf
 
+from ngp_tpu_torch import tracing
 from ngp_tpu_torch.data.raysampler import rays_from_frame_indices
 from ngp_tpu_torch.models.nerf import NeRFNetwork, make_fused_sigma_rgb
 from ngp_tpu_torch.models.occupancy import (
@@ -253,6 +254,7 @@ class GridNeRFTrainer(NeRFTrainer):
         }
 
     @torch.no_grad()
+    @tracing.traced("refresh")
     def _update_occupancy(self):
         """Refresh the density grid from the live (not the EMA) weights."""
         density_fn = self._fns()[0]

@@ -37,12 +37,14 @@ equals a one-device checkpoint; ``load_checkpoint`` splits them again.
 
 from __future__ import annotations
 
+import itertools
 import os
 import time
 from typing import Any, Callable, Dict, Iterable, List, Optional, Union
 
 import torch
 
+from ngp_tpu_torch import tracing
 from ngp_tpu_torch.parallel.mesh import gather_split, split_names, take_split
 from ngp_tpu_torch.training import checkpoints as ckpt_lib
 from ngp_tpu_torch.training.state import EMA, make_optimizer
@@ -141,6 +143,7 @@ class Trainer:
         self.optimizer, self.scheduler = self._make_optimizer()
         self.ema = EMA(self.model, self.ema_decay) if self.ema_decay is not None else None
 
+    @tracing.traced("update")
     def _apply_gradients(self):
         """Adam step, schedule step, then the EMA of the new weights."""
         self.optimizer.step()
@@ -148,10 +151,12 @@ class Trainer:
         if self.ema is not None:
             self.ema.update()
 
+    @tracing.traced("step")
     def step(self, batch, draws=None) -> Dict[str, torch.Tensor]:
         """One train step with its bookkeeping: ``on_step_begin`` (the
         refresh cadence keys off ``global_step``), the step, the count.
-        Returns device scalars; reading them waits for the device."""
+        Returns device scalars; reading them waits for the device. Under
+        a profiler the call is the span ``ngp/step`` (``tracing``)."""
         self.ensure_initialized()
         self.on_step_begin()
         metrics = self.train_step(batch, draws)
@@ -204,6 +209,43 @@ class Trainer:
         dt = time.perf_counter() - t0
         self.log(f"epoch {self.epoch}: {n_steps} steps in {dt:.2f}s "
                  f"({n_steps / max(dt, 1e-9):.1f} it/s)")
+
+    def profile_steps(self, loader, n_steps: int = 20, logdir: Optional[str] = None) -> str:
+        """Run ``n_steps`` train steps under ``torch.profiler`` (CPU
+        activity, and CUDA's with the model on a card), then synchronise.
+        The Chrome trace, with the ``ngp/`` spans of ``tracing`` on the
+        timeline of the device's events, goes to ``logdir``
+        (``<workspace>/profile`` by default; open it in Perfetto), and the
+        log gets the counters a step. ``loader`` is an iterable of batches,
+        or a function giving one epoch's iterator (called again while
+        steps remain). Returns the directory."""
+        from torch.profiler import ProfilerActivity, profile
+
+        self.ensure_initialized()
+        logdir = logdir or os.path.join(self.workspace, "profile")
+        dev = next(self.model.parameters()).device
+        activities = [ProfilerActivity.CPU]
+        if dev.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        batches = (itertools.chain.from_iterable(loader() for _ in itertools.count())
+                   if callable(loader) else iter(loader))
+        tracing.reset_counters()
+        with profile(activities=activities) as prof:
+            for batch in itertools.islice(batches, n_steps):
+                self.step(batch)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+        totals = tracing.counter_totals()
+        tracing.reset_counters()
+        if self._writes():
+            os.makedirs(logdir, exist_ok=True)
+            path = os.path.join(logdir, f"{self.name}_step{self.global_step}.trace.json")
+            prof.export_chrome_trace(path)
+            self.log(f"profile trace of {n_steps} steps written to {path}")
+            if totals:
+                self.log("counters a step: " + " ".join(
+                    f"{k}={v / n_steps:.6g}" for k, v in sorted(totals.items())))
+        return logdir
 
     def _flush_metrics(self, pending):
         if not pending:

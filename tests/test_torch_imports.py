@@ -19,6 +19,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODULES = [
     "ngp_tpu_torch",
     "ngp_tpu_torch.config",
+    "ngp_tpu_torch.tracing",
     "ngp_tpu_torch.ops.rays",
     "ngp_tpu_torch.ops.freq",
     "ngp_tpu_torch.ops.sh",

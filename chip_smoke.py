@@ -12,10 +12,12 @@ Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
 
-(``--probe-scatter`` adds ``scatter_probe`` to phase 9.)
+(``--probe-scatter`` adds ``scatter_probe`` to phase 9; ``--mlp`` builds the
+kernels and runs ``mlp_checks`` alone.)
 It builds the CUDA kernels from ``ngp_tpu_torch/ops/kernels/csrc`` (and
 counts the tensor-core instructions, HMMA, of the two heads' bf16 and f32
-(3xTF32) kernels and of the MLP chain's tensor-core kernel in the
+(3xTF32) kernels and of the MLP chain's tensor-core kernels (forward and
+backward) in the
 library's SASS, and their spills in the compiler's report, none allowed
 but in the f32 heads'; and prints the registers and spills of the CP
 factor backward's and encoder's run kernels, whose SASS must call no
@@ -37,9 +39,11 @@ three kernels, which must not spill nor call a division routine), then
      ``DENSITY_EDGES`` and at the sigma widths ``WIDE_H1``, the
      radiance head at ``SIGMA_RGB_EDGES``), the mesh export's 65,536-row
      chunk for the CP encoder (on random rows and on one x-slice of the
-     256^3 mesh lattice, a save_mesh chunk) and its backward, and 524,288 x
-     [32, 64, 64, 16] and [32, 64, 16] for the MLP chain (which no path
-     runs); the hash-grid encoder at the refresh chunk (131,072 points) and a
+     256^3 mesh lattice, a save_mesh chunk) and its backward, 524,288 x
+     [32, 64, 64, 16] and [32, 64, 16] for the MLP chain's f32 output, and
+     its bf16 route (``FusedMLP``'s forward and backward, every bf16 MLP's
+     on the card) at the benchmark cells' shapes (``mlp_checks``); the
+     hash-grid encoder at the refresh chunk (131,072 points) and a
      hash-grid train step (4096 rays x 256 samples = 1,048,576 points)
      on the full-width table (16 levels x 2, 6,119,864 rows), forward
      and table gradient, and the row scatter-add (on no path since the brick
@@ -298,6 +302,16 @@ MLP_DIMS = [32, 64, 64, 16]
 MLP_ROWS = (524288, 300)
 # and the package's narrowest chain (the hash grid's sigma MLP) at the first
 MLP_NARROW = [32, 64, 16]
+# the bf16 MLPs of the benchmark's cells through FusedMLP (mlp_checks): the
+# hash cell's sigma and colour nets on a step's 8,192 x 256 slots, turbo's
+# colour net on its 262,140 compact rows; MLP_LIVE of each 256-slot ray
+# carry a cotangent in the march-like case (the hash cell composites
+# ~12% of its slots), the rest are zero
+MLP_CELLS = ((2_097_152, (32, 64, 16)), (2_097_152, (31, 64, 64, 3)),
+             (262_140, (31, 64, 64, 3)))
+MLP_LIVE = 30
+# the share of rows whose dX may move by a flipped ReLU (mlp_flipped_rows)
+MLP_FLIPPED = 1e-4
 # phase 8c: the CLI's default adaptive step (main_nerf.py's --dt_gamma); 192
 # untimed and 64 timed steps, so that its profiled steps, like phase 7e's,
 # follow 16 full grid refreshes and meet a partial one (a full refresh
@@ -1547,6 +1561,151 @@ def gamma_window(dev, card, rc, nc, train_ds, results):
         step_prof = profile(lambda: trainer.step(next(batches)), 16, "step", card,
                             focus=("march", "topk"))
     return rays_s, step_counts, frame_counts, step_prof, frame_prof
+
+
+def bf16_steps(got, want):
+    """|got - want| in bf16 steps of want (2^(e - 7) for |want| in [2^e,
+    2^(e + 1)); the smallest normal's step where want is 0)."""
+    import torch
+
+    got, want = got.float(), want.float()
+    _, e = torch.frexp(want.abs().clamp_min(torch.finfo(torch.float32).tiny))
+    return (got - want).abs() / torch.ldexp(torch.ones_like(want), e - 8)
+
+
+def mlp_fwd_slack(fm, x, ws):
+    """How far y may move between two orders of the chain's f32 sums: each
+    sum by 2^-20 of its terms' magnitudes, each rounding to bf16 by one
+    step (at most 2^-7 of the value) more where the sum moved, the moves
+    carried through the next layers' |W| (a ReLU moves nothing further)."""
+    import torch
+
+    hs = []
+    y = fm.mlp_chain(x, ws, torch.bfloat16, hs)
+    hs = [h.float().abs() for h in hs + [y]]
+    d = torch.zeros_like(hs[0])
+    for h, h_next, w in zip(hs, hs[1:], ws):
+        wa = w.to(torch.bfloat16).float().abs()
+        pre = d @ wa + 2.0**-20 * (h @ wa)
+        d = pre + 2.0**-7 * (h_next + pre)
+    return d
+
+
+def mlp_flipped_rows(dx, dx_ref):
+    """The rows of dX more than 1e-2 of its largest entry off the plain
+    version's: rows where a hidden unit's ReLU flipped between the two
+    orders of its f32 sums."""
+    err = (dx.float() - dx_ref.float()).abs().amax(1)
+    return int((err > 1e-2 * float(dx_ref.float().abs().max())).sum())
+
+
+def mlp_checks(fm, dev, card, results, library):
+    """The bf16 MLP route at the benchmark cells' shapes (MLP_CELLS):
+    ``mlp_bf16_fwd`` and ``mlp_bf16_bwd`` against their plain versions on the
+    card (the cuBLAS f32 chain), with a dense cotangent and a march-like one
+    (MLP_LIVE rows of each 256 live), timed beside their bound (x, g and
+    the weights read, y, dX and dW written once; products at the bf16
+    rate), the plain versions and today's path (autograd of MLP.forward's
+    chain, forward and backward) as ``library_ms``. The forward is held to
+    ``mlp_fwd_slack`` (one bf16 step of y, more where a hidden value
+    rounded to the other neighbour), dW to 1e-2 of its largest entry, dX
+    the same but in at most MLP_FLIPPED of the rows (a ReLU that flips
+    between two f32 sums in another order moves its row's whole term)."""
+    import torch
+
+    from ngp_tpu_torch.ops.kernels import launch_counts
+
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+
+    def chain_grads(x, ws, g):
+        y = fm.mlp_chain(x, ws, bf16)
+        return torch.autograd.grad(y, [x, *ws], g)
+
+    for rows, dims in MLP_CELLS:
+        label = f"{rows} x {'-'.join(map(str, dims))}"
+        x = torch.randn((rows, dims[0]), generator=gen, device=dev).to(bf16)
+        ws = [torch.randn((a, b), generator=gen, device=dev) * (2.0 / a) ** 0.5
+              for a, b in zip(dims, dims[1:])]
+        g_dense = torch.randn((rows, dims[-1]), generator=gen, device=dev).to(bf16)
+        live = (torch.arange(rows, device=dev) % 256 < MLP_LIVE)[:, None]
+        g_march = g_dense * live
+        params = sum(a * b for a, b in zip(dims, dims[1:]))
+        w_bytes = 4 * params
+        # forward
+        before = launch_counts()
+        y = fm.mlp_bf16_fwd(x, ws)
+        counts = launch_counts()
+        if counts["fused_mlp_tc"] != before["fused_mlp_tc"] + 1:
+            raise RuntimeError(f"mlp_bf16_fwd {label}: missed the tensor cores")
+        y_ref = fm.mlp_bf16_plain(x, ws)
+        steps = bf16_steps(y, y_ref)
+        off = (y.float() - y_ref.float()).abs() - mlp_fwd_slack(fm, x, ws)
+        if y.dtype != bf16 or not torch.isfinite(y.float()).all() or float(off.max()) > 0:
+            raise RuntimeError(f"mlp_bf16_fwd {label}: {float(off.max())} past its slack")
+        print(f"mlp_bf16_fwd {label}: of {y.numel()} outputs {int((steps > 0).sum())} one bf16 "
+              f"step or more off the plain version, {int((steps > 1).sum())} more than one, "
+              f"largest {float(steps.max()):.1f} steps; all within mlp_fwd_slack  [{card}]",
+              flush=True)
+        fwd_bound = bound(nbytes(x, y) + w_bytes, 2.0 * rows * params)
+        p1 = device_ms(lambda: fm.mlp_bf16_plain(x, ws))
+        k1 = device_ms(lambda: fm.mlp_bf16_fwd(x, ws))
+        k2 = device_ms(lambda: fm.mlp_bf16_fwd(x, ws))
+        p2 = device_ms(lambda: fm.mlp_bf16_plain(x, ws))
+        results[("mlp_bf16_fwd", label)] = (float((y.float() - y_ref.float()).abs().max()),
+                                            (k1 + k2) / 2, (p1 + p2) / 2, fwd_bound)
+        # today's path: MLP.forward's chain of f32 products and casts, with
+        # its graph kept as in training
+        xr, wr = x.detach().requires_grad_(), [w.detach().requires_grad_() for w in ws]
+        library[("mlp_bf16_fwd", label)] = (device_ms(lambda: fm.mlp_chain(xr, wr, bf16))
+                                            + device_ms(lambda: fm.mlp_chain(xr, wr, bf16))) / 2
+        y_chain = fm.mlp_chain(xr, wr, bf16)
+        # backward
+        for kind, g in (("march", g_march), ("dense", g_dense)):
+            before = launch_counts()["fused_mlp_bwd"]
+            dx, dw = fm.mlp_bf16_bwd(x, ws, g)
+            if launch_counts()["fused_mlp_bwd"] != before + 1:
+                raise RuntimeError(f"mlp_bf16_bwd {label}: not launched")
+            dx_ref, dw_ref = fm.mlp_bf16_bwd_plain(x, ws, g)
+            errs = [float((a.float() - b.float()).abs().max()) / max(float(b.abs().max()), 1e-30)
+                    for a, b in zip([dx, *dw], [dx_ref, *dw_ref])]
+            dx_steps = bf16_steps(dx, dx_ref)
+            flipped = mlp_flipped_rows(dx, dx_ref)
+            print(f"mlp_bf16_bwd {label} {kind}: dX {int((dx_steps > 1).sum())} of {dx.numel()} "
+                  f"more than one bf16 step off, largest {float(dx_steps.max()):.1f}; rows of dX "
+                  f"more than 1e-2 of its largest entry off {flipped} of {rows}; worst of largest "
+                  f"entry dX {errs[0]:.2e}, dW {', '.join(f'{e:.2e}' for e in errs[1:])}"
+                  f"  [{card}]", flush=True)
+            if not (all(e <= 1e-2 for e in errs[1:]) and flipped <= MLP_FLIPPED * rows):
+                raise RuntimeError(f"mlp_bf16_bwd {label} {kind}: {errs} of the largest entries, "
+                                   f"{flipped} rows of dX off")
+            n_live = rows if kind == "dense" else int(live.sum())
+            bwd_bound = bound(nbytes(x, g, dx) + 2 * w_bytes, 2.0 * 3 * n_live * params)
+            k1 = device_ms(lambda: fm.mlp_bf16_bwd(x, ws, g))
+            p1 = device_ms(lambda: fm.mlp_bf16_bwd_plain(x, ws, g))
+            k2 = device_ms(lambda: fm.mlp_bf16_bwd(x, ws, g))
+            p2 = device_ms(lambda: fm.mlp_bf16_bwd_plain(x, ws, g))
+            results[("mlp_bf16_bwd", f"{label} {kind}")] = (max(errs), (k1 + k2) / 2,
+                                                            (p1 + p2) / 2, bwd_bound)
+            # the backward alone, and forward and backward, against today's
+            # chain (autograd of MLP.forward's f32 products and casts)
+            library[("mlp_bf16_bwd", f"{label} {kind}")] = sum(
+                device_ms(lambda: torch.autograd.grad(y_chain, [xr, *wr], g, retain_graph=True))
+                for _ in range(2)) / 2
+            c1 = device_ms(lambda: chain_grads(xr, wr, g))
+            c2 = device_ms(lambda: chain_grads(xr, wr, g))
+            key = ("FusedMLP fwd+bwd", f"{label} {kind}")
+            fwd = results[("mlp_bf16_fwd", label)]
+            bwd = results[("mlp_bf16_bwd", f"{label} {kind}")]
+            results[key] = (max(errs), fwd[1] + bwd[1], fwd[2] + bwd[2],
+                            bound(nbytes(x, y, g, dx) + 3 * w_bytes,
+                                  2.0 * rows * params + 2.0 * 3 * n_live * params))
+            library[key] = (c1 + c2) / 2
+            print(f"MLP {label} {kind}: forward {fwd[1]:.4f} ms (plain {fwd[2]:.4f}, bound "
+                  f"{fwd_bound[0]:.4f} by {fwd_bound[1]}), backward {bwd[1]:.4f} ms (plain "
+                  f"{bwd[2]:.4f}, bound {bwd_bound[0]:.4f} by {bwd_bound[1]}); forward + "
+                  f"backward {results[key][1]:.4f} ms, today's cuBLAS chain {library[key]:.4f} "
+                  f"ms, bound {results[key][3][0]:.4f}  [{card}]", flush=True)
 
 
 def f32_eval_run(dev, card, nc, rc, results):
@@ -3252,7 +3411,8 @@ def viewer_runs(dev, card, scene, ws, dscene, dws):
                         nerf_checks)
     check_launched("viewer main_nerf -O --gui", nerf_counts,
                    ("march_turbo", "cp_density_fwd", "cp_bwd_banks", "cp_sigma_rgb",
-                    "ray_prepass"), absent=("cp_encode_fwd", "fused_mlp", "coarse_lookup_bits"))
+                    "ray_prepass", "fused_mlp", "fused_mlp_bwd"),
+                   absent=("cp_encode_fwd", "coarse_lookup_bits"))
     dnerf_counts = drive("17(a) main_dnerf -O --gui", main_dnerf.main,
                          [dscene, "-O", "--gui", "--workspace", dws, "--iters",
                           str(DNERF_ITERS)], dnerf_checks)
@@ -3509,11 +3669,13 @@ def brick_runs(dev, card, scene, work, results, library):
             and abs(psnr_b - psnr) <= 0.01):
         raise RuntimeError(f"brick grid: epoch means {means}, test PSNR {psnr} (white {white}), "
                            f"--test {psnr_b}")
-    trained = ("brick_encode_fwd", "brick_table_grad")
+    # the preset's bf16 MLPs take FusedMLP
+    mlps = ("fused_mlp", "fused_mlp_tc")
+    trained = ("brick_encode_fwd", "brick_table_grad", "fused_mlp_bwd") + mlps
     check_launched("brick grid --preset tpu", a_counts, trained,
                    absent=tuple(k for k in a_counts if k not in trained))
-    check_launched("brick grid --test", b_counts, ("brick_encode_fwd",),
-                   absent=tuple(k for k in b_counts if k != "brick_encode_fwd"))
+    check_launched("brick grid --test", b_counts, ("brick_encode_fwd",) + mlps,
+                   absent=tuple(k for k in b_counts if k not in ("brick_encode_fwd",) + mlps))
 
     e = caught["last"]
     x, g = e["x"], e["g"]
@@ -3840,6 +4002,9 @@ def main():
     parser.add_argument("--probe-scatter", action="store_true",
                         help="also time the replaced corner rows + scatter_add_rows pair and "
                              "index_add_ on the hash steps' own rows (scatter_probe)")
+    parser.add_argument("--mlp", action="store_true",
+                        help="build the kernels, run mlp_checks (the bf16 MLP route at the "
+                             "benchmark cells' shapes) and stop")
     parser.add_argument("--dnerf-control", action="store_true",
                         help="also run phase 16 (a) with the deformation net frozen; its test "
                              "PSNR must stay below DNERF_MIN_PSNR")
@@ -3887,11 +4052,11 @@ def main():
     t0 = time.perf_counter()
     sass = sass_dump(build.library_path())
     # the tensor-core kernels of the heads (bf16, and f32 in 3xTF32) and the
-    # MLP chain: HMMA in their SASS, no spills but in the f32 heads' (each
-    # thread holds a K chunk's loads beside its products' state in 128
-    # registers; PERF.md)
+    # MLP chain's forward and backward: HMMA in their SASS, no spills but in
+    # the f32 heads' (each thread holds a K chunk's loads beside its
+    # products' state in 128 registers; PERF.md)
     for kernel in ("cp_density_tc_kernel", "cp_sigma_rgb_tc_kernel", "cp_density_tf32x3_kernel",
-                   "cp_sigma_rgb_tf32x3_kernel", "fused_mlp_tc_kernel"):
+                   "cp_sigma_rgb_tf32x3_kernel", "fused_mlp_tc_kernel", "fused_mlp_bwd_kernel"):
         hmma = sum("HMMA" in line for line in sass_lines(sass, kernel))
         spills = sum(n for _, _, n in ptxas_usage(report, kernel))
         print(f"SASS: {kernel} has {hmma} HMMA instructions; ptxas: {spills} bytes of spill "
@@ -3929,6 +4094,17 @@ def main():
                                f"({divs[:2]}), {spills} bytes of spill stores")
     del sass
     phase("SASS checks", t0)
+    if args.mlp:
+        results, library = {}, {}
+        t0 = time.perf_counter()
+        mlp_checks(mlp, dev, card, results, library)
+        phase("MLP route at the cells' shapes", t0)
+        print(json.dumps({"mlp": [{"what": k[0], "shape": k[1], "max_err": v[0], "ms": v[1],
+                                   "plain_ms": v[2], "bound_ms": v[3][0], "bound_by": v[3][1],
+                                   "library_ms": library.get(k)}
+                                  for k, v in results.items()]}))
+        print(card)
+        return
 
     # 2. the turbo-hq network at full width, random weights from a seed
     rc = RenderConfig(
@@ -3979,7 +4155,7 @@ def main():
             raise RuntimeError("frame values outside [0, 1]")
     if trainer.last_render_stats["n_samples"] <= 0:
         raise RuntimeError("the frames rendered no samples")
-    results = {}
+    results, library = {}, {}
 
     # 3b. the f32 heads' API path: the same network in f32, refreshes, a frame
     t0 = time.perf_counter()
@@ -4164,6 +4340,8 @@ def main():
             "fused_mlp", lambda: mlp.fused_mlp(x_m, w_m), lambda: mlp.fused_mlp_plain(x_m, w_m),
             "bfloat16", (nbytes(x_m, *w_m) + rows_m * dims[-1] * 4,
                          rows_m * 2 * sum(a * b for a, b in zip(dims, dims[1:])), 0))
+    # the bf16 MLP route (FusedMLP's two kernels) at the cells' shapes
+    mlp_checks(mlp, dev, card, results, library)
     payload = occ.coarse_payload
     fc = torch.randint(0, payload.numel() * 8, (4096, 64), generator=gen, device=dev,
                        dtype=torch.int32)
@@ -4239,7 +4417,6 @@ def main():
                                     device=dev).to(od), f"D=2 {dtype} {rows_b}", results)
     del b_table, x_b
     # the row scatter-add, in place into a zero table, beside index_add_
-    library = {}
     for M, R, W in SCATTER_SHAPES:
         idx_s = torch.randint(0, R, (M,), generator=gen, device=dev, dtype=torch.int32)
         rows_s = torch.randn((M, W), generator=gen, device=dev)
@@ -4769,9 +4946,13 @@ def main():
                          ("cp_bwd_banks", f"step {TRAIN_STEPS - 1}")),
         "cp_encode_fwd": (csrc + "cp_kernels.cu", "ngp_tpu/ops/pallas/cp_kernels.py:159",
                           ("cp_encode_fwd", "bfloat16->bfloat16 mesh chunk")),
-        # on no path: launches stays 0
+        # every bf16 MLP on the card (FusedMLP): the hash cell's colour net
+        # on a step's 2,097,152 slots, the backward with its march-like
+        # cotangent
         "fused_mlp": (csrc + "mlp_kernels.cu", "ngp_tpu/ops/pallas/fused_mlp.py:92",
-                      ("fused_mlp", str(MLP_ROWS[0]))),
+                      ("mlp_bf16_fwd", "2097152 x 31-64-64-3")),
+        "fused_mlp_bwd": (csrc + "mlp_kernels.cu", "none: XLA's VJP of the MLPs",
+                          ("mlp_bf16_bwd", "2097152 x 31-64-64-3 march")),
         # on no path since brick_table_grad: the rows of phase 17 (c)'s last
         # step's own points and cotangent; the factor taps' gradient (TensoRF,
         # CCNeRF), on the largest call of a TensoRF step's own taps

@@ -13,7 +13,11 @@
   alone; no path calls it
 - ``cp.cp_encode_fwd``       replaces ``ngp_tpu/ops/pallas/cp_kernels.py:cp_encode`` (forward;
   ``cp.CPEncode`` adds its backward through ``cp_bwd_banks``)
-- ``fused_mlp.fused_mlp``    replaces ``ngp_tpu/ops/pallas/fused_mlp.py:fused_mlp``
+- ``fused_mlp.fused_mlp``    replaces ``ngp_tpu/ops/pallas/fused_mlp.py:fused_mlp``;
+  ``fused_mlp.mlp_bf16_fwd`` runs the same kernel with a bf16 output, and
+  ``fused_mlp.mlp_bf16_bwd`` (no Pallas counterpart: the JAX package leaves
+  the MLPs' VJP to XLA) its backward; ``fused_mlp.FusedMLP`` trains every
+  bf16 ``models.mlp.MLP`` on the card through the two
 - ``scatter.scatter_add_rows`` replaces ``scripts/perf_probe2_r2.py:scatter_pallas`` (a row
   scatter-add); no path calls it (the brick grid's table gradient is
   ``brickgrid.brick_table_grad``); ``scatter.GatherRows``' backward (the plain brick
@@ -49,7 +53,8 @@ the launches of the two heads that took the bf16 tensor-core kernels,
 ``cp_density_fwd_tf32x3`` and ``cp_sigma_rgb_tf32x3`` those that took
 the f32 ones (3xTF32; heads the tensor-core tiles take; all four count
 under ``cp_density_fwd`` and ``cp_sigma_rgb`` too), ``fused_mlp_tc``
-those of ``fused_mlp`` that took its tensor-core kernel,
+those of ``fused_mlp`` (``mlp_bf16_fwd``'s included) that took its
+tensor-core kernel, ``fused_mlp_bwd`` those of ``mlp_bf16_bwd``,
 ``grid_encode_fwd_2d`` and
 ``grid_encode_bwd_2d`` the grid kernels' launches on 2-D points (the
 background net's encoder), and ``grid_encode_fwd_4d``,
@@ -79,6 +84,7 @@ LAUNCHES: Dict[str, int] = {
     "cp_encode_fwd": 0,
     "fused_mlp": 0,
     "fused_mlp_tc": 0,
+    "fused_mlp_bwd": 0,
     "grid_encode_fwd": 0,
     "grid_encode_bwd": 0,
     "grid_encode_fwd_2d": 0,

@@ -56,8 +56,9 @@ _SIGNATURES = {
     "ngp_cp_encode_fwd": [
         _P, _I, ctypes.POINTER(_P), ctypes.POINTER(_I), _I, _I, _I, _I, _P, _P,
     ],
-    "ngp_fused_mlp": [_P, _I, _I, ctypes.POINTER(_P), ctypes.POINTER(_I), _I, _P,
+    "ngp_fused_mlp": [_P, _I, _I, ctypes.POINTER(_P), ctypes.POINTER(_I), _I, _P, _I,
                       ctypes.POINTER(_I), _P],
+    "ngp_fused_mlp_bwd": [_P, _I, ctypes.POINTER(_P), ctypes.POINTER(_I), _I, _P, _P, _P, _P],
     "ngp_march_turbo": [
         _P, _P, ctypes.POINTER(_L), _I, ctypes.POINTER(_F), _P, _P, _P, _P, _I, _P, _I, _I,
         _F, _F, _F, _F, _F, _I, _I, _I, _I, _I, _I, _I, _F, _F,

@@ -13,7 +13,12 @@ the CPU plain step: loss to 1e-4 relative, each gradient to 1e-3 of
 its largest entry (f32, atomics and summation order). ``cp_encode_fwd``
 rounds each feature once from the same f32 lerps: the same bounds, by
 output type. ``fused_mlp``: 1e-2, a flipped bf16 rounding of a hidden
-unit. The module path of ``NeRFNetwork.density`` on the card against
+unit. ``FusedMLP``'s kernels (``mlp_bf16_fwd``, ``mlp_bf16_bwd``): bit
+for bit on inputs whose every f32 sum is exact; at the cells' shapes the
+forward within one bf16 step carried through the chain (a hidden value
+may round to its other neighbour), dW within 1e-2 of its largest entry,
+dX too in all but 1e-4 of the rows (a ReLU flipped between two orders of
+a sum moves its row's whole term). The module path of ``NeRFNetwork.density`` on the card against
 the CPU: 1e-4 in f32. The grid encoder forward: the same bounds, by
 output type. The row scatter-add (each of its branches), the taps'
 factor gradient and the grid encoder's table gradient
@@ -480,6 +485,124 @@ def test_fused_mlp_kernel(dev, x_dtype, B, dims):
     _check(got, tmlp.fused_mlp_plain(x, ws), torch.bfloat16)
 
 
+# FusedMLP's chains: the hash cells' sigma and the colour net, D-NeRF's
+# sigma and basis nets, a 128-wide chain, one layer
+FUSED_CHAINS = [[32, 64, 16], [31, 64, 64, 3], [108, 64, 16], [13, 128, 128, 4],
+                [128, 128, 16], [32, 16]]
+
+
+def _dyadic(dims, B, dev, seed=0):
+    """x and g in {-1, 0, 1} / 2, weights in {-1, 0, 1} / 8, every third
+    16-row tile of g zero: at these widths and B <= 4099 every f32 sum of
+    the chain, forward and backward, is exact in any order (its terms'
+    magnitudes sum to less than 2^24 of their common grain), so the kernels
+    must equal the plain versions bit for bit."""
+    g = torch.Generator().manual_seed(seed)
+
+    def tern(shape, scale):
+        return (torch.randint(-1, 2, shape, generator=g) * scale).float()
+
+    x = tern((B, dims[0]), 0.5).to(dev, torch.bfloat16)
+    ws = [tern((a, b), 0.125).to(dev) for a, b in zip(dims, dims[1:])]
+    cot = tern((B, dims[-1]), 0.5)
+    cot[(torch.arange(B) // 16) % 3 == 1] = 0
+    return x, ws, cot.to(dev, torch.bfloat16)
+
+
+@pytest.mark.parametrize("need_dx", [True, False])
+@pytest.mark.parametrize("B", [0, 1, 300, 4099])
+@pytest.mark.parametrize("dims", FUSED_CHAINS, ids=lambda d: "-".join(map(str, d)))
+def test_mlp_bf16_kernels_bit_for_bit(dev, dims, B, need_dx):
+    x, ws, cot = _dyadic(dims, B, dev, seed=B)
+    before = dict(LAUNCHES)
+    y = tmlp.mlp_bf16_fwd(x, ws)
+    dx, dw = tmlp.mlp_bf16_bwd(x, ws, cot, need_dx)
+    assert LAUNCHES["fused_mlp_tc"] == before["fused_mlp_tc"] + int(B > 0)
+    assert LAUNCHES["fused_mlp_bwd"] == before["fused_mlp_bwd"] + int(B > 0)
+    torch.cuda.synchronize()
+    dx_ref, dw_ref = tmlp.mlp_bf16_bwd_plain(x, ws, cot, need_dx)
+    assert y.dtype == torch.bfloat16 and torch.equal(y, tmlp.mlp_bf16_plain(x, ws))
+    assert (dx is None) == (not need_dx) and (dx is None or torch.equal(dx, dx_ref))
+    for a, b in zip(dw, dw_ref):
+        assert a.dtype == torch.float32 and torch.equal(a, b)
+
+
+def _fwd_slack(x, ws):
+    """How far y may move between two orders of the chain's f32 sums: each
+    sum by 2^-20 of its terms' magnitudes, each rounding to bf16 by one
+    step (at most 2^-7 of the value) more where the sum moved, the moves
+    carried through the next layers' |W| (a ReLU moves nothing further)."""
+    hs = []
+    y = tmlp.mlp_chain(x, ws, torch.bfloat16, hs)
+    hs = [h.float().abs() for h in hs + [y]]
+    d = torch.zeros_like(hs[0])
+    for h, h_next, w in zip(hs, hs[1:], ws):
+        wa = w.to(torch.bfloat16).float().abs()
+        pre = d @ wa + 2.0**-20 * (h @ wa)
+        d = pre + 2.0**-7 * (h_next + pre)
+    return d
+
+
+@pytest.mark.parametrize("rows,dims", [(2_097_152, [32, 64, 16]), (2_097_152, [31, 64, 64, 3]),
+                                       (262_140, [31, 64, 64, 3])])
+def test_mlp_bf16_kernels_at_the_cells_shapes(dev, rows, dims):
+    """Normal inputs and He-scaled weights at the benchmark cells' rows:
+    the forward within ``_fwd_slack`` of the plain version (one bf16 step
+    of y, more where a hidden value rounded to its other neighbour); dW
+    within 1e-2 of its largest entry (it sums 2^21 rows in f32 in another
+    order); dX the same in all but 1e-4 of the rows (a hidden unit whose f32
+    sum lies within the two orders' difference of 0 flips its ReLU, and
+    moves its row's whole term)."""
+    g = torch.Generator(device=dev).manual_seed(rows + len(dims))
+    x = torch.randn((rows, dims[0]), generator=g, device=dev).to(torch.bfloat16)
+    ws = [torch.randn((a, b), generator=g, device=dev) * (2.0 / a) ** 0.5
+          for a, b in zip(dims, dims[1:])]
+    cot = torch.randn((rows, dims[-1]), generator=g, device=dev).to(torch.bfloat16)
+    cot[torch.arange(rows, device=dev) % 256 >= 30] = 0
+    y, y_ref = tmlp.mlp_bf16_fwd(x, ws), tmlp.mlp_bf16_plain(x, ws)
+    assert ((y.float() - y_ref.float()).abs() <= _fwd_slack(x, ws)).all()
+    dx, dw = tmlp.mlp_bf16_bwd(x, ws, cot)
+    dx_ref, dw_ref = tmlp.mlp_bf16_bwd_plain(x, ws, cot)
+    for a, b in zip(dw, dw_ref):
+        assert float((a.float() - b.float()).abs().max()) <= 1e-2 * float(b.abs().max())
+    off = (dx.float() - dx_ref.float()).abs().amax(1) > 1e-2 * float(dx_ref.float().abs().max())
+    assert int(off.sum()) <= 1e-4 * rows
+
+
+def test_mlp_module_on_the_card_takes_the_fused_route(dev):
+    """A bf16 MLP on the card trains through FusedMLP (one forward and one
+    backward launch) and equals the CPU module's chain bit for bit on
+    inputs whose sums are exact (as above); an f32 MLP launches neither."""
+    from ngp_tpu_torch.models.mlp import MLP
+
+    dims = [31, 64, 64, 3]
+    x, ws, cot = _dyadic(dims, 777, dev, seed=9)
+    mods = {}
+    for where in ("cpu", dev):
+        m = MLP(31, 3, 64, 3, torch.bfloat16, device=where)
+        with torch.no_grad():
+            for p, w in zip(m.weights, ws):
+                p.copy_(w)
+        mods[str(where)] = m
+    outs = {}
+    for where, m in mods.items():
+        before = dict(LAUNCHES)
+        xr = x.detach().to(where).requires_grad_()
+        y = m(xr.reshape(7, 111, 31))
+        y.backward(cot.to(where).reshape(7, 111, 3))
+        fused = where != "cpu"
+        assert LAUNCHES["fused_mlp_tc"] - before["fused_mlp_tc"] == int(fused)
+        assert LAUNCHES["fused_mlp_bwd"] - before["fused_mlp_bwd"] == int(fused)
+        outs[where] = [t.detach().cpu() for t in (y, xr.grad, *(p.grad for p in m.weights))]
+    for a, b in zip(*outs.values()):
+        assert torch.equal(a, b)
+    before = dict(LAUNCHES)
+    f32 = MLP(31, 3, 64, 3, None, device=dev)
+    f32(x.detach().float().requires_grad_()).sum().backward()
+    assert LAUNCHES["fused_mlp"] == before["fused_mlp"]
+    assert LAUNCHES["fused_mlp_bwd"] == before["fused_mlp_bwd"]
+
+
 def test_density_module_path_on_the_card(dev):
     """NeRFNetwork.density (cpgrid_encode -> sigma MLP) runs on the card
     through cp_encode_fwd and matches the CPU module path in f32."""
@@ -690,6 +813,20 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="shared memory"):
         tmlp.fused_mlp(pos, [torch.zeros((3, 1024), device=dev),
                              torch.zeros((1024, 1024), device=dev)])
+    # the backward: bf16 x and g of the chain's widths, a chain its shared
+    # memory holds (fused_route's rule)
+    w = [torch.zeros((3, 8), device=dev)]
+    g8 = torch.zeros((pos.shape[0], 8), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="x must be"):
+        tmlp.mlp_bf16_bwd(pos, w, g8)
+    with pytest.raises(ValueError, match="g must be"):
+        tmlp.mlp_bf16_bwd(pos.bfloat16(), w, g8.float())
+    dims = [76, 128, 128, 128, 128, 3]
+    assert not tmlp.fused_route(torch.bfloat16, dims)
+    with pytest.raises(ValueError, match="shared memory"):
+        tmlp.mlp_bf16_bwd(torch.zeros((4, 76), device=dev, dtype=torch.bfloat16),
+                          [torch.zeros((a, b), device=dev) for a, b in zip(dims, dims[1:])],
+                          torch.zeros((4, 3), device=dev, dtype=torch.bfloat16))
 
 
 def test_kernels_on_the_render_path(dev):

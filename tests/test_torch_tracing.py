@@ -2,7 +2,8 @@
 off the profiler a step enters no ``record_function`` and counts nothing;
 under ``torch.profiler`` every step is one ``ngp/step`` holding its phases
 in order, with the march inside the forward; the kernels' wrappers are
-spans; the sample counters add up to the renders' own counts; the benchmark's
+spans; the sample counters add up to the renders' own counts, the MLPs' row
+counter to their calls' rows; the benchmark's
 readers of those spans (``benchmark/program_trace.py``) on a hand-made
 trace; ``Trainer.profile_steps``' trace file.
 """
@@ -20,6 +21,7 @@ from ngp_tpu_torch import tracing
 from ngp_tpu_torch.config import NetworkConfig, RenderConfig, TrainConfig
 from ngp_tpu_torch.data.synthetic import make_synthetic_frames
 from ngp_tpu_torch.models import occupancy
+from ngp_tpu_torch.models.mlp import MLP
 from ngp_tpu_torch.models.nerf import NeRFNetwork
 from ngp_tpu_torch.ops.kernels import cp, hashgrid
 from ngp_tpu_torch.training import nerf_grid
@@ -173,15 +175,24 @@ def test_counters_add_up_to_the_renders_own_counts(march, frames, tmp_path, monk
         seen["evaluated"] += out[2]
         return out
 
+    mlp_forward = MLP.forward
+
+    def mlp_rows(self, x):
+        seen["mlp_rows"] = seen.get("mlp_rows", 0) + x.numel() // x.shape[-1]
+        return mlp_forward(self, x)
+
     monkeypatch.setattr(nerf_grid, name, counted)
     monkeypatch.setattr(occupancy, "_turbo_compact_geometry", budget)
+    monkeypatch.setattr(MLP, "forward", mlp_rows)
     trainer = _trainer(march, tmp_path)
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
         for b in _batches(trainer, frames, 2):
             trainer.step(b)
     totals = tracing.counter_totals()
     assert 0 < seen["composited"] < seen["evaluated"]
-    want = {"samples_evaluated": seen["evaluated"], "samples_composited": seen["composited"]}
+    # the MLPs' rows (on the CPU none takes the fused route)
+    want = {"samples_evaluated": seen["evaluated"], "samples_composited": seen["composited"],
+            "mlp_rows": seen["mlp_rows"]}
     if march == "turbo":
         assert seen["evaluated"] == 2 * 128 * 4 and seen["dropped"] > 0
         want["samples_dropped"] = seen["dropped"]
